@@ -1,0 +1,75 @@
+"""Single-video inference (parity: ``adapt_image_models_tpu/apis/
+inference.py:24-86``).
+
+``load_config(path)`` -> config dict;
+``init_recognizer(cfg, checkpoint, device, seed)`` -> model in eval mode;
+``inference_recognizer(model, cfg, video)`` -> top-k (class, score) pairs.
+The host pipeline is the JAX package's ``build_sample_processor``, which also
+reads ``synthetic://<seed>`` sources.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from adapt_image_models_tpu.config.config import Config, apply_cfg_options
+from adapt_image_models_tpu.data.pipeline import build_sample_processor
+from adapt_image_models_torch.convert import load_checkpoint
+from adapt_image_models_torch.data.transforms import (
+    layout_from_pipeline, make_prepare_fn,
+)
+from adapt_image_models_torch.models import build_model
+from adapt_image_models_torch.models.recognizers.recognizer3d import average_clip
+
+
+def load_config(path: str, options=()) -> Dict[str, Any]:
+    """A python-file config (``_base_`` inheritance resolved) as a plain dict,
+    with ``key=value`` dot-key overrides applied."""
+    return apply_cfg_options(Config.fromfile(path), options).to_dict()
+
+
+def model_device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def init_recognizer(cfg: Dict[str, Any], checkpoint: Optional[str] = None,
+                    device="cpu", seed: int = 0) -> torch.nn.Module:
+    """Build the recognizer of ``cfg`` on ``device`` with weights drawn from
+    ``seed``, then load ``checkpoint`` (a released AIM ``.pth``) if given."""
+    model_cfg = dict(cfg["model"])
+    test_cfg = model_cfg.pop("test_cfg", None)
+    model_cfg.pop("train_cfg", None)
+    model = build_model(model_cfg, test_cfg=test_cfg, device=device)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    if checkpoint:
+        load_checkpoint(model, checkpoint)
+    return model.eval()
+
+
+@torch.no_grad()
+def inference_recognizer(model: torch.nn.Module, cfg: Dict[str, Any], video: str,
+                         topk: int = 5, return_features: bool = False):
+    """Run the test pipeline on one video; return the top-k (class, score)
+    pairs, and the per-view backbone features when ``return_features``."""
+    pipeline = cfg["data"]["test"]["pipeline"]
+    proc = build_sample_processor(pipeline)
+    clips, _ = proc(video, label=0)
+    prepare = make_prepare_fn(proc.mean, proc.std,
+                              layout=layout_from_pipeline(pipeline),
+                              device=model_device(model))
+    views = prepare(clips[None])  # (1, V, C, T, H, W)
+    model.eval()
+    v = views.shape[1]
+    flat = views.reshape((v,) + tuple(views.shape[2:]))
+    feats = model.extract_feat(flat)
+    logits = model.cls_head(feats)
+    avg = (cfg["model"].get("test_cfg") or {}).get("average_clips", "prob")
+    scores = average_clip(logits, v, avg)[0].cpu().numpy()
+    order = np.argsort(scores)[::-1][:topk]
+    results: List[Tuple[int, float]] = [(int(i), float(scores[i])) for i in order]
+    if return_features:
+        return results, feats.float().cpu().numpy()
+    return results

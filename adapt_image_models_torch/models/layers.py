@@ -1,0 +1,235 @@
+"""Shared building blocks of the AIM model family
+(parity: ``adapt_image_models_tpu/models/layers.py``).
+
+Module and parameter names follow the reference state-dict keys (CLIP's
+``in_proj_weight``/``out_proj``, ``c_fc``/``c_proj``, the adapters'
+``D_fc1``/``D_fc2``), so a released checkpoint loads with
+``load_state_dict(strict=True)``. Parameters are fp32 master copies; the
+forward casts them to ``compute_dtype`` as the JAX package does, and keeps
+LayerNorm and softmax in fp32.
+
+``attention_core="fused"`` routes the two attention steps of an AIM block
+to the fused ops (``adapt_image_models_torch/ops``), which run hand-written
+CUDA kernels on CUDA tensors. ``attention_core="xla"`` keeps the JAX
+package's name so configs are shared; in the port it means plain PyTorch
+framework ops.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from adapt_image_models_torch.ops import fused_spatial_step, fused_temporal_step
+from adapt_image_models_torch.ops._common import (
+    exact_gelu, layer_norm_fp32, quick_gelu,
+)
+
+_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
+           "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float16": torch.float16, "fp16": torch.float16}
+
+
+def resolve_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a config value: a torch dtype, a name such as
+    ``"bfloat16"``, or a numpy-style scalar type; None is float32."""
+    if dtype is None:
+        return torch.float32
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else getattr(dtype, "__name__", str(dtype))
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported compute dtype {dtype!r}")
+    return _DTYPES[name]
+
+
+# truncation at +-2 std with flax's variance correction, as the JAX
+# package's trunc_normal_02 initializer
+_TRUNC_STD_CORRECTION = 0.87962566103423978
+
+
+@torch.no_grad()
+def trunc_normal_(param: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    """Draw on the CPU from ``generator``, so a seed gives the same weights
+    on every device."""
+    s = std / _TRUNC_STD_CORRECTION
+    t = torch.empty(param.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(t, std=s, a=-2 * s, b=2 * s, generator=generator)
+    param.copy_(t)
+
+
+@torch.no_grad()
+def normal_(param: torch.Tensor, std: float, generator: torch.Generator) -> None:
+    param.copy_(torch.randn(param.shape, generator=generator) * std)
+
+
+def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """``x @ W + b`` in ``dtype``, as the JAX package's Dense layers."""
+    return x.to(dtype) @ lin.weight.to(dtype).t() + lin.bias.to(dtype)
+
+
+def _linear_weights(*lins: nn.Linear, dtype: torch.dtype):
+    out = []
+    for lin in lins:
+        out += [lin.weight.to(dtype), lin.bias.to(dtype)]
+    return tuple(out)
+
+
+class LayerNormFP32(nn.Module):
+    """LayerNorm computed in float32 regardless of input dtype, cast back."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm_fp32(x, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class Adapter(nn.Module):
+    """MLP-bottleneck adapter ``D_fc1 -> GELU(exact) -> D_fc2`` with an
+    optional skip. ``D_fc2`` is zero-initialised."""
+
+    def __init__(self, d_model: int, mlp_ratio: float = 0.25,
+                 skip_connect: bool = True, compute_dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        hidden = int(d_model * mlp_ratio)
+        self.skip_connect = skip_connect
+        self.compute_dtype = resolve_dtype(compute_dtype)
+        self.D_fc1 = nn.Linear(d_model, hidden, device=device)
+        self.D_fc2 = nn.Linear(hidden, d_model, device=device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.D_fc1.weight, 0.02, generator)
+        self.D_fc1.bias.zero_()
+        self.D_fc2.weight.zero_()
+        self.D_fc2.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        xs = dense(exact_gelu(dense(x, self.D_fc1, cdt)), self.D_fc2, cdt)
+        return x + xs if self.skip_connect else xs
+
+    def weights(self, dtype: torch.dtype):
+        """(w1, b1, w2, b2) in torch layout, cast to ``dtype``."""
+        return _linear_weights(self.D_fc1, self.D_fc2, dtype=dtype)
+
+
+class CLIPMLP(nn.Module):
+    """CLIP transformer MLP: c_fc (D->4D) -> QuickGELU -> c_proj (4D->D)."""
+
+    def __init__(self, d_model: int, compute_dtype=torch.float32, device=None):
+        super().__init__()
+        self.compute_dtype = resolve_dtype(compute_dtype)
+        self.c_fc = nn.Linear(d_model, 4 * d_model, device=device)
+        self.c_proj = nn.Linear(4 * d_model, d_model, device=device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        for lin in (self.c_fc, self.c_proj):
+            trunc_normal_(lin.weight, 0.02, generator)
+            lin.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cdt = self.compute_dtype
+        return dense(quick_gelu(dense(x, self.c_fc, cdt)), self.c_proj, cdt)
+
+    def weights(self, dtype: torch.dtype):
+        """(w_fc, b_fc, w_proj, b_proj) in torch layout, cast to ``dtype``."""
+        return _linear_weights(self.c_fc, self.c_proj, dtype=dtype)
+
+
+class CLIPAttention(nn.Module):
+    """Multi-head self-attention with CLIP's packed in-projection
+    (``in_proj_weight`` rows ordered [q; k; v]) and an ``out_proj``.
+
+    Over the token axis of a (B, L, D) input, or, with
+    ``temporal_frames=T``, over the frame axis of a (B·T, N, D) input
+    without materialising the (B·N, T, D) relayout. With
+    ``attention_core="fused"`` and ``ln``, ``adapter`` and ``residual``
+    given, the whole adaptation step ``x + adapter(attn(ln(x)))`` runs as
+    one fused op.
+    """
+
+    def __init__(self, d_model: int, num_heads: int, compute_dtype=torch.float32,
+                 attention_core: str = "xla", device=None):
+        super().__init__()
+        if d_model % num_heads:
+            raise ValueError(f"d_model {d_model} not divisible by heads {num_heads}")
+        if attention_core not in ("xla", "fused"):
+            raise NotImplementedError(
+                f"attention_core={attention_core!r} is not ported "
+                "(the flash core is ROADMAP queue 2 item 9)")
+        self.num_heads = num_heads
+        self.compute_dtype = resolve_dtype(compute_dtype)
+        self.attention_core = attention_core
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, device=device))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model, device=device))
+        self.out_proj = nn.Linear(d_model, d_model, device=device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        trunc_normal_(self.in_proj_weight, 0.02, generator)
+        self.in_proj_bias.zero_()
+        trunc_normal_(self.out_proj.weight, 0.02, generator)
+        self.out_proj.bias.zero_()
+
+    def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None, need_weights: bool = False,
+                temporal_frames: Optional[int] = None,
+                adapter: Optional[Adapter] = None,
+                ln: Optional[LayerNormFP32] = None,
+                residual: bool = False) -> torch.Tensor:
+        if kv is not None or mask is not None or need_weights:
+            raise NotImplementedError(
+                "cross-attention, attention masks and attention weights serve "
+                "the window path and the ViT_CLIP variants, not ported yet "
+                "(ROADMAP queue 1 item 9)")
+        cdt = self.compute_dtype
+        if self.attention_core == "fused":
+            if ln is None or adapter is None or not residual:
+                raise NotImplementedError(
+                    "fused attention without LN + adapter + residual is not "
+                    "ported yet (ROADMAP queue 2 items 7, 8, 10 and 11)")
+            args = (x.to(cdt), ln.weight, ln.bias, self.in_proj_weight.to(cdt),
+                    self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
+                    self.out_proj.bias.to(cdt), *adapter.weights(cdt))
+            if temporal_frames is None:
+                return fused_spatial_step(*args, self.num_heads,
+                                          adapter.skip_connect)
+            return fused_temporal_step(*args, temporal_frames, self.num_heads,
+                                       adapter.skip_connect)
+        if adapter is not None or residual:
+            raise ValueError("adapter/residual fusion requires attention_core='fused'")
+        if ln is not None:
+            x = ln(x)
+
+        b, l, d = x.shape
+        h = self.num_heads
+        hd = d // h
+        xq = x.to(cdt)
+        wq, wk, wv = self.in_proj_weight.to(cdt).chunk(3, 0)
+        bq, bk, bv = self.in_proj_bias.to(cdt).chunk(3, 0)
+        q = xq @ wq.t() + bq
+        k = xq @ wk.t() + bk
+        v = xq @ wv.t() + bv
+        scale = hd ** -0.5
+        if temporal_frames is not None:
+            t = temporal_frames
+            shape = (b // t, t, l, h, hd)
+            qh, kh, vh = (u.reshape(shape).permute(0, 2, 3, 1, 4) for u in (q, k, v))
+        else:
+            qh, kh, vh = (u.reshape(b, l, h, hd).transpose(1, 2) for u in (q, k, v))
+        probs = torch.softmax((qh.float() @ kh.float().transpose(-1, -2)) * scale, -1)
+        out = (probs.to(cdt).float() @ vh.float()).to(cdt)
+        if temporal_frames is not None:
+            out = out.permute(0, 3, 1, 2, 4)  # (B, T, L, H, hd)
+        else:
+            out = out.transpose(1, 2)  # (B, L, H, hd)
+        return dense(out.reshape(b, l, d), self.out_proj, cdt)

@@ -1,0 +1,3 @@
+from adapt_image_models_torch.models.recognizers.recognizer3d import (  # noqa: F401
+    Recognizer3D, average_clip,
+)
