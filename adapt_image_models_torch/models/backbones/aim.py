@@ -1,37 +1,64 @@
 """AIM backbone: frozen CLIP ViT + spatial/temporal/joint adapters
-(parity: ``adapt_image_models_tpu/models/backbones/aim.py:79-207, 406-489``).
+(parity: ``adapt_image_models_tpu/models/backbones/aim.py:58-207, 327-489``).
 
 Per block, in the residual stream's (B·T, N, D) layout:
-  1. temporal adaptation ``x + T_Adapter(attn_T(ln_1 x))`` (no adapter skip);
-  2. spatial adaptation ``x + S_Adapter(attn(ln_1 x))`` (adapter skip);
-  3. joint adaptation ``x + mlp(ln_2 x) + s · MLP_Adapter(ln_2 x)``.
+  1. temporal adaptation ``x + gate_t · T_Adapter(attn_T(ln_1 x))`` (no
+     adapter skip);
+  2. spatial adaptation ``x + S_Adapter(attn(ln_1 x))`` (adapter skip, no
+     drop path);
+  3. joint adaptation ``x + mlp(ln_2 x) + gate_j · s · MLP_Adapter(ln_2 x)``.
+The gates are drop path, drawn in train mode only: 0 or 1/keep per (clip,
+frame) row, keep = 1 - rate with the rate rising linearly over the depth.
 
 With ``attention_core="fused"`` each step is one fused op
 (``adapt_image_models_torch/ops``), a chain of hand-written CUDA kernels on
-CUDA tensors; ``joint_core="xla"`` keeps the joint step in framework ops.
-With ``attention_core="xla"`` every step is plain PyTorch framework ops, with
-exact-erf GELU adapters as in the JAX package.
+CUDA tensors: the eval ops in eval mode, the train ops (autograd ops with a
+hand-written backward, which leave the LN and CLIP weights without a
+gradient) in train mode. ``joint_core="xla"`` keeps the joint step in
+framework ops; ``"rows"`` runs the same joint chain as ``"sample"``: the
+JAX package's rows-tiled op computes the same numbers. With ``attention_core="xla"`` every step is plain
+PyTorch framework ops, with exact-erf GELU adapters as in the JAX package,
+differentiated by autograd.
 
-The port covers the eval forward. The window path (``wind_attn``),
-``num_tadapter=2``, ``joint_core="rows"`` and training (drop path, the
-gated train kernels) raise.
+The window path (``wind_attn``) and ``num_tadapter=2`` raise.
+``use_checkpoint`` is accepted and ignored: the fused train ops save only
+their input and recompute the rest in their backward.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 from torch import nn
 
 from adapt_image_models_torch.models.builder import BACKBONES
 from adapt_image_models_torch.models.layers import (
     Adapter, CLIPAttention, CLIPMLP, LayerNormFP32, normal_, resolve_dtype,
-    trunc_normal_,
+    trunc_normal_, uniform,
 )
-from adapt_image_models_torch.ops import fused_joint
+from adapt_image_models_torch.ops import fused_joint, fused_joint_train_block
+
+
+def drop_path_gate(batch: int, rate: float, generator: Optional[torch.Generator],
+                   device) -> torch.Tensor:
+    """Per-row stochastic-depth gate: 0 or 1/keep, (batch,) fp32."""
+    keep = np.float32(1.0 - rate)
+    mask = uniform((batch,), generator, device) < keep
+    return mask.float() / float(keep)
+
+
+def drop_path(x: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x`` times its row's gate, cast to x's dtype as the JAX package does;
+    None is no gate (eval mode)."""
+    if gate is None:
+        return x
+    return x * gate.to(x.dtype).view((x.shape[0],) + (1,) * (x.dim() - 1))
 
 
 class AIMBlock(nn.Module):
-    """One AIM residual attention block, eval mode."""
+    """One AIM residual attention block."""
 
     def __init__(self, d_model: int, num_heads: int, num_frames: int,
                  adapter_scale: float = 0.5, compute_dtype=torch.float32,
@@ -52,37 +79,53 @@ class AIMBlock(nn.Module):
         self.T_Adapter = Adapter(d_model, skip_connect=False, compute_dtype=cdt, device=device)
         self.MLP_Adapter = Adapter(d_model, skip_connect=False, compute_dtype=cdt, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        bt, n, _ = x.shape
         t = self.num_frames
-        if self.attention_core == "fused":
+        fused = self.attention_core == "fused"
+        gate_t = gate_j = None
+        if self.training:  # temporal gate first, then the joint one
+            gate_t = drop_path_gate(bt, drop_rate, generator, x.device)
+            gate_j = drop_path_gate(bt, drop_rate, generator, x.device)
+        if fused:
             x = self.attn(x, temporal_frames=t, ln=self.ln_1,
-                          adapter=self.T_Adapter, residual=True)
+                          adapter=self.T_Adapter, residual=True, gate=gate_t)
             x = self.attn(x, ln=self.ln_1, adapter=self.S_Adapter, residual=True)
         else:
-            x = x + self.T_Adapter(self.attn(x, temporal_frames=t, ln=self.ln_1))
+            xt = self.T_Adapter(self.attn(x, temporal_frames=t, ln=self.ln_1))
+            x = x + drop_path(xt, gate_t)
             x = x + self.S_Adapter(self.attn(x, ln=self.ln_1))
-        if self.attention_core == "fused" and self.joint_core != "xla":
+        if fused and self.joint_core != "xla":
             cdt = self.compute_dtype
-            return fused_joint(x.to(cdt), self.ln_2.weight, self.ln_2.bias,
-                               *self.mlp.weights(cdt),
-                               *self.MLP_Adapter.weights(cdt),
-                               float(self.adapter_scale))
+            args = (x.to(cdt), self.ln_2.weight, self.ln_2.bias,
+                    *self.mlp.weights(cdt), *self.MLP_Adapter.weights(cdt))
+            scale = float(self.adapter_scale)
+            if self.training:
+                return fused_joint_train_block(*args, gate_j.repeat_interleave(n),
+                                               scale)
+            return fused_joint(*args, scale)  # "sample" and "rows" alike
         xn = self.ln_2(x)
         scale = torch.tensor(self.adapter_scale, dtype=x.dtype, device=x.device)
-        return x + self.mlp(xn) + scale * self.MLP_Adapter(xn)
+        return x + self.mlp(xn) + drop_path(scale * self.MLP_Adapter(xn), gate_j)
 
 
 class AIMTransformer(nn.Module):
-    """The depth stack: a ``ModuleList`` where the JAX package scans."""
+    """The depth stack: a ``ModuleList`` where the JAX package scans. Block i
+    draws its drop path at rate ``linspace(0, drop_path_rate, layers)[i]``."""
 
-    def __init__(self, layers: int, d_model: int, num_heads: int, **block_kwargs):
+    def __init__(self, layers: int, d_model: int, num_heads: int,
+                 drop_path_rate: float = 0.0, **block_kwargs):
         super().__init__()
+        self.drop_rates = [float(r) for r in
+                           np.linspace(0.0, drop_path_rate, layers, dtype=np.float32)]
         self.resblocks = nn.ModuleList(
             AIMBlock(d_model, num_heads, **block_kwargs) for _ in range(layers))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for block in self.resblocks:
-            x = block(x)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        for block, rate in zip(self.resblocks, self.drop_rates):
+            x = block(x, rate, generator)
         return x
 
 
@@ -110,13 +153,12 @@ class AIM(nn.Module):
         if num_tadapter != 1:
             raise NotImplementedError("num_tadapter=2 is not ported yet "
                                       "(ROADMAP queue 1 item 9)")
-        if joint_core not in ("sample", "xla"):
-            raise NotImplementedError(f"joint_core={joint_core!r} is not ported "
-                                      "yet (ROADMAP queue 2 item 6)")
-        # drop_path_rate and use_checkpoint serve training, window_size,
-        # not_shift and prompt the window path; they are accepted so that one
-        # config builds either package. CLIP weights come through
-        # convert.load_checkpoint, not ``pretrained``.
+        if joint_core not in ("sample", "rows", "xla"):
+            raise ValueError(f"unknown joint_core={joint_core!r}")
+        # use_checkpoint (see the module docstring), window_size, not_shift
+        # and prompt (the window path) are accepted so that one config builds
+        # either package. CLIP weights come through convert.load_checkpoint,
+        # not ``pretrained``.
         self.num_frames = num_frames
         self.patch_size = patch_size
         self.width = width
@@ -130,7 +172,8 @@ class AIM(nn.Module):
         self.temporal_embedding = nn.Parameter(torch.zeros(1, num_frames, d, device=device))
         self.ln_pre = LayerNormFP32(d, device=device)
         self.transformer = AIMTransformer(
-            layers, d, heads, num_frames=num_frames, adapter_scale=adapter_scale,
+            layers, d, heads, drop_path_rate=drop_path_rate,
+            num_frames=num_frames, adapter_scale=adapter_scale,
             compute_dtype=self.compute_dtype, attention_core=attention_core,
             joint_core=joint_core, device=device)
         self.ln_post = LayerNormFP32(d, device=device)
@@ -147,11 +190,9 @@ class AIM(nn.Module):
             if m is not self and hasattr(m, "init_weights"):
                 m.init_weights(generator)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "the port runs AIM in eval mode only (call .eval()); the train "
-                "step is ROADMAP queue 1 item 6")
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` feeds the drop-path draws of train mode."""
         b, c, t, h, w = x.shape
         if t != self.num_frames:
             raise ValueError(f"got T={t}, model built for num_frames={self.num_frames}")
@@ -168,7 +209,7 @@ class AIM(nn.Module):
         xt = (xt.reshape(b, t, n, d)
               + self.temporal_embedding.to(cdt)[:, :, None, :]).reshape(b * t, n, d)
         xt = self.ln_pre(xt)
-        xt = self.transformer(xt)
+        xt = self.transformer(xt, generator)
         xt = self.ln_post(xt)
         return xt[:, 0].reshape(b, t, d)
 

@@ -11,6 +11,7 @@ from adapt_image_models_tpu.utils.registry import Registry
 BACKBONES = Registry("backbone")
 HEADS = Registry("head")
 RECOGNIZERS = Registry("recognizer")
+LOSSES = Registry("loss")
 
 
 def build_backbone(cfg, device=None):
@@ -24,6 +25,10 @@ def build_head(cfg, device=None):
 def build_recognizer(cfg, train_cfg=None, test_cfg=None, device=None):
     return RECOGNIZERS.build(dict(cfg), train_cfg=train_cfg, test_cfg=test_cfg,
                              device=device)
+
+
+def build_loss(cfg):
+    return LOSSES.build(dict(cfg))
 
 
 def build_model(cfg, train_cfg=None, test_cfg=None, device=None):

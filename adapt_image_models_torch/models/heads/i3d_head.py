@@ -1,14 +1,17 @@
 """I3D classification head (parity: ``adapt_image_models_tpu/models/heads/
-i3d_head.py:18-41``): mean over every axis between batch and channels, dropout
-(inactive in eval), and an fp32 ``fc_cls``."""
+i3d_head.py:18-41``): mean over every axis between batch and channels,
+dropout (train mode only, drawn from an explicit generator), and an fp32
+``fc_cls``."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from adapt_image_models_torch.models.builder import HEADS
-from adapt_image_models_torch.models.layers import normal_
+from adapt_image_models_torch.models.layers import dropout, normal_
 
 
 @HEADS.register_module()
@@ -18,7 +21,7 @@ class I3DHead(nn.Module):
                  compute_dtype=None, device=None):
         super().__init__()
         self.init_std = init_std
-        self.dropout = nn.Dropout(dropout_ratio) if dropout_ratio > 0 else nn.Identity()
+        self.dropout_ratio = dropout_ratio
         self.fc_cls = nn.Linear(in_channels, num_classes, device=device)
 
     @torch.no_grad()
@@ -26,8 +29,11 @@ class I3DHead(nn.Module):
         normal_(self.fc_cls.weight, self.init_std, generator)
         self.fc_cls.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, T, D) or (B, T, H, W, D) features -> (B, num_classes) fp32."""
         x = x.mean(dim=tuple(range(1, x.dim() - 1)))
-        x = self.dropout(x).float()
+        if self.training and self.dropout_ratio > 0:
+            x = dropout(x, self.dropout_ratio, generator)
+        x = x.float()
         return x @ self.fc_cls.weight.float().t() + self.fc_cls.bias.float()

@@ -10,9 +10,13 @@ LayerNorm and softmax in fp32.
 
 ``attention_core="fused"`` routes the two attention steps of an AIM block
 to the fused ops (``adapt_image_models_torch/ops``), which run hand-written
-CUDA kernels on CUDA tensors. ``attention_core="xla"`` keeps the JAX
-package's name so configs are shared; in the port it means plain PyTorch
-framework ops.
+CUDA kernels on CUDA tensors: the eval ops in eval mode, the train ops
+(autograd ops with hand-written backwards) in train mode.
+``attention_core="xla"`` keeps the JAX package's name so configs are
+shared; in the port it means plain PyTorch framework ops, differentiated by
+autograd.
+
+Random draws (drop path, dropout) take an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -22,7 +26,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from adapt_image_models_torch.ops import fused_spatial_step, fused_temporal_step
+from adapt_image_models_torch.ops import (
+    fused_spatial_step, fused_spatial_train_step, fused_temporal_step,
+    fused_temporal_train_step,
+)
 from adapt_image_models_torch.ops._common import (
     exact_gelu, layer_norm_fp32, quick_gelu,
 )
@@ -63,6 +70,24 @@ def trunc_normal_(param: torch.Tensor, std: float, generator: torch.Generator) -
 @torch.no_grad()
 def normal_(param: torch.Tensor, std: float, generator: torch.Generator) -> None:
     param.copy_(torch.randn(param.shape, generator=generator) * std)
+
+
+def uniform(shape, generator: Optional[torch.Generator],
+            device) -> torch.Tensor:
+    """U[0, 1) fp32 of ``shape`` on ``device``, drawn on the generator's own
+    device (the default generator when None)."""
+    if generator is None:
+        return torch.rand(shape, device=device)
+    return torch.rand(shape, generator=generator, device=generator.device).to(device)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as flax's ``nn.Dropout``: keep with 1 - rate and
+    scale the kept values by 1 / (1 - rate)."""
+    keep = 1.0 - rate
+    mask = uniform(x.shape, generator, x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
 def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
@@ -185,7 +210,8 @@ class CLIPAttention(nn.Module):
                 temporal_frames: Optional[int] = None,
                 adapter: Optional[Adapter] = None,
                 ln: Optional[LayerNormFP32] = None,
-                residual: bool = False) -> torch.Tensor:
+                residual: bool = False,
+                gate: Optional[torch.Tensor] = None) -> torch.Tensor:
         if kv is not None or mask is not None or need_weights:
             raise NotImplementedError(
                 "cross-attention, attention masks and attention weights serve "
@@ -200,12 +226,19 @@ class CLIPAttention(nn.Module):
             args = (x.to(cdt), ln.weight, ln.bias, self.in_proj_weight.to(cdt),
                     self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
                     self.out_proj.bias.to(cdt), *adapter.weights(cdt))
+            if self.training:  # the train ops, with their hand-written backward
+                if temporal_frames is None:
+                    return fused_spatial_train_step(*args, gate, self.num_heads,
+                                                    adapter.skip_connect)
+                return fused_temporal_train_step(*args, gate, temporal_frames,
+                                                 self.num_heads,
+                                                 adapter.skip_connect)
             if temporal_frames is None:
                 return fused_spatial_step(*args, self.num_heads,
                                           adapter.skip_connect)
             return fused_temporal_step(*args, temporal_frames, self.num_heads,
                                        adapter.skip_connect)
-        if adapter is not None or residual:
+        if adapter is not None or residual or gate is not None:
             raise ValueError("adapter/residual fusion requires attention_core='fused'")
         if ln is not None:
             x = ln(x)

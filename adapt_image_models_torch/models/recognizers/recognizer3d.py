@@ -59,12 +59,15 @@ class Recognizer3D(nn.Module):
         self.backbone.init_weights(generator)
         self.cls_head.init_weights(generator)
 
-    def extract_feat(self, imgs: torch.Tensor) -> torch.Tensor:
-        return self.backbone(_fold_views(imgs))
+    def extract_feat(self, imgs: torch.Tensor,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.backbone(_fold_views(imgs), generator)
 
-    def forward(self, imgs: torch.Tensor) -> torch.Tensor:
-        """(B*, C, T, H, W) or (B, V, C, T, H, W) -> (B*, num_classes) logits."""
-        return self.cls_head(self.extract_feat(imgs))
+    def forward(self, imgs: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """(B*, C, T, H, W) or (B, V, C, T, H, W) -> (B*, num_classes) logits.
+        In train mode ``generator`` feeds the drop-path and dropout draws."""
+        return self.cls_head(self.extract_feat(imgs, generator), generator)
 
     def forward_test(self, imgs: torch.Tensor) -> torch.Tensor:
         """(B, V, C, T, H, W) -> (B, num_classes) aggregated scores."""

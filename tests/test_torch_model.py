@@ -36,6 +36,7 @@ from adapt_image_models_tpu.convert.aim_import import convert_aim_checkpoint
 from adapt_image_models_tpu.models import build_model as build_jax_model
 from adapt_image_models_torch.convert import load_checkpoint, params_from_jax
 from adapt_image_models_torch.models import build_model
+from adapt_image_models_torch.parallel import freeze_params
 
 RES, PATCH, D, HEADS, LAYERS, T, CLASSES = 32, 16, 128, 2, 2, 4, 5
 # (feature rtol, feature atol, feature mean abs error, probability atol)
@@ -167,7 +168,7 @@ def test_load_checkpoint_is_strict(jax_params, tmp_path):
 @pytest.mark.parametrize("override,exc", [
     (dict(wind_attn=True), NotImplementedError),
     (dict(num_tadapter=2), NotImplementedError),
-    (dict(joint_core="rows"), NotImplementedError),
+    (dict(joint_core="tiles"), ValueError),
     (dict(attention_core="flash"), NotImplementedError),
     (dict(heads=3), ValueError),
 ])
@@ -179,6 +180,40 @@ def test_unported_options_raise(override, exc):
 
 
 def test_training_mode_raises():
-    model = build_model(_cfg("xla", "float32"))  # nn.Modules start in train mode
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 3, T, RES, RES))
+    """Train mode runs forward and backward. The fused path raises while
+    the CLIP weights still require grad (its backward returns none for
+    them); after the AIM freeze only the trainable parameters get a
+    gradient. The framework-op path trains every parameter."""
+    x = torch.randn(2, 3, T, RES, RES)
+    model = build_model(_cfg("fused", "float32"))  # nn.Modules start in train mode
+    with pytest.raises(ValueError, match="frozen"):
+        model(x)
+    trainable = set(freeze_params(model))
+    model(x, generator=torch.Generator().manual_seed(0)).sum().backward()
+    for name, p in model.named_parameters():
+        assert (p.grad is not None) == (name in trainable), name
+    assert "backbone.transformer.resblocks.1.T_Adapter.D_fc1.weight" in trainable
+    assert not any(".attn." in n or ".mlp." in n for n in trainable)
+    xla = build_model(_cfg("xla", "float32"))
+    xla(x).sum().backward()
+    assert all(p.grad is not None for p in xla.parameters())
+
+
+def test_joint_rows_slice_matches_jax(jax_params):
+    """Eval ``joint_core="rows"`` against the JAX model's rows kernel
+    (``fused_joint_mlp_rows``), bf16, with the "fused" bounds above."""
+    cfg = _cfg("fused", "bfloat16")
+    cfg["backbone"]["joint_core"] = "rows"
+    imgs = _inputs()
+    jmodel = build_jax_model(cfg)
+    with pltpu.force_tpu_interpret_mode():
+        want = jmodel.apply({"params": jax_params}, jnp.asarray(imgs),
+                            method=jmodel.extract_feat)
+    model = build_model(cfg)
+    model.load_state_dict(params_from_jax(jax_params), strict=True)
+    with torch.no_grad():
+        got = model.eval().extract_feat(torch.from_numpy(imgs)).float().numpy()
+    want = np.asarray(jnp.asarray(want, jnp.float32))
+    rtol, atol, mean_tol, _ = TOL["fused", "bfloat16"]
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    assert np.abs(got - want).mean() < mean_tol

@@ -28,7 +28,9 @@ import jax.numpy as jnp
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from adapt_image_models_tpu.ops.fused_joint_mlp import fused_joint_mlp_adapter
+from adapt_image_models_tpu.ops.fused_joint_mlp import (
+    fused_joint_mlp_adapter, fused_joint_mlp_rows,
+)
 from adapt_image_models_tpu.ops.fused_qkv_attention import (
     fused_ln_attn_adapter_residual,
 )
@@ -36,7 +38,8 @@ from adapt_image_models_tpu.ops.fused_temporal_attention import (
     fused_ln_temporal_adapter_residual,
 )
 from adapt_image_models_torch.ops import (
-    fused_joint, fused_joint_plain, fused_spatial_step, fused_spatial_step_plain,
+    fused_joint, fused_joint_plain, fused_spatial_step,
+    fused_spatial_step_plain,
     fused_temporal_step, fused_temporal_step_plain, launch_counts,
     reset_launch_counts,
 )
@@ -135,6 +138,33 @@ def test_joint_step_matches_pallas(dtype):
     _compare(got, want, dtype)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("gated", [False, True])
+def test_joint_rows_matches_pallas(dtype, gated):
+    """``fused_joint`` against ``fused_joint_mlp_rows``, ungated (eval
+    ``joint_core="rows"``) and with a per-row gate of zeros and 1/keep."""
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((B * T, N, D)).astype(np.float32)
+    lns, lnb = _ln(24)
+    w = _weights(25, [(D, 4 * D), (4 * D,), (4 * D, D), (D,), (D, DH), (DH,),
+                      (DH, D), (D,)])
+    gate = (np.repeat(np.where(np.arange(B * T) % 3 == 1, 0.0, 1 / 0.9), N)
+            .astype(np.float32) if gated else None)
+    jdt = jnp.dtype(dtype)
+    tdt = getattr(torch, dtype)
+    with pltpu.force_tpu_interpret_mode():
+        want = fused_joint_mlp_rows(
+            _to_jax(x, jdt), jnp.asarray(lns), jnp.asarray(lnb),
+            *(_to_jax(a, jdt) for a in w), 0.5,
+            gate=None if gate is None else jnp.asarray(gate))
+    got = fused_joint(
+        _to_torch(x, tdt), _to_torch(lns, torch.float32),
+        _to_torch(lnb, torch.float32),
+        *(_to_torch(a.T if a.ndim == 2 else a, tdt) for a in w), 0.5,
+        None if gate is None else torch.from_numpy(gate))
+    _compare(got, want, dtype)
+
+
 def test_cpu_wrappers_take_plain_version_and_launch_nothing():
     """On CPU tensors each wrapper returns its plain version's result and
     its launch counter stays 0."""
@@ -152,8 +182,9 @@ def test_cpu_wrappers_take_plain_version_and_launch_nothing():
     torch.testing.assert_close(fused_joint(x, lns, lnb, *w, 0.5),
                                fused_joint_plain(x, lns, lnb, *w, 0.5),
                                rtol=0, atol=0)
-    assert launch_counts() == {"fused_temporal_step": 0, "fused_spatial_step": 0,
-                               "fused_joint": 0}
+    counts = launch_counts()
+    assert {"fused_temporal_step", "fused_spatial_step", "fused_joint"} <= set(counts)
+    assert all(n == 0 for n in counts.values()), counts
 
 
 @pytest.mark.parametrize("case", ["rank", "weight_shape", "frames", "device"])
