@@ -4,7 +4,7 @@ inference.py:24-86``).
 ``load_config(path)`` -> config dict;
 ``init_recognizer(cfg, checkpoint, device, seed)`` -> model in eval mode;
 ``inference_recognizer(model, cfg, video)`` -> top-k (class, score) pairs.
-The host pipeline is the JAX package's ``build_sample_processor``, which also
+The host pipeline is ``data.pipeline.build_sample_processor``, which also
 reads ``synthetic://<seed>`` sources.
 """
 
@@ -15,9 +15,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from adapt_image_models_tpu.config.config import Config, apply_cfg_options
-from adapt_image_models_tpu.data.pipeline import build_sample_processor
+from adapt_image_models_torch.config.config import Config, apply_cfg_options
 from adapt_image_models_torch.convert import load_checkpoint
+from adapt_image_models_torch.data.pipeline import build_sample_processor
 from adapt_image_models_torch.data.transforms import (
     layout_from_pipeline, make_prepare_fn,
 )
@@ -36,7 +36,7 @@ def model_device(model: torch.nn.Module) -> torch.device:
 
 
 def init_recognizer(cfg: Dict[str, Any], checkpoint: Optional[str] = None,
-                    device="cpu", seed: int = 0) -> torch.nn.Module:
+                    device="cuda", seed: int = 0) -> torch.nn.Module:
     """Build the recognizer of ``cfg`` on ``device`` with weights drawn from
     ``seed``, then load ``checkpoint`` (a released AIM ``.pth``) if given."""
     model_cfg = dict(cfg["model"])

@@ -1,10 +1,13 @@
 """Evaluation on one device (parity: ``adapt_image_models_tpu/apis/
 test.py:34-180``, NCTHW recipes).
 
-``run_evaluation`` streams the split through the JAX package's host loader
-(which imports no JAX), scores every sample with a multi-view eval step and
+``run_evaluation`` streams the split through the port's host loader
+(``data/loader.py``), scores every sample with a multi-view eval step and
 calls ``dataset.evaluate``. ``max_testing_views`` chunks the view axis to
-bound memory on long multi-view protocols. Data parallelism is ROADMAP queue
+bound memory on long multi-view protocols; the last chunk may be shorter,
+as in the reference (``recognizer3d.py:38-60``), so that the SSv2 recipe's
+3 views run in chunks of 2 (the JAX package refuses a view count that the
+chunk does not divide). Data parallelism is ROADMAP queue
 1 item 8.
 """
 
@@ -15,10 +18,10 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from adapt_image_models_tpu.data.datasets import build_dataset
-from adapt_image_models_tpu.data.loader import VideoLoader
-from adapt_image_models_tpu.data.pipeline import build_sample_processor
 from adapt_image_models_torch.apis.inference import init_recognizer, model_device
+from adapt_image_models_torch.data.datasets import build_dataset
+from adapt_image_models_torch.data.loader import VideoLoader
+from adapt_image_models_torch.data.pipeline import build_sample_processor
 from adapt_image_models_torch.data.transforms import (
     layout_from_pipeline, make_prepare_fn,
 )
@@ -30,7 +33,8 @@ def make_chunked_eval_step(model: torch.nn.Module, prepare_fn,
                            average_clips: Optional[str] = "prob",
                            max_testing_views: Optional[int] = None):
     """(B, V, T, H, W, C) uint8 -> (B, num_classes) scores, running the
-    model on at most ``max_testing_views`` views of each sample at a time."""
+    model on at most ``max_testing_views`` views of each sample at a time
+    (the last chunk holds the views left over)."""
 
     @torch.no_grad()
     def eval_step(imgs_uint8) -> torch.Tensor:
@@ -39,14 +43,11 @@ def make_chunked_eval_step(model: torch.nn.Module, prepare_fn,
         if max_testing_views is None or v <= max_testing_views:
             logits = model(imgs.reshape((b * v,) + tuple(imgs.shape[2:])))
         else:
-            if v % max_testing_views:
-                raise ValueError(f"num views {v} not divisible by "
-                                 f"max_testing_views {max_testing_views}")
             chunks = []
             for c0 in range(0, v, max_testing_views):
                 part = imgs[:, c0:c0 + max_testing_views]
                 out = model(part.reshape((-1,) + tuple(imgs.shape[2:])))
-                chunks.append(out.reshape(b, max_testing_views, -1))
+                chunks.append(out.reshape(b, part.shape[1], -1))
             logits = torch.cat(chunks, dim=1).reshape(b * v, -1)
         return average_clip(logits, v, average_clips)
 
@@ -58,7 +59,7 @@ def run_evaluation(cfg: Dict[str, Any], model: Optional[torch.nn.Module] = None,
                    metrics=("top_k_accuracy", "mean_class_accuracy"),
                    batch_size: Optional[int] = None,
                    num_workers: Optional[int] = None,
-                   return_scores: bool = False, device="cpu", seed: int = 0):
+                   return_scores: bool = False, device="cuda", seed: int = 0):
     """Evaluate ``model`` (or one built from ``cfg`` on ``device`` with
     weights from ``seed``) on ``cfg.data[split]``."""
     if model is None:

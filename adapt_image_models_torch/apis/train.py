@@ -4,8 +4,9 @@ train.py:57-354``).
 ``train_model(cfg)`` drives the recipe of an mmcv-layout config: model,
 data, optimizer, lr_config, total_epochs, checkpointing and periodic
 evaluation, in a plain loop around one train step. The host data stage is
-the JAX package's own, which imports no JAX (``data/pipeline.py``,
-``loader.py``, ``datasets.py``). The mapping of the reference stack:
+the port's copy of the JAX package's (``data/pipeline.py``, ``loader.py``,
+``datasets.py``); ``model.train_cfg.blending`` builds the batch blending
+(``data/blending.py``). The mapping of the reference stack:
 
 * apex AMP O1                      -> bf16 compute dtype in the model
 * DistSamplerSeedHook              -> loader.set_epoch (seeded shuffling)
@@ -14,8 +15,7 @@ the JAX package's own, which imports no JAX (``data/pipeline.py``,
 * EvalHook                         -> periodic run_evaluation + save_best
 * CheckpointHook + auto_resume     -> CheckpointManager saves + latest
 
-Not ported yet: data parallelism (ROADMAP queue 1 item 8), blending
-(``data/blending.py``), OmniSource multi-dataset training, ``load_from`` of
+Not ported yet: data parallelism (ROADMAP queue 1 item 8), OmniSource multi-dataset training, ``load_from`` of
 a released checkpoint into a train run and ``clip_pretrained``.
 """
 
@@ -30,13 +30,14 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from adapt_image_models_tpu.data.datasets import build_dataset
-from adapt_image_models_tpu.data.loader import VideoLoader
-from adapt_image_models_tpu.data.pipeline import build_sample_processor
 from adapt_image_models_torch.core.checkpoint import CheckpointManager
 from adapt_image_models_torch.core.optim import build_optimizer
 from adapt_image_models_torch.core.schedule import build_schedule
 from adapt_image_models_torch.core.train_state import TrainState, make_train_step
+from adapt_image_models_torch.data.blending import build_blending
+from adapt_image_models_torch.data.datasets import build_dataset
+from adapt_image_models_torch.data.loader import VideoLoader
+from adapt_image_models_torch.data.pipeline import build_sample_processor
 from adapt_image_models_torch.data.transforms import (
     CLIP_MEAN, CLIP_STD, layout_from_pipeline, make_prepare_fn,
 )
@@ -66,8 +67,6 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     model_cfg = dict(cfg["model"])
     test_cfg = model_cfg.pop("test_cfg", None)
     train_cfg = model_cfg.pop("train_cfg", None)
-    if train_cfg and train_cfg.get("blending"):
-        raise NotImplementedError("blending (data/blending.py) is not ported yet")
     backbone_cfg = model_cfg.get("backbone", {})
     model = build_model(model_cfg, test_cfg=test_cfg, device=device)
     model.init_weights(torch.Generator().manual_seed(seed))
@@ -103,8 +102,9 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     optimizer = build_optimizer(cfg["optimizer"], model, schedule, grad_clip,
                                 update_interval)
     loss_cfg = dict(model_cfg.get("cls_head", {})).get("loss_cls")
-    train_step = make_train_step(model, optimizer, prepare,
-                                 build_loss(loss_cfg) if loss_cfg else None)
+    train_step = make_train_step(
+        model, optimizer, prepare, build_loss(loss_cfg) if loss_cfg else None,
+        build_blending((train_cfg or {}).get("blending")))
     state = TrainState(model, optimizer)
 
     ckpt_mgr = CheckpointManager(

@@ -552,7 +552,10 @@ spatial_attention_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __rest
 // shared memory; thread (h, i) forms row i of P (fp32) and of dS, then dQ;
 // after a barrier thread (h, j) reduces column j into dV and dK. The work
 // is T*T*64 multiply-adds per (token, head) and pass, so the core is bound
-// by reading q, k, v and dO once.
+// by reading q, k, v and dO once. Given ``out``, thread (h, i) also writes
+// row i of the core's output from the normalised P, bf16(bf16(P) V), as
+// the plain block's TPU backward (_kernel_plain_bwd :1038) emits it for
+// the out-projection's weight cotangent.
 constexpr int TEMPORAL_BWD_THREADS = 256;
 
 __host__ __device__ inline int temporal_bwd_heads(int heads, int T) {
@@ -565,7 +568,8 @@ size_t temporal_bwd_smem_bytes(int hpb, int T) {
 
 __global__ void __launch_bounds__(TEMPORAL_BWD_THREADS)
 temporal_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                              bf16* __restrict__ dqkv, int T, int L, int D, float scale) {
+                              bf16* __restrict__ dqkv, bf16* __restrict__ out, int T, int L,
+                              int D, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = blockIdx.x;
   const int b = blockIdx.y;
@@ -645,6 +649,15 @@ temporal_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restri
       sum += e;
     }
     for (int j = 0; j < T; ++j) sP[i * TS + j] = sP[i * TS + j] / sum;
+    if (out != nullptr) {  // O_i = sum_j bf16(P_ij) v_j
+#pragma unroll
+      for (int e = 0; e < HD; ++e) a[e] = 0.f;
+      for (int j = 0; j < T; ++j)
+        axpy(__bfloat162float(__float2bfloat16(sP[i * TS + j])), sv + j * HD, a);
+      uint4* op = reinterpret_cast<uint4*>(out + row * D + h * HD);
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) op[c] = float_to_bf16x8(a + 8 * c);
+    }
     // row i of dP = dO V^T, rowdot, then dS
     load_row(sdo + i * HD, a);
     float rowdot = 0.f;
@@ -750,8 +763,8 @@ extern "C" int aim_spatial_attention_bwd_bf16(const void* qkv, const void* dout,
 }
 
 extern "C" int aim_temporal_attention_bwd_bf16(const void* qkv, const void* dout, void* dqkv,
-                                               int clips, int T, int L, int D, float scale,
-                                               void* stream) {
+                                               void* out, int clips, int T, int L, int D,
+                                               float scale, void* stream) {
   if (D % HD || T <= 0 || T > 32 || L <= 0) return (int)cudaErrorInvalidValue;
   if (clips == 0) return 0;
   const int heads = D / HD;
@@ -763,6 +776,6 @@ extern "C" int aim_temporal_attention_bwd_bf16(const void* qkv, const void* dout
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(L, clips, (heads + hpb - 1) / hpb);
   temporal_attention_bwd_kernel<<<grid, hpb * T, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const bf16*)dout, (bf16*)dqkv, T, L, D, scale);
+      (const bf16*)qkv, (const bf16*)dout, (bf16*)dqkv, (bf16*)out, T, L, D, scale);
   return (int)cudaGetLastError();
 }

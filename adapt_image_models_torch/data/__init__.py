@@ -1,3 +1,8 @@
-"""Device stage of the data pipeline. The host stage (sampling, decoding,
-resizing, the loader and the datasets) is the JAX package's own, which
-imports no JAX: ``adapt_image_models_tpu.data.{pipeline,datasets,loader}``."""
+"""The port's data stages. The host stage, a copy of the JAX package's own
+(``adapt_image_models_tpu/data``) with nothing of JAX: sampling
+(``sampling``), decoding (``video_reader``, ``cpp_decoder``), the
+geometric and RandAugment transforms (``transforms_host``,
+``randaugment``), the pipeline compiler (``pipeline``), the loader
+(``loader``) and the datasets (``datasets``). The device stage: the
+normalise-and-layout prepare (``transforms``) and batch blending
+(``blending``)."""

@@ -3,7 +3,9 @@
 
 Per block, in the residual stream's (B·T, N, D) layout:
   1. temporal adaptation ``x + gate_t · T_Adapter(attn_T(ln_1 x))`` (no
-     adapter skip);
+     adapter skip); with ``num_tadapter=2`` (the SSv2 recipe)
+     ``x + gate_t · T_Adapter(attn_T(T_Adapter_in(ln_1 x)))``, where
+     T_Adapter_in keeps its skip (``aim.py:147-151``);
   2. spatial adaptation ``x + S_Adapter(attn(ln_1 x))`` (adapter skip, no
      drop path);
   3. joint adaptation ``x + mlp(ln_2 x) + gate_j · s · MLP_Adapter(ln_2 x)``.
@@ -16,13 +18,18 @@ CUDA tensors: the eval ops in eval mode, the train ops (autograd ops with a
 hand-written backward, which leave the LN and CLIP weights without a
 gradient) in train mode. ``joint_core="xla"`` keeps the joint step in
 framework ops; ``"rows"`` runs the same joint chain as ``"sample"``: the
-JAX package's rows-tiled op computes the same numbers. With ``attention_core="xla"`` every step is plain
-PyTorch framework ops, with exact-erf GELU adapters as in the JAX package,
-differentiated by autograd.
+JAX package's rows-tiled op computes the same numbers. The ``num_tadapter=2``
+temporal step runs its two adapters in framework ops with exact-erf GELU,
+as the JAX package applies them outside its kernel, around the fused op
+``fused_temporal_block`` (forward and backward kernels). With
+``attention_core="xla"`` every step is plain PyTorch framework ops, with
+exact-erf GELU adapters as in the JAX package, differentiated by autograd.
 
-The window path (``wind_attn``) and ``num_tadapter=2`` raise.
-``use_checkpoint`` is accepted and ignored: the fused train ops save only
-their input and recompute the rest in their backward.
+The window path (``wind_attn``) raises. ``use_checkpoint`` is accepted and
+ignored: the fused train ops save only their input and recompute the rest
+in their backward; the two framework-op adapters of ``num_tadapter=2`` keep
+their activations (the JAX package rematerialises them, the port has the
+memory: chip_smoke.py records the peak).
 """
 
 from __future__ import annotations
@@ -61,12 +68,13 @@ class AIMBlock(nn.Module):
     """One AIM residual attention block."""
 
     def __init__(self, d_model: int, num_heads: int, num_frames: int,
-                 adapter_scale: float = 0.5, compute_dtype=torch.float32,
-                 attention_core: str = "xla", joint_core: str = "sample",
-                 device=None):
+                 adapter_scale: float = 0.5, num_tadapter: int = 1,
+                 compute_dtype=torch.float32, attention_core: str = "xla",
+                 joint_core: str = "sample", device=None):
         super().__init__()
         cdt = resolve_dtype(compute_dtype)
         self.num_frames = num_frames
+        self.num_tadapter = num_tadapter
         self.adapter_scale = adapter_scale
         self.compute_dtype = cdt
         self.attention_core = attention_core
@@ -78,6 +86,9 @@ class AIMBlock(nn.Module):
         self.S_Adapter = Adapter(d_model, skip_connect=True, compute_dtype=cdt, device=device)
         self.T_Adapter = Adapter(d_model, skip_connect=False, compute_dtype=cdt, device=device)
         self.MLP_Adapter = Adapter(d_model, skip_connect=False, compute_dtype=cdt, device=device)
+        if num_tadapter == 2:
+            self.T_Adapter_in = Adapter(d_model, skip_connect=True, compute_dtype=cdt,
+                                        device=device)
 
     def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -88,13 +99,19 @@ class AIMBlock(nn.Module):
         if self.training:  # temporal gate first, then the joint one
             gate_t = drop_path_gate(bt, drop_rate, generator, x.device)
             gate_j = drop_path_gate(bt, drop_rate, generator, x.device)
-        if fused:
+        if self.num_tadapter == 2:
+            xt = self.T_Adapter_in(self.ln_1(x))
+            xt = self.T_Adapter(self.attn(xt, temporal_frames=t))
+            x = x + drop_path(xt, gate_t)
+        elif fused:
             x = self.attn(x, temporal_frames=t, ln=self.ln_1,
                           adapter=self.T_Adapter, residual=True, gate=gate_t)
-            x = self.attn(x, ln=self.ln_1, adapter=self.S_Adapter, residual=True)
         else:
             xt = self.T_Adapter(self.attn(x, temporal_frames=t, ln=self.ln_1))
             x = x + drop_path(xt, gate_t)
+        if fused:
+            x = self.attn(x, ln=self.ln_1, adapter=self.S_Adapter, residual=True)
+        else:
             x = x + self.S_Adapter(self.attn(x, ln=self.ln_1))
         if fused and self.joint_core != "xla":
             cdt = self.compute_dtype
@@ -150,9 +167,8 @@ class AIM(nn.Module):
         if wind_attn:
             raise NotImplementedError("AIM window path (wind_attn=True) is not "
                                       "ported yet (ROADMAP queue 1 item 9)")
-        if num_tadapter != 1:
-            raise NotImplementedError("num_tadapter=2 is not ported yet "
-                                      "(ROADMAP queue 1 item 9)")
+        if num_tadapter not in (1, 2):
+            raise ValueError(f"num_tadapter must be 1 or 2, got {num_tadapter}")
         if joint_core not in ("sample", "rows", "xla"):
             raise ValueError(f"unknown joint_core={joint_core!r}")
         # use_checkpoint (see the module docstring), window_size, not_shift
@@ -174,7 +190,7 @@ class AIM(nn.Module):
         self.transformer = AIMTransformer(
             layers, d, heads, drop_path_rate=drop_path_rate,
             num_frames=num_frames, adapter_scale=adapter_scale,
-            compute_dtype=self.compute_dtype, attention_core=attention_core,
+            num_tadapter=num_tadapter, compute_dtype=self.compute_dtype, attention_core=attention_core,
             joint_core=joint_core, device=device)
         self.ln_post = LayerNormFP32(d, device=device)
 

@@ -6,7 +6,7 @@ live on ``device``; draw its weights with ``model.init_weights(generator)``
 or load them with ``convert.load_checkpoint``.
 """
 
-from adapt_image_models_tpu.utils.registry import Registry
+from adapt_image_models_torch.utils.registry import Registry
 
 BACKBONES = Registry("backbone")
 HEADS = Registry("head")

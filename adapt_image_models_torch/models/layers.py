@@ -11,7 +11,9 @@ LayerNorm and softmax in fp32.
 ``attention_core="fused"`` routes the two attention steps of an AIM block
 to the fused ops (``adapt_image_models_torch/ops``), which run hand-written
 CUDA kernels on CUDA tensors: the eval ops in eval mode, the train ops
-(autograd ops with hand-written backwards) in train mode.
+(autograd ops with hand-written backwards) in train mode; and the plain
+temporal attention of the ``num_tadapter=2`` branch to the autograd op
+``fused_temporal_block`` in both modes.
 ``attention_core="xla"`` keeps the JAX package's name so configs are
 shared; in the port it means plain PyTorch framework ops, differentiated by
 autograd.
@@ -27,8 +29,8 @@ import torch
 from torch import nn
 
 from adapt_image_models_torch.ops import (
-    fused_spatial_step, fused_spatial_train_step, fused_temporal_step,
-    fused_temporal_train_step,
+    fused_spatial_step, fused_spatial_train_step, fused_temporal_block,
+    fused_temporal_step, fused_temporal_train_step,
 )
 from adapt_image_models_torch.ops._common import (
     exact_gelu, layer_norm_fp32, quick_gelu,
@@ -179,7 +181,8 @@ class CLIPAttention(nn.Module):
     without materialising the (B·N, T, D) relayout. With
     ``attention_core="fused"`` and ``ln``, ``adapter`` and ``residual``
     given, the whole adaptation step ``x + adapter(attn(ln(x)))`` runs as
-    one fused op.
+    one fused op; with ``temporal_frames`` alone, the temporal attention
+    runs as ``fused_temporal_block`` (``layers.py:368-389``).
     """
 
     def __init__(self, d_model: int, num_heads: int, compute_dtype=torch.float32,
@@ -219,10 +222,17 @@ class CLIPAttention(nn.Module):
                 "(ROADMAP queue 1 item 9)")
         cdt = self.compute_dtype
         if self.attention_core == "fused":
+            plain = ln is None and adapter is None and not residual
+            if plain and temporal_frames is not None and gate is None:
+                return fused_temporal_block(
+                    x.to(cdt), self.in_proj_weight.to(cdt),
+                    self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
+                    self.out_proj.bias.to(cdt), temporal_frames, self.num_heads)
             if ln is None or adapter is None or not residual:
                 raise NotImplementedError(
-                    "fused attention without LN + adapter + residual is not "
-                    "ported yet (ROADMAP queue 2 items 7, 8, 10 and 11)")
+                    "fused attention without LN + adapter + residual is ported "
+                    "for the ungated temporal block only (ROADMAP queue 2 "
+                    "items 7, 10 and 11)")
             args = (x.to(cdt), ln.weight, ln.bias, self.in_proj_weight.to(cdt),
                     self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
                     self.out_proj.bias.to(cdt), *adapter.weights(cdt))

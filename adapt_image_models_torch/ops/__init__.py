@@ -12,9 +12,12 @@ from adapt_image_models_torch.ops.fused_qkv_attention import (  # noqa: F401
     fused_spatial_train_step_plain, fused_step_bwd_dx, fused_step_bwd_dx_plain,
 )
 from adapt_image_models_torch.ops.fused_temporal_attention import (  # noqa: F401
-    fused_temporal_step, fused_temporal_step_bwd_dx,
-    fused_temporal_step_bwd_dx_plain, fused_temporal_step_plain,
-    fused_temporal_train_step, fused_temporal_train_step_plain,
+    fused_temporal_attention, fused_temporal_attention_bwd,
+    fused_temporal_attention_bwd_plain, fused_temporal_attention_plain,
+    fused_temporal_block, fused_temporal_block_plain, fused_temporal_step,
+    fused_temporal_step_bwd_dx, fused_temporal_step_bwd_dx_plain,
+    fused_temporal_step_plain, fused_temporal_train_step,
+    fused_temporal_train_step_plain,
 )
 
 _TPU = "adapt_image_models_tpu/ops/"
@@ -39,12 +42,25 @@ KERNEL_OPS = {
         fused_joint_train_block, _TPU + "fused_joint_mlp.py:199"),
     "fused_joint_mlp_rows_bwd": (
         fused_joint_mlp_rows_bwd, _TPU + "fused_joint_mlp.py:413"),
+    "fused_temporal_attention": (
+        fused_temporal_attention, _TPU + "fused_temporal_attention.py:487"),
+    "fused_temporal_attention_bwd": (
+        fused_temporal_attention_bwd, _TPU + "fused_temporal_attention.py:1052"),
 }
 
-EVAL_OPS = ("fused_temporal_step", "fused_spatial_step", "fused_joint")
-TRAIN_OPS = ("fused_temporal_train_step", "fused_temporal_step_bwd_dx",
-             "fused_spatial_train_step", "fused_step_bwd_dx",
-             "fused_joint_train_block", "fused_joint_mlp_rows_bwd")
+# the ops an AIM eval forward and train step launch, by num_tadapter: 1 runs
+# the temporal step ops, 2 (the SSv2 recipe) the plain temporal block's
+# forward and backward in their place
+EVAL_OPS = {1: ("fused_temporal_step", "fused_spatial_step", "fused_joint"),
+            2: ("fused_temporal_attention", "fused_spatial_step", "fused_joint")}
+TRAIN_OPS = {
+    1: ("fused_temporal_train_step", "fused_temporal_step_bwd_dx",
+        "fused_spatial_train_step", "fused_step_bwd_dx",
+        "fused_joint_train_block", "fused_joint_mlp_rows_bwd"),
+    2: ("fused_temporal_attention", "fused_temporal_attention_bwd",
+        "fused_spatial_train_step", "fused_step_bwd_dx",
+        "fused_joint_train_block", "fused_joint_mlp_rows_bwd"),
+}
 
 
 def reset_launch_counts() -> None:

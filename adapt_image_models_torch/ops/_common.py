@@ -147,14 +147,16 @@ def spatial_core_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, frames: int,
 
 
 def temporal_core_plain(qkv: torch.Tensor, clips: int, frames: int,
-                        length: int, num_heads: int) -> torch.Tensor:
+                        length: int, num_heads: int,
+                        prenorm: bool = False) -> torch.Tensor:
     """(clips*T*L, 3D) -> (clips*T*L, D): each token position attends across
-    the T frames of its clip."""
+    the T frames of its clip. ``prenorm`` as in ``softmax_pv``: the TPU
+    backward kernels' recompute (``fused_temporal_attention.py:833-836``)."""
     d = qkv.shape[-1] // 3
     q, k, v = (_temporal_heads(t, clips, frames, length, num_heads)
                for t in qkv.split(d, dim=-1))
     s = (q.float() @ k.float().transpose(-1, -2)) * (d // num_heads) ** -0.5
-    o = softmax_pv(s, v, qkv.dtype)  # (B, L, H, T, hd)
+    o = softmax_pv(s, v, qkv.dtype, prenorm)  # (B, L, H, T, hd)
     return o.permute(0, 3, 1, 2, 4).reshape(clips * frames * length, d)
 
 
@@ -365,7 +367,7 @@ def check_step_args(name: str, x: torch.Tensor, ln, matrices, vectors,
         if n_in % 32:
             raise ValueError(f"{name}: the CUDA GEMM needs K % 32 == 0, got {n_in}")
     if x.dtype != torch.bfloat16 or any(
-            t.dtype != torch.bfloat16 for t in tensors[3:]):
+            t.dtype != torch.bfloat16 for t in tensors[1 + len(ln):]):
         raise ValueError(f"{name}: the CUDA kernels take bf16 x and weights")
     if any(p.dtype != torch.float32 for p in ln):
         raise ValueError(f"{name}: LayerNorm parameters must be fp32")

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "aim_spatial_attention_bf16": [_P, _P, _I, _I, _I, _F, _I, _P],
     "aim_spatial_attention_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
-    "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -230,12 +230,15 @@ def temporal_attention(qkv: torch.Tensor, clips: int, frames: int,
 
 
 def temporal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
-                           frames: int, length: int) -> torch.Tensor:
+                           frames: int, length: int, with_out: bool = False):
     """Cotangent ``dout`` (rows, D) of the temporal core's output -> packed
-    dqkv (rows, 3D), all bf16."""
+    dqkv (rows, 3D), all bf16. With ``with_out`` also the core's output
+    recomputed from the fp32-normalised P, ``bf16(bf16(P) V)`` (rows, D),
+    as the TPU backward kernels emit it: returns (dqkv, out)."""
     d = qkv.shape[1] // 3
     dqkv = torch.empty_like(qkv)
+    out = torch.empty_like(dout) if with_out else None
     _check(library().aim_temporal_attention_bwd_bf16(
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), clips, frames,
-        length, d, 64 ** -0.5, _stream()), "aim_temporal_attention_bwd_bf16")
-    return dqkv
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out), clips,
+        frames, length, d, 64 ** -0.5, _stream()), "aim_temporal_attention_bwd_bf16")
+    return (dqkv, out) if with_out else dqkv

@@ -24,6 +24,18 @@ GEMMs of the frozen weights, the temporal core backward
 intermediates (u, dpre, a) from which the adapter's weight cotangents are
 formed as the JAX package forms them outside its kernel (:1797-1800).
 
+The plain temporal attention block ``W_o · attn_T(x)`` (no LN, no adapter:
+the ``num_tadapter=2`` branch) replaces ``fused_temporal_attention`` (:487)
+in its forward, ``fused_temporal_attention``, and
+``fused_temporal_attention_bwd`` (:1052, through ``_bwd_plain_dispatch``
+:1108) in its backward, joined by the autograd op ``fused_temporal_block``
+(:647). They run the same GEMM and core kernels as the step, with the
+block's own casts: its cotangent enters at dO = g·W_o, and the backward's
+core also writes the core output recomputed from the normalised P, for the
+out-projection's weight cotangent. On CUDA tensors both serve T <= 32: the
+JAX package takes its XLA backward past T = 16 for lack of VMEM, which the
+port does not need.
+
 The wrappers take the plain version for CPU tensors (the tests) and launch
 the kernels for CUDA tensors; they never fall back.
 """
@@ -36,7 +48,8 @@ from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._common import (
     AdapterStep, attention_step_bwd_cuda, attention_step_bwd_plain,
     attention_step_cuda, attention_step_plain, check_frozen, check_gate,
-    check_step_args, temporal_core_bwd_plain, temporal_core_plain,
+    check_step_args, mm32, mm32_kn, temporal_core_bwd_plain,
+    temporal_core_plain,
 )
 
 MAX_FRAMES = 32
@@ -47,6 +60,16 @@ def _clips(bt: int, num_frames: int) -> int:
         raise ValueError(f"leading axis {bt} is not divisible by "
                          f"num_frames={num_frames}")
     return bt // num_frames
+
+
+def _check_frames(name, x, num_frames, kernel: bool) -> int:
+    """The clip count; raises where the CUDA core does not serve T."""
+    b = _clips(x.shape[0], num_frames)
+    if kernel and x.device.type == "cuda" and num_frames > MAX_FRAMES:
+        raise NotImplementedError(
+            f"{name}: T={num_frames} > {MAX_FRAMES} needs the "
+            "segment-sum core, not ported yet (ROADMAP queue 2 item 12)")
+    return b
 
 
 def fused_temporal_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
@@ -72,12 +95,7 @@ def _check(name, x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
         name, x, (ln_w, ln_b),
         ((w_qkv, (3 * d, d)), (w_out, (d, d)), (w1, (dh, d)), (w2, (d, dh))),
         ((b_qkv, 3 * d), (b_out, d), (b1, dh), (b2, d)), num_heads, kernel)
-    b = _clips(x.shape[0], num_frames)
-    if kernel and x.device.type == "cuda" and num_frames > MAX_FRAMES:
-        raise NotImplementedError(
-            f"{name}: T={num_frames} > {MAX_FRAMES} needs the "
-            "segment-sum core, not ported yet (ROADMAP queue 2 item 12)")
-    return b
+    return _check_frames(name, x, num_frames, kernel)
 
 
 def fused_temporal_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
@@ -195,3 +213,151 @@ def fused_temporal_train_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     any device: the reference the kernels are held against."""
     return _train_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2,
                        b2, gate, num_frames, num_heads, skip, plain=True)
+
+
+# ---------------------------------------------------------------------------
+# The plain temporal attention block: ``W_o · attn_T(x)``, no LayerNorm and
+# no adapter inside, which the num_tadapter=2 branch runs between its two
+# framework-op adapters.
+
+
+def _check_block(name, x, w_qkv, b_qkv, w_out, num_frames, num_heads,
+                 vectors=(), kernel: bool = True) -> int:
+    """Validate the plain block's arguments; returns the clip count."""
+    d = x.shape[-1]
+    check_step_args(name, x, (), ((w_qkv, (3 * d, d)), (w_out, (d, d))),
+                    ((b_qkv, 3 * d), *vectors), num_heads, kernel)
+    return _check_frames(name, x, num_frames, kernel)
+
+
+def fused_temporal_attention_plain(x, w_qkv, b_qkv, w_out, b_out,
+                                   num_frames: int, num_heads: int) -> torch.Tensor:
+    """Plain version with the TPU kernel's casts (``_temporal_body_full``
+    :239-276): q, k, v rounded after an fp32 bias add, the core's output
+    rounded, the out-projection summed and biased in fp32, then rounded."""
+    bt, n, d = x.shape
+    dt = x.dtype
+    b = _clips(bt, num_frames)
+    qkv = (mm32(x.reshape(bt * n, d), w_qkv) + b_qkv.float()).to(dt)
+    o = temporal_core_plain(qkv, b, num_frames, n, num_heads)
+    return (mm32(o, w_out) + b_out.float()).to(dt).reshape(bt, n, d)
+
+
+def fused_temporal_attention(x, w_qkv, b_qkv, w_out, b_out, num_frames: int,
+                             num_heads: int) -> torch.Tensor:
+    """``W_o · attn_T(x)`` over x (B·T, N, D). CPU tensors take the plain
+    version; CUDA tensors (bf16, head dim 64, T <= 32) launch the kernels:
+    the QKV GEMM (+bias, bf16 out), the temporal core and the out-proj GEMM
+    (+bias, bf16 out)."""
+    b = _check_block("fused_temporal_attention", x, w_qkv, b_qkv, w_out,
+                     num_frames, num_heads, ((b_out, x.shape[-1]),))
+    if x.device.type == "cpu":
+        return fused_temporal_attention_plain(x, w_qkv, b_qkv, w_out, b_out,
+                                              num_frames, num_heads)
+    bt, n, d = x.shape
+    _, qkv = _kernels.gemm(x.view(bt * n, d), w_qkv, bias=b_qkv)
+    _, y = _kernels.gemm(_kernels.temporal_attention(qkv, b, num_frames, n),
+                         w_out, bias=b_out)
+    fused_temporal_attention.launches += 1
+    return y.view(bt, n, d)
+
+
+fused_temporal_attention.launches = 0
+
+
+def fused_temporal_attention_bwd_plain(x, w_qkv, b_qkv, w_out, g,
+                                       num_frames: int, num_heads: int):
+    """Plain version of the backward with the TPU kernel's casts
+    (``_bwd_temporal_body_full(with_ln=False)`` :885-928): the forward
+    recomputed, dO = g·W_o rounded, the core backward of
+    ``attention_core_bwd_plain``, dx = dqkv·W_qkv rounded. Returns (dx,
+    dqkv, o), o the core's output from the fp32-normalised P."""
+    bt, n, d = x.shape
+    dt = x.dtype
+    b = _clips(bt, num_frames)
+    qkv = (mm32(x.reshape(bt * n, d), w_qkv) + b_qkv.float()).to(dt)
+    do = mm32_kn(g.reshape(bt * n, d), w_out).to(dt)
+    dqkv = temporal_core_bwd_plain(qkv, do, b, num_frames, n, num_heads)
+    o = temporal_core_plain(qkv, b, num_frames, n, num_heads, prenorm=True)
+    dx = mm32_kn(dqkv, w_qkv).to(dt)
+    return dx.reshape(bt, n, d), dqkv, o
+
+
+def fused_temporal_attention_bwd(x, w_qkv, b_qkv, w_out, g, num_frames: int,
+                                 num_heads: int):
+    """Backward of ``fused_temporal_attention`` for the output cotangent g
+    (like x): (dx (B·T, N, D), dqkv (rows, 3D), o (rows, D)). CPU tensors
+    take the plain version; CUDA tensors launch the kernels: the QKV GEMM,
+    the (K, N) GEMM of g through W_o, the temporal core backward (which
+    also writes o) and the (K, N) GEMM of dqkv through W_qkv."""
+    b = _check_block("fused_temporal_attention_bwd", x, w_qkv, b_qkv, w_out,
+                     num_frames, num_heads)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError("fused_temporal_attention_bwd: g must match x")
+    if x.device.type == "cpu":
+        return fused_temporal_attention_bwd_plain(x, w_qkv, b_qkv, w_out, g,
+                                                  num_frames, num_heads)
+    bt, n, d = x.shape
+    _, qkv = _kernels.gemm(x.view(bt * n, d), w_qkv, bias=b_qkv)
+    _, do = _kernels.gemm(g.view(bt * n, d), w_out, kn=True)
+    dqkv, o = _kernels.temporal_attention_bwd(qkv, do, b, num_frames, n,
+                                              with_out=True)
+    _, dx = _kernels.gemm(dqkv, w_qkv, kn=True)
+    fused_temporal_attention_bwd.launches += 1
+    return dx.view(bt, n, d), dqkv, o
+
+
+fused_temporal_attention_bwd.launches = 0
+
+
+class _TemporalBlock(torch.autograd.Function):
+    """``fused_temporal_attention`` with ``fused_temporal_attention_bwd`` as
+    its backward (``_bwd_plain_pallas`` :1094-1105): g is cast to x's dtype
+    before the backward, and the weight cotangents are formed outside it
+    from (g, dqkv, x, o), as ``_attention_weight_cotangents``
+    (``fused_qkv_attention.py:902``) forms them in XLA, for the weights
+    that require grad only. Only the inputs are saved: the backward
+    recomputes the forward."""
+
+    @staticmethod
+    def forward(ctx, x, w_qkv, b_qkv, w_out, b_out, num_frames, num_heads, plain):
+        ctx.meta = (num_frames, num_heads, plain, b_out.dtype)
+        ctx.save_for_backward(x, w_qkv, b_qkv, w_out)
+        fwd = fused_temporal_attention_plain if plain else fused_temporal_attention
+        return fwd(x, w_qkv, b_qkv, w_out, b_out, num_frames, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_qkv, b_qkv, w_out = ctx.saved_tensors
+        num_frames, num_heads, plain, b_out_dtype = ctx.meta
+        bwd = (fused_temporal_attention_bwd_plain if plain
+               else fused_temporal_attention_bwd)
+        dx, dqkv, o = bwd(x, w_qkv, b_qkv, w_out, g.to(x.dtype).contiguous(),
+                          num_frames, num_heads)
+        need = ctx.needs_input_grad
+        d = x.shape[-1]
+        g32 = g.reshape(-1, d).float()
+        dqkv32 = dqkv.float() if need[1] or need[2] else None
+        return (dx,
+                (dqkv32.t() @ x.reshape(-1, d).float()).to(w_qkv.dtype) if need[1] else None,
+                dqkv32.sum(0).to(b_qkv.dtype) if need[2] else None,
+                (g32.t() @ o.float()).to(w_out.dtype) if need[3] else None,
+                g32.sum(0).to(b_out_dtype) if need[4] else None,
+                None, None, None)
+
+
+def fused_temporal_block(x, w_qkv, b_qkv, w_out, b_out, num_frames: int,
+                         num_heads: int) -> torch.Tensor:
+    """``W_o · attn_T(x)`` differentiable through the hand-written backward
+    (the JAX ``fused_temporal_block`` :647). Under ``torch.no_grad`` it is
+    ``fused_temporal_attention``."""
+    return _TemporalBlock.apply(x, w_qkv, b_qkv, w_out, b_out, num_frames,
+                                num_heads, False)
+
+
+def fused_temporal_block_plain(x, w_qkv, b_qkv, w_out, b_out, num_frames: int,
+                               num_heads: int) -> torch.Tensor:
+    """``fused_temporal_block`` with the plain forward and backward on any
+    device: the reference the kernels are held against."""
+    return _TemporalBlock.apply(x, w_qkv, b_qkv, w_out, b_out, num_frames,
+                                num_heads, True)

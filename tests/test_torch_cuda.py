@@ -13,7 +13,9 @@ adapter widths that are not a multiple of the 128-wide GEMM tile, and the
 ViT-L geometry (257 tokens, 16 heads, T=32).
 
 The train ops are checked forward and backward (output, dx and the
-adapter cotangents), with drop-path gates that hold zeros and 1/keep.
+adapter cotangents), with drop-path gates that hold zeros and 1/keep; the
+plain temporal attention block forward and backward (output, dx, dqkv, o,
+and through its autograd op every weight cotangent).
 
 Tolerance. Kernel and plain version round the same intermediates to bf16
 but sum fp32 products in different orders, so single values can land a few
@@ -31,8 +33,10 @@ from adapt_image_models_torch.ops import (
     fused_joint, fused_joint_mlp_rows_bwd, fused_joint_plain,
     fused_joint_train_block, fused_joint_train_block_plain, fused_spatial_step,
     fused_spatial_step_plain, fused_spatial_train_step,
-    fused_spatial_train_step_plain, fused_step_bwd_dx, fused_temporal_step,
-    fused_temporal_step_bwd_dx, fused_temporal_step_plain,
+    fused_spatial_train_step_plain, fused_step_bwd_dx, fused_temporal_attention,
+    fused_temporal_attention_bwd, fused_temporal_attention_bwd_plain,
+    fused_temporal_attention_plain, fused_temporal_block, fused_temporal_block_plain,
+    fused_temporal_step, fused_temporal_step_bwd_dx, fused_temporal_step_plain,
     fused_temporal_train_step, fused_temporal_train_step_plain,
 )
 
@@ -157,3 +161,58 @@ def test_joint_train_kernels_match_plain(cuda):
     x, w, b, ws = _args(cuda, 6, 37, 256, 64, 6, joint=True)
     _train_check(fused_joint_train_block, fused_joint_train_block_plain,
                  fused_joint_mlp_rows_bwd, x, w, b, ws, _gate(cuda, 6 * 37), 0.5)
+
+
+def _held(name, k, p, e):
+    """Kernel result ``k`` and plain result ``p`` against the unrounded ``e``."""
+    k, p, e = k.float(), p.float(), e.float()
+    err_k, err_p = (k - e).abs(), (p - e).abs()
+    assert err_k.max() <= 2 * err_p.max() + 1e-2 * max(1.0, e.abs().max()), (
+        name, err_k.max(), err_p.max())
+    assert err_k.mean() <= 1.25 * err_p.mean() + 1e-5 * max(1.0, e.abs().mean()), (
+        name, err_k.mean(), err_p.mean())
+
+
+@pytest.mark.parametrize("t,heads", [(4, 2), (8, 12), (16, 12), (32, 16)])
+def test_temporal_block_kernels_match_plain(cuda, t, heads):
+    """The plain temporal attention block, forward and backward (dx, dqkv,
+    o), and through its autograd op dx and every weight cotangent."""
+    x, _, _, ws = _args(cuda, 2 * t, 37, 64 * heads, 16 * heads, 8)
+    wts = ws[:4]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(9)).to(x)
+    f32 = [w.float() for w in wts]
+    before = (fused_temporal_attention.launches, fused_temporal_attention_bwd.launches)
+    out = fused_temporal_attention(x, *wts, t, heads)
+    got = fused_temporal_attention_bwd(x, *wts[:3], g, t, heads)
+    torch.cuda.synchronize()
+    assert (fused_temporal_attention.launches,
+            fused_temporal_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    _held("out", out, fused_temporal_attention_plain(x, *wts, t, heads),
+          fused_temporal_attention_plain(x.float(), *f32, t, heads))
+    want = fused_temporal_attention_bwd_plain(x, *wts[:3], g, t, heads)
+    exact = fused_temporal_attention_bwd_plain(x.float(), *f32[:3], g.float(), t, heads)
+    for name, k, p, e in zip(("dx", "dqkv", "o"), got, want, exact):
+        _held(name, k, p, e)
+
+    def grads(fn, dtype):
+        leaves = [a.detach().to(dtype).clone().requires_grad_() for a in (x, *wts)]
+        fn(*leaves, t, heads).backward(g.to(dtype))
+        return [a.grad for a in leaves]
+
+    for name, k, p, e in zip(("dx", "dWqkv", "dbqkv", "dWout", "dbout"),
+                             grads(fused_temporal_block, torch.bfloat16),
+                             grads(fused_temporal_block_plain, torch.bfloat16),
+                             grads(fused_temporal_block_plain, torch.float32)):
+        _held(name, k, p, e)
+
+
+def test_temporal_block_refuses_what_it_does_not_take(cuda):
+    x, _, _, ws = _args(cuda, 4, 37, 128, 32, 10)
+    with pytest.raises(ValueError):  # fp32 input
+        fused_temporal_attention(x.float(), *ws[:4], 2, 2)
+    with pytest.raises(ValueError):  # an fp32 weight
+        fused_temporal_attention(x, ws[0].float(), *ws[1:4], 2, 2)
+    with pytest.raises(NotImplementedError):  # T > 32
+        fused_temporal_attention(x.repeat(16, 1, 1), *ws[:4], 64, 2)
+    with pytest.raises(ValueError):  # a cotangent unlike x
+        fused_temporal_attention_bwd(x, *ws[:3], x.float(), 2, 2)

@@ -167,7 +167,7 @@ def test_load_checkpoint_is_strict(jax_params, tmp_path):
 
 @pytest.mark.parametrize("override,exc", [
     (dict(wind_attn=True), NotImplementedError),
-    (dict(num_tadapter=2), NotImplementedError),
+    (dict(num_tadapter=3), ValueError),
     (dict(joint_core="tiles"), ValueError),
     (dict(attention_core="flash"), NotImplementedError),
     (dict(heads=3), ValueError),

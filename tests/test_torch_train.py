@@ -211,7 +211,7 @@ def test_train_mode_draws_from_the_generator(core):
     paths draw the same gates."""
     torch.manual_seed(0)
     model = init_recognizer(dict(model=_model_cfg(core, drop_path=0.5, dropout=0.5)),
-                            seed=2).train()
+                            device="cpu", seed=2).train()
     freeze_params(model)
     x = torch.randn(2, 3, T, RES, RES)
     with torch.no_grad():
@@ -278,7 +278,7 @@ def test_train_model_end_to_end(tmp_path, ann):
     evaluation and save_best; frozen weights stay put; the checkpoint loads
     through init_recognizer; auto_resume continues the step count."""
     cfg = _tiny_train_cfg(tmp_path, ann)
-    init = init_recognizer(cfg, seed=0)
+    init = init_recognizer(cfg, device="cpu", seed=0)
     state, history = train_model(cfg, seed=0, device="cpu")
     # 8 videos in micro-batches of 2 / update_interval 2 = 1, 2 epochs
     assert state.step == 16 and state.optimizer.updates == 8
@@ -291,7 +291,7 @@ def test_train_model_end_to_end(tmp_path, ann):
     assert mgr.latest_epoch() == 2
     assert sorted(os.listdir(cfg["work_dir"])) == [
         "checkpoints.json", "ckpt_2.pth", "ckpt_best.pth"]  # max_keep 1
-    loaded = init_recognizer(cfg, checkpoint=mgr.path(2))
+    loaded = init_recognizer(cfg, checkpoint=mgr.path(2), device="cpu")
     for k, v in loaded.state_dict().items():
         assert torch.equal(v, after[k]), k
 
@@ -305,7 +305,7 @@ def test_train_model_end_to_end(tmp_path, ann):
 def test_checkpoint_round_trip(tmp_path):
     """save / restore of model, optimizer and step; max_keep pruning spares
     the best."""
-    model = init_recognizer(dict(model=_model_cfg("xla")), seed=0)
+    model = init_recognizer(dict(model=_model_cfg("xla")), device="cpu", seed=0)
     freeze_params(model)
     opt = build_optimizer(OPT, model, 1e-2)
     state = TrainState(model, opt, step=0)
@@ -323,7 +323,7 @@ def test_checkpoint_round_trip(tmp_path):
     mgr.save(state, 4)
     assert not os.path.exists(mgr.path(2)) and os.path.exists(mgr.path(1))  # best kept
 
-    fresh = init_recognizer(dict(model=_model_cfg("xla")), seed=5)
+    fresh = init_recognizer(dict(model=_model_cfg("xla")), device="cpu", seed=5)
     freeze_params(fresh)
     fstate = TrainState(fresh, build_optimizer(OPT, fresh, 1e-2))
     fstate, epoch = mgr.restore(fstate)
