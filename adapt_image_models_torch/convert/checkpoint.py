@@ -10,9 +10,11 @@ OIHW, and renames LayerNorm ``scale`` -> ``weight``. It is the inverse of
 
 ``load_checkpoint`` loads a released AIM ``.pth`` (mmcv ``{'state_dict':
 ...}`` or a bare state dict) with ``strict=True`` after removing the keys
-the model has no place for (CLIP's output projection ``proj``).
-The flash-attn key aliases of the AIM_FLASH checkpoints are not handled yet
-(ROADMAP queue 1 item 3).
+the model has no place for (CLIP's output projection ``proj``). A
+checkpoint in flash-attn's layout (the AIM_FLASH family: ``attn.Wqkv``,
+``mlp.fc1``/``fc2``) has those keys renamed to CLIP's first, as
+``adapt_image_models_tpu/convert/aim_import.py::_normalize_flash_keys``
+(:30-51) renames them; unlike it, only when the checkpoint has that layout.
 """
 
 from __future__ import annotations
@@ -24,6 +26,16 @@ import torch
 
 _ROOTS = {"backbone_module": "backbone", "head_module": "cls_head"}
 DROPPED_KEYS = ("backbone.proj",)
+
+# flash-attn's FlashMHA (``Wqkv``, ``out_proj``) and FlashMlp (``fc1``,
+# ``fc2``) against CLIP's names; both pack qkv as [q; k; v] rows, so the
+# rename is an exact alias
+FLASH_KEY_ALIASES = (
+    (".attn.Wqkv.weight", ".attn.in_proj_weight"),
+    (".attn.Wqkv.bias", ".attn.in_proj_bias"),
+    (".mlp.fc1.", ".mlp.c_fc."),
+    (".mlp.fc2.", ".mlp.c_proj."),
+)
 
 
 def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
@@ -76,5 +88,14 @@ def load_checkpoint(model: torch.nn.Module,
         checkpoint = torch.load(checkpoint, map_location="cpu", weights_only=True)
     sd = checkpoint.get("state_dict", checkpoint)
     sd = {k: v for k, v in sd.items() if k not in DROPPED_KEYS}
+    if any(old in k for k in sd for old, _ in FLASH_KEY_ALIASES):
+        sd = {_unflash(k): v for k, v in sd.items()}
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def _unflash(key: str) -> str:
+    for old, new in FLASH_KEY_ALIASES:
+        if old in key:
+            return key.replace(old, new)
+    return key

@@ -254,14 +254,19 @@ temporal_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, 
 // past L. The second takes 64 keys per block and reduces dV and dK over
 // the query axis from that scratch. Both are bound by the tensor cores and
 // shared memory at N=197; the scratch round trip (2 x bf16 (QP, KP) per
-// frame and head) is the price of not needing atomics.
+// frame and head) is the price of not needing atomics. Given ``out``, the
+// first kernel also writes the core's output from the normalised P,
+// bf16(bf16(P) V), as the plain block's TPU backward (_kernel_plain_bwd
+// :947) emits it for the out-projection's weight cotangent: each warp
+// multiplies its 16 rows of bf16 P, just written to the scratch, by the
+// staged V.
 constexpr int BKEY = 64;  // key rows per block of the second kernel
 
 __global__ void __launch_bounds__(128)
 spatial_attention_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                                bf16* __restrict__ dqkv, bf16* __restrict__ P,
-                               bf16* __restrict__ dS, int L, int D, int NP, int KP,
-                               float scale) {
+                               bf16* __restrict__ dS, bf16* __restrict__ out, int L, int D,
+                               int NP, int KP, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int q0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
@@ -361,7 +366,33 @@ spatial_attention_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restr
     for (int c = lane; c < KP; c += 32)
       prow[c] = __float2bfloat16(c < NP ? sSw[r * LDS + c] : 0.f);
   }
-  __syncwarp();
+  __syncwarp();  // also orders the warp's P stores before the loads below
+
+  if (out != nullptr) {  // O = bf16(P) V for the warp's 16 rows
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo[HD / 16];
+#pragma unroll
+    for (int jj = 0; jj < HD / 16; ++jj) wmma::fill_fragment(fo[jj], 0.f);
+    for (int kk = 0; kk < NP / 16; ++kk) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
+      wmma::load_matrix_sync(fp, P + mat + (size_t)rw * KP + kk * 16, KP);
+#pragma unroll
+      for (int jj = 0; jj < HD / 16; ++jj) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
+        wmma::load_matrix_sync(fv, sV + kk * 16 * LDQ + jj * 16, LDQ);
+        wmma::mma_sync(fo[jj], fp, fv, fo[jj]);
+      }
+    }
+    for (int jj = 0; jj < HD / 16; ++jj) {
+      wmma::store_matrix_sync(sTw, fo[jj], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int r = e >> 4, c = e & 15;
+        if (rw + r < L)
+          out[((size_t)f * L + rw + r) * D + h * HD + jj * 16 + c] = __float2bfloat16(sTw[e]);
+      }
+      __syncwarp();
+    }
+  }
 
   wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fdo[HD / 16];
 #pragma unroll
@@ -738,8 +769,9 @@ extern "C" int aim_temporal_attention_bf16(const void* qkv, void* out, int clips
 }
 
 extern "C" int aim_spatial_attention_bwd_bf16(const void* qkv, const void* dout, void* dqkv,
-                                              void* p_scratch, void* ds_scratch, int frames,
-                                              int L, int D, float scale, void* stream) {
+                                              void* p_scratch, void* ds_scratch, void* out,
+                                              int frames, int L, int D, float scale,
+                                              void* stream) {
   const int np = (L + 15) / 16 * 16;
   const int qp = (L + BQ - 1) / BQ * BQ;  // the scratch is (qp, qp) per frame and head
   if (D % HD || L <= 0 || np > MAX_NP) return (int)cudaErrorInvalidValue;
@@ -751,8 +783,8 @@ extern "C" int aim_spatial_attention_bwd_bf16(const void* qkv, const void* dout,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_q(qp / BQ, D / HD, frames);
   spatial_attention_bwd_q_kernel<<<grid_q, 128, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const bf16*)dout, (bf16*)dqkv, (bf16*)p_scratch, (bf16*)ds_scratch, L,
-      D, np, qp, scale);
+      (const bf16*)qkv, (const bf16*)dout, (bf16*)dqkv, (bf16*)p_scratch, (bf16*)ds_scratch,
+      (bf16*)out, L, D, np, qp, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const dim3 grid_kv(qp / BKEY, D / HD, frames);

@@ -146,35 +146,21 @@ class AIMTransformer(nn.Module):
         return x
 
 
-@BACKBONES.register_module()
-class AIM(nn.Module):
-    """CLIP ViT image encoder with AIM adapters.
+class VideoViT(nn.Module):
+    """The CLIP ViT image encoder around a depth stack ``transformer``:
+    patch embedding, class and positional embeddings, the per-frame
+    temporal embedding and ``ln_pre``, then ``transformer(x, generator)``
+    over the (B·T, N, D) residual stream and ``ln_post`` of each frame's
+    class token.
 
     Input  : (B, C, T, H, W) float, NCTHW.
     Output : (B, T, D) per-frame class-token features.
     """
 
-    def __init__(self, input_resolution: int = 224, num_frames: int = 8,
-                 patch_size: int = 16, width: int = 768, layers: int = 12,
-                 heads: int = 12, drop_path_rate: float = 0.2,
-                 num_tadapter: int = 1, adapter_scale: float = 0.5,
-                 use_checkpoint: bool = False, compute_dtype=torch.float32,
-                 attention_core: str = "xla", joint_core: str = "sample",
-                 wind_attn: bool = False, window_size=(32, 2, 2),
-                 not_shift: bool = True, prompt: bool = True,
-                 pretrained=None, device=None):
+    def __init__(self, transformer: nn.Module, input_resolution: int,
+                 num_frames: int, patch_size: int, width: int,
+                 compute_dtype=torch.float32, device=None):
         super().__init__()
-        if wind_attn:
-            raise NotImplementedError("AIM window path (wind_attn=True) is not "
-                                      "ported yet (ROADMAP queue 1 item 9)")
-        if num_tadapter not in (1, 2):
-            raise ValueError(f"num_tadapter must be 1 or 2, got {num_tadapter}")
-        if joint_core not in ("sample", "rows", "xla"):
-            raise ValueError(f"unknown joint_core={joint_core!r}")
-        # use_checkpoint (see the module docstring), window_size, not_shift
-        # and prompt (the window path) are accepted so that one config builds
-        # either package. CLIP weights come through convert.load_checkpoint,
-        # not ``pretrained``.
         self.num_frames = num_frames
         self.patch_size = patch_size
         self.width = width
@@ -187,11 +173,7 @@ class AIM(nn.Module):
         self.positional_embedding = nn.Parameter(torch.zeros(n_tokens, d, device=device))
         self.temporal_embedding = nn.Parameter(torch.zeros(1, num_frames, d, device=device))
         self.ln_pre = LayerNormFP32(d, device=device)
-        self.transformer = AIMTransformer(
-            layers, d, heads, drop_path_rate=drop_path_rate,
-            num_frames=num_frames, adapter_scale=adapter_scale,
-            num_tadapter=num_tadapter, compute_dtype=self.compute_dtype, attention_core=attention_core,
-            joint_core=joint_core, device=device)
+        self.transformer = transformer
         self.ln_post = LayerNormFP32(d, device=device)
 
     @torch.no_grad()
@@ -228,6 +210,39 @@ class AIM(nn.Module):
         xt = self.transformer(xt, generator)
         xt = self.ln_post(xt)
         return xt[:, 0].reshape(b, t, d)
+
+
+@BACKBONES.register_module()
+class AIM(VideoViT):
+    """CLIP ViT image encoder with AIM adapters (see ``VideoViT``)."""
+
+    def __init__(self, input_resolution: int = 224, num_frames: int = 8,
+                 patch_size: int = 16, width: int = 768, layers: int = 12,
+                 heads: int = 12, drop_path_rate: float = 0.2,
+                 num_tadapter: int = 1, adapter_scale: float = 0.5,
+                 use_checkpoint: bool = False, compute_dtype=torch.float32,
+                 attention_core: str = "xla", joint_core: str = "sample",
+                 wind_attn: bool = False, window_size=(32, 2, 2),
+                 not_shift: bool = True, prompt: bool = True,
+                 pretrained=None, device=None):
+        if wind_attn:
+            raise NotImplementedError("AIM window path (wind_attn=True) is not "
+                                      "ported yet (ROADMAP queue 1 item 9)")
+        if num_tadapter not in (1, 2):
+            raise ValueError(f"num_tadapter must be 1 or 2, got {num_tadapter}")
+        if joint_core not in ("sample", "rows", "xla"):
+            raise ValueError(f"unknown joint_core={joint_core!r}")
+        # use_checkpoint (see the module docstring), window_size, not_shift
+        # and prompt (the window path) are accepted so that one config builds
+        # either package. CLIP weights come through convert.load_checkpoint,
+        # not ``pretrained``.
+        transformer = AIMTransformer(
+            layers, width, heads, drop_path_rate=drop_path_rate,
+            num_frames=num_frames, adapter_scale=adapter_scale,
+            num_tadapter=num_tadapter, compute_dtype=resolve_dtype(compute_dtype),
+            attention_core=attention_core, joint_core=joint_core, device=device)
+        super().__init__(transformer, input_resolution, num_frames, patch_size,
+                         width, compute_dtype, device)
 
 
 def vit_b16_config(**overrides):

@@ -12,11 +12,14 @@ LayerNorm and softmax in fp32.
 to the fused ops (``adapt_image_models_torch/ops``), which run hand-written
 CUDA kernels on CUDA tensors: the eval ops in eval mode, the train ops
 (autograd ops with hand-written backwards) in train mode; and the plain
-temporal attention of the ``num_tadapter=2`` branch to the autograd op
-``fused_temporal_block`` in both modes.
-``attention_core="xla"`` keeps the JAX package's name so configs are
-shared; in the port it means plain PyTorch framework ops, differentiated by
-autograd.
+attention block (no LN, no adapter) to the autograd ops
+``fused_temporal_block`` (over frames) and ``fused_attention_block`` (over
+tokens) in both modes. An attention mask takes the framework-op path under
+either core, as in the JAX package: the (shifted-)window attention of the
+flash variants. ``attention_core="xla"`` keeps the JAX package's name so
+configs are shared; in the port it means plain PyTorch framework ops,
+differentiated by autograd (the masked core by a backward that recomputes
+its probabilities).
 
 Random draws (drop path, dropout) take an explicit ``torch.Generator``.
 """
@@ -29,8 +32,8 @@ import torch
 from torch import nn
 
 from adapt_image_models_torch.ops import (
-    fused_spatial_step, fused_spatial_train_step, fused_temporal_block,
-    fused_temporal_step, fused_temporal_train_step,
+    fused_attention_block, fused_spatial_step, fused_spatial_train_step,
+    fused_temporal_block, fused_temporal_step, fused_temporal_train_step,
 )
 from adapt_image_models_torch.ops._common import (
     exact_gelu, layer_norm_fp32, quick_gelu,
@@ -172,6 +175,52 @@ class CLIPMLP(nn.Module):
         return _linear_weights(self.c_fc, self.c_proj, dtype=dtype)
 
 
+def _masked_probs(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """fp32 softmax(q k^T / sqrt(hd) + mask) over (B', H, L, hd) q and k;
+    ``mask`` is 0-d or (M, 1, L, L), M dividing B', repeated over the B'/M
+    groups of rows as the JAX package tiles it."""
+    s = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
+    m = mask.shape[0] if mask.dim() == 4 else 1
+    s = (s.view(-1, m, *s.shape[1:]) + mask.float()).view(s.shape)
+    return torch.softmax(s, -1)
+
+
+class _MaskedAttention(torch.autograd.Function):
+    """The XLA core with an additive mask (``xla_attention_core``,
+    ``layers.py:185-199``): fp32 logits plus the mask, fp32 softmax, the
+    probabilities rounded to q's dtype, PV summed in fp32 and rounded. The
+    backward recomputes P from (q, k, mask) rather than keeping the (B', H,
+    L, L) fp32 probabilities: a 784-token window layer of one 32-frame clip
+    would keep ~0.5 GB. Its casts are those of JAX's autodiff of the same
+    ops: dP rounded like P, dS in fp32, dq/dk/dv summed in fp32 and
+    rounded."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        ctx.save_for_backward(q, k, v, mask)
+        pb = _masked_probs(q, k, mask).to(q.dtype)
+        return (pb.float() @ v.float()).to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, mask = ctx.saved_tensors
+        dt = q.dtype
+        p = _masked_probs(q, k, mask)
+        do = dout.float()
+        dv = (p.to(dt).float().transpose(-1, -2) @ do).to(dt)
+        dp = (do @ v.float().transpose(-1, -2)).to(dt).float()
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * q.shape[-1] ** -0.5
+        return (ds @ k.float()).to(dt), (ds.transpose(-1, -2) @ q.float()).to(dt), dv, None
+
+
+def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     mask: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(hd) + mask) v over (B', H, L, hd) q, k, v, with
+    the XLA core's casts; ``mask`` as in ``_masked_probs`` (a 0-d zero for
+    an unshifted window layer, whose JAX mask is all zeros)."""
+    return _MaskedAttention.apply(q, k, v, mask)
+
+
 class CLIPAttention(nn.Module):
     """Multi-head self-attention with CLIP's packed in-projection
     (``in_proj_weight`` rows ordered [q; k; v]) and an ``out_proj``.
@@ -181,8 +230,10 @@ class CLIPAttention(nn.Module):
     without materialising the (B·N, T, D) relayout. With
     ``attention_core="fused"`` and ``ln``, ``adapter`` and ``residual``
     given, the whole adaptation step ``x + adapter(attn(ln(x)))`` runs as
-    one fused op; with ``temporal_frames`` alone, the temporal attention
-    runs as ``fused_temporal_block`` (``layers.py:368-389``).
+    one fused op; with none of them, the plain block runs as
+    ``fused_attention_block`` or, with ``temporal_frames``,
+    ``fused_temporal_block`` (``layers.py:344-389``). ``mask`` (additive,
+    see ``masked_attention``) takes the framework ops under either core.
     """
 
     def __init__(self, d_model: int, num_heads: int, compute_dtype=torch.float32,
@@ -215,24 +266,25 @@ class CLIPAttention(nn.Module):
                 ln: Optional[LayerNormFP32] = None,
                 residual: bool = False,
                 gate: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if kv is not None or mask is not None or need_weights:
+        if kv is not None or need_weights:
             raise NotImplementedError(
-                "cross-attention, attention masks and attention weights serve "
-                "the window path and the ViT_CLIP variants, not ported yet "
-                "(ROADMAP queue 1 item 9)")
+                "cross-attention (kv=) and attention weights (need_weights=) "
+                "serve the ViT_CLIP variants, the next slice (ROADMAP queue 1 "
+                "item 9)")
         cdt = self.compute_dtype
-        if self.attention_core == "fused":
-            plain = ln is None and adapter is None and not residual
-            if plain and temporal_frames is not None and gate is None:
-                return fused_temporal_block(
-                    x.to(cdt), self.in_proj_weight.to(cdt),
-                    self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
-                    self.out_proj.bias.to(cdt), temporal_frames, self.num_heads)
+        if self.attention_core == "fused" and mask is None:
+            if ln is None and adapter is None and not residual and gate is None:
+                args = (x.to(cdt), self.in_proj_weight.to(cdt),
+                        self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
+                        self.out_proj.bias.to(cdt))
+                if temporal_frames is None:
+                    return fused_attention_block(*args, self.num_heads)
+                return fused_temporal_block(*args, temporal_frames, self.num_heads)
             if ln is None or adapter is None or not residual:
                 raise NotImplementedError(
-                    "fused attention without LN + adapter + residual is ported "
-                    "for the ungated temporal block only (ROADMAP queue 2 "
-                    "items 7, 10 and 11)")
+                    "fused attention with LN and no adapter (PERF.md rows 5/15, "
+                    "ROADMAP queue 2 item 10), with an adapter and no LN (rows "
+                    "6/16, item 11), or a gated plain block is not ported yet")
             args = (x.to(cdt), ln.weight, ln.bias, self.in_proj_weight.to(cdt),
                     self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
                     self.out_proj.bias.to(cdt), *adapter.weights(cdt))
@@ -248,6 +300,8 @@ class CLIPAttention(nn.Module):
                                           adapter.skip_connect)
             return fused_temporal_step(*args, temporal_frames, self.num_heads,
                                        adapter.skip_connect)
+        # framework ops: the "xla" core, and a mask under either core, as the
+        # JAX package takes its XLA path for a mask (layers.py:309, 427)
         if adapter is not None or residual or gate is not None:
             raise ValueError("adapter/residual fusion requires attention_core='fused'")
         if ln is not None:
@@ -262,15 +316,19 @@ class CLIPAttention(nn.Module):
         q = xq @ wq.t() + bq
         k = xq @ wk.t() + bk
         v = xq @ wv.t() + bv
-        scale = hd ** -0.5
         if temporal_frames is not None:
+            if mask is not None:
+                raise ValueError("temporal_frames supports plain self-attention")
             t = temporal_frames
             shape = (b // t, t, l, h, hd)
             qh, kh, vh = (u.reshape(shape).permute(0, 2, 3, 1, 4) for u in (q, k, v))
         else:
             qh, kh, vh = (u.reshape(b, l, h, hd).transpose(1, 2) for u in (q, k, v))
-        probs = torch.softmax((qh.float() @ kh.float().transpose(-1, -2)) * scale, -1)
-        out = (probs.to(cdt).float() @ vh.float()).to(cdt)
+        if mask is not None:
+            out = masked_attention(qh, kh, vh, mask)
+        else:
+            probs = torch.softmax((qh.float() @ kh.float().transpose(-1, -2)) * hd ** -0.5, -1)
+            out = (probs.to(cdt).float() @ vh.float()).to(cdt)
         if temporal_frames is not None:
             out = out.permute(0, 3, 1, 2, 4)  # (B, T, L, H, hd)
         else:

@@ -8,8 +8,11 @@ from adapt_image_models_torch.ops.fused_joint_mlp import (  # noqa: F401
     fused_joint_train_block_plain,
 )
 from adapt_image_models_torch.ops.fused_qkv_attention import (  # noqa: F401
-    fused_spatial_step, fused_spatial_step_plain, fused_spatial_train_step,
-    fused_spatial_train_step_plain, fused_step_bwd_dx, fused_step_bwd_dx_plain,
+    fused_attention_block, fused_attention_block_plain, fused_qkv_attention,
+    fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain,
+    fused_qkv_attention_plain, fused_spatial_step, fused_spatial_step_plain,
+    fused_spatial_train_step, fused_spatial_train_step_plain, fused_step_bwd_dx,
+    fused_step_bwd_dx_plain,
 )
 from adapt_image_models_torch.ops.fused_temporal_attention import (  # noqa: F401
     fused_temporal_attention, fused_temporal_attention_bwd,
@@ -46,6 +49,9 @@ KERNEL_OPS = {
         fused_temporal_attention, _TPU + "fused_temporal_attention.py:487"),
     "fused_temporal_attention_bwd": (
         fused_temporal_attention_bwd, _TPU + "fused_temporal_attention.py:1052"),
+    "fused_qkv_attention": (fused_qkv_attention, _TPU + "fused_qkv_attention.py:426"),
+    "fused_qkv_attention_bwd": (
+        fused_qkv_attention_bwd, _TPU + "fused_qkv_attention.py:961"),
 }
 
 # the ops an AIM eval forward and train step launch, by num_tadapter: 1 runs
@@ -61,6 +67,15 @@ TRAIN_OPS = {
         "fused_spatial_train_step", "fused_step_bwd_dx",
         "fused_joint_train_block", "fused_joint_mlp_rows_bwd"),
 }
+
+
+# the ops an AIM_FLASH / AIM_FLASH_WIN eval forward and train step launch:
+# the plain temporal block on the cls token and the plain spatial block on
+# the tokens with the prompt; the window attention, adapters and MLP are
+# framework ops, as in the JAX package
+FLASH_EVAL_OPS = ("fused_temporal_attention", "fused_qkv_attention")
+FLASH_TRAIN_OPS = FLASH_EVAL_OPS + ("fused_temporal_attention_bwd",
+                                    "fused_qkv_attention_bwd")
 
 
 def reset_launch_counts() -> None:

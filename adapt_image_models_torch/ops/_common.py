@@ -1,7 +1,7 @@
 """Plain PyTorch numerics shared by the fused ops and the model layers, the
 CUDA kernel chains of the two attention steps (forward and backward), the
-autograd rule shared by the three train ops, and the argument checks of
-the op wrappers.
+autograd rules shared by the three train ops and by the two plain
+attention blocks, and the argument checks of the op wrappers.
 
 The plain versions follow the casts of the TPU kernels, not those of the
 JAX XLA path: products take their operands in the working dtype and sum in
@@ -311,6 +311,40 @@ class AdapterStep(torch.autograd.Function):
         grads = (adapter_weight_grads(u, dpre, a, db, w1, b1, w2, b2)
                  if any(ctx.needs_input_grad[4:8]) else (None,) * 4)
         return (None, None, dx, None, *grads) + (None,) * len(frozen)
+
+
+class AttentionBlock(torch.autograd.Function):
+    """The plain attention block ``W_o·attn(x) + b_o`` (spatial or temporal)
+    with a hand-written backward: ``forward(fwd, bwd, x, w_qkv, b_qkv,
+    w_out, b_out)`` runs ``fwd(x, w_qkv, b_qkv, w_out, b_out)``, and
+    ``bwd(x, w_qkv, b_qkv, w_out, g)`` returns (dx, dqkv, o) for the output
+    cotangent g, cast to x's dtype first as the JAX package's
+    ``_bwd_pallas`` / ``_bwd_plain_pallas`` do. The weight cotangents are
+    formed outside the backward from (g, dqkv, x, o), as
+    ``_attention_weight_cotangents`` (``fused_qkv_attention.py:902``) forms
+    them in XLA (y == x for the plain block), only for the weights that
+    require grad. Only the inputs are saved: the backward recomputes the
+    forward."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, x, w_qkv, b_qkv, w_out, b_out):
+        ctx.bwd, ctx.b_out_dtype = bwd, b_out.dtype
+        ctx.save_for_backward(x, w_qkv, b_qkv, w_out)
+        return fwd(x, w_qkv, b_qkv, w_out, b_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_qkv, b_qkv, w_out = ctx.saved_tensors
+        dx, dqkv, o = ctx.bwd(x, w_qkv, b_qkv, w_out, g.to(x.dtype).contiguous())
+        need = ctx.needs_input_grad[3:]  # w_qkv, b_qkv, w_out, b_out
+        d = x.shape[-1]
+        g32 = g.reshape(-1, d).float()
+        dqkv32 = dqkv.float() if need[0] or need[1] else None
+        return (None, None, dx,
+                (dqkv32.t() @ x.reshape(-1, d).float()).to(w_qkv.dtype) if need[0] else None,
+                dqkv32.sum(0).to(b_qkv.dtype) if need[1] else None,
+                (g32.t() @ o.float()).to(w_out.dtype) if need[2] else None,
+                g32.sum(0).to(ctx.b_out_dtype) if need[3] else None)
 
 
 def check_frozen(name: str, tensors) -> None:

@@ -39,7 +39,7 @@ _SIGNATURES = {
     "aim_gemm_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F,
                       _I, _I, _I, _P, _P, _P],
     "aim_spatial_attention_bf16": [_P, _P, _I, _I, _I, _F, _I, _P],
-    "aim_spatial_attention_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "aim_spatial_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
@@ -201,20 +201,23 @@ def spatial_attention(qkv: torch.Tensor, frames: int, length: int,
 
 
 def spatial_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, frames: int,
-                          length: int) -> torch.Tensor:
+                          length: int, with_out: bool = False):
     """Cotangent ``dout`` (frames*length, D) of the spatial core's output ->
-    packed dqkv (frames*length, 3D), all bf16."""
+    packed dqkv (frames*length, 3D), all bf16. With ``with_out`` also the
+    core's output recomputed from the fp32-normalised P, ``bf16(bf16(P)
+    V)`` (frames*length, D): returns (dqkv, out)."""
     d = qkv.shape[1] // 3
     qp = -(-length // 64) * 64
     dqkv = torch.empty_like(qkv)
+    out = torch.empty_like(dout) if with_out else None
     # bf16 P and dS of every (frame, head), (qp, qp) each, zero past length
     p = torch.empty((frames, d // 64, qp, qp), dtype=qkv.dtype, device=qkv.device)
     ds = torch.empty_like(p)
     _check(library().aim_spatial_attention_bwd_bf16(
         qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), p.data_ptr(),
-        ds.data_ptr(), frames, length, d, 64 ** -0.5, _stream()),
+        ds.data_ptr(), _ptr(out), frames, length, d, 64 ** -0.5, _stream()),
         "aim_spatial_attention_bwd_bf16")
-    return dqkv
+    return (dqkv, out) if with_out else dqkv
 
 
 def temporal_attention(qkv: torch.Tensor, clips: int, frames: int,

@@ -26,6 +26,25 @@ cotangents are formed from them as the JAX package forms them outside its
 kernel (:1520-1526). The gated spatial forward (:1557) is not on that path
 and is not ported: a gate raises.
 
+The plain spatial attention block ``W_o · attn(x)`` (no LN, no adapter:
+the flash variants' prompt-token attention, ``layers.py:367``) replaces
+``fused_qkv_attention`` (:426, body ``_attention_body`` :210-346) in its
+forward, ``fused_qkv_attention``, and ``fused_qkv_attention_bwd`` (:961,
+``_kernel_plain_bwd`` :947 through ``_bwd_ln_attention_body(with_ln=
+False)`` :745-832) in its backward, joined by the autograd op
+``fused_attention_block`` (:583, ``_bwd_dispatch`` :1006). The TPU kernel
+holds a frame's tokens and both weights in VMEM; here the forward is the
+step's chain without its LN and adapter: the QKV GEMM (fp32 bias add, q/k/v
+rounded), the spatial core (fp32 softmax, bf16 P, PV divided by the fp32
+denominator) and the out-projection GEMM (summed and biased in fp32, then
+rounded). The backward recomputes QKV, forms dO = g·W_o through the (K, N)
+GEMM, runs the spatial core backward, which also writes o from the
+normalised P, and dx = dqkv·W_qkv. Both are bound by the tensor cores (the
+two or three projections and the core's products); the chain writes the
+(rows, 3D) QKV and the core output to device memory between kernels. The
+core holds a frame's keys in shared memory, so L <= 288 (``csrc/
+attention.cu`` MAX_NP): the prompt token makes ViT-B/16's sequence 198.
+
 The wrappers take the plain version for CPU tensors (the tests) and launch
 the kernels for CUDA tensors; they never fall back.
 """
@@ -36,9 +55,10 @@ import torch
 
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._common import (
-    AdapterStep, attention_step_bwd_cuda, attention_step_bwd_plain,
-    attention_step_cuda, attention_step_plain, check_frozen, check_step_args,
-    spatial_core_bwd_plain, spatial_core_plain,
+    AdapterStep, AttentionBlock, attention_step_bwd_cuda,
+    attention_step_bwd_plain, attention_step_cuda, attention_step_plain,
+    check_frozen, check_step_args, mm32, mm32_kn, spatial_core_bwd_plain,
+    spatial_core_plain,
 )
 
 
@@ -172,3 +192,117 @@ def fused_spatial_train_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     any device: the reference the kernels are held against."""
     return _train_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2,
                        b2, gate, num_heads, skip, plain=True)
+
+
+# ---------------------------------------------------------------------------
+# The plain spatial attention block: ``W_o · attn(x)`` over each row's
+# tokens, no LayerNorm and no adapter inside.
+
+
+MAX_TOKENS = 288  # the keys a block of the spatial core holds (csrc/attention.cu)
+
+
+def _check_block(name, x, w_qkv, b_qkv, w_out, num_heads, vectors=(),
+                 kernel: bool = True) -> None:
+    d = x.shape[-1]
+    check_step_args(name, x, (), ((w_qkv, (3 * d, d)), (w_out, (d, d))),
+                    ((b_qkv, 3 * d), *vectors), num_heads, kernel)
+    if kernel and x.device.type == "cuda" and x.shape[1] > MAX_TOKENS:
+        raise NotImplementedError(
+            f"{name}: L={x.shape[1]} > {MAX_TOKENS} needs a spatial core that "
+            "streams over keys, not ported yet (ROADMAP queue 1 item 9)")
+
+
+def fused_qkv_attention_plain(x, w_qkv, b_qkv, w_out, b_out,
+                              num_heads: int) -> torch.Tensor:
+    """Plain version with the TPU kernel's casts (``_attention_body``
+    :210-346): q, k, v rounded after an fp32 bias add, bf16(P) V divided by
+    the fp32 softmax denominator and rounded, the out-projection summed and
+    biased in fp32, then rounded. (The kernel folds the power-of-two scale
+    1/8 into q, which changes no value.)"""
+    b, n, d = x.shape
+    dt = x.dtype
+    qkv = (mm32(x.reshape(b * n, d), w_qkv) + b_qkv.float()).to(dt)
+    o = spatial_core_plain(qkv, b, n, num_heads)
+    return (mm32(o, w_out) + b_out.float()).to(dt).reshape(b, n, d)
+
+
+def fused_qkv_attention(x, w_qkv, b_qkv, w_out, b_out,
+                        num_heads: int) -> torch.Tensor:
+    """``W_o · attn(x)`` over x (B, L, D), attention within each row. CPU
+    tensors take the plain version; CUDA tensors (bf16, head dim 64, L <=
+    288) launch the kernels: the QKV GEMM (+bias, bf16 out), the spatial
+    core and the out-proj GEMM (+bias, bf16 out)."""
+    _check_block("fused_qkv_attention", x, w_qkv, b_qkv, w_out, num_heads,
+                 ((b_out, x.shape[-1]),))
+    if x.device.type == "cpu":
+        return fused_qkv_attention_plain(x, w_qkv, b_qkv, w_out, b_out, num_heads)
+    b, n, d = x.shape
+    _, qkv = _kernels.gemm(x.view(b * n, d), w_qkv, bias=b_qkv)
+    _, y = _kernels.gemm(_kernels.spatial_attention(qkv, b, n), w_out,
+                         bias=b_out)
+    fused_qkv_attention.launches += 1
+    return y.view(b, n, d)
+
+
+fused_qkv_attention.launches = 0
+
+
+def fused_qkv_attention_bwd_plain(x, w_qkv, b_qkv, w_out, g, num_heads: int):
+    """Plain version of the backward with the TPU kernel's casts
+    (``_bwd_ln_attention_body(with_ln=False)`` :745-832): the forward
+    recomputed, dO = g·W_o rounded, the core backward of
+    ``attention_core_bwd_plain``, dx = dqkv·W_qkv rounded. Returns (dx,
+    dqkv, o), o the core's output from the fp32-normalised P."""
+    b, n, d = x.shape
+    dt = x.dtype
+    qkv = (mm32(x.reshape(b * n, d), w_qkv) + b_qkv.float()).to(dt)
+    do = mm32_kn(g.reshape(b * n, d), w_out).to(dt)
+    dqkv = spatial_core_bwd_plain(qkv, do, b, n, num_heads)
+    o = spatial_core_plain(qkv, b, n, num_heads, prenorm=True)
+    dx = mm32_kn(dqkv, w_qkv).to(dt)
+    return dx.reshape(b, n, d), dqkv, o
+
+
+def fused_qkv_attention_bwd(x, w_qkv, b_qkv, w_out, g, num_heads: int):
+    """Backward of ``fused_qkv_attention`` for the output cotangent g (like
+    x): (dx (B, L, D), dqkv (rows, 3D), o (rows, D)). CPU tensors take the
+    plain version; CUDA tensors launch the kernels: the QKV GEMM, the (K, N)
+    GEMM of g through W_o, the spatial core backward (which also writes o)
+    and the (K, N) GEMM of dqkv through W_qkv."""
+    _check_block("fused_qkv_attention_bwd", x, w_qkv, b_qkv, w_out, num_heads)
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError("fused_qkv_attention_bwd: g must match x")
+    if x.device.type == "cpu":
+        return fused_qkv_attention_bwd_plain(x, w_qkv, b_qkv, w_out, g, num_heads)
+    b, n, d = x.shape
+    _, qkv = _kernels.gemm(x.view(b * n, d), w_qkv, bias=b_qkv)
+    _, do = _kernels.gemm(g.view(b * n, d), w_out, kn=True)
+    dqkv, o = _kernels.spatial_attention_bwd(qkv, do, b, n, with_out=True)
+    _, dx = _kernels.gemm(dqkv, w_qkv, kn=True)
+    fused_qkv_attention_bwd.launches += 1
+    return dx.view(b, n, d), dqkv, o
+
+
+fused_qkv_attention_bwd.launches = 0
+
+
+def fused_attention_block(x, w_qkv, b_qkv, w_out, b_out,
+                          num_heads: int) -> torch.Tensor:
+    """``W_o · attn(x)`` differentiable through the hand-written backward
+    (the JAX ``fused_attention_block`` :583, backward ``_bwd_pallas``
+    :994-1003). Under ``torch.no_grad`` it is ``fused_qkv_attention``."""
+    return AttentionBlock.apply(
+        lambda *a: fused_qkv_attention(*a, num_heads),
+        lambda *a: fused_qkv_attention_bwd(*a, num_heads),
+        x, w_qkv, b_qkv, w_out, b_out)
+
+
+def fused_attention_block_plain(x, w_qkv, b_qkv, w_out, b_out,
+                                num_heads: int) -> torch.Tensor:
+    """``fused_attention_block`` with the plain forward and backward on any
+    device: the reference the kernels are held against."""
+    return AttentionBlock.apply(
+        lambda *a: fused_qkv_attention_plain(*a, num_heads),
+        lambda *a: fused_qkv_attention_bwd_plain(*a, num_heads),
+        x, w_qkv, b_qkv, w_out, b_out)

@@ -25,13 +25,14 @@ intermediates (u, dpre, a) from which the adapter's weight cotangents are
 formed as the JAX package forms them outside its kernel (:1797-1800).
 
 The plain temporal attention block ``W_o · attn_T(x)`` (no LN, no adapter:
-the ``num_tadapter=2`` branch) replaces ``fused_temporal_attention`` (:487)
-in its forward, ``fused_temporal_attention``, and
-``fused_temporal_attention_bwd`` (:1052, through ``_bwd_plain_dispatch``
-:1108) in its backward, joined by the autograd op ``fused_temporal_block``
-(:647). They run the same GEMM and core kernels as the step, with the
-block's own casts: its cotangent enters at dO = g·W_o, and the backward's
-core also writes the core output recomputed from the normalised P, for the
+the ``num_tadapter=2`` branch and the flash variants' cls token) replaces
+``fused_temporal_attention`` (:487) in its forward,
+``fused_temporal_attention``, and ``fused_temporal_attention_bwd`` (:1052,
+through ``_bwd_plain_dispatch`` :1108) in its backward, joined by the
+autograd op ``fused_temporal_block`` (:647, ``_common.AttentionBlock``).
+They run the same GEMM and core kernels as the step, with the block's own
+casts: its cotangent enters at dO = g·W_o, and the backward's core also
+writes the core output recomputed from the normalised P, for the
 out-projection's weight cotangent. On CUDA tensors both serve T <= 32: the
 JAX package takes its XLA backward past T = 16 for lack of VMEM, which the
 port does not need.
@@ -46,10 +47,10 @@ import torch
 
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._common import (
-    AdapterStep, attention_step_bwd_cuda, attention_step_bwd_plain,
-    attention_step_cuda, attention_step_plain, check_frozen, check_gate,
-    check_step_args, mm32, mm32_kn, temporal_core_bwd_plain,
-    temporal_core_plain,
+    AdapterStep, AttentionBlock, attention_step_bwd_cuda,
+    attention_step_bwd_plain, attention_step_cuda, attention_step_plain,
+    check_frozen, check_gate, check_step_args, mm32, mm32_kn,
+    temporal_core_bwd_plain, temporal_core_plain,
 )
 
 MAX_FRAMES = 32
@@ -310,54 +311,22 @@ def fused_temporal_attention_bwd(x, w_qkv, b_qkv, w_out, g, num_frames: int,
 fused_temporal_attention_bwd.launches = 0
 
 
-class _TemporalBlock(torch.autograd.Function):
-    """``fused_temporal_attention`` with ``fused_temporal_attention_bwd`` as
-    its backward (``_bwd_plain_pallas`` :1094-1105): g is cast to x's dtype
-    before the backward, and the weight cotangents are formed outside it
-    from (g, dqkv, x, o), as ``_attention_weight_cotangents``
-    (``fused_qkv_attention.py:902``) forms them in XLA, for the weights
-    that require grad only. Only the inputs are saved: the backward
-    recomputes the forward."""
-
-    @staticmethod
-    def forward(ctx, x, w_qkv, b_qkv, w_out, b_out, num_frames, num_heads, plain):
-        ctx.meta = (num_frames, num_heads, plain, b_out.dtype)
-        ctx.save_for_backward(x, w_qkv, b_qkv, w_out)
-        fwd = fused_temporal_attention_plain if plain else fused_temporal_attention
-        return fwd(x, w_qkv, b_qkv, w_out, b_out, num_frames, num_heads)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w_qkv, b_qkv, w_out = ctx.saved_tensors
-        num_frames, num_heads, plain, b_out_dtype = ctx.meta
-        bwd = (fused_temporal_attention_bwd_plain if plain
-               else fused_temporal_attention_bwd)
-        dx, dqkv, o = bwd(x, w_qkv, b_qkv, w_out, g.to(x.dtype).contiguous(),
-                          num_frames, num_heads)
-        need = ctx.needs_input_grad
-        d = x.shape[-1]
-        g32 = g.reshape(-1, d).float()
-        dqkv32 = dqkv.float() if need[1] or need[2] else None
-        return (dx,
-                (dqkv32.t() @ x.reshape(-1, d).float()).to(w_qkv.dtype) if need[1] else None,
-                dqkv32.sum(0).to(b_qkv.dtype) if need[2] else None,
-                (g32.t() @ o.float()).to(w_out.dtype) if need[3] else None,
-                g32.sum(0).to(b_out_dtype) if need[4] else None,
-                None, None, None)
-
-
 def fused_temporal_block(x, w_qkv, b_qkv, w_out, b_out, num_frames: int,
                          num_heads: int) -> torch.Tensor:
     """``W_o · attn_T(x)`` differentiable through the hand-written backward
-    (the JAX ``fused_temporal_block`` :647). Under ``torch.no_grad`` it is
-    ``fused_temporal_attention``."""
-    return _TemporalBlock.apply(x, w_qkv, b_qkv, w_out, b_out, num_frames,
-                                num_heads, False)
+    (the JAX ``fused_temporal_block`` :647, backward ``_bwd_plain_pallas``
+    :1094-1105). Under ``torch.no_grad`` it is ``fused_temporal_attention``."""
+    return AttentionBlock.apply(
+        lambda *a: fused_temporal_attention(*a, num_frames, num_heads),
+        lambda *a: fused_temporal_attention_bwd(*a, num_frames, num_heads),
+        x, w_qkv, b_qkv, w_out, b_out)
 
 
 def fused_temporal_block_plain(x, w_qkv, b_qkv, w_out, b_out, num_frames: int,
                                num_heads: int) -> torch.Tensor:
     """``fused_temporal_block`` with the plain forward and backward on any
     device: the reference the kernels are held against."""
-    return _TemporalBlock.apply(x, w_qkv, b_qkv, w_out, b_out, num_frames,
-                                num_heads, True)
+    return AttentionBlock.apply(
+        lambda *a: fused_temporal_attention_plain(*a, num_frames, num_heads),
+        lambda *a: fused_temporal_attention_bwd_plain(*a, num_frames, num_heads),
+        x, w_qkv, b_qkv, w_out, b_out)

@@ -54,14 +54,37 @@ Phases, in order; any failure raises and exits non-zero:
      weights bitwise unchanged, trainable ones moved and the checkpoint
      reloaded, one train step of the kernel path against the plain path,
      then eval clips/s at batch 32, train clips/s and peak memory at 8 and
-     32 clips and a profile of one train step at 32 clips.
+     32 clips and a profile of one train step at 32 clips;
+  9. the plain spatial attention block of the AIM_FLASH family
+     (fused_qkv_attention and fused_qkv_attention_bwd) against its plain
+     version at x (clips*32, 198, 768) bf16 (196 patches, the class and the
+     prompt token) with 12 heads, 1 and 8 clips, and at 197 and 17 tokens
+     with 2 clips: output, dx, dqkv, o, and once the weight cotangents
+     through the autograd op; then its forward, backward and
+     forward+backward times at 8 clips against the plain version and
+     against torch's multi_head_attention_forward on the (L, B, D) view;
+ 10. the AIM_FLASH path: configs/recognition/vit/AIM/AIM_flash_base_hmdb51.py
+     (32 frames, shifted (16, 7, 7) windows, the prompt token, 51 classes)
+     at full depth and width on seeded weights with every adapter's D_fc2
+     and the temporal embedding nonzero: init_recognizer,
+     inference_recognizer and run_evaluation on synthetic 3-crop videos with
+     each kernel's launch count checked, the kernel path against the plain
+     path on the probabilities, train_model for 4 steps of 2 clips through
+     the recipe's train pipeline with every kernel's launch count checked,
+     frozen weights bitwise unchanged, trainable ones moved and the
+     checkpoint reloaded, one train step of the kernel path against the
+     plain path, then eval clips/s at 8 clips, train clips/s and peak
+     memory at 2 and 8 clips and a profile of one train step at 8 clips;
+     and one forward of AIM_flash_win_base_hmdb51.py (16 frames, unshifted
+     windows).
 The line before the last is a JSON object with one entry per kernel, with
-its launches on the first of the four paths above that runs it (path), and
-its time at 32 clips beside the least time the card could take for the same
-work (bound_ms, from tools/kernel_bounds_torch.py: the larger of its
-products' FLOPs over the H100's dense bf16 rate and its bytes, each input
-read once and each output written once, over its memory rate); the last
-line is {"ok": true, "device": {...}}.
+its launches on the first of the six paths above that runs it (path), and
+its time (at 32 clips of 8 frames; the spatial block at 8 clips of the
+AIM_FLASH path's 32 frames) beside the least time the card could take for
+the same work (bound_ms, from tools/kernel_bounds_torch.py: the larger of
+its products' FLOPs over the H100's dense bf16 rate and its bytes, each
+input read once and each output written once, over its memory rate); the
+last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -78,7 +101,13 @@ CONFIG = os.path.join(ROOT, "configs", "recognition", "vit",
                       "vitclip_base_k400_8frames.py")
 SSV2_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit",
                            "vitclip_base_sthv2.py")
+FLASH_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "AIM",
+                            "AIM_flash_base_hmdb51.py")
+FLASH_WIN_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "AIM",
+                                "AIM_flash_win_base_hmdb51.py")
 FRAMES, TOKENS, WIDTH, HEADS = 8, 197, 768, 12
+# the AIM_FLASH config: 32 frames, 196 patches + the class and prompt tokens
+FLASH_FRAMES, FLASH_TOKENS = 32, 198
 
 # bf16 tolerance, kernel chain vs plain version: both round the same
 # intermediates to bf16 and sum fp32 products in other orders, so a value
@@ -87,6 +116,9 @@ ATOL, RTOL, MEAN_TOL = 1e-2, 1.6e-2, 1e-4
 # model level, kernel path vs plain path: probabilities over 400 classes;
 # over the SSv2 recipe's 174, about 7x the gap read on two runs (1.396e-5)
 PROB_ATOL, SSV2_PROB_ATOL = 1e-3, 1e-4
+# over AIM_FLASH's 51 classes, about 6x the gap read on the first run
+# (3.218e-5)
+FLASH_PROB_ATOL = 2e-4
 # train ops' backward, kernel vs plain version: dx and the adapter
 # cotangents have scales that vary by tensor (dx ~5, dW up to ~1e3). Both
 # versions round the same intermediates; a summation-order flip moves a
@@ -112,15 +144,15 @@ def log(*args):
     print(*args, flush=True)
 
 
-def bound(op, clips):
+def bound(op, clips, frames=FRAMES, tokens=TOKENS):
     """(least milliseconds on one H100 for the work of the TPU kernel that
-    the op replaces, at x = (clips*8, 197, 768), "operations" or "bytes"):
-    tools/kernel_bounds_torch.py."""
+    the op replaces, at x = (clips*frames, tokens, 768), "operations" or
+    "bytes"): tools/kernel_bounds_torch.py."""
     from adapt_image_models_torch import ops
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from kernel_bounds_torch import bound as row_bound, row_of
-    return row_bound(row_of(ops.KERNEL_OPS[op][1]), clips=clips, frames=FRAMES,
-                     tokens=TOKENS, width=WIDTH)
+    return row_bound(row_of(ops.KERNEL_OPS[op][1]), clips=clips, frames=frames,
+                     tokens=tokens, width=WIDTH)
 
 
 def check_launches(label, launches, expected):
@@ -234,7 +266,7 @@ def plain_ops():
     names = [(layers, "fused_spatial_step"), (layers, "fused_temporal_step"),
              (aim, "fused_joint"), (layers, "fused_spatial_train_step"),
              (layers, "fused_temporal_train_step"), (aim, "fused_joint_train_block"),
-             (layers, "fused_temporal_block")]
+             (layers, "fused_temporal_block"), (layers, "fused_attention_block")]
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, getattr(ops, name + "_plain"))
@@ -322,7 +354,8 @@ def compare_train_step(cfg, weights, clips, classes):
     import numpy as np
     import torch
     g_img = torch.Generator().manual_seed(3)
-    batch = {"imgs": torch.randn(clips, 1, 3, FRAMES, 224, 224,
+    frames = cfg["model"]["backbone"]["num_frames"]
+    batch = {"imgs": torch.randn(clips, 1, 3, frames, 224, 224,
                                  generator=g_img).to("cuda", torch.bfloat16),
              "label": np.arange(clips) * 37 % classes}
     results = {}
@@ -384,13 +417,15 @@ def profile_step(step_fn, tstate, batch, label):
         log(f"    {dev_ms:9.2f} ms {100 * dev_ms / busy:5.1f}% {count:5d}x {key[:80]}")
 
 
-def train_timings(cfg, weights, classes, label):
-    """Train-step clips/s and peak memory at 8 and 32 clips, kernel path and
-    framework-op path, and a profile of one kernel-path step at 32 clips."""
+def train_timings(cfg, weights, classes, label, batches=(8, 32)):
+    """Train-step clips/s and peak memory at each of ``batches`` clips,
+    kernel path and framework-op path, and a profile of one kernel-path step
+    at the last."""
     import numpy as np
     import torch
-    for clips in (8, 32):
-        timing_batch = {"imgs": torch.randn(clips, 1, 3, FRAMES, 224, 224, device="cuda",
+    frames = cfg["model"]["backbone"]["num_frames"]
+    for clips in batches:
+        timing_batch = {"imgs": torch.randn(clips, 1, 3, frames, 224, 224, device="cuda",
                                             dtype=torch.bfloat16),
                         "label": np.arange(clips) % classes}
         for core, path in (("fused", "kernel"), ("xla", "framework-op (xla)")):
@@ -401,17 +436,18 @@ def train_timings(cfg, weights, classes, label):
             log(f"  {label} train step {clips} clips ({path} path): {ms:.2f} ms, "
                 f"{clips / ms * 1e3:.1f} clips/s, peak memory {mem:.2f} GiB "
                 f"(median of 5 after 2 warm-ups, CUDA events)")
-            if core == "fused" and clips == 32:
-                profile_step(step_fn, tstate, timing_batch, f"kernel-path {label} 32-clip")
+            if core == "fused" and clips == batches[-1]:
+                profile_step(step_fn, tstate, timing_batch,
+                             f"kernel-path {label} {clips}-clip")
             del tstate, step_fn
             torch.cuda.empty_cache()
         del timing_batch
 
 
-def block_inputs(clips, frames, seed):
-    """Inputs of the plain temporal attention block at x = (clips*frames,
-    197, 768) bf16: x, (w_qkv, b_qkv, w_out, b_out) at CLIP's init scale,
-    and an output cotangent."""
+def block_inputs(clips, frames, seed, tokens=TOKENS):
+    """Inputs of a plain attention block at x = (clips*frames, tokens, 768)
+    bf16: x, (w_qkv, b_qkv, w_out, b_out) at CLIP's init scale, and an
+    output cotangent."""
     import torch
     g = torch.Generator().manual_seed(seed)
     d = WIDTH
@@ -419,86 +455,78 @@ def block_inputs(clips, frames, seed):
     def w(*shape):
         return (0.02 * torch.randn(*shape, generator=g)).to("cuda", torch.bfloat16)
 
-    x = torch.randn(clips * frames, TOKENS, d, generator=g).to("cuda", torch.bfloat16)
+    x = torch.randn(clips * frames, tokens, d, generator=g).to("cuda", torch.bfloat16)
     wts = (w(3 * d, d), w(3 * d), w(d, d), w(d))
     cot = torch.randn(x.shape, generator=g).to("cuda", torch.bfloat16)
     return x, wts, cot
 
 
-def block_grads(fn, x, wts, g):
+def block_grads(fn, x, wts, g, *rest):
     """Cotangents of x and of every weight through the autograd op ``fn``."""
     leaves = [t.detach().clone().requires_grad_() for t in (x, *wts)]
-    fn(*leaves, FRAMES, HEADS).backward(g)
+    fn(*leaves, *rest).backward(g)
     return [t.grad for t in leaves]
 
 
-def block_timings(op_ms):
-    """Forward, backward and forward+backward of the plain temporal block at
-    32 clips: kernels, plain version and torch's multi_head_attention_forward
-    on the frame-major view (T, B*N, D) of x, relaid out beforehand, and
-    that call's autograd backward for dx (the AIM regime: frozen weights).
-    Fills ``op_ms`` and returns the library call's times."""
+def block_timings(op_ms, name, block, x, wts, g, rest, relayout, label):
+    """Forward, backward and forward+backward of a plain attention block
+    (forward op ``name``, backward op ``name + "_bwd"``, autograd op
+    ``block``; ``rest`` their trailing arguments): kernels, plain version,
+    and torch's multi_head_attention_forward on the (S, N, D) view that
+    ``relayout`` makes of x, relaid out beforehand, with that call's
+    autograd backward for dx (the AIM regime: frozen weights). Fills
+    ``op_ms`` and returns the library call's times."""
     import torch
     from torch.nn.functional import multi_head_attention_forward
     from adapt_image_models_torch import ops
-    blk, blk_bwd = "fused_temporal_attention", "fused_temporal_attention_bwd"
-    clips = 32
-    x, wts, g = block_inputs(clips, FRAMES, seed=32)
-
-    def frame_major(t):
-        return (t.view(clips, FRAMES, TOKENS, WIDTH).transpose(0, 1)
-                .reshape(FRAMES, clips * TOKENS, WIDTH).contiguous())
+    fwd, fwd_plain = getattr(ops, name), getattr(ops, name + "_plain")
+    bwd, bwd_plain = getattr(ops, name + "_bwd"), getattr(ops, name + "_bwd_plain")
+    blk, blk_plain = getattr(ops, block), getattr(ops, block + "_plain")
 
     def mha(q):
         return multi_head_attention_forward(
             q, q, q, WIDTH, HEADS, wts[0], wts[1], None, None, False, 0.0, wts[2],
             wts[3], training=False, need_weights=False)[0]
 
-    xr, gr = frame_major(x), frame_major(g)
+    xr, gr = relayout(x), relayout(g)
     with torch.no_grad():
-        lib_err = (mha(xr) - frame_major(ops.fused_temporal_attention(
-            x, *wts, FRAMES, HEADS))).abs().max().item()
+        lib_err = (mha(xr) - relayout(fwd(x, *wts, *rest))).abs().max().item()
     xr_leaf = xr.detach().requires_grad_()
     with torch.enable_grad():
         out_graph = mha(xr_leaf)
 
     def run(fn):
         xx = x.detach().requires_grad_()
-        fn(xx, *wts, FRAMES, HEADS).backward(g)
+        fn(xx, *wts, *rest).backward(g)
 
     def lib_fwdbwd():
         torch.autograd.grad(mha(xr_leaf), xr_leaf, gr)
 
     with torch.no_grad():
-        fwd = (cuda_ms(lambda: ops.fused_temporal_attention_plain(x, *wts, FRAMES, HEADS)),
-               cuda_ms(lambda: ops.fused_temporal_attention(x, *wts, FRAMES, HEADS)),
-               cuda_ms(lambda: ops.fused_temporal_attention(x, *wts, FRAMES, HEADS)),
-               cuda_ms(lambda: ops.fused_temporal_attention_plain(x, *wts, FRAMES, HEADS)))
-        bw = (cuda_ms(lambda: ops.fused_temporal_attention_bwd_plain(x, *wts[:3], g, FRAMES, HEADS)),
-              cuda_ms(lambda: ops.fused_temporal_attention_bwd(x, *wts[:3], g, FRAMES, HEADS)),
-              cuda_ms(lambda: ops.fused_temporal_attention_bwd(x, *wts[:3], g, FRAMES, HEADS)),
-              cuda_ms(lambda: ops.fused_temporal_attention_bwd_plain(x, *wts[:3], g, FRAMES, HEADS)))
+        fwd_t = (cuda_ms(lambda: fwd_plain(x, *wts, *rest)), cuda_ms(lambda: fwd(x, *wts, *rest)),
+                 cuda_ms(lambda: fwd(x, *wts, *rest)), cuda_ms(lambda: fwd_plain(x, *wts, *rest)))
+        bw = (cuda_ms(lambda: bwd_plain(x, *wts[:3], g, *rest)),
+              cuda_ms(lambda: bwd(x, *wts[:3], g, *rest)),
+              cuda_ms(lambda: bwd(x, *wts[:3], g, *rest)),
+              cuda_ms(lambda: bwd_plain(x, *wts[:3], g, *rest)))
         lib_fwd = cuda_ms(lambda: mha(xr))
-    fwdbwd = (cuda_ms(lambda: run(ops.fused_temporal_block_plain), iters=10),
-              cuda_ms(lambda: run(ops.fused_temporal_block), iters=10),
-              cuda_ms(lambda: run(ops.fused_temporal_block), iters=10),
-              cuda_ms(lambda: run(ops.fused_temporal_block_plain), iters=10))
+    fwdbwd = (cuda_ms(lambda: run(blk_plain), iters=10), cuda_ms(lambda: run(blk), iters=10),
+              cuda_ms(lambda: run(blk), iters=10), cuda_ms(lambda: run(blk_plain), iters=10))
     lib_bwd = cuda_ms(lambda: torch.autograd.grad(out_graph, xr_leaf, gr, retain_graph=True))
     lib_both = cuda_ms(lib_fwdbwd, iters=10)
 
     def pair(t):
         return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
 
-    op_ms[blk], op_ms[blk_bwd] = pair(fwd), pair(bw)
-    log(f"  plain temporal block at 32 clips (x=({clips * FRAMES}, {TOKENS}, {WIDTH})): "
-        f"forward kernel {pair(fwd)[0]:.3f} / plain {pair(fwd)[1]:.3f} / library "
-        f"{lib_fwd:.3f} ms; backward kernel {pair(bw)[0]:.3f} / plain {pair(bw)[1]:.3f} / "
-        f"library (dx only) {lib_bwd:.3f} ms; forward+backward (autograd, dx only) kernel "
-        f"{pair(fwdbwd)[0]:.3f} / plain {pair(fwdbwd)[1]:.3f} / library {lib_both:.3f} ms "
-        "(median of 20 or 10, CUDA events; library = multi_head_attention_forward on "
-        f"the frame-major view, relayout not timed; its output vs the kernel's: max abs "
-        f"diff {lib_err:.3e})")
-    return {blk: lib_fwd, blk_bwd: lib_bwd}
+    op_ms[name], op_ms[name + "_bwd"] = pair(fwd_t), pair(bw)
+    log(f"  {label} (x={tuple(x.shape)}): forward kernel {pair(fwd_t)[0]:.3f} / plain "
+        f"{pair(fwd_t)[1]:.3f} / library {lib_fwd:.3f} ms; backward kernel {pair(bw)[0]:.3f} / "
+        f"plain {pair(bw)[1]:.3f} / library (dx only) {lib_bwd:.3f} ms; forward+backward "
+        f"(autograd, dx only) kernel {pair(fwdbwd)[0]:.3f} / plain {pair(fwdbwd)[1]:.3f} / "
+        f"library {lib_both:.3f} ms (median of 20 or 10, CUDA events; library = "
+        f"multi_head_attention_forward on the {tuple(xr.shape)} view, relayout not timed; "
+        f"its output vs the kernel's: max abs diff {lib_err:.3e})")
+    return {name: lib_fwd, name + "_bwd": lib_bwd}
 
 
 def randomize_adapters(model, seed):
@@ -795,15 +823,25 @@ def main():
     log(f"  fused_temporal_block forward+backward, weight cotangents requested, "
         f"x=({8 * FRAMES}, {TOKENS}, {WIDTH}):")
     for tensor, a, b in zip(("dx", "dWqkv", "dbqkv", "dWout", "dbout"),
-                            block_grads(ops.fused_temporal_block, x, wts, g),
-                            block_grads(ops.fused_temporal_block_plain, x, wts, g)):
+                            block_grads(ops.fused_temporal_block, x, wts, g, FRAMES, HEADS),
+                            block_grads(ops.fused_temporal_block_plain, x, wts, g, FRAMES,
+                                        HEADS)):
         _, ok = compare_grad(tensor, a, b)
         if not ok:
             failures.append(f"fused_temporal_block {tensor}")
     if failures:
         raise AssertionError(f"the plain block's kernels disagree with its plain version: "
                              f"{failures}")
-    library_ms = block_timings(op_ms)
+    clips = 32
+    x, wts, g = block_inputs(clips, FRAMES, seed=32)
+
+    def frame_major(t):
+        return (t.view(clips, FRAMES, TOKENS, WIDTH).transpose(0, 1)
+                .reshape(FRAMES, clips * TOKENS, WIDTH).contiguous())
+
+    library_ms = block_timings(op_ms, blk, "fused_temporal_block", x, wts, g,
+                               (FRAMES, HEADS), frame_major, "plain temporal block at 32 clips")
+    del x, wts, g
     torch.cuda.empty_cache()
 
     # ---- phase 8: the SSv2 recipe -------------------------------------------
@@ -928,19 +966,238 @@ def main():
     del x, xla8
     torch.cuda.empty_cache()
     train_timings(cfg8, weights8, classes, "SSv2")
+    del model8, weights8
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the plain spatial attention block ----------------------
+    sblk, sblk_bwd = "fused_qkv_attention", "fused_qkv_attention_bwd"
+    failures = []
+    for clips, tokens in ((1, FLASH_TOKENS), (8, FLASH_TOKENS), (2, TOKENS), (2, 17)):
+        x, wts, g = block_inputs(clips, FLASH_FRAMES, seed=200 + clips + tokens, tokens=tokens)
+        shape = f"x={tuple(x.shape)} bf16, {HEADS} heads"
+        log(f"phase 9: the plain spatial attention block at {shape}")
+        before = (ops.fused_qkv_attention.launches, ops.fused_qkv_attention_bwd.launches)
+        out = ops.fused_qkv_attention(x, *wts, HEADS)
+        got = ops.fused_qkv_attention_bwd(x, *wts[:3], g, HEADS)
+        torch.cuda.synchronize()
+        if (ops.fused_qkv_attention.launches,
+                ops.fused_qkv_attention_bwd.launches) != (before[0] + 1, before[1] + 1):
+            raise AssertionError("the spatial block's launch counters did not move")
+        err = compare(f"{sblk} out", out, ops.fused_qkv_attention_plain(x, *wts, HEADS))
+        errors[sblk] = max(err, errors.get(sblk, 0.0))
+        want = ops.fused_qkv_attention_bwd_plain(x, *wts[:3], g, HEADS)
+        log(f"  {sblk_bwd}:")
+        for tensor, a, b in zip(("dx", "dqkv", "o"), got, want):
+            err, ok = compare_grad(tensor, a, b)
+            if tensor == "dx":
+                errors[sblk_bwd] = max(err, errors.get(sblk_bwd, 0.0))
+            if not ok:
+                failures.append(f"{sblk_bwd} {tensor} at {shape}")
+        del x, wts, g, out, got, want
+        torch.cuda.empty_cache()
+    x, wts, g = block_inputs(2, FLASH_FRAMES, seed=9, tokens=FLASH_TOKENS)
+    log(f"  fused_attention_block forward+backward, weight cotangents requested, "
+        f"x={tuple(x.shape)}:")
+    for tensor, a, b in zip(("dx", "dWqkv", "dbqkv", "dWout", "dbout"),
+                            block_grads(ops.fused_attention_block, x, wts, g, HEADS),
+                            block_grads(ops.fused_attention_block_plain, x, wts, g, HEADS)):
+        _, ok = compare_grad(tensor, a, b)
+        if not ok:
+            failures.append(f"fused_attention_block {tensor}")
+    if failures:
+        raise AssertionError(f"the spatial block's kernels disagree with its plain version: "
+                             f"{failures}")
+    # the plain temporal block on the flash path's class token: one token
+    # a frame, T=32
+    x, wts, g = block_inputs(8, FLASH_FRAMES, seed=34, tokens=1)
+    log(f"  the plain temporal block at the class token's x={tuple(x.shape)}, T={FLASH_FRAMES}:")
+    compare(f"{blk} out", ops.fused_temporal_attention(x, *wts, FLASH_FRAMES, HEADS),
+            ops.fused_temporal_attention_plain(x, *wts, FLASH_FRAMES, HEADS))
+    for tensor, a, b in zip(
+            ("dx", "dqkv", "o"),
+            ops.fused_temporal_attention_bwd(x, *wts[:3], g, FLASH_FRAMES, HEADS),
+            ops.fused_temporal_attention_bwd_plain(x, *wts[:3], g, FLASH_FRAMES, HEADS)):
+        if not compare_grad(tensor, a, b)[1]:
+            raise AssertionError(f"{blk_bwd} {tensor} disagrees at one token a frame")
+    with torch.no_grad():
+        cls_ms = [cuda_ms(lambda: fn(x, *wts, FLASH_FRAMES, HEADS)) for fn in (
+            ops.fused_temporal_attention, ops.fused_temporal_attention_plain)]
+        cls_ms += [cuda_ms(lambda: fn(x, *wts[:3], g, FLASH_FRAMES, HEADS)) for fn in (
+            ops.fused_temporal_attention_bwd, ops.fused_temporal_attention_bwd_plain)]
+    log(f"  forward kernel {cls_ms[0]:.3f} / plain {cls_ms[1]:.3f} ms, backward kernel "
+        f"{cls_ms[2]:.3f} / plain {cls_ms[3]:.3f} ms (median of 20, CUDA events)")
+    x, wts, g = block_inputs(8, FLASH_FRAMES, seed=33, tokens=FLASH_TOKENS)
+    library_ms.update(block_timings(
+        op_ms, sblk, "fused_attention_block", x, wts, g, (HEADS,),
+        lambda t: t.transpose(0, 1).contiguous(), "plain spatial block at 8 clips of 32 frames"))
+    del x, wts, g
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: the AIM_FLASH path ------------------------------------
+    cfg10 = load_config(FLASH_CONFIG)
+    bb10 = cfg10["model"]["backbone"]
+    if (bb10["type"], bb10["wind_attn"], tuple(bb10["window_size"]), bb10["not_shift"],
+            bb10["prompt"], bb10["win_prompt"], bb10["attention_core"], bb10["width"],
+            bb10["layers"], bb10["num_frames"]) != (
+                "AIM_FLASH", True, (16, 7, 7), False, True, False, "fused", WIDTH, 12,
+                FLASH_FRAMES):
+        raise AssertionError(f"unexpected AIM_FLASH backbone {bb10}")
+    classes10 = cfg10["model"]["cls_head"]["num_classes"]
+    t0 = time.perf_counter()
+    model10 = init_recognizer(cfg10, device="cuda", seed=0)
+    randomize_adapters(model10, seed=10)
+    shifted = [i for i, blk10 in enumerate(model10.backbone.transformer.resblocks)
+               if any(blk10.shift_size)]
+    log(f"phase 10: built {os.path.relpath(FLASH_CONFIG, ROOT)} on cuda, "
+        f"{sum(p.numel() for p in model10.parameters()) / 1e6:.1f}M params, {classes10} "
+        f"classes, shifted layers {shifted}, shift mask "
+        f"{tuple(model10.backbone.transformer.shift_mask.shape)}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_videos, eval_batch = 4, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "ann.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"synthetic://{500 + i} {i % classes10}" for i in range(n_videos)))
+        cfg10["data"]["test"]["ann_file"] = ann
+        ops.reset_launch_counts()  # the AIM_FLASH eval path's run starts here
+        top5 = [inference_recognizer(model10, cfg10, f"synthetic://{k}") for k in range(2)]
+        results, scores, _ = run_evaluation(cfg10, model=model10, batch_size=eval_batch,
+                                            num_workers=2, return_scores=True)
+        flash_launches = ops.launch_counts()  # ... and ends here
+    forwards = len(top5) + -(-n_videos // eval_batch)
+    log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
+    log(f"  run_evaluation over {n_videos} synthetic 3-crop videos: {results}")
+    check_launches(f"AIM_FLASH eval path ({forwards} forwards x 12 layers)", flash_launches,
+                   {op: 12 * forwards for op in ops.FLASH_EVAL_OPS})
+    if scores.shape != (n_videos, classes10) or not (abs(scores.sum(1) - 1) < 1e-3).all():
+        raise AssertionError(f"bad AIM_FLASH eval scores {scores.shape}")
+    if any(not (0 <= s <= 1) for r in top5 for _, s in r):
+        raise AssertionError("AIM_FLASH inference scores are not probabilities")
+
+    clips = np.random.default_rng(11).integers(0, 256, (2, 3, FLASH_FRAMES, 224, 224, 3),
+                                               dtype=np.uint8)
+    imgs = make_prepare_fn(device="cuda")(clips)
+    with torch.no_grad():
+        p_kernel = model10.forward_test(imgs)
+        with plain_ops():
+            p_plain = model10.forward_test(imgs)
+    prob_err = (p_kernel - p_plain).abs().max().item()
+    same_top1 = bool((p_kernel.argmax(1) == p_plain.argmax(1)).all())
+    log(f"  AIM_FLASH model kernel path vs plain path ({tuple(imgs.shape)}): probability "
+        f"max_abs_err={prob_err:.3e} (tol {FLASH_PROB_ATOL}), top-1 equal {same_top1}, "
+        f"finite={bool(torch.isfinite(p_kernel).all())}")
+    if not (prob_err < FLASH_PROB_ATOL and same_top1 and torch.isfinite(p_kernel).all()):
+        raise AssertionError("the AIM_FLASH kernel path disagrees with the plain path")
+    del imgs, p_kernel, p_plain
+
+    steps10, vps10 = 4, 2
+    log(f"  train_model on {os.path.relpath(FLASH_CONFIG, ROOT)}: {steps10} steps of {vps10} "
+        "clips through the recipe's train pipeline")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ann = os.path.join(tmp, "train.txt")
+        with open(train_ann, "w") as f:
+            f.write("\n".join(f"synthetic://{600 + i} {i % classes10}"
+                              for i in range(steps10 * vps10)))
+        tcfg = copy.deepcopy(cfg10)
+        tcfg["data"]["train"]["ann_file"] = train_ann
+        tcfg["data"].update(workers_per_gpu=4, videos_per_gpu=vps10)
+        tcfg.update(total_epochs=1, checkpoint_config=dict(interval=1),
+                    log_config=dict(interval=1))
+        work = os.path.join(tmp, "work")
+        initial = init_recognizer(tcfg, device="cuda", seed=0).state_dict()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()  # the AIM_FLASH train path's run starts here
+        state, history = train_model(tcfg, work_dir=work, seed=0, max_steps=steps10,
+                                     validate=False, device="cuda")
+        torch.cuda.synchronize()
+        flash_train_launches = ops.launch_counts()  # ... and ends here
+        log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
+            f"(data and build included); losses {[round(h['loss'], 4) for h in history]}")
+        check_launches(f"AIM_FLASH train path ({steps10} steps x 12 layers)",
+                       flash_train_launches, {op: 12 * steps10 for op in ops.FLASH_TRAIN_OPS})
+        if state.step != steps10 or not all(np.isfinite(h["loss"]) for h in history):
+            raise AssertionError("AIM_FLASH train_model did not take finite steps")
+        trained = state.model.state_dict()
+        trainable = {n for n, p in state.model.named_parameters() if p.requires_grad}
+        frozen_same = all(torch.equal(initial[n], trained[n])
+                          for n in initial if n not in trainable)
+        moved = {n for n in trainable if not torch.equal(initial[n], trained[n])}
+        log(f"  {len(trainable)} trainable tensors "
+            f"({sum(state.model.get_parameter(n).numel() for n in trainable) / 1e6:.2f}M "
+            f"params), {len(moved)} moved; frozen bitwise unchanged: {frozen_same}")
+        if not frozen_same or moved != trainable:
+            raise AssertionError("frozen weights moved or trainable ones did not: "
+                                 f"{sorted(trainable - moved)[:8]}")
+        reloaded = init_recognizer(tcfg, checkpoint=CheckpointManager(work).path(1),
+                                   device="cuda")
+        if not all(torch.equal(v, trained[k]) for k, v in reloaded.state_dict().items()):
+            raise AssertionError("the AIM_FLASH checkpoint does not reload through "
+                                 "init_recognizer")
+        log("  checkpoint reloaded through init_recognizer")
+        del state, reloaded, initial, trained
+    torch.cuda.empty_cache()
+
+    weights10 = model10.state_dict()
+    compare_train_step(cfg10, weights10, vps10, classes10)
+    torch.cuda.empty_cache()
+
+    log(f"  AIM_FLASH timings on {card}")
+    mcfg10 = {k: v for k, v in cfg10["model"].items() if k not in ("test_cfg", "train_cfg")}
+    xla10 = build_model({**mcfg10, "backbone": {**bb10, "attention_core": "xla"}},
+                        test_cfg=cfg10["model"]["test_cfg"], device="cuda").eval()
+    xla10.load_state_dict(weights10)
+    x = torch.randn(8, 1, 3, FLASH_FRAMES, 224, 224, device="cuda")
+    for label, m in (("kernel", model10), ("framework-op (xla)", xla10)):
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: m.forward_test(x), iters=5, warmup=2)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  AIM_FLASH forward_test batch 8 of {FLASH_FRAMES} frames ({label} path): "
+            f"{ms:.2f} ms, {8 / ms * 1e3:.2f} clips/s, peak memory {mem:.2f} GiB")
+    del x, xla10, model10
+    torch.cuda.empty_cache()
+    train_timings(cfg10, weights10, classes10, "AIM_FLASH", batches=(2, 8))
+    del weights10
+    torch.cuda.empty_cache()
+
+    cfg_win = load_config(FLASH_WIN_CONFIG)
+    bb_win = cfg_win["model"]["backbone"]
+    model_win = init_recognizer(cfg_win, device="cuda", seed=0)
+    randomize_adapters(model_win, seed=12)
+    x = torch.randn(2, 1, 3, bb_win["num_frames"], 224, 224, device="cuda")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        p_win = model_win.forward_test(x)
+    win_launches = ops.launch_counts()
+    log(f"  {os.path.relpath(FLASH_WIN_CONFIG, ROOT)} ({bb_win['type']}, "
+        f"{bb_win['num_frames']} frames, windows {tuple(bb_win['window_size'])}, not_shift "
+        f"{bb_win['not_shift']}): one forward of 2 clips, probabilities {tuple(p_win.shape)}, "
+        f"finite={bool(torch.isfinite(p_win).all())}")
+    check_launches("AIM_FLASH_WIN forward (12 layers)", win_launches,
+                   {op: 12 for op in ops.FLASH_EVAL_OPS})
+    if not (torch.isfinite(p_win).all() and (p_win.sum(1) - 1).abs().max() < 1e-3):
+        raise AssertionError("the AIM_FLASH_WIN forward is not a probability")
+    del model_win, x
+    torch.cuda.empty_cache()
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
                           "fused_temporal_train_step", "fused_temporal_step_bwd_dx",
-                          "fused_spatial_train_step", "fused_step_bwd_dx", blk, blk_bwd)}
-    # each op's launches on the first of the four paths that runs it
+                          "fused_spatial_train_step", "fused_step_bwd_dx", blk, blk_bwd,
+                          sblk, sblk_bwd)}
+    # each op's launches on the first of the six paths that runs it
     counts = {}
     for path, run in (("flagship eval", launches), ("flagship train", train_launches),
-                      ("SSv2 eval", ssv2_launches), ("SSv2 train", ssv2_train_launches)):
+                      ("SSv2 eval", ssv2_launches), ("SSv2 train", ssv2_train_launches),
+                      ("AIM_FLASH eval", flash_launches),
+                      ("AIM_FLASH train", flash_train_launches)):
         counts.update({op: (path, n) for op, n in run.items() if n and op not in counts})
     kernels = []
     for op in ops.KERNEL_OPS:
-        bound_ms, bound_by = bound(op, 32)
+        # the spatial block is timed at the AIM_FLASH path's shape, the rest
+        # at 32 clips of the flagship's
+        bound_ms, bound_by = (bound(op, 8, FLASH_FRAMES, FLASH_TOKENS) if op in (sblk, sblk_bwd)
+                              else bound(op, 32))
         kernels.append(dict(
             name=op, route="cuda",
             source=sources.get(op, "adapt_image_models_torch/csrc/gemm.cu"),

@@ -14,8 +14,10 @@ ViT-L geometry (257 tokens, 16 heads, T=32).
 
 The train ops are checked forward and backward (output, dx and the
 adapter cotangents), with drop-path gates that hold zeros and 1/keep; the
-plain temporal attention block forward and backward (output, dx, dqkv, o,
-and through its autograd op every weight cotangent).
+plain temporal and spatial attention blocks forward and backward (output,
+dx, dqkv, o, and through their autograd ops every weight cotangent), the
+spatial one at the prompt token's odd length 198 and the temporal one at
+the flash variants' single class token per frame.
 
 Tolerance. Kernel and plain version round the same intermediates to bf16
 but sum fp32 products in different orders, so single values can land a few
@@ -30,7 +32,9 @@ import pytest
 import torch
 
 from adapt_image_models_torch.ops import (
-    fused_joint, fused_joint_mlp_rows_bwd, fused_joint_plain,
+    fused_attention_block, fused_attention_block_plain, fused_joint,
+    fused_joint_mlp_rows_bwd, fused_joint_plain, fused_qkv_attention,
+    fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain, fused_qkv_attention_plain,
     fused_joint_train_block, fused_joint_train_block_plain, fused_spatial_step,
     fused_spatial_step_plain, fused_spatial_train_step,
     fused_spatial_train_step_plain, fused_step_bwd_dx, fused_temporal_attention,
@@ -173,37 +177,65 @@ def _held(name, k, p, e):
         name, err_k.mean(), err_p.mean())
 
 
-@pytest.mark.parametrize("t,heads", [(4, 2), (8, 12), (16, 12), (32, 16)])
-def test_temporal_block_kernels_match_plain(cuda, t, heads):
-    """The plain temporal attention block, forward and backward (dx, dqkv,
-    o), and through its autograd op dx and every weight cotangent."""
-    x, _, _, ws = _args(cuda, 2 * t, 37, 64 * heads, 16 * heads, 8)
-    wts = ws[:4]
-    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(9)).to(x)
+def _block_check(fwd, bwd, fwd_plain, bwd_plain, block, block_plain, x, wts, g, *rest):
+    """A plain attention block, forward and backward (dx, dqkv, o), and
+    through its autograd op dx and every weight cotangent, on the card
+    against the plain version and the unrounded result."""
     f32 = [w.float() for w in wts]
-    before = (fused_temporal_attention.launches, fused_temporal_attention_bwd.launches)
-    out = fused_temporal_attention(x, *wts, t, heads)
-    got = fused_temporal_attention_bwd(x, *wts[:3], g, t, heads)
+    before = (fwd.launches, bwd.launches)
+    out = fwd(x, *wts, *rest)
+    got = bwd(x, *wts[:3], g, *rest)
     torch.cuda.synchronize()
-    assert (fused_temporal_attention.launches,
-            fused_temporal_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
-    _held("out", out, fused_temporal_attention_plain(x, *wts, t, heads),
-          fused_temporal_attention_plain(x.float(), *f32, t, heads))
-    want = fused_temporal_attention_bwd_plain(x, *wts[:3], g, t, heads)
-    exact = fused_temporal_attention_bwd_plain(x.float(), *f32[:3], g.float(), t, heads)
+    assert (fwd.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    _held("out", out, fwd_plain(x, *wts, *rest), fwd_plain(x.float(), *f32, *rest))
+    want = bwd_plain(x, *wts[:3], g, *rest)
+    exact = bwd_plain(x.float(), *f32[:3], g.float(), *rest)
     for name, k, p, e in zip(("dx", "dqkv", "o"), got, want, exact):
         _held(name, k, p, e)
 
     def grads(fn, dtype):
         leaves = [a.detach().to(dtype).clone().requires_grad_() for a in (x, *wts)]
-        fn(*leaves, t, heads).backward(g.to(dtype))
+        fn(*leaves, *rest).backward(g.to(dtype))
         return [a.grad for a in leaves]
 
     for name, k, p, e in zip(("dx", "dWqkv", "dbqkv", "dWout", "dbout"),
-                             grads(fused_temporal_block, torch.bfloat16),
-                             grads(fused_temporal_block_plain, torch.bfloat16),
-                             grads(fused_temporal_block_plain, torch.float32)):
+                             grads(block, torch.bfloat16),
+                             grads(block_plain, torch.bfloat16),
+                             grads(block_plain, torch.float32)):
         _held(name, k, p, e)
+
+
+@pytest.mark.parametrize("t,heads,n", [(4, 2, 37), (8, 12, 37), (16, 12, 37), (32, 16, 37),
+                                       (32, 12, 1)])
+def test_temporal_block_kernels_match_plain(cuda, t, heads, n):
+    """The plain temporal attention block; n=1 is the flash variants' class
+    token, attending across 32 frames."""
+    x, _, _, ws = _args(cuda, 2 * t, n, 64 * heads, 16 * heads, 8)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(9)).to(x)
+    _block_check(fused_temporal_attention, fused_temporal_attention_bwd,
+                 fused_temporal_attention_plain, fused_temporal_attention_bwd_plain,
+                 fused_temporal_block, fused_temporal_block_plain, x, ws[:4], g, t, heads)
+
+
+@pytest.mark.parametrize("n,heads", [(17, 2), (197, 12), (198, 12), (257, 16)])
+def test_spatial_block_kernels_match_plain(cuda, n, heads):
+    """The plain spatial attention block; 198 is ViT-B/16's tokens with the
+    prompt token."""
+    x, _, _, ws = _args(cuda, 6, n, 64 * heads, 16 * heads, 11)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(12)).to(x)
+    _block_check(fused_qkv_attention, fused_qkv_attention_bwd, fused_qkv_attention_plain,
+                 fused_qkv_attention_bwd_plain, fused_attention_block,
+                 fused_attention_block_plain, x, ws[:4], g, heads)
+
+
+def test_spatial_block_refuses_what_it_does_not_take(cuda):
+    x, _, _, ws = _args(cuda, 2, 289, 128, 32, 13)
+    with pytest.raises(NotImplementedError):  # more keys than the core holds
+        fused_qkv_attention(x, *ws[:4], 2)
+    with pytest.raises(ValueError):  # fp32 input
+        fused_qkv_attention(x[:, :17].float().contiguous(), *ws[:4], 2)
+    with pytest.raises(ValueError):  # a cotangent unlike x
+        fused_qkv_attention_bwd(x[:, :17].contiguous(), *ws[:3], x[:, :17].float(), 2)
 
 
 def test_temporal_block_refuses_what_it_does_not_take(cuda):
