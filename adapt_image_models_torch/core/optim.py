@@ -32,12 +32,24 @@ DEFAULT_NO_DECAY_KEYS = ("class_embedding", "positional_embedding",
                          "ln_post", "bias")
 
 
+# the JAX package's parameter tree names the recognizer's two sub-modules
+# otherwise, and the shared configs' custom_keys are written against its
+# names (``vitclip_large_k400.py`` puts lr_mult=0.1 on ``backbone_module``)
+_JAX_ROOTS = {"backbone": "backbone_module", "cls_head": "head_module"}
+
+
 def match_custom_keys(name: str, custom_keys: Dict[str, Dict[str, float]],
                       field: str, default: float) -> float:
-    """Longest-substring match wins."""
+    """Longest-substring match wins. A key matches a parameter's name in
+    this package (``backbone.ln_post.weight``) or its name with the JAX
+    package's root (``backbone_module.ln_post.weight``), so that one config
+    gives both packages the same multipliers."""
+    root, _, rest = name.partition(".")
+    alias = f"{_JAX_ROOTS[root]}.{rest}" if root in _JAX_ROOTS else name
     best, best_len = default, -1
     for key, mults in custom_keys.items():
-        if key in name and len(key) > best_len and field in mults:
+        if ((key in name or key in alias) and len(key) > best_len
+                and field in mults):
             best, best_len = mults[field], len(key)
     return best
 

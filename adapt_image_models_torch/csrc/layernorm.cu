@@ -67,7 +67,10 @@ extern "C" int aim_layernorm_bf16(const void* x, const void* gamma, const void* 
 }
 
 // dx = rstd * (dxhat - mean(dxhat) - xhat * mean(dxhat * xhat)) + g, with
-// dxhat = dy * gamma, all in fp32; x and g bf16, dy fp32, dx bf16.
+// dxhat = dy * gamma, all in fp32; x and g bf16, dy fp32, dx bf16. A null g
+// adds nothing: the dX-only backwards (fused_qkv_attention.py:821-827,
+// fused_temporal_attention.py:921-925) round dx before their caller adds
+// the residual cotangent.
 __global__ void __launch_bounds__(256)
 layernorm_bwd_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ dy,
                           const float* __restrict__ gamma, const bf16* __restrict__ g,
@@ -77,7 +80,7 @@ layernorm_bwd_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ 
   if (row >= rows) return;
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * d);
   const float4* dyr = reinterpret_cast<const float4*>(dy + (size_t)row * d);
-  const uint4* gr = reinterpret_cast<const uint4*>(g + (size_t)row * d);
+  const uint4* gr = g ? reinterpret_cast<const uint4*>(g + (size_t)row * d) : nullptr;
   uint4* dxr = reinterpret_cast<uint4*>(dx + (size_t)row * d);
   const int chunks = d >> 3;
   float f[8];
@@ -122,8 +125,8 @@ layernorm_bwd_bf16_kernel(const bf16* __restrict__ x, const float* __restrict__ 
   for (int c = lane; c < chunks; c += 32) {
     bf16x8_to_float(xr[c], f);
     load_dy(c, t);
-    float gg[8];
-    bf16x8_to_float(gr[c], gg);
+    float gg[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    if (gr) bf16x8_to_float(gr[c], gg);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float xhat = (f[i] - mean) * rstd;

@@ -8,19 +8,23 @@ from adapt_image_models_torch.ops.fused_joint_mlp import (  # noqa: F401
     fused_joint_train_block_plain,
 )
 from adapt_image_models_torch.ops.fused_qkv_attention import (  # noqa: F401
-    fused_attention_block, fused_attention_block_plain, fused_qkv_attention,
-    fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain,
-    fused_qkv_attention_plain, fused_spatial_step, fused_spatial_step_plain,
-    fused_spatial_train_step, fused_spatial_train_step_plain, fused_step_bwd_dx,
-    fused_step_bwd_dx_plain,
+    fused_attention_block, fused_attention_block_plain,
+    fused_ln_qkv_attention_bwd_dx, fused_ln_qkv_attention_bwd_dx_plain,
+    fused_qkv_attention, fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain,
+    fused_qkv_attention_plain, fused_spatial_step, fused_spatial_step_gated,
+    fused_spatial_step_plain, fused_spatial_train_step,
+    fused_spatial_train_step_plain, fused_step_bwd_dx, fused_step_bwd_dx_plain,
+    step_whole_cell_fits,
 )
 from adapt_image_models_torch.ops.fused_temporal_attention import (  # noqa: F401
+    fused_ln_temporal_attention_bwd_dx, fused_ln_temporal_attention_bwd_dx_plain,
     fused_temporal_attention, fused_temporal_attention_bwd,
     fused_temporal_attention_bwd_plain, fused_temporal_attention_plain,
     fused_temporal_block, fused_temporal_block_plain, fused_temporal_step,
     fused_temporal_step_bwd_dx, fused_temporal_step_bwd_dx_plain,
-    fused_temporal_step_plain, fused_temporal_train_step,
-    fused_temporal_train_step_plain,
+    fused_temporal_step_gated, fused_temporal_step_plain,
+    fused_temporal_train_step, fused_temporal_train_step_plain,
+    tstep_whole_cell_fits,
 )
 
 _TPU = "adapt_image_models_tpu/ops/"
@@ -52,6 +56,13 @@ KERNEL_OPS = {
     "fused_qkv_attention": (fused_qkv_attention, _TPU + "fused_qkv_attention.py:426"),
     "fused_qkv_attention_bwd": (
         fused_qkv_attention_bwd, _TPU + "fused_qkv_attention.py:961"),
+    "fused_spatial_step_gated": (
+        fused_spatial_step_gated, _TPU + "fused_qkv_attention.py:1557"),
+    "fused_ln_qkv_attention_bwd_dx": (
+        fused_ln_qkv_attention_bwd_dx, _TPU + "fused_qkv_attention.py:1039"),
+    "fused_ln_temporal_attention_bwd_dx": (
+        fused_ln_temporal_attention_bwd_dx,
+        _TPU + "fused_temporal_attention.py:1398"),
 }
 
 # the ops an AIM eval forward and train step launch, by num_tadapter: 1 runs
@@ -67,6 +78,42 @@ TRAIN_OPS = {
         "fused_spatial_train_step", "fused_step_bwd_dx",
         "fused_joint_train_block", "fused_joint_mlp_rows_bwd"),
 }
+# where the JAX package's predicates pick the two-kernel composition, the
+# forward that saves u and the dX-only backward stand in the whole-step
+# ops' place: the temporal step of ViT-B at 32 frames, both attention steps
+# at ViT-L. A forward counts under the TPU kernel it replaces: the gated
+# temporal forward (:1664) is ``fused_temporal_train_step`` in both designs,
+# with or without u; the spatial forward is ``fused_spatial_train_step``
+# without a gate (:647) and ``fused_spatial_step_gated`` (:1557) with a
+# gate or with u.
+COMPOSITION_TRAIN_OPS = {
+    "long_clip": ("fused_temporal_train_step",
+                  "fused_ln_temporal_attention_bwd_dx", *TRAIN_OPS[1][2:]),
+    "wide": ("fused_temporal_train_step", "fused_ln_temporal_attention_bwd_dx",
+             "fused_spatial_step_gated", "fused_ln_qkv_attention_bwd_dx",
+             *TRAIN_OPS[1][4:]),
+}
+
+
+def train_ops(num_tadapter: int, num_frames: int, tokens: int, width: int,
+              spatial_gate: bool = False):
+    """The ops a train step of AIM launches at a geometry (adapter width
+    D/4), as (temporal forward, backward, spatial forward, backward, joint
+    forward, backward): the entry of ``TRAIN_OPS`` or
+    ``COMPOSITION_TRAIN_OPS`` that the two predicates pick.
+    ``spatial_gate`` says that the spatial step is given a drop-path gate
+    (AIM draws none): its whole-step forward is then the gated kernel."""
+    if num_tadapter == 2:
+        ops = TRAIN_OPS[2]
+    elif tstep_whole_cell_fits(num_frames, width):
+        ops = TRAIN_OPS[1]
+    else:
+        ops = COMPOSITION_TRAIN_OPS["long_clip"]
+    if not step_whole_cell_fits(tokens, width, width // 4):
+        return ops[:2] + COMPOSITION_TRAIN_OPS["wide"][2:]
+    if spatial_gate:
+        return ops[:2] + ("fused_spatial_step_gated",) + ops[3:]
+    return ops
 
 
 # the ops an AIM_FLASH / AIM_FLASH_WIN eval forward and train step launch:

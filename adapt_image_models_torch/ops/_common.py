@@ -1,7 +1,8 @@
 """Plain PyTorch numerics shared by the fused ops and the model layers, the
-CUDA kernel chains of the two attention steps (forward and backward), the
-autograd rules shared by the three train ops and by the two plain
-attention blocks, and the argument checks of the op wrappers.
+CUDA kernel chains of the two attention steps (forward, whole-step backward
+and dX-only backward), the autograd rules shared by the three train ops
+(whole step and composition) and by the two plain attention blocks, and the
+argument checks of the op wrappers.
 
 The plain versions follow the casts of the TPU kernels, not those of the
 JAX XLA path: products take their operands in the working dtype and sum in
@@ -67,9 +68,11 @@ def mm32_kn(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def layer_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
-                         g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+                         g: Optional[torch.Tensor] = None,
+                         eps: float = 1e-5) -> torch.Tensor:
     """fp32 dx of ``LN(x)`` for the fp32 cotangent ``dy`` of its output, plus
-    the residual cotangent ``g`` (``fused_qkv_attention.py:1310-1315``)."""
+    the residual cotangent ``g`` (``fused_qkv_attention.py:1310-1315``); with
+    no ``g`` the LN backward alone, as the dX-only kernels close (:821-827)."""
     x32 = x.float()
     mean = x32.mean(-1, keepdim=True)
     var = (x32 - mean).square().mean(-1, keepdim=True)
@@ -78,7 +81,8 @@ def layer_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor
     dxhat = dy * weight.float()
     mdx = dxhat.mean(-1, keepdim=True)
     mdxx = (dxhat * xhat).mean(-1, keepdim=True)
-    return rstd * (dxhat - mdx - xhat * mdxx) + g.float()
+    dx = rstd * (dxhat - mdx - xhat * mdxx)
+    return dx if g is None else dx + g.float()
 
 
 def softmax_pv(s: torch.Tensor, v: torch.Tensor, dtype: torch.dtype,
@@ -183,11 +187,14 @@ def _gated(z: torch.Tensor, gate: Optional[torch.Tensor], rows_per_gate: int):
 
 def attention_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1,
                          w2, b2, skip: bool, core: Callable,
-                         gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         gate: Optional[torch.Tensor] = None,
+                         emit_u: bool = False):
     """``x + gate·Adapter(W_o·core(LN x))`` with the TPU step kernels' casts
     (``fused_qkv_attention.py:376-389, 1535-1554``). ``core`` maps the
     packed QKV rows to the attention output rows; ``gate`` (B·T,) scales
-    the branch of each (B·T) row, None for no gate."""
+    the branch of each (B·T) row, None for no gate. With ``emit_u`` returns
+    (out, u), u the adapter's input ``W_o·core(LN x) + b_o`` rounded to the
+    working dtype (:1549-1550)."""
     bt, l, d = x.shape
     dt = x.dtype
     x2 = x.reshape(bt * l, d)
@@ -198,16 +205,19 @@ def attention_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1,
     z = mm32(a.to(dt), w2) + b2.float()
     if skip:
         z = y + z
-    return (x2.float() + _gated(z, gate, l)).to(dt).reshape(bt, l, d)
+    out = (x2.float() + _gated(z, gate, l)).to(dt).reshape(bt, l, d)
+    return (out, y.to(dt).reshape(bt, l, d)) if emit_u else out
 
 
 def attention_step_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1,
                         w2, b2, skip: bool, core: Callable,
-                        gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        gate: Optional[torch.Tensor] = None,
+                        emit_u: bool = False):
     """The kernel chain of the two attention steps: LN, QKV GEMM (+bias,
     bf16 out), attention core, out-proj GEMM (fp32 y and its bf16 copy),
     adapter fc1 GEMM (tanh GELU), adapter fc2 GEMM with the skip, the gate
-    and the residual in its epilogue."""
+    and the residual in its epilogue. With ``emit_u`` returns (out, u), u
+    the out-projection's bf16 copy, which the chain forms anyway."""
     bt, l, d = x.shape
     x2 = x.view(bt * l, d)
     xn = _kernels.layernorm(x2, ln_w, ln_b)
@@ -216,7 +226,7 @@ def attention_step_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1,
     _, a = _kernels.gemm(y16, w1, bias=b1, act=_kernels.ACT_GELU_TANH)
     _, out = _kernels.gemm(a, w2, bias=b2, res_f32=y32 if skip else None,
                            row_scale=gate, rows_per_scale=l, res_bf16=x2)
-    return out.view(bt, l, d)
+    return (out.view(bt, l, d), y16.view(bt, l, d)) if emit_u else out.view(bt, l, d)
 
 
 def attention_step_bwd_plain(x, gate, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
@@ -276,6 +286,55 @@ def attention_step_bwd_cuda(x, gate, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     return dx.view(bt, l, d), u, dpre, a, (g2 if gate is None else db32)
 
 
+def attention_bwd_dx_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                           core_bwd: Callable) -> torch.Tensor:
+    """dX only of ``W_o·core(LN x)`` for its output cotangent ``g``, the
+    forward recomputed from x, with the casts of the TPU dX-only kernels
+    (``_bwd_ln_attention_body`` ``fused_qkv_attention.py:745-832``,
+    ``_bwd_temporal_body_full`` ``fused_temporal_attention.py:885-928``): LN
+    output, q/k/v and dO = g·W_o rounded, the core backward of
+    ``attention_core_bwd_plain``, dy = dqkv·W_qkv and the LN backward in
+    fp32, dx rounded. No residual cotangent is added: the caller adds its
+    own after this rounding."""
+    bt, l, d = x.shape
+    dt = x.dtype
+    x2, g2 = x.reshape(bt * l, d), g.reshape(bt * l, d)
+    xn = layer_norm_fp32(x2, ln_w, ln_b).to(dt)
+    qkv = (mm32(xn, w_qkv) + b_qkv.float()).to(dt)
+    do = mm32_kn(g2, w_out).to(dt)
+    dy = mm32_kn(core_bwd(qkv, do), w_qkv)
+    return layer_norm_bwd_plain(x2, dy, ln_w).to(dt).reshape(bt, l, d)
+
+
+def attention_bwd_dx_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                          core_bwd: Callable) -> torch.Tensor:
+    """The kernel chain of ``attention_bwd_dx_plain``: LN, QKV GEMM, the
+    (K, N) GEMM of g through W_o, the core backward, the (K, N) GEMM of dqkv
+    through W_qkv (fp32 out) and the LN backward without a residual."""
+    bt, l, d = x.shape
+    x2, g2 = x.view(bt * l, d), g.view(bt * l, d)
+    xn = _kernels.layernorm(x2, ln_w, ln_b)
+    _, qkv = _kernels.gemm(xn, w_qkv, bias=b_qkv)
+    _, do = _kernels.gemm(g2, w_out, kn=True)
+    dy, _ = _kernels.gemm(core_bwd(qkv, do), w_qkv, kn=True, out_f32=True,
+                          out_bf16=False)
+    return _kernels.layernorm_bwd(x2, dy, ln_w).view(bt, l, d)
+
+
+def adapter_bwd_fp32(u32: torch.Tensor, db: torch.Tensor, w1, b1, w2,
+                     skip: bool):
+    """The bottleneck adapter's backward in fp32 framework ops from its fp32
+    input rows ``u32`` and the fp32 cotangent ``db`` of its output, as the
+    JAX package runs it in XLA between the two kernels of the composition
+    (``_adapter_bwd_xla`` ``fused_qkv_attention.py:1460-1470``): the
+    pre-activation is recomputed from u32 and nothing is rounded. Returns
+    fp32 (dpre, a, du)."""
+    pre = mm32(u32, w1) + b1.float()
+    dpre = mm32_kn(db, w2) * gelu_tanh_grad(pre)
+    du = mm32_kn(dpre, w1)
+    return dpre, gelu_tanh(pre), du + db if skip else du
+
+
 def adapter_weight_grads(u, dpre, a, db, w1, b1, w2, b2):
     """Adapter cotangents (torch layout, cast to each weight's dtype) from
     the adapter input rows u, (dpre, a) and the fp32 cotangent db of its
@@ -311,6 +370,41 @@ class AdapterStep(torch.autograd.Function):
         grads = (adapter_weight_grads(u, dpre, a, db, w1, b1, w2, b2)
                  if any(ctx.needs_input_grad[4:8]) else (None,) * 4)
         return (None, None, dx, None, *grads) + (None,) * len(frozen)
+
+
+class AdapterStepStash(torch.autograd.Function):
+    """The two-kernel composition of a train step, which the JAX package
+    takes where its whole-step backward cell outgrows VMEM
+    (``_fwd_train_step``/``_bwd_train_step`` ``fused_qkv_attention.py:
+    1415-1519``, ``_fwd_tstep``/``_bwd_tstep`` ``fused_temporal_attention.py:
+    1740-1790``). ``fwd(x, gate, w1, b1, w2, b2, *frozen)`` returns (out, u)
+    and u, the adapter's input in the working dtype, is saved beside x, the
+    gate and the weights. The backward runs the adapter's backward in fp32
+    framework ops from u (``adapter_bwd_fp32``), rounds du only where it
+    enters ``bwd_dx(x, ln_w, ln_b, w_qkv, b_qkv, w_out, du)``, the dX-only
+    kernel, and adds the residual cotangent after that kernel's rounding.
+    ``frozen`` is (ln_w, ln_b, w_qkv, b_qkv, w_out, b_out); they and the
+    gate get no cotangent, as in ``AdapterStep``."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd_dx, skip, x, gate, w1, b1, w2, b2, *frozen):
+        ctx.bwd_dx, ctx.skip = bwd_dx, skip
+        out, u = fwd(x, gate, w1, b1, w2, b2, *frozen)
+        ctx.save_for_backward(x, gate, u, w1, b1, w2, b2, *frozen)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gate, u, w1, b1, w2, b2, *frozen = ctx.saved_tensors
+        bt, l, d = x.shape
+        g = g.to(x.dtype).contiguous()
+        db = _gated(g.reshape(bt * l, d).float(), gate, l)
+        u2 = u.reshape(bt * l, d)
+        dpre, a, du = adapter_bwd_fp32(u2.float(), db, w1, b1, w2, ctx.skip)
+        dx = ctx.bwd_dx(x, *frozen[:5], du.to(x.dtype).view(bt, l, d)) + g
+        grads = (adapter_weight_grads(u2, dpre, a, db, w1, b1, w2, b2)
+                 if any(ctx.needs_input_grad[5:9]) else (None,) * 4)
+        return (None, None, None, dx, None, *grads) + (None,) * len(frozen)
 
 
 class AttentionBlock(torch.autograd.Function):
@@ -369,6 +463,14 @@ def check_gate(name: str, gate: Optional[torch.Tensor], rows: int,
         raise ValueError(f"{name}: gate must be on {x.device}")
     if gate.dtype != torch.float32 or not gate.is_contiguous():
         raise ValueError(f"{name}: the gate must be contiguous fp32")
+
+
+def check_cotangent(name: str, g: torch.Tensor, x: torch.Tensor) -> None:
+    """An output cotangent: contiguous, of x's shape, dtype and device."""
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"{name}: g must match x")
+    if not g.is_contiguous():
+        raise ValueError(f"{name}: g must be contiguous")
 
 
 def check_step_args(name: str, x: torch.Tensor, ln, matrices, vectors,

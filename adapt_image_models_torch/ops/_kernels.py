@@ -3,8 +3,9 @@
 The sources are compiled by ``nvcc`` for ``sm_90a``, one process per source
 started together, and linked into one shared library with a plain C
 interface, loaded with ``ctypes``. The library is built at first use into
-``csrc/build/<hash of the sources>/``, so an unchanged tree builds once. Nothing here runs at import: the CPU tests import every
-module, and this machine may have neither ``nvcc`` nor a card.
+``csrc/build/<hash of the sources>/``, so an unchanged tree builds once.
+Nothing here runs at import: the CPU tests import every module, and the
+machine they run on may have neither ``nvcc`` nor a card.
 
 The launchers below take CUDA tensors, allocate their outputs with
 ``torch.empty`` and launch on PyTorch's current stream. Every C entry
@@ -138,13 +139,15 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
 
 
 def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
-                  g: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+                  g: Optional[torch.Tensor] = None,
+                  eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm backward plus the residual cotangent: x, g (rows, D) bf16,
-    dy (rows, D) fp32 -> dx (rows, D) bf16."""
+    dy (rows, D) fp32 -> dx (rows, D) bf16. With no ``g`` the LN backward
+    alone, as the dX-only backwards close."""
     rows, d = x.shape
     dx = torch.empty_like(x)
     _check(library().aim_layernorm_bwd_bf16(
-        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), g.data_ptr(),
+        x.data_ptr(), dy.data_ptr(), weight.data_ptr(), _ptr(g),
         dx.data_ptr(), rows, d, eps, _stream()), "aim_layernorm_bwd_bf16")
     return dx
 

@@ -14,17 +14,32 @@ also writes the (rows, 3D) QKV and a few (rows, D) intermediates to device
 memory, which fusing the LN and adapter into neighbouring kernels removes
 in later work.
 
-Train mode (``fused_spatial_train_step``, an autograd op; the spatial step
-carries no drop-path gate on the AIM path) runs the same forward chain; its
-backward (``fused_step_bwd_dx``) replaces the TPU kernel of that name
-(:1323, body :1220-1320): it recomputes the forward from x (with P
-normalised before the PV product, as that kernel does), runs the adapter
-backward through (K, N) GEMMs of the frozen weights, the spatial core
-backward (``csrc/attention.cu``) and the LN backward with the residual, and
-emits dX with the adapter intermediates (u, dpre, a); the adapter's weight
-cotangents are formed from them as the JAX package forms them outside its
-kernel (:1520-1526). The gated spatial forward (:1557) is not on that path
-and is not ported: a gate raises.
+Train mode (``fused_spatial_train_step``, an autograd op) has two designs,
+and takes the one the JAX package takes at the same geometry
+(``step_whole_cell_fits``, its VMEM predicate :1388), so that both packages
+round the same intermediates:
+
+* the whole step (ViT-B widths): the forward is the same chain (with a gate,
+  ``fused_spatial_step_gated``); the backward (``fused_step_bwd_dx``)
+  replaces the TPU kernel of that name (:1323, body :1220-1320): it
+  recomputes the forward from x (with P normalised before the PV product,
+  as that kernel does), runs the adapter backward through (K, N) GEMMs of
+  the frozen weights, the spatial core backward (``csrc/attention.cu``) and
+  the LN backward with the residual, and emits dX with the adapter
+  intermediates (u, dpre, a); the adapter's weight cotangents are formed
+  from them as the JAX package forms them outside its kernel (:1520-1526);
+* the composition (ViT-L widths, :1415-1434 and :1493-1519): the forward
+  ``fused_spatial_step_gated(..., emit_u=True)`` replaces
+  ``fused_ln_attn_adapter_residual_gated`` (:1557) and also returns u, the
+  adapter's input, which the chain's out-projection GEMM writes anyway; u
+  is saved beside x. The backward runs the adapter's backward in fp32
+  framework ops from u (``_adapter_bwd_xla`` :1460, outside any TPU kernel
+  there too) and then ``fused_ln_qkv_attention_bwd_dx``, which replaces the
+  dX-only TPU kernel of that name (:1039, body :745-832): LN, the QKV GEMM,
+  dO = du·W_o, the spatial core backward, dy = dqkv·W_qkv and the LN
+  backward with no residual; the residual cotangent is added to its
+  rounded result. Against the whole step it skips the core's forward
+  recompute and three adapter GEMMs and holds one more (rows, D) tensor.
 
 The plain spatial attention block ``W_o · attn(x)`` (no LN, no adapter:
 the flash variants' prompt-token attention, ``layers.py:367``) replaces
@@ -55,22 +70,25 @@ import torch
 
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._common import (
-    AdapterStep, AttentionBlock, attention_step_bwd_cuda,
-    attention_step_bwd_plain, attention_step_cuda, attention_step_plain,
-    check_frozen, check_step_args, mm32, mm32_kn, spatial_core_bwd_plain,
+    AdapterStep, AdapterStepStash, AttentionBlock, attention_bwd_dx_cuda,
+    attention_bwd_dx_plain, attention_step_bwd_cuda, attention_step_bwd_plain,
+    attention_step_cuda, attention_step_plain, check_cotangent, check_frozen,
+    check_gate, check_step_args, mm32, mm32_kn, spatial_core_bwd_plain,
     spatial_core_plain,
 )
 
 
 def fused_spatial_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
-                             w1, b1, w2, b2, num_heads: int,
-                             skip: bool) -> torch.Tensor:
+                             w1, b1, w2, b2, num_heads: int, skip: bool,
+                             gate=None, emit_u: bool = False):
     """Plain PyTorch version with the TPU kernel's casts. x: (B·T, N, D);
-    weights in torch Linear layout (out, in)."""
+    weights in torch Linear layout (out, in); ``gate`` (B·T,) scales each
+    row's branch and ``emit_u`` adds the adapter's input u to the result
+    (the gated train forward)."""
     bt, n, _ = x.shape
     return attention_step_plain(
         x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, skip,
-        lambda qkv: spatial_core_plain(qkv, bt, n, num_heads))
+        lambda qkv: spatial_core_plain(qkv, bt, n, num_heads), gate, emit_u)
 
 
 def _check(name, x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
@@ -102,6 +120,33 @@ def fused_spatial_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 fused_spatial_step.launches = 0
 
 
+def fused_spatial_step_gated(x, gate, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                             w1, b1, w2, b2, num_heads: int, skip: bool,
+                             emit_u: bool = False):
+    """``x + gate·Adapter(W_o·attn(LN(x)))``, ``gate`` (B·T,) fp32: the
+    train forward with the drop-path gate in the last GEMM's epilogue. With
+    ``emit_u`` returns (out, u), u the adapter's input ``W_o·attn(LN x) +
+    b_o`` in x's dtype, which the composition backward reads instead of
+    recomputing the forward. CPU tensors take the plain version; CUDA
+    tensors launch the kernel chain."""
+    args = (x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
+    _check("fused_spatial_step_gated", *args, num_heads)
+    if gate is None:
+        raise ValueError("fused_spatial_step_gated: the gate is required")
+    check_gate("fused_spatial_step_gated", gate, x.shape[0], x)
+    if x.device.type == "cpu":
+        return fused_spatial_step_plain(*args, num_heads, skip, gate, emit_u)
+    bt, n, _ = x.shape
+    out = attention_step_cuda(
+        *args, skip, lambda qkv: _kernels.spatial_attention(qkv, bt, n), gate,
+        emit_u)
+    fused_spatial_step_gated.launches += 1
+    return out
+
+
+fused_spatial_step_gated.launches = 0
+
+
 def _bwd_cores(x, num_heads, cuda: bool):
     bt, n, _ = x.shape
     if cuda:
@@ -112,26 +157,27 @@ def _bwd_cores(x, num_heads, cuda: bool):
 
 
 def fused_step_bwd_dx_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1,
-                            w2, b2, g, num_heads: int, skip: bool):
+                            w2, b2, g, num_heads: int, skip: bool, gate=None):
     """Plain version of the train backward with the TPU kernel's casts
     (``fused_qkv_attention.py:1220-1320``). Returns (dx, u, dpre, a, db),
     see ``attention_step_bwd_plain``."""
     return attention_step_bwd_plain(
-        x, None, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, g,
+        x, gate, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, g,
         skip, *_bwd_cores(x, num_heads, cuda=False))
 
 
 def fused_step_bwd_dx(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2,
-                      b2, g, num_heads: int, skip: bool):
-    """Train backward for the output cotangent ``g``: (dx, u, dpre, a, db).
+                      b2, g, num_heads: int, skip: bool, gate=None):
+    """Train backward for the output cotangent ``g``: (dx, u, dpre, a, db);
+    ``gate`` (B·T,) fp32 is the forward's drop-path gate, None for none.
     CPU tensors take the plain version; CUDA tensors launch the kernels."""
     args = (x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
     _check("fused_step_bwd_dx", *args, num_heads)
-    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
-        raise ValueError("fused_step_bwd_dx: g must match x")
+    check_gate("fused_step_bwd_dx", gate, x.shape[0], x)
+    check_cotangent("fused_step_bwd_dx", g, x)
     if x.device.type == "cpu":
-        return fused_step_bwd_dx_plain(*args, g, num_heads, skip)
-    out = attention_step_bwd_cuda(x, None, *args[1:], g, skip,
+        return fused_step_bwd_dx_plain(*args, g, num_heads, skip, gate)
+    out = attention_step_bwd_cuda(x, gate, *args[1:], g, skip,
                                   *_bwd_cores(x, num_heads, cuda=True))
     fused_step_bwd_dx.launches += 1
     return out
@@ -140,46 +186,113 @@ def fused_step_bwd_dx(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2,
 fused_step_bwd_dx.launches = 0
 
 
+def fused_ln_qkv_attention_bwd_dx_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                                        num_heads: int) -> torch.Tensor:
+    """Plain version of the dX-only backward with the TPU kernel's casts
+    (``_kernel_ln_bwd_dx`` :1028, body :745-832), see
+    ``attention_bwd_dx_plain``."""
+    return attention_bwd_dx_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                                  _bwd_cores(x, num_heads, cuda=False)[1])
+
+
+def fused_ln_qkv_attention_bwd_dx(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                                  num_heads: int) -> torch.Tensor:
+    """dX only of ``W_o·attn(LN(x))`` for its output cotangent ``g`` (like
+    x), the forward recomputed from x: the second kernel of the
+    composition backward. No residual cotangent is added. CPU tensors take
+    the plain version; CUDA tensors launch the kernels: LN, the QKV GEMM,
+    the (K, N) GEMM of g through W_o, the spatial core backward, the (K, N)
+    GEMM of dqkv through W_qkv and the LN backward."""
+    d = x.shape[-1]
+    check_step_args("fused_ln_qkv_attention_bwd_dx", x, (ln_w, ln_b),
+                    ((w_qkv, (3 * d, d)), (w_out, (d, d))), ((b_qkv, 3 * d),),
+                    num_heads)
+    check_cotangent("fused_ln_qkv_attention_bwd_dx", g, x)
+    if x.device.type == "cpu":
+        return fused_ln_qkv_attention_bwd_dx_plain(x, ln_w, ln_b, w_qkv, b_qkv,
+                                                   w_out, g, num_heads)
+    dx = attention_bwd_dx_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                               _bwd_cores(x, num_heads, cuda=True)[1])
+    fused_ln_qkv_attention_bwd_dx.launches += 1
+    return dx
+
+
+fused_ln_qkv_attention_bwd_dx.launches = 0
+
+
+def step_whole_cell_fits(l: int, d: int, dh: int) -> bool:
+    """The JAX package's choice between its two train designs for the
+    spatial step (``_step_vmem_fits`` :1388 with its 12 MiB default): True
+    where the whole-step backward cell (x, g in; dx, u, dpre, a out, double
+    buffered; the weights; the (L, 3D) QKV) fits that budget of TPU VMEM,
+    as at ViT-B; False, as at ViT-L, takes the two-kernel composition. The
+    port follows it so that both packages compute the same gradient at
+    every geometry; PERF.md holds the H100's times for both designs."""
+    lp = -(-l // 16) * 16
+    est = ((2 * (2 + 2) * lp * d + 2 * 2 * lp * dh) * 2
+           + (4 * d * d + 2 * d * dh) * 2 + lp * 3 * d * 2)
+    return est <= 12 * 2 ** 20
+
+
 def _train_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
                 gate, num_heads, skip, plain: bool):
     frozen = (ln_w, ln_b, w_qkv, b_qkv, w_out, b_out)
     _check("fused_spatial_train_step", x, *frozen, w1, b1, w2, b2, num_heads,
            kernel=not plain)
-    if gate is not None:
-        raise NotImplementedError(
-            "fused_spatial_train_step: the gated spatial step "
-            "(fused_qkv_attention.py:1557) is not on the AIM path and is not "
-            "ported yet (ROADMAP queue 2 item 5)")
+    check_gate("fused_spatial_train_step", gate, x.shape[0], x)
     check_frozen("fused_spatial_train_step", frozen)
-    bt, n, _ = x.shape
+    bt, n, d = x.shape
+    composition = not step_whole_cell_fits(n, d, w1.shape[0])
+    on_cpu = plain or x.device.type == "cpu"
 
     def fwd(x, gate, w1, b1, w2, b2, *frozen):
-        if plain or x.device.type == "cpu":
+        if on_cpu:
             return fused_spatial_step_plain(x, *frozen, w1, b1, w2, b2,
-                                            num_heads, skip)
+                                            num_heads, skip, gate, composition)
+        if composition or gate is not None:
+            # a None gate rides as all ones, as in the JAX package (:1423):
+            # exact, the gated store multiplies by 1.0
+            ones = torch.ones(bt, dtype=torch.float32, device=x.device)
+            return fused_spatial_step_gated(
+                x, ones if gate is None else gate, *frozen, w1, b1, w2, b2,
+                num_heads, skip, emit_u=composition)
         out = attention_step_cuda(
             x, *frozen, w1, b1, w2, b2, skip,
             lambda qkv: _kernels.spatial_attention(qkv, bt, n))
         fused_spatial_train_step.launches += 1
         return out
 
+    if composition:
+        bwd_dx = (fused_ln_qkv_attention_bwd_dx_plain if plain
+                  else fused_ln_qkv_attention_bwd_dx)
+        return AdapterStepStash.apply(
+            fwd, lambda *a: bwd_dx(*a, num_heads), skip, x, gate, w1, b1, w2,
+            b2, *frozen)
+
     def bwd(x, gate, w1, b1, w2, b2, *rest):
         *frozen, g = rest
         op = fused_step_bwd_dx_plain if plain else fused_step_bwd_dx
-        return op(x, *frozen, w1, b1, w2, b2, g, num_heads, skip)
+        return op(x, *frozen, w1, b1, w2, b2, g, num_heads, skip, gate)
 
-    return AdapterStep.apply(fwd, bwd, x, None, w1, b1, w2, b2, *frozen)
+    return AdapterStep.apply(fwd, bwd, x, gate, w1, b1, w2, b2, *frozen)
 
 
 def fused_spatial_train_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
                              w1, b1, w2, b2, gate, num_heads: int,
                              skip: bool) -> torch.Tensor:
-    """Train mode: ``x + Adapter(W_o·attn(LN(x)))`` with the hand-written
-    backward. ``gate`` must be None (the AIM spatial step has no drop
-    path). The LN and CLIP weights must not require grad. CPU tensors take
-    the plain forward and backward; CUDA tensors launch the kernels."""
+    """Train mode: ``x + gate·Adapter(W_o·attn(LN(x)))`` with the
+    hand-written backward. ``gate``: (B·T,) fp32 drop-path gate or None
+    (the AIM spatial step draws none). The LN and CLIP weights must not
+    require grad. ``step_whole_cell_fits`` picks the design for the
+    geometry, as in the JAX package: the whole-step backward
+    (``fused_step_bwd_dx``), or the forward that saves u with the fp32
+    adapter backward and the dX-only kernel
+    (``fused_ln_qkv_attention_bwd_dx``). CPU tensors take the plain forward
+    and backward; CUDA tensors launch the kernels: the ungated forward
+    counts here, a gated or u-saving one under
+    ``fused_spatial_step_gated``, the TPU kernel it replaces."""
     return _train_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2,
-                       b2, gate, num_heads, skip, plain=False)
+                       b2, gate, num_heads, skip, False)
 
 
 fused_spatial_train_step.launches = 0
@@ -191,7 +304,7 @@ def fused_spatial_train_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     """``fused_spatial_train_step`` with the plain forward and backward on
     any device: the reference the kernels are held against."""
     return _train_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2,
-                       b2, gate, num_heads, skip, plain=True)
+                       b2, gate, num_heads, skip, True)
 
 
 # ---------------------------------------------------------------------------

@@ -76,14 +76,52 @@ Phases, in order; any failure raises and exits non-zero:
      plain path, then eval clips/s at 8 clips, train clips/s and peak
      memory at 2 and 8 clips and a profile of one train step at 8 clips;
      and one forward of AIM_flash_win_base_hmdb51.py (16 frames, unshifted
-     windows).
+     windows);
+ 11. the composition train step's ops, which ViT-L widths and 32-frame
+     clips take: the gated spatial forward with its u output
+     (fused_spatial_step_gated), the u output of the gated temporal forward,
+     and the two dX-only backwards (fused_ln_qkv_attention_bwd_dx,
+     fused_ln_temporal_attention_bwd_dx) against their plain versions at
+     x (256, 197, 768) with 12 heads and T=8, at ViT-B/16's 32 frames
+     (64, 197, 768) and at ViT-L/14's (clips*32, 257, 1024) with 16 heads
+     and T=32 for 1, 2 and 4 clips; the train ops forced through the
+     composition at the first shape; then every op of phase 12's two paths
+     at the shapes those paths give it: the three eval ops at 3, 6 and 4
+     ViT-L/14 clips and at 3, 6 and 8 ViT-B/16 clips of 32 frames, and the
+     three train ops, forward and backward in the design the model takes
+     there, at 1, 2 and 4 ViT-L/14 clips and at 2 and 8 ViT-B/16 clips of
+     32 frames, each launch counted under the names ops.train_ops gives;
+     then, at (256, 197, 768) and at 1 and 4 ViT-L/14 clips, the times of
+     kernel, plain version and library (layer_norm and
+     multi_head_attention_forward under autograd, for dx) and forward +
+     backward of each train op under both designs, whole step and
+     composition, with the memory each holds, and at 4 ViT-L/14 clips the
+     times of the path's other ops;
+ 12. the wide and the long path through the entry points: AIM ViT-L/14 at
+     32 frames (configs/recognition/vit/vitclip_large_k400.py with the
+     backbone type AIM and attention_core="fused" as options: 24 layers,
+     width 1024, 16 heads, 257 tokens, max_testing_views=4) on seeded
+     weights: init_recognizer, inference_recognizer and run_evaluation on
+     synthetic 3-view videos with each eval kernel's launch count checked
+     against 24 layers, the kernel path against the plain path on the
+     probabilities, train_model for 3 steps of 2 clips through the recipe's
+     train pipeline with every train kernel's launch count checked, frozen
+     weights bitwise unchanged and trainable ones moved, one train step of
+     the kernel path against the plain path, eval clips/s and peak memory
+     at 32 and at 8 frames, train clips/s and peak memory at 1, 2 and 4
+     clips and a profile of one step; then AIM ViT-B/16 at 32 frames
+     (configs/recognition/vit/aim_base_k400.py): the same eval and train
+     drive with 12 layers, eval and train timings at 8 clips.
 The line before the last is a JSON object with one entry per kernel, with
-its launches on the first of the six paths above that runs it (path), and
+its launches on the first of the ten paths above that runs it (path), and
 its time (at 32 clips of 8 frames; the spatial block at 8 clips of the
-AIM_FLASH path's 32 frames) beside the least time the card could take for
+AIM_FLASH path's 32 frames; the composition's three ops at 4 clips of
+ViT-L/14's 32 frames) beside the least time the card could take for
 the same work (bound_ms, from tools/kernel_bounds_torch.py: the larger of
 its products' FLOPs over the H100's dense bf16 rate and its bytes, each
 input read once and each output written once, over its memory rate); the
+gated temporal forward's entry also holds, under emit_u, its time with the
+u output at 4 clips of ViT-L/14's 32 frames, as the composition runs it; the
 last line is {"ok": true, "device": {...}}.
 """
 
@@ -105,7 +143,15 @@ FLASH_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "AIM",
                             "AIM_flash_base_hmdb51.py")
 FLASH_WIN_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "AIM",
                                 "AIM_flash_win_base_hmdb51.py")
+LARGE_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit",
+                            "vitclip_large_k400.py")
+LONG_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "aim_base_k400.py")
+# both files end by switching the backbone to a variant that is not ported;
+# the AIM backbone and the fused ops are config options, as in the JAX package
+AIM_OPTIONS = ["model.backbone.type=AIM", "model.backbone.attention_core=fused"]
 FRAMES, TOKENS, WIDTH, HEADS = 8, 197, 768, 12
+# ViT-L/14 at 32 frames: 256 patches + the class token
+LARGE = dict(frames=32, tokens=257, width=1024, heads=16)
 # the AIM_FLASH config: 32 frames, 196 patches + the class and prompt tokens
 FLASH_FRAMES, FLASH_TOKENS = 32, 198
 
@@ -119,6 +165,9 @@ PROB_ATOL, SSV2_PROB_ATOL = 1e-3, 1e-4
 # over AIM_FLASH's 51 classes, about 6x the gap read on the first run
 # (3.218e-5)
 FLASH_PROB_ATOL = 2e-4
+# ViT-L/14 and ViT-B/16 at 32 frames, 400 classes: about 8x the gap read on
+# the first run of ViT-L/14 (6.208e-6)
+LARGE_PROB_ATOL = 5e-5
 # train ops' backward, kernel vs plain version: dx and the adapter
 # cotangents have scales that vary by tensor (dx ~5, dW up to ~1e3). Both
 # versions round the same intermediates; a summation-order flip moves a
@@ -144,15 +193,15 @@ def log(*args):
     print(*args, flush=True)
 
 
-def bound(op, clips, frames=FRAMES, tokens=TOKENS):
+def bound(op, clips, frames=FRAMES, tokens=TOKENS, width=WIDTH, emit_u=False):
     """(least milliseconds on one H100 for the work of the TPU kernel that
-    the op replaces, at x = (clips*frames, tokens, 768), "operations" or
+    the op replaces, at x = (clips*frames, tokens, width), "operations" or
     "bytes"): tools/kernel_bounds_torch.py."""
     from adapt_image_models_torch import ops
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from kernel_bounds_torch import bound as row_bound, row_of
     return row_bound(row_of(ops.KERNEL_OPS[op][1]), clips=clips, frames=frames,
-                     tokens=tokens, width=WIDTH)
+                     tokens=tokens, width=width, emit_u=emit_u)
 
 
 def check_launches(label, launches, expected):
@@ -219,17 +268,18 @@ def cuda_ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
-def op_inputs(clips, seed):
-    """Flagship-shape inputs of the three ops, weights at CLIP's init scale
-    (std 0.02), adapters included."""
+def op_inputs(clips, seed, frames=FRAMES, tokens=TOKENS, width=WIDTH):
+    """Inputs of the three ops at x = (clips*frames, tokens, width), the
+    flagship's shape unless given, weights at CLIP's init scale (std 0.02),
+    adapters included."""
     import torch
     g = torch.Generator().manual_seed(seed)
-    d, dh = WIDTH, WIDTH // 4
+    d, dh = width, width // 4
 
     def w(*shape, std=0.02):
         return (std * torch.randn(*shape, generator=g)).to("cuda", torch.bfloat16)
 
-    x = torch.randn(clips * FRAMES, TOKENS, d, generator=g).to("cuda", torch.bfloat16)
+    x = torch.randn(clips * frames, tokens, d, generator=g).to("cuda", torch.bfloat16)
     ln = ((1 + 0.1 * torch.randn(d, generator=g)).cuda(),
           (0.1 * torch.randn(d, generator=g)).cuda())
     adapter = (w(dh, d), w(dh), w(d, dh), w(d))
@@ -238,21 +288,101 @@ def op_inputs(clips, seed):
     return x, ln, attn, joint
 
 
-def op_calls(clips, seed):
-    """{name: (kernel call, plain call)} on the same inputs."""
+def op_calls(clips, seed, frames=FRAMES, tokens=TOKENS, width=WIDTH, heads=HEADS):
+    """{name: (kernel call, plain call)} of the three eval ops on the same
+    inputs at x = (clips*frames, tokens, width), the flagship's shape unless
+    given."""
     from adapt_image_models_torch import ops
-    x, ln, attn, joint = op_inputs(clips, seed)
+    x, ln, attn, joint = op_inputs(clips, seed, frames, tokens, width)
     return {
         "fused_temporal_step": (
-            lambda: ops.fused_temporal_step(x, *ln, *attn, FRAMES, HEADS, False),
-            lambda: ops.fused_temporal_step_plain(x, *ln, *attn, FRAMES, HEADS, False)),
+            lambda: ops.fused_temporal_step(x, *ln, *attn, frames, heads, False),
+            lambda: ops.fused_temporal_step_plain(x, *ln, *attn, frames, heads, False)),
         "fused_spatial_step": (
-            lambda: ops.fused_spatial_step(x, *ln, *attn, HEADS, True),
-            lambda: ops.fused_spatial_step_plain(x, *ln, *attn, HEADS, True)),
+            lambda: ops.fused_spatial_step(x, *ln, *attn, heads, True),
+            lambda: ops.fused_spatial_step_plain(x, *ln, *attn, heads, True)),
         "fused_joint": (
             lambda: ops.fused_joint(x, *ln, *joint, 0.5),
             lambda: ops.fused_joint_plain(x, *ln, *joint, 0.5)),
     }
+
+
+def eval_op_checks(clips, seed, errors, **geom):
+    """The three eval ops' kernel chains against their plain versions at one
+    geometry, each launch counted once."""
+    import torch
+    from adapt_image_models_torch import ops
+    for op, (kernel, plain) in op_calls(clips, seed, **geom).items():
+        fn = ops.KERNEL_OPS[op][0]
+        before = fn.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if fn.launches != before + 1:
+            raise AssertionError(f"{op}: launch counter did not move")
+        errors[op] = max(compare(op, got, plain()), errors.get(op, 0.0))
+        del got
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def forced_design(composition):
+    """Both attention train ops take the composition (True) or the whole
+    step (False) at any geometry: the two predicates that pick the design
+    for a model are replaced for the block, so that both designs can be held
+    and timed side by side at one shape."""
+    import importlib
+    patched = [(importlib.import_module("adapt_image_models_torch.ops." + mod), name)
+               for mod, name in (("fused_qkv_attention", "step_whole_cell_fits"),
+                                 ("fused_temporal_attention", "tstep_whole_cell_fits"))]
+    saved = [getattr(mod, name) for mod, name in patched]
+    for mod, name in patched:
+        setattr(mod, name, lambda *a: not composition)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+
+
+def train_op_checks(shape, clips, seed, errors, composition=None, **geom):
+    """The three train ops, forward and backward, against their plain
+    versions at one geometry: output, dx and the adapter cotangents. Each
+    takes the design that the model would take there (``ops.train_ops``)
+    unless ``composition`` forces the composition, and its forward and
+    backward must each count one launch under the names that
+    ``ops.train_ops`` gives. Returns the names of what disagreed."""
+    import torch
+    from adapt_image_models_torch import ops
+    names = (ops.COMPOSITION_TRAIN_OPS["wide"] if composition else
+             ops.train_ops(1, geom["frames"], geom["tokens"], geom["width"]))
+    ctx = contextlib.nullcontext() if composition is None else forced_design(composition)
+    tensors = ("out", "dx", "dW1", "db1", "dW2", "db2")
+    failures = []
+    with ctx:
+        for k, (op, (kernel, plain, _, _, args, _, g)) in enumerate(
+                train_op_calls(clips, seed, **geom).items()):
+            fwd_name, bwd_name = names[2 * k], names[2 * k + 1]
+            before = ops.launch_counts()
+            got = train_op_run(kernel, args, g)
+            torch.cuda.synchronize()
+            moved = {n: c - before[n] for n, c in ops.launch_counts().items()
+                     if c != before[n]}
+            if moved != {fwd_name: 1, bwd_name: 1}:
+                raise AssertionError(f"{op} at {shape}: launches {moved}, expected one of "
+                                     f"{fwd_name} and one of {bwd_name}")
+            want = train_op_run(plain, args, g)
+            log(f"  {op} train op ({fwd_name}, {bwd_name}):")
+            err = compare(f"  {fwd_name} out", got[0], want[0])
+            errors[fwd_name] = max(err, errors.get(fwd_name, 0.0))
+            for tensor, a, b in zip(tensors[1:], got[1:], want[1:]):
+                err, ok = compare_grad(tensor, a, b)
+                if tensor == "dx":
+                    errors[bwd_name] = max(err, errors.get(bwd_name, 0.0))
+                if not ok:
+                    failures.append(f"{op} {tensor} at {shape}")
+            del got, want
+    torch.cuda.empty_cache()
+    return failures
 
 
 @contextlib.contextmanager
@@ -277,29 +407,30 @@ def plain_ops():
             setattr(mod, name, fn)
 
 
-def train_op_calls(clips, seed):
-    """{name: (kernel op, plain op, backward wrapper, plain backward, args,
-    backward args)}: the three train ops at flagship shapes with drop-path
-    gates of zeros and 1/keep; the backward args add the cotangent."""
+def train_op_calls(clips, seed, frames=FRAMES, tokens=TOKENS, width=WIDTH, heads=HEADS):
+    """{name: (kernel op, plain op, whole-step backward wrapper, its plain
+    version, args, backward args)}: the three train ops at x = (clips*frames,
+    tokens, width), the flagship's shape unless given, with drop-path gates
+    of zeros and 1/keep; the backward args add the cotangent."""
     import torch
     from adapt_image_models_torch import ops
-    x, ln, attn, joint = op_inputs(clips, seed)
+    x, ln, attn, joint = op_inputs(clips, seed, frames, tokens, width)
     rows = x.shape[0]
     gate = torch.where(torch.arange(rows) % 5 == 2, 0.0, 1 / KEEP).cuda()
     g = torch.randn(x.shape, generator=torch.Generator().manual_seed(seed + 1))
     g = g.to("cuda", torch.bfloat16)
-    gate_rows = gate.repeat_interleave(TOKENS)
+    gate_rows = gate.repeat_interleave(tokens)
     return {
         "fused_temporal": (
             ops.fused_temporal_train_step, ops.fused_temporal_train_step_plain,
             ops.fused_temporal_step_bwd_dx, ops.fused_temporal_step_bwd_dx_plain,
-            (x, *ln, *attn, gate, FRAMES, HEADS, False),
-            (x, gate, *ln, *attn, g, FRAMES, HEADS, False), g),
+            (x, *ln, *attn, gate, frames, heads, False),
+            (x, gate, *ln, *attn, g, frames, heads, False), g),
         "fused_spatial": (
             ops.fused_spatial_train_step, ops.fused_spatial_train_step_plain,
             ops.fused_step_bwd_dx, ops.fused_step_bwd_dx_plain,
-            (x, *ln, *attn, None, HEADS, True),
-            (x, *ln, *attn, g, HEADS, True), g),
+            (x, *ln, *attn, None, heads, True),
+            (x, *ln, *attn, g, heads, True), g),
         "fused_joint": (
             ops.fused_joint_train_block, ops.fused_joint_train_block_plain,
             ops.fused_joint_mlp_rows_bwd, ops.fused_joint_mlp_rows_bwd_plain,
@@ -417,10 +548,11 @@ def profile_step(step_fn, tstate, batch, label):
         log(f"    {dev_ms:9.2f} ms {100 * dev_ms / busy:5.1f}% {count:5d}x {key[:80]}")
 
 
-def train_timings(cfg, weights, classes, label, batches=(8, 32)):
+def train_timings(cfg, weights, classes, label, batches=(8, 32), xla_batches=None):
     """Train-step clips/s and peak memory at each of ``batches`` clips,
-    kernel path and framework-op path, and a profile of one kernel-path step
-    at the last."""
+    kernel path and (at ``xla_batches``, every batch unless given: the path
+    keeps every activation) framework-op path, and a profile of one
+    kernel-path step at the last."""
     import numpy as np
     import torch
     frames = cfg["model"]["backbone"]["num_frames"]
@@ -429,6 +561,8 @@ def train_timings(cfg, weights, classes, label, batches=(8, 32)):
                                             dtype=torch.bfloat16),
                         "label": np.arange(clips) % classes}
         for core, path in (("fused", "kernel"), ("xla", "framework-op (xla)")):
+            if core == "xla" and xla_batches is not None and clips not in xla_batches:
+                continue
             tstate, step_fn = train_setup(cfg, core, weights)
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: step_fn(tstate, timing_batch, 0), iters=5, warmup=2)
@@ -541,6 +675,298 @@ def randomize_adapters(model, seed):
                 p.copy_(0.02 * torch.randn(p.shape, generator=g))
 
 
+def composition_inputs(clips, seed, frames, tokens, width, heads):
+    """x, LN, the attention step's weights, a drop-path gate of zeros and
+    1/keep and a cotangent at x = (clips*frames, tokens, width)."""
+    import torch
+    x, ln, attn, _ = op_inputs(clips, seed, frames, tokens, width)
+    gate = torch.where(torch.arange(x.shape[0]) % 5 == 2, 0.0, 1 / KEEP).cuda()
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(seed + 1))
+    return x, ln, attn, gate, g.to("cuda", torch.bfloat16)
+
+
+def composition_calls(x, ln, attn, gate, g, frames, heads):
+    """{op: (kernel call, plain call, bound's emit_u)} of the composition's
+    four kernels on the same inputs; the forwards return (out, u)."""
+    from adapt_image_models_torch import ops
+    return {
+        "fused_spatial_step_gated": (
+            lambda: ops.fused_spatial_step_gated(x, gate, *ln, *attn, heads, True,
+                                                 emit_u=True),
+            lambda: ops.fused_spatial_step_plain(x, *ln, *attn, heads, True, gate, True)),
+        "fused_temporal_train_step": (
+            lambda: ops.fused_temporal_step_gated(x, gate, *ln, *attn, frames, heads,
+                                                  False, emit_u=True),
+            lambda: ops.fused_temporal_step_plain(x, *ln, *attn, frames, heads, False,
+                                                  gate, True)),
+        "fused_ln_qkv_attention_bwd_dx": (
+            lambda: ops.fused_ln_qkv_attention_bwd_dx(x, *ln, *attn[:3], g, heads),
+            lambda: ops.fused_ln_qkv_attention_bwd_dx_plain(x, *ln, *attn[:3], g, heads)),
+        "fused_ln_temporal_attention_bwd_dx": (
+            lambda: ops.fused_ln_temporal_attention_bwd_dx(x, *ln, *attn[:3], g, frames,
+                                                           heads),
+            lambda: ops.fused_ln_temporal_attention_bwd_dx_plain(x, *ln, *attn[:3], g,
+                                                                 frames, heads)),
+    }
+
+
+def composition_checks(shape, clips, frames, tokens, width, heads, errors):
+    """Rows 12 (with u), 23's u, 9 and 21 against their plain versions at
+    one geometry. Returns the names of what disagreed."""
+    import torch
+    from adapt_image_models_torch import ops
+    x, ln, attn, gate, g = composition_inputs(clips, 700 + clips + frames, frames, tokens,
+                                              width, heads)
+    failures = []
+    for op, (kernel, plain) in composition_calls(x, ln, attn, gate, g, frames,
+                                                 heads).items():
+        fn = ops.KERNEL_OPS[op][0]
+        before = fn.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if fn.launches != before + 1:
+            raise AssertionError(f"{op}: launch counter did not move")
+        want = plain()
+        if isinstance(got, tuple):  # a gated forward: (out, u)
+            err = max(compare(f"{op} out", got[0], want[0]),
+                      compare(f"{op} u", got[1], want[1]))
+            if not torch.equal(got[0][2], x[2]):
+                raise AssertionError(f"{op}: a zero gate did not keep its row")
+        else:
+            log(f"  {op}:")
+            err, ok = compare_grad("dx", got, want)
+            if not ok:
+                failures.append(f"{op} dx at {shape}")
+        errors[op] = max(err, errors.get(op, 0.0))
+        del got, want
+    return failures
+
+
+def library_bwd_dx(x, ln, attn, g, width, heads, relayout):
+    """torch's own dx of ``W_o attn(LN x)`` for the cotangent g, on the (S,
+    N, D) view that ``relayout`` makes of x (relaid out beforehand, not
+    timed): layer_norm and multi_head_attention_forward under autograd.
+    Returns (forward + backward ms, the same function as the dX-only
+    kernels, which recompute the forward; backward alone ms; dx)."""
+    import torch
+    from torch.nn.functional import layer_norm, multi_head_attention_forward
+    xr, gr = relayout(x).detach().requires_grad_(), relayout(g)
+    lw, lb = (p.to(torch.bfloat16) for p in ln)
+
+    def forward():
+        xn = layer_norm(xr, (width,), lw, lb)
+        return multi_head_attention_forward(
+            xn, xn, xn, width, heads, attn[0], attn[1], None, None, False, 0.0, attn[2],
+            attn[3], training=False, need_weights=False)[0]
+
+    graph = forward()
+    dx = torch.autograd.grad(graph, xr, gr, retain_graph=True)[0]
+    bwd = cuda_ms(lambda: torch.autograd.grad(graph, xr, gr, retain_graph=True), iters=10)
+    both = cuda_ms(lambda: torch.autograd.grad(forward(), xr, gr), iters=10)
+    return both, bwd, dx
+
+
+def design_run(fn, args, g):
+    """Forward and backward of a train op once: (MiB held after the forward
+    above the inputs: the op's output, its copies of x and the adapter, and
+    what it saved; peak MiB over forward + backward above the inputs)."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    x, ln_w, ln_b, *rest = args
+    x = x.detach().clone().requires_grad_()
+    adapter = [w.detach().clone().requires_grad_() for w in rest[4:8]]
+    out = fn(x, ln_w, ln_b, *rest[:4], *adapter, *rest[8:])
+    held = torch.cuda.memory_allocated() - base
+    out.backward(g)
+    torch.cuda.synchronize()
+    return held / 2 ** 20, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def composition_timings(shape, clips, frames, tokens, width, heads, relayouts):
+    """Times at one geometry: the composition's four kernels against their
+    plain versions (plain-kernel-kernel-plain) and, for the two backwards,
+    the library; then forward + backward of each train op under both
+    designs with the memory each holds. Returns ({op: (kernel ms, plain
+    ms)}, {op: library ms})."""
+    import torch
+    from adapt_image_models_torch import ops
+    x, ln, attn, gate, g = composition_inputs(clips, 800 + clips, frames, tokens, width,
+                                              heads)
+    times, library = {}, {}
+    with torch.no_grad():
+        for op, (kernel, plain) in composition_calls(x, ln, attn, gate, g, frames,
+                                                     heads).items():
+            t = (cuda_ms(plain, iters=10), cuda_ms(kernel), cuda_ms(kernel),
+                 cuda_ms(plain, iters=10))
+            times[op] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    for op, relayout in relayouts.items():
+        both, bwd, dx = library_bwd_dx(x, ln, attn, g, width, heads, relayout)
+        with torch.no_grad():
+            gap = (dx - relayout(composition_calls(x, ln, attn, gate, g, frames,
+                                                   heads)[op][0]())).abs().max().item()
+        library[op] = both
+        log(f"  {op} at {shape}: kernel {times[op][0]:.3f} ms, plain {times[op][1]:.3f} ms, "
+            f"library {both:.3f} ms forward + backward ({bwd:.3f} ms backward alone; "
+            f"layer_norm + multi_head_attention_forward under autograd on the "
+            f"{tuple(relayout(x).shape)} view, relayout not timed; its dx vs the kernel's: "
+            f"max abs diff {gap:.3e})")
+        del dx
+    for op in ("fused_spatial_step_gated", "fused_temporal_train_step"):
+        log(f"  {op} with u at {shape}: kernel {times[op][0]:.3f} ms, plain "
+            f"{times[op][1]:.3f} ms (no library call computes the step)")
+    for kind, op, rest in (
+            ("spatial", ops.fused_spatial_train_step, (None, heads, True)),
+            ("temporal", ops.fused_temporal_train_step, (gate, frames, heads, False))):
+        row = []
+        args = (x, *ln, *attn, *rest)
+        for composition in (False, True, True, False):
+            with forced_design(composition):
+                ms = cuda_ms(lambda: train_op_run(op, args, g), iters=10)
+                row.append((ms, *design_run(op, args, g)))
+        whole = ((row[0][0] + row[3][0]) / 2, row[0][1], row[0][2])
+        comp = ((row[1][0] + row[2][0]) / 2, row[1][1], row[1][2])
+        log(f"  fused_{kind}_train_step forward + backward at {shape} (autograd, adapter dW "
+            f"included; whole-composition-composition-whole): whole step {whole[0]:.3f} ms, "
+            f"holds {whole[1]:.1f} MiB after the forward, peak {whole[2]:.1f} MiB; "
+            f"composition {comp[0]:.3f} ms, holds {comp[1]:.1f} MiB, peak {comp[2]:.1f} MiB")
+    return times, library
+
+
+def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, steps,
+               prob_atol, seed):
+    """One AIM recipe at full depth and width through the entry points, as
+    phases 2 and 5 drive the flagship: build, inference_recognizer and
+    run_evaluation on synthetic videos with the eval launch counts checked,
+    kernel path vs plain path on the probabilities, train_model with the
+    train launch counts checked, frozen weights unchanged and trainable ones
+    moved, one train step kernel path vs plain path. Returns (cfg, model,
+    eval launches, train launches, classes)."""
+    import copy
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import (
+        inference_recognizer, init_recognizer, load_config, run_evaluation, train_model,
+    )
+    from adapt_image_models_torch.data.transforms import make_prepare_fn
+    cfg = load_config(config, AIM_OPTIONS)
+    bb = cfg["model"]["backbone"]
+    tokens = (bb["input_resolution"] // bb["patch_size"]) ** 2 + 1
+    frames, classes = bb["num_frames"], cfg["model"]["cls_head"]["num_classes"]
+    if (bb["type"], bb["attention_core"], bb["layers"]) != ("AIM", "fused", layers):
+        raise AssertionError(f"unexpected {label} backbone {bb}")
+    train_names = ops.train_ops(bb.get("num_tadapter", 1), frames, tokens, bb["width"])
+    t0 = time.perf_counter()
+    model = init_recognizer(cfg, device="cuda", seed=0)
+    randomize_adapters(model, seed=seed)
+    log(f"phase 12: built {os.path.relpath(config, ROOT)} ({label}: {layers} layers, width "
+        f"{bb['width']}, {bb['heads']} heads, {tokens} tokens, {frames} frames) on cuda, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, in "
+        f"{time.perf_counter() - t0:.1f} s; train ops {train_names}")
+    views = 3
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "ann.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"synthetic://{seed * 100 + i} {i % classes}"
+                              for i in range(eval_videos)))
+        cfg["data"]["test"]["ann_file"] = ann
+        ops.reset_launch_counts()  # this eval path's run starts here
+        top5 = [inference_recognizer(model, cfg, f"synthetic://{seed}")]
+        results, scores, _ = run_evaluation(cfg, model=model, batch_size=eval_batch,
+                                            num_workers=2, return_scores=True)
+        eval_launches = ops.launch_counts()  # ... and ends here
+    forwards = len(top5) + -(-eval_videos // eval_batch)
+    log(f"  inference_recognizer top-5 of synthetic://{seed}: {top5[0]}")
+    log(f"  run_evaluation over {eval_videos} synthetic {views}-view videos "
+        f"(max_testing_views={cfg['model']['test_cfg'].get('max_testing_views')}): {results}")
+    check_launches(f"{label} eval path ({forwards} forwards x {layers} layers)",
+                   eval_launches, {op: layers * forwards for op in ops.EVAL_OPS[1]})
+    if scores.shape != (eval_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
+        raise AssertionError(f"bad {label} eval scores {scores.shape}")
+    if any(not (0 <= s <= 1) for r in top5 for _, s in r):
+        raise AssertionError(f"{label} inference scores are not probabilities")
+
+    clips = np.random.default_rng(seed).integers(0, 256, (2, views, frames, 224, 224, 3),
+                                                 dtype=np.uint8)
+    imgs = make_prepare_fn(device="cuda")(clips)
+    with torch.no_grad():
+        p_kernel = model.forward_test(imgs)
+        with plain_ops():
+            p_plain = model.forward_test(imgs)
+    prob_err = (p_kernel - p_plain).abs().max().item()
+    top1 = (p_kernel.argmax(1) == p_plain.argmax(1)).float().mean().item()
+    # as for the flagship, top-1 is logged and not held: seeded weights
+    # spread 400 classes so evenly that the first two can lie within the gap
+    log(f"  {label} model kernel path vs plain path ({tuple(imgs.shape)}): probability "
+        f"max_abs_err={prob_err:.3e} (tol {prob_atol}), top-1 agreement {top1:.2f}, "
+        f"finite={bool(torch.isfinite(p_kernel).all())}")
+    if not (prob_err < prob_atol and torch.isfinite(p_kernel).all()):
+        raise AssertionError(f"the {label} kernel path disagrees with the plain path")
+    del imgs, p_kernel, p_plain
+    torch.cuda.empty_cache()
+
+    log(f"  train_model on {os.path.relpath(config, ROOT)}: {steps} steps of {train_clips} "
+        "clips through the recipe's train pipeline")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ann = os.path.join(tmp, "train.txt")
+        with open(train_ann, "w") as f:
+            f.write("\n".join(f"synthetic://{seed * 100 + 50 + i} {i % classes}"
+                              for i in range(steps * train_clips)))
+        tcfg = copy.deepcopy(cfg)
+        tcfg["data"]["train"]["ann_file"] = train_ann
+        tcfg["data"].update(workers_per_gpu=4, videos_per_gpu=train_clips)
+        tcfg.update(total_epochs=1, checkpoint_config=dict(interval=1),
+                    log_config=dict(interval=1))
+        initial = init_recognizer(tcfg, device="cuda", seed=0).state_dict()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()  # this train path's run starts here
+        state, history = train_model(tcfg, work_dir=os.path.join(tmp, "work"), seed=0,
+                                     max_steps=steps, validate=False, device="cuda")
+        torch.cuda.synchronize()
+        train_launches = ops.launch_counts()  # ... and ends here
+        log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
+            f"(data, build and the checkpoint included); losses "
+            f"{[round(h['loss'], 4) for h in history]}")
+        check_launches(f"{label} train path ({steps} steps x {layers} layers)",
+                       train_launches, {op: layers * steps for op in train_names})
+        if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
+            raise AssertionError(f"{label} train_model did not take finite steps")
+        trained = state.model.state_dict()
+        trainable = {n for n, p in state.model.named_parameters() if p.requires_grad}
+        frozen_same = all(torch.equal(initial[n], trained[n])
+                          for n in initial if n not in trainable)
+        moved = {n for n in trainable if not torch.equal(initial[n], trained[n])}
+        mults = sorted({g["lr_mult"] for g in state.optimizer.param_groups})
+        log(f"  {len(trainable)} trainable tensors "
+            f"({sum(state.model.get_parameter(n).numel() for n in trainable) / 1e6:.2f}M "
+            f"params), {len(moved)} moved; frozen bitwise unchanged: {frozen_same}; "
+            f"lr multipliers {mults}")
+        if not frozen_same or moved != trainable:
+            raise AssertionError("frozen weights moved or trainable ones did not: "
+                                 f"{sorted(trainable - moved)[:8]}")
+        del state, initial, trained
+    torch.cuda.empty_cache()
+    compare_train_step(cfg, model.state_dict(), train_clips, classes)
+    torch.cuda.empty_cache()
+    return cfg, model, eval_launches, train_launches, classes
+
+
+def eval_timing(label, model, clips, frames):
+    """forward_test clips/s and peak memory at ``clips`` clips of one view."""
+    import torch
+    x = torch.randn(clips, 1, 3, frames, 224, 224, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  {label} forward_test batch {clips} of {frames} frames (kernel path): "
+        f"{ms:.2f} ms, {clips / ms * 1e3:.2f} clips/s, peak memory {mem:.2f} GiB "
+        "(median of 5 after 2 warm-ups, CUDA events)")
+
+
 def main():
     import numpy as np
     import torch
@@ -568,15 +994,7 @@ def main():
     for clips in (3, 6, 32):
         log(f"phase 1: ops at x=({clips * FRAMES}, {TOKENS}, {WIDTH}) bf16, "
             f"{HEADS} heads, T={FRAMES}")
-        for op, (kernel, plain) in op_calls(clips, seed=clips).items():
-            fn = ops.KERNEL_OPS[op][0]
-            before = fn.launches
-            got = kernel()
-            torch.cuda.synchronize()
-            if fn.launches != before + 1:
-                raise AssertionError(f"{op}: launch counter did not move")
-            errors[op] = compare(op, got, plain())
-        torch.cuda.empty_cache()
+        eval_op_checks(clips, clips, errors)
 
     # ---- phase 2: the flagship model through the entry points ----------
     from adapt_image_models_torch.apis import (
@@ -1180,24 +1598,149 @@ def main():
     del model_win, x
     torch.cuda.empty_cache()
 
+    # ---- phase 11: the composition's ops ----------------------------------
+    base_geom = dict(frames=FRAMES, tokens=TOKENS, width=WIDTH, heads=HEADS)
+    long_geom = dict(base_geom, frames=FLASH_FRAMES)  # ViT-B/16 at 32 frames
+
+    def shape_of(clips, geom):
+        return (f"x=({clips * geom['frames']}, {geom['tokens']}, {geom['width']}) bf16, "
+                f"{geom['heads']} heads, T={geom['frames']}")
+
+    failures = []
+    for clips, geom in ((32, base_geom), (2, long_geom), (1, LARGE), (2, LARGE), (4, LARGE)):
+        shape = shape_of(clips, geom)
+        log(f"phase 11: the composition's ops at {shape}")
+        failures += composition_checks(shape, clips, errors=errors, **geom)
+        torch.cuda.empty_cache()
+    shape = shape_of(32, base_geom)
+    log(f"phase 11: the train ops forced through the composition at {shape}")
+    failures += train_op_checks(shape, 32, 732, errors, composition=True, **base_geom)
+    # every op of the two paths that phase 12 drives, at the shapes those
+    # paths give it: eval at one video's 3 views (inference_recognizer and
+    # run_evaluation's batches of ViT-L/14), at 6 clips (the kernel-vs-plain
+    # forward, run_evaluation's batches of ViT-B/16) and at the timing batch;
+    # train at the 2 clips of train_model and at the timing batches, in the
+    # design that ops.train_ops names for the geometry
+    for label, geom, eval_clips, train_clips in (
+            ("ViT-L/14 32f", LARGE, (3, 6, 4), (1, 2, 4)),
+            ("ViT-B/16 32f", long_geom, (3, 6, 8), (2, 8))):
+        for clips in eval_clips:
+            log(f"phase 11: the eval ops of {label} at {shape_of(clips, geom)}")
+            eval_op_checks(clips, 740 + clips, errors, **geom)
+        for clips in train_clips:
+            shape = shape_of(clips, geom)
+            log(f"phase 11: the train ops of {label} at {shape}, gates of 0 and 1/{KEEP}")
+            failures += train_op_checks(shape, clips, 750 + clips, errors, **geom)
+    if failures:
+        raise AssertionError(f"kernels disagree with their plain versions at the "
+                             f"composition's shapes: {failures}")
+    log(f"phase 11: timings on {card}")
+    for clips, geom in ((32, base_geom), (1, LARGE), (4, LARGE)):
+        t, n, d = geom["frames"], geom["tokens"], geom["width"]
+        shape = f"x=({clips * t}, {n}, {d}), T={t}"
+        relayouts = {
+            "fused_ln_qkv_attention_bwd_dx": lambda a: a.transpose(0, 1).contiguous(),
+            "fused_ln_temporal_attention_bwd_dx": lambda a, c=clips, t=t, n=n, d=d: (
+                a.view(c, t, n, d).transpose(0, 1).reshape(t, c * n, d).contiguous()),
+        }
+        times, lib = composition_timings(shape, clips, relayouts=relayouts, **geom)
+        for op in lib:
+            b_ms, b_by = bound(op, clips, t, n, d)
+            log(f"    {op}: bound {b_ms:.3f} ms ({b_by})")
+        torch.cuda.empty_cache()
+    # the other ops of the ViT-L/14 path at the same 4 clips: the eval ops and
+    # the joint train block forward and backward
+    large_ms = {}
+    with torch.no_grad():
+        for op, (kernel, plain) in op_calls(4, 804, **LARGE).items():
+            large_ms[op] = (cuda_ms(kernel, iters=10), cuda_ms(plain, iters=10))
+        _, _, bwd, bwd_plain, args, bargs, _ = train_op_calls(4, 805, **LARGE)["fused_joint"]
+        large_ms["fused_joint_train_block"] = (
+            cuda_ms(lambda: ops.fused_joint_train_block(*args), iters=10),
+            cuda_ms(lambda: ops.fused_joint_train_block_plain(*args), iters=10))
+        large_ms["fused_joint_mlp_rows_bwd"] = (
+            cuda_ms(lambda: bwd(*bargs), iters=10), cuda_ms(lambda: bwd_plain(*bargs), iters=10))
+    del args, bargs
+    torch.cuda.empty_cache()
+    for op, (k_ms, p_ms) in large_ms.items():
+        b_ms, b_by = bound(op, 4, LARGE["frames"], LARGE["tokens"], LARGE["width"])
+        log(f"  {op} at {shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}) (median of 10, CUDA events)")
+    # the kernels line reads the last geometry: 4 clips of ViT-L/14's 32 frames
+    gated_u = "fused_temporal_train_step"  # its forward with the u output
+    gated_u_bound = bound(gated_u, 4, LARGE["frames"], LARGE["tokens"], LARGE["width"],
+                          emit_u=True)
+    gated_u_entry = dict(shape=shape, ms=times[gated_u][0], plain_ms=times[gated_u][1],
+                         bound_ms=gated_u_bound[0], bound_by=gated_u_bound[1])
+    composition_ops = ("fused_spatial_step_gated", "fused_ln_qkv_attention_bwd_dx",
+                       "fused_ln_temporal_attention_bwd_dx")
+    for op in composition_ops:
+        op_ms[op] = times[op]
+    library_ms.update(lib)
+
+    # ---- phase 12: the wide and the long path ----------------------------
+    cfg_l, model_l, large_launches, large_train_launches, classes_l = drive_path(
+        "ViT-L/14 32f", LARGE_CONFIG, layers=24, eval_videos=2, eval_batch=1,
+        train_clips=2, steps=3, prob_atol=LARGE_PROB_ATOL, seed=12)
+    if cfg_l["optimizer"]["paramwise_cfg"]["custom_keys"]["backbone_module"] != dict(
+            lr_mult=0.1):
+        raise AssertionError("the ViT-L recipe lost its backbone lr multiplier")
+    log(f"  ViT-L/14 timings on {card}")
+    eval_timing("ViT-L/14 32f", model_l, 4, LARGE["frames"])
+    weights_l = model_l.state_dict()
+    del model_l
+    torch.cuda.empty_cache()
+    cfg_l8 = load_config(LARGE_CONFIG, AIM_OPTIONS + ["model.backbone.num_frames=8"])
+    model_l8 = init_recognizer(cfg_l8, device="cuda", seed=0)
+    randomize_adapters(model_l8, seed=13)
+    eval_timing("ViT-L/14 8f", model_l8, 16, 8)
+    del model_l8
+    torch.cuda.empty_cache()
+    train_timings(cfg_l, weights_l, classes_l, "ViT-L/14 32f", batches=(1, 2, 4),
+                  xla_batches=(1,))
+    del weights_l
+    torch.cuda.empty_cache()
+
+    cfg_b, model_b, long_launches, long_train_launches, classes_b = drive_path(
+        "ViT-B/16 32f", LONG_CONFIG, layers=12, eval_videos=2, eval_batch=2,
+        train_clips=2, steps=3, prob_atol=LARGE_PROB_ATOL, seed=14)
+    log(f"  ViT-B/16 32f timings on {card}")
+    eval_timing("ViT-B/16 32f", model_b, 8, FLASH_FRAMES)
+    weights_b = model_b.state_dict()
+    del model_b
+    torch.cuda.empty_cache()
+    train_timings(cfg_b, weights_b, classes_b, "ViT-B/16 32f", batches=(8,), xla_batches=())
+    del weights_b
+    torch.cuda.empty_cache()
+
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
                           "fused_temporal_train_step", "fused_temporal_step_bwd_dx",
                           "fused_spatial_train_step", "fused_step_bwd_dx", blk, blk_bwd,
-                          sblk, sblk_bwd)}
-    # each op's launches on the first of the six paths that runs it
+                          sblk, sblk_bwd, *composition_ops)}
+    # each op's launches on the first of the ten paths that runs it
     counts = {}
     for path, run in (("flagship eval", launches), ("flagship train", train_launches),
                       ("SSv2 eval", ssv2_launches), ("SSv2 train", ssv2_train_launches),
                       ("AIM_FLASH eval", flash_launches),
-                      ("AIM_FLASH train", flash_train_launches)):
+                      ("AIM_FLASH train", flash_train_launches),
+                      ("ViT-L/14 32f eval", large_launches),
+                      ("ViT-L/14 32f train", large_train_launches),
+                      ("ViT-B/16 32f eval", long_launches),
+                      ("ViT-B/16 32f train", long_train_launches)):
         counts.update({op: (path, n) for op, n in run.items() if n and op not in counts})
     kernels = []
     for op in ops.KERNEL_OPS:
-        # the spatial block is timed at the AIM_FLASH path's shape, the rest
-        # at 32 clips of the flagship's
-        bound_ms, bound_by = (bound(op, 8, FLASH_FRAMES, FLASH_TOKENS) if op in (sblk, sblk_bwd)
-                              else bound(op, 32))
+        # the spatial block is timed at the AIM_FLASH path's shape, the
+        # composition's ops (row 12 with its u output) at 4 clips of
+        # ViT-L/14's, the rest at 32 clips of the flagship's
+        if op in (sblk, sblk_bwd):
+            bound_ms, bound_by = bound(op, 8, FLASH_FRAMES, FLASH_TOKENS)
+        elif op in composition_ops:
+            bound_ms, bound_by = bound(op, 4, LARGE["frames"], LARGE["tokens"],
+                                       LARGE["width"], emit_u=True)
+        else:
+            bound_ms, bound_by = bound(op, 32)
         kernels.append(dict(
             name=op, route="cuda",
             source=sources.get(op, "adapt_image_models_torch/csrc/gemm.cu"),
@@ -1205,6 +1748,10 @@ def main():
             max_abs_err=errors[op],
             ms=op_ms[op][0], plain_ms=op_ms[op][1], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=library_ms.get(op)))
+        if op == gated_u:
+            # the same kernel chain with its second output, as the
+            # composition runs it: at 4 clips of ViT-L/14's 32 frames
+            kernels[-1]["emit_u"] = gated_u_entry
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -17,7 +17,13 @@ adapter cotangents), with drop-path gates that hold zeros and 1/keep; the
 plain temporal and spatial attention blocks forward and backward (output,
 dx, dqkv, o, and through their autograd ops every weight cotangent), the
 spatial one at the prompt token's odd length 198 and the temporal one at
-the flash variants' single class token per frame.
+the flash variants' single class token per frame. The composition train
+step, which ViT-L widths and 32-frame clips take, is checked op by op (the
+gated forwards with their u output, the two dX-only backwards) and through
+both train ops with the two predicates that pick the design
+(``step_whole_cell_fits``, ``tstep_whole_cell_fits``) monkeypatched to the
+composition; the whole-step tests patch them the other way so that they go
+on holding the whole-step kernels at every geometry.
 
 Tolerance. Kernel and plain version round the same intermediates to bf16
 but sum fp32 products in different orders, so single values can land a few
@@ -28,25 +34,42 @@ and its mean error at most 1.25x plus 1e-5. Kernel and plain version must
 also agree to 2e-3 in mean absolute difference.
 """
 
+import importlib
+
 import pytest
 import torch
 
+from adapt_image_models_torch import ops
 from adapt_image_models_torch.ops import (
     fused_attention_block, fused_attention_block_plain, fused_joint,
-    fused_joint_mlp_rows_bwd, fused_joint_plain, fused_qkv_attention,
+    fused_joint_mlp_rows_bwd, fused_joint_plain, fused_ln_qkv_attention_bwd_dx,
+    fused_ln_qkv_attention_bwd_dx_plain, fused_ln_temporal_attention_bwd_dx,
+    fused_ln_temporal_attention_bwd_dx_plain, fused_qkv_attention,
     fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain, fused_qkv_attention_plain,
     fused_joint_train_block, fused_joint_train_block_plain, fused_spatial_step,
-    fused_spatial_step_plain, fused_spatial_train_step,
+    fused_spatial_step_gated, fused_spatial_step_plain, fused_spatial_train_step,
     fused_spatial_train_step_plain, fused_step_bwd_dx, fused_temporal_attention,
     fused_temporal_attention_bwd, fused_temporal_attention_bwd_plain,
     fused_temporal_attention_plain, fused_temporal_block, fused_temporal_block_plain,
-    fused_temporal_step, fused_temporal_step_bwd_dx, fused_temporal_step_plain,
+    fused_temporal_step, fused_temporal_step_bwd_dx, fused_temporal_step_gated,
+    fused_temporal_step_plain,
     fused_temporal_train_step, fused_temporal_train_step_plain,
 )
 
 pytestmark = pytest.mark.cuda
 
+# the modules, not the functions of the same names that ``ops`` exports
+tfqa = importlib.import_module("adapt_image_models_torch.ops.fused_qkv_attention")
+tfta = importlib.import_module("adapt_image_models_torch.ops.fused_temporal_attention")
+
 MEAN_TOL = 2e-3
+
+
+def _force_design(monkeypatch, composition: bool):
+    """Both train ops take the composition, or the whole step, at any
+    geometry."""
+    monkeypatch.setattr(tfqa, "step_whole_cell_fits", lambda *a: not composition)
+    monkeypatch.setattr(tfta, "tstep_whole_cell_fits", lambda *a: not composition)
 
 
 @pytest.fixture
@@ -113,9 +136,12 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fused_temporal_step(x.repeat(16, 1, 1), w, b, *ws, 64, 2, False)
 
 
-def _train_check(op, plain, bwd_op, x, ln_w, ln_b, weights, gate, *rest):
+def _train_check(fwd_op, plain, bwd_op, x, ln_w, ln_b, weights, gate, *rest, op=None):
     """Run the train op forward and backward once on the card and hold its
-    output, dx and adapter cotangents against the plain version's."""
+    output, dx and adapter cotangents against the plain version's.
+    ``fwd_op`` and ``bwd_op`` carry the launch counters of its forward and
+    backward; ``op`` is the train op where it is not ``fwd_op``."""
+    op = op or fwd_op
     g = torch.Generator().manual_seed(7)
     cot = torch.randn(x.shape, generator=g).to(x.device)
 
@@ -127,10 +153,10 @@ def _train_check(op, plain, bwd_op, x, ln_w, ln_b, weights, gate, *rest):
         out.backward(cot.to(dtype))
         return [t.float() for t in (out.detach(), xx.grad, *(w.grad for w in ad))]
 
-    before = (op.launches, bwd_op.launches)
+    before = (fwd_op.launches, bwd_op.launches)
     got = run(op, torch.bfloat16)
     torch.cuda.synchronize()
-    assert (op.launches, bwd_op.launches) == (before[0] + 1, before[1] + 1)
+    assert (fwd_op.launches, bwd_op.launches) == (before[0] + 1, before[1] + 1)
     want = run(plain, torch.bfloat16)
     exact = run(plain, torch.float32)
     for name, k, p, e in zip(("out", "dx", "dW1", "db1", "dW2", "db2"), got, want, exact):
@@ -147,18 +173,122 @@ def _gate(device, rows):
 
 
 @pytest.mark.parametrize("n,heads", [(37, 2), (197, 12), (257, 16)])
-def test_spatial_train_kernels_match_plain(cuda, n, heads):
+def test_spatial_train_kernels_match_plain(cuda, n, heads, monkeypatch):
+    _force_design(monkeypatch, composition=False)
     x, w, b, ws = _args(cuda, 6, n, 64 * heads, 16 * heads, 4)
     _train_check(fused_spatial_train_step, fused_spatial_train_step_plain,
                  fused_step_bwd_dx, x, w, b, ws, None, heads, True)
 
 
+def test_gated_whole_step_counts_under_the_gated_forward(cuda, monkeypatch):
+    """A spatial whole step that is given a gate launches the gated forward
+    kernel and counts there, as ``ops.train_ops(spatial_gate=True)`` says."""
+    _force_design(monkeypatch, composition=False)
+    x, w, b, ws = _args(cuda, 6, 197, 768, 192, 21)
+    names = ops.train_ops(1, 8, 197, 768, spatial_gate=True)[2:4]
+    assert names == ("fused_spatial_step_gated", "fused_step_bwd_dx")
+    before = fused_spatial_train_step.launches
+    _train_check(fused_spatial_step_gated, fused_spatial_train_step_plain,
+                 fused_step_bwd_dx, x, w, b, ws, _gate(cuda, 6), 12, True,
+                 op=fused_spatial_train_step)
+    assert fused_spatial_train_step.launches == before
+
+
 @pytest.mark.parametrize("t,heads", [(4, 2), (8, 12), (32, 2), (32, 16)])
-def test_temporal_train_kernels_match_plain(cuda, t, heads):
+def test_temporal_train_kernels_match_plain(cuda, t, heads, monkeypatch):
+    _force_design(monkeypatch, composition=False)
     x, w, b, ws = _args(cuda, 2 * t, 37, 64 * heads, 16 * heads, 5)
     _train_check(fused_temporal_train_step, fused_temporal_train_step_plain,
                  fused_temporal_step_bwd_dx, x, w, b, ws, _gate(cuda, 2 * t), t,
                  heads, False)
+
+
+@pytest.mark.parametrize("n,heads,gated", [(37, 2, True), (197, 12, False),
+                                           (257, 16, True)])
+def test_spatial_composition_kernels_match_plain(cuda, n, heads, gated, monkeypatch):
+    """The spatial train op through the composition: the gated forward that
+    saves u, and the dX-only backward."""
+    _force_design(monkeypatch, composition=True)
+    x, w, b, ws = _args(cuda, 6, n, 64 * heads, 16 * heads, 14)
+    before = fused_step_bwd_dx.launches
+    _train_check(fused_spatial_step_gated, fused_spatial_train_step_plain,
+                 fused_ln_qkv_attention_bwd_dx, x, w, b, ws,
+                 _gate(cuda, 6) if gated else None, heads, True,
+                 op=fused_spatial_train_step)
+    assert fused_step_bwd_dx.launches == before
+
+
+@pytest.mark.parametrize("t,heads", [(4, 2), (8, 12), (32, 2), (32, 16)])
+def test_temporal_composition_kernels_match_plain(cuda, t, heads, monkeypatch):
+    _force_design(monkeypatch, composition=True)
+    x, w, b, ws = _args(cuda, 2 * t, 37, 64 * heads, 16 * heads, 15)
+    _train_check(fused_temporal_train_step, fused_temporal_train_step_plain,
+                 fused_ln_temporal_attention_bwd_dx, x, w, b, ws, _gate(cuda, 2 * t), t,
+                 heads, False)
+
+
+@pytest.mark.parametrize("kind,t,n,heads", [
+    ("spatial", 1, 37, 2), ("spatial", 1, 197, 12), ("spatial", 1, 257, 16),
+    ("temporal", 8, 37, 12), ("temporal", 32, 37, 16), ("temporal", 32, 257, 16)])
+def test_gated_forward_with_u_matches_plain(cuda, kind, t, n, heads):
+    """Out and u of the gated forwards; a zero gate keeps its row."""
+    rows = 6 if kind == "spatial" else 2 * t
+    x, w, b, ws = _args(cuda, rows, n, 64 * heads, 16 * heads, 16)
+    gate = _gate(cuda, rows)
+    if kind == "spatial":
+        op, counter, rest = fused_spatial_step_gated, fused_spatial_step_gated, (heads, True)
+        plain = fused_spatial_step_plain
+    else:
+        op, counter, rest = fused_temporal_step_gated, fused_temporal_train_step, (
+            t, heads, False)
+        plain = fused_temporal_step_plain
+    before = counter.launches
+    got = op(x, gate, w, b, *ws, *rest, emit_u=True)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = plain(x, w, b, *ws, *rest, gate, True)
+    exact = plain(x.float(), w, b, *(a.float() for a in ws), *rest, gate, True)
+    for name, k, p, e in zip(("out", "u"), got, want, exact):
+        _held(name, k, p, e)
+        assert (k.float() - p.float()).abs().mean() < MEAN_TOL
+    assert torch.equal(got[0][1], x[1])
+    assert torch.equal(op(x, gate, w, b, *ws, *rest), got[0])  # u changes no bit of out
+
+
+@pytest.mark.parametrize("kind,t,n,heads", [
+    ("spatial", 1, 37, 2), ("spatial", 1, 197, 12), ("spatial", 1, 257, 16),
+    ("temporal", 8, 37, 12), ("temporal", 32, 37, 16), ("temporal", 32, 257, 16)])
+def test_bwd_dx_kernels_match_plain(cuda, kind, t, n, heads):
+    """The dX-only backwards at ViT-B and ViT-L geometry."""
+    rows = 6 if kind == "spatial" else 2 * t
+    x, w, b, ws = _args(cuda, rows, n, 64 * heads, 16 * heads, 17)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(18)).to(x)
+    if kind == "spatial":
+        op, plain, rest = (fused_ln_qkv_attention_bwd_dx,
+                           fused_ln_qkv_attention_bwd_dx_plain, (heads,))
+    else:
+        op, plain, rest = (fused_ln_temporal_attention_bwd_dx,
+                           fused_ln_temporal_attention_bwd_dx_plain, (t, heads))
+    before = op.launches
+    got = op(x, w, b, *ws[:3], g, *rest)
+    torch.cuda.synchronize()
+    assert op.launches == before + 1 and got.dtype == x.dtype
+    _held("dx", got, plain(x, w, b, *ws[:3], g, *rest),
+          plain(x.float(), w, b, *(a.float() for a in ws[:3]), g.float(), *rest))
+
+
+def test_composition_ops_refuse_what_they_do_not_take(cuda):
+    x, w, b, ws = _args(cuda, 4, 37, 128, 32, 19)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(20)).to(x)
+    with pytest.raises(ValueError):  # fp32 input
+        fused_ln_qkv_attention_bwd_dx(x.float(), w, b, *ws[:3], g.float(), 2)
+    with pytest.raises(ValueError):  # a cotangent unlike x
+        fused_ln_temporal_attention_bwd_dx(x, w, b, *ws[:3], g.float(), 2, 2)
+    with pytest.raises(NotImplementedError):  # T > 32
+        fused_ln_temporal_attention_bwd_dx(x.repeat(16, 1, 1), w, b, *ws[:3],
+                                           g.repeat(16, 1, 1), 64, 2)
+    with pytest.raises(ValueError):  # a gate on the host
+        fused_spatial_step_gated(x, torch.ones(4), w, b, *ws, 2, True)
 
 
 def test_joint_train_kernels_match_plain(cuda):

@@ -88,6 +88,18 @@ def test_port_sources_import_no_jax_package():
     assert not {f: b for f, b in bad.items() if b}
 
 
+def test_entry_points_default_to_the_card():
+    """Every entry point runs on the GPU unless the caller asks for the CPU:
+    the ``device`` default of the API functions and of both CLIs."""
+    import inspect
+    from adapt_image_models_torch import apis
+    for fn in (apis.init_recognizer, apis.run_evaluation, apis.train_model):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    for tool in ("test_torch.py", "train_torch.py"):
+        src = open(os.path.join(ROOT, "tools", tool)).read()
+        assert 'add_argument("--device", default="cuda"' in src, tool
+
+
 def _run_smoke(cwd):
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                           capture_output=True, text=True, timeout=300)

@@ -83,7 +83,8 @@ def _case(seed, kind):
     return x, ln, frozen, adapter, gate, g
 
 
-def _jax_run(kind, dtype, x, ln, frozen, adapter, gate, g, skip):
+def _jax_run(kind, dtype, x, ln, frozen, adapter, gate, g, skip,
+             spatial_gate=False):
     jdt = jnp.dtype(dtype)
     cast = lambda a: jnp.asarray(a).astype(jdt)
     lns, lnb = (jnp.asarray(a) for a in ln)
@@ -96,8 +97,9 @@ def _jax_run(kind, dtype, x, ln, frozen, adapter, gate, g, skip):
                                 jnp.asarray(gate), T, HEADS, skip)
     elif kind == "spatial":
         def f(x, w1, b1, w2, b2):
-            return jax_spatial(x, lns, lnb, *fz, w1, b1, w2, b2, None, HEADS,
-                               skip, None)
+            return jax_spatial(x, lns, lnb, *fz, w1, b1, w2, b2,
+                               jnp.asarray(gate) if spatial_gate else None,
+                               HEADS, skip, None)
     else:
         rows = jnp.asarray(np.repeat(gate, N))
 
@@ -114,7 +116,8 @@ def _jax_run(kind, dtype, x, ln, frozen, adapter, gate, g, skip):
     return {"out": y, "dx": dx, "dW1": dw1.T, "db1": db1, "dW2": dw2.T, "db2": db2}
 
 
-def _torch_run(kind, dtype, x, ln, frozen, adapter, gate, g, skip):
+def _torch_run(kind, dtype, x, ln, frozen, adapter, gate, g, skip,
+               spatial_gate=False):
     tdt = getattr(torch, dtype)
     t = lambda a, dt=tdt: torch.from_numpy(np.ascontiguousarray(a)).to(dt)
     xt = t(x).requires_grad_()
@@ -128,7 +131,8 @@ def _torch_run(kind, dtype, x, ln, frozen, adapter, gate, g, skip):
     if kind == "temporal":
         y = fused_temporal_train_step(xt, lns, lnb, *fz, *ad, gt, T, HEADS, skip)
     elif kind == "spatial":
-        y = fused_spatial_train_step(xt, lns, lnb, *fz, *ad, None, HEADS, skip)
+        y = fused_spatial_train_step(xt, lns, lnb, *fz, *ad,
+                                     gt if spatial_gate else None, HEADS, skip)
     else:
         y = fused_joint_train_block(xt, lns, lnb, *fz, *ad,
                                     gt.repeat_interleave(N), SCALE)
@@ -238,10 +242,13 @@ def test_frozen_weight_that_requires_grad_raises(kind):
 
 
 def test_gated_spatial_step_is_not_ported():
-    x, ln, frozen, adapter, gate, _ = _case(6, "spatial")
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
-    args = (t(x), t(ln[0]), t(ln[1]), t(frozen[0].T), t(frozen[1]),
-            t(frozen[2].T), t(frozen[3]), t(adapter[0].T), t(adapter[1]),
-            t(adapter[2].T), t(adapter[3]))
-    with pytest.raises(NotImplementedError):
-        fused_spatial_train_step(*args, t(gate), HEADS, True)
+    """The name dates from when a gate raised here. The spatial train op now
+    takes one: at this geometry both packages run their whole-step backward
+    with the gate (the JAX forward is the gated kernel, :1557), and output,
+    dx and the adapter cotangents agree as in the ungated case."""
+    case = _case(6, "spatial")
+    want = _jax_run("spatial", "bfloat16", *case, True, spatial_gate=True)
+    got = _torch_run("spatial", "bfloat16", *case, True, spatial_gate=True)
+    _compare(got, want, "bfloat16")
+    x16 = torch.from_numpy(case[0]).bfloat16().float().numpy()
+    assert np.array_equal(got["out"][1], x16[1])  # row 1's gate is 0

@@ -1,9 +1,10 @@
 #!/usr/bin/env python
 """The least time one H100 could take for the work of each TPU kernel of
 the repo (every function under ``adapt_image_models_tpu/ops/`` that reaches
-``pl.pallas_call``), at an AIM ViT-B/16 shape.
+``pl.pallas_call``), at an AIM shape: ViT-B/16 unless told otherwise.
 
     python tools/kernel_bounds_torch.py [--clips 32] [--frames 8]
+        [--tokens 197] [--width 768]     # ViT-L/14: --tokens 257 --width 1024
 
 The bound of a function is the larger of two times: the FLOPs of its
 products (GEMMs and attention cores, 2 a multiply-add; elementwise work is
@@ -53,9 +54,10 @@ KERNELS = {
 }
 
 
-def work(row, clips=32, frames=8, tokens=197, width=768):
+def work(row, clips=32, frames=8, tokens=197, width=768, emit_u=False):
     """(FLOPs, bytes) of one call of the row's function at x = (clips*frames,
-    tokens, width)."""
+    tokens, width); ``emit_u`` adds the second output of a gated step (the
+    adapter's input u, which the composition backward reads)."""
     path, _, name, kind = KERNELS[row]
     m, d, n, t = clips * frames * tokens, width, tokens, frames
     dh = d // 4
@@ -71,7 +73,9 @@ def work(row, clips=32, frames=8, tokens=197, width=768):
     adds_ln = 0 if kind.startswith(("block", "core")) else ln
     if kind in ("step", "step_gated"):
         flops = 2 * m * d * (4 * d + 2 * dh) + core
-        nbytes = 2 * act + w_attn + w_adapter + (gate if kind == "step_gated" else 0)
+        nbytes = 2 * act + w_attn + w_adapter
+        if kind == "step_gated":
+            nbytes += gate + (act if emit_u else 0)
     elif kind in ("block", "ln_block"):
         flops, nbytes = 2 * m * d * 4 * d + core, 2 * act + w_attn
     elif kind == "block_adapter":
@@ -122,14 +126,21 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--clips", type=int, default=32)
     p.add_argument("--frames", type=int, default=8)
+    p.add_argument("--tokens", type=int, default=197)
+    p.add_argument("--width", type=int, default=768)
+    p.add_argument("--emit-u", action="store_true",
+                   help="count the u output of the gated steps (rows 12, 23)")
     args = p.parse_args(argv)
-    print(f"x = ({args.clips * args.frames}, 197, 768) bf16, 12 heads, T={args.frames}; "
+    shape = dict(clips=args.clips, frames=args.frames, tokens=args.tokens,
+                 width=args.width, emit_u=args.emit_u)
+    print(f"x = ({args.clips * args.frames}, {args.tokens}, {args.width}) bf16, "
+          f"{args.width // 64} heads, T={args.frames}; "
           "one H100 SXM: 989 TFLOP/s bf16 dense, 3.35 TB/s")
     print("| # | function | GFLOP | MB | bound ms | bound by |")
     print("|---|---|---|---|---|---|")
     for row, (path, line, name, _) in KERNELS.items():
-        flops, nbytes = work(row, clips=args.clips, frames=args.frames)
-        ms, by = bound(row, clips=args.clips, frames=args.frames)
+        flops, nbytes = work(row, **shape)
+        ms, by = bound(row, **shape)
         print(f"| {row} | `{path}:{line}` `{name}` | {flops / 1e9:.1f} | "
               f"{nbytes / 1e6:.1f} | {ms:.3f} | {by} |")
 
