@@ -7,8 +7,8 @@ calls ``dataset.evaluate``. ``max_testing_views`` chunks the view axis to
 bound memory on long multi-view protocols; the last chunk may be shorter,
 as in the reference (``recognizer3d.py:38-60``), so that the SSv2 recipe's
 3 views run in chunks of 2 (the JAX package refuses a view count that the
-chunk does not divide). Data parallelism is ROADMAP queue
-1 item 8.
+chunk does not divide). Data parallelism is in ROADMAP
+queue 1.
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ the port's copy of the JAX package's (``data/pipeline.py``, ``loader.py``,
 * EvalHook                         -> periodic run_evaluation + save_best
 * CheckpointHook + auto_resume     -> CheckpointManager saves + latest
 
-Not ported yet: data parallelism (ROADMAP queue 1 item 8), OmniSource multi-dataset training, ``load_from`` of
+Not ported yet: data parallelism (ROADMAP queue 1), OmniSource multi-dataset training, ``load_from`` of
 a released checkpoint into a train run and ``clip_pretrained``.
 """
 
@@ -68,7 +68,8 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     test_cfg = model_cfg.pop("test_cfg", None)
     train_cfg = model_cfg.pop("train_cfg", None)
     backbone_cfg = model_cfg.get("backbone", {})
-    model = build_model(model_cfg, test_cfg=test_cfg, device=device)
+    model = build_model(model_cfg, train_cfg=train_cfg, test_cfg=test_cfg,
+                        device=device)
     model.init_weights(torch.Generator().manual_seed(seed))
     freeze_params(model)  # the fused train ops refuse a trainable CLIP weight
 

@@ -6,13 +6,14 @@ optimizer state, step) becomes the model itself, whose parameters carry
 ``requires_grad`` from the freeze recipe, the port's ``Optimizer`` and a
 step count. ``make_train_step`` returns ``train_step(state, batch, seed)``:
 the batch blending (``data/blending.py``, after the device prepare, as the
-JAX step blends), forward in train mode, loss, gradients of the trainable parameters only,
+JAX step blends), forward in train mode, loss, gradients of the trainable
+parameters only (zeros for one the loss does not reach),
 the optimizer update and on-device metrics (loss, top1_acc, top5_acc,
 grad_norm of the micro-batch gradients). The drop-path and dropout draws
 come from a generator seeded from ``(seed, state.step)``, as the JAX step
 draws from ``fold_in(rng, step)``; the blending draws from one seeded from
-``(seed, state.step, 1)``. One device; data parallelism is ROADMAP
-queue 1 item 8.
+``(seed, state.step, 1)``. One device; data parallelism is in ROADMAP
+queue 1.
 """
 
 from __future__ import annotations
@@ -88,7 +89,10 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
             loss = soft_cross_entropy(logits, targets)
         else:
             loss = cross_entropy(logits, targets)
-        grads = torch.autograd.grad(loss, params)
+        # a trainable tensor the loss does not reach (ViT_CLIP's T_Adapter
+        # under shift=True) gets a zero gradient, as jax.grad gives it
+        grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                    materialize_grads=True)
         grad_norm = global_norm(grads)
         optimizer.update(grads)
         acc_labels = labels if labels.dim() == 1 else labels.argmax(-1)

@@ -1,6 +1,6 @@
 """Datasets: annotation parsing + evaluation (parity:
 ``adapt_image_models_tpu/data/datasets.py``, the two types the port's
-recipes use; the others are ROADMAP queue 1 item 13).
+recipes use; the others are in ROADMAP queue 1).
 
 Parity targets:
 * ``VideoDataset`` (``mmaction/datasets/video_dataset.py``): txt lines of

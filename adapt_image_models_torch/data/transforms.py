@@ -43,7 +43,7 @@ def make_prepare_fn(mean: Sequence[float] = CLIP_MEAN, std: Sequence[float] = CL
     if layout != "NCTHW":
         raise NotImplementedError(
             f"prepare layout {layout!r} serves the 2D recognizers, not ported "
-            "yet (ROADMAP queue 1 item 10)")
+            "yet (ROADMAP queue 1, CNN recognition)")
     mean_t = torch.tensor(mean, dtype=torch.float32, device=device)
     std_t = torch.tensor(std, dtype=torch.float32, device=device)
 

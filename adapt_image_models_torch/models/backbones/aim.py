@@ -25,11 +25,14 @@ as the JAX package applies them outside its kernel, around the fused op
 ``attention_core="xla"`` every step is plain PyTorch framework ops, with
 exact-erf GELU adapters as in the JAX package, differentiated by autograd.
 
-The window path (``wind_attn``) raises. ``use_checkpoint`` is accepted and
-ignored: the fused train ops save only their input and recompute the rest
-in their backward; the two framework-op adapters of ``num_tadapter=2`` keep
-their activations (the JAX package rematerialises them, the port has the
-memory: chip_smoke.py records the peak).
+The window path (``wind_attn``) raises. ``use_checkpoint`` recomputes each
+block's forward in the backward (``torch.utils.checkpoint``, non-reentrant),
+as the JAX package wraps its blocks in ``nn.remat`` (``aim.py:381-382``):
+a block then keeps only its input, and its forward (the fused ops' kernels
+included) runs twice in a train step. The drop-path gates are drawn before
+the block runs and handed to it (``run_blocks``), so that the recompute
+sees the same gates and the generator advances once, as ``nn.remat``
+reuses its key.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from adapt_image_models_torch.models.builder import BACKBONES
 from adapt_image_models_torch.models.layers import (
@@ -54,6 +58,26 @@ def drop_path_gate(batch: int, rate: float, generator: Optional[torch.Generator]
     keep = np.float32(1.0 - rate)
     mask = uniform((batch,), generator, device) < keep
     return mask.float() / float(keep)
+
+
+def drop_rates(layers: int, drop_path_rate: float):
+    """Block i's drop-path rate: ``linspace(0, drop_path_rate, layers)[i]``."""
+    return [float(r) for r in np.linspace(0.0, drop_path_rate, layers, dtype=np.float32)]
+
+
+def run_blocks(blocks, rates, x: torch.Tensor, generator: Optional[torch.Generator],
+               use_checkpoint: bool, **kwargs) -> torch.Tensor:
+    """``x`` through each block in turn: its gates drawn from ``generator``
+    at its rate (``block.gates``), then ``block(x, gates, **kwargs)``, under
+    ``torch.utils.checkpoint`` where ``use_checkpoint`` is set and autograd
+    records."""
+    for block, rate in zip(blocks, rates):
+        gates = block.gates(x.shape[0], rate, generator, x.device)
+        if use_checkpoint and torch.is_grad_enabled():
+            x = checkpoint(block, x, gates, use_reentrant=False, **kwargs)
+        else:
+            x = block(x, gates, **kwargs)
+    return x
 
 
 def drop_path(x: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
@@ -90,15 +114,18 @@ class AIMBlock(nn.Module):
             self.T_Adapter_in = Adapter(d_model, skip_connect=True, compute_dtype=cdt,
                                         device=device)
 
-    def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def gates(self, rows: int, drop_rate: float,
+              generator: Optional[torch.Generator], device):
+        """The temporal, then the joint drop-path gate (None in eval)."""
+        if not self.training:
+            return None, None
+        return tuple(drop_path_gate(rows, drop_rate, generator, device) for _ in range(2))
+
+    def forward(self, x: torch.Tensor, gates=(None, None)) -> torch.Tensor:
         bt, n, _ = x.shape
         t = self.num_frames
         fused = self.attention_core == "fused"
-        gate_t = gate_j = None
-        if self.training:  # temporal gate first, then the joint one
-            gate_t = drop_path_gate(bt, drop_rate, generator, x.device)
-            gate_j = drop_path_gate(bt, drop_rate, generator, x.device)
+        gate_t, gate_j = gates
         if self.num_tadapter == 2:
             xt = self.T_Adapter_in(self.ln_1(x))
             xt = self.T_Adapter(self.attn(xt, temporal_frames=t))
@@ -128,22 +155,22 @@ class AIMBlock(nn.Module):
 
 
 class AIMTransformer(nn.Module):
-    """The depth stack: a ``ModuleList`` where the JAX package scans. Block i
-    draws its drop path at rate ``linspace(0, drop_path_rate, layers)[i]``."""
+    """The depth stack: a ``ModuleList`` where the JAX package scans (see
+    ``drop_rates`` and ``run_blocks``)."""
 
     def __init__(self, layers: int, d_model: int, num_heads: int,
-                 drop_path_rate: float = 0.0, **block_kwargs):
+                 drop_path_rate: float = 0.0, use_checkpoint: bool = False,
+                 **block_kwargs):
         super().__init__()
-        self.drop_rates = [float(r) for r in
-                           np.linspace(0.0, drop_path_rate, layers, dtype=np.float32)]
+        self.drop_rates = drop_rates(layers, drop_path_rate)
+        self.use_checkpoint = use_checkpoint
         self.resblocks = nn.ModuleList(
             AIMBlock(d_model, num_heads, **block_kwargs) for _ in range(layers))
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        for block, rate in zip(self.resblocks, self.drop_rates):
-            x = block(x, rate, generator)
-        return x
+        return run_blocks(self.resblocks, self.drop_rates, x, generator,
+                          self.use_checkpoint)
 
 
 class VideoViT(nn.Module):
@@ -227,18 +254,17 @@ class AIM(VideoViT):
                  pretrained=None, device=None):
         if wind_attn:
             raise NotImplementedError("AIM window path (wind_attn=True) is not "
-                                      "ported yet (ROADMAP queue 1 item 9)")
+                                      "ported yet (ROADMAP queue 1, AIM window path)")
         if num_tadapter not in (1, 2):
             raise ValueError(f"num_tadapter must be 1 or 2, got {num_tadapter}")
         if joint_core not in ("sample", "rows", "xla"):
             raise ValueError(f"unknown joint_core={joint_core!r}")
-        # use_checkpoint (see the module docstring), window_size, not_shift
-        # and prompt (the window path) are accepted so that one config builds
-        # either package. CLIP weights come through convert.load_checkpoint,
-        # not ``pretrained``.
+        # window_size, not_shift and prompt (the window path) are accepted
+        # so that one config builds either package. CLIP weights come
+        # through convert.load_checkpoint, not ``pretrained``.
         transformer = AIMTransformer(
             layers, width, heads, drop_path_rate=drop_path_rate,
-            num_frames=num_frames, adapter_scale=adapter_scale,
+            use_checkpoint=use_checkpoint, num_frames=num_frames, adapter_scale=adapter_scale,
             num_tadapter=num_tadapter, compute_dtype=resolve_dtype(compute_dtype),
             attention_core=attention_core, joint_core=joint_core, device=device)
         super().__init__(transformer, input_resolution, num_frames, patch_size,

@@ -28,8 +28,9 @@ ops under either core, as in the JAX package, and so do the adapters, the
 LayerNorms and the MLP. The shift mask is built once per model, in numpy,
 and kept on the model's device; the JAX package's traced per-layer shift
 flag is a Python flag of each block (odd layers, unless ``not_shift``).
-AIM_FLASH_DUAL is not ported: its side stream attends over more keys than
-the spatial core holds.
+``use_checkpoint`` recomputes each block in the backward, with the gates
+drawn before it (``aim.run_blocks``). AIM_FLASH_DUAL is not ported: its
+side stream attends over more keys than the spatial core holds.
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ from adapt_image_models_torch.models.layers import (
     Adapter, CLIPAttention, CLIPMLP, LayerNormFP32, resolve_dtype,
 )
 from adapt_image_models_torch.models.backbones.aim import (
-    VideoViT, drop_path, drop_path_gate,
+    VideoViT, drop_path, drop_path_gate, drop_rates, run_blocks,
 )
 from adapt_image_models_torch.models.backbones.window import (
     compute_shift_mask, get_window_size, pad_to_windows, window_partition,
@@ -106,9 +107,8 @@ class AIMFlashBlock(nn.Module):
         xn = self.ln_2(x)
         return x + self.mlp(xn) + drop_path(scale * self.MLP_Adapter(xn), gate_m)
 
-    def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        gate_t, gate_s, gate_m = self.gates(x.shape[0], drop_rate, generator, x.device)
+    def forward(self, x: torch.Tensor, gates=(None, None, None)) -> torch.Tensor:
+        gate_t, gate_s, gate_m = gates
         xt = self.temporal(x)
         x = x + drop_path(xt, gate_t)
         return self.spatial_and_joint(x, xt[:, :1], gate_s, gate_m)
@@ -160,10 +160,9 @@ class AIMFlashWindowBlock(AIMFlashBlock):
             win = torch.roll(win, self.shift_size, dims=(1, 2, 3))
         return win[:, :t, :h, :h].reshape(bt, h * h, d)
 
-    def forward(self, x: torch.Tensor, drop_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None,
+    def forward(self, x: torch.Tensor, gates=(None, None, None),
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        gate_t, gate_s, gate_m = self.gates(x.shape[0], drop_rate, generator, x.device)
+        gate_t, gate_s, gate_m = gates
         win = self.windows(x, mask)
         cls_attn = self.attn(self.ln_1(x[:, :1]), temporal_frames=self.num_frames)
         xt = self.T_Adapter(torch.cat([cls_attn, win], dim=1))
@@ -174,8 +173,8 @@ class AIMFlashWindowBlock(AIMFlashBlock):
 class FlashTransformer(nn.Module):
     """The depth stack (``_FlashTransformer`` :301-345): a ``ModuleList``
     where the JAX package scans, so that parameters land at
-    ``transformer.resblocks.{i}``. Block i draws its drop path at rate
-    ``linspace(0, drop_path_rate, layers)[i]``; with ``wind_attn`` the odd
+    ``transformer.resblocks.{i}`` (see ``aim.drop_rates`` and
+    ``aim.run_blocks``); with ``wind_attn`` the odd
     blocks are shifted unless ``not_shift``, and the additive shift mask
     (``compute_shift_mask``, padded with zeros for the window prompts) is a
     buffer of this module, on the model's device."""
@@ -184,10 +183,11 @@ class FlashTransformer(nn.Module):
                  num_frames: int, input_hw: int, drop_path_rate: float = 0.2,
                  num_tadapter: int = 1, wind_attn: bool = False,
                  window_size=(32, 2, 2), not_shift: bool = True,
-                 win_prompt: bool = False, device=None, **block_kwargs):
+                 win_prompt: bool = False, use_checkpoint: bool = False,
+                 device=None, **block_kwargs):
         super().__init__()
-        self.drop_rates = [float(r) for r in
-                           np.linspace(0.0, drop_path_rate, layers, dtype=np.float32)]
+        self.drop_rates = drop_rates(layers, drop_path_rate)
+        self.use_checkpoint = use_checkpoint
         common = dict(num_frames=num_frames, device=device, **block_kwargs)
         if wind_attn:
             blocks = [AIMFlashWindowBlock(d_model, num_heads, input_hw=input_hw,
@@ -212,12 +212,10 @@ class FlashTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        for block, rate in zip(self.resblocks, self.drop_rates):
-            if isinstance(block, AIMFlashWindowBlock):
-                x = block(x, rate, generator, self.shift_mask)
-            else:
-                x = block(x, rate, generator)
-        return x
+        kwargs = ({"mask": self.shift_mask}
+                  if isinstance(self.resblocks[0], AIMFlashWindowBlock) else {})
+        return run_blocks(self.resblocks, self.drop_rates, x, generator,
+                          self.use_checkpoint, **kwargs)
 
 
 @BACKBONES.register_module()
@@ -230,8 +228,9 @@ class AIM_FLASH(VideoViT):
                  num_tadapter: int = 1, adapter_scale: float = 0.5,
                  prompt: bool = True, wind_attn: bool = False,
                  window_size=(32, 2, 2), not_shift: bool = True,
-                 win_prompt: bool = False, compute_dtype=torch.float32,
-                 attention_core: str = "xla", device=None):
+                 win_prompt: bool = False, use_checkpoint: bool = False,
+                 compute_dtype=torch.float32, attention_core: str = "xla",
+                 device=None):
         if num_tadapter not in (1, 2):
             raise ValueError(f"num_tadapter must be 1 or 2, got {num_tadapter}")
         transformer = FlashTransformer(
@@ -239,7 +238,7 @@ class AIM_FLASH(VideoViT):
             drop_path_rate=drop_path_rate, num_tadapter=num_tadapter,
             wind_attn=wind_attn, window_size=tuple(window_size),
             not_shift=not_shift, win_prompt=win_prompt,
-            adapter_scale=adapter_scale, prompt=prompt,
+            use_checkpoint=use_checkpoint, adapter_scale=adapter_scale, prompt=prompt,
             compute_dtype=resolve_dtype(compute_dtype),
             attention_core=attention_core, device=device)
         super().__init__(transformer, input_resolution, num_frames, patch_size,

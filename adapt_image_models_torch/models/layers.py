@@ -14,12 +14,15 @@ CUDA kernels on CUDA tensors: the eval ops in eval mode, the train ops
 (autograd ops with hand-written backwards) in train mode; and the plain
 attention block (no LN, no adapter) to the autograd ops
 ``fused_temporal_block`` (over frames) and ``fused_attention_block`` (over
-tokens) in both modes. An attention mask takes the framework-op path under
-either core, as in the JAX package: the (shifted-)window attention of the
-flash variants. ``attention_core="xla"`` keeps the JAX package's name so
-configs are shared; in the port it means plain PyTorch framework ops,
-differentiated by autograd (the masked core by a backward that recomputes
-its probabilities).
+tokens) in both modes. Cross-attention (``kv=``), the attention weights
+(``need_weights=``) and an attention mask take the framework-op path under
+every core, as in the JAX package. ``attention_core="xla"`` keeps the JAX
+package's name so configs are shared; in the port it means plain PyTorch
+framework ops around the XLA core, differentiated by autograd (the masked
+core by a backward that recomputes its probabilities).
+``attention_core="flash"`` is the same framework-op path with the flash
+core (``ops.flash_attention_entry``: a CUDA kernel forward, the XLA core's
+backward) wherever queries and keys are one unmasked sequence.
 
 Random draws (drop path, dropout) take an explicit ``torch.Generator``.
 """
@@ -32,8 +35,9 @@ import torch
 from torch import nn
 
 from adapt_image_models_torch.ops import (
-    fused_attention_block, fused_spatial_step, fused_spatial_train_step,
-    fused_temporal_block, fused_temporal_step, fused_temporal_train_step,
+    flash_attention_entry, fused_attention_block, fused_spatial_step,
+    fused_spatial_train_step, fused_temporal_block, fused_temporal_step,
+    fused_temporal_train_step, xla_attention_core,
 )
 from adapt_image_models_torch.ops._common import (
     exact_gelu, layer_norm_fp32, quick_gelu,
@@ -175,65 +179,24 @@ class CLIPMLP(nn.Module):
         return _linear_weights(self.c_fc, self.c_proj, dtype=dtype)
 
 
-def _masked_probs(q: torch.Tensor, k: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """fp32 softmax(q k^T / sqrt(hd) + mask) over (B', H, L, hd) q and k;
-    ``mask`` is 0-d or (M, 1, L, L), M dividing B', repeated over the B'/M
-    groups of rows as the JAX package tiles it."""
-    s = (q.float() @ k.float().transpose(-1, -2)) * q.shape[-1] ** -0.5
-    m = mask.shape[0] if mask.dim() == 4 else 1
-    s = (s.view(-1, m, *s.shape[1:]) + mask.float()).view(s.shape)
-    return torch.softmax(s, -1)
-
-
-class _MaskedAttention(torch.autograd.Function):
-    """The XLA core with an additive mask (``xla_attention_core``,
-    ``layers.py:185-199``): fp32 logits plus the mask, fp32 softmax, the
-    probabilities rounded to q's dtype, PV summed in fp32 and rounded. The
-    backward recomputes P from (q, k, mask) rather than keeping the (B', H,
-    L, L) fp32 probabilities: a 784-token window layer of one 32-frame clip
-    would keep ~0.5 GB. Its casts are those of JAX's autodiff of the same
-    ops: dP rounded like P, dS in fp32, dq/dk/dv summed in fp32 and
-    rounded."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, mask):
-        ctx.save_for_backward(q, k, v, mask)
-        pb = _masked_probs(q, k, mask).to(q.dtype)
-        return (pb.float() @ v.float()).to(v.dtype)
-
-    @staticmethod
-    def backward(ctx, dout):
-        q, k, v, mask = ctx.saved_tensors
-        dt = q.dtype
-        p = _masked_probs(q, k, mask)
-        do = dout.float()
-        dv = (p.to(dt).float().transpose(-1, -2) @ do).to(dt)
-        dp = (do @ v.float().transpose(-1, -2)).to(dt).float()
-        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) * q.shape[-1] ** -0.5
-        return (ds @ k.float()).to(dt), (ds.transpose(-1, -2) @ q.float()).to(dt), dv, None
-
-
-def masked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     mask: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(hd) + mask) v over (B', H, L, hd) q, k, v, with
-    the XLA core's casts; ``mask`` as in ``_masked_probs`` (a 0-d zero for
-    an unshifted window layer, whose JAX mask is all zeros)."""
-    return _MaskedAttention.apply(q, k, v, mask)
-
-
 class CLIPAttention(nn.Module):
-    """Multi-head self-attention with CLIP's packed in-projection
+    """Multi-head attention with CLIP's packed in-projection
     (``in_proj_weight`` rows ordered [q; k; v]) and an ``out_proj``.
 
-    Over the token axis of a (B, L, D) input, or, with
-    ``temporal_frames=T``, over the frame axis of a (B·T, N, D) input
-    without materialising the (B·N, T, D) relayout. With
-    ``attention_core="fused"`` and ``ln``, ``adapter`` and ``residual``
-    given, the whole adaptation step ``x + adapter(attn(ln(x)))`` runs as
-    one fused op; with none of them, the plain block runs as
-    ``fused_attention_block`` or, with ``temporal_frames``,
-    ``fused_temporal_block`` (``layers.py:344-389``). ``mask`` (additive,
-    see ``masked_attention``) takes the framework ops under either core.
+    Self-attention over the token axis of a (B, L, D) input, or
+    cross-attention with q from ``x`` and k, v from ``kv`` (B, Lk, D); or,
+    with ``temporal_frames=T``, self-attention over the frame axis of a
+    (B·T, N, D) input without materialising the (B·N, T, D) relayout.
+    ``need_weights`` also returns the per-sample attention mass (see
+    ``attention_mass``). With ``attention_core="fused"`` and ``ln``,
+    ``adapter`` and ``residual`` given, the whole adaptation step ``x +
+    adapter(attn(ln(x)))`` runs as one fused op; with none of them, the plain
+    block runs as ``fused_attention_block`` or, with ``temporal_frames``,
+    ``fused_temporal_block`` (``layers.py:344-389``). ``kv``, ``mask``
+    (additive, see ``masked_attention``) or ``need_weights`` leave the fused
+    ops for the framework ops under every core, whose attention core is the
+    XLA core, or under ``"flash"`` ``flash_attention_entry``
+    (``layers.py:309, 427-429``).
     """
 
     def __init__(self, d_model: int, num_heads: int, compute_dtype=torch.float32,
@@ -241,10 +204,8 @@ class CLIPAttention(nn.Module):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by heads {num_heads}")
-        if attention_core not in ("xla", "fused"):
-            raise NotImplementedError(
-                f"attention_core={attention_core!r} is not ported "
-                "(the flash core is ROADMAP queue 2 item 9)")
+        if attention_core not in ("xla", "fused", "flash"):
+            raise ValueError(f"unknown attention core: {attention_core}")
         self.num_heads = num_heads
         self.compute_dtype = resolve_dtype(compute_dtype)
         self.attention_core = attention_core
@@ -265,14 +226,10 @@ class CLIPAttention(nn.Module):
                 adapter: Optional[Adapter] = None,
                 ln: Optional[LayerNormFP32] = None,
                 residual: bool = False,
-                gate: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if kv is not None or need_weights:
-            raise NotImplementedError(
-                "cross-attention (kv=) and attention weights (need_weights=) "
-                "serve the ViT_CLIP variants, the next slice (ROADMAP queue 1 "
-                "item 9)")
+                gate: Optional[torch.Tensor] = None):
         cdt = self.compute_dtype
-        if self.attention_core == "fused" and mask is None:
+        if (self.attention_core == "fused" and kv is None and mask is None
+                and not need_weights):
             if ln is None and adapter is None and not residual and gate is None:
                 args = (x.to(cdt), self.in_proj_weight.to(cdt),
                         self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
@@ -282,9 +239,9 @@ class CLIPAttention(nn.Module):
                 return fused_temporal_block(*args, temporal_frames, self.num_heads)
             if ln is None or adapter is None or not residual:
                 raise NotImplementedError(
-                    "fused attention with LN and no adapter (PERF.md rows 5/15, "
-                    "ROADMAP queue 2 item 10), with an adapter and no LN (rows "
-                    "6/16, item 11), or a gated plain block is not ported yet")
+                    "fused attention with LN and no adapter (PERF.md rows 5/15), "
+                    "with an adapter and no LN (rows 6/16), or a gated plain "
+                    "block is not ported yet (ROADMAP queue 2)")
             args = (x.to(cdt), ln.weight, ln.bias, self.in_proj_weight.to(cdt),
                     self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
                     self.out_proj.bias.to(cdt), *adapter.weights(cdt))
@@ -300,8 +257,8 @@ class CLIPAttention(nn.Module):
                                           adapter.skip_connect)
             return fused_temporal_step(*args, temporal_frames, self.num_heads,
                                        adapter.skip_connect)
-        # framework ops: the "xla" core, and a mask under either core, as the
-        # JAX package takes its XLA path for a mask (layers.py:309, 427)
+        # framework ops around an attention core, as the JAX package's
+        # non-fused path (layers.py:390-442)
         if adapter is not None or residual or gate is not None:
             raise ValueError("adapter/residual fusion requires attention_core='fused'")
         if ln is not None:
@@ -311,26 +268,41 @@ class CLIPAttention(nn.Module):
         h = self.num_heads
         hd = d // h
         xq = x.to(cdt)
+        xkv = xq if kv is None else kv.to(cdt)
         wq, wk, wv = self.in_proj_weight.to(cdt).chunk(3, 0)
         bq, bk, bv = self.in_proj_bias.to(cdt).chunk(3, 0)
         q = xq @ wq.t() + bq
-        k = xq @ wk.t() + bk
-        v = xq @ wv.t() + bv
+        k = xkv @ wk.t() + bk
+        v = xkv @ wv.t() + bv
         if temporal_frames is not None:
-            if mask is not None:
+            if kv is not None or mask is not None or need_weights:
                 raise ValueError("temporal_frames supports plain self-attention")
             t = temporal_frames
             shape = (b // t, t, l, h, hd)
             qh, kh, vh = (u.reshape(shape).permute(0, 2, 3, 1, 4) for u in (q, k, v))
-        else:
-            qh, kh, vh = (u.reshape(b, l, h, hd).transpose(1, 2) for u in (q, k, v))
-        if mask is not None:
-            out = masked_attention(qh, kh, vh, mask)
-        else:
-            probs = torch.softmax((qh.float() @ kh.float().transpose(-1, -2)) * hd ** -0.5, -1)
-            out = (probs.to(cdt).float() @ vh.float()).to(cdt)
-        if temporal_frames is not None:
+            out = xla_attention_core(qh, kh, vh)  # the JAX einsum over frames
             out = out.permute(0, 3, 1, 2, 4)  # (B, T, L, H, hd)
-        else:
-            out = out.transpose(1, 2)  # (B, L, H, hd)
-        return dense(out.reshape(b, l, d), self.out_proj, cdt)
+            return dense(out.reshape(b, l, d), self.out_proj, cdt)
+        lk = k.shape[1]
+        qh = q.reshape(b, l, h, hd).transpose(1, 2)
+        kh, vh = (u.reshape(b, lk, h, hd).transpose(1, 2) for u in (k, v))
+        core = flash_attention_entry if self.attention_core == "flash" else xla_attention_core
+        out = core(qh, kh, vh, mask)
+        out = dense(out.transpose(1, 2).reshape(b, l, d), self.out_proj, cdt)
+        if need_weights:
+            return out, attention_mass(qh, kh)
+        return out
+
+
+@torch.no_grad()
+def attention_mass(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """The fork's per-sample attention mass (``layers.py:432-441``,
+    reference ``vit_clip.py:147-152``) of (B, H, Lq, hd) q and (B, H, Lk,
+    hd) k: ``sum over (q, k) of exp(sum over heads of q·k / sqrt(hd))``,
+    fp32 logits from the rounded q and k, in the JAX package's order (sum
+    over heads, exp, sum). (B,) fp32, carrying no gradient, as its
+    ``stop_gradient``. ``exp`` may overflow to inf with trained weights, as
+    in the JAX package."""
+    logits = (q.float() @ k.float().transpose(-1, -2)) / torch.sqrt(
+        torch.tensor(q.shape[-1], dtype=torch.float32, device=q.device))
+    return torch.exp(logits.sum(1)).reshape(q.shape[0], -1).sum(-1)

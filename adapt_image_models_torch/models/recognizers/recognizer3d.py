@@ -48,7 +48,7 @@ class Recognizer3D(nn.Module):
                  test_cfg: Optional[Dict[str, Any]] = None, device=None):
         super().__init__()
         if neck:
-            raise NotImplementedError("necks are not ported yet (ROADMAP queue 1 item 10)")
+            raise NotImplementedError("necks are not ported yet (ROADMAP queue 1, CNN recognition)")
         self.backbone = build_backbone(backbone, device=device)
         self.cls_head = build_head(cls_head, device=device)
         self.train_cfg = train_cfg

@@ -2,6 +2,11 @@
 and a wrapper that picks between them by the device of the input. The
 train ops are autograd ops whose forward and backward are such wrappers."""
 
+from adapt_image_models_torch.ops.flash_attention import (  # noqa: F401
+    flash_attention_core, flash_attention_core_plain, flash_attention_entry,
+    flash_attention_entry_plain, fused_attention, fused_attention_plain,
+    masked_attention, xla_attention_core,
+)
 from adapt_image_models_torch.ops.fused_joint_mlp import (  # noqa: F401
     fused_joint, fused_joint_mlp_rows_bwd, fused_joint_mlp_rows_bwd_plain,
     fused_joint_plain, fused_joint_train_block,
@@ -63,6 +68,7 @@ KERNEL_OPS = {
     "fused_ln_temporal_attention_bwd_dx": (
         fused_ln_temporal_attention_bwd_dx,
         _TPU + "fused_temporal_attention.py:1398"),
+    "flash_attention_core": (flash_attention_core, _TPU + "flash_attention.py:68"),
 }
 
 # the ops an AIM eval forward and train step launch, by num_tadapter: 1 runs
@@ -123,6 +129,20 @@ def train_ops(num_tadapter: int, num_frames: int, tokens: int, width: int,
 FLASH_EVAL_OPS = ("fused_temporal_attention", "fused_qkv_attention")
 FLASH_TRAIN_OPS = FLASH_EVAL_OPS + ("fused_temporal_attention_bwd",
                                     "fused_qkv_attention_bwd")
+
+
+# the launches a ViT_CLIP layer makes in an eval forward and in a train step,
+# by attention core: under "fused" the class token's temporal attention (or,
+# with ``shift``, which leaves that attention out, the self-attention over
+# the tokens) is the plain spatial block; under "flash" the class token's
+# attention and the self-attention run the flash core, whose backward is
+# framework ops; "xla" launches nothing. The cross-attention and the
+# attention mass are framework ops under every core, as in the JAX package.
+# With ``use_checkpoint`` the forward ops launch once more in the backward
+VITCLIP_EVAL_OPS = {"fused": {"fused_qkv_attention": 1},
+                    "flash": {"flash_attention_core": 2}, "xla": {}}
+VITCLIP_TRAIN_OPS = {"fused": {"fused_qkv_attention": 1, "fused_qkv_attention_bwd": 1},
+                     "flash": {"flash_attention_core": 2}, "xla": {}}
 
 
 def reset_launch_counts() -> None:

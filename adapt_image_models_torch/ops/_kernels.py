@@ -43,7 +43,17 @@ _SIGNATURES = {
     "aim_spatial_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_flash_attention_bf16": [_P, _P],
 }
+
+
+class _FlashArgs(ctypes.Structure):
+    """``FlashArgs`` of ``csrc/flash_attention.cu``: q, k, v, o and their
+    (batch, head, row) strides in elements."""
+    _fields_ = [("q", _P), ("k", _P), ("v", _P), ("o", _P),
+                ("sq", ctypes.c_longlong * 3), ("sk", ctypes.c_longlong * 3),
+                ("sv", ctypes.c_longlong * 3), ("so", ctypes.c_longlong * 3),
+                ("B", _I), ("H", _I), ("L", _I), ("scale", _F)]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -248,3 +258,21 @@ def temporal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
         qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out), clips,
         frames, length, d, 64 ** -0.5, _stream()), "aim_temporal_attention_bwd_bf16")
     return (dqkv, out) if with_out else dqkv
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / 8) v over (B, H, L, 64) bf16 q, k, v, read through
+    their strides (head dim contiguous, the other strides multiples of 8
+    elements). The output is (B, H, L, 64) laid out as (B, L, H, 64), so
+    that ``o.transpose(1, 2).reshape(B, L, H * 64)`` is a view."""
+    b, h, n, hd = q.shape
+    o = torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    args = _FlashArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                      (ctypes.c_longlong * 3)(*q.stride()[:3]),
+                      (ctypes.c_longlong * 3)(*k.stride()[:3]),
+                      (ctypes.c_longlong * 3)(*v.stride()[:3]),
+                      (ctypes.c_longlong * 3)(*o.stride()[:3]),
+                      b, h, n, 1.0 / (hd ** 0.5))
+    _check(library().aim_flash_attention_bf16(ctypes.byref(args), _stream()),
+           "aim_flash_attention_bf16")
+    return o

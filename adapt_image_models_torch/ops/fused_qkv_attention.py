@@ -323,7 +323,7 @@ def _check_block(name, x, w_qkv, b_qkv, w_out, num_heads, vectors=(),
     if kernel and x.device.type == "cuda" and x.shape[1] > MAX_TOKENS:
         raise NotImplementedError(
             f"{name}: L={x.shape[1]} > {MAX_TOKENS} needs a spatial core that "
-            "streams over keys, not ported yet (ROADMAP queue 1 item 9)")
+            "streams over keys, not ported yet (ROADMAP queue 1, AIM_FLASH_DUAL)")
 
 
 def fused_qkv_attention_plain(x, w_qkv, b_qkv, w_out, b_out,

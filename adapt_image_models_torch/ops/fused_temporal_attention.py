@@ -85,7 +85,7 @@ def _check_frames(name, x, num_frames, kernel: bool) -> int:
     if kernel and x.device.type == "cuda" and num_frames > MAX_FRAMES:
         raise NotImplementedError(
             f"{name}: T={num_frames} > {MAX_FRAMES} needs the "
-            "segment-sum core, not ported yet (ROADMAP queue 2 item 12)")
+            "segment-sum core, not ported yet (ROADMAP queue 2, rows 19/20)")
     return b
 
 

@@ -100,23 +100,51 @@ Phases, in order; any failure raises and exits non-zero:
  12. the wide and the long path through the entry points: AIM ViT-L/14 at
      32 frames (configs/recognition/vit/vitclip_large_k400.py with the
      backbone type AIM and attention_core="fused" as options: 24 layers,
-     width 1024, 16 heads, 257 tokens, max_testing_views=4) on seeded
-     weights: init_recognizer, inference_recognizer and run_evaluation on
-     synthetic 3-view videos with each eval kernel's launch count checked
-     against 24 layers, the kernel path against the plain path on the
-     probabilities, train_model for 3 steps of 2 clips through the recipe's
-     train pipeline with every train kernel's launch count checked, frozen
-     weights bitwise unchanged and trainable ones moved, one train step of
-     the kernel path against the plain path, eval clips/s and peak memory
-     at 32 and at 8 frames, train clips/s and peak memory at 1, 2 and 4
-     clips and a profile of one step; then AIM ViT-B/16 at 32 frames
-     (configs/recognition/vit/aim_base_k400.py): the same eval and train
-     drive with 12 layers, eval and train timings at 8 clips.
+     width 1024, 16 heads, 257 tokens, max_testing_views=4,
+     use_checkpoint, so that each forward op launches twice a train step)
+     on seeded weights: init_recognizer, inference_recognizer and
+     run_evaluation on synthetic 3-view videos with each eval kernel's
+     launch count checked against 24 layers, the kernel path against the
+     plain path on the probabilities, train_model for 3 steps of 2 clips
+     through the recipe's train pipeline with every train kernel's launch
+     count checked, frozen weights bitwise unchanged and trainable ones
+     moved, one train step of the kernel path against the plain path, eval
+     clips/s and peak memory at 32 and at 8 frames, train clips/s and peak
+     memory at 1, 2 and 4 clips and a profile of one step; then AIM
+     ViT-B/16 at 32 frames (configs/recognition/vit/aim_base_k400.py): the
+     same eval and train drive with 12 layers, eval and train timings at 8
+     clips;
+ 13. ViT_CLIP: the flash attention core (csrc/flash_attention.cu) against
+     its plain version at the (B, H, L, 64) shapes of the ViT_CLIP paths
+     (tools/kernel_bounds_torch.py ATTENTION_SHAPES, up to L = 800) and its
+     time against the plain version and scaled_dot_product_attention at
+     (256, 12, 197, 64); the plain spatial block (rows 4, 8) at the class
+     token's x (clips, 32, 768); configs/recognition/vit/vitclip_base_k400.py
+     (ViT_CLIP B/16, 32 frames) with attention_core="flash" at full depth
+     and width through init_recognizer, inference_recognizer,
+     run_evaluation (3 views) and train_model (2 steps of 2 clips) with
+     the core's 24 launches a forward and a step checked, kernel path vs
+     plain path on the probabilities and on one train step, eval clips/s at
+     8 clips and train clips/s and peak memory at 2 and 4 clips under the
+     flash, fused (as shipped) and xla cores, a profile of one flash step;
+     configs/recognition/vit/vitclip_large_k400.py as shipped (ViT_CLIP
+     L/14, xla core, use_checkpoint) and with the flash core: one forward
+     of 2 clips each with its launches, the flash path against its plain
+     path, eval clips/s at 2 clips, one train step of 1 clip with and
+     without checkpointing with its launches, time and peak memory; and
+     configs/recognition/vit/flash_attn/vitclip_flash_base_hmdb51.py as
+     shipped (ViT_CLIP_FLASH, fused core, shift): one forward and one train
+     step, kernel path vs plain path, launches checked.
+Every driven model's kernel path holds the plain path's top-1 class; a
+400-class head gets a seeded class lead in its bias first
+(separate_classes), as seeded weights spread the classes so evenly that the
+top two can lie within the kernel-vs-plain gap.
 The line before the last is a JSON object with one entry per kernel, with
-its launches on the first of the ten paths above that runs it (path), and
+its launches on the first of the twelve paths above that runs it (path), and
 its time (at 32 clips of 8 frames; the spatial block at 8 clips of the
 AIM_FLASH path's 32 frames; the composition's three ops at 4 clips of
-ViT-L/14's 32 frames) beside the least time the card could take for
+ViT-L/14's 32 frames; the flash core at (256, 12, 197, 64), 8 clips of
+ViT_CLIP B/16's 32 frames) beside the least time the card could take for
 the same work (bound_ms, from tools/kernel_bounds_torch.py: the larger of
 its products' FLOPs over the H100's dense bf16 rate and its bytes, each
 input read once and each output written once, over its memory rate); the
@@ -146,8 +174,12 @@ FLASH_WIN_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "AIM",
 LARGE_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit",
                             "vitclip_large_k400.py")
 LONG_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "aim_base_k400.py")
-# both files end by switching the backbone to a variant that is not ported;
-# the AIM backbone and the fused ops are config options, as in the JAX package
+VITCLIP_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "vitclip_base_k400.py")
+VITCLIP_FLASH_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "flash_attn",
+                                    "vitclip_flash_base_hmdb51.py")
+# phase 12 runs AIM on both files (vitclip_large_k400.py ships the ViT_CLIP
+# backbone, which phase 13 drives): the AIM backbone and the fused ops are
+# config options, as in the JAX package
 AIM_OPTIONS = ["model.backbone.type=AIM", "model.backbone.attention_core=fused"]
 FRAMES, TOKENS, WIDTH, HEADS = 8, 197, 768, 12
 # ViT-L/14 at 32 frames: 256 patches + the class token
@@ -168,6 +200,12 @@ FLASH_PROB_ATOL = 2e-4
 # ViT-L/14 and ViT-B/16 at 32 frames, 400 classes: about 8x the gap read on
 # the first run of ViT-L/14 (6.208e-6)
 LARGE_PROB_ATOL = 5e-5
+# the lead of one seeded class in a 400-class head's bias (separate_classes):
+# at CLIP's head init (std 0.01) the logits of a seeded model spread by
+# ~0.28 and the best of the other 399 lies ~0.8 above the mean, so the class
+# leads by ~0.7 (the kernel-vs-plain logit gap is ~2.5e-3 at ViT-L/14) and
+# takes p ~0.01, where the probability gap stays inside the bounds above
+CLASS_LEAD = 1.5
 # train ops' backward, kernel vs plain version: dx and the adapter
 # cotangents have scales that vary by tensor (dx ~5, dW up to ~1e3). Both
 # versions round the same intermediates; a summation-order flip moves a
@@ -396,7 +434,8 @@ def plain_ops():
     names = [(layers, "fused_spatial_step"), (layers, "fused_temporal_step"),
              (aim, "fused_joint"), (layers, "fused_spatial_train_step"),
              (layers, "fused_temporal_train_step"), (aim, "fused_joint_train_block"),
-             (layers, "fused_temporal_block"), (layers, "fused_attention_block")]
+             (layers, "fused_temporal_block"), (layers, "fused_attention_block"),
+             (layers, "flash_attention_entry")]
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, getattr(ops, name + "_plain"))
@@ -458,10 +497,10 @@ TRAIN_BWD = {"fused_temporal": "fused_temporal_step_bwd_dx",
              "fused_joint": "fused_joint_mlp_rows_bwd"}
 
 
-def train_setup(cfg, core="fused", weights=None):
-    """A model of ``cfg`` on the card with ``core``, loaded with ``weights``
-    and frozen by the AIM recipe, and its train step with the recipe's
-    blending."""
+def train_setup(cfg, core=None, weights=None, use_checkpoint=None):
+    """A model of ``cfg`` on the card with ``core`` and ``use_checkpoint``
+    (the config's own where None), loaded with ``weights`` and frozen by the
+    AIM recipe, and its train step with the recipe's blending."""
     from adapt_image_models_torch.core.optim import build_optimizer
     from adapt_image_models_torch.core.train_state import TrainState, make_train_step
     from adapt_image_models_torch.data.blending import build_blending
@@ -469,7 +508,11 @@ def train_setup(cfg, core="fused", weights=None):
     from adapt_image_models_torch.parallel import freeze_params
     mcfg = dict(cfg["model"])
     test_cfg, train_cfg = mcfg.pop("test_cfg"), mcfg.pop("train_cfg", None) or {}
-    mcfg["backbone"] = {**mcfg["backbone"], "attention_core": core}
+    mcfg["backbone"] = dict(mcfg["backbone"])
+    if core is not None:
+        mcfg["backbone"]["attention_core"] = core
+    if use_checkpoint is not None:
+        mcfg["backbone"]["use_checkpoint"] = use_checkpoint
     m = build_model(mcfg, test_cfg=test_cfg, device="cuda")
     m.load_state_dict(weights)
     freeze_params(m)
@@ -548,11 +591,16 @@ def profile_step(step_fn, tstate, batch, label):
         log(f"    {dev_ms:9.2f} ms {100 * dev_ms / busy:5.1f}% {count:5d}x {key[:80]}")
 
 
-def train_timings(cfg, weights, classes, label, batches=(8, 32), xla_batches=None):
-    """Train-step clips/s and peak memory at each of ``batches`` clips,
-    kernel path and (at ``xla_batches``, every batch unless given: the path
-    keeps every activation) framework-op path, and a profile of one
-    kernel-path step at the last."""
+KERNEL_AND_XLA = (("fused", "kernel"), ("xla", "framework-op (xla)"))
+
+
+def train_timings(cfg, weights, classes, label, batches=(8, 32), xla_batches=None,
+                  cores=KERNEL_AND_XLA, use_checkpoint=None):
+    """Train-step clips/s and peak memory at each of ``batches`` clips under
+    each of ``cores`` ((attention core, path label) pairs; the xla core only
+    at ``xla_batches``, every batch unless given: that path keeps every
+    activation), and a profile of one step of the first core at the last
+    batch."""
     import numpy as np
     import torch
     frames = cfg["model"]["backbone"]["num_frames"]
@@ -560,19 +608,19 @@ def train_timings(cfg, weights, classes, label, batches=(8, 32), xla_batches=Non
         timing_batch = {"imgs": torch.randn(clips, 1, 3, frames, 224, 224, device="cuda",
                                             dtype=torch.bfloat16),
                         "label": np.arange(clips) % classes}
-        for core, path in (("fused", "kernel"), ("xla", "framework-op (xla)")):
+        for core, path in cores:
             if core == "xla" and xla_batches is not None and clips not in xla_batches:
                 continue
-            tstate, step_fn = train_setup(cfg, core, weights)
+            tstate, step_fn = train_setup(cfg, core, weights, use_checkpoint)
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: step_fn(tstate, timing_batch, 0), iters=5, warmup=2)
             mem = torch.cuda.max_memory_allocated() / 2 ** 30
             log(f"  {label} train step {clips} clips ({path} path): {ms:.2f} ms, "
                 f"{clips / ms * 1e3:.1f} clips/s, peak memory {mem:.2f} GiB "
                 f"(median of 5 after 2 warm-ups, CUDA events)")
-            if core == "fused" and clips == batches[-1]:
+            if core == cores[0][0] and clips == batches[-1]:
                 profile_step(step_fn, tstate, timing_batch,
-                             f"kernel-path {label} {clips}-clip")
+                             f"{path} {label} {clips}-clip")
             del tstate, step_fn
             torch.cuda.empty_cache()
         del timing_batch
@@ -675,6 +723,37 @@ def randomize_adapters(model, seed):
                 p.copy_(0.02 * torch.randn(p.shape, generator=g))
 
 
+def separate_classes(model, seed):
+    """Give one seeded class a lead of CLASS_LEAD in ``fc_cls``'s bias, so
+    that the top-1 class of a 400-class head stands clear of the kernel vs
+    plain gap. The bias is the same on both paths and carries no noise;
+    scaling the head would not help, as it scales the gap between the top
+    two logits and the kernel-vs-plain noise alike. Returns the class."""
+    import torch
+    head = model.cls_head.fc_cls
+    c = int(torch.randint(head.bias.numel(), (1,),
+                          generator=torch.Generator().manual_seed(seed)))
+    with torch.no_grad():
+        head.bias[c] += CLASS_LEAD
+    return c
+
+
+def hold_top1(label, p_kernel, p_plain, prob_atol):
+    """Kernel path against plain path on the probabilities: max abs error
+    within ``prob_atol``, finite, and the same top-1 class on every row,
+    with the plain path's top-2 margin logged."""
+    import torch
+    prob_err = (p_kernel - p_plain).abs().max().item()
+    same_top1 = bool((p_kernel.argmax(1) == p_plain.argmax(1)).all())
+    top2 = p_plain.topk(2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).min().item()
+    log(f"  {label} kernel path vs plain path ({tuple(p_kernel.shape)}): probability "
+        f"max_abs_err={prob_err:.3e} (tol {prob_atol}), top-1 equal {same_top1} (smallest "
+        f"top-2 margin {margin:.3e}), finite={bool(torch.isfinite(p_kernel).all())}")
+    if not (prob_err < prob_atol and same_top1 and torch.isfinite(p_kernel).all()):
+        raise AssertionError(f"the {label} kernel path disagrees with the plain path")
+
+
 def composition_inputs(clips, seed, frames, tokens, width, heads):
     """x, LN, the attention step's weights, a drop-path gate of zeros and
     1/keep and a cotangent at x = (clips*frames, tokens, width)."""
@@ -747,7 +826,8 @@ def library_bwd_dx(x, ln, attn, g, width, heads, relayout):
     N, D) view that ``relayout`` makes of x (relaid out beforehand, not
     timed): layer_norm and multi_head_attention_forward under autograd.
     Returns (forward + backward ms, the same function as the dX-only
-    kernels, which recompute the forward; backward alone ms; dx)."""
+    kernels, which recompute the forward; backward alone ms, the library
+    call of rows 7 and 17; forward alone ms, that of rows 5 and 15; dx)."""
     import torch
     from torch.nn.functional import layer_norm, multi_head_attention_forward
     xr, gr = relayout(x).detach().requires_grad_(), relayout(g)
@@ -763,7 +843,9 @@ def library_bwd_dx(x, ln, attn, g, width, heads, relayout):
     dx = torch.autograd.grad(graph, xr, gr, retain_graph=True)[0]
     bwd = cuda_ms(lambda: torch.autograd.grad(graph, xr, gr, retain_graph=True), iters=10)
     both = cuda_ms(lambda: torch.autograd.grad(forward(), xr, gr), iters=10)
-    return both, bwd, dx
+    with torch.no_grad():
+        fwd = cuda_ms(forward, iters=10)
+    return both, bwd, fwd, dx
 
 
 def design_run(fn, args, g):
@@ -803,13 +885,14 @@ def composition_timings(shape, clips, frames, tokens, width, heads, relayouts):
                  cuda_ms(plain, iters=10))
             times[op] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
     for op, relayout in relayouts.items():
-        both, bwd, dx = library_bwd_dx(x, ln, attn, g, width, heads, relayout)
+        both, bwd, fwd, dx = library_bwd_dx(x, ln, attn, g, width, heads, relayout)
         with torch.no_grad():
             gap = (dx - relayout(composition_calls(x, ln, attn, gate, g, frames,
                                                    heads)[op][0]())).abs().max().item()
         library[op] = both
         log(f"  {op} at {shape}: kernel {times[op][0]:.3f} ms, plain {times[op][1]:.3f} ms, "
-            f"library {both:.3f} ms forward + backward ({bwd:.3f} ms backward alone; "
+            f"library {both:.3f} ms forward + backward ({bwd:.3f} ms backward alone, "
+            f"{fwd:.3f} ms forward alone; "
             f"layer_norm + multi_head_attention_forward under autograd on the "
             f"{tuple(relayout(x).shape)} view, relayout not timed; its dx vs the kernel's: "
             f"max abs diff {gap:.3e})")
@@ -862,6 +945,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
     t0 = time.perf_counter()
     model = init_recognizer(cfg, device="cuda", seed=0)
     randomize_adapters(model, seed=seed)
+    separate_classes(model, seed=seed)
     log(f"phase 12: built {os.path.relpath(config, ROOT)} ({label}: {layers} layers, width "
         f"{bb['width']}, {bb['heads']} heads, {tokens} tokens, {frames} frames) on cuda, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, in "
@@ -896,15 +980,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         p_kernel = model.forward_test(imgs)
         with plain_ops():
             p_plain = model.forward_test(imgs)
-    prob_err = (p_kernel - p_plain).abs().max().item()
-    top1 = (p_kernel.argmax(1) == p_plain.argmax(1)).float().mean().item()
-    # as for the flagship, top-1 is logged and not held: seeded weights
-    # spread 400 classes so evenly that the first two can lie within the gap
-    log(f"  {label} model kernel path vs plain path ({tuple(imgs.shape)}): probability "
-        f"max_abs_err={prob_err:.3e} (tol {prob_atol}), top-1 agreement {top1:.2f}, "
-        f"finite={bool(torch.isfinite(p_kernel).all())}")
-    if not (prob_err < prob_atol and torch.isfinite(p_kernel).all()):
-        raise AssertionError(f"the {label} kernel path disagrees with the plain path")
+    hold_top1(f"{label} model on {tuple(imgs.shape)}", p_kernel, p_plain, prob_atol)
     del imgs, p_kernel, p_plain
     torch.cuda.empty_cache()
 
@@ -930,8 +1006,13 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and the checkpoint included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
-        check_launches(f"{label} train path ({steps} steps x {layers} layers)",
-                       train_launches, {op: layers * steps for op in train_names})
+        # with use_checkpoint each block's forward runs again in the backward:
+        # the forward ops (every other name) launch twice a step
+        passes = 2 if bb.get("use_checkpoint") else 1
+        check_launches(f"{label} train path ({steps} steps x {layers} layers"
+                       f"{', checkpointed' if passes == 2 else ''})", train_launches,
+                       {op: layers * steps * (passes if k % 2 == 0 else 1)
+                        for k, op in enumerate(train_names)})
         if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError(f"{label} train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -954,7 +1035,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
     return cfg, model, eval_launches, train_launches, classes
 
 
-def eval_timing(label, model, clips, frames):
+def eval_timing(label, model, clips, frames, path="kernel path"):
     """forward_test clips/s and peak memory at ``clips`` clips of one view."""
     import torch
     x = torch.randn(clips, 1, 3, frames, 224, 224, device="cuda")
@@ -962,9 +1043,346 @@ def eval_timing(label, model, clips, frames):
     with torch.no_grad():
         ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
     mem = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"  {label} forward_test batch {clips} of {frames} frames (kernel path): "
+    log(f"  {label} forward_test batch {clips} of {frames} frames ({path}): "
         f"{ms:.2f} ms, {clips / ms * 1e3:.2f} clips/s, peak memory {mem:.2f} GiB "
         "(median of 5 after 2 warm-ups, CUDA events)")
+
+
+# ---------------------------------------------------------------------------
+# phase 13: ViT_CLIP
+
+
+def attention_views(b, heads, length, seed):
+    """q, k, v as the model hands them to the flash core: (B, H, L, 64)
+    views of one (B, L, 3·H·64) bf16 projection."""
+    import torch
+    x = torch.randn(b, length, 3 * heads * 64, generator=torch.Generator().manual_seed(seed))
+    x = x.to("cuda", torch.bfloat16)
+    return [t.reshape(b, length, heads, 64).transpose(1, 2) for t in x.split(heads * 64, -1)]
+
+
+def flash_core_checks(errors):
+    """Row 13's kernel against its plain version at the shapes the ViT_CLIP
+    paths give it (tools/kernel_bounds_torch.py ATTENTION_SHAPES), each
+    launch counted once."""
+    import torch
+    from adapt_image_models_torch import ops
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from kernel_bounds_torch import ATTENTION_SHAPES
+    for b, heads, length in ATTENTION_SHAPES:
+        q, k, v = attention_views(b, heads, length, 1300 + b + length)
+        before = ops.flash_attention_core.launches
+        got = ops.flash_attention_core(q, k, v)
+        torch.cuda.synchronize()
+        if ops.flash_attention_core.launches != before + 1:
+            raise AssertionError("flash_attention_core: launch counter did not move")
+        err = compare(f"flash_attention_core at ({b}, {heads}, {length}, 64)", got,
+                      ops.flash_attention_core_plain(q, k, v))
+        errors["flash_attention_core"] = max(err, errors.get("flash_attention_core", 0.0))
+        del q, k, v, got
+    torch.cuda.empty_cache()
+
+
+def flash_core_timing(card, op_ms, library_ms):
+    """Kernel, plain version and scaled_dot_product_attention on the same
+    q, k, v at (256, 12, 197, 64): 8 clips of 32 frames of ViT-B/16."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from adapt_image_models_torch import ops
+    q, k, v = attention_views(256, 12, 197, 1400)
+    fns = (lambda: ops.flash_attention_core_plain(q, k, v),
+           lambda: ops.flash_attention_core(q, k, v))
+    with torch.no_grad():
+        t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+        lib = cuda_ms(lambda: sdpa(q, k, v))
+        gap = (sdpa(q, k, v).float() - fns[1]().float()).abs().max().item()
+    op_ms["flash_attention_core"] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    library_ms["flash_attention_core"] = lib
+    b_ms, b_by = bound("flash_attention_core", 256, 1, 197)
+    log(f"  flash_attention_core at (256, 12, 197, 64) on {card}: kernel "
+        f"{op_ms['flash_attention_core'][0]:.3f} ms, plain {op_ms['flash_attention_core'][1]:.3f} "
+        f"ms, library (scaled_dot_product_attention, same views) {lib:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}) (median of 20, CUDA events, plain-kernel-kernel-plain; "
+        f"library vs kernel: max abs diff {gap:.3e})")
+
+
+def class_token_block_checks(errors):
+    """Rows 4 and 8 at ViT_CLIP's class-token attention under "fused": x
+    (clips, 32, 768), the 32 frames' class tokens of each clip, 12 heads."""
+    import torch
+    from adapt_image_models_torch import ops
+    failures = []
+    for clips in (1, 2, 8):
+        x, wts, g = block_inputs(clips, 1, seed=1500 + clips, tokens=32)
+        shape = f"x={tuple(x.shape)} bf16, {HEADS} heads"
+        log(f"phase 13: the plain spatial block at the class token's {shape}")
+        err = compare("fused_qkv_attention out", ops.fused_qkv_attention(x, *wts, HEADS),
+                      ops.fused_qkv_attention_plain(x, *wts, HEADS))
+        errors["fused_qkv_attention"] = max(err, errors.get("fused_qkv_attention", 0.0))
+        got = ops.fused_qkv_attention_bwd(x, *wts[:3], g, HEADS)
+        want = ops.fused_qkv_attention_bwd_plain(x, *wts[:3], g, HEADS)
+        torch.cuda.synchronize()
+        for tensor, a, b in zip(("dx", "dqkv", "o"), got, want):
+            err, ok = compare_grad(tensor, a, b)
+            if tensor == "dx":
+                errors["fused_qkv_attention_bwd"] = max(
+                    err, errors.get("fused_qkv_attention_bwd", 0.0))
+            if not ok:
+                failures.append(f"fused_qkv_attention_bwd {tensor} at {shape}")
+    if failures:
+        raise AssertionError(f"rows 4/8 disagree at the class token's shape: {failures}")
+
+
+def vitclip_models(cfg, weights, cores):
+    """{core: model of ``cfg`` on the card in eval mode with ``weights``}."""
+    from adapt_image_models_torch.models import build_model
+    mcfg = {k: v for k, v in cfg["model"].items() if k not in ("test_cfg", "train_cfg")}
+    out = {}
+    for core in cores:
+        m = build_model({**mcfg, "backbone": {**mcfg["backbone"], "attention_core": core}},
+                        test_cfg=cfg["model"]["test_cfg"], device="cuda").eval()
+        m.load_state_dict(weights)
+        out[core] = m
+    return out
+
+
+def drive_vitclip(card):
+    """ViT_CLIP B/16 32f (configs/recognition/vit/vitclip_base_k400.py as
+    shipped but for attention_core="flash") at full depth and width through
+    the entry points, kernel path vs plain path, then eval and train
+    timings under the three cores. Returns (eval launches, train
+    launches)."""
+    import copy
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import (
+        inference_recognizer, init_recognizer, load_config, run_evaluation, train_model,
+    )
+    from adapt_image_models_torch.data.transforms import make_prepare_fn
+    cfg = load_config(VITCLIP_CONFIG, ["model.backbone.attention_core=flash"])
+    bb = cfg["model"]["backbone"]
+    if (bb["type"], bb["attention_core"], bb["layers"], bb["width"], bb["num_frames"],
+            bb.get("shift", False)) != ("ViT_CLIP", "flash", 12, WIDTH, 32, False):
+        raise AssertionError(f"unexpected ViT_CLIP backbone {bb}")
+    classes, frames = cfg["model"]["cls_head"]["num_classes"], bb["num_frames"]
+    per_forward = {op: n * bb["layers"] for op, n in ops.VITCLIP_EVAL_OPS["flash"].items()}
+    per_step = {op: n * bb["layers"] for op, n in ops.VITCLIP_TRAIN_OPS["flash"].items()}
+    t0 = time.perf_counter()
+    model = init_recognizer(cfg, device="cuda", seed=0)
+    randomize_adapters(model, seed=16)
+    separate_classes(model, seed=16)
+    log(f"phase 13: built {os.path.relpath(VITCLIP_CONFIG, ROOT)} with attention_core=flash "
+        f"(ViT_CLIP B/16, {frames} frames) on cuda, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_videos, eval_batch, views = 2, 2, 3
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "ann.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"synthetic://{1600 + i} {i % classes}" for i in range(n_videos)))
+        cfg["data"]["test"]["ann_file"] = ann
+        ops.reset_launch_counts()  # the ViT_CLIP eval path's run starts here
+        top5 = [inference_recognizer(model, cfg, "synthetic://1600")]
+        results, scores, _ = run_evaluation(cfg, model=model, batch_size=eval_batch,
+                                            num_workers=2, return_scores=True)
+        eval_launches = ops.launch_counts()  # ... and ends here
+    forwards = len(top5) + -(-n_videos // eval_batch)
+    log(f"  inference_recognizer top-5 of synthetic://1600: {top5[0]}")
+    log(f"  run_evaluation over {n_videos} synthetic {views}-view videos: {results}")
+    check_launches(f"ViT_CLIP eval path ({forwards} forwards x 12 layers x 2 attentions)",
+                   eval_launches, {op: n * forwards for op, n in per_forward.items()})
+    if scores.shape != (n_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
+        raise AssertionError(f"bad ViT_CLIP eval scores {scores.shape}")
+    clips = np.random.default_rng(16).integers(0, 256, (2, views, frames, 224, 224, 3),
+                                               dtype=np.uint8)
+    imgs = make_prepare_fn(device="cuda")(clips)
+    with torch.no_grad():
+        p_kernel = model.forward_test(imgs)
+        with plain_ops():
+            p_plain = model.forward_test(imgs)
+    hold_top1(f"ViT_CLIP B/16 32f (flash) model on {tuple(imgs.shape)}", p_kernel, p_plain,
+              LARGE_PROB_ATOL)
+    del imgs, p_kernel, p_plain
+
+    steps, train_clips = 2, 2
+    log(f"  train_model: {steps} steps of {train_clips} clips through the recipe's train "
+        "pipeline")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ann = os.path.join(tmp, "train.txt")
+        with open(train_ann, "w") as f:
+            f.write("\n".join(f"synthetic://{1650 + i} {i % classes}"
+                              for i in range(steps * train_clips)))
+        tcfg = copy.deepcopy(cfg)
+        tcfg["data"]["train"]["ann_file"] = train_ann
+        tcfg["data"].update(workers_per_gpu=4, videos_per_gpu=train_clips)
+        tcfg.update(total_epochs=1, checkpoint_config=dict(interval=1),
+                    log_config=dict(interval=1))
+        initial = init_recognizer(tcfg, device="cuda", seed=0).state_dict()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()  # the ViT_CLIP train path's run starts here
+        state, history = train_model(tcfg, work_dir=os.path.join(tmp, "work"), seed=0,
+                                     max_steps=steps, validate=False, device="cuda")
+        torch.cuda.synchronize()
+        train_launches = ops.launch_counts()  # ... and ends here
+        log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s; losses "
+            f"{[round(h['loss'], 4) for h in history]}")
+        check_launches(f"ViT_CLIP train path ({steps} steps x 12 layers x 2 attentions; the "
+                       "flash core's backward is the XLA core's framework ops)",
+                       train_launches, {op: n * steps for op, n in per_step.items()})
+        if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
+            raise AssertionError("ViT_CLIP train_model did not take finite steps")
+        trained = state.model.state_dict()
+        trainable = {n for n, p in state.model.named_parameters() if p.requires_grad}
+        frozen_same = all(torch.equal(initial[n], trained[n])
+                          for n in initial if n not in trainable)
+        moved = {n for n in trainable if not torch.equal(initial[n], trained[n])}
+        # from the seeded init (zero CLIP biases, zero D_fc2) the class-token
+        # summary xt is 0, so the cross-attention's keys and values are 0,
+        # S_Adapter's input is 0 and the S and T adapters get exactly zero
+        # gradients at any step; only AdamW's decay moves their nonzero
+        # D_fc1 weights (the JAX package computes the same zeros)
+        stuck = {n for n in trainable
+                 if (".S_Adapter." in n and n.endswith(("D_fc1.bias", "D_fc2.weight")))
+                 or (".T_Adapter." in n and not n.endswith("D_fc1.weight"))}
+        log(f"  {len(trainable)} trainable tensors, {len(moved)} moved, {len(stuck)} held at "
+            f"zero by the seeded init; frozen bitwise unchanged: {frozen_same}")
+        if not frozen_same or moved != trainable - stuck:
+            raise AssertionError("frozen weights moved or trainable ones did not: "
+                                 f"{sorted((trainable - stuck) ^ moved)[:8]}")
+        del state, initial, trained
+    torch.cuda.empty_cache()
+    weights = model.state_dict()
+    compare_train_step(cfg, weights, train_clips, classes)
+    del model
+    torch.cuda.empty_cache()
+
+    log(f"  ViT_CLIP B/16 32f timings on {card}")
+    for core, m in vitclip_models(cfg, weights, ("xla", "fused", "flash")).items():
+        eval_timing("ViT_CLIP B/16 32f", m, 8, frames, f"{core} core")
+        del m
+        torch.cuda.empty_cache()
+    train_timings(cfg, weights, classes, "ViT_CLIP B/16 32f", batches=(2, 4),
+                  cores=(("flash", "flash core"), ("fused", "fused core (as shipped)"),
+                         ("xla", "xla core")))
+    torch.cuda.empty_cache()
+    return eval_launches, train_launches
+
+
+def drive_vitclip_large(card):
+    """configs/recognition/vit/vitclip_large_k400.py as shipped (ViT_CLIP
+    L/14 32f, the xla core, use_checkpoint) and with the flash core: one
+    forward of 2 clips each with its launches, the flash path against its
+    plain path, eval at 2 clips and one train step of 1 clip with and
+    without checkpointing, time and peak memory."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import init_recognizer, load_config
+    from adapt_image_models_torch.data.transforms import make_prepare_fn
+    cfg = load_config(LARGE_CONFIG)
+    bb = cfg["model"]["backbone"]
+    core0 = bb.get("attention_core", "xla")
+    if (bb["type"], core0, bb.get("use_checkpoint"), bb["layers"], bb["width"]) != (
+            "ViT_CLIP", "xla", True, 24, LARGE["width"]):
+        raise AssertionError(f"unexpected ViT_CLIP L/14 backbone {bb}")
+    classes, frames, layers = cfg["model"]["cls_head"]["num_classes"], bb["num_frames"], 24
+    model = init_recognizer(cfg, device="cuda", seed=0)
+    randomize_adapters(model, seed=17)
+    separate_classes(model, seed=17)
+    weights = model.state_dict()
+    del model
+    log(f"phase 13: {os.path.relpath(LARGE_CONFIG, ROOT)} as shipped (ViT_CLIP L/14, "
+        f"{frames} frames, {core0} core, use_checkpoint) and with attention_core=flash")
+    clips = np.random.default_rng(17).integers(0, 256, (2, 1, frames, 224, 224, 3),
+                                               dtype=np.uint8)
+    imgs = make_prepare_fn(device="cuda")(clips)
+    probs = {}
+    for core, m in vitclip_models(cfg, weights, ("xla", "flash")).items():
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            probs[core] = m.forward_test(imgs)
+        check_launches(f"ViT_CLIP L/14 {core} forward of 2 clips (24 layers)",
+                       ops.launch_counts(),
+                       {op: n * layers for op, n in ops.VITCLIP_EVAL_OPS[core].items()})
+        if core == "flash":
+            with torch.no_grad(), plain_ops():
+                p_plain = m.forward_test(imgs)
+            hold_top1(f"ViT_CLIP L/14 32f (flash) model on {tuple(imgs.shape)}", probs[core],
+                      p_plain, LARGE_PROB_ATOL)
+        eval_timing("ViT_CLIP L/14 32f", m, 2, frames, f"{core} core")
+        del m
+        torch.cuda.empty_cache()
+    log(f"  flash vs xla core (another cast order in the core): probability max abs "
+        f"diff {(probs['flash'] - probs['xla']).abs().max().item():.3e}")
+    del imgs, probs
+    batch = {"imgs": torch.randn(1, 1, 3, frames, 224, 224, device="cuda",
+                                 dtype=torch.bfloat16), "label": np.arange(1)}
+    for core in ("xla", "flash"):
+        for use_checkpoint in (True, False):
+            tstate, step_fn = train_setup(cfg, core, weights, use_checkpoint)
+            ops.reset_launch_counts()
+            step_fn(tstate, batch, 0)
+            torch.cuda.synchronize()
+            passes = 2 if use_checkpoint else 1
+            check_launches(f"ViT_CLIP L/14 {core} train step of 1 clip "
+                           f"({'checkpointed' if use_checkpoint else 'no checkpointing'})",
+                           ops.launch_counts(),
+                           {op: n * layers * (passes if op in ops.VITCLIP_EVAL_OPS[core] else 1)
+                            for op, n in ops.VITCLIP_TRAIN_OPS[core].items()})
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=1)
+            mem = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f"  ViT_CLIP L/14 32f train step 1 clip ({core} core, use_checkpoint="
+                f"{use_checkpoint}): {ms:.2f} ms, {1e3 / ms:.2f} clips/s, peak memory "
+                f"{mem:.2f} GiB (median of 5 after 1 warm-up, CUDA events)")
+            del tstate, step_fn
+            torch.cuda.empty_cache()
+
+
+def drive_vitclip_flash_config():
+    """configs/recognition/vit/flash_attn/vitclip_flash_base_hmdb51.py as
+    shipped (ViT_CLIP_FLASH: the fused core, shift, 51 classes): one
+    forward of 2 clips with its launches and against its plain path, and
+    one train step, kernel path against plain path, with its launches."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import init_recognizer, load_config
+    from adapt_image_models_torch.data.transforms import make_prepare_fn
+    cfg = load_config(VITCLIP_FLASH_CONFIG)
+    bb = cfg["model"]["backbone"]
+    if (bb["type"], bb["shift"], bb["layers"], bb["num_frames"]) != (
+            "ViT_CLIP_FLASH", True, 12, 32):
+        raise AssertionError(f"unexpected ViT_CLIP_FLASH backbone {bb}")
+    classes = cfg["model"]["cls_head"]["num_classes"]
+    model = init_recognizer(cfg, device="cuda", seed=0)
+    randomize_adapters(model, seed=18)
+    separate_classes(model, seed=18)
+    blk = model.backbone.transformer.resblocks[0]
+    log(f"phase 13: {os.path.relpath(VITCLIP_FLASH_CONFIG, ROOT)} as shipped "
+        f"({bb['type']}: {blk.attn.attention_core} core, shift {blk.shift}, {classes} classes)")
+    clips = np.random.default_rng(18).integers(0, 256, (2, 1, 32, 224, 224, 3),
+                                               dtype=np.uint8)
+    imgs = make_prepare_fn(device="cuda")(clips)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        p_kernel = model.forward_test(imgs)
+    check_launches("ViT_CLIP_FLASH forward (12 layers: the self-attention as the plain "
+                   "spatial block)", ops.launch_counts(),
+                   {op: n * bb["layers"] for op, n in ops.VITCLIP_EVAL_OPS["fused"].items()})
+    with torch.no_grad(), plain_ops():
+        p_plain = model.forward_test(imgs)
+    hold_top1(f"ViT_CLIP_FLASH model on {tuple(imgs.shape)}", p_kernel, p_plain,
+              FLASH_PROB_ATOL)
+    weights = model.state_dict()
+    del model, imgs
+    torch.cuda.empty_cache()
+    ops.reset_launch_counts()
+    compare_train_step(cfg, weights, 2, classes)
+    check_launches("ViT_CLIP_FLASH kernel-path train step", ops.launch_counts(),
+                   {op: n * bb["layers"] for op, n in ops.VITCLIP_TRAIN_OPS["fused"].items()})
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -1007,6 +1425,7 @@ def main():
     t0 = time.perf_counter()
     model = init_recognizer(cfg, device="cuda", seed=0)
     randomize_adapters(model, seed=1)
+    separate_classes(model, seed=1)
     n_params = sum(p.numel() for p in model.parameters())
     log(f"phase 2: built {os.path.relpath(CONFIG, ROOT)} on cuda, "
         f"{n_params / 1e6:.1f}M params, in {time.perf_counter() - t0:.1f} s")
@@ -1042,13 +1461,7 @@ def main():
         p_kernel = model.forward_test(imgs)
         with plain_ops():
             p_plain = model.forward_test(imgs)
-    prob_err = (p_kernel - p_plain).abs().max().item()
-    top1 = (p_kernel.argmax(1) == p_plain.argmax(1)).float().mean().item()
-    log(f"  model kernel path vs plain path ({tuple(imgs.shape)}): probability "
-        f"max_abs_err={prob_err:.3e} (tol {PROB_ATOL}), top-1 agreement {top1:.2f}, "
-        f"finite={bool(torch.isfinite(p_kernel).all())}")
-    if not (prob_err < PROB_ATOL and torch.isfinite(p_kernel).all()):
-        raise AssertionError("kernel path disagrees with the plain path")
+    hold_top1(f"flagship model on {tuple(imgs.shape)}", p_kernel, p_plain, PROB_ATOL)
 
     # ---- phase 3: timings ------------------------------------------------
     log(f"phase 3: timings on {card}")
@@ -1309,13 +1722,7 @@ def main():
         p_kernel = model8.forward_test(imgs)
         with plain_ops():
             p_plain = model8.forward_test(imgs)
-    prob_err = (p_kernel - p_plain).abs().max().item()
-    same_top1 = bool((p_kernel.argmax(1) == p_plain.argmax(1)).all())
-    log(f"  SSv2 model kernel path vs plain path ({tuple(imgs.shape)}): probability "
-        f"max_abs_err={prob_err:.3e} (tol {SSV2_PROB_ATOL}), top-1 equal {same_top1}, "
-        f"finite={bool(torch.isfinite(p_kernel).all())}")
-    if not (prob_err < SSV2_PROB_ATOL and same_top1 and torch.isfinite(p_kernel).all()):
-        raise AssertionError("the SSv2 kernel path disagrees with the plain path")
+    hold_top1(f"SSv2 model on {tuple(imgs.shape)}", p_kernel, p_plain, SSV2_PROB_ATOL)
 
     steps8, vps8 = 4, cfg8["data"]["videos_per_gpu"]
     log(f"  train_model on {os.path.relpath(SSV2_CONFIG, ROOT)}: {steps8} steps of {vps8} "
@@ -1499,13 +1906,7 @@ def main():
         p_kernel = model10.forward_test(imgs)
         with plain_ops():
             p_plain = model10.forward_test(imgs)
-    prob_err = (p_kernel - p_plain).abs().max().item()
-    same_top1 = bool((p_kernel.argmax(1) == p_plain.argmax(1)).all())
-    log(f"  AIM_FLASH model kernel path vs plain path ({tuple(imgs.shape)}): probability "
-        f"max_abs_err={prob_err:.3e} (tol {FLASH_PROB_ATOL}), top-1 equal {same_top1}, "
-        f"finite={bool(torch.isfinite(p_kernel).all())}")
-    if not (prob_err < FLASH_PROB_ATOL and same_top1 and torch.isfinite(p_kernel).all()):
-        raise AssertionError("the AIM_FLASH kernel path disagrees with the plain path")
+    hold_top1(f"AIM_FLASH model on {tuple(imgs.shape)}", p_kernel, p_plain, FLASH_PROB_ATOL)
     del imgs, p_kernel, p_plain
 
     steps10, vps10 = 4, 2
@@ -1713,12 +2114,22 @@ def main():
     del weights_b
     torch.cuda.empty_cache()
 
+    # ---- phase 13: ViT_CLIP ----------------------------------------------
+    log("phase 13: the flash attention core (row 13) at the ViT_CLIP paths' shapes")
+    flash_core_checks(errors)
+    class_token_block_checks(errors)
+    flash_core_timing(card, op_ms, library_ms)
+    vc_launches, vc_train_launches = drive_vitclip(card)
+    drive_vitclip_large(card)
+    drive_vitclip_flash_config()
+
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
                           "fused_temporal_train_step", "fused_temporal_step_bwd_dx",
                           "fused_spatial_train_step", "fused_step_bwd_dx", blk, blk_bwd,
                           sblk, sblk_bwd, *composition_ops)}
-    # each op's launches on the first of the ten paths that runs it
+    sources["flash_attention_core"] = "adapt_image_models_torch/csrc/flash_attention.cu"
+    # each op's launches on the first of the twelve paths that runs it
     counts = {}
     for path, run in (("flagship eval", launches), ("flagship train", train_launches),
                       ("SSv2 eval", ssv2_launches), ("SSv2 train", ssv2_train_launches),
@@ -1727,15 +2138,20 @@ def main():
                       ("ViT-L/14 32f eval", large_launches),
                       ("ViT-L/14 32f train", large_train_launches),
                       ("ViT-B/16 32f eval", long_launches),
-                      ("ViT-B/16 32f train", long_train_launches)):
+                      ("ViT-B/16 32f train", long_train_launches),
+                      ("ViT_CLIP B/16 32f eval", vc_launches),
+                      ("ViT_CLIP B/16 32f train", vc_train_launches)):
         counts.update({op: (path, n) for op, n in run.items() if n and op not in counts})
     kernels = []
     for op in ops.KERNEL_OPS:
         # the spatial block is timed at the AIM_FLASH path's shape, the
         # composition's ops (row 12 with its u output) at 4 clips of
-        # ViT-L/14's, the rest at 32 clips of the flagship's
+        # ViT-L/14's, the flash core at 8 clips of ViT_CLIP B/16's 32
+        # frames, the rest at 32 clips of the flagship's
         if op in (sblk, sblk_bwd):
             bound_ms, bound_by = bound(op, 8, FLASH_FRAMES, FLASH_TOKENS)
+        elif op == "flash_attention_core":  # (256, 12, 197, 64)
+            bound_ms, bound_by = bound(op, 256, 1, TOKENS)
         elif op in composition_ops:
             bound_ms, bound_by = bound(op, 4, LARGE["frames"], LARGE["tokens"],
                                        LARGE["width"], emit_u=True)

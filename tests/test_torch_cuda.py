@@ -378,3 +378,53 @@ def test_temporal_block_refuses_what_it_does_not_take(cuda):
         fused_temporal_attention(x.repeat(16, 1, 1), *ws[:4], 64, 2)
     with pytest.raises(ValueError):  # a cotangent unlike x
         fused_temporal_attention_bwd(x, *ws[:3], x.float(), 2, 2)
+
+
+def _projection_views(device, b, heads, n, seed):
+    """q, k, v as the model hands them to the flash core: (B, H, L, 64)
+    views of one (B, L, 3·H·64) bf16 projection."""
+    x = torch.randn(b, n, 3 * heads * 64, generator=torch.Generator().manual_seed(seed))
+    x = x.to(device, torch.bfloat16)
+    return [t.reshape(b, n, heads, 64).transpose(1, 2) for t in x.split(heads * 64, -1)]
+
+
+@pytest.mark.parametrize("b,heads,n", [(2, 2, 1), (3, 12, 4), (2, 12, 32), (2, 2, 37),
+                                       (4, 12, 197), (2, 16, 257), (1, 2, 800)])
+def test_flash_core_matches_plain(cuda, b, heads, n):
+    """The flash core (PERF.md row 13) at the class token's T, odd and
+    ViT lengths and past the spatial core's 288 keys, read through the
+    projection's strides and once from contiguous copies; one launch each."""
+    q, k, v = _projection_views(cuda, b, heads, n, 20 + n)
+    before = ops.flash_attention_core.launches
+    out = ops.flash_attention_core(q, k, v)
+    flat = ops.flash_attention_core(*(t.contiguous() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert ops.flash_attention_core.launches == before + 2
+    assert out.shape == q.shape and torch.equal(out, flat)
+    exact = ops.flash_attention_core_plain(q.float(), k.float(), v.float())
+    _held("out", out, ops.flash_attention_core_plain(q, k, v), exact)
+    assert (out.float() - ops.flash_attention_core_plain(q, k, v).float()).abs().mean() < MEAN_TOL
+
+
+def test_fused_attention_backward_is_the_xla_cores(cuda):
+    """``fused_attention``: the kernel forward, and the XLA core's gradient
+    (the same framework ops as ``fused_attention_plain``'s backward)."""
+    leaves = [t.detach().requires_grad_() for t in _projection_views(cuda, 2, 12, 50, 30)]
+    g = torch.randn(leaves[0].shape, generator=torch.Generator().manual_seed(31)).to(leaves[0])
+    ops.fused_attention(*leaves).backward(g)
+    got = [t.grad for t in leaves]
+    for t in leaves:
+        t.grad = None
+    ops.fused_attention_plain(*leaves).backward(g)
+    for a, t in zip(got, leaves):
+        assert torch.equal(a, t.grad)
+
+
+def test_flash_core_refuses_what_it_does_not_take(cuda):
+    q, k, v = _projection_views(cuda, 2, 2, 37, 32)
+    with pytest.raises(ValueError):  # fp32
+        ops.flash_attention_core(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError):  # head dim 32
+        ops.flash_attention_core(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError):  # q and k of other lengths
+        ops.flash_attention_core(q, k[:, :, :5], v[:, :, :5])

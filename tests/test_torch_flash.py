@@ -65,9 +65,8 @@ from adapt_image_models_torch.core.optim import build_optimizer
 from adapt_image_models_torch.core.train_state import TrainState, make_train_step
 from adapt_image_models_torch.models import build_model
 from adapt_image_models_torch.models.backbones import window
-from adapt_image_models_torch.models.layers import masked_attention
 from adapt_image_models_torch.ops import (
-    fused_attention_block, fused_qkv_attention, fused_qkv_attention_bwd,
+    masked_attention, fused_attention_block, fused_qkv_attention, fused_qkv_attention_bwd,
     fused_qkv_attention_bwd_plain, fused_qkv_attention_plain, launch_counts,
     reset_launch_counts,
 )

@@ -16,8 +16,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "adapt_image_models_tpu")
 
 # the port's entry points on a toy fused-mode num_tadapter=2 model with
 # LabelSmoothing, on the CPU: init_recognizer, a forward, run_evaluation and
-# train_model over synthetic videos; tests/conftest.py imports jax, so this
-# must run in a fresh interpreter
+# train_model over synthetic videos, and a checkpointed train-mode backward
+# of a toy ViT_CLIP under the flash core; tests/conftest.py imports jax, so
+# this must run in a fresh interpreter
 NO_JAX_SCRIPT = r"""
 import os, sys, tempfile
 import torch
@@ -49,6 +50,12 @@ with torch.no_grad():
 assert out.shape == (1, 3)
 results = run_evaluation(cfg, model=model, num_workers=1)
 assert "top1_acc" in results, results
+vc = dict(cfg["model"], backbone=dict(type="ViT_CLIP", input_resolution=32, patch_size=16,
+                                     width=128, layers=1, heads=2, num_frames=4,
+                                     attention_core="flash", use_checkpoint=True))
+vc_model = init_recognizer(dict(cfg, model=vc), device="cpu")
+vc_model.train()
+vc_model(torch.zeros(2, 3, 4, 32, 32)).sum().backward()
 state, history = train_model(cfg, work_dir=os.path.join(tmp, "work"), validate=False,
                              device="cpu")
 assert state.step == 1 and history, history
@@ -83,6 +90,9 @@ def test_port_sources_import_no_jax_package():
              + [os.path.join(ROOT, "chip_smoke.py")]
              + glob.glob(os.path.join(ROOT, "tools", "*_torch.py")))
     assert len(files) > 30
+    names = {os.path.relpath(f, ROOT) for f in files}
+    assert {"adapt_image_models_torch/models/backbones/vit_clip.py",
+            "adapt_image_models_torch/ops/flash_attention.py"} <= names
     bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {f: b for f, b in bad.items() if b}

@@ -169,7 +169,7 @@ def test_load_checkpoint_is_strict(jax_params, tmp_path):
     (dict(wind_attn=True), NotImplementedError),
     (dict(num_tadapter=3), ValueError),
     (dict(joint_core="tiles"), ValueError),
-    (dict(attention_core="flash"), NotImplementedError),
+    (dict(attention_core="pallas"), ValueError),  # an unknown core
     (dict(heads=3), ValueError),
 ])
 def test_unported_options_raise(override, exc):

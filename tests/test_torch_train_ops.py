@@ -241,11 +241,11 @@ def test_frozen_weight_that_requires_grad_raises(kind):
             fused_joint_train_block(*args, t(gate).repeat_interleave(N), SCALE)
 
 
-def test_gated_spatial_step_is_not_ported():
-    """The name dates from when a gate raised here. The spatial train op now
-    takes one: at this geometry both packages run their whole-step backward
-    with the gate (the JAX forward is the gated kernel, :1557), and output,
-    dx and the adapter cotangents agree as in the ungated case."""
+def test_gated_spatial_step_matches_jax():
+    """The spatial train op with a drop-path gate: at this geometry both
+    packages run their whole-step backward with the gate (the JAX forward
+    is the gated kernel, :1557), and output, dx and the adapter cotangents
+    agree as in the ungated case."""
     case = _case(6, "spatial")
     want = _jax_run("spatial", "bfloat16", *case, True, spatial_gate=True)
     got = _torch_run("spatial", "bfloat16", *case, True, spatial_gate=True)

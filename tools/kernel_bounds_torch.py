@@ -5,6 +5,7 @@ the repo (every function under ``adapt_image_models_tpu/ops/`` that reaches
 
     python tools/kernel_bounds_torch.py [--clips 32] [--frames 8]
         [--tokens 197] [--width 768]     # ViT-L/14: --tokens 257 --width 1024
+    python tools/kernel_bounds_torch.py --attention   # row 13 at the ViT_CLIP paths' shapes
 
 The bound of a function is the larger of two times: the FLOPs of its
 products (GEMMs and attention cores, 2 a multiply-add; elementwise work is
@@ -109,6 +110,20 @@ def work(row, clips=32, frames=8, tokens=197, width=768, emit_u=False):
     return flops, nbytes + adds_ln
 
 
+# the flash core (row 13) at the (B, H, L, 64) shapes of the ViT_CLIP paths:
+# the spatial self-attention over a ViT-B/16 frame's 197 tokens (8 and 2
+# clips of 32 frames) or a ViT-L/14 frame's 257, the class token's attention
+# over 32 or 8 frames, and a length past the spatial core's 288
+ATTENTION_SHAPES = ((256, 12, 197), (64, 12, 197), (2, 12, 32),
+                    (8, 12, 32), (8, 12, 8), (32, 16, 257), (1, 16, 32), (2, 12, 800))
+
+
+def attention_shape(b, heads, length, hd=64):
+    """The shape arguments of ``work`` and ``bound`` for row 13 over (B, H,
+    L, hd) q, k, v: B rows of L tokens of width H·hd."""
+    return dict(clips=b, frames=1, tokens=length, width=heads * hd)
+
+
 def row_of(location):
     """The row of the kernel at ``location``, ``.../ops/<file>:<line>``."""
     path, line = location.rsplit("/", 1)[-1].split(":")
@@ -130,7 +145,18 @@ def main(argv=None):
     p.add_argument("--width", type=int, default=768)
     p.add_argument("--emit-u", action="store_true",
                    help="count the u output of the gated steps (rows 12, 23)")
+    p.add_argument("--attention", action="store_true",
+                   help="row 13 (the flash core) at the ViT_CLIP paths' (B, H, L, 64)")
     args = p.parse_args(argv)
+    if args.attention:
+        print("| (B, H, L, hd) | GFLOP | MB | bound ms | bound by |")
+        print("|---|---|---|---|---|")
+        for b, h, n in ATTENTION_SHAPES:
+            flops, nbytes = work(13, **attention_shape(b, h, n))
+            ms, by = bound(13, **attention_shape(b, h, n))
+            print(f"| ({b}, {h}, {n}, 64) | {flops / 1e9:.2f} | {nbytes / 1e6:.2f} | "
+                  f"{ms:.4f} | {by} |")
+        return
     shape = dict(clips=args.clips, frames=args.frames, tokens=args.tokens,
                  width=args.width, emit_u=args.emit_u)
     print(f"x = ({args.clips * args.frames}, {args.tokens}, {args.width}) bf16, "
