@@ -164,8 +164,9 @@ size_t spatial_smem_bytes(int np) {
 // ---------------------------------------------------------------------------
 // Temporal core. Replaces the masked-full core of
 // adapt_image_models_tpu/ops/fused_temporal_attention.py::_masked_full_core:
-// each token position n of clip b attends across the clip's T <= 32 frames,
-// reading rows (b*T + t)*L + n of the native (B*T, L) layout, no relayout.
+// each token position n of clip b attends across the clip's T frames
+// (the model takes it for T <= 32, csrc/temporal_segment.cu past that; a
+// direct call serves T <= 256), reading rows (b*T + t)*L + n of the native (B*T, L) layout, no relayout.
 // One block per (token, clip, group of heads), one thread per (head, query
 // frame), at most 256 threads so that a thread may hold its q row and
 // output row in registers (ViT-L at T=32 has 16 x 32 pairs). The work is
@@ -575,11 +576,11 @@ spatial_attention_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __rest
 // Temporal core backward. Replaces the core half of
 // adapt_image_models_tpu/ops/fused_temporal_attention.py::
 // _kernel_temporal_step_bwd_dx (_grouped_core_bwd :815-857): the spatial
-// backward's maths over the T <= 32 frames of each token position, in the
+// backward's maths over the T frames of each token position (T <= 141), in the
 // native (B*T, L) row layout with stride L*3D between frames, no relayout.
 // One block per (token, clip, group of heads) and one thread per (head,
-// frame), at most 256 threads: the grouping the forward core needs at
-// T=32 with 16 heads. The block stages q, k, v and dO of its heads in
+// frame), at most 256 threads and as many heads as the shared memory
+// holds (temporal_bwd_heads). The block stages q, k, v and dO of its heads in
 // shared memory; thread (h, i) forms row i of P (fp32) and of dS, then dQ;
 // after a barrier thread (h, j) reduces column j into dV and dK. The work
 // is T*T*64 multiply-adds per (token, head) and pass, so the core is bound
@@ -589,12 +590,17 @@ spatial_attention_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __rest
 // the out-projection's weight cotangent.
 constexpr int TEMPORAL_BWD_THREADS = 256;
 
-__host__ __device__ inline int temporal_bwd_heads(int heads, int T) {
-  return heads < TEMPORAL_BWD_THREADS / T ? heads : TEMPORAL_BWD_THREADS / T;
-}
-
 size_t temporal_bwd_smem_bytes(int hpb, int T) {
   return (size_t)hpb * (4 * T * HD * sizeof(bf16) + 2 * T * (T + 1) * sizeof(float));
+}
+
+// heads a block takes: at most 256 threads and the 227 KB of shared memory
+// a block may use (66 KB a head at T = 64, 198 KB at T = 128, so T <= 141
+// frames fit), at least one head; 0 when one head does not fit
+int temporal_bwd_heads(int heads, int T) {
+  int hpb = heads < TEMPORAL_BWD_THREADS / T ? heads : TEMPORAL_BWD_THREADS / T;
+  while (hpb > 0 && temporal_bwd_smem_bytes(hpb, T) > 232448) --hpb;
+  return hpb;
 }
 
 __global__ void __launch_bounds__(TEMPORAL_BWD_THREADS)
@@ -758,7 +764,7 @@ extern "C" int aim_spatial_attention_bf16(const void* qkv, void* out, int frames
 
 extern "C" int aim_temporal_attention_bf16(const void* qkv, void* out, int clips, int T, int L,
                                            int D, float scale, void* stream) {
-  if (D % HD || T <= 0 || T > 32 || L <= 0) return (int)cudaErrorInvalidValue;
+  if (D % HD || T <= 0 || T > TEMPORAL_THREADS || L <= 0) return (int)cudaErrorInvalidValue;
   if (clips == 0) return 0;
   const int heads = D / HD;
   const int per_block = heads < TEMPORAL_THREADS / T ? heads : TEMPORAL_THREADS / T;
@@ -797,10 +803,11 @@ extern "C" int aim_spatial_attention_bwd_bf16(const void* qkv, const void* dout,
 extern "C" int aim_temporal_attention_bwd_bf16(const void* qkv, const void* dout, void* dqkv,
                                                void* out, int clips, int T, int L, int D,
                                                float scale, void* stream) {
-  if (D % HD || T <= 0 || T > 32 || L <= 0) return (int)cudaErrorInvalidValue;
-  if (clips == 0) return 0;
+  if (D % HD || T <= 0 || T > TEMPORAL_BWD_THREADS || L <= 0) return (int)cudaErrorInvalidValue;
   const int heads = D / HD;
   const int hpb = temporal_bwd_heads(heads, T);
+  if (hpb == 0) return (int)cudaErrorInvalidValue;
+  if (clips == 0) return 0;
   const size_t bytes = temporal_bwd_smem_bytes(hpb, T);
   const cudaError_t err = cudaFuncSetAttribute(temporal_attention_bwd_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,

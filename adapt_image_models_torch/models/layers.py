@@ -35,9 +35,10 @@ import torch
 from torch import nn
 
 from adapt_image_models_torch.ops import (
-    flash_attention_entry, fused_attention_block, fused_spatial_step,
-    fused_spatial_train_step, fused_temporal_block, fused_temporal_step,
-    fused_temporal_train_step, xla_attention_core,
+    flash_attention_entry, fused_attention_block, fused_ln_temporal_block,
+    fused_ln_temporal_block_frozen, fused_spatial_step, fused_spatial_train_step,
+    fused_temporal_block, fused_temporal_step, fused_temporal_train_step,
+    xla_attention_core,
 )
 from adapt_image_models_torch.ops._common import (
     exact_gelu, layer_norm_fp32, quick_gelu,
@@ -192,7 +193,11 @@ class CLIPAttention(nn.Module):
     ``adapter`` and ``residual`` given, the whole adaptation step ``x +
     adapter(attn(ln(x)))`` runs as one fused op; with none of them, the plain
     block runs as ``fused_attention_block`` or, with ``temporal_frames``,
-    ``fused_temporal_block`` (``layers.py:344-389``). ``kv``, ``mask``
+    ``fused_temporal_block`` (``layers.py:344-389``); with ``ln`` alone and
+    ``temporal_frames``, ``W_o·attn_T(ln(x))`` runs as
+    ``fused_ln_temporal_block``, or with ``frozen_backward`` (the JAX
+    flag, ``layers.py:282``: frozen CLIP weights, a dX-only backward)
+    ``fused_ln_temporal_block_frozen`` (``layers.py:372-383``). ``kv``, ``mask``
     (additive, see ``masked_attention``) or ``need_weights`` leave the fused
     ops for the framework ops under every core, whose attention core is the
     XLA core, or under ``"flash"`` ``flash_attention_entry``
@@ -200,13 +205,15 @@ class CLIPAttention(nn.Module):
     """
 
     def __init__(self, d_model: int, num_heads: int, compute_dtype=torch.float32,
-                 attention_core: str = "xla", device=None):
+                 attention_core: str = "xla", frozen_backward: bool = False,
+                 device=None):
         super().__init__()
         if d_model % num_heads:
             raise ValueError(f"d_model {d_model} not divisible by heads {num_heads}")
         if attention_core not in ("xla", "fused", "flash"):
             raise ValueError(f"unknown attention core: {attention_core}")
         self.num_heads = num_heads
+        self.frozen_backward = frozen_backward
         self.compute_dtype = resolve_dtype(compute_dtype)
         self.attention_core = attention_core
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model, device=device))
@@ -237,10 +244,17 @@ class CLIPAttention(nn.Module):
                 if temporal_frames is None:
                     return fused_attention_block(*args, self.num_heads)
                 return fused_temporal_block(*args, temporal_frames, self.num_heads)
+            if (ln is not None and adapter is None and not residual and gate is None
+                    and temporal_frames is not None):
+                op = (fused_ln_temporal_block_frozen if self.frozen_backward
+                      else fused_ln_temporal_block)
+                return op(x.to(cdt), ln.weight, ln.bias, self.in_proj_weight.to(cdt),
+                          self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
+                          self.out_proj.bias.to(cdt), temporal_frames, self.num_heads)
             if ln is None or adapter is None or not residual:
                 raise NotImplementedError(
-                    "fused attention with LN and no adapter (PERF.md rows 5/15), "
-                    "with an adapter and no LN (rows 6/16), or a gated plain "
+                    "fused spatial attention with LN and no adapter (PERF.md rows "
+                    "5/7), with an adapter and no LN (rows 6/16), or a gated plain "
                     "block is not ported yet (ROADMAP queue 2)")
             args = (x.to(cdt), ln.weight, ln.bias, self.in_proj_weight.to(cdt),
                     self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),

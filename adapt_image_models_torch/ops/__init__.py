@@ -22,14 +22,22 @@ from adapt_image_models_torch.ops.fused_qkv_attention import (  # noqa: F401
     step_whole_cell_fits,
 )
 from adapt_image_models_torch.ops.fused_temporal_attention import (  # noqa: F401
+    fused_ln_temporal_attention, fused_ln_temporal_attention_bwd,
     fused_ln_temporal_attention_bwd_dx, fused_ln_temporal_attention_bwd_dx_plain,
+    fused_ln_temporal_attention_bwd_dx_segment,
+    fused_ln_temporal_attention_bwd_dx_segment_plain,
+    fused_ln_temporal_attention_bwd_plain, fused_ln_temporal_attention_bwd_segment,
+    fused_ln_temporal_attention_bwd_segment_plain, fused_ln_temporal_attention_plain,
+    fused_ln_temporal_block, fused_ln_temporal_block_frozen,
+    fused_ln_temporal_block_frozen_plain, fused_ln_temporal_block_plain,
     fused_temporal_attention, fused_temporal_attention_bwd,
     fused_temporal_attention_bwd_plain, fused_temporal_attention_plain,
     fused_temporal_block, fused_temporal_block_plain, fused_temporal_step,
     fused_temporal_step_bwd_dx, fused_temporal_step_bwd_dx_plain,
     fused_temporal_step_gated, fused_temporal_step_plain,
     fused_temporal_train_step, fused_temporal_train_step_plain,
-    tstep_whole_cell_fits,
+    ln_block_bwd_design, ln_temporal_block_xla, temporal_block_xla,
+    tstep_whole_cell_fits, use_full_core,
 )
 
 _TPU = "adapt_image_models_tpu/ops/"
@@ -69,6 +77,16 @@ KERNEL_OPS = {
         fused_ln_temporal_attention_bwd_dx,
         _TPU + "fused_temporal_attention.py:1398"),
     "flash_attention_core": (flash_attention_core, _TPU + "flash_attention.py:68"),
+    "fused_ln_temporal_attention": (
+        fused_ln_temporal_attention, _TPU + "fused_temporal_attention.py:506"),
+    "fused_ln_temporal_attention_bwd": (
+        fused_ln_temporal_attention_bwd, _TPU + "fused_temporal_attention.py:947"),
+    "fused_ln_temporal_attention_bwd_segment": (
+        fused_ln_temporal_attention_bwd_segment,
+        _TPU + "fused_temporal_attention.py:1246"),
+    "fused_ln_temporal_attention_bwd_dx_segment": (
+        fused_ln_temporal_attention_bwd_dx_segment,
+        _TPU + "fused_temporal_attention.py:1322"),
 }
 
 # the ops an AIM eval forward and train step launch, by num_tadapter: 1 runs
@@ -87,14 +105,17 @@ TRAIN_OPS = {
 # where the JAX package's predicates pick the two-kernel composition, the
 # forward that saves u and the dX-only backward stand in the whole-step
 # ops' place: the temporal step of ViT-B at 32 frames, both attention steps
-# at ViT-L. A forward counts under the TPU kernel it replaces: the gated
-# temporal forward (:1664) is ``fused_temporal_train_step`` in both designs,
-# with or without u; the spatial forward is ``fused_spatial_train_step``
-# without a gate (:647) and ``fused_spatial_step_gated`` (:1557) with a
-# gate or with u.
+# at ViT-L; past LONG_CLIP_T frames the temporal dX-only backward is the
+# segment core's. A forward counts under the TPU kernel it replaces: the
+# gated temporal forward (:1664) is ``fused_temporal_train_step`` in both
+# designs, with or without u, on either core; the spatial forward is
+# ``fused_spatial_train_step`` without a gate (:647) and
+# ``fused_spatial_step_gated`` (:1557) with a gate or with u.
 COMPOSITION_TRAIN_OPS = {
     "long_clip": ("fused_temporal_train_step",
                   "fused_ln_temporal_attention_bwd_dx", *TRAIN_OPS[1][2:]),
+    "segment": ("fused_temporal_train_step",
+                "fused_ln_temporal_attention_bwd_dx_segment", *TRAIN_OPS[1][2:]),
     "wide": ("fused_temporal_train_step", "fused_ln_temporal_attention_bwd_dx",
              "fused_spatial_step_gated", "fused_ln_qkv_attention_bwd_dx",
              *TRAIN_OPS[1][4:]),
@@ -106,15 +127,21 @@ def train_ops(num_tadapter: int, num_frames: int, tokens: int, width: int,
     """The ops a train step of AIM launches at a geometry (adapter width
     D/4), as (temporal forward, backward, spatial forward, backward, joint
     forward, backward): the entry of ``TRAIN_OPS`` or
-    ``COMPOSITION_TRAIN_OPS`` that the two predicates pick.
+    ``COMPOSITION_TRAIN_OPS`` that the predicates pick.
     ``spatial_gate`` says that the spatial step is given a drop-path gate
-    (AIM draws none): its whole-step forward is then the gated kernel."""
+    (AIM draws none): its whole-step forward is then the gated kernel.
+    With ``num_tadapter=2`` past LONG_CLIP_T frames the plain block's
+    backward is framework ops (``fused_temporal_block``): its slot is
+    None."""
     if num_tadapter == 2:
         ops = TRAIN_OPS[2]
+        if not use_full_core(num_frames):
+            ops = (ops[0], None) + ops[2:]
     elif tstep_whole_cell_fits(num_frames, width):
         ops = TRAIN_OPS[1]
     else:
-        ops = COMPOSITION_TRAIN_OPS["long_clip"]
+        ops = COMPOSITION_TRAIN_OPS[
+            "long_clip" if use_full_core(num_frames) else "segment"]
     if not step_whole_cell_fits(tokens, width, width // 4):
         return ops[:2] + COMPOSITION_TRAIN_OPS["wide"][2:]
     if spatial_gate:

@@ -177,6 +177,68 @@ def temporal_core_bwd_plain(qkv: torch.Tensor, do: torch.Tensor, clips: int,
                      dim=-1)
 
 
+def segment_scores(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(..., T, hd) a and b -> (..., T, T) fp32: for each pair of frames
+    the fp32 sum over the head's lanes of the products rounded to bf16,
+    whatever the working dtype, as the TPU segment body forms a head's
+    scores (``fused_temporal_attention.py:300-306``: a VPU multiply cast to
+    bf16, summed by a matmul against the 0/1 head matrix). One query frame
+    at a time, so the (..., T, T, hd) products never exist at once."""
+    a32, b32 = a.float(), b.float()
+    return torch.stack([(a32[..., i:i + 1, :] * b32).to(torch.bfloat16).float().sum(-1)
+                        for i in range(a.shape[-2])], dim=-2)
+
+
+def _segment_probs(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """fp32 softmax over the key frames of the segment scores, normalised
+    in fp32 (``fused_temporal_attention.py:310-316``)."""
+    s = segment_scores(q, k) * q.shape[-1] ** -0.5
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.sum(-1, keepdim=True)
+
+
+def temporal_segment_core_plain(qkv: torch.Tensor, clips: int, frames: int,
+                                length: int, num_heads: int) -> torch.Tensor:
+    """The segment-sum core of the TPU kernels' long-clip design
+    (``_temporal_body`` :289-321), (clips*T*L, 3D) -> (clips*T*L, D):
+    bf16-rounded products summed in fp32, P normalised in fp32 and then
+    rounded to bf16, PV summed in fp32 with no division after it, the
+    result rounded to the working dtype."""
+    d = qkv.shape[-1] // 3
+    q, k, v = (_temporal_heads(t, clips, frames, length, num_heads)
+               for t in qkv.split(d, dim=-1))
+    p = _segment_probs(q, k).to(torch.bfloat16).float()
+    o = (p @ v.float()).to(qkv.dtype)  # (B, L, H, T, hd)
+    return o.permute(0, 3, 1, 2, 4).reshape(clips * frames * length, d)
+
+
+def temporal_segment_core_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
+                                    clips: int, frames: int, length: int,
+                                    num_heads: int):
+    """Backward of ``temporal_segment_core_plain`` for the fp32 cotangent
+    ``dout`` (rows, D) of its output, with the casts of
+    ``_bwd_temporal_body_segment`` (:1117-1216): dP from the products of
+    dO rounded to the working dtype and v, rounded to bf16; dS in fp32,
+    rounded to bf16 where it multiplies; dV from the fp32 dO; dq and dk
+    scaled after their sums. Returns (packed dqkv (rows, 3D), the core's
+    output recomputed (rows, D))."""
+    d = qkv.shape[-1] // 3
+    dt = qkv.dtype
+    q, k, v, do32 = (_temporal_heads(t, clips, frames, length, num_heads)
+                     for t in (*qkv.split(d, dim=-1), dout.float()))
+    scale = (d // num_heads) ** -0.5
+    p = _segment_probs(q, k)
+    pb = p.to(torch.bfloat16).float()
+    o = (pb @ v.float()).to(dt)
+    dp = segment_scores(do32.to(dt), v)
+    ds = (p * (dp - (dp * p).sum(-1, keepdim=True))).to(torch.bfloat16).float()
+    grads = ((ds @ k.float()) * scale, (ds.transpose(-1, -2) @ q.float()) * scale,
+             pb.transpose(-1, -2) @ do32)
+    dqkv = torch.cat([t.to(dt).permute(0, 3, 1, 2, 4).reshape(-1, d) for t in grads],
+                     dim=-1)
+    return dqkv, o.permute(0, 3, 1, 2, 4).reshape(-1, d)
+
+
 def _gated(z: torch.Tensor, gate: Optional[torch.Tensor], rows_per_gate: int):
     """z (rows, D) fp32 times ``gate[row // rows_per_gate]``."""
     if gate is None:
@@ -287,38 +349,69 @@ def attention_step_bwd_cuda(x, gate, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 
 
 def attention_bwd_dx_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
-                           core_bwd: Callable) -> torch.Tensor:
+                           core_bwd: Callable, do_fp32: bool = False) -> torch.Tensor:
     """dX only of ``W_o·core(LN x)`` for its output cotangent ``g``, the
     forward recomputed from x, with the casts of the TPU dX-only kernels
     (``_bwd_ln_attention_body`` ``fused_qkv_attention.py:745-832``,
     ``_bwd_temporal_body_full`` ``fused_temporal_attention.py:885-928``): LN
     output, q/k/v and dO = g·W_o rounded, the core backward of
     ``attention_core_bwd_plain``, dy = dqkv·W_qkv and the LN backward in
-    fp32, dx rounded. No residual cotangent is added: the caller adds its
-    own after this rounding."""
+    fp32, dx rounded. ``do_fp32`` hands the core dO unrounded, as the
+    segment body takes it (:1161-1163). No residual cotangent is added: the
+    caller adds its own after this rounding."""
+    return ln_attention_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                                  lambda qkv, do: (core_bwd(qkv, do), None),
+                                  do_fp32)[0]
+
+
+def attention_bwd_dx_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                          core_bwd: Callable, do_fp32: bool = False) -> torch.Tensor:
+    """The kernel chain of ``attention_bwd_dx_plain``: LN, QKV GEMM, the
+    (K, N) GEMM of g through W_o, the core backward, the (K, N) GEMM of dqkv
+    through W_qkv (fp32 out) and the LN backward without a residual."""
+    return ln_attention_bwd_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                                 lambda qkv, do: (core_bwd(qkv, do), None),
+                                 do_fp32, dx_only=True)[0]
+
+
+def ln_attention_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                           core_bwd: Callable, do_fp32: bool = False):
+    """Backward of ``W_o·core(LN x) + b_o`` for its output cotangent ``g``
+    with the casts of the TPU LN-block backwards (``_bwd_temporal_body_full``
+    :885-928, ``_bwd_temporal_body_segment`` :1117-1216; ``do_fp32`` as in
+    ``attention_bwd_dx_plain``); ``core_bwd(qkv, do)`` returns (dqkv, o).
+    Returns (dx (like x), dqkv (rows, 3D), dy, y, o (rows, D)): dy the fp32
+    cotangent of the LN output rounded, y the LN output, from which the
+    weight and LN cotangents are formed outside (``AttentionBlock``)."""
     bt, l, d = x.shape
     dt = x.dtype
     x2, g2 = x.reshape(bt * l, d), g.reshape(bt * l, d)
     xn = layer_norm_fp32(x2, ln_w, ln_b).to(dt)
     qkv = (mm32(xn, w_qkv) + b_qkv.float()).to(dt)
-    do = mm32_kn(g2, w_out).to(dt)
-    dy = mm32_kn(core_bwd(qkv, do), w_qkv)
-    return layer_norm_bwd_plain(x2, dy, ln_w).to(dt).reshape(bt, l, d)
+    do = mm32_kn(g2, w_out)
+    dqkv, o = core_bwd(qkv, do if do_fp32 else do.to(dt))
+    dy = mm32_kn(dqkv, w_qkv)
+    dx = layer_norm_bwd_plain(x2, dy, ln_w).to(dt).reshape(bt, l, d)
+    return dx, dqkv, dy.to(dt), xn, o
 
 
-def attention_bwd_dx_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
-                          core_bwd: Callable) -> torch.Tensor:
-    """The kernel chain of ``attention_bwd_dx_plain``: LN, QKV GEMM, the
-    (K, N) GEMM of g through W_o, the core backward, the (K, N) GEMM of dqkv
-    through W_qkv (fp32 out) and the LN backward without a residual."""
+def ln_attention_bwd_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                          core_bwd: Callable, do_fp32: bool = False,
+                          dx_only: bool = False):
+    """The kernel chain of ``ln_attention_bwd_plain``: LN, QKV GEMM, the
+    (K, N) GEMM of g through W_o (fp32 out with ``do_fp32``), the core
+    backward, the (K, N) GEMM of dqkv through W_qkv (fp32 out, and its bf16
+    copy unless ``dx_only``) and the LN backward without a residual."""
     bt, l, d = x.shape
     x2, g2 = x.view(bt * l, d), g.view(bt * l, d)
     xn = _kernels.layernorm(x2, ln_w, ln_b)
     _, qkv = _kernels.gemm(xn, w_qkv, bias=b_qkv)
-    _, do = _kernels.gemm(g2, w_out, kn=True)
-    dy, _ = _kernels.gemm(core_bwd(qkv, do), w_qkv, kn=True, out_f32=True,
-                          out_bf16=False)
-    return _kernels.layernorm_bwd(x2, dy, ln_w).view(bt, l, d)
+    do32, do16 = _kernels.gemm(g2, w_out, kn=True, out_f32=do_fp32,
+                               out_bf16=not do_fp32)
+    dqkv, o = core_bwd(qkv, do32 if do_fp32 else do16)
+    dy, dy16 = _kernels.gemm(dqkv, w_qkv, kn=True, out_f32=True, out_bf16=not dx_only)
+    dx = _kernels.layernorm_bwd(x2, dy, ln_w).view(bt, l, d)
+    return dx, dqkv, dy16, xn, o
 
 
 def adapter_bwd_fp32(u32: torch.Tensor, db: torch.Tensor, w1, b1, w2,
@@ -408,37 +501,103 @@ class AdapterStepStash(torch.autograd.Function):
 
 
 class AttentionBlock(torch.autograd.Function):
-    """The plain attention block ``W_o·attn(x) + b_o`` (spatial or temporal)
-    with a hand-written backward: ``forward(fwd, bwd, x, w_qkv, b_qkv,
-    w_out, b_out)`` runs ``fwd(x, w_qkv, b_qkv, w_out, b_out)``, and
-    ``bwd(x, w_qkv, b_qkv, w_out, g)`` returns (dx, dqkv, o) for the output
-    cotangent g, cast to x's dtype first as the JAX package's
-    ``_bwd_pallas`` / ``_bwd_plain_pallas`` do. The weight cotangents are
-    formed outside the backward from (g, dqkv, x, o), as
-    ``_attention_weight_cotangents`` (``fused_qkv_attention.py:902``) forms
-    them in XLA (y == x for the plain block), only for the weights that
-    require grad. Only the inputs are saved: the backward recomputes the
-    forward."""
+    """The attention block ``W_o·attn(x) + b_o`` (spatial or temporal), or
+    with a LayerNorm first, ``W_o·attn(LN x) + b_o``, with a hand-written
+    backward: ``forward(fwd, bwd, x, *params)`` runs ``fwd(x, *params)``,
+    params (w_qkv, b_qkv, w_out, b_out) or (ln_w, ln_b, w_qkv, b_qkv, w_out,
+    b_out); ``bwd(x, *params[:-1], g)`` returns (dx, dqkv, o), with a
+    LayerNorm (dx, dqkv, dy, y, o), for the output cotangent g, cast to x's
+    dtype first as the JAX package's ``_bwd_pallas`` /
+    ``_bwd_plain_pallas`` / ``_bwd_ln_pallas`` do. The weight cotangents
+    (and the LayerNorm's, from dy and the recomputed x̂) are formed outside
+    the backward from (g, dqkv, y, o), as ``_attention_weight_cotangents``
+    (``fused_qkv_attention.py:902``) forms them in XLA (y == x for the
+    plain block), only for the tensors that require grad. Only the inputs
+    are saved: the backward recomputes the forward."""
 
     @staticmethod
-    def forward(ctx, fwd, bwd, x, w_qkv, b_qkv, w_out, b_out):
-        ctx.bwd, ctx.b_out_dtype = bwd, b_out.dtype
-        ctx.save_for_backward(x, w_qkv, b_qkv, w_out)
-        return fwd(x, w_qkv, b_qkv, w_out, b_out)
+    def forward(ctx, fwd, bwd, x, *params):
+        ctx.bwd, ctx.ln, ctx.b_out_dtype = bwd, len(params) == 6, params[-1].dtype
+        ctx.save_for_backward(x, *params[:-1])
+        return fwd(x, *params)
 
     @staticmethod
     def backward(ctx, g):
-        x, w_qkv, b_qkv, w_out = ctx.saved_tensors
-        dx, dqkv, o = ctx.bwd(x, w_qkv, b_qkv, w_out, g.to(x.dtype).contiguous())
-        need = ctx.needs_input_grad[3:]  # w_qkv, b_qkv, w_out, b_out
+        x, *params = ctx.saved_tensors
+        outs = ctx.bwd(x, *params, g.to(x.dtype).contiguous())
         d = x.shape[-1]
+        x2 = x.reshape(-1, d)
+        if ctx.ln:
+            dx, dqkv, dy, y, o = outs
+            ln_w, ln_b, w_qkv, b_qkv, w_out = params
+        else:
+            (dx, dqkv, o), y = outs, x2
+            w_qkv, b_qkv, w_out = params
+        need = ctx.needs_input_grad[3:]  # [ln_w, ln_b,] w_qkv, b_qkv, w_out, b_out
+        ln_need, need = (need[:2], need[2:]) if ctx.ln else ((), need)
         g32 = g.reshape(-1, d).float()
         dqkv32 = dqkv.float() if need[0] or need[1] else None
-        return (None, None, dx,
-                (dqkv32.t() @ x.reshape(-1, d).float()).to(w_qkv.dtype) if need[0] else None,
-                dqkv32.sum(0).to(b_qkv.dtype) if need[1] else None,
-                (g32.t() @ o.float()).to(w_out.dtype) if need[2] else None,
-                g32.sum(0).to(ctx.b_out_dtype) if need[3] else None)
+        grads = (
+            (dqkv32.t() @ y.reshape(-1, d).float()).to(w_qkv.dtype) if need[0] else None,
+            dqkv32.sum(0).to(b_qkv.dtype) if need[1] else None,
+            (g32.t() @ o.float()).to(w_out.dtype) if need[2] else None,
+            g32.sum(0).to(ctx.b_out_dtype) if need[3] else None)
+        if ctx.ln:
+            dy32 = dy.float()
+            xhat = layer_norm_fp32(x2, torch.ones_like(ln_w), torch.zeros_like(ln_b))
+            grads = ((dy32 * xhat).sum(0).to(ln_w.dtype) if ln_need[0] else None,
+                     dy32.sum(0).to(ln_b.dtype) if ln_need[1] else None) + grads
+        return (None, None, dx) + grads
+
+
+class FrozenAttentionBlock(torch.autograd.Function):
+    """``W_o·attn(LN x) + b_o`` with a dX-only backward, the JAX package's
+    ``fused_*_block_frozen`` ops: ``forward(fwd, bwd_dx, x, *params)`` runs
+    ``fwd(x, *params)`` and the backward ``bwd_dx(x, *params[:-1], g)``;
+    every other input gets zeros, as there (``_bwd_ln_frozen`` :1460), for
+    frozen CLIP weights."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd_dx, x, *params):
+        ctx.bwd = bwd_dx
+        ctx.save_for_backward(x, *params)
+        return fwd(x, *params)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        dx = ctx.bwd(x, *params[:-1], g.to(x.dtype).contiguous())
+        zeros = [torch.zeros_like(p) if need else None
+                 for p, need in zip(params, ctx.needs_input_grad[3:])]
+        return (None, None, dx, *zeros)
+
+
+class RecomputedVjp(torch.autograd.Function):
+    """A forward with the gradient of a framework-op reference:
+    ``forward(fwd, ref, *inputs)`` runs ``fwd(*inputs)``; the backward
+    recomputes ``ref(*inputs)`` under autograd and returns its
+    vector-Jacobian product for the inputs that require grad. The JAX
+    package's design for the flash core (``flash_attention.py:117-137``)
+    and where its temporal backward kernels do not fit VMEM
+    (``fused_temporal_attention.py`` ``_bwd`` :658, ``_bwd_ln`` :682:
+    ``jax.vjp`` of the XLA reference), chosen by the same predicates. Only
+    the inputs are saved."""
+
+    @staticmethod
+    def forward(ctx, fwd, ref, *inputs):
+        ctx.ref = ref
+        ctx.save_for_backward(*inputs)
+        return fwd(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[2:]
+        leaves = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            out = ctx.ref(*leaves)
+        wanted = [t for t, n in zip(leaves, need) if n]
+        grads = iter(torch.autograd.grad(out, wanted, g))
+        return (None, None) + tuple(next(grads) if n else None for n in need)
 
 
 def check_frozen(name: str, tensors) -> None:

@@ -44,7 +44,31 @@ _SIGNATURES = {
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "aim_flash_attention_bf16": [_P, _P],
+    "aim_temporal_segment_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_temporal_segment_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
+
+# The frames each temporal core serves: the forward cores run one thread
+# per (head, frame) in blocks of at most 256 threads; the backward cores
+# stage one head's q, k, v and dO (bf16, and fp32 dO for the segment core)
+# and its fp32 (T, T+1) P and dS in the 227 KB of shared memory a block may
+# use (csrc/attention.cu::temporal_bwd_heads,
+# csrc/temporal_segment.cu::segment_bwd_heads).
+MAX_BLOCK_SMEM = 232448
+TEMPORAL_FRAME_LIMIT = 256
+
+
+def temporal_bwd_head_bytes(frames: int, segment: bool) -> int:
+    """Shared memory one head takes in a temporal backward core."""
+    staged = 64 * (3 * 2 + 4) if segment else 64 * 4 * 2
+    return frames * staged + 2 * frames * (frames + 1) * 4
+
+
+def temporal_bwd_max_frames(segment: bool) -> int:
+    """The most frames a temporal backward core serves: 141 for the full
+    core, 134 for the segment core."""
+    return max(t for t in range(1, TEMPORAL_FRAME_LIMIT + 1)
+               if temporal_bwd_head_bytes(t, segment) <= MAX_BLOCK_SMEM)
 
 
 class _FlashArgs(ctypes.Structure):
@@ -257,6 +281,35 @@ def temporal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
     _check(library().aim_temporal_attention_bwd_bf16(
         qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out), clips,
         frames, length, d, 64 ** -0.5, _stream()), "aim_temporal_attention_bwd_bf16")
+    return (dqkv, out) if with_out else dqkv
+
+
+def temporal_segment(qkv: torch.Tensor, clips: int, frames: int,
+                     length: int) -> torch.Tensor:
+    """The segment-sum temporal core (``csrc/temporal_segment.cu``):
+    (clips*frames*length, 3D) packed bf16 QKV -> (rows, D) bf16, with the
+    TPU segment body's casts (bf16-rounded products, P normalised before it
+    is rounded, no final division)."""
+    d = qkv.shape[1] // 3
+    out = torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
+    _check(library().aim_temporal_segment_bf16(
+        qkv.data_ptr(), out.data_ptr(), clips, frames, length, d, 64 ** -0.5,
+        _stream()), "aim_temporal_segment_bf16")
+    return out
+
+
+def temporal_segment_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
+                         frames: int, length: int, with_out: bool = False):
+    """Backward of the segment core for the fp32 cotangent ``dout`` (rows,
+    D) of its output: packed bf16 dqkv (rows, 3D); with ``with_out`` also
+    the core's output recomputed, (dqkv, out)."""
+    d = qkv.shape[1] // 3
+    dqkv = torch.empty_like(qkv)
+    out = (torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
+           if with_out else None)
+    _check(library().aim_temporal_segment_bwd_bf16(
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out), clips,
+        frames, length, d, 64 ** -0.5, _stream()), "aim_temporal_segment_bwd_bf16")
     return (dqkv, out) if with_out else dqkv
 
 

@@ -30,7 +30,7 @@ from typing import Optional
 import torch
 
 from adapt_image_models_torch.ops import _kernels
-from adapt_image_models_torch.ops._common import softmax_pv
+from adapt_image_models_torch.ops._common import RecomputedVjp, softmax_pv
 
 
 def _scale(hd: int) -> float:
@@ -99,40 +99,17 @@ def xla_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (probs.to(v.dtype).float() @ v.float()).to(v.dtype)
 
 
-class _FusedAttention(torch.autograd.Function):
-    """The flash core forward, the XLA core's vector-Jacobian product
-    backward (``flash_attention.py:117-137``). Saves q, k and v."""
-
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return flash_attention_core(q, k, v)
-
-    @staticmethod
-    def backward(ctx, g):
-        leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            out = xla_attention_core(*leaves)
-        return torch.autograd.grad(out, leaves, g)
-
-
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``flash_attention_core`` differentiable through the XLA core's
-    recomputed backward."""
-    return _FusedAttention.apply(q, k, v)
-
-
-class _FusedAttentionPlain(_FusedAttention):
-    @staticmethod
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        return flash_attention_core_plain(q, k, v)
+    recomputed vector-Jacobian product (``flash_attention.py:117-137``).
+    Saves q, k and v."""
+    return RecomputedVjp.apply(flash_attention_core, xla_attention_core, q, k, v)
 
 
 def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """``fused_attention`` with the plain forward on any device: the
     reference the kernel is held against."""
-    return _FusedAttentionPlain.apply(q, k, v)
+    return RecomputedVjp.apply(flash_attention_core_plain, xla_attention_core, q, k, v)
 
 
 def flash_attention_entry(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -134,23 +134,47 @@ Phases, in order; any failure raises and exits non-zero:
      without checkpointing with its launches, time and peak memory; and
      configs/recognition/vit/flash_attn/vitclip_flash_base_hmdb51.py as
      shipped (ViT_CLIP_FLASH, fused core, shift): one forward and one train
-     step, kernel path vs plain path, launches checked.
+     step, kernel path vs plain path, launches checked;
+ 14. long clips (T > LONG_CLIP_T = 32) and the LN temporal block: the
+     forwards on the segment core (csrc/temporal_segment.cu: rows 2, 14, 15
+     and 23 with u) and the LN block's backwards (rows 17, 19, 20) against
+     their plain versions at x (clips*T, 197, 768) with 12 heads for T = 33,
+     48 (2 clips) and 64 (4 clips) and at ViT-L/14's (64, 257, 1024) with 16
+     heads, T = 64: out and u, or dx, dqkv, dy, y and o; their times at 4
+     clips of 64 frames against the plain versions and the library
+     (layer_norm and multi_head_attention_forward on the (T, clips*N, D)
+     view: forward, backward, forward + backward), and the library call of
+     rows 5 and 10; CLIPAttention(temporal_frames=t, ln=ln) forward and
+     backward at ViT-B/16 width in every backward design (T = 8, 24, 64,
+     frozen at 8 and 64), its launches checked and held to its plain path
+     on the output and every gradient; then AIM ViT-B/16 at 64 frames
+     (configs/recognition/vit/aim_base_k400.py with num_frames=64 and each
+     SampleFrames' clip_len=64, frame_interval=2: the segment core in every
+     temporal step, rows 23 with u and 20 in the train step) through
+     init_recognizer, inference_recognizer, run_evaluation (3 views) and
+     train_model (3 steps of 2 clips), launches checked, kernel vs plain
+     path on the probabilities and on one train step, eval clips/s and
+     peak memory at 4 clips, train clips/s and peak memory at 2 and 4 clips
+     and a profile of one step.
 Every driven model's kernel path holds the plain path's top-1 class; a
 400-class head gets a seeded class lead in its bias first
 (separate_classes), as seeded weights spread the classes so evenly that the
 top two can lie within the kernel-vs-plain gap.
 The line before the last is a JSON object with one entry per kernel, with
-its launches on the first of the twelve paths above that runs it (path), and
+its launches on the first of the fifteen paths above that runs it (path), and
 its time (at 32 clips of 8 frames; the spatial block at 8 clips of the
 AIM_FLASH path's 32 frames; the composition's three ops at 4 clips of
 ViT-L/14's 32 frames; the flash core at (256, 12, 197, 64), 8 clips of
-ViT_CLIP B/16's 32 frames) beside the least time the card could take for
+ViT_CLIP B/16's 32 frames; the LN block's forward and three backwards at 4
+clips of 64 frames) beside the least time the card could take for
 the same work (bound_ms, from tools/kernel_bounds_torch.py: the larger of
 its products' FLOPs over the H100's dense bf16 rate and its bytes, each
 input read once and each output written once, over its memory rate); the
 gated temporal forward's entry also holds, under emit_u, its time with the
-u output at 4 clips of ViT-L/14's 32 frames, as the composition runs it; the
-last line is {"ok": true, "device": {...}}.
+u output at 4 clips of ViT-L/14's 32 frames, as the composition runs it, and
+the entries of rows 2, 14 and 23 hold under long_clip their times on the
+segment core at 4 clips of 64 frames; the last line is {"ok": true,
+"device": {...}}.
 """
 
 import contextlib
@@ -435,7 +459,8 @@ def plain_ops():
              (aim, "fused_joint"), (layers, "fused_spatial_train_step"),
              (layers, "fused_temporal_train_step"), (aim, "fused_joint_train_block"),
              (layers, "fused_temporal_block"), (layers, "fused_attention_block"),
-             (layers, "flash_attention_entry")]
+             (layers, "flash_attention_entry"), (layers, "fused_ln_temporal_block"),
+             (layers, "fused_ln_temporal_block_frozen")]
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, getattr(ops, name + "_plain"))
@@ -919,14 +944,16 @@ def composition_timings(shape, clips, frames, tokens, width, heads, relayouts):
 
 
 def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, steps,
-               prob_atol, seed):
+               prob_atol, seed, options=(), clip=None, phase="phase 12"):
     """One AIM recipe at full depth and width through the entry points, as
     phases 2 and 5 drive the flagship: build, inference_recognizer and
     run_evaluation on synthetic videos with the eval launch counts checked,
     kernel path vs plain path on the probabilities, train_model with the
     train launch counts checked, frozen weights unchanged and trainable ones
-    moved, one train step kernel path vs plain path. Returns (cfg, model,
-    eval launches, train launches, classes)."""
+    moved, one train step kernel path vs plain path. ``options`` are added
+    to AIM_OPTIONS; ``clip`` (clip_len, frame_interval) is set in each
+    pipeline's SampleFrames, which the option parser cannot index. Returns
+    (cfg, model, eval launches, train launches, classes)."""
     import copy
     import numpy as np
     import torch
@@ -935,7 +962,12 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         inference_recognizer, init_recognizer, load_config, run_evaluation, train_model,
     )
     from adapt_image_models_torch.data.transforms import make_prepare_fn
-    cfg = load_config(config, AIM_OPTIONS)
+    cfg = load_config(config, AIM_OPTIONS + list(options))
+    if clip is not None:
+        for split in ("train", "val", "test"):
+            for step in cfg["data"][split]["pipeline"]:
+                if step["type"] == "SampleFrames":
+                    step.update(clip_len=clip[0], frame_interval=clip[1])
     bb = cfg["model"]["backbone"]
     tokens = (bb["input_resolution"] // bb["patch_size"]) ** 2 + 1
     frames, classes = bb["num_frames"], cfg["model"]["cls_head"]["num_classes"]
@@ -946,7 +978,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
     model = init_recognizer(cfg, device="cuda", seed=0)
     randomize_adapters(model, seed=seed)
     separate_classes(model, seed=seed)
-    log(f"phase 12: built {os.path.relpath(config, ROOT)} ({label}: {layers} layers, width "
+    log(f"{phase}: built {os.path.relpath(config, ROOT)} ({label}: {layers} layers, width "
         f"{bb['width']}, {bb['heads']} heads, {tokens} tokens, {frames} frames) on cuda, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, in "
         f"{time.perf_counter() - t0:.1f} s; train ops {train_names}")
@@ -1383,6 +1415,222 @@ def drive_vitclip_flash_config():
     check_launches("ViT_CLIP_FLASH kernel-path train step", ops.launch_counts(),
                    {op: n * bb["layers"] for op, n in ops.VITCLIP_TRAIN_OPS["fused"].items()})
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 14: long clips (T > LONG_CLIP_T) and the LN temporal attention block
+
+LONG_FRAMES = 64
+# the ops of this slice and the long-clip forwards of rows 2, 14 and 23
+LONG_CLIP_OPS = ("fused_temporal_step", "fused_temporal_attention",
+                 "fused_ln_temporal_attention", "fused_temporal_train_step",
+                 "fused_ln_temporal_attention_bwd", "fused_ln_temporal_attention_bwd_segment",
+                 "fused_ln_temporal_attention_bwd_dx_segment")
+LN_BLOCK_OPS = ("fused_ln_temporal_attention", "fused_ln_temporal_attention_bwd",
+                "fused_ln_temporal_attention_bwd_segment",
+                "fused_ln_temporal_attention_bwd_dx_segment")
+
+
+def long_clip_calls(clips, frames, seed, tokens=TOKENS, width=WIDTH, heads=HEADS):
+    """(x, LN, attention weights, cotangent, {op: (kernel call, plain
+    call)}) at x = (clips*frames, tokens, width): the forwards of rows 2,
+    14, 15 and 23 (with u, under a gate of zeros and 1/keep), on the
+    segment core past LONG_CLIP_T, and the LN block's backwards, rows 17
+    (full core), 19 and 20 (segment core), on the same inputs."""
+    from adapt_image_models_torch import ops
+    x, ln, attn, gate, g = composition_inputs(clips, seed, frames, tokens, width, heads)
+    a4, a3 = attn[:4], attn[:3]
+
+    def pair(name, *args):
+        return (lambda: getattr(ops, name)(*args, frames, heads),
+                lambda: getattr(ops, name + "_plain")(*args, frames, heads))
+
+    calls = {
+        "fused_temporal_step": (
+            lambda: ops.fused_temporal_step(x, *ln, *attn, frames, heads, False),
+            lambda: ops.fused_temporal_step_plain(x, *ln, *attn, frames, heads, False)),
+        "fused_temporal_attention": pair("fused_temporal_attention", x, *a4),
+        "fused_ln_temporal_attention": pair("fused_ln_temporal_attention", x, *ln, *a4),
+        "fused_temporal_train_step": (
+            lambda: ops.fused_temporal_step_gated(x, gate, *ln, *attn, frames, heads,
+                                                  False, emit_u=True),
+            lambda: ops.fused_temporal_step_plain(x, *ln, *attn, frames, heads, False,
+                                                  gate, True)),
+    }
+    for name in LONG_CLIP_OPS[4:]:
+        calls[name] = pair(name, x, *ln, *a3, g)
+    return x, ln, attn, g, calls
+
+
+def long_clip_checks(shape, clips, frames, seed, errors, **geom):
+    """Each op of ``long_clip_calls`` against its plain version at one
+    geometry, one launch counted each: out (and u), or dx, dqkv, dy, y and
+    o. Returns the names of what disagreed."""
+    import torch
+    from adapt_image_models_torch import ops
+    *_, calls = long_clip_calls(clips, frames, seed, **geom)
+    failures = []
+    for op, (kernel, plain) in calls.items():
+        fn = ops.KERNEL_OPS[op][0]
+        before = fn.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if fn.launches != before + 1:
+            raise AssertionError(f"{op}: launch counter did not move")
+        want = plain()
+        if op in LONG_CLIP_OPS[:4]:
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            err = max(compare(f"{op} {name}", a, b)
+                      for name, a, b in zip(("out", "u"), got, want))
+        else:
+            got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+            log(f"  {op}:")
+            err = 0.0
+            for name, a, b in zip(("dx", "dqkv", "dy", "y", "o"), got, want):
+                e, ok = compare_grad(name, a, b)
+                err = max(err, e) if name == "dx" else err
+                if not ok:
+                    failures.append(f"{op} {name} at {shape}")
+        errors[op] = max(err, errors.get(op, 0.0))
+        del got, want
+    torch.cuda.empty_cache()
+    return failures
+
+
+def long_clip_timings(clips, frames, seed):
+    """Kernel and plain times (plain-kernel-kernel-plain, median of 10 / 5)
+    of each op of ``long_clip_calls``, and the library's: layer_norm and
+    multi_head_attention_forward on the frame-major (T, clips*N, D) view
+    (relayout not timed) forward (rows 15 and, without the LayerNorm, 14),
+    backward alone (row 17) and forward + backward for dx (rows 19 and 20,
+    which recompute the forward). Returns ({op: (kernel ms, plain ms)},
+    {op: library ms})."""
+    import torch
+    from torch.nn.functional import multi_head_attention_forward
+    x, ln, attn, g, calls = long_clip_calls(clips, frames, seed)
+    times = {}
+    with torch.no_grad():
+        for op, (kernel, plain) in calls.items():
+            t = (cuda_ms(plain, iters=5), cuda_ms(kernel, iters=10),
+                 cuda_ms(kernel, iters=10), cuda_ms(plain, iters=5))
+            times[op] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    n, d = x.shape[1], x.shape[2]
+
+    def relayout(a):
+        return a.view(clips, frames, n, d).transpose(0, 1).reshape(frames, clips * n, d).contiguous()
+
+    both, bwd, fwd, _ = library_bwd_dx(x, ln, attn, g, d, HEADS, relayout)
+    xr = relayout(x)
+    with torch.no_grad():
+        block = cuda_ms(lambda: multi_head_attention_forward(
+            xr, xr, xr, d, HEADS, attn[0], attn[1], None, None, False, 0.0, attn[2],
+            attn[3], training=False, need_weights=False)[0], iters=10)
+    library = {"fused_temporal_attention": block, "fused_ln_temporal_attention": fwd,
+               "fused_ln_temporal_attention_bwd": bwd,
+               "fused_ln_temporal_attention_bwd_segment": both,
+               "fused_ln_temporal_attention_bwd_dx_segment": both}
+    shape = f"x=({clips * frames}, {n}, {d}), T={frames}"
+    for op, (k_ms, p_ms) in times.items():
+        b_ms, b_by = bound(op, clips, frames, emit_u=op == "fused_temporal_train_step")
+        lib = library.get(op)
+        log(f"  {op} at {shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), library "
+            f"{'none' if lib is None else f'{lib:.3f} ms'}")
+    log(f"  library at {shape} (layer_norm + multi_head_attention_forward on the "
+        f"{tuple(xr.shape)} view, relayout not timed): forward {fwd:.3f} ms, backward "
+        f"alone {bwd:.3f} ms, forward + backward {both:.3f} ms; without the LayerNorm, "
+        f"forward {block:.3f} ms")
+    del x, xr, calls
+    torch.cuda.empty_cache()
+    return times, library
+
+
+def row10_library_ms():
+    """The library call of rows 5 and 10 (the same function): layer_norm and
+    multi_head_attention_forward on the (L, B, D) view of x = (256, 197,
+    768), forward."""
+    import torch
+    x, ln, attn, _ = op_inputs(32, 1401)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(1402)).to(x)
+    _, _, fwd, _ = library_bwd_dx(x, ln, attn, g, WIDTH, HEADS,
+                                  lambda a: a.transpose(0, 1).contiguous())
+    log(f"  rows 5 and 10's library call at x=({x.shape[0]}, {TOKENS}, {WIDTH}) "
+        f"(layer_norm + multi_head_attention_forward, forward): {fwd:.3f} ms")
+    return fwd
+
+
+# CLIPAttention(temporal_frames=t, ln=ln) at ViT-B/16 width, forward and
+# backward, 2 clips of 197 tokens: (frames, frozen_backward) in the designs
+# ops.ln_block_bwd_design and the frozen block pick at D = 768
+LN_BLOCK_CASES = ((8, False), (24, False), (64, False), (8, True), (64, True))
+
+
+def drive_ln_block():
+    """The layer path of the LN temporal block: ``CLIPAttention(
+    temporal_frames=t, ln=ln)`` under ``"fused"`` on seeded weights, forward
+    and backward in each of LN_BLOCK_CASES, with the launch counts of the
+    run checked (row 15 each time; rows 17, 19, 21, 20 where the design
+    takes them, the XLA reference's VJP at T = 64 launching nothing); then
+    the same layers under plain_ops: output, dx and every parameter's
+    gradient kernel vs plain. Returns the launches."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.models.layers import CLIPAttention, LayerNormFP32
+    gen = torch.Generator().manual_seed(1403)
+    attn = CLIPAttention(WIDTH, HEADS, torch.bfloat16, "fused", device="cuda")
+    attn.init_weights(gen)
+    ln = LayerNormFP32(WIDTH, device="cuda")
+    with torch.no_grad():
+        ln.weight.copy_(1 + 0.1 * torch.randn(WIDTH, generator=gen))
+        ln.bias.copy_(0.1 * torch.randn(WIDTH, generator=gen))
+    params = [*attn.parameters(), *ln.parameters()]
+    inputs = [(torch.randn(2 * t, TOKENS, WIDTH, generator=gen).to("cuda", torch.bfloat16),
+               torch.randn(2 * t, TOKENS, WIDTH, generator=gen).to("cuda", torch.bfloat16))
+              for t, _ in LN_BLOCK_CASES]
+
+    def run():
+        results = []
+        for (t, frozen), (x, g) in zip(LN_BLOCK_CASES, inputs):
+            attn.frozen_backward = frozen
+            for p in params:
+                p.grad = None
+            xx = x.detach().clone().requires_grad_()
+            out = attn(xx, temporal_frames=t, ln=ln)
+            out.backward(g)
+            results.append([out.detach(), xx.grad] + [p.grad for p in params])
+        torch.cuda.synchronize()
+        return results
+
+    ops.reset_launch_counts()  # this path's run starts here
+    got = run()
+    launches = ops.launch_counts()  # ... and ends here
+    check_launches("LN temporal block layer (T, frozen) in " + str(LN_BLOCK_CASES),
+                   launches, {"fused_ln_temporal_attention": len(LN_BLOCK_CASES),
+                              "fused_ln_temporal_attention_bwd": 1,
+                              "fused_ln_temporal_attention_bwd_segment": 1,
+                              "fused_ln_temporal_attention_bwd_dx": 1,
+                              "fused_ln_temporal_attention_bwd_dx_segment": 1})
+    with plain_ops():
+        want = run()
+    names = ("out", "dx", "dWqkv", "dbqkv", "dWout", "dbout", "dgamma", "dbeta")
+    failures = []
+    for (t, frozen), k, p in zip(LN_BLOCK_CASES, got, want):
+        log(f"  CLIPAttention(temporal_frames={t}, ln=) frozen_backward={frozen} "
+            f"({'frozen' if frozen else ops.ln_block_bwd_design(t, WIDTH)} backward), "
+            "kernel vs plain:")
+        compare("out", k[0], p[0])
+        for name, a, b in zip(names[1:], k[1:], p[1:]):
+            if frozen and name != "dx":
+                if a.any():
+                    failures.append(f"{name} at T={t} frozen: not zero")
+                continue
+            if not compare_grad(name, a, b)[1]:
+                failures.append(f"{name} at T={t}")
+    if failures:
+        raise AssertionError(f"the LN temporal block layer disagrees: {failures}")
+    del got, want, inputs
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -2123,13 +2371,49 @@ def main():
     drive_vitclip_large(card)
     drive_vitclip_flash_config()
 
+    # ---- phase 14: long clips and the LN temporal block ------------------
+    failures = []
+    for clips, frames, geom in ((2, 33, base_geom), (2, 48, base_geom),
+                                (4, LONG_FRAMES, base_geom), (1, LONG_FRAMES, LARGE)):
+        geom = {k: v for k, v in geom.items() if k != "frames"}
+        shape = (f"x=({clips * frames}, {geom['tokens']}, {geom['width']}) bf16, "
+                 f"{geom['heads']} heads, T={frames}")
+        log(f"phase 14: the long-clip forwards and the LN block's backwards at {shape}")
+        failures += long_clip_checks(shape, clips, frames, 1400 + frames, errors, **geom)
+    if failures:
+        raise AssertionError(f"kernels disagree with their plain versions past "
+                             f"LONG_CLIP_T: {failures}")
+    log(f"phase 14: timings at 4 clips of {LONG_FRAMES} frames on {card}")
+    long_times, long_library = long_clip_timings(4, LONG_FRAMES, 1410)
+    row10_library_ms()
+    log("phase 14: the LN temporal block through CLIPAttention(temporal_frames=t, ln=ln)")
+    ln_launches = drive_ln_block()
+    cfg_64, model_64, long64_launches, long64_train_launches, classes_64 = drive_path(
+        "ViT-B/16 64f", LONG_CONFIG, layers=12, eval_videos=2, eval_batch=2,
+        train_clips=2, steps=3, prob_atol=LARGE_PROB_ATOL, seed=15,
+        options=[f"model.backbone.num_frames={LONG_FRAMES}"], clip=(LONG_FRAMES, 2),
+        phase="phase 14")
+    log(f"  ViT-B/16 64f timings on {card}")
+    eval_timing("ViT-B/16 64f", model_64, 4, LONG_FRAMES)
+    weights_64 = model_64.state_dict()
+    del model_64
+    torch.cuda.empty_cache()
+    train_timings(cfg_64, weights_64, classes_64, "ViT-B/16 64f", batches=(2, 4),
+                  xla_batches=())
+    del weights_64
+    torch.cuda.empty_cache()
+
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
                           "fused_temporal_train_step", "fused_temporal_step_bwd_dx",
                           "fused_spatial_train_step", "fused_step_bwd_dx", blk, blk_bwd,
                           sblk, sblk_bwd, *composition_ops)}
     sources["flash_attention_core"] = "adapt_image_models_torch/csrc/flash_attention.cu"
-    # each op's launches on the first of the twelve paths that runs it
+    sources["fused_ln_temporal_attention_bwd"] = "adapt_image_models_torch/csrc/attention.cu"
+    for op in ("fused_ln_temporal_attention", "fused_ln_temporal_attention_bwd_segment",
+               "fused_ln_temporal_attention_bwd_dx_segment"):
+        sources[op] = "adapt_image_models_torch/csrc/temporal_segment.cu"
+    # each op's launches on the first of the fifteen paths that runs it
     counts = {}
     for path, run in (("flagship eval", launches), ("flagship train", train_launches),
                       ("SSv2 eval", ssv2_launches), ("SSv2 train", ssv2_train_launches),
@@ -2140,7 +2424,10 @@ def main():
                       ("ViT-B/16 32f eval", long_launches),
                       ("ViT-B/16 32f train", long_train_launches),
                       ("ViT_CLIP B/16 32f eval", vc_launches),
-                      ("ViT_CLIP B/16 32f train", vc_train_launches)):
+                      ("ViT_CLIP B/16 32f train", vc_train_launches),
+                      ("ViT-B/16 64f eval", long64_launches),
+                      ("ViT-B/16 64f train", long64_train_launches),
+                      ("LN temporal block layer", ln_launches)):
         counts.update({op: (path, n) for op, n in run.items() if n and op not in counts})
     kernels = []
     for op in ops.KERNEL_OPS:
@@ -2155,6 +2442,9 @@ def main():
         elif op in composition_ops:
             bound_ms, bound_by = bound(op, 4, LARGE["frames"], LARGE["tokens"],
                                        LARGE["width"], emit_u=True)
+        elif op in LN_BLOCK_OPS:  # at 4 clips of 64 frames
+            bound_ms, bound_by = bound(op, 4, LONG_FRAMES)
+            op_ms[op], library_ms[op] = long_times[op], long_library[op]
         else:
             bound_ms, bound_by = bound(op, 32)
         kernels.append(dict(
@@ -2168,6 +2458,14 @@ def main():
             # the same kernel chain with its second output, as the
             # composition runs it: at 4 clips of ViT-L/14's 32 frames
             kernels[-1]["emit_u"] = gated_u_entry
+        if op in LONG_CLIP_OPS[:4] and op not in LN_BLOCK_OPS:
+            # rows 2, 14 and 23 (with u) on the segment core, at 4 clips of
+            # 64 frames
+            b_ms, b_by = bound(op, 4, LONG_FRAMES, emit_u=op == gated_u)
+            kernels[-1]["long_clip"] = dict(
+                shape=f"x=({4 * LONG_FRAMES}, {TOKENS}, {WIDTH}), T={LONG_FRAMES}",
+                ms=long_times[op][0], plain_ms=long_times[op][1], bound_ms=b_ms,
+                bound_by=b_by, library_ms=long_library.get(op))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -12,6 +12,11 @@ is not a multiple of 16 or 64, a row count that is not a multiple of 128,
 adapter widths that are not a multiple of the 128-wide GEMM tile, and the
 ViT-L geometry (257 tokens, 16 heads, T=32).
 
+Past LONG_CLIP_T = 32 frames the temporal forwards run the segment core,
+checked at 33, 48 and 64 frames, and the LN temporal block's backwards
+(rows 17, 19, 20) up to 128 frames; beyond what a core serves the ops
+refuse.
+
 The train ops are checked forward and backward (output, dx and the
 adapter cotangents), with drop-path gates that hold zeros and 1/keep; the
 plain temporal and spatial attention blocks forward and backward (output,
@@ -132,8 +137,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         fused_spatial_step(x.float(), w, b, *ws, 2, True)
     with pytest.raises(ValueError):  # head dim 32
         fused_spatial_step(x, w, b, *ws, 4, True)
-    with pytest.raises(NotImplementedError):  # T > 32
-        fused_temporal_step(x.repeat(16, 1, 1), w, b, *ws, 64, 2, False)
+    for t in (33, 64):  # past LONG_CLIP_T: the segment core
+        xt = x[:1].repeat(2 * t, 1, 1)
+        _check(fused_temporal_step, fused_temporal_step_plain, xt, w, b, ws, t, 2, False)
+    with pytest.raises(NotImplementedError):  # more frames than the core serves
+        fused_temporal_step(x[:1].repeat(257, 1, 1), w, b, *ws, 257, 2, False)
 
 
 def _train_check(fwd_op, plain, bwd_op, x, ln_w, ln_b, weights, gate, *rest, op=None):
@@ -284,9 +292,15 @@ def test_composition_ops_refuse_what_they_do_not_take(cuda):
         fused_ln_qkv_attention_bwd_dx(x.float(), w, b, *ws[:3], g.float(), 2)
     with pytest.raises(ValueError):  # a cotangent unlike x
         fused_ln_temporal_attention_bwd_dx(x, w, b, *ws[:3], g.float(), 2, 2)
-    with pytest.raises(NotImplementedError):  # T > 32
-        fused_ln_temporal_attention_bwd_dx(x.repeat(16, 1, 1), w, b, *ws[:3],
-                                           g.repeat(16, 1, 1), 64, 2)
+    for t in (33, 64):  # past LONG_CLIP_T, still on the full core
+        xt, gt = x[:1].repeat(2 * t, 1, 1), g[:1].repeat(2 * t, 1, 1)
+        _held("dx", fused_ln_temporal_attention_bwd_dx(xt, w, b, *ws[:3], gt, t, 2),
+              fused_ln_temporal_attention_bwd_dx_plain(xt, w, b, *ws[:3], gt, t, 2),
+              fused_ln_temporal_attention_bwd_dx_plain(
+                  xt.float(), w, b, *(a.float() for a in ws[:3]), gt.float(), t, 2))
+    with pytest.raises(NotImplementedError):  # more frames than its core's shared memory
+        fused_ln_temporal_attention_bwd_dx(x[:1].repeat(142, 1, 1), w, b, *ws[:3],
+                                           g[:1].repeat(142, 1, 1), 142, 2)
     with pytest.raises(ValueError):  # a gate on the host
         fused_spatial_step_gated(x, torch.ones(4), w, b, *ws, 2, True)
 
@@ -374,10 +388,100 @@ def test_temporal_block_refuses_what_it_does_not_take(cuda):
         fused_temporal_attention(x.float(), *ws[:4], 2, 2)
     with pytest.raises(ValueError):  # an fp32 weight
         fused_temporal_attention(x, ws[0].float(), *ws[1:4], 2, 2)
-    with pytest.raises(NotImplementedError):  # T > 32
-        fused_temporal_attention(x.repeat(16, 1, 1), *ws[:4], 64, 2)
+    for t in (33, 64):  # past LONG_CLIP_T: the segment core
+        xt = x[:1].repeat(2 * t, 1, 1)
+        _held("out", fused_temporal_attention(xt, *ws[:4], t, 2),
+              fused_temporal_attention_plain(xt, *ws[:4], t, 2),
+              fused_temporal_attention_plain(xt.float(), *(a.float() for a in ws[:4]),
+                                             t, 2))
+    with pytest.raises(NotImplementedError):  # more frames than the core serves
+        fused_temporal_attention(x[:1].repeat(257, 1, 1), *ws[:4], 257, 2)
     with pytest.raises(ValueError):  # a cotangent unlike x
         fused_temporal_attention_bwd(x, *ws[:3], x.float(), 2, 2)
+
+
+@pytest.mark.parametrize("t,heads", [(33, 2), (48, 12), (64, 16)])
+def test_long_clip_forwards_match_plain(cuda, t, heads):
+    """Past LONG_CLIP_T every temporal forward runs the segment core
+    (``csrc/temporal_segment.cu``): the eval step (row 2), the plain and the
+    LN block (rows 14, 15) and the gated train forward with u (row 23), at
+    2 clips, against their plain versions."""
+    x, w, b, ws = _args(cuda, 2 * t, 37, 64 * heads, 16 * heads, 23)
+    _check(fused_temporal_step, fused_temporal_step_plain, x, w, b, ws, t, heads, True)
+    f32 = [a.float() for a in ws]
+    for op, plain, args, args32 in (
+            (fused_temporal_attention, fused_temporal_attention_plain, (x, *ws[:4]),
+             (x.float(), *f32[:4])),
+            (ops.fused_ln_temporal_attention, ops.fused_ln_temporal_attention_plain,
+             (x, w, b, *ws[:4]), (x.float(), w, b, *f32[:4]))):
+        before = op.launches
+        got = op(*args, t, heads)
+        torch.cuda.synchronize()
+        assert op.launches == before + 1
+        _held(op.__name__, got, plain(*args, t, heads), plain(*args32, t, heads))
+    gate = _gate(cuda, 2 * t)
+    got = fused_temporal_step_gated(x, gate, w, b, *ws, t, heads, False, emit_u=True)
+    want = fused_temporal_step_plain(x, w, b, *ws, t, heads, False, gate, True)
+    exact = fused_temporal_step_plain(x.float(), w, b, *f32, t, heads, False, gate, True)
+    for name, k, p, e in zip(("out", "u"), got, want, exact):
+        _held(name, k, p, e)
+
+
+@pytest.mark.parametrize("t,heads,n", [(8, 12, 37), (24, 12, 37), (33, 2, 37),
+                                       (64, 12, 37), (64, 16, 257), (128, 2, 9)])
+def test_ln_block_backwards_match_plain(cuda, t, heads, n):
+    """The LN block's backwards: row 17 (the full core) and row 19 (the
+    segment core), each (dx, dqkv, dy, y, o), and row 20 (the segment core's
+    dX only), at ViT-B and ViT-L widths and up to 128 frames."""
+    x, w, b, ws = _args(cuda, 2 * t if t < 128 else t, n, 64 * heads, 16 * heads, 24)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(25)).to(x)
+    args, args32 = (x, w, b, *ws[:3], g), (x.float(), w, b, *(a.float() for a in ws[:3]),
+                                          g.float())
+    for op, plain in ((ops.fused_ln_temporal_attention_bwd,
+                       ops.fused_ln_temporal_attention_bwd_plain),
+                      (ops.fused_ln_temporal_attention_bwd_segment,
+                       ops.fused_ln_temporal_attention_bwd_segment_plain),
+                      (ops.fused_ln_temporal_attention_bwd_dx_segment,
+                       ops.fused_ln_temporal_attention_bwd_dx_segment_plain)):
+        before = op.launches
+        got = op(*args, t, heads)
+        torch.cuda.synchronize()
+        assert op.launches == before + 1
+        want, exact = plain(*args, t, heads), plain(*args32, t, heads)
+        if isinstance(got, torch.Tensor):
+            got, want, exact = (got,), (want,), (exact,)
+        for name, k, p, e in zip(("dx", "dqkv", "dy", "y", "o"), got, want, exact):
+            _held(f"{op.__name__} {name}", k, p, e)
+
+
+@pytest.mark.parametrize("t,frozen", [(8, False), (24, False), (64, False), (8, True),
+                                      (64, True)])
+def test_ln_block_autograd_matches_plain(cuda, t, frozen):
+    """``fused_ln_temporal_block`` in the three designs of
+    ``ln_block_bwd_design`` at D = 768 (T = 8: row 17; 24: row 19; 64: the
+    XLA reference's vector-Jacobian product) and
+    ``fused_ln_temporal_block_frozen`` (rows 21, 20): output, dx and every
+    weight and LN cotangent against the plain op's."""
+    x, w, b, ws = _args(cuda, 2 * t, 37, 768, 192, 26)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(27)).to(x)
+    block = ops.fused_ln_temporal_block_frozen if frozen else ops.fused_ln_temporal_block
+    plain = (ops.fused_ln_temporal_block_frozen_plain if frozen
+             else ops.fused_ln_temporal_block_plain)
+
+    def run(fn, dtype):
+        leaves = [a.detach().to(dtype if a.dtype == torch.bfloat16 else a.dtype)
+                  .clone().requires_grad_() for a in (x, w, b, *ws[:4])]
+        out = fn(*leaves, t, 12)
+        out.backward(g.to(dtype))
+        return [out.detach()] + [a.grad for a in leaves]
+
+    names = ("out", "dx", "dgamma", "dbeta", "dWqkv", "dbqkv", "dWout", "dbout")
+    for name, k, p, e in zip(names, run(block, torch.bfloat16), run(plain, torch.bfloat16),
+                             run(plain, torch.float32)):
+        if frozen and name not in ("out", "dx"):
+            assert not k.any(), name
+        else:
+            _held(name, k, p, e)
 
 
 def _projection_views(device, b, heads, n, seed):

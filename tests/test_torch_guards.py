@@ -16,9 +16,11 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "adapt_image_models_tpu")
 
 # the port's entry points on a toy fused-mode num_tadapter=2 model with
 # LabelSmoothing, on the CPU: init_recognizer, a forward, run_evaluation and
-# train_model over synthetic videos, and a checkpointed train-mode backward
-# of a toy ViT_CLIP under the flash core; tests/conftest.py imports jax, so
-# this must run in a fresh interpreter
+# train_model over synthetic videos, a checkpointed train-mode backward of a
+# toy ViT_CLIP under the flash core, and the long-clip path of
+# tests/test_torch_longclip.py (LONG_CLIP_T lowered to 4): a train step of a
+# toy AIM at 6 frames and the LN temporal block, frozen and not;
+# tests/conftest.py imports jax, so this must run in a fresh interpreter
 NO_JAX_SCRIPT = r"""
 import os, sys, tempfile
 import torch
@@ -59,6 +61,22 @@ vc_model(torch.zeros(2, 3, 4, 32, 32)).sum().backward()
 state, history = train_model(cfg, work_dir=os.path.join(tmp, "work"), validate=False,
                              device="cpu")
 assert state.step == 1 and history, history
+import adapt_image_models_torch.ops.fused_temporal_attention as fta
+from adapt_image_models_torch.models.layers import CLIPAttention, LayerNormFP32
+fta.LONG_CLIP_T = 4
+long_cfg = dict(cfg["model"], backbone=dict(cfg["model"]["backbone"], num_frames=6,
+                                           num_tadapter=1, compute_dtype="float32"))
+long_model = init_recognizer(dict(cfg, model=long_cfg), device="cpu")
+from adapt_image_models_torch.parallel import freeze_params
+freeze_params(long_model)
+long_model.train()
+long_model(torch.zeros(2, 3, 6, 32, 32)).sum().backward()
+for frozen in (False, True):
+    attn = CLIPAttention(128, 2, torch.bfloat16, "fused", frozen_backward=frozen)
+    attn.init_weights(torch.Generator().manual_seed(0))
+    x = torch.randn(12, 5, 128).to(torch.bfloat16).requires_grad_()
+    attn(x, temporal_frames=6, ln=LayerNormFP32(128)).float().sum().backward()
+    assert torch.isfinite(x.grad.float()).all()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN_MODULES", bad)
 """ % (FORBIDDEN,)
