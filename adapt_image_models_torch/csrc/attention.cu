@@ -39,13 +39,10 @@ __host__ __device__ inline int score_ld(int np) { return (np > HD ? np : HD) + 4
 // probabilities in fp32 before rounding them for PV, as the TPU backward
 // kernel recomputes the forward (fused_qkv_attention.py:1256-1260).
 template <bool PRENORM>
-__global__ void __launch_bounds__(128)
-spatial_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
-                         int D, int NP, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int f = blockIdx.z;
+__device__ __forceinline__ void spatial_tile(const bf16* __restrict__ qkv,
+                                             bf16* __restrict__ out, int f, int h, int q0,
+                                             int L, int D, int NP, float scale,
+                                             unsigned char* smem) {
   const int LDS = score_ld(NP);
 
   bf16* sQ = reinterpret_cast<bf16*>(smem);
@@ -156,6 +153,37 @@ spatial_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, i
   }
 }
 
+template <bool PRENORM>
+__global__ void __launch_bounds__(128)
+spatial_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
+                         int D, int NP, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  spatial_tile<PRENORM>(qkv, out, blockIdx.z, blockIdx.y, blockIdx.x * BQ, L, D, NP, scale,
+                        smem);
+}
+
+// The spatial core over groups of r frames (samples): replaces the core of
+// adapt_image_models_tpu/ops/fused_qkv_attention.py::_kernel_ln_r (:1131),
+// which runs r samples and all their heads in one grid cell (grid
+// -(-B // r), fused_ln_qkv_attention_r :1164). One block per (64-query
+// tile, group of r frames) walks the group's frames and, for each, every
+// head, with the per-(frame, head) tile of spatial_attention_kernel, so its
+// results are those of the r = 1 core bit for bit (as the TPU kernel's are,
+// :1119). The last group may hold fewer than r frames.
+__global__ void __launch_bounds__(128)
+spatial_attention_r_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int frames,
+                           int r, int L, int D, int NP, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  for (int s = 0; s < r; ++s) {
+    const int f = blockIdx.y * r + s;
+    if (f >= frames) break;  // the same for every thread of the block
+    for (int h = 0; h < D / HD; ++h) {
+      spatial_tile<false>(qkv, out, f, h, blockIdx.x * BQ, L, D, NP, scale, smem);
+      __syncthreads();  // every warp is done with the staged K, V before the next stage
+    }
+  }
+}
+
 size_t spatial_smem_bytes(int np) {
   return (size_t)(BQ + 2 * np) * LDQ * sizeof(bf16) + (size_t)BQ * score_ld(np) * sizeof(float) +
          BQ * sizeof(float);
@@ -166,74 +194,76 @@ size_t spatial_smem_bytes(int np) {
 // adapt_image_models_tpu/ops/fused_temporal_attention.py::_masked_full_core:
 // each token position n of clip b attends across the clip's T frames
 // (the model takes it for T <= 32, csrc/temporal_segment.cu past that; a
-// direct call serves T <= 256), reading rows (b*T + t)*L + n of the native (B*T, L) layout, no relayout.
-// One block per (token, clip, group of heads), one thread per (head, query
-// frame), at most 256 threads so that a thread may hold its q row and
-// output row in registers (ViT-L at T=32 has 16 x 32 pairs). The work is
-// T*T*64 multiply-adds per (token, head), so the core is bound by the reads
-// of q, k and v; a thread re-reads each key row from L1 rather than holding
-// T scores, computing the max in a first pass and the exponentials and PV
-// sum in a second.
+// direct call serves any T), reading rows (b*T + t)*L + n of the native
+// (B*T, L) layout, no relayout. One block per (token, clip, group of
+// heads) of at most 256 threads; a head has P = min(T, 256) threads and
+// thread p takes query frames p, p + P, p + 2P, ..., holding the q row and
+// the output row in registers (so at T <= 256 one frame a thread). The
+// work is T*T*64 multiply-adds per (token, head), so the core is bound by
+// the reads of q, k and v; a thread re-reads each key row from L1 rather
+// than holding T scores, computing the max in a first pass and the
+// exponentials and PV sum in a second.
 constexpr int TEMPORAL_THREADS = 256;
 
 __global__ void __launch_bounds__(TEMPORAL_THREADS)
 temporal_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T, int L,
-                          int D, float scale) {
+                          int D, int P, float scale) {
   const int n = blockIdx.x;
   const int b = blockIdx.y;
-  const int h = blockIdx.z * (blockDim.x / T) + threadIdx.x / T;
-  const int tq = threadIdx.x % T;
+  const int h = blockIdx.z * (blockDim.x / P) + threadIdx.x / P;
   if (h >= D / HD) return;
   const size_t rs = 3 * (size_t)D;
   const size_t fs = (size_t)L * rs;  // stride between frames of one clip
   const bf16* base = qkv + ((size_t)b * T * L + n) * rs + h * HD;
 
-  float q[HD];
-  const uint4* qp = reinterpret_cast<const uint4*>(base + tq * fs);
+  for (int tq = threadIdx.x % P; tq < T; tq += P) {
+    float q[HD];
+    const uint4* qp = reinterpret_cast<const uint4*>(base + tq * fs);
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) bf16x8_to_float(qp[c], q + 8 * c);
+    for (int c = 0; c < HD / 8; ++c) bf16x8_to_float(qp[c], q + 8 * c);
 
-  auto score = [&](int tk) {
-    const uint4* kp = reinterpret_cast<const uint4*>(base + tk * fs + D);
-    float dot = 0.f;
-    float k[8];
+    auto score = [&](int tk) {
+      const uint4* kp = reinterpret_cast<const uint4*>(base + tk * fs + D);
+      float dot = 0.f;
+      float k[8];
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        bf16x8_to_float(kp[c], k);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) dot += q[8 * c + i] * k[i];
+      }
+      return dot * scale;
+    };
+
+    float m = -INFINITY;
+    for (int tk = 0; tk < T; ++tk) m = fmaxf(m, score(tk));
+
+    float acc[HD];
+#pragma unroll
+    for (int i = 0; i < HD; ++i) acc[i] = 0.f;
+    float sum = 0.f;
+    for (int tk = 0; tk < T; ++tk) {
+      const float p = expf(score(tk) - m);
+      sum += p;
+      const float pb = __bfloat162float(__float2bfloat16(p));
+      const uint4* vp = reinterpret_cast<const uint4*>(base + tk * fs + 2 * D);
+      float v[8];
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        bf16x8_to_float(vp[c], v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[8 * c + i] += pb * v[i];
+      }
+    }
+
+    uint4* op = reinterpret_cast<uint4*>(out + ((size_t)(b * T + tq) * L + n) * D + h * HD);
 #pragma unroll
     for (int c = 0; c < HD / 8; ++c) {
-      bf16x8_to_float(kp[c], k);
+      float o[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) dot += q[8 * c + i] * k[i];
+      for (int i = 0; i < 8; ++i) o[i] = acc[8 * c + i] / sum;
+      op[c] = float_to_bf16x8(o);
     }
-    return dot * scale;
-  };
-
-  float m = -INFINITY;
-  for (int tk = 0; tk < T; ++tk) m = fmaxf(m, score(tk));
-
-  float acc[HD];
-#pragma unroll
-  for (int i = 0; i < HD; ++i) acc[i] = 0.f;
-  float sum = 0.f;
-  for (int tk = 0; tk < T; ++tk) {
-    const float p = expf(score(tk) - m);
-    sum += p;
-    const float pb = __bfloat162float(__float2bfloat16(p));
-    const uint4* vp = reinterpret_cast<const uint4*>(base + tk * fs + 2 * D);
-    float v[8];
-#pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      bf16x8_to_float(vp[c], v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) acc[8 * c + i] += pb * v[i];
-    }
-  }
-
-  uint4* op = reinterpret_cast<uint4*>(out + ((size_t)(b * T + tq) * L + n) * D + h * HD);
-#pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    float o[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = acc[8 * c + i] / sum;
-    op[c] = float_to_bf16x8(o);
   }
 }
 
@@ -576,170 +606,216 @@ spatial_attention_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __rest
 // Temporal core backward. Replaces the core half of
 // adapt_image_models_tpu/ops/fused_temporal_attention.py::
 // _kernel_temporal_step_bwd_dx (_grouped_core_bwd :815-857): the spatial
-// backward's maths over the T frames of each token position (T <= 141), in the
-// native (B*T, L) row layout with stride L*3D between frames, no relayout.
-// One block per (token, clip, group of heads) and one thread per (head,
-// frame), at most 256 threads and as many heads as the shared memory
-// holds (temporal_bwd_heads). The block stages q, k, v and dO of its heads in
-// shared memory; thread (h, i) forms row i of P (fp32) and of dS, then dQ;
-// after a barrier thread (h, j) reduces column j into dV and dK. The work
-// is T*T*64 multiply-adds per (token, head) and pass, so the core is bound
-// by reading q, k, v and dO once. Given ``out``, thread (h, i) also writes
-// row i of the core's output from the normalised P, bf16(bf16(P) V), as
-// the plain block's TPU backward (_kernel_plain_bwd :1038) emits it for
-// the out-projection's weight cotangent.
+// backward's maths over the T frames of each token position, in the native
+// (B*T, L) row layout with stride L*3D between frames, no relayout, for any
+// T. One block per (token, clip, group of heads) of at most 256 threads: a
+// head has P = min(T, 256) threads, thread p takes query frames p, p + P,
+// ... in the row pass and key frames p, p + P, ... in the column pass. No
+// (T, T) matrix is held: the key (or query) frames stream through shared
+// memory in tiles of BWD_TILE frames of the block's heads, as the flash
+// core streams its keys, and each pass recomputes the scores it needs.
+//   Row pass, thread (h, i), q_i and dO_i in registers: a sweep for the row max
+//     m_i, one for the fp32 sum l_i of exp(s_ij - m_i), one that forms
+//     P_ij = exp(s_ij - m_i) / l_i (normalised in fp32), o_i = sum_j
+//     bf16(P_ij) v_j (when asked) and rowdot_i = sum_j dP_ij P_ij with
+//     dP_ij = dO_i . v_j, and one that forms dS_ij = bf16(P_ij (dP_ij -
+//     rowdot_i)) and dQ_i = sum_j dS_ij k_j / 8. (m_i, l_i, rowdot_i) go to
+//     a scratch of three floats a row.
+//   Column pass, thread (h, j), k_j and v_j in registers: P_ij recomputed from the
+//     row's m_i and l_i, dV_j = sum_i bf16(P_ij) dO_i; then dS_ij recomputed
+//     with rowdot_i, dK_j = sum_i dS_ij q_i / 8.
+// Every sum runs over j (or i) in ascending order, as the staged design did,
+// and each score is the same fp32 dot product wherever it is recomputed.
+// The work is about 13*T*T*64 multiply-adds per (token, head), in fp32
+// SIMT, so the core is bound by its instructions; tensor-core tiles are
+// later work. Given ``out``, the row pass also writes the core's output
+// from the normalised P, bf16(bf16(P) V), as the plain block's TPU backward
+// (_kernel_plain_bwd :1038) emits it for the out-projection's weight
+// cotangent.
 constexpr int TEMPORAL_BWD_THREADS = 256;
+constexpr int BWD_TILE = 16;  // frames a shared-memory tile holds
 
-size_t temporal_bwd_smem_bytes(int hpb, int T) {
-  return (size_t)hpb * (4 * T * HD * sizeof(bf16) + 2 * T * (T + 1) * sizeof(float));
+size_t temporal_bwd_smem_bytes(int hpb, int tile) {
+  return (size_t)hpb * tile * (2 * HD * sizeof(bf16) + 3 * sizeof(float));
 }
 
-// heads a block takes: at most 256 threads and the 227 KB of shared memory
-// a block may use (66 KB a head at T = 64, 198 KB at T = 128, so T <= 141
-// frames fit), at least one head; 0 when one head does not fit
-int temporal_bwd_heads(int heads, int T) {
-  int hpb = heads < TEMPORAL_BWD_THREADS / T ? heads : TEMPORAL_BWD_THREADS / T;
-  while (hpb > 0 && temporal_bwd_smem_bytes(hpb, T) > 232448) --hpb;
-  return hpb;
+// the fp32 dot product of two bf16 rows in lane order, the first held
+// packed in registers (half the registers of its fp32 copy); the same value
+// whichever of the two operands a pass holds
+__device__ __forceinline__ float dot_bf16(const uint4* a8, const bf16* brow) {
+  const uint4* bp = reinterpret_cast<const uint4*>(brow);
+  float s = 0.f, t[8], u[8];
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    bf16x8_to_float(a8[c], u);
+    bf16x8_to_float(bp[c], t);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s = __fmaf_rn(u[e], t[e], s);
+  }
+  return s;
 }
 
 __global__ void __launch_bounds__(TEMPORAL_BWD_THREADS)
 temporal_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                              bf16* __restrict__ dqkv, bf16* __restrict__ out, int T, int L,
-                              int D, float scale) {
+                              bf16* __restrict__ dqkv, bf16* __restrict__ out,
+                              float* __restrict__ stats, int T, int L, int D, int P, int tile,
+                              float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = blockIdx.x;
   const int b = blockIdx.y;
-  const int hpb = blockDim.x / T;
-  const int hl = threadIdx.x / T;
-  const int i = threadIdx.x % T;
-  const int h = blockIdx.z * hpb + hl;
-  const bool valid = h < D / HD;
-  const int TS = T + 1;  // padded row of P and dS
+  const int H = D / HD;
+  const int hpb = blockDim.x / P;
+  const int hl = threadIdx.x / P;
+  const int p = threadIdx.x % P;
+  const int h0 = blockIdx.z * hpb;
+  const int h = h0 + hl;
+  const bool valid = h < H;
 
-  bf16* sq = reinterpret_cast<bf16*>(smem) + (size_t)hl * 4 * T * HD;
-  bf16* sk = sq + T * HD;
-  bf16* sv = sk + T * HD;
-  bf16* sdo = sv + T * HD;
-  float* sP = reinterpret_cast<float*>(reinterpret_cast<bf16*>(smem) + (size_t)hpb * 4 * T * HD) +
-              (size_t)hl * 2 * T * TS;
-  float* sD = sP + T * TS;
+  // a tile of the block's heads: (k, v) rows in the row pass, (q, dO) rows
+  // and the rows' (m, l, rowdot) in the column pass
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  bf16* sB = sA + (size_t)hpb * tile * HD;
+  float* sS = reinterpret_cast<float*>(sB + (size_t)hpb * tile * HD);
+  const bf16* tA = sA + (size_t)hl * tile * HD;
+  const bf16* tB = sB + (size_t)hl * tile * HD;
+  const float* tS = sS + (size_t)hl * tile * 3;
 
   const size_t rs = 3 * (size_t)D;
-  const size_t row = ((size_t)(b * T + i) * L + n);
-  if (valid) {
-    const uint4* src = reinterpret_cast<const uint4*>(qkv + row * rs + h * HD);
-    const uint4* srck = reinterpret_cast<const uint4*>(qkv + row * rs + D + h * HD);
-    const uint4* srcv = reinterpret_cast<const uint4*>(qkv + row * rs + 2 * D + h * HD);
-    const uint4* srco = reinterpret_cast<const uint4*>(dout + row * D + h * HD);
-#pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      reinterpret_cast<uint4*>(sq + i * HD)[c] = src[c];
-      reinterpret_cast<uint4*>(sk + i * HD)[c] = srck[c];
-      reinterpret_cast<uint4*>(sv + i * HD)[c] = srcv[c];
-      reinterpret_cast<uint4*>(sdo + i * HD)[c] = srco[c];
-    }
-  }
-  __syncthreads();
+  auto row_of = [&](int f) { return (size_t)(b * T + f) * L + n; };
+  float* st = stats + (size_t)(b * L + n) * H * T * 3;  // [H][T][3] of this token
 
-  auto dot = [&](const float* a, const bf16* brow) {
-    const uint4* bp = reinterpret_cast<const uint4*>(brow);
-    float s = 0.f, t[8];
-#pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      bf16x8_to_float(bp[c], t);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s += a[8 * c + e] * t[e];
+  auto stage = [&](int f0, int tn, bool keys) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int c = threadIdx.x; c < hpb * tn * (HD / 8); c += blockDim.x) {
+      const int hh = c / (tn * (HD / 8));
+      const int f = (c / (HD / 8)) % tn;
+      const int col = (c % (HD / 8)) * 8;
+      if (h0 + hh >= H) continue;
+      const size_t r = row_of(f0 + f);
+      const bf16* a = qkv + r * rs + (keys ? D : 0) + (h0 + hh) * HD + col;
+      const bf16* bsrc = keys ? qkv + r * rs + 2 * D + (h0 + hh) * HD + col
+                              : dout + r * D + (h0 + hh) * HD + col;
+      const size_t o = ((size_t)hh * tile + f) * HD + col;
+      *reinterpret_cast<uint4*>(sA + o) = *reinterpret_cast<const uint4*>(a);
+      *reinterpret_cast<uint4*>(sB + o) = *reinterpret_cast<const uint4*>(bsrc);
     }
-    return s;
-  };
-  auto load_row = [&](const bf16* src, float* dst) {
-#pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
-      bf16x8_to_float(reinterpret_cast<const uint4*>(src)[c], dst + 8 * c);
-  };
-  auto axpy = [&](float w, const bf16* src, float* acc) {  // acc += w * row
-    const uint4* sp = reinterpret_cast<const uint4*>(src);
-    float t[8];
-#pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      bf16x8_to_float(sp[c], t);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[8 * c + e] += w * t[e];
-    }
+    if (!keys)
+      for (int c = threadIdx.x; c < hpb * tn * 3; c += blockDim.x) {
+        const int hh = c / (tn * 3), k = c % (tn * 3);
+        if (h0 + hh < H) sS[(size_t)hh * tile * 3 + k] = st[((size_t)(h0 + hh) * T + f0) * 3 + k];
+      }
+    __syncthreads();
   };
 
-  if (valid) {
-    float a[HD];
-    // row i of P, normalised in fp32
-    load_row(sq + i * HD, a);
-    float m = -INFINITY;
-    for (int j = 0; j < T; ++j) {
-      const float s = dot(a, sk + j * HD) * scale;
-      sP[i * TS + j] = s;
-      m = fmaxf(m, s);
-    }
-    float sum = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const float e = expf(sP[i * TS + j] - m);
-      sP[i * TS + j] = e;
-      sum += e;
-    }
-    for (int j = 0; j < T; ++j) sP[i * TS + j] = sP[i * TS + j] / sum;
-    if (out != nullptr) {  // O_i = sum_j bf16(P_ij) v_j
-#pragma unroll
-      for (int e = 0; e < HD; ++e) a[e] = 0.f;
-      for (int j = 0; j < T; ++j)
-        axpy(__bfloat162float(__float2bfloat16(sP[i * TS + j])), sv + j * HD, a);
-      uint4* op = reinterpret_cast<uint4*>(out + row * D + h * HD);
-#pragma unroll
-      for (int c = 0; c < HD / 8; ++c) op[c] = float_to_bf16x8(a + 8 * c);
-    }
-    // row i of dP = dO V^T, rowdot, then dS
-    load_row(sdo + i * HD, a);
-    float rowdot = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const float dp = dot(a, sv + j * HD);
-      sD[i * TS + j] = dp;
-      rowdot += dp * sP[i * TS + j];
-    }
-    for (int j = 0; j < T; ++j)
-      sD[i * TS + j] =
-          __bfloat162float(__float2bfloat16(sP[i * TS + j] * (sD[i * TS + j] - rowdot)));
-    // dQ_i = sum_j dS_ij k_j / 8
-#pragma unroll
-    for (int e = 0; e < HD; ++e) a[e] = 0.f;
-    for (int j = 0; j < T; ++j) axpy(sD[i * TS + j], sk + j * HD, a);
-    uint4* dq = reinterpret_cast<uint4*>(dqkv + row * rs + h * HD);
-#pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      float o[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = a[8 * c + e] * scale;
-      dq[c] = float_to_bf16x8(o);
-    }
-  }
-  __syncthreads();
-  if (valid) {
-    // as key j = i: dV_j = sum_q bf16(P_qj) dO_q, dK_j = sum_q dS_qj q_q / 8
-    const int j = i;
-    float a[HD];
-    for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-      for (int e = 0; e < HD; ++e) a[e] = 0.f;
-      for (int q = 0; q < T; ++q)
-        axpy(pass ? sD[q * TS + j] : __bfloat162float(__float2bfloat16(sP[q * TS + j])),
-             (pass ? sq : sdo) + q * HD, a);
-      uint4* dst = reinterpret_cast<uint4*>(dqkv + row * rs + (pass ? D : 2 * D) + h * HD);
-      const float mul = pass ? scale : 1.f;
+  // row pass
+  for (int r0 = 0; r0 < T; r0 += P) {
+    const int i = r0 + p;
+    const bool act = valid && i < T;
+    float acc[HD];
+    uint4 q8[HD / 8], d8[HD / 8];  // q_i, dO_i
+    if (act) {
+      const uint4* qp = reinterpret_cast<const uint4*>(qkv + row_of(i) * rs + h * HD);
+      const uint4* dp = reinterpret_cast<const uint4*>(dout + row_of(i) * D + h * HD);
 #pragma unroll
       for (int c = 0; c < HD / 8; ++c) {
-        float o[8];
-#pragma unroll
-        for (int e = 0; e < 8; ++e) o[e] = a[8 * c + e] * mul;
-        dst[c] = float_to_bf16x8(o);
+        q8[c] = qp[c];
+        d8[c] = dp[c];
       }
     }
+    float m = -INFINITY;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, true);
+      if (act)
+        for (int j = 0; j < tn; ++j) m = fmaxf(m, __fmul_rn(dot_bf16(q8, tA + j * HD), scale));
+    }
+    float l = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, true);
+      if (act)
+        for (int j = 0; j < tn; ++j)
+          l += expf(__fmul_rn(dot_bf16(q8, tA + j * HD), scale) - m);
+    }
+#pragma unroll
+    for (int e = 0; e < HD; ++e) acc[e] = 0.f;
+    float rowdot = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, true);
+      if (act)
+        for (int j = 0; j < tn; ++j) {
+          const float pij = expf(__fmul_rn(dot_bf16(q8, tA + j * HD), scale) - m) / l;
+          if (out != nullptr) axpy_bf16(round_bf16(pij), tB + j * HD, acc);
+          rowdot = __fmaf_rn(dot_bf16(d8, tB + j * HD), pij, rowdot);
+        }
+    }
+    if (act) {
+      if (out != nullptr) store_bf16_row(out + row_of(i) * D + h * HD, acc, 1.f);
+      float* s = st + ((size_t)h * T + i) * 3;
+      s[0] = m;
+      s[1] = l;
+      s[2] = rowdot;
+    }
+#pragma unroll
+    for (int e = 0; e < HD; ++e) acc[e] = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, true);
+      if (act)
+        for (int j = 0; j < tn; ++j) {
+          const float pij = expf(__fmul_rn(dot_bf16(q8, tA + j * HD), scale) - m) / l;
+          const float dpij = dot_bf16(d8, tB + j * HD);
+          axpy_bf16(round_bf16(pij * (dpij - rowdot)), tA + j * HD, acc);
+        }
+    }
+    if (act) store_bf16_row(dqkv + row_of(i) * rs + h * HD, acc, scale);
+  }
+
+  // column pass
+  for (int c0 = 0; c0 < T; c0 += P) {
+    const int j = c0 + p;
+    const bool act = valid && j < T;
+    float acc[HD];
+    uint4 k8[HD / 8], v8[HD / 8];  // k_j, v_j
+    if (act) {
+      const uint4* kp = reinterpret_cast<const uint4*>(qkv + row_of(j) * rs + D + h * HD);
+      const uint4* vp = reinterpret_cast<const uint4*>(qkv + row_of(j) * rs + 2 * D + h * HD);
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        k8[c] = kp[c];
+        v8[c] = vp[c];
+      }
+    }
+    // dV_j = sum_i bf16(P_ij) dO_i
+#pragma unroll
+    for (int e = 0; e < HD; ++e) acc[e] = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, false);
+      if (act)
+        for (int i = 0; i < tn; ++i) {
+          const float pij =
+              expf(__fmul_rn(dot_bf16(k8, tA + i * HD), scale) - tS[3 * i]) / tS[3 * i + 1];
+          axpy_bf16(round_bf16(pij), tB + i * HD, acc);
+        }
+    }
+    if (act) store_bf16_row(dqkv + row_of(j) * rs + 2 * D + h * HD, acc, 1.f);
+    // dK_j = sum_i dS_ij q_i / 8
+#pragma unroll
+    for (int e = 0; e < HD; ++e) acc[e] = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, false);
+      if (act)
+        for (int i = 0; i < tn; ++i) {
+          const float pij =
+              expf(__fmul_rn(dot_bf16(k8, tA + i * HD), scale) - tS[3 * i]) / tS[3 * i + 1];
+          const float dpij = dot_bf16(v8, tB + i * HD);
+          axpy_bf16(round_bf16(pij * (dpij - tS[3 * i + 2])), tA + i * HD, acc);
+        }
+    }
+    if (act) store_bf16_row(dqkv + row_of(j) * rs + D + h * HD, acc, scale);
   }
 }
 
@@ -762,15 +838,31 @@ extern "C" int aim_spatial_attention_bf16(const void* qkv, void* out, int frames
   return (int)cudaGetLastError();
 }
 
+extern "C" int aim_spatial_attention_r_bf16(const void* qkv, void* out, int frames, int r, int L,
+                                            int D, float scale, void* stream) {
+  const int np = (L + 15) / 16 * 16;
+  if (D % HD || L <= 0 || np > MAX_NP || r <= 0) return (int)cudaErrorInvalidValue;
+  if (frames == 0) return 0;
+  const size_t bytes = spatial_smem_bytes(np);
+  const cudaError_t err = cudaFuncSetAttribute(
+      spatial_attention_r_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((L + BQ - 1) / BQ, (frames + r - 1) / r);
+  spatial_attention_r_kernel<<<grid, 128, bytes, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, (bf16*)out, frames, r, L, D, np, scale);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int aim_temporal_attention_bf16(const void* qkv, void* out, int clips, int T, int L,
                                            int D, float scale, void* stream) {
-  if (D % HD || T <= 0 || T > TEMPORAL_THREADS || L <= 0) return (int)cudaErrorInvalidValue;
+  if (D % HD || T <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   if (clips == 0) return 0;
   const int heads = D / HD;
-  const int per_block = heads < TEMPORAL_THREADS / T ? heads : TEMPORAL_THREADS / T;
+  const int P = T < TEMPORAL_THREADS ? T : TEMPORAL_THREADS;  // threads a head has
+  const int per_block = heads < TEMPORAL_THREADS / P ? heads : TEMPORAL_THREADS / P;
   const dim3 grid(L, clips, (heads + per_block - 1) / per_block);
-  temporal_attention_kernel<<<grid, per_block * T, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (bf16*)out, T, L, D, scale);
+  temporal_attention_kernel<<<grid, per_block * P, 0, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, (bf16*)out, T, L, D, P, scale);
   return (int)cudaGetLastError();
 }
 
@@ -801,20 +893,22 @@ extern "C" int aim_spatial_attention_bwd_bf16(const void* qkv, const void* dout,
 }
 
 extern "C" int aim_temporal_attention_bwd_bf16(const void* qkv, const void* dout, void* dqkv,
-                                               void* out, int clips, int T, int L, int D,
-                                               float scale, void* stream) {
-  if (D % HD || T <= 0 || T > TEMPORAL_BWD_THREADS || L <= 0) return (int)cudaErrorInvalidValue;
-  const int heads = D / HD;
-  const int hpb = temporal_bwd_heads(heads, T);
-  if (hpb == 0) return (int)cudaErrorInvalidValue;
+                                               void* out, void* stats, int clips, int T, int L,
+                                               int D, float scale, void* stream) {
+  if (D % HD || T <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   if (clips == 0) return 0;
-  const size_t bytes = temporal_bwd_smem_bytes(hpb, T);
+  const int heads = D / HD;
+  const int P = T < TEMPORAL_BWD_THREADS ? T : TEMPORAL_BWD_THREADS;
+  const int hpb = heads < TEMPORAL_BWD_THREADS / P ? heads : TEMPORAL_BWD_THREADS / P;
+  const int tile = T < BWD_TILE ? T : BWD_TILE;
+  const size_t bytes = temporal_bwd_smem_bytes(hpb, tile);
   const cudaError_t err = cudaFuncSetAttribute(temporal_attention_bwd_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(L, clips, (heads + hpb - 1) / hpb);
-  temporal_attention_bwd_kernel<<<grid, hpb * T, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const bf16*)dout, (bf16*)dqkv, (bf16*)out, T, L, D, scale);
+  temporal_attention_bwd_kernel<<<grid, hpb * P, bytes, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, (const bf16*)dout, (bf16*)dqkv, (bf16*)out, (float*)stats, T, L, D, P,
+      tile, scale);
   return (int)cudaGetLastError();
 }

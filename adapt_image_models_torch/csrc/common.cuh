@@ -39,3 +39,31 @@ __device__ __forceinline__ uint4 float_to_bf16x8(const float* f) {
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return u;
 }
+
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+// acc += w * row over one 64-lane head row of bf16
+__device__ __forceinline__ void axpy_bf16(float w, const bf16* row, float* acc) {
+  const uint4* rp = reinterpret_cast<const uint4*>(row);
+  float t[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    bf16x8_to_float(rp[c], t);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[8 * c + e] += w * t[e];
+  }
+}
+
+// a 64-lane fp32 head row times mul, rounded to bf16 at dst
+__device__ __forceinline__ void store_bf16_row(bf16* dst, const float* a, float mul) {
+  uint4* dp = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = a[8 * c + e] * mul;
+    dp[c] = float_to_bf16x8(o);
+  }
+}

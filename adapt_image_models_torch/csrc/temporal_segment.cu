@@ -22,11 +22,13 @@
 //
 // Both read the native (B*T, L, 3D) rows of the QKV GEMM, frame t of clip b
 // at row (b*T + t)*L + n, stride L*3D between frames, with no relayout, as
-// the full core does. One block per (token n, clip b, group of heads), one
-// thread per (head, frame). The work is T*T*64 bf16-rounded products per
-// (token, head) and pass (9.9 GFLOP of core at 4 clips of 64 frames, 197
-// tokens, 12 heads), done in fp32 SIMT: at T = 64 the core, not the bytes
-// of q, k, v, bounds these kernels. Tensor-core score tiles are later work.
+// the full core does. One block per (token n, clip b, group of heads) of
+// at most 256 threads; a head has P = min(T, 256) threads, and thread p
+// takes frames p, p + P, ..., so any T is served. The work is T*T*64
+// bf16-rounded products per (token, head) and pass (9.9 GFLOP of core at 4
+// clips of 64 frames, 197 tokens, 12 heads), done in fp32 SIMT: at T = 64
+// the core, not the bytes of q, k, v, bounds these kernels. Tensor-core
+// score tiles are later work.
 
 #include "common.cuh"
 
@@ -34,8 +36,6 @@ namespace {
 
 constexpr int HD = 64;
 constexpr int SEG_THREADS = 256;
-// the shared memory one block may use (H100: 227 KB)
-constexpr size_t MAX_SMEM = 232448;
 
 // sum over the head's 64 lanes of the bf16-rounded products a_d * b_d; a
 // fp32 (a bf16 value), b a bf16 row. The fp32 product of two bf16 values
@@ -60,235 +60,317 @@ __device__ __forceinline__ float segment_dot(const float* a, const bf16* brow) {
   return s;
 }
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// acc += w * row (a bf16 row of 64)
-__device__ __forceinline__ void axpy_bf16(float w, const bf16* row, float* acc) {
-  const uint4* rp = reinterpret_cast<const uint4*>(row);
-  float t[8];
-#pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    bf16x8_to_float(rp[c], t);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[8 * c + e] += w * t[e];
-  }
-}
-
-__device__ __forceinline__ void store_bf16_row(bf16* dst, const float* a, float mul) {
-  uint4* dp = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
-    float o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = a[8 * c + e] * mul;
-    dp[c] = float_to_bf16x8(o);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// Forward. Thread (h, i) holds q_i (fp32 of its bf16) and the output row in
-// registers and reads the key and value rows of its (token, clip, head)
-// from L1: all T threads of a head read the same rows. Three passes over
-// the keys recompute each score with the same products in the same order:
-// the row max; the fp32 sum of the exponentials; then p, its bf16 rounding
-// and the PV sum. The probabilities are normalised before they are
-// rounded, so the sum must be whole before the PV pass begins.
+// Forward. Thread (h, p) takes query frames i = p, p + P, ...: it holds q_i
+// (fp32 of its bf16) and the output row in registers and reads the key and
+// value rows of its (token, clip, head) from L1: all P threads of a head
+// read the same rows. Three passes over the keys recompute each score with
+// the same products in the same order: the row max; the fp32 sum of the
+// exponentials; then p, its bf16 rounding and the PV sum. The
+// probabilities are normalised before they are rounded, so the sum must be
+// whole before the PV pass begins.
 __global__ void __launch_bounds__(SEG_THREADS)
 temporal_segment_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int T, int L, int D,
-                        float scale) {
+                        int P, float scale) {
   const int n = blockIdx.x;
   const int b = blockIdx.y;
-  const int h = blockIdx.z * (blockDim.x / T) + threadIdx.x / T;
-  const int i = threadIdx.x % T;
+  const int h = blockIdx.z * (blockDim.x / P) + threadIdx.x / P;
   if (h >= D / HD) return;
   const size_t rs = 3 * (size_t)D;
   const size_t fs = (size_t)L * rs;  // stride between frames of one clip
   const bf16* base = qkv + ((size_t)b * T * L + n) * rs + h * HD;
 
-  float q[HD];
+  for (int i = threadIdx.x % P; i < T; i += P) {
+    float q[HD];
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c)
-    bf16x8_to_float(reinterpret_cast<const uint4*>(base + i * fs)[c], q + 8 * c);
+    for (int c = 0; c < HD / 8; ++c)
+      bf16x8_to_float(reinterpret_cast<const uint4*>(base + i * fs)[c], q + 8 * c);
 
-  float m = -INFINITY;
-  for (int j = 0; j < T; ++j) m = fmaxf(m, segment_dot(q, base + j * fs + D) * scale);
-  float sum = 0.f;
-  for (int j = 0; j < T; ++j) sum += expf(segment_dot(q, base + j * fs + D) * scale - m);
+    float m = -INFINITY;
+    for (int j = 0; j < T; ++j) m = fmaxf(m, segment_dot(q, base + j * fs + D) * scale);
+    float sum = 0.f;
+    for (int j = 0; j < T; ++j) sum += expf(segment_dot(q, base + j * fs + D) * scale - m);
 
-  float acc[HD];
+    float acc[HD];
 #pragma unroll
-  for (int e = 0; e < HD; ++e) acc[e] = 0.f;
-  for (int j = 0; j < T; ++j) {
-    const float p = expf(segment_dot(q, base + j * fs + D) * scale - m) / sum;
-    axpy_bf16(round_bf16(p), base + j * fs + 2 * D, acc);
+    for (int e = 0; e < HD; ++e) acc[e] = 0.f;
+    for (int j = 0; j < T; ++j) {
+      const float p = expf(segment_dot(q, base + j * fs + D) * scale - m) / sum;
+      axpy_bf16(round_bf16(p), base + j * fs + 2 * D, acc);
+    }
+    store_bf16_row(out + ((size_t)(b * T + i) * L + n) * D + h * HD, acc, 1.f);
   }
-  store_bf16_row(out + ((size_t)(b * T + i) * L + n) * D + h * HD, acc, 1.f);
 }
 
 // ---------------------------------------------------------------------------
-// Backward. The block stages, for each of its heads, q, k and v (bf16) and
-// the fp32 DO rows of its T frames, and an fp32 (T, T+1) row-padded P and
-// dS. Thread (h, i) forms row i: the scores, P (fp32, normalised), o_i
-// when asked, dP against bf16(DO_i), rowdot, dS (kept as its bf16 value)
-// and dQ_i. After a barrier thread (h, j) reduces column j into dV_j (from
-// bf16(P) and the fp32 DO) and dK_j. One head takes
-// 640*T + 8*T*(T+1) bytes (74 KB at T = 64: three heads a block), so T <=
-// 134 frames fit a block (segment_bwd_smem_bytes; the wrapper raises past
-// it).
-__host__ __device__ inline size_t segment_bwd_head_bytes(int T) {
-  return (size_t)T * HD * (3 * sizeof(bf16) + sizeof(float)) +
-         2 * (size_t)T * (T + 1) * sizeof(float);
+// Backward, for any T, with no (T, T) matrix held: the frames stream
+// through shared memory in tiles of BWD_TILE frames of the block's heads,
+// as in the full core's backward (csrc/attention.cu), and each pass
+// recomputes the scores it needs with the same products in the same order.
+//   Row pass, thread (h, i) for i = p, p + P, ..., with q_i and bf16(DO_i)
+//   packed in registers and (k, v) tiles: the row max m_i; the fp32 sum l_i of the
+//   exponentials; P_ij = exp(s_ij - m_i) / l_i (normalised in fp32), o_i
+//   when asked, dP_ij against bf16(DO_i) and rowdot_i = sum_j dP_ij P_ij;
+//   then dS_ij = bf16(P_ij (dP_ij - rowdot_i)) and dQ_i. (m_i, l_i,
+//   rowdot_i) go to a scratch of three floats a row.
+//   Column pass, thread (h, j) with k_j and v_j in registers and (q, fp32
+//   DO, row statistics) tiles: dV_j = sum_i bf16(P_ij) DO_i from the fp32
+//   DO, then dK_j = scale * sum_i dS_ij q_i.
+// Every sum runs over j (or i) in ascending order, as the staged design
+// did. About 13*T*T*64 products or multiply-adds per (token, head) in fp32
+// SIMT: the core is bound by its instructions.
+constexpr int BWD_TILE = 16;  // frames a shared-memory tile holds
+
+__host__ __device__ inline size_t segment_bwd_smem_bytes(int hpb, int tile) {
+  return (size_t)hpb * tile * (HD * (sizeof(bf16) + sizeof(float)) + 3 * sizeof(float));
+}
+
+// segment_dot with the first row held as packed bf16 in registers
+__device__ __forceinline__ float segment_dot_packed(const uint4* a8, const bf16* brow) {
+  const uint4* bp = reinterpret_cast<const uint4*>(brow);
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const uint4 u = bp[c], w = a8[c];
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 af = __bfloat1622float2(a2[e]);
+      const float2 bf = __bfloat1622float2(b2[e]);
+      const float2 p = __bfloat1622float2(__floats2bfloat162_rn(af.x * bf.x, af.y * bf.y));
+      s += p.x;
+      s += p.y;
+    }
+  }
+  return s;
+}
+
+// segment_dot of packed bf16 v and an fp32 DO row rounded to bf16 lane by lane
+__device__ __forceinline__ float segment_dot_round(const uint4* v8, const float* drow) {
+  float s = 0.f;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) {
+    const uint4 w = v8[c];
+    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 vf = __bfloat1622float2(v2[e]);
+      const float d0 = round_bf16(drow[8 * c + 2 * e]), d1 = round_bf16(drow[8 * c + 2 * e + 1]);
+      const float2 p = __bfloat1622float2(__floats2bfloat162_rn(d0 * vf.x, d1 * vf.y));
+      s += p.x;
+      s += p.y;
+    }
+  }
+  return s;
 }
 
 __global__ void __launch_bounds__(SEG_THREADS)
 temporal_segment_bwd_kernel(const bf16* __restrict__ qkv, const float* __restrict__ dout,
-                            bf16* __restrict__ dqkv, bf16* __restrict__ out, int T, int L,
-                            int D, float scale) {
+                            bf16* __restrict__ dqkv, bf16* __restrict__ out,
+                            float* __restrict__ stats, int T, int L, int D, int P, int tile,
+                            float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n = blockIdx.x;
   const int b = blockIdx.y;
-  const int hpb = blockDim.x / T;
-  const int hl = threadIdx.x / T;
-  const int i = threadIdx.x % T;
-  const int h = blockIdx.z * hpb + hl;
-  const bool valid = h < D / HD;
-  const int TS = T + 1;  // padded row of P and dS
+  const int H = D / HD;
+  const int hpb = blockDim.x / P;
+  const int hl = threadIdx.x / P;
+  const int p = threadIdx.x % P;
+  const int h0 = blockIdx.z * hpb;
+  const int h = h0 + hl;
+  const bool valid = h < H;
 
-  unsigned char* head = smem + (size_t)hl * segment_bwd_head_bytes(T);
-  bf16* sq = reinterpret_cast<bf16*>(head);
-  bf16* sk = sq + T * HD;
-  bf16* sv = sk + T * HD;
-  float* sdo = reinterpret_cast<float*>(sv + T * HD);
-  float* sP = sdo + T * HD;
-  float* sD = sP + T * TS;
+  // a tile of the block's heads: k rows and v rows in the row pass; q rows,
+  // fp32 DO rows and the rows' (m, l, rowdot) in the column pass
+  bf16* sA = reinterpret_cast<bf16*>(smem);
+  float* sB = reinterpret_cast<float*>(sA + (size_t)hpb * tile * HD);
+  float* sS = sB + (size_t)hpb * tile * HD;
+  const bf16* tA = sA + (size_t)hl * tile * HD;
+  const bf16* tV = reinterpret_cast<const bf16*>(sB) + (size_t)hl * tile * HD;
+  const float* tD = sB + (size_t)hl * tile * HD;
+  const float* tS = sS + (size_t)hl * tile * 3;
 
   const size_t rs = 3 * (size_t)D;
-  const size_t row = (size_t)(b * T + i) * L + n;
-  if (valid) {
-    const uint4* src = reinterpret_cast<const uint4*>(qkv + row * rs + h * HD);
-    const uint4* srck = reinterpret_cast<const uint4*>(qkv + row * rs + D + h * HD);
-    const uint4* srcv = reinterpret_cast<const uint4*>(qkv + row * rs + 2 * D + h * HD);
-    const float4* srco = reinterpret_cast<const float4*>(dout + row * D + h * HD);
-#pragma unroll
-    for (int c = 0; c < HD / 8; ++c) {
-      reinterpret_cast<uint4*>(sq + i * HD)[c] = src[c];
-      reinterpret_cast<uint4*>(sk + i * HD)[c] = srck[c];
-      reinterpret_cast<uint4*>(sv + i * HD)[c] = srcv[c];
-    }
-#pragma unroll
-    for (int c = 0; c < HD / 4; ++c) reinterpret_cast<float4*>(sdo + i * HD)[c] = srco[c];
-  }
-  __syncthreads();
+  auto row_of = [&](int f) { return (size_t)(b * T + f) * L + n; };
+  float* st = stats + (size_t)(b * L + n) * H * T * 3;  // [H][T][3] of this token
 
-  if (valid) {
-    float a[HD];
-#pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
-      bf16x8_to_float(reinterpret_cast<const uint4*>(sq + i * HD)[c], a + 8 * c);
-    // row i of P, normalised in fp32
-    float m = -INFINITY;
-    for (int j = 0; j < T; ++j) {
-      const float s = segment_dot(a, sk + j * HD) * scale;
-      sP[i * TS + j] = s;
-      m = fmaxf(m, s);
-    }
-    float sum = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const float e = expf(sP[i * TS + j] - m);
-      sP[i * TS + j] = e;
-      sum += e;
-    }
-    for (int j = 0; j < T; ++j) sP[i * TS + j] = sP[i * TS + j] / sum;
-    if (out != nullptr) {  // o_i = sum_j bf16(P_ij) v_j
-#pragma unroll
-      for (int e = 0; e < HD; ++e) a[e] = 0.f;
-      for (int j = 0; j < T; ++j) axpy_bf16(round_bf16(sP[i * TS + j]), sv + j * HD, a);
-      store_bf16_row(out + row * D + h * HD, a, 1.f);
-    }
-    // row i of dP against bf16(DO_i), rowdot, then dS
-#pragma unroll
-    for (int e = 0; e < HD; ++e) a[e] = round_bf16(sdo[i * HD + e]);
-    float rowdot = 0.f;
-    for (int j = 0; j < T; ++j) {
-      const float dp = segment_dot(a, sv + j * HD);
-      sD[i * TS + j] = dp;
-      rowdot += dp * sP[i * TS + j];
-    }
-    for (int j = 0; j < T; ++j)
-      sD[i * TS + j] = round_bf16(sP[i * TS + j] * (sD[i * TS + j] - rowdot));
-    // dQ_i = scale * sum_j bf16(dS_ij) k_j
-#pragma unroll
-    for (int e = 0; e < HD; ++e) a[e] = 0.f;
-    for (int j = 0; j < T; ++j) axpy_bf16(sD[i * TS + j], sk + j * HD, a);
-    store_bf16_row(dqkv + row * rs + h * HD, a, scale);
-  }
-  __syncthreads();
-  if (valid) {
-    // as key j = i: dV_j = sum_q bf16(P_qj) DO_q (fp32 DO), dK_j = scale *
-    // sum_q bf16(dS_qj) q_q
-    const int j = i;
-    float a[HD];
-#pragma unroll
-    for (int e = 0; e < HD; ++e) a[e] = 0.f;
-    for (int q = 0; q < T; ++q) {
-      const float w = round_bf16(sP[q * TS + j]);
-      const float4* dq4 = reinterpret_cast<const float4*>(sdo + q * HD);
-#pragma unroll
-      for (int c = 0; c < HD / 4; ++c) {
-        const float4 d4 = dq4[c];
-        a[4 * c] += w * d4.x;
-        a[4 * c + 1] += w * d4.y;
-        a[4 * c + 2] += w * d4.z;
-        a[4 * c + 3] += w * d4.w;
+  auto stage = [&](int f0, int tn, bool keys) {
+    __syncthreads();  // every thread is done with the previous tile
+    for (int c = threadIdx.x; c < hpb * tn * (HD / 8); c += blockDim.x) {
+      const int hh = c / (tn * (HD / 8));
+      const int f = (c / (HD / 8)) % tn;
+      const int col = (c % (HD / 8)) * 8;
+      if (h0 + hh >= H) continue;
+      const size_t r = row_of(f0 + f);
+      const size_t o = ((size_t)hh * tile + f) * HD + col;
+      const bf16* src = qkv + r * rs + (h0 + hh) * HD + col;
+      if (keys) {
+        *reinterpret_cast<uint4*>(sA + o) = *reinterpret_cast<const uint4*>(src + D);
+        *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(sB) + o) =
+            *reinterpret_cast<const uint4*>(src + 2 * D);
+      } else {
+        *reinterpret_cast<uint4*>(sA + o) = *reinterpret_cast<const uint4*>(src);
+        const float4* d4 = reinterpret_cast<const float4*>(dout + r * D + (h0 + hh) * HD + col);
+        reinterpret_cast<float4*>(sB + o)[0] = d4[0];
+        reinterpret_cast<float4*>(sB + o)[1] = d4[1];
       }
     }
-    store_bf16_row(dqkv + row * rs + 2 * D + h * HD, a, 1.f);
-#pragma unroll
-    for (int e = 0; e < HD; ++e) a[e] = 0.f;
-    for (int q = 0; q < T; ++q) axpy_bf16(sD[q * TS + j], sq + q * HD, a);
-    store_bf16_row(dqkv + row * rs + D + h * HD, a, scale);
-  }
-}
+    if (!keys)
+      for (int c = threadIdx.x; c < hpb * tn * 3; c += blockDim.x) {
+        const int hh = c / (tn * 3), k = c % (tn * 3);
+        if (h0 + hh < H) sS[(size_t)hh * tile * 3 + k] = st[((size_t)(h0 + hh) * T + f0) * 3 + k];
+      }
+    __syncthreads();
+  };
 
-// heads a backward block takes: at most SEG_THREADS threads and MAX_SMEM
-// bytes, at least one head; 0 when one head does not fit
-int segment_bwd_heads(int heads, int T) {
-  int hpb = heads < SEG_THREADS / T ? heads : SEG_THREADS / T;
-  while (hpb > 0 && hpb * segment_bwd_head_bytes(T) > MAX_SMEM) --hpb;
-  return hpb;
+  // row pass
+  for (int r0 = 0; r0 < T; r0 += P) {
+    const int i = r0 + p;
+    const bool act = valid && i < T;
+    float acc[HD];
+    uint4 q8[HD / 8], d8[HD / 8];  // q_i, bf16(DO_i)
+    if (act) {
+      const uint4* qp = reinterpret_cast<const uint4*>(qkv + row_of(i) * rs + h * HD);
+      const float* dp = dout + row_of(i) * D + h * HD;
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        q8[c] = qp[c];
+        d8[c] = float_to_bf16x8(dp + 8 * c);
+      }
+    }
+    float m = -INFINITY;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, true);
+      if (act)
+        for (int j = 0; j < tn; ++j)
+          m = fmaxf(m, __fmul_rn(segment_dot_packed(q8, tA + j * HD), scale));
+    }
+    float l = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, true);
+      if (act)
+        for (int j = 0; j < tn; ++j)
+          l += expf(__fmul_rn(segment_dot_packed(q8, tA + j * HD), scale) - m);
+    }
+#pragma unroll
+    for (int e = 0; e < HD; ++e) acc[e] = 0.f;
+    float rowdot = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, true);
+      if (act)
+        for (int j = 0; j < tn; ++j) {
+          const float pij = expf(__fmul_rn(segment_dot_packed(q8, tA + j * HD), scale) - m) / l;
+          if (out != nullptr) axpy_bf16(round_bf16(pij), tV + j * HD, acc);
+          rowdot = __fmaf_rn(segment_dot_packed(d8, tV + j * HD), pij, rowdot);
+        }
+    }
+    if (act) {
+      if (out != nullptr) store_bf16_row(out + row_of(i) * D + h * HD, acc, 1.f);
+      float* s = st + ((size_t)h * T + i) * 3;
+      s[0] = m;
+      s[1] = l;
+      s[2] = rowdot;
+    }
+#pragma unroll
+    for (int e = 0; e < HD; ++e) acc[e] = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, true);
+      if (act)
+        for (int j = 0; j < tn; ++j) {
+          const float pij = expf(__fmul_rn(segment_dot_packed(q8, tA + j * HD), scale) - m) / l;
+          const float dpij = segment_dot_packed(d8, tV + j * HD);
+          axpy_bf16(round_bf16(pij * (dpij - rowdot)), tA + j * HD, acc);
+        }
+    }
+    if (act) store_bf16_row(dqkv + row_of(i) * rs + h * HD, acc, scale);
+  }
+
+  // column pass
+  for (int c0 = 0; c0 < T; c0 += P) {
+    const int j = c0 + p;
+    const bool act = valid && j < T;
+    float acc[HD];
+    uint4 k8[HD / 8], v8[HD / 8];  // k_j, v_j
+    if (act) {
+      const uint4* kp = reinterpret_cast<const uint4*>(qkv + row_of(j) * rs + D + h * HD);
+      const uint4* vp = reinterpret_cast<const uint4*>(qkv + row_of(j) * rs + 2 * D + h * HD);
+#pragma unroll
+      for (int c = 0; c < HD / 8; ++c) {
+        k8[c] = kp[c];
+        v8[c] = vp[c];
+      }
+    }
+    // dV_j = sum_i bf16(P_ij) DO_i, the fp32 DO
+#pragma unroll
+    for (int e = 0; e < HD; ++e) acc[e] = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, false);
+      if (act)
+        for (int i = 0; i < tn; ++i) {
+          const float s = __fmul_rn(segment_dot_packed(k8, tA + i * HD), scale);
+          const float w = round_bf16(expf(s - tS[3 * i]) / tS[3 * i + 1]);
+          const float* drow = tD + i * HD;
+#pragma unroll
+          for (int e = 0; e < HD; ++e) acc[e] = __fmaf_rn(w, drow[e], acc[e]);
+        }
+    }
+    if (act) store_bf16_row(dqkv + row_of(j) * rs + 2 * D + h * HD, acc, 1.f);
+    // dK_j = scale * sum_i bf16(dS_ij) q_i
+#pragma unroll
+    for (int e = 0; e < HD; ++e) acc[e] = 0.f;
+    for (int f0 = 0; f0 < T; f0 += tile) {
+      const int tn = min(tile, T - f0);
+      stage(f0, tn, false);
+      if (act)
+        for (int i = 0; i < tn; ++i) {
+          const float s = __fmul_rn(segment_dot_packed(k8, tA + i * HD), scale);
+          const float pij = expf(s - tS[3 * i]) / tS[3 * i + 1];
+          const float dpij = segment_dot_round(v8, tD + i * HD);
+          axpy_bf16(round_bf16(pij * (dpij - tS[3 * i + 2])), tA + i * HD, acc);
+        }
+    }
+    if (act) store_bf16_row(dqkv + row_of(j) * rs + D + h * HD, acc, scale);
+  }
 }
 
 }  // namespace
 
 extern "C" int aim_temporal_segment_bf16(const void* qkv, void* out, int clips, int T, int L,
                                          int D, float scale, void* stream) {
-  if (D % HD || T <= 0 || T > SEG_THREADS || L <= 0) return (int)cudaErrorInvalidValue;
+  if (D % HD || T <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   if (clips == 0) return 0;
   const int heads = D / HD;
-  const int per_block = heads < SEG_THREADS / T ? heads : SEG_THREADS / T;
+  const int P = T < SEG_THREADS ? T : SEG_THREADS;  // threads a head has
+  const int per_block = heads < SEG_THREADS / P ? heads : SEG_THREADS / P;
   const dim3 grid(L, clips, (heads + per_block - 1) / per_block);
-  temporal_segment_kernel<<<grid, per_block * T, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (bf16*)out, T, L, D, scale);
+  temporal_segment_kernel<<<grid, per_block * P, 0, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, (bf16*)out, T, L, D, P, scale);
   return (int)cudaGetLastError();
 }
 
 extern "C" int aim_temporal_segment_bwd_bf16(const void* qkv, const void* dout, void* dqkv,
-                                             void* out, int clips, int T, int L, int D,
-                                             float scale, void* stream) {
-  if (D % HD || T <= 0 || T > SEG_THREADS || L <= 0) return (int)cudaErrorInvalidValue;
-  const int heads = D / HD;
-  const int hpb = segment_bwd_heads(heads, T);
-  if (hpb == 0) return (int)cudaErrorInvalidValue;
+                                             void* out, void* stats, int clips, int T, int L,
+                                             int D, float scale, void* stream) {
+  if (D % HD || T <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
   if (clips == 0) return 0;
-  const size_t bytes = hpb * segment_bwd_head_bytes(T);
+  const int heads = D / HD;
+  const int P = T < SEG_THREADS ? T : SEG_THREADS;
+  const int hpb = heads < SEG_THREADS / P ? heads : SEG_THREADS / P;
+  const int tile = T < BWD_TILE ? T : BWD_TILE;
+  const size_t bytes = segment_bwd_smem_bytes(hpb, tile);
   const cudaError_t err = cudaFuncSetAttribute(temporal_segment_bwd_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(L, clips, (heads + hpb - 1) / hpb);
-  temporal_segment_bwd_kernel<<<grid, hpb * T, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const float*)dout, (bf16*)dqkv, (bf16*)out, T, L, D, scale);
+  temporal_segment_bwd_kernel<<<grid, hpb * P, bytes, (cudaStream_t)stream>>>(
+      (const bf16*)qkv, (const float*)dout, (bf16*)dqkv, (bf16*)out, (float*)stats, T, L, D, P,
+      tile, scale);
   return (int)cudaGetLastError();
 }

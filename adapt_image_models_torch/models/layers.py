@@ -35,10 +35,11 @@ import torch
 from torch import nn
 
 from adapt_image_models_torch.ops import (
-    flash_attention_entry, fused_attention_block, fused_ln_temporal_block,
+    flash_attention_entry, fused_attention_adapter_block, fused_attention_block,
+    fused_ln_attention_block, fused_ln_attention_block_frozen, fused_ln_temporal_block,
     fused_ln_temporal_block_frozen, fused_spatial_step, fused_spatial_train_step,
-    fused_temporal_block, fused_temporal_step, fused_temporal_train_step,
-    xla_attention_core,
+    fused_temporal_adapter_block, fused_temporal_block, fused_temporal_step,
+    fused_temporal_train_step, xla_attention_core,
 )
 from adapt_image_models_torch.ops._common import (
     exact_gelu, layer_norm_fp32, quick_gelu,
@@ -193,11 +194,16 @@ class CLIPAttention(nn.Module):
     ``adapter`` and ``residual`` given, the whole adaptation step ``x +
     adapter(attn(ln(x)))`` runs as one fused op; with none of them, the plain
     block runs as ``fused_attention_block`` or, with ``temporal_frames``,
-    ``fused_temporal_block`` (``layers.py:344-389``); with ``ln`` alone and
-    ``temporal_frames``, ``W_o·attn_T(ln(x))`` runs as
-    ``fused_ln_temporal_block``, or with ``frozen_backward`` (the JAX
+    ``fused_temporal_block`` (``layers.py:344-389``); with ``ln`` alone,
+    ``W_o·attn(ln(x))`` runs as ``fused_ln_attention_block`` (over frames
+    ``fused_ln_temporal_block``), or with ``frozen_backward`` (the JAX
     flag, ``layers.py:282``: frozen CLIP weights, a dX-only backward)
-    ``fused_ln_temporal_block_frozen`` (``layers.py:372-383``). ``kv``, ``mask``
+    ``fused_ln_attention_block_frozen`` (``fused_ln_temporal_block_frozen``);
+    with ``adapter`` alone, ``adapter(W_o·attn(x))`` runs as
+    ``fused_attention_adapter_block`` (``fused_temporal_adapter_block``).
+    ``ln`` with ``adapter`` needs ``residual``, ``residual`` needs both, and
+    a drop-path ``gate`` is taken only by the whole step: the JAX layer drops
+    such a gate silently, the port raises ``ValueError``. ``kv``, ``mask``
     (additive, see ``masked_attention``) or ``need_weights`` leave the fused
     ops for the framework ops under every core, whose attention core is the
     XLA core, or under ``"flash"`` ``flash_attention_entry``
@@ -227,6 +233,42 @@ class CLIPAttention(nn.Module):
         trunc_normal_(self.out_proj.weight, 0.02, generator)
         self.out_proj.bias.zero_()
 
+    def _fused_block(self, x, temporal_frames, adapter, ln, residual, gate):
+        """The fused calls short of the whole adaptation step, routed as the
+        JAX layer routes them (``layers.py:341-389``): the LN block (frozen
+        or not), the adapter block, or the plain block, each over tokens or,
+        with ``temporal_frames``, over frames."""
+        if residual:
+            raise ValueError("residual fusion requires ln and adapter")
+        if gate is not None:
+            # the JAX layer drops a gate here without a word; the port
+            # refuses it rather than return an ungated branch
+            raise ValueError("a drop-path gate is taken only with ln, adapter and "
+                             "residual (the whole adaptation step)")
+        if ln is not None and adapter is not None:
+            raise ValueError("ln+adapter fusion unsupported")
+        cdt = self.compute_dtype
+        t, h = temporal_frames, self.num_heads
+        common = (self.in_proj_weight.to(cdt), self.in_proj_bias.to(cdt),
+                  self.out_proj.weight.to(cdt), self.out_proj.bias.to(cdt))
+        if ln is not None:
+            args = (x.to(cdt), ln.weight, ln.bias, *common)
+            if t is None:
+                op = (fused_ln_attention_block_frozen if self.frozen_backward
+                      else fused_ln_attention_block)
+                return op(*args, h)
+            op = (fused_ln_temporal_block_frozen if self.frozen_backward
+                  else fused_ln_temporal_block)
+            return op(*args, t, h)
+        if adapter is not None:
+            args = (x.to(cdt), *common, *adapter.weights(cdt))
+            if t is None:
+                return fused_attention_adapter_block(*args, h, adapter.skip_connect)
+            return fused_temporal_adapter_block(*args, t, h, adapter.skip_connect)
+        if t is None:
+            return fused_attention_block(x.to(cdt), *common, h)
+        return fused_temporal_block(x.to(cdt), *common, t, h)
+
     def forward(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
                 mask: Optional[torch.Tensor] = None, need_weights: bool = False,
                 temporal_frames: Optional[int] = None,
@@ -237,25 +279,8 @@ class CLIPAttention(nn.Module):
         cdt = self.compute_dtype
         if (self.attention_core == "fused" and kv is None and mask is None
                 and not need_weights):
-            if ln is None and adapter is None and not residual and gate is None:
-                args = (x.to(cdt), self.in_proj_weight.to(cdt),
-                        self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
-                        self.out_proj.bias.to(cdt))
-                if temporal_frames is None:
-                    return fused_attention_block(*args, self.num_heads)
-                return fused_temporal_block(*args, temporal_frames, self.num_heads)
-            if (ln is not None and adapter is None and not residual and gate is None
-                    and temporal_frames is not None):
-                op = (fused_ln_temporal_block_frozen if self.frozen_backward
-                      else fused_ln_temporal_block)
-                return op(x.to(cdt), ln.weight, ln.bias, self.in_proj_weight.to(cdt),
-                          self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
-                          self.out_proj.bias.to(cdt), temporal_frames, self.num_heads)
             if ln is None or adapter is None or not residual:
-                raise NotImplementedError(
-                    "fused spatial attention with LN and no adapter (PERF.md rows "
-                    "5/7), with an adapter and no LN (rows 6/16), or a gated plain "
-                    "block is not ported yet (ROADMAP queue 2)")
+                return self._fused_block(x, temporal_frames, adapter, ln, residual, gate)
             args = (x.to(cdt), ln.weight, ln.bias, self.in_proj_weight.to(cdt),
                     self.in_proj_bias.to(cdt), self.out_proj.weight.to(cdt),
                     self.out_proj.bias.to(cdt), *adapter.weights(cdt))

@@ -13,13 +13,20 @@ from adapt_image_models_torch.ops.fused_joint_mlp import (  # noqa: F401
     fused_joint_train_block_plain,
 )
 from adapt_image_models_torch.ops.fused_qkv_attention import (  # noqa: F401
-    fused_attention_block, fused_attention_block_plain,
+    attention_adapter_block_xla, attention_block_xla, bwd_dx_vmem_fits,
+    bwd_vmem_fits, fused_attention_adapter_block, fused_attention_adapter_block_plain,
+    fused_attention_block, fused_attention_block_plain, fused_ln_attention_block,
+    fused_ln_attention_block_frozen, fused_ln_attention_block_frozen_plain,
+    fused_ln_attention_block_plain, fused_ln_qkv_attention, fused_ln_qkv_attention_bwd,
     fused_ln_qkv_attention_bwd_dx, fused_ln_qkv_attention_bwd_dx_plain,
-    fused_qkv_attention, fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain,
+    fused_ln_qkv_attention_bwd_plain, fused_ln_qkv_attention_plain,
+    fused_ln_qkv_attention_r, fused_ln_qkv_attention_r_plain,
+    fused_qkv_attention, fused_qkv_attention_adapter, fused_qkv_attention_adapter_plain,
+    fused_qkv_attention_bwd, fused_qkv_attention_bwd_plain,
     fused_qkv_attention_plain, fused_spatial_step, fused_spatial_step_gated,
     fused_spatial_step_plain, fused_spatial_train_step,
     fused_spatial_train_step_plain, fused_step_bwd_dx, fused_step_bwd_dx_plain,
-    step_whole_cell_fits,
+    ln_attention_block_xla, step_whole_cell_fits,
 )
 from adapt_image_models_torch.ops.fused_temporal_attention import (  # noqa: F401
     fused_ln_temporal_attention, fused_ln_temporal_attention_bwd,
@@ -30,14 +37,16 @@ from adapt_image_models_torch.ops.fused_temporal_attention import (  # noqa: F40
     fused_ln_temporal_attention_bwd_segment_plain, fused_ln_temporal_attention_plain,
     fused_ln_temporal_block, fused_ln_temporal_block_frozen,
     fused_ln_temporal_block_frozen_plain, fused_ln_temporal_block_plain,
-    fused_temporal_attention, fused_temporal_attention_bwd,
+    fused_temporal_adapter_block, fused_temporal_adapter_block_plain,
+    fused_temporal_attention, fused_temporal_attention_adapter,
+    fused_temporal_attention_adapter_plain, fused_temporal_attention_bwd,
     fused_temporal_attention_bwd_plain, fused_temporal_attention_plain,
     fused_temporal_block, fused_temporal_block_plain, fused_temporal_step,
     fused_temporal_step_bwd_dx, fused_temporal_step_bwd_dx_plain,
     fused_temporal_step_gated, fused_temporal_step_plain,
     fused_temporal_train_step, fused_temporal_train_step_plain,
-    ln_block_bwd_design, ln_temporal_block_xla, temporal_block_xla,
-    tstep_whole_cell_fits, use_full_core,
+    ln_block_bwd_design, ln_temporal_block_xla, temporal_adapter_block_xla,
+    temporal_block_xla, tstep_whole_cell_fits, use_full_core,
 )
 
 _TPU = "adapt_image_models_tpu/ops/"
@@ -87,6 +96,16 @@ KERNEL_OPS = {
     "fused_ln_temporal_attention_bwd_dx_segment": (
         fused_ln_temporal_attention_bwd_dx_segment,
         _TPU + "fused_temporal_attention.py:1322"),
+    "fused_ln_qkv_attention": (
+        fused_ln_qkv_attention, _TPU + "fused_qkv_attention.py:446"),
+    "fused_qkv_attention_adapter": (
+        fused_qkv_attention_adapter, _TPU + "fused_qkv_attention.py:467"),
+    "fused_ln_qkv_attention_bwd": (
+        fused_ln_qkv_attention_bwd, _TPU + "fused_qkv_attention.py:848"),
+    "fused_ln_qkv_attention_r": (
+        fused_ln_qkv_attention_r, _TPU + "fused_qkv_attention.py:1164"),
+    "fused_temporal_attention_adapter": (
+        fused_temporal_attention_adapter, _TPU + "fused_temporal_attention.py:528"),
 }
 
 # the ops an AIM eval forward and train step launch, by num_tadapter: 1 runs
@@ -170,6 +189,26 @@ VITCLIP_EVAL_OPS = {"fused": {"fused_qkv_attention": 1},
                     "flash": {"flash_attention_core": 2}, "xla": {}}
 VITCLIP_TRAIN_OPS = {"fused": {"fused_qkv_attention": 1, "fused_qkv_attention_bwd": 1},
                      "flash": {"flash_attention_core": 2}, "xla": {}}
+
+
+def layer_block_ops(call: str, tokens: int, width: int):
+    """(forward op, backward op) that ``CLIPAttention``'s LN-only and
+    adapter-only calls launch at (tokens, width) under ``"fused"``: ``"ln"``
+    (``ln=``), ``"ln_frozen"`` (with ``frozen_backward``), ``"adapter"``
+    (``adapter=``) and ``"temporal_adapter"`` (with ``temporal_frames``). The
+    backward is None where it is the recomputed vector-Jacobian product of
+    the framework-op reference, as the JAX package's predicates pick it."""
+    if call == "ln":
+        return ("fused_ln_qkv_attention",
+                "fused_ln_qkv_attention_bwd" if bwd_vmem_fits(tokens, width) else None)
+    if call == "ln_frozen":
+        return ("fused_ln_qkv_attention",
+                "fused_ln_qkv_attention_bwd_dx" if bwd_dx_vmem_fits(tokens, width) else None)
+    if call == "adapter":
+        return ("fused_qkv_attention_adapter", None)
+    if call == "temporal_adapter":
+        return ("fused_temporal_attention_adapter", None)
+    raise KeyError(call)
 
 
 def reset_launch_counts() -> None:

@@ -271,6 +271,37 @@ def attention_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1,
     return (out, y.to(dt).reshape(bt, l, d)) if emit_u else out
 
 
+def adapter_epilogue_plain(y: torch.Tensor, w1, b1, w2, b2, skip: bool,
+                           dtype: torch.dtype) -> torch.Tensor:
+    """The TPU kernels' adapter epilogue (``fused_qkv_attention.py::
+    _adapter_epilogue`` :116) on the fp32 rows y of an attention block:
+    fc1 of bf16(y) plus its bias in fp32, tanh GELU, fc2 of the rounded
+    activation plus its bias in fp32, y added with ``skip``; rounded to
+    ``dtype`` once."""
+    a = gelu_tanh(mm32(y.to(dtype), w1) + b1.float())
+    z = mm32(a.to(dtype), w2) + b2.float()
+    return (y + z if skip else z).to(dtype)
+
+
+def adapter_epilogue_cuda(y32: torch.Tensor, y16: torch.Tensor, w1, b1, w2, b2,
+                          skip: bool) -> torch.Tensor:
+    """The kernel chain of ``adapter_epilogue_plain`` from y in fp32 and its
+    bf16 copy: the fc1 GEMM with the tanh GELU in its epilogue, then the fc2
+    GEMM adding its bias and, with ``skip``, y in fp32 before it rounds."""
+    _, a = _kernels.gemm(y16, w1, bias=b1, act=_kernels.ACT_GELU_TANH)
+    return _kernels.gemm(a, w2, bias=b2, res_f32=y32 if skip else None)[1]
+
+
+def adapter_xla(y: torch.Tensor, w1, b1, w2, b2, skip: bool) -> torch.Tensor:
+    """The adapter of the JAX package's XLA references
+    (``_ref_adapter_impl``, ``fused_qkv_attention.py:543-555``): fc1 and fc2
+    in fp32 from y in the working dtype, tanh GELU, z rounded to y's dtype
+    and added to y there with ``skip``; differentiated by autograd."""
+    a = gelu_tanh(y.float() @ w1.float().t() + b1.float())
+    z = (a @ w2.float().t() + b2.float()).to(y.dtype)
+    return y + z if skip else z
+
+
 def attention_step_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1,
                         w2, b2, skip: bool, core: Callable,
                         gate: Optional[torch.Tensor] = None,

@@ -40,36 +40,14 @@ _SIGNATURES = {
     "aim_gemm_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F,
                       _I, _I, _I, _P, _P, _P],
     "aim_spatial_attention_bf16": [_P, _P, _I, _I, _I, _F, _I, _P],
+    "aim_spatial_attention_r_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_spatial_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
-    "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "aim_flash_attention_bf16": [_P, _P],
     "aim_temporal_segment_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
-    "aim_temporal_segment_bwd_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_temporal_segment_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
-
-# The frames each temporal core serves: the forward cores run one thread
-# per (head, frame) in blocks of at most 256 threads; the backward cores
-# stage one head's q, k, v and dO (bf16, and fp32 dO for the segment core)
-# and its fp32 (T, T+1) P and dS in the 227 KB of shared memory a block may
-# use (csrc/attention.cu::temporal_bwd_heads,
-# csrc/temporal_segment.cu::segment_bwd_heads).
-MAX_BLOCK_SMEM = 232448
-TEMPORAL_FRAME_LIMIT = 256
-
-
-def temporal_bwd_head_bytes(frames: int, segment: bool) -> int:
-    """Shared memory one head takes in a temporal backward core."""
-    staged = 64 * (3 * 2 + 4) if segment else 64 * 4 * 2
-    return frames * staged + 2 * frames * (frames + 1) * 4
-
-
-def temporal_bwd_max_frames(segment: bool) -> int:
-    """The most frames a temporal backward core serves: 141 for the full
-    core, 134 for the segment core."""
-    return max(t for t in range(1, TEMPORAL_FRAME_LIMIT + 1)
-               if temporal_bwd_head_bytes(t, segment) <= MAX_BLOCK_SMEM)
-
 
 class _FlashArgs(ctypes.Structure):
     """``FlashArgs`` of ``csrc/flash_attention.cu``: q, k, v, o and their
@@ -257,6 +235,27 @@ def spatial_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, frames: int,
     return (dqkv, out) if with_out else dqkv
 
 
+def spatial_attention_r(qkv: torch.Tensor, frames: int, length: int,
+                        r: int) -> torch.Tensor:
+    """``spatial_attention`` with one block walking the heads of each group
+    of ``r`` frames (the last group may be short): the same output, bit
+    for bit."""
+    d = qkv.shape[1] // 3
+    out = torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
+    _check(library().aim_spatial_attention_r_bf16(
+        qkv.data_ptr(), out.data_ptr(), frames, r, length, d, 64 ** -0.5,
+        _stream()), "aim_spatial_attention_r_bf16")
+    return out
+
+
+def _row_stats(qkv: torch.Tensor) -> torch.Tensor:
+    """Scratch of the temporal backward cores: (max, sum, rowdot) of every
+    (token, head, frame) row, three fp32 each."""
+    d = qkv.shape[1] // 3
+    return torch.empty(qkv.shape[0] * (d // 64) * 3, dtype=torch.float32,
+                       device=qkv.device)
+
+
 def temporal_attention(qkv: torch.Tensor, clips: int, frames: int,
                        length: int) -> torch.Tensor:
     """(clips*frames*length, 3D) packed bf16 QKV -> (rows, D) bf16, each
@@ -278,9 +277,11 @@ def temporal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
     d = qkv.shape[1] // 3
     dqkv = torch.empty_like(qkv)
     out = torch.empty_like(dout) if with_out else None
+    stats = _row_stats(qkv)
     _check(library().aim_temporal_attention_bwd_bf16(
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out), clips,
-        frames, length, d, 64 ** -0.5, _stream()), "aim_temporal_attention_bwd_bf16")
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out),
+        stats.data_ptr(), clips, frames, length, d, 64 ** -0.5, _stream()),
+        "aim_temporal_attention_bwd_bf16")
     return (dqkv, out) if with_out else dqkv
 
 
@@ -307,9 +308,11 @@ def temporal_segment_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
     dqkv = torch.empty_like(qkv)
     out = (torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
            if with_out else None)
+    stats = _row_stats(qkv)
     _check(library().aim_temporal_segment_bwd_bf16(
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out), clips,
-        frames, length, d, 64 ** -0.5, _stream()), "aim_temporal_segment_bwd_bf16")
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out),
+        stats.data_ptr(), clips, frames, length, d, 64 ** -0.5, _stream()),
+        "aim_temporal_segment_bwd_bf16")
     return (dqkv, out) if with_out else dqkv
 
 

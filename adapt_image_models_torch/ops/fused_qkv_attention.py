@@ -60,6 +60,22 @@ two or three projections and the core's products); the chain writes the
 core holds a frame's keys in shared memory, so L <= 288 (``csrc/
 attention.cu`` MAX_NP): the prompt token makes ViT-B/16's sequence 198.
 
+The LN block ``W_o · attn(LN x) + b_o`` (``CLIPAttention(ln=ln)``) and the
+adapter block ``Adapter(W_o · attn(x) + b_o)`` (``CLIPAttention(adapter=a)``)
+have, on the same kernels: the forwards ``fused_ln_qkv_attention``
+(replacing :446: the row LayerNorm, then the plain block's chain),
+``fused_ln_qkv_attention_r`` (:1164, the same function with one core block
+walking the heads of r samples) and ``fused_qkv_attention_adapter`` (:467:
+the plain block's chain with y kept in fp32 for the TPU kernels' adapter
+epilogue, which rows 1 and 12 run with the residual on); the LN block's
+backward ``fused_ln_qkv_attention_bwd`` (:848: (dx, dqkv, dy, y, o), the
+spatial twin of ``fused_ln_temporal_attention_bwd``). The autograd ops
+``fused_ln_attention_block`` (:606), ``fused_ln_attention_block_frozen``
+(:1084) and ``fused_attention_adapter_block`` (:558) take the backward the
+JAX package takes, by the copied predicates ``bwd_vmem_fits`` and
+``bwd_dx_vmem_fits``: the kernel, or the vector-Jacobian product of the
+block's XLA reference recomputed.
+
 The wrappers take the plain version for CPU tensors (the tests) and launch
 the kernels for CUDA tensors; they never fall back.
 """
@@ -70,12 +86,15 @@ import torch
 
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._common import (
-    AdapterStep, AdapterStepStash, AttentionBlock, attention_bwd_dx_cuda,
-    attention_bwd_dx_plain, attention_step_bwd_cuda, attention_step_bwd_plain,
-    attention_step_cuda, attention_step_plain, check_cotangent, check_frozen,
-    check_gate, check_step_args, mm32, mm32_kn, spatial_core_bwd_plain,
-    spatial_core_plain,
+    AdapterStep, AdapterStepStash, AttentionBlock, FrozenAttentionBlock,
+    RecomputedVjp, adapter_epilogue_cuda, adapter_epilogue_plain, adapter_xla,
+    attention_bwd_dx_cuda, attention_bwd_dx_plain, attention_step_bwd_cuda,
+    attention_step_bwd_plain, attention_step_cuda, attention_step_plain,
+    check_cotangent, check_frozen, check_gate, check_step_args, layer_norm_fp32,
+    ln_attention_bwd_cuda, ln_attention_bwd_plain, mm32, mm32_kn,
+    spatial_core_bwd_plain, spatial_core_plain,
 )
+from adapt_image_models_torch.ops.flash_attention import xla_attention_core
 
 
 def fused_spatial_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
@@ -316,10 +335,16 @@ MAX_TOKENS = 288  # the keys a block of the spatial core holds (csrc/attention.c
 
 
 def _check_block(name, x, w_qkv, b_qkv, w_out, num_heads, vectors=(),
-                 kernel: bool = True) -> None:
+                 kernel: bool = True, ln=(), adapter=()) -> None:
+    """Validate a block's arguments (``ln``: its LayerNorm's scale and bias;
+    ``adapter``: w1 and w2)."""
     d = x.shape[-1]
-    check_step_args(name, x, (), ((w_qkv, (3 * d, d)), (w_out, (d, d))),
-                    ((b_qkv, 3 * d), *vectors), num_heads, kernel)
+    matrices = ((w_qkv, (3 * d, d)), (w_out, (d, d)))
+    if adapter:
+        dh = adapter[0].shape[0]
+        matrices += ((adapter[0], (dh, d)), (adapter[1], (d, dh)))
+    check_step_args(name, x, ln, matrices, ((b_qkv, 3 * d), *vectors), num_heads,
+                    kernel)
     if kernel and x.device.type == "cuda" and x.shape[1] > MAX_TOKENS:
         raise NotImplementedError(
             f"{name}: L={x.shape[1]} > {MAX_TOKENS} needs a spatial core that "
@@ -334,10 +359,25 @@ def fused_qkv_attention_plain(x, w_qkv, b_qkv, w_out, b_out,
     biased in fp32, then rounded. (The kernel folds the power-of-two scale
     1/8 into q, which changes no value.)"""
     b, n, d = x.shape
-    dt = x.dtype
-    qkv = (mm32(x.reshape(b * n, d), w_qkv) + b_qkv.float()).to(dt)
-    o = spatial_core_plain(qkv, b, n, num_heads)
-    return (mm32(o, w_out) + b_out.float()).to(dt).reshape(b, n, d)
+    return _block_plain(x.reshape(b * n, d), w_qkv, b_qkv, w_out, b_out, b, n,
+                        num_heads).to(x.dtype).reshape(b, n, d)
+
+
+def _block_plain(x2, w_qkv, b_qkv, w_out, b_out, frames, length, num_heads):
+    """Rows (frames*L, D) -> the fp32 rows of ``W_o·attn(x) + b_o``: q, k, v
+    rounded after an fp32 bias add, the core's output rounded, the
+    out-projection summed and biased in fp32."""
+    qkv = (mm32(x2, w_qkv) + b_qkv.float()).to(x2.dtype)
+    return mm32(spatial_core_plain(qkv, frames, length, num_heads), w_out) + b_out.float()
+
+
+def _block_cuda(x2, w_qkv, b_qkv, w_out, b_out, core, f32: bool = False):
+    """The kernel chain of ``_block_plain``: the QKV GEMM (+bias, bf16 out),
+    the spatial ``core`` and the out-proj GEMM (+bias, bf16 out; with
+    ``f32`` the fp32 result and its bf16 copy)."""
+    _, qkv = _kernels.gemm(x2, w_qkv, bias=b_qkv)
+    y32, y16 = _kernels.gemm(core(qkv), w_out, bias=b_out, out_f32=f32)
+    return (y32, y16) if f32 else y16
 
 
 def fused_qkv_attention(x, w_qkv, b_qkv, w_out, b_out,
@@ -351,9 +391,8 @@ def fused_qkv_attention(x, w_qkv, b_qkv, w_out, b_out,
     if x.device.type == "cpu":
         return fused_qkv_attention_plain(x, w_qkv, b_qkv, w_out, b_out, num_heads)
     b, n, d = x.shape
-    _, qkv = _kernels.gemm(x.view(b * n, d), w_qkv, bias=b_qkv)
-    _, y = _kernels.gemm(_kernels.spatial_attention(qkv, b, n), w_out,
-                         bias=b_out)
+    y = _block_cuda(x.view(b * n, d), w_qkv, b_qkv, w_out, b_out,
+                    lambda qkv: _kernels.spatial_attention(qkv, b, n))
     fused_qkv_attention.launches += 1
     return y.view(b, n, d)
 
@@ -419,3 +458,306 @@ def fused_attention_block_plain(x, w_qkv, b_qkv, w_out, b_out,
         lambda *a: fused_qkv_attention_plain(*a, num_heads),
         lambda *a: fused_qkv_attention_bwd_plain(*a, num_heads),
         x, w_qkv, b_qkv, w_out, b_out)
+
+
+# ---------------------------------------------------------------------------
+# The LN spatial attention block ``W_o · attn(LN x) + b_o`` and the adapter
+# block ``Adapter(W_o · attn(x) + b_o)`` (``CLIPAttention(ln=ln)`` and
+# ``CLIPAttention(adapter=a)``), no residual inside.
+
+
+def fused_ln_qkv_attention_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                 num_heads: int) -> torch.Tensor:
+    """Plain version with the TPU kernel's casts (``_kernel_ln`` :355): the
+    fp32 LayerNorm rounded to the working dtype, then the plain block's."""
+    b, n, d = x.shape
+    xn = layer_norm_fp32(x.reshape(b * n, d), ln_w, ln_b).to(x.dtype)
+    return _block_plain(xn, w_qkv, b_qkv, w_out, b_out, b, n,
+                        num_heads).to(x.dtype).reshape(b, n, d)
+
+
+def fused_ln_qkv_attention(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                           num_heads: int) -> torch.Tensor:
+    """``W_o · attn(LN x) + b_o`` over the raw residual stream x (B, L, D),
+    attention within each row (replaces ``fused_ln_qkv_attention`` :446).
+    CPU tensors take the plain version; CUDA tensors (bf16 x and weights,
+    fp32 LN, head dim 64, L <= 288) launch the kernels: the row LayerNorm,
+    then the chain of ``fused_qkv_attention``."""
+    _check_block("fused_ln_qkv_attention", x, w_qkv, b_qkv, w_out, num_heads,
+                 ((b_out, x.shape[-1]),), ln=(ln_w, ln_b))
+    if x.device.type == "cpu":
+        return fused_ln_qkv_attention_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                            num_heads)
+    b, n, d = x.shape
+    xn = _kernels.layernorm(x.view(b * n, d), ln_w, ln_b)
+    y = _block_cuda(xn, w_qkv, b_qkv, w_out, b_out,
+                    lambda qkv: _kernels.spatial_attention(qkv, b, n))
+    fused_ln_qkv_attention.launches += 1
+    return y.view(b, n, d)
+
+
+fused_ln_qkv_attention.launches = 0
+
+
+def fused_ln_qkv_attention_r_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                   num_heads: int, r: int = 2) -> torch.Tensor:
+    """The plain version of ``fused_ln_qkv_attention_r``: the same function
+    as ``fused_ln_qkv_attention_plain`` at every r."""
+    return fused_ln_qkv_attention_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                        num_heads)
+
+
+def fused_ln_qkv_attention_r(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                             num_heads: int, r: int = 2) -> torch.Tensor:
+    """``fused_ln_qkv_attention`` with the TPU kernel's grouping of r
+    samples a cell (``fused_ln_qkv_attention_r`` :1164, grid ``-(-B //
+    r)``; the JAX package wires it nowhere, "a documented negative result",
+    :1116-1122). CPU tensors take the plain version; CUDA tensors launch the
+    row LayerNorm and the QKV GEMM over all B·L rows (row-wise work, so one
+    launch covers every r·L-row group with the same result), the spatial
+    core with one block walking the heads of each group of r samples
+    (``csrc/attention.cu`` ``spatial_attention_r_kernel``) and the out-proj
+    GEMM: bit-equal to ``fused_ln_qkv_attention`` at every r, as the TPU
+    kernel is to its r = 1 form (:1119)."""
+    _check_block("fused_ln_qkv_attention_r", x, w_qkv, b_qkv, w_out, num_heads,
+                 ((b_out, x.shape[-1]),), ln=(ln_w, ln_b))
+    if r < 1:
+        raise ValueError(f"fused_ln_qkv_attention_r: r={r} < 1")
+    if x.device.type == "cpu":
+        return fused_ln_qkv_attention_r_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                              num_heads, r)
+    b, n, d = x.shape
+    xn = _kernels.layernorm(x.view(b * n, d), ln_w, ln_b)
+    y = _block_cuda(xn, w_qkv, b_qkv, w_out, b_out,
+                    lambda qkv: _kernels.spatial_attention_r(qkv, b, n, r))
+    fused_ln_qkv_attention_r.launches += 1
+    return y.view(b, n, d)
+
+
+fused_ln_qkv_attention_r.launches = 0
+
+
+def _ln_bwd_core(b, n, num_heads, cuda: bool):
+    """``(qkv, do) -> (dqkv, o)``: the spatial core's backward, which also
+    writes the core's output from the normalised P."""
+    if cuda:
+        return lambda qkv, do: _kernels.spatial_attention_bwd(qkv, do, b, n, with_out=True)
+    return lambda qkv, do: (spatial_core_bwd_plain(qkv, do, b, n, num_heads),
+                            spatial_core_plain(qkv, b, n, num_heads, prenorm=True))
+
+
+def fused_ln_qkv_attention_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                                     num_heads: int):
+    """Plain version of the LN block's backward with the TPU kernel's casts
+    (``_kernel_ln_bwd`` :833, body ``_bwd_ln_attention_body`` :745-832):
+    (dx, dqkv, dy, y, o), see ``ln_attention_bwd_plain``."""
+    b, n, _ = x.shape
+    return ln_attention_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                                  _ln_bwd_core(b, n, num_heads, cuda=False))
+
+
+def fused_ln_qkv_attention_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g, num_heads: int):
+    """Backward of ``fused_ln_qkv_attention`` for the output cotangent g
+    (like x), replacing ``fused_ln_qkv_attention_bwd`` (:848): (dx (B, L,
+    D), dqkv (rows, 3D), dy, y, o (rows, D)), dy the cotangent of the LN
+    output y, from which the weight and LN cotangents are formed outside
+    (``_attention_weight_cotangents`` :902). CPU tensors take the plain
+    version; CUDA tensors launch the kernels: LN, the QKV GEMM, the (K, N)
+    GEMM of g through W_o, the spatial core backward (which also writes o),
+    the (K, N) GEMM of dqkv through W_qkv (fp32 and bf16 out) and the LN
+    backward, the spatial twin of ``fused_ln_temporal_attention_bwd``."""
+    _check_block("fused_ln_qkv_attention_bwd", x, w_qkv, b_qkv, w_out, num_heads,
+                 ln=(ln_w, ln_b))
+    check_cotangent("fused_ln_qkv_attention_bwd", g, x)
+    if x.device.type == "cpu":
+        return fused_ln_qkv_attention_bwd_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                                                num_heads)
+    b, n, _ = x.shape
+    out = ln_attention_bwd_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
+                                _ln_bwd_core(b, n, num_heads, cuda=True))
+    fused_ln_qkv_attention_bwd.launches += 1
+    return out
+
+
+fused_ln_qkv_attention_bwd.launches = 0
+
+
+def fused_qkv_attention_adapter_plain(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                      num_heads: int, skip: bool) -> torch.Tensor:
+    """Plain version with the TPU kernel's casts (``_kernel_adapter`` :365):
+    the plain block's with its out-projection kept in fp32, then the adapter
+    epilogue (``adapter_epilogue_plain``)."""
+    b, n, d = x.shape
+    y = _block_plain(x.reshape(b * n, d), w_qkv, b_qkv, w_out, b_out, b, n, num_heads)
+    return adapter_epilogue_plain(y, w1, b1, w2, b2, skip, x.dtype).reshape(b, n, d)
+
+
+def fused_qkv_attention_adapter(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                num_heads: int, skip: bool) -> torch.Tensor:
+    """``Adapter(W_o · attn(x) + b_o)`` over x (B, L, D), with no LayerNorm and
+    no residual (replaces ``fused_qkv_attention_adapter`` :467). CPU tensors
+    take the plain version; CUDA tensors launch the kernels: the QKV GEMM,
+    the spatial core, the out-proj GEMM (fp32 y and its bf16 copy), the fc1
+    GEMM with the tanh GELU and the fc2 GEMM adding y with ``skip``: row 1's
+    epilogue with the residual off."""
+    d, dh = x.shape[-1], w1.shape[0]
+    _check_block("fused_qkv_attention_adapter", x, w_qkv, b_qkv, w_out, num_heads,
+                 ((b_out, d), (b1, dh), (b2, d)), adapter=(w1, w2))
+    if x.device.type == "cpu":
+        return fused_qkv_attention_adapter_plain(x, w_qkv, b_qkv, w_out, b_out, w1, b1,
+                                                 w2, b2, num_heads, skip)
+    b, n, _ = x.shape
+    y32, y16 = _block_cuda(x.view(b * n, d), w_qkv, b_qkv, w_out, b_out,
+                           lambda qkv: _kernels.spatial_attention(qkv, b, n), f32=True)
+    out = adapter_epilogue_cuda(y32, y16, w1, b1, w2, b2, skip)
+    fused_qkv_attention_adapter.launches += 1
+    return out.view(b, n, d)
+
+
+fused_qkv_attention_adapter.launches = 0
+
+
+def bwd_vmem_fits(l: int, d: int) -> bool:
+    """The JAX package's estimate that its LN block backward cell fits TPU
+    VMEM (``_bwd_vmem_fits`` :626): true at ViT-B (L = 197, D = 768), false
+    at ViT-L (257, 1024). It decides which gradient ``fused_ln_attention_block``
+    computes (``_bwd_ln_dispatch`` :637), so the port asks it too."""
+    lp = -(-l // 16) * 16
+    return 18 * lp * d * 2 + 4 * d * d * 2 <= 14 * 2 ** 20
+
+
+def bwd_dx_vmem_fits(l: int, d: int) -> bool:
+    """The JAX package's estimate that its dX-only backward cell fits TPU
+    VMEM (``_bwd_dx_vmem_fits`` :1075): true at ViT-B and ViT-L. It decides
+    the frozen LN block's backward (``_bwd_ln_frozen`` :1101)."""
+    lp = -(-l // 16) * 16
+    return 6 * lp * d * 2 + 4 * d * d * 2 <= 14 * 2 ** 20
+
+
+def attention_block_xla(x, w_qkv, b_qkv, w_out, b_out, num_heads: int) -> torch.Tensor:
+    """The JAX package's XLA reference of the spatial block (``_ref_impl``
+    :511) in framework ops, differentiated by autograd: the projections in
+    the working dtype, the XLA core over each row's tokens, the
+    out-projection likewise."""
+    b, n, d = x.shape
+    dt = x.dtype
+    qkv = x @ w_qkv.to(dt).t() + b_qkv.to(dt)
+    q, k, v = (t.reshape(b, n, num_heads, -1).transpose(1, 2) for t in qkv.split(d, -1))
+    out = xla_attention_core(q, k, v).transpose(1, 2).reshape(b, n, d)
+    return out @ w_out.to(dt).t() + b_out.to(dt)
+
+
+def ln_attention_block_xla(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                           num_heads: int) -> torch.Tensor:
+    """``_ref_ln_impl`` (:532): the fp32 LayerNorm rounded to the working
+    dtype, then ``attention_block_xla``."""
+    xn = layer_norm_fp32(x, ln_w, ln_b).to(x.dtype)
+    return attention_block_xla(xn, w_qkv, b_qkv, w_out, b_out, num_heads)
+
+
+def attention_adapter_block_xla(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                num_heads: int, skip: bool) -> torch.Tensor:
+    """``_ref_adapter_impl`` (:543): ``attention_block_xla``, then the
+    adapter in fp32 (``adapter_xla``)."""
+    y = attention_block_xla(x, w_qkv, b_qkv, w_out, b_out, num_heads)
+    return adapter_xla(y, w1, b1, w2, b2, skip)
+
+
+def _ln_block(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, num_heads, plain: bool):
+    fwd = fused_ln_qkv_attention_plain if plain else fused_ln_qkv_attention
+    args = (x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out)
+    if not bwd_vmem_fits(x.shape[1], x.shape[2]):
+        return RecomputedVjp.apply(lambda *a: fwd(*a, num_heads),
+                                   lambda *a: ln_attention_block_xla(*a, num_heads), *args)
+    bwd = fused_ln_qkv_attention_bwd_plain if plain else fused_ln_qkv_attention_bwd
+    return AttentionBlock.apply(lambda *a: fwd(*a, num_heads),
+                                lambda *a: bwd(*a, num_heads), *args)
+
+
+def fused_ln_attention_block(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                             num_heads: int) -> torch.Tensor:
+    """``W_o·attn(LN x) + b_o`` (JAX ``fused_ln_attention_block`` :606)
+    differentiable in every input: the forward ``fused_ln_qkv_attention``;
+    the backward, as ``_bwd_ln_dispatch`` (:637) picks it by
+    ``bwd_vmem_fits``, ``fused_ln_qkv_attention_bwd`` with the weight and LN
+    cotangents formed outside the kernels (ViT-B), or the vector-Jacobian
+    product of ``ln_attention_block_xla`` recomputed (ViT-L)."""
+    return _ln_block(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, num_heads, plain=False)
+
+
+def fused_ln_attention_block_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                   num_heads: int) -> torch.Tensor:
+    """``fused_ln_attention_block`` with the plain forward and backward on
+    any device."""
+    return _ln_block(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, num_heads, plain=True)
+
+
+def _xla_dx(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g, num_heads):
+    """dx alone of ``ln_attention_block_xla`` for the cotangent g, as the
+    JAX package's frozen block takes it where its dX-only cell does not
+    fit (``_bwd_ln_frozen`` :1108); b_o moves no dx."""
+    leaf = x.detach().requires_grad_()
+    with torch.enable_grad():
+        out = ln_attention_block_xla(leaf, ln_w, ln_b, w_qkv, b_qkv, w_out,
+                                     torch.zeros_like(w_out[0]), num_heads)
+    return torch.autograd.grad(out, leaf, g)[0]
+
+
+def _ln_block_frozen(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, num_heads,
+                     plain: bool):
+    fwd = fused_ln_qkv_attention_plain if plain else fused_ln_qkv_attention
+    if not bwd_dx_vmem_fits(x.shape[1], x.shape[2]):
+        bwd_dx = _xla_dx
+    else:
+        bwd_dx = (fused_ln_qkv_attention_bwd_dx_plain if plain
+                  else fused_ln_qkv_attention_bwd_dx)
+    return FrozenAttentionBlock.apply(lambda *a: fwd(*a, num_heads),
+                                      lambda *a: bwd_dx(*a, num_heads),
+                                      x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out)
+
+
+def fused_ln_attention_block_frozen(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                    num_heads: int) -> torch.Tensor:
+    """``W_o·attn(LN x) + b_o`` with the dX-only backward of frozen CLIP
+    weights (JAX ``fused_ln_attention_block_frozen`` :1084, ``_bwd_ln_frozen``
+    :1101): the forward ``fused_ln_qkv_attention``, dx from
+    ``fused_ln_qkv_attention_bwd_dx`` where ``bwd_dx_vmem_fits`` holds, else
+    the reference's; zeros for the LN and attention weights."""
+    return _ln_block_frozen(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, num_heads,
+                            plain=False)
+
+
+def fused_ln_attention_block_frozen_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                                          num_heads: int) -> torch.Tensor:
+    """``fused_ln_attention_block_frozen`` with the plain forward and
+    backward on any device."""
+    return _ln_block_frozen(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, num_heads,
+                            plain=True)
+
+
+def _adapter_block(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, num_heads, skip,
+                   plain: bool):
+    fwd = fused_qkv_attention_adapter_plain if plain else fused_qkv_attention_adapter
+    return RecomputedVjp.apply(
+        lambda *a: fwd(*a, num_heads, skip),
+        lambda *a: attention_adapter_block_xla(*a, num_heads, skip),
+        x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
+
+
+def fused_attention_adapter_block(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                  num_heads: int, skip: bool) -> torch.Tensor:
+    """``Adapter(W_o·attn(x) + b_o)`` (JAX ``fused_attention_adapter_block``
+    :558) differentiable in every input: the forward
+    ``fused_qkv_attention_adapter``, the backward the vector-Jacobian
+    product of ``attention_adapter_block_xla`` recomputed (``_bwd_ad``
+    :573)."""
+    return _adapter_block(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, num_heads, skip,
+                          plain=False)
+
+
+def fused_attention_adapter_block_plain(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                        num_heads: int, skip: bool) -> torch.Tensor:
+    """``fused_attention_adapter_block`` with the plain forward on any
+    device."""
+    return _adapter_block(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, num_heads, skip,
+                          plain=True)

@@ -71,9 +71,21 @@ backward past T = 16 for lack of VMEM, which the port does not need), and
 past it the JAX package's own design: the vector-Jacobian product of the
 XLA reference ``_ref_impl`` (:599), ``temporal_block_xla``, recomputed.
 
-Frames: the forward cores serve T <= 256 and the backward cores what a
-block's shared memory holds (``_kernels.temporal_bwd_max_frames``: 141 for
-the full core, 134 for the segment core); past that a CUDA call raises.
+The temporal adapter block ``Adapter(W_o · attn_T(x) + b_o)`` (JAX
+``fused_temporal_adapter_block`` :620, reached by ``CLIPAttention(
+temporal_frames=t, adapter=a)``) has the forward
+``fused_temporal_attention_adapter`` (:528): the plain block's chain (the
+full core up to LONG_CLIP_T, the segment core past it) whose out-projection
+GEMM keeps y in fp32 for the TPU kernels' adapter epilogue (tanh GELU,
+``skip`` adding y), and, as in the JAX package (``_bwd_ad`` :636), the
+vector-Jacobian product of its full-softmax XLA reference
+(``temporal_adapter_block_xla``, ``_ref_adapter_impl`` :606) recomputed.
+
+Frames: every core serves any T. The forward cores give a head min(T,
+256) threads, each taking every such frame in turn; the backward cores
+stream the frames through shared memory in tiles and keep three floats a
+row between their row and column passes (``csrc/attention.cu``,
+``csrc/temporal_segment.cu``).
 
 The wrappers take the plain version for CPU tensors (the tests) and launch
 the kernels for CUDA tensors; they never fall back.
@@ -86,7 +98,8 @@ import torch
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._common import (
     AdapterStep, AdapterStepStash, AttentionBlock, FrozenAttentionBlock,
-    RecomputedVjp, attention_bwd_dx_cuda, attention_bwd_dx_plain,
+    RecomputedVjp, adapter_epilogue_cuda, adapter_epilogue_plain, adapter_xla,
+    attention_bwd_dx_cuda, attention_bwd_dx_plain,
     attention_step_bwd_cuda, attention_step_bwd_plain, attention_step_cuda,
     attention_step_plain, check_cotangent, check_frozen, check_gate,
     check_step_args, layer_norm_fp32, ln_attention_bwd_cuda,
@@ -141,21 +154,6 @@ def _clips(bt: int, num_frames: int) -> int:
     return bt // num_frames
 
 
-def _check_frames(name, x, num_frames, kernel: bool,
-                  max_frames: int = _kernels.TEMPORAL_FRAME_LIMIT) -> int:
-    """The clip count; raises where the CUDA core does not serve T."""
-    b = _clips(x.shape[0], num_frames)
-    if kernel and x.device.type == "cuda" and num_frames > max_frames:
-        raise NotImplementedError(
-            f"{name}: T={num_frames} > {max_frames}, the most frames its CUDA "
-            "core serves (ROADMAP queue 3)")
-    return b
-
-
-def _bwd_frames(segment: bool) -> int:
-    return _kernels.temporal_bwd_max_frames(segment)
-
-
 def _core(clips, frames, length, num_heads, cuda: bool, segment=None):
     """The forward core the TPU kernels take at T frames: the masked-full
     core up to LONG_CLIP_T, the segment-sum core past it, unless
@@ -189,8 +187,7 @@ def fused_temporal_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 
 
 def _check(name, x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
-           num_frames, num_heads, kernel: bool = True,
-           max_frames: int = _kernels.TEMPORAL_FRAME_LIMIT) -> int:
+           num_frames, num_heads, kernel: bool = True) -> int:
     """Validate the arguments (with ``kernel``, also what the CUDA kernels
     take); returns the clip count."""
     d = x.shape[-1]
@@ -199,7 +196,7 @@ def _check(name, x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
         name, x, (ln_w, ln_b),
         ((w_qkv, (3 * d, d)), (w_out, (d, d)), (w1, (dh, d)), (w2, (d, dh))),
         ((b_qkv, 3 * d), (b_out, d), (b1, dh), (b2, d)), num_heads, kernel)
-    return _check_frames(name, x, num_frames, kernel, max_frames)
+    return _clips(x.shape[0], num_frames)
 
 
 def fused_temporal_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
@@ -274,8 +271,7 @@ def fused_temporal_step_bwd_dx(x, gate, ln_w, ln_b, w_qkv, b_qkv, w_out,
     """Train backward for the output cotangent ``g``: (dx, u, dpre, a, db).
     CPU tensors take the plain version; CUDA tensors launch the kernels."""
     args = (x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
-    _check("fused_temporal_step_bwd_dx", *args, num_frames, num_heads,
-           max_frames=_bwd_frames(segment=False))
+    _check("fused_temporal_step_bwd_dx", *args, num_frames, num_heads)
     check_gate("fused_temporal_step_bwd_dx", gate, x.shape[0], x)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("fused_temporal_step_bwd_dx: g must match x")
@@ -293,14 +289,14 @@ fused_temporal_step_bwd_dx.launches = 0
 
 
 def _check_ln_bwd(name, x, ln_w, ln_b, w_qkv, b_qkv, w_out, g, num_frames,
-                  num_heads, segment: bool) -> int:
+                  num_heads) -> int:
     """Validate an LN block backward's arguments; returns the clip count."""
     d = x.shape[-1]
     check_step_args(name, x, (ln_w, ln_b),
                     ((w_qkv, (3 * d, d)), (w_out, (d, d))), ((b_qkv, 3 * d),),
                     num_heads)
     check_cotangent(name, g, x)
-    return _check_frames(name, x, num_frames, True, _bwd_frames(segment))
+    return _clips(x.shape[0], num_frames)
 
 
 def _core_bwd(clips, frames, length, num_heads, cuda: bool, segment: bool,
@@ -333,7 +329,7 @@ def _ln_bwd(name, x, ln_w, ln_b, w_qkv, b_qkv, w_out, g, num_frames, num_heads,
     if plain:
         b = _clips(x.shape[0], num_frames)
     else:
-        b = _check_ln_bwd(name, *args, num_frames, num_heads, segment)
+        b = _check_ln_bwd(name, *args, num_frames, num_heads)
     cuda = not plain and x.device.type == "cuda"
     core = _core_bwd(b, num_frames, x.shape[1], num_heads, cuda, segment,
                      with_out=not dx_only)
@@ -477,7 +473,7 @@ def _train_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
     frozen = (ln_w, ln_b, w_qkv, b_qkv, w_out, b_out)
     segment = not use_full_core(num_frames)
     _check("fused_temporal_train_step", x, *frozen, w1, b1, w2, b2,
-           num_frames, num_heads, kernel=not plain, max_frames=_bwd_frames(segment))
+           num_frames, num_heads, kernel=not plain)
     check_gate("fused_temporal_train_step", gate, x.shape[0], x)
     check_frozen("fused_temporal_train_step", frozen)
     composition = not tstep_whole_cell_fits(num_frames, x.shape[-1])
@@ -552,31 +548,40 @@ def fused_temporal_train_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 
 
 def _check_block(name, x, w_qkv, b_qkv, w_out, num_frames, num_heads,
-                 vectors=(), kernel: bool = True, ln=(), max_frames=None) -> int:
-    """Validate a block's arguments; returns the clip count."""
+                 vectors=(), kernel: bool = True, ln=(), adapter=()) -> int:
+    """Validate a block's arguments (``adapter``: w1, w2 given); returns the
+    clip count."""
     d = x.shape[-1]
-    check_step_args(name, x, ln, ((w_qkv, (3 * d, d)), (w_out, (d, d))),
-                    ((b_qkv, 3 * d), *vectors), num_heads, kernel)
-    return _check_frames(name, x, num_frames, kernel,
-                         max_frames or _kernels.TEMPORAL_FRAME_LIMIT)
+    matrices = ((w_qkv, (3 * d, d)), (w_out, (d, d)))
+    if adapter:
+        dh = adapter[0].shape[0]
+        matrices += ((adapter[0], (dh, d)), (adapter[1], (d, dh)))
+    check_step_args(name, x, ln, matrices, ((b_qkv, 3 * d), *vectors), num_heads,
+                    kernel)
+    return _clips(x.shape[0], num_frames)
 
 
-def _block_plain(x2, w_qkv, b_qkv, w_out, b_out, clips, frames, length, num_heads):
+def _block_plain(x2, w_qkv, b_qkv, w_out, b_out, clips, frames, length, num_heads,
+                 f32: bool = False):
     """Rows (rows, D) -> (rows, D): q, k, v rounded after an fp32 bias add,
     the core's output rounded, the out-projection summed and biased in fp32,
-    then rounded."""
+    then rounded (unless ``f32``)."""
     dt = x2.dtype
     qkv = (mm32(x2, w_qkv) + b_qkv.float()).to(dt)
     o = _core(clips, frames, length, num_heads, cuda=False)(qkv)
-    return (mm32(o, w_out) + b_out.float()).to(dt)
+    y = mm32(o, w_out) + b_out.float()
+    return y if f32 else y.to(dt)
 
 
-def _block_cuda(x2, w_qkv, b_qkv, w_out, b_out, clips, frames, length, num_heads):
+def _block_cuda(x2, w_qkv, b_qkv, w_out, b_out, clips, frames, length, num_heads,
+                f32: bool = False):
     """The kernel chain of ``_block_plain``: the QKV GEMM (+bias, bf16 out),
-    the temporal core and the out-proj GEMM (+bias, bf16 out)."""
+    the temporal core and the out-proj GEMM (+bias, bf16 out; with ``f32``
+    the fp32 result and its bf16 copy)."""
     _, qkv = _kernels.gemm(x2, w_qkv, bias=b_qkv)
     core = _core(clips, frames, length, num_heads, cuda=True)
-    return _kernels.gemm(core(qkv), w_out, bias=b_out)[1]
+    y32, y16 = _kernels.gemm(core(qkv), w_out, bias=b_out, out_f32=f32)
+    return (y32, y16) if f32 else y16
 
 
 def fused_temporal_attention_plain(x, w_qkv, b_qkv, w_out, b_out,
@@ -639,7 +644,7 @@ def fused_temporal_attention_bwd(x, w_qkv, b_qkv, w_out, g, num_frames: int,
     core backward (which also writes o) and the (K, N) GEMM of dqkv through
     W_qkv."""
     b = _check_block("fused_temporal_attention_bwd", x, w_qkv, b_qkv, w_out,
-                     num_frames, num_heads, max_frames=_bwd_frames(segment=False))
+                     num_frames, num_heads)
     if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
         raise ValueError("fused_temporal_attention_bwd: g must match x")
     if x.device.type == "cpu":
@@ -814,3 +819,89 @@ def fused_ln_temporal_block_frozen_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_o
     backward on any device."""
     return _ln_block_frozen(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, num_frames,
                             num_heads, plain=True)
+
+
+# ---------------------------------------------------------------------------
+# The temporal adapter block ``Adapter(W_o · attn_T(x) + b_o)``
+# (``CLIPAttention(temporal_frames=t, adapter=a)``).
+
+
+def fused_temporal_attention_adapter_plain(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2,
+                                           b2, num_frames: int, num_heads: int,
+                                           adapter_skip: bool) -> torch.Tensor:
+    """Plain version with the TPU kernel's casts (``_kernel_with_adapter``
+    :386): the plain block's, its out-projection kept in fp32, then the
+    adapter epilogue (``adapter_epilogue_plain``)."""
+    bt, n, d = x.shape
+    b = _clips(bt, num_frames)
+    y = _block_plain(x.reshape(bt * n, d), w_qkv, b_qkv, w_out, b_out, b, num_frames,
+                     n, num_heads, f32=True)
+    return adapter_epilogue_plain(y, w1, b1, w2, b2, adapter_skip,
+                                  x.dtype).reshape(bt, n, d)
+
+
+def fused_temporal_attention_adapter(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                     num_frames: int, num_heads: int,
+                                     adapter_skip: bool) -> torch.Tensor:
+    """``Adapter(W_o · attn_T(x) + b_o)`` over x (B·T, N, D), with no LayerNorm
+    and no residual. CPU tensors take the plain version; CUDA tensors (bf16,
+    head dim 64) launch the kernels: the QKV GEMM, the temporal core (the
+    segment core past LONG_CLIP_T), the out-proj GEMM (fp32 y and its bf16
+    copy), the fc1 GEMM with the tanh GELU and the fc2 GEMM adding y with
+    ``adapter_skip``."""
+    d, dh = x.shape[-1], w1.shape[0]
+    b = _check_block("fused_temporal_attention_adapter", x, w_qkv, b_qkv, w_out,
+                     num_frames, num_heads, ((b_out, d), (b1, dh), (b2, d)),
+                     adapter=(w1, w2))
+    if x.device.type == "cpu":
+        return fused_temporal_attention_adapter_plain(
+            x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, num_frames, num_heads,
+            adapter_skip)
+    bt, n, _ = x.shape
+    y32, y16 = _block_cuda(x.view(bt * n, d), w_qkv, b_qkv, w_out, b_out, b, num_frames,
+                           n, num_heads, f32=True)
+    out = adapter_epilogue_cuda(y32, y16, w1, b1, w2, b2, adapter_skip)
+    fused_temporal_attention_adapter.launches += 1
+    return out.view(bt, n, d)
+
+
+fused_temporal_attention_adapter.launches = 0
+
+
+def temporal_adapter_block_xla(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                               num_frames: int, num_heads: int,
+                               adapter_skip: bool) -> torch.Tensor:
+    """``_ref_adapter_impl`` (:606): ``temporal_block_xla`` (the full softmax
+    at any T), then the adapter in fp32 (``adapter_xla``)."""
+    y = temporal_block_xla(x, w_qkv, b_qkv, w_out, b_out, num_frames, num_heads)
+    return adapter_xla(y, w1, b1, w2, b2, adapter_skip)
+
+
+def _adapter_block(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, num_frames,
+                   num_heads, adapter_skip, plain: bool):
+    fwd = fused_temporal_attention_adapter_plain if plain else fused_temporal_attention_adapter
+    return RecomputedVjp.apply(
+        lambda *a: fwd(*a, num_frames, num_heads, adapter_skip),
+        lambda *a: temporal_adapter_block_xla(*a, num_frames, num_heads, adapter_skip),
+        x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
+
+
+def fused_temporal_adapter_block(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                 num_frames: int, num_heads: int,
+                                 adapter_skip: bool) -> torch.Tensor:
+    """``Adapter(W_o·attn_T(x) + b_o)`` (JAX ``fused_temporal_adapter_block``
+    :620) differentiable in every input: the forward
+    ``fused_temporal_attention_adapter``, the backward the vector-Jacobian
+    product of ``temporal_adapter_block_xla`` recomputed (``_bwd_ad``
+    :636)."""
+    return _adapter_block(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, num_frames,
+                          num_heads, adapter_skip, plain=False)
+
+
+def fused_temporal_adapter_block_plain(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                                       num_frames: int, num_heads: int,
+                                       adapter_skip: bool) -> torch.Tensor:
+    """``fused_temporal_adapter_block`` with the plain forward on any
+    device."""
+    return _adapter_block(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2, num_frames,
+                          num_heads, adapter_skip, plain=True)

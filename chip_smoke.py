@@ -155,13 +155,41 @@ Phases, in order; any failure raises and exits non-zero:
      train_model (3 steps of 2 clips), launches checked, kernel vs plain
      path on the probabilities and on one train step, eval clips/s and
      peak memory at 4 clips, train clips/s and peak memory at 2 and 4 clips
-     and a profile of one step.
+     and a profile of one step;
+ 15. CLIPAttention's LN-only and adapter-only calls: rows 5
+     (fused_ln_qkv_attention), 6 (fused_qkv_attention_adapter, skip on and
+     off), 7 (fused_ln_qkv_attention_bwd: dx, dqkv, dy, y, o), 10
+     (fused_ln_qkv_attention_r at r = 1, 2, 3, 4, bit-equal to row 5) and
+     16 (fused_temporal_attention_adapter at T = 8, 32, 64) against their
+     plain versions at x (256, 197, 768) with 12 heads and ViT-L/14's (128,
+     257, 1024) with 16; their times at 32 clips of 8 frames (row 16 also
+     at 4 clips of 64) against plain and library (layer_norm and
+     multi_head_attention_forward for rows 5, 7, 10); then the layer path:
+     attn(x, ln=ln) unfrozen and frozen, attn(x, adapter=a) with skip on
+     and off and attn(x, temporal_frames=t, adapter=a) at T = 8, 32, 64 at
+     both widths, forward and backward, plus one call of row 10 at r = 2 a
+     width, launches checked against ops.layer_block_ops (row 7 at ViT-B,
+     the reference's VJP at ViT-L), kernel path vs plain path on the output,
+     dx and every gradient; and 3 AdamW steps of a 2-block stack of those
+     calls, the losses kernel vs plain;
+ 16. the temporal cores past their former frame bounds: one clip of 300
+     frames through the forwards of rows 2, 14, 15 and 23 (with u) and of
+     144 and 300 frames through the backwards of rows 17 to 22, each
+     against its plain version; the LN block's ops and the long-clip
+     forwards re-timed at 32 clips of 8 frames; then AIM ViT-B/16 at 144
+     frames (aim_base_k400.py, num_frames=144, each SampleFrames'
+     clip_len=144, frame_interval=2) through init_recognizer,
+     inference_recognizer, run_evaluation and train_model (two steps of one
+     clip), launches checked, kernel vs plain path on the probabilities and
+     on one train step of one clip, eval clips/s and peak memory at 2
+     clips, train clips/s and peak memory at 1 clip and a profile of one
+     step.
 Every driven model's kernel path holds the plain path's top-1 class; a
 400-class head gets a seeded class lead in its bias first
 (separate_classes), as seeded weights spread the classes so evenly that the
 top two can lie within the kernel-vs-plain gap.
 The line before the last is a JSON object with one entry per kernel, with
-its launches on the first of the fifteen paths above that runs it (path), and
+its launches on the first of the eighteen paths above that runs it (path), and
 its time (at 32 clips of 8 frames; the spatial block at 8 clips of the
 AIM_FLASH path's 32 frames; the composition's three ops at 4 clips of
 ViT-L/14's 32 frames; the flash core at (256, 12, 197, 64), 8 clips of
@@ -172,8 +200,8 @@ its products' FLOPs over the H100's dense bf16 rate and its bytes, each
 input read once and each output written once, over its memory rate); the
 gated temporal forward's entry also holds, under emit_u, its time with the
 u output at 4 clips of ViT-L/14's 32 frames, as the composition runs it, and
-the entries of rows 2, 14 and 23 hold under long_clip their times on the
-segment core at 4 clips of 64 frames; the last line is {"ok": true,
+the entries of rows 2, 14, 16 and 23 hold under long_clip their times on
+the segment core at 4 clips of 64 frames; the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -460,7 +488,10 @@ def plain_ops():
              (layers, "fused_temporal_train_step"), (aim, "fused_joint_train_block"),
              (layers, "fused_temporal_block"), (layers, "fused_attention_block"),
              (layers, "flash_attention_entry"), (layers, "fused_ln_temporal_block"),
-             (layers, "fused_ln_temporal_block_frozen")]
+             (layers, "fused_ln_temporal_block_frozen"), (layers, "fused_ln_attention_block"),
+             (layers, "fused_ln_attention_block_frozen"),
+             (layers, "fused_attention_adapter_block"),
+             (layers, "fused_temporal_adapter_block")]
     saved = [getattr(mod, name) for mod, name in names]
     for mod, name in names:
         setattr(mod, name, getattr(ops, name + "_plain"))
@@ -1421,6 +1452,8 @@ def drive_vitclip_flash_config():
 # phase 14: long clips (T > LONG_CLIP_T) and the LN temporal attention block
 
 LONG_FRAMES = 64
+# phase 16: past the frames the staged backward cores held (141 / 134)
+PAST_BOUND_FRAMES = 144
 # the ops of this slice and the long-clip forwards of rows 2, 14 and 23
 LONG_CLIP_OPS = ("fused_temporal_step", "fused_temporal_attention",
                  "fused_ln_temporal_attention", "fused_temporal_train_step",
@@ -1631,6 +1664,414 @@ def drive_ln_block():
     del got, want, inputs
     torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 15: CLIPAttention's LN-only and adapter-only calls (rows 5, 6, 7, 10
+# and 16)
+
+LAYER_OPS = ("fused_ln_qkv_attention", "fused_qkv_attention_adapter",
+             "fused_ln_qkv_attention_bwd", "fused_ln_qkv_attention_r",
+             "fused_temporal_attention_adapter")
+# the widths of phase 15: ViT-B/16 and ViT-L/14 tokens over 256 and 128 rows
+LAYER_WIDTHS = ((32, dict(tokens=TOKENS, width=WIDTH, heads=HEADS)),
+                (16, dict(tokens=LARGE["tokens"], width=LARGE["width"],
+                          heads=LARGE["heads"])))
+
+
+def layer_op_calls(clips, frames, seed, tokens=TOKENS, width=WIDTH, heads=HEADS, only=None):
+    """[(op, label, kernel call, plain call)] of rows 5, 6 (skip on and off),
+    7, 10 (r = 1, 2, 3, 4: 3 divides no batch here) and 16 (skip on and
+    off; the segment core past LONG_CLIP_T) on the same inputs at x =
+    (clips*frames, tokens, width); the ops of ``only`` if given."""
+    from adapt_image_models_torch import ops
+    x, ln, attn, _, g = composition_inputs(clips, seed, frames, tokens, width, heads)
+    a4 = attn[:4]
+    calls = [("fused_ln_qkv_attention", "",
+              lambda: ops.fused_ln_qkv_attention(x, *ln, *a4, heads),
+              lambda: ops.fused_ln_qkv_attention_plain(x, *ln, *a4, heads)),
+             ("fused_ln_qkv_attention_bwd", "",
+              lambda: ops.fused_ln_qkv_attention_bwd(x, *ln, *attn[:3], g, heads),
+              lambda: ops.fused_ln_qkv_attention_bwd_plain(x, *ln, *attn[:3], g, heads))]
+    for r in (1, 2, 3, 4):
+        calls.append(("fused_ln_qkv_attention_r", f" r={r}",
+                      lambda r=r: ops.fused_ln_qkv_attention_r(x, *ln, *a4, heads, r),
+                      lambda: ops.fused_ln_qkv_attention_plain(x, *ln, *a4, heads)))
+    for skip in (True, False):
+        calls.append(("fused_qkv_attention_adapter", f" skip={skip}",
+                      lambda s=skip: ops.fused_qkv_attention_adapter(x, *attn, heads, s),
+                      lambda s=skip: ops.fused_qkv_attention_adapter_plain(x, *attn, heads,
+                                                                            s)))
+        calls.append(("fused_temporal_attention_adapter", f" skip={skip}",
+                      lambda s=skip: ops.fused_temporal_attention_adapter(
+                          x, *attn, frames, heads, s),
+                      lambda s=skip: ops.fused_temporal_attention_adapter_plain(
+                          x, *attn, frames, heads, s)))
+    return [c for c in calls if only is None or c[0] in only]
+
+
+def layer_op_checks(shape, clips, frames, seed, errors, only=None, **geom):
+    """Each call of ``layer_op_calls`` against its plain version, one launch
+    counted each; row 10 also bit-equal to row 5's kernel. Returns the
+    names of what disagreed."""
+    import torch
+    from adapt_image_models_torch import ops
+    failures, row5 = [], None
+    for op, label, kernel, plain in layer_op_calls(clips, frames, seed, only=only, **geom):
+        fn = ops.KERNEL_OPS[op][0]
+        before = fn.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if fn.launches != before + 1:
+            raise AssertionError(f"{op}: launch counter did not move")
+        want = plain()
+        if op == "fused_ln_qkv_attention_bwd":
+            log(f"  {op}:")
+            err = 0.0
+            for name, a, b in zip(("dx", "dqkv", "dy", "y", "o"), got, want):
+                e, ok = compare_grad(name, a, b)
+                err = max(err, e) if name == "dx" else err
+                if not ok:
+                    failures.append(f"{op} {name} at {shape}")
+        else:
+            err = compare(op + label, got, want)
+            if op == "fused_ln_qkv_attention":
+                row5 = got
+            elif op == "fused_ln_qkv_attention_r" and not torch.equal(got, row5):
+                failures.append(f"{op}{label} is not row 5's output bit for bit at {shape}")
+        errors[op] = max(err, errors.get(op, 0.0))
+        del got, want
+    torch.cuda.empty_cache()
+    return failures
+
+
+def layer_op_timings(clips, frames, seed, only=None):
+    """Kernel and plain times (plain-kernel-kernel-plain, median of 10 / 5)
+    of rows 5, 6 (skip on), 7, 10 (r = 2) and 16 (skip on), or those of
+    ``only``, at x = (clips*frames, 197, 768), T = ``frames`` for row 16,
+    and the library calls of rows 5, 7 and 10 (layer_norm and
+    multi_head_attention_forward on the (L, B, D) view: forward; backward
+    alone, for dx). Returns ({op: (kernel ms, plain ms)}, {op: library
+    ms})."""
+    import torch
+    times = {}
+    with torch.no_grad():
+        for op, label, kernel, plain in layer_op_calls(clips, frames, seed, only=only):
+            if label not in ("", " r=2", " skip=True"):
+                continue
+            t = (cuda_ms(plain, iters=5), cuda_ms(kernel, iters=10),
+                 cuda_ms(kernel, iters=10), cuda_ms(plain, iters=5))
+            times[op] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    library = {}
+    if only is None:
+        x, ln, attn, _, g = composition_inputs(clips, seed, frames, TOKENS, WIDTH, HEADS)
+        _, bwd, fwd, _ = library_bwd_dx(x, ln, attn, g, WIDTH, HEADS,
+                                        lambda a: a.transpose(0, 1).contiguous())
+        library = {"fused_ln_qkv_attention": fwd, "fused_ln_qkv_attention_bwd": bwd,
+                   "fused_ln_qkv_attention_r": fwd}
+        del x, g
+    shape = f"x=({clips * frames}, {TOKENS}, {WIDTH}), T={frames}"
+    for op, (k_ms, p_ms) in times.items():
+        b_ms, b_by = bound(op, clips, frames)
+        lib = library.get(op)
+        log(f"  {op} at {shape}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}), library {'none' if lib is None else f'{lib:.3f} ms'}")
+    torch.cuda.empty_cache()
+    return times, library
+
+
+# CLIPAttention's four calls short of the whole step, under "fused": (label,
+# layer_block_ops call, frozen_backward, adapter skip, temporal frames)
+LAYER_CALLS = (("ln", "ln", False, None, None), ("ln frozen", "ln_frozen", True, None, None),
+               ("adapter skip", "adapter", False, True, None),
+               ("adapter", "adapter", False, False, None),
+               ("temporal adapter T=8", "temporal_adapter", False, False, 8),
+               ("temporal adapter T=32", "temporal_adapter", False, True, 32),
+               ("temporal adapter T=64", "temporal_adapter", False, False, 64))
+
+
+def _attention_layer(width, heads, seed):
+    """A seeded CLIPAttention under "fused" with an LN and two adapters
+    (skip on, skip off) whose D_fc2 are not zero."""
+    import torch
+    from adapt_image_models_torch.models.layers import Adapter, CLIPAttention, LayerNormFP32
+    gen = torch.Generator().manual_seed(seed)
+    attn = CLIPAttention(width, heads, torch.bfloat16, "fused", device="cuda")
+    attn.init_weights(gen)
+    ln = LayerNormFP32(width, device="cuda")
+    adapters = {}
+    for skip in (True, False):
+        a = Adapter(width, skip_connect=skip, device="cuda")
+        a.init_weights(gen)
+        adapters[skip] = a
+    with torch.no_grad():
+        ln.weight.copy_(1 + 0.1 * torch.randn(width, generator=gen))
+        ln.bias.copy_(0.1 * torch.randn(width, generator=gen))
+        for a in adapters.values():
+            a.D_fc2.weight.copy_(0.02 * torch.randn(a.D_fc2.weight.shape, generator=gen))
+    return attn, ln, adapters
+
+
+def drive_attention_layer():
+    """The layer path of this slice: ``CLIPAttention`` on seeded weights at
+    ViT-B/16 width, x = (256, 197, 768), and at ViT-L/14's, (128, 257,
+    1024), forward and backward in each of LAYER_CALLS, every parameter
+    requiring grad, and at each width one call of row 10 (r = 2), the op
+    no layer reaches; the run's launches checked against
+    ``ops.layer_block_ops`` (at ViT-B row 7 serves the LN block's backward,
+    at ViT-L the reference's vector-Jacobian product). Then the same runs
+    under plain_ops: output, dx and every gradient kernel vs plain. Returns
+    the launches."""
+    import torch
+    from adapt_image_models_torch import ops
+    layers_at = []
+    for clips, geom in LAYER_WIDTHS:
+        w, h, n = geom["width"], geom["heads"], geom["tokens"]
+        attn, ln, adapters = _attention_layer(w, h, 1500 + w)
+        gen = torch.Generator().manual_seed(1501 + w)
+        x = torch.randn(clips * FRAMES, n, w, generator=gen).to("cuda", torch.bfloat16)
+        g = torch.randn(x.shape, generator=gen).to("cuda", torch.bfloat16)
+        layers_at.append((geom, attn, ln, adapters, x, g))
+
+    def run(row10):
+        results = []
+        for geom, attn, ln, adapters, x, g in layers_at:
+            for label, _, frozen, skip, frames in LAYER_CALLS:
+                attn.frozen_backward = frozen
+                mods = [attn] + ([ln] if skip is None else [adapters[skip]])
+                params = [p for m in mods for p in m.parameters()]
+                for p in params:
+                    p.grad = None
+                xx = x.detach().clone().requires_grad_()
+                kwargs = (dict(ln=ln) if skip is None else
+                          dict(adapter=adapters[skip], temporal_frames=frames))
+                out = attn(xx, **kwargs)
+                out.backward(g)
+                results.append([out.detach(), xx.grad] + [p.grad for p in params])
+            weights = [p.detach().to(torch.bfloat16) for p in attn.parameters()]
+            args = (x, ln.weight.detach(), ln.bias.detach(), *weights, geom["heads"])
+            results.append([ops.fused_ln_qkv_attention_r(*args, 2) if row10
+                            else ops.fused_ln_qkv_attention_plain(*args)])
+        torch.cuda.synchronize()
+        return results
+
+    ops.reset_launch_counts()  # this path's run starts here
+    got = run(row10=True)
+    launches = ops.launch_counts()  # ... and ends here
+    expected = {"fused_ln_qkv_attention_r": len(LAYER_WIDTHS)}
+    for _, geom in LAYER_WIDTHS:
+        for _, call, _, _, _ in LAYER_CALLS:
+            for op in ops.layer_block_ops(call, geom["tokens"], geom["width"]):
+                if op is not None:
+                    expected[op] = expected.get(op, 0) + 1
+    check_launches("CLIPAttention layer path (ViT-B/16 and ViT-L/14 widths, "
+                   f"{[c[0] for c in LAYER_CALLS]}, row 10 at r=2)", launches, expected)
+    with plain_ops():
+        want = run(row10=False)
+    failures, k = [], 0
+    for geom, *_ in layers_at:
+        for label, _, frozen, skip, frames in LAYER_CALLS:
+            log(f"  CLIPAttention({label}) at width {geom['width']}, {geom['tokens']} "
+                "tokens, kernel vs plain:")
+            compare("out", got[k][0], want[k][0])
+            for i, (a, b) in enumerate(zip(got[k][1:], want[k][1:])):
+                name = "dx" if i == 0 else f"grad {i}"
+                if frozen and i > 0:
+                    if a.any():
+                        failures.append(f"{name} of {label} frozen: not zero")
+                    continue
+                if not compare_grad(name, a, b)[1]:
+                    failures.append(f"{name} of {label} at width {geom['width']}")
+            k += 1
+        compare(f"fused_ln_qkv_attention_r r=2 at width {geom['width']}", got[k][0],
+                want[k][0])
+        k += 1
+    if failures:
+        raise AssertionError(f"the CLIPAttention layer path disagrees: {failures}")
+    del got, want, layers_at
+    torch.cuda.empty_cache()
+    return launches
+
+
+def train_layer_stack(steps=3, seed=1510):
+    """A few AdamW steps of a small stack of the layer's calls, kernel path
+    against plain path from the same weights and batches: two residual
+    blocks, each x + attn(x, ln=ln), x + attn(x, adapter=a) and x +
+    attn(x, temporal_frames=8, adapter=a) at ViT-B/16 width on 2 clips of
+    8 frames; the loss (mean square of the output) within LOSS_RTOL."""
+    import copy
+    import torch
+    from torch import nn
+
+    class Block(nn.Module):
+        def __init__(self, k):
+            super().__init__()
+            self.attn, self.ln, adapters = _attention_layer(WIDTH, HEADS, seed + k)
+            self.s_adapter, self.t_adapter = adapters[True], adapters[False]
+
+        def forward(self, x):
+            x = x + self.attn(x, ln=self.ln)
+            x = x + self.attn(x, adapter=self.s_adapter)
+            return x + self.attn(x, temporal_frames=FRAMES, adapter=self.t_adapter)
+
+    stack = nn.Sequential(Block(1), Block(2))
+    gen = torch.Generator().manual_seed(seed)
+    batches = [torch.randn(2 * FRAMES, TOKENS, WIDTH, generator=gen).to("cuda", torch.bfloat16)
+               for _ in range(steps)]
+
+    def train(model):
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
+        losses = []
+        for x in batches:
+            opt.zero_grad()
+            loss = model(x).float().square().mean()
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())
+        return losses
+
+    plain_stack = copy.deepcopy(stack)
+    kernel_losses = train(stack)
+    with plain_ops():
+        plain_losses = train(plain_stack)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(kernel_losses, plain_losses))
+    log(f"  {steps} AdamW steps of a 2-block stack of the layer's LN, adapter and "
+        f"temporal adapter calls: losses kernel {[round(v, 6) for v in kernel_losses]} vs "
+        f"plain {[round(v, 6) for v in plain_losses]}, max relative gap {rel:.3e} "
+        f"(tol {LOSS_RTOL})")
+    if not rel < LOSS_RTOL:
+        raise AssertionError("the layer stack's train steps disagree kernel vs plain")
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the temporal cores past their former frame bounds
+
+PAST_BOUND_FORWARDS = ("fused_temporal_step", "fused_temporal_attention",
+                       "fused_ln_temporal_attention", "fused_temporal_train_step")
+PAST_BOUND_BACKWARDS = ("fused_ln_temporal_attention_bwd", "fused_temporal_attention_bwd",
+                        "fused_ln_temporal_attention_bwd_segment",
+                        "fused_ln_temporal_attention_bwd_dx_segment",
+                        "fused_ln_temporal_attention_bwd_dx", "fused_temporal_step_bwd_dx")
+
+
+def past_bound_checks(frames, seed, errors, forwards):
+    """One clip of ``frames`` frames at ViT-B/16 width: the forwards of rows
+    2, 14, 15 and 23 (with u) when ``forwards``, and the backwards of rows
+    17 to 22 (dx, and dqkv, dy, y, o where the op returns them; dx of the
+    whole-step backward), each against its plain version. Returns the
+    names of what disagreed."""
+    import torch
+    from adapt_image_models_torch import ops
+    x, ln, attn, g, calls = long_clip_calls(1, frames, seed)
+    gate = torch.where(torch.arange(frames) % 5 == 2, 0.0, 1 / KEEP).cuda()
+    a3 = attn[:3]
+    if forwards:
+        calls = {op: calls[op] for op in PAST_BOUND_FORWARDS}
+    else:
+        calls = {op: calls[op] for op in (PAST_BOUND_BACKWARDS[0], *PAST_BOUND_BACKWARDS[2:4])}
+        for op, args in (("fused_temporal_attention_bwd", (x, *a3, g)),
+                         ("fused_ln_temporal_attention_bwd_dx", (x, *ln, *a3, g))):
+            calls[op] = (lambda op=op, a=args: getattr(ops, op)(*a, frames, HEADS),
+                         lambda op=op, a=args: getattr(ops, op + "_plain")(*a, frames, HEADS))
+        args = (x, gate, *ln, *attn, g, frames, HEADS, False)
+        calls["fused_temporal_step_bwd_dx"] = (
+            lambda: ops.fused_temporal_step_bwd_dx(*args)[0],
+            lambda: ops.fused_temporal_step_bwd_dx_plain(*args)[0])
+    failures = []
+    for op, (kernel, plain) in calls.items():
+        fn = ops.KERNEL_OPS[op][0]
+        before = fn.launches
+        got = kernel()
+        torch.cuda.synchronize()
+        if fn.launches != before + 1:
+            raise AssertionError(f"{op}: launch counter did not move")
+        want = plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        if forwards:
+            err = max(compare(f"{op} {name} at T={frames}", a, b)
+                      for name, a, b in zip(("out", "u"), got, want))
+        else:
+            log(f"  {op} at T={frames}:")
+            err = 0.0
+            for name, a, b in zip(("dx", "dqkv", "dy", "y", "o"), got, want):
+                e, ok = compare_grad(name, a, b)
+                err = max(err, e) if name == "dx" else err
+                if not ok:
+                    failures.append(f"{op} {name} at T={frames}")
+        errors[op] = max(err, errors.get(op, 0.0))
+        del got, want
+    del x, g, calls
+    torch.cuda.empty_cache()
+    return failures
+
+
+def phase_15(card, errors, op_ms, library_ms):
+    """Phase 15 (see the module docstring): the ops' checks into
+    ``errors``, their times into ``op_ms`` and ``library_ms``, the layer
+    path and the layer stack's train steps. Returns (the layer path's
+    launches, row 16's times at 4 clips of 64 frames)."""
+    failures = []
+    for clips, geom in LAYER_WIDTHS:
+        for frames, only in ((FRAMES, None), (32, ("fused_temporal_attention_adapter",)),
+                             (LONG_FRAMES, ("fused_temporal_attention_adapter",))):
+            c = clips * FRAMES // frames
+            shape = (f"x=({c * frames}, {geom['tokens']}, {geom['width']}) bf16, "
+                     f"{geom['heads']} heads, T={frames}")
+            log(f"phase 15: rows {'5, 6, 7, 10 and 16' if only is None else '16'} at {shape}")
+            failures += layer_op_checks(shape, c, frames, 1500 + frames, errors, only=only,
+                                        **geom)
+    if failures:
+        raise AssertionError(f"the layer path's kernels disagree with their plain versions: "
+                             f"{failures}")
+    log(f"phase 15: timings on {card}")
+    times, library = layer_op_timings(32, FRAMES, 1520)
+    op_ms.update(times)
+    library_ms.update(library)
+    layer_long, _ = layer_op_timings(4, LONG_FRAMES, 1521,
+                                     only=("fused_temporal_attention_adapter",))
+    log("phase 15: CLIPAttention(ln=), (ln=) frozen, (adapter=) and (temporal_frames=t, "
+        "adapter=) at ViT-B/16 and ViT-L/14 widths, forward and backward")
+    layer_launches = drive_attention_layer()
+    train_layer_stack()
+    return layer_launches, layer_long
+
+
+def phase_16(card, errors):
+    """Phase 16 (see the module docstring): the checks past the former
+    frame bounds into ``errors``, the re-timing at 8 frames and AIM
+    ViT-B/16 at 144 frames. Returns that path's (eval, train) launches."""
+    import torch
+    failures = []
+    for frames in (144, 300):
+        log(f"phase 16: the temporal ops at one clip of {frames} frames, "
+            f"x=({frames}, {TOKENS}, {WIDTH}) bf16, {HEADS} heads")
+        if frames == 300:
+            failures += past_bound_checks(frames, 1600, errors, forwards=True)
+        failures += past_bound_checks(frames, 1601 + frames, errors, forwards=False)
+    if failures:
+        raise AssertionError(f"the temporal cores disagree past their former bounds: "
+                             f"{failures}")
+    log(f"phase 16: the LN block's ops and the long-clip forwards re-timed at 32 clips of "
+        f"{FRAMES} frames on {card}")
+    long_clip_timings(32, FRAMES, 1610)
+    label = f"ViT-B/16 {PAST_BOUND_FRAMES}f"
+    # two steps of train_model: the adapters' zero-initialised D_fc2 leaves
+    # D_fc1's bias without a gradient in the first, and every trainable
+    # tensor must move
+    cfg, model, eval_launches, train_launches, classes = drive_path(
+        label, LONG_CONFIG, layers=12, eval_videos=1, eval_batch=1, train_clips=1, steps=2,
+        prob_atol=LARGE_PROB_ATOL, seed=16,
+        options=[f"model.backbone.num_frames={PAST_BOUND_FRAMES}"],
+        clip=(PAST_BOUND_FRAMES, 2), phase="phase 16")
+    log(f"  {label} timings on {card}")
+    eval_timing(label, model, 2, PAST_BOUND_FRAMES)
+    weights = model.state_dict()
+    del model
+    torch.cuda.empty_cache()
+    train_timings(cfg, weights, classes, label, batches=(1,), xla_batches=())
+    del weights
+    torch.cuda.empty_cache()
+    return eval_launches, train_launches
 
 
 def main():
@@ -2403,6 +2844,12 @@ def main():
     del weights_64
     torch.cuda.empty_cache()
 
+    # ---- phase 15: CLIPAttention's LN-only and adapter-only calls ---------
+    layer_launches, layer_long = phase_15(card, errors, op_ms, library_ms)
+
+    # ---- phase 16: the temporal cores past their former frame bounds ------
+    long144_launches, long144_train_launches = phase_16(card, errors)
+
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
                           "fused_temporal_train_step", "fused_temporal_step_bwd_dx",
@@ -2413,7 +2860,9 @@ def main():
     for op in ("fused_ln_temporal_attention", "fused_ln_temporal_attention_bwd_segment",
                "fused_ln_temporal_attention_bwd_dx_segment"):
         sources[op] = "adapt_image_models_torch/csrc/temporal_segment.cu"
-    # each op's launches on the first of the fifteen paths that runs it
+    for op in LAYER_OPS:
+        sources[op] = "adapt_image_models_torch/csrc/attention.cu"
+    # each op's launches on the first of the eighteen paths that runs it
     counts = {}
     for path, run in (("flagship eval", launches), ("flagship train", train_launches),
                       ("SSv2 eval", ssv2_launches), ("SSv2 train", ssv2_train_launches),
@@ -2427,7 +2876,10 @@ def main():
                       ("ViT_CLIP B/16 32f train", vc_train_launches),
                       ("ViT-B/16 64f eval", long64_launches),
                       ("ViT-B/16 64f train", long64_train_launches),
-                      ("LN temporal block layer", ln_launches)):
+                      ("LN temporal block layer", ln_launches),
+                      ("CLIPAttention layer path", layer_launches),
+                      ("ViT-B/16 144f eval", long144_launches),
+                      ("ViT-B/16 144f train", long144_train_launches)):
         counts.update({op: (path, n) for op, n in run.items() if n and op not in counts})
     kernels = []
     for op in ops.KERNEL_OPS:
@@ -2466,6 +2918,12 @@ def main():
                 shape=f"x=({4 * LONG_FRAMES}, {TOKENS}, {WIDTH}), T={LONG_FRAMES}",
                 ms=long_times[op][0], plain_ms=long_times[op][1], bound_ms=b_ms,
                 bound_by=b_by, library_ms=long_library.get(op))
+        if op == "fused_temporal_attention_adapter":  # row 16 on the segment core
+            b_ms, b_by = bound(op, 4, LONG_FRAMES)
+            kernels[-1]["long_clip"] = dict(
+                shape=f"x=({4 * LONG_FRAMES}, {TOKENS}, {WIDTH}), T={LONG_FRAMES}",
+                ms=layer_long[op][0], plain_ms=layer_long[op][1], bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

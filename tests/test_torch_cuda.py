@@ -14,8 +14,13 @@ ViT-L geometry (257 tokens, 16 heads, T=32).
 
 Past LONG_CLIP_T = 32 frames the temporal forwards run the segment core,
 checked at 33, 48 and 64 frames, and the LN temporal block's backwards
-(rows 17, 19, 20) up to 128 frames; beyond what a core serves the ops
-refuse.
+(rows 17, 19, 20) up to 128 frames; every temporal core serves any T, so
+the forwards (rows 2, 14, 15, 23) and the backwards (rows 17 to 22) are
+also held at 144 and 300 frames, past the former shared-memory bounds.
+
+The LN-only and adapter-only attention blocks of ``CLIPAttention``
+(rows 5, 6, 7, 10 and 16) are held op by op, row 10 at r = 1, 2, 4 and at
+a batch that r does not divide, and through their autograd ops.
 
 The train ops are checked forward and backward (output, dx and the
 adapter cotangents), with drop-path gates that hold zeros and 1/keep; the
@@ -140,8 +145,8 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
     for t in (33, 64):  # past LONG_CLIP_T: the segment core
         xt = x[:1].repeat(2 * t, 1, 1)
         _check(fused_temporal_step, fused_temporal_step_plain, xt, w, b, ws, t, 2, False)
-    with pytest.raises(NotImplementedError):  # more frames than the core serves
-        fused_temporal_step(x[:1].repeat(257, 1, 1), w, b, *ws, 257, 2, False)
+    xt = x[:1].repeat(300, 1, 1)  # one clip past 256 frames: no frame bound
+    _check(fused_temporal_step, fused_temporal_step_plain, xt, w, b, ws, 300, 2, False)
 
 
 def _train_check(fwd_op, plain, bwd_op, x, ln_w, ln_b, weights, gate, *rest, op=None):
@@ -298,9 +303,11 @@ def test_composition_ops_refuse_what_they_do_not_take(cuda):
               fused_ln_temporal_attention_bwd_dx_plain(xt, w, b, *ws[:3], gt, t, 2),
               fused_ln_temporal_attention_bwd_dx_plain(
                   xt.float(), w, b, *(a.float() for a in ws[:3]), gt.float(), t, 2))
-    with pytest.raises(NotImplementedError):  # more frames than its core's shared memory
-        fused_ln_temporal_attention_bwd_dx(x[:1].repeat(142, 1, 1), w, b, *ws[:3],
-                                           g[:1].repeat(142, 1, 1), 142, 2)
+    xt, gt = x[:1].repeat(144, 1, 1), g[:1].repeat(144, 1, 1)  # no frame bound
+    _held("dx", fused_ln_temporal_attention_bwd_dx(xt, w, b, *ws[:3], gt, 144, 2),
+          fused_ln_temporal_attention_bwd_dx_plain(xt, w, b, *ws[:3], gt, 144, 2),
+          fused_ln_temporal_attention_bwd_dx_plain(
+              xt.float(), w, b, *(a.float() for a in ws[:3]), gt.float(), 144, 2))
     with pytest.raises(ValueError):  # a gate on the host
         fused_spatial_step_gated(x, torch.ones(4), w, b, *ws, 2, True)
 
@@ -394,8 +401,10 @@ def test_temporal_block_refuses_what_it_does_not_take(cuda):
               fused_temporal_attention_plain(xt, *ws[:4], t, 2),
               fused_temporal_attention_plain(xt.float(), *(a.float() for a in ws[:4]),
                                              t, 2))
-    with pytest.raises(NotImplementedError):  # more frames than the core serves
-        fused_temporal_attention(x[:1].repeat(257, 1, 1), *ws[:4], 257, 2)
+    xt = x[:1].repeat(300, 1, 1)  # one clip past 256 frames: no frame bound
+    _held("out", fused_temporal_attention(xt, *ws[:4], 300, 2),
+          fused_temporal_attention_plain(xt, *ws[:4], 300, 2),
+          fused_temporal_attention_plain(xt.float(), *(a.float() for a in ws[:4]), 300, 2))
     with pytest.raises(ValueError):  # a cotangent unlike x
         fused_temporal_attention_bwd(x, *ws[:3], x.float(), 2, 2)
 
@@ -532,3 +541,146 @@ def test_flash_core_refuses_what_it_does_not_take(cuda):
         ops.flash_attention_core(q[..., :32], k[..., :32], v[..., :32])
     with pytest.raises(ValueError):  # q and k of other lengths
         ops.flash_attention_core(q, k[:, :, :5], v[:, :, :5])
+
+
+@pytest.mark.parametrize("t", [144, 300])
+def test_temporal_cores_past_the_former_frame_bounds(cuda, t):
+    """One clip of T = 144 and 300 frames (the backward cores staged at most
+    141 / 134 frames, the forward cores 256): the forwards of rows 2, 14,
+    15 and 23 (with u) and the backwards of rows 17 to 22, each against
+    its plain version and the unrounded result."""
+    x, w, b, ws = _args(cuda, t, 9, 128, 32, 40)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(41)).to(x)
+    f32 = [a.float() for a in ws]
+    _check(fused_temporal_step, fused_temporal_step_plain, x, w, b, ws, t, 2, True)
+    gate = _gate(cuda, t)
+    got = fused_temporal_step_gated(x, gate, w, b, *ws, t, 2, False, emit_u=True)
+    for name, k, p, e in zip(
+            ("out", "u"), got, fused_temporal_step_plain(x, w, b, *ws, t, 2, False, gate, True),
+            fused_temporal_step_plain(x.float(), w, b, *f32, t, 2, False, gate, True)):
+        _held(name, k, p, e)
+    for op, args, args32 in (
+            (ops.fused_temporal_attention, (x, *ws[:4]), (x.float(), *f32[:4])),
+            (ops.fused_ln_temporal_attention, (x, w, b, *ws[:4]), (x.float(), w, b, *f32[:4])),
+            (ops.fused_temporal_attention_bwd, (x, *ws[:3], g), (x.float(), *f32[:3], g.float())),
+            (ops.fused_ln_temporal_attention_bwd, (x, w, b, *ws[:3], g),
+             (x.float(), w, b, *f32[:3], g.float())),
+            (ops.fused_ln_temporal_attention_bwd_segment, (x, w, b, *ws[:3], g),
+             (x.float(), w, b, *f32[:3], g.float())),
+            (ops.fused_ln_temporal_attention_bwd_dx_segment, (x, w, b, *ws[:3], g),
+             (x.float(), w, b, *f32[:3], g.float())),
+            (ops.fused_ln_temporal_attention_bwd_dx, (x, w, b, *ws[:3], g),
+             (x.float(), w, b, *f32[:3], g.float())),
+            (ops.fused_temporal_step_bwd_dx, (x, gate, w, b, *ws, g),
+             (x.float(), gate, w, b, *f32, g.float()))):
+        plain = getattr(ops, op.__name__ + "_plain")
+        rest = (t, 2, False) if op is ops.fused_temporal_step_bwd_dx else (t, 2)
+        before = op.launches
+        got = op(*args, *rest)
+        torch.cuda.synchronize()
+        assert op.launches == before + 1, op.__name__
+        want, exact = plain(*args, *rest), plain(*args32, *rest)
+        if isinstance(got, torch.Tensor):
+            got, want, exact = (got,), (want,), (exact,)
+        if op is ops.fused_temporal_step_bwd_dx:  # (dx, u, dpre, a, db)
+            got, want, exact = got[:4], want[:4], exact[:4]
+        for k, (a, p, e) in enumerate(zip(got, want, exact)):
+            _held(f"{op.__name__} {k}", a, p, e)
+
+
+@pytest.mark.parametrize("n,heads", [(17, 2), (197, 12), (257, 16)])
+def test_spatial_ln_and_adapter_ops_match_plain(cuda, n, heads):
+    """Rows 5 (the LN block forward), 7 (its backward: dx, dqkv, dy, y, o),
+    10 (row 5 over groups of r samples, r = 1, 2, 4 and 4 on a batch of 6,
+    bit-equal to row 5) and 6 (the adapter block, skip on and off)."""
+    x, w, b, ws = _args(cuda, 6, n, 64 * heads, 16 * heads, 42)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(43)).to(x)
+    f32 = [a.float() for a in ws]
+    ln_args, ln32 = (x, w, b, *ws[:4]), (x.float(), w, b, *f32[:4])
+    before = ops.fused_ln_qkv_attention.launches
+    out = ops.fused_ln_qkv_attention(*ln_args, heads)
+    torch.cuda.synchronize()
+    assert ops.fused_ln_qkv_attention.launches == before + 1
+    _held("row 5", out, ops.fused_ln_qkv_attention_plain(*ln_args, heads),
+          ops.fused_ln_qkv_attention_plain(*ln32, heads))
+    for r in (1, 2, 4):
+        got = ops.fused_ln_qkv_attention_r(*ln_args, heads, r)
+        torch.cuda.synchronize()
+        assert torch.equal(got, out), r
+    before = ops.fused_ln_qkv_attention_bwd.launches
+    got = ops.fused_ln_qkv_attention_bwd(x, w, b, *ws[:3], g, heads)
+    torch.cuda.synchronize()
+    assert ops.fused_ln_qkv_attention_bwd.launches == before + 1
+    for name, k, p, e in zip(("dx", "dqkv", "dy", "y", "o"), got,
+                             ops.fused_ln_qkv_attention_bwd_plain(x, w, b, *ws[:3], g, heads),
+                             ops.fused_ln_qkv_attention_bwd_plain(
+                                 x.float(), w, b, *f32[:3], g.float(), heads)):
+        _held(f"row 7 {name}", k, p, e)
+    for skip in (True, False):
+        before = ops.fused_qkv_attention_adapter.launches
+        got = ops.fused_qkv_attention_adapter(x, *ws, heads, skip)
+        torch.cuda.synchronize()
+        assert ops.fused_qkv_attention_adapter.launches == before + 1
+        _held(f"row 6 skip={skip}", got,
+              ops.fused_qkv_attention_adapter_plain(x, *ws, heads, skip),
+              ops.fused_qkv_attention_adapter_plain(x.float(), *f32, heads, skip))
+
+
+@pytest.mark.parametrize("t,heads", [(8, 12), (33, 2), (64, 16)])
+def test_temporal_adapter_op_matches_plain(cuda, t, heads):
+    """Row 16, the temporal adapter block's forward, on the full core (T =
+    8) and the segment core (33, 64), skip on and off."""
+    x, _, _, ws = _args(cuda, 2 * t, 37, 64 * heads, 16 * heads, 44)
+    f32 = [a.float() for a in ws]
+    for skip in (True, False):
+        before = ops.fused_temporal_attention_adapter.launches
+        got = ops.fused_temporal_attention_adapter(x, *ws, t, heads, skip)
+        torch.cuda.synchronize()
+        assert ops.fused_temporal_attention_adapter.launches == before + 1
+        _held(f"row 16 skip={skip}", got,
+              ops.fused_temporal_attention_adapter_plain(x, *ws, t, heads, skip),
+              ops.fused_temporal_attention_adapter_plain(x.float(), *f32, t, heads, skip))
+
+
+@pytest.mark.parametrize("block,n,heads", [
+    ("ln", 197, 12), ("ln", 257, 16), ("ln_frozen", 197, 12), ("adapter", 197, 12),
+    ("temporal_adapter", 37, 12)])
+def test_layer_blocks_autograd_match_plain(cuda, block, n, heads):
+    """The four autograd ops of ``CLIPAttention``'s LN-only and adapter-only
+    calls (the LN block at ViT-B takes row 7, at ViT-L the reference's
+    vector-Jacobian product; the frozen one row 9; the adapter blocks the
+    reference's) against their plain versions: output, dx and every weight
+    cotangent, the launches as ``ops.layer_block_ops`` names them."""
+    t = 8
+    x, w, b, ws = _args(cuda, 2 * t if block == "temporal_adapter" else 4, n, 64 * heads,
+                        16 * heads, 45)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(46)).to(x)
+    if block in ("ln", "ln_frozen"):
+        op = (ops.fused_ln_attention_block_frozen if block == "ln_frozen"
+              else ops.fused_ln_attention_block)
+        inputs, rest = (x, w, b, *ws[:4]), (heads,)
+    elif block == "adapter":
+        op, inputs, rest = ops.fused_attention_adapter_block, (x, *ws), (heads, True)
+    else:
+        op, inputs, rest = ops.fused_temporal_adapter_block, (x, *ws), (t, heads, False)
+    plain = getattr(ops, op.__name__ + "_plain")
+
+    def run(fn, dtype):
+        leaves = [a.detach().to(dtype if a.dtype == torch.bfloat16 else a.dtype)
+                  .clone().requires_grad_() for a in inputs]
+        out = fn(*leaves, *rest)
+        out.backward(g.to(dtype))
+        return [out.detach()] + [a.grad for a in leaves]
+
+    ops.reset_launch_counts()
+    got = run(op, torch.bfloat16)
+    torch.cuda.synchronize()
+    fwd, bwd = ops.layer_block_ops(block, n, 64 * heads)
+    assert ops.launch_counts() == {k: int(k == fwd) + int(k == bwd)
+                                   for k in ops.KERNEL_OPS}, ops.launch_counts()
+    for k, (a, p, e) in enumerate(zip(got, run(plain, torch.bfloat16),
+                                      run(plain, torch.float32))):
+        if block == "ln_frozen" and k > 1:
+            assert not a.any(), k
+        else:
+            _held(f"{block} {k}", a, p, e)

@@ -19,7 +19,10 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "adapt_image_models_tpu")
 # train_model over synthetic videos, a checkpointed train-mode backward of a
 # toy ViT_CLIP under the flash core, and the long-clip path of
 # tests/test_torch_longclip.py (LONG_CLIP_T lowered to 4): a train step of a
-# toy AIM at 6 frames and the LN temporal block, frozen and not;
+# toy AIM at 6 frames and the LN temporal block, frozen and not; and the
+# LN-only and adapter-only calls of tests/test_torch_attention_blocks.py
+# (the LN block over tokens, frozen and not, the adapter block over tokens
+# and over frames), forward and backward;
 # tests/conftest.py imports jax, so this must run in a fresh interpreter
 NO_JAX_SCRIPT = r"""
 import os, sys, tempfile
@@ -76,6 +79,15 @@ for frozen in (False, True):
     attn.init_weights(torch.Generator().manual_seed(0))
     x = torch.randn(12, 5, 128).to(torch.bfloat16).requires_grad_()
     attn(x, temporal_frames=6, ln=LayerNormFP32(128)).float().sum().backward()
+    assert torch.isfinite(x.grad.float()).all()
+from adapt_image_models_torch.models.layers import Adapter
+for frozen, kwargs in ((False, dict(ln=LayerNormFP32(128))), (True, dict(ln=LayerNormFP32(128))),
+                       (False, dict(adapter=Adapter(128))),
+                       (False, dict(temporal_frames=6, adapter=Adapter(128)))):
+    attn = CLIPAttention(128, 2, torch.bfloat16, "fused", frozen_backward=frozen)
+    attn.init_weights(torch.Generator().manual_seed(1))
+    x = torch.randn(12, 5, 128).to(torch.bfloat16).requires_grad_()
+    attn(x, **kwargs).float().sum().backward()
     assert torch.isfinite(x.grad.float()).all()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN_MODULES", bad)

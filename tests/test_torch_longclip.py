@@ -423,17 +423,36 @@ def test_clip_attention_ln_temporal_matches_jax(long_clip, frozen):
         assert bool((p.grad == 0).all()) == frozen, k
 
 
-def test_spatial_ln_and_adapter_blocks_still_raise():
-    """Rows 5/7 (LN and no adapter over tokens) and 6/16 (an adapter and no
-    LN) are not ported: the layer names what remains."""
+def test_spatial_ln_and_adapter_blocks_still_raise(monkeypatch):
+    """The layer reaches the op of each LN-only and adapter-only call (rows
+    5/7 over tokens, rows 6/16 with an adapter and no LN), which it refused
+    before they were ported: each call lands in its autograd op with the
+    layer's own arguments."""
+    from adapt_image_models_torch.models import layers
     attn = CLIPAttention(D, HEADS, torch.float32, "fused")
     norm = LayerNormFP32(D)
-    x = torch.zeros(B * T, N, D)
-    with pytest.raises(NotImplementedError, match="rows 5/7"):
-        attn(x, ln=norm)
     from adapt_image_models_torch.models.layers import Adapter
-    with pytest.raises(NotImplementedError, match="rows 6/16"):
-        attn(x, temporal_frames=T, adapter=Adapter(D))
+    adapter = Adapter(D, skip_connect=False)
+    x = torch.zeros(B * T, N, D)
+    seen = []
+
+    def record(name):
+        return lambda x, *a: seen.append(
+            (name, tuple(x.shape), tuple(v for v in a if not isinstance(v, torch.Tensor))))
+
+    for name in ("fused_ln_attention_block", "fused_ln_attention_block_frozen",
+                 "fused_attention_adapter_block", "fused_temporal_adapter_block"):
+        monkeypatch.setattr(layers, name, record(name))
+    attn(x, ln=norm)
+    attn.frozen_backward = True
+    attn(x, ln=norm)
+    attn(x, adapter=adapter)
+    attn(x, temporal_frames=T, adapter=adapter)
+    shape = tuple(x.shape)
+    assert seen == [("fused_ln_attention_block", shape, (HEADS,)),
+                    ("fused_ln_attention_block_frozen", shape, (HEADS,)),
+                    ("fused_attention_adapter_block", shape, (HEADS, False)),
+                    ("fused_temporal_adapter_block", shape, (T, HEADS, False))]
 
 
 # ---------------------------------------------------------------------------
@@ -497,6 +516,34 @@ def test_plain_segment_core_against_float64(dtype):
     want = (p @ v).permute(0, 3, 1, 2, 4).reshape(-1, D)
     err = (got - want).abs()
     assert err.max() < 3e-2 and err.mean() < 2e-3, (err.max(), err.mean())
+
+
+def test_plain_segment_backward_against_float64():
+    """``temporal_segment_core_bwd_plain`` at T = 144 (past the frames the
+    staged backward cores held; 1 clip, 3 tokens, 2 heads, fp32) against
+    the float64 gradient of softmax attention over the frames on the same
+    q, k, v and cotangent: dq, dk, dv and the recomputed output, each
+    within 3e-2 of the largest value and 2e-3 of the largest value in mean
+    (its products, P and dS rounded to bf16, as the segment body rounds
+    them)."""
+    from adapt_image_models_torch.ops._common import temporal_segment_core_bwd_plain
+    frames, length, heads = 144, 3, 2
+    rng = np.random.default_rng(81)
+    qkv = torch.from_numpy(rng.standard_normal((frames * length, 3 * D))).float()
+    dout = torch.from_numpy(rng.standard_normal((frames * length, D))).float()
+    dqkv, o = temporal_segment_core_bwd_plain(qkv, dout, 1, frames, length, heads)
+    leaves = [t.double().view(1, frames, length, heads, 64).permute(0, 2, 3, 1, 4)
+              .requires_grad_() for t in qkv.split(D, -1)]
+    q, k, v = leaves
+    want_o = torch.softmax(q @ k.transpose(-1, -2) / 8.0, -1) @ v
+    do = dout.double().view(1, frames, length, heads, 64).permute(0, 2, 3, 1, 4)
+    want_o.backward(do)
+    flat = lambda t: t.permute(0, 3, 1, 2, 4).reshape(-1, D)
+    for got, want in zip((*dqkv.double().split(D, -1), o.double()),
+                         (*(flat(t.grad) for t in leaves), flat(want_o.detach()))):
+        err, scale = (got - want).abs(), want.abs().max()
+        assert err.max() < 3e-2 * scale and err.mean() < 2e-3 * scale, (
+            err.max() / scale, err.mean() / scale)
 
 
 # ---------------------------------------------------------------------------
