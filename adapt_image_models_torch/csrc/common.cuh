@@ -1,6 +1,8 @@
 // Shared helpers for the port's Hopper kernels (built for sm_90a).
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -56,6 +58,94 @@ __device__ __forceinline__ void axpy_bf16(float w, const bf16* row, float* acc) 
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core fragments and asynchronous copies of the attention cores
+// (csrc/flash_attention.cu, csrc/temporal_segment.cu).
+//
+// mma.sync m16n8k16, bf16 in, fp32 accumulate, for lane (g, t) = (lane / 4,
+// lane % 4): A (16 x 16, row-major) as four bf16 pairs: (row g, cols 2t, 2t
+// + 1), (row g + 8, the same cols), (row g, cols 2t + 8, 2t + 9), (row g +
+// 8, those); B (16 x 8) as two: (rows 2t, 2t + 1 of col g), (rows 2t + 8,
+// 2t + 9 of col g); C (16 x 8 fp32): (row g, cols 2t, 2t + 1), (row g + 8,
+// the same cols). A pair holds the lower column (or row) in its low half.
+
+// a row of 64 bf16 lanes in shared memory, padded by 8: eight rows read at
+// one 16-byte column (ldmatrix, or the four rows a quad reads) fall in
+// distinct banks
+constexpr int SMEM_ROW = 72;
+constexpr int SMEM_ROW_BYTES = SMEM_ROW * 2;
+// the dynamic shared memory one block may hold on sm_90
+constexpr int SMEM_BLOCK_MAX = 232448;
+
+__device__ __forceinline__ void mma_bf16_16816(float* c, uint32_t a0, uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bf16 matrices from shared memory: lanes 8m .. 8m + 7 give the
+// row addresses of matrix m, which lands in r[m]; with .trans each lane
+// takes a column pair in place of a row pair (B fragments of a row-major
+// (keys, lanes) tile)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+
+// 16 bytes from device memory into shared memory, in flight until waited on
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// rows [0, n) of a (rows, 64) bf16 matrix with row stride `stride`
+// (elements) into padded shared rows, copied asynchronously by the whole
+// block; rows [n, pad) are zero
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long stride, int n,
+                                           int pad) {
+  for (int c = threadIdx.x; c < pad * 8; c += blockDim.x) {
+    const int r = c >> 3, col = (c & 7) * 8;
+    if (r < n)
+      cp_async16(dst + r * SMEM_ROW + col, src + r * stride + col);
+    else
+      *reinterpret_cast<uint4*>(dst + r * SMEM_ROW + col) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
 // a 64-lane fp32 head row times mul, rounded to bf16 at dst
 __device__ __forceinline__ void store_bf16_row(bf16* dst, const float* a, float mul) {
   uint4* dp = reinterpret_cast<uint4*>(dst);
@@ -65,5 +155,23 @@ __device__ __forceinline__ void store_bf16_row(bf16* dst, const float* a, float 
 #pragma unroll
     for (int e = 0; e < 8; ++e) o[e] = a[8 * c + e] * mul;
     dp[c] = float_to_bf16x8(o);
+  }
+}
+
+// o (16 x 64 fp32 C fragments, eight 8-lane tiles) += P V over 16 key rows:
+// P the bf16 rounding of the fp32 C fragments p0 (keys 0-7) and p1 (keys
+// 8-15), repacked as the A fragment in registers; V's B fragments by
+// ldmatrix.trans from the padded shared rows sV (the first of the 16)
+__device__ __forceinline__ void pv_mma_16(float (*o)[4], const float* p0, const float* p1,
+                                          const bf16* sV, int lane) {
+  const uint32_t a0 = pack_bf16x2(p0[0], p0[1]), a1 = pack_bf16x2(p0[2], p0[3]);
+  const uint32_t a2 = pack_bf16x2(p1[0], p1[1]), a3 = pack_bf16x2(p1[2], p1[3]);
+  const bf16* row = sV + ((lane & 7) + ((lane >> 3) & 1) * 8) * SMEM_ROW + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < 4; ++np) {
+    uint32_t b[4];
+    ldmatrix_x4_trans(b, row + 16 * np);
+    mma_bf16_16816(o[2 * np], a0, a1, a2, a3, b[0], b[1]);
+    mma_bf16_16816(o[2 * np + 1], a0, a1, a2, a3, b[2], b[3]);
   }
 }

@@ -11,28 +11,40 @@
 // the core runs two passes over the keys instead of an online softmax (a
 // running max would round p against another max than the TPU kernel's).
 //
-// One block of 4 warps per (batch, head, 64-query tile); each warp owns 16
-// query rows, its q fragments held in registers. Pass 1 streams 64-key
-// tiles of K through shared memory and takes the row max of S = Q K^T
-// (WMMA, fp32 accumulation). Pass 2 streams K and V again, recomputes each
-// S tile (the same products in the same order, so the same values), forms
-// p, adds it to the fp32 row sum, rounds it to bf16 over its own score rows
-// and accumulates P V in fp32 WMMA fragments; the epilogue divides by the
-// row sum. Shared memory holds one tile of Q, K and V and the scores, so no
-// key count is too long. At L = 197 the core is bound by the bytes of q, k,
-// v and o (4 x 2 B x 64 per row and head); this simple design reads K twice
-// and runs at the WMMA rate, a later PR's to speed up.
+// Its bound on an H100 is its bytes: q, k, v read once and o written once,
+// 4 x 2 B x 64 a (row, head), 0.092 ms at (256, 12, 197, 64) (NVIDIA H100
+// 80GB HBM3, 700.00 W; tools/kernel_bounds_torch.py), where the products
+// take 0.031 ms at the bf16 tensor-core rate. So the design moves each byte
+// of device memory once and keeps the arithmetic behind the copies:
+//  - one block per (batch, head, query tile of up to 8 strips of 16 rows)
+//    stages all of the head's K and V in padded shared rows with 16-byte
+//    cp.async copies, K and V as two groups: the first pass starts when K
+//    has landed, while V is still in flight. The tiles of one (batch, head)
+//    are neighbouring blocks, so a second tile finds K and V in L2;
+//  - one warp per strip holds its q A fragments in registers, read once;
+//  - pass 1 forms 16 x 16 score tiles with mma.sync m16n8k16 (K's B
+//    fragments by ldmatrix) and takes the exact row max by quad shuffles;
+//  - pass 2 forms the same tiles again from the staged K (the same
+//    instructions, so the same values), p in fp32 and its fp32 row sum,
+//    and repacks bf16(p) from the C fragments as the A fragments of
+//    O += P V (V's B fragments by ldmatrix.trans), as FlashAttention-2
+//    does: the scores never touch shared memory;
+//  - the epilogue divides by the row sum and writes o through its strides.
+// mma.sync and not wgmma: the core is bound by its bytes, and mma.sync
+// works on 16-row strips, so L = 197 pads to 208 rows, where wgmma's 64-row
+// tiles would pad it to 256; its fragment layouts let P go from the score
+// accumulators to the PV operand in registers.
+// Past the 800 keys whose K and V fit one block's shared memory they stream
+// twice through a double-buffered ring of 64-key tiles, K in the first pass
+// and K and V in the second. The length picks the branch (flash_design;
+// the wrapper holds it to its twin ops._kernels.flash_fwd_design).
 //
 // q, k, v and o are read and written through their strides (elements,
 // head-dim stride 1), so the (B, L, H, 64) views the projections make are
 // taken as they are and o is written in the layout its out-projection
 // reads.
 
-#include <mma.h>
-
 #include "common.cuh"
-
-using namespace nvcuda;
 
 // the launch's arguments, passed by value to the kernel (ops/_kernels.py
 // builds it as a ctypes Structure)
@@ -48,158 +60,188 @@ struct FlashArgs {
 
 namespace {
 
-constexpr int FHD = 64;         // head dim
-constexpr int FBQ = 64;         // query rows per block: 4 warps x 16
-constexpr int FBK = 64;         // keys per tile
-constexpr int FLD = FHD + 8;    // padded bf16 row of the q/k/v tiles
-constexpr int FLDS = FBK + 4;   // padded fp32 row of the score tile
+constexpr int FHD = 64;           // head dim
+constexpr int FLASH_WARPS = 8;    // at most 8 strips of 16 query rows a block
+constexpr int FLASH_RING = 64;    // keys of one ring slot (streamed branch)
+enum FlashBranch { FLASH_STAGED = 0, FLASH_STREAMED = 1 };
 
-// rows [r0, r0 + 64) of one (batch, head)'s (L, 64) matrix into a padded
-// shared tile, zero rows past L
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
-                                          int r0, int L) {
-  for (int c = threadIdx.x; c < FBK * (FHD / 8); c += blockDim.x) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < L) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + col);
-    *reinterpret_cast<uint4*>(dst + r * FLD + col) = val;
+// the branch at L keys and its dynamic shared memory in bytes
+// (ops/_kernels.py::flash_fwd_design computes the same), with the warps of
+// a block and the query tiles of a (batch, head): the fewest tiles of at
+// most FLASH_WARPS strips, the strips spread evenly over them
+int flash_design(int L, int* smem, int* warps, int* tiles) {
+  const int strips = (L + 15) / 16;
+  *tiles = (strips + FLASH_WARPS - 1) / FLASH_WARPS;
+  *warps = (strips + *tiles - 1) / *tiles;
+  const long long staged = 2LL * strips * 16 * SMEM_ROW_BYTES;
+  if (staged <= SMEM_BLOCK_MAX) {
+    *smem = (int)staged;
+    return FLASH_STAGED;
+  }
+  *smem = 2 * 2 * FLASH_RING * SMEM_ROW_BYTES;
+  return FLASH_STREAMED;
+}
+
+// c = the two 16 x 8 score tiles (unscaled) of a strip, q A fragments qf
+// (k-steps of 16 lanes), against the 16 key rows sK
+__device__ __forceinline__ void flash_scores(float (*c)[4], uint32_t (*qf)[4],
+                                             const bf16* sK, int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // lanes 32h .. 32h + 31: k-steps 2h, 2h + 1
+      uint32_t b[4];
+      ldmatrix_x4(b, sK + (8 * nt + (lane & 7)) * SMEM_ROW + 32 * h + (lane >> 3) * 8);
+      mma_bf16_16816(c[nt], qf[2 * h][0], qf[2 * h][1], qf[2 * h][2], qf[2 * h][3], b[0], b[1]);
+      mma_bf16_16816(c[nt], qf[2 * h + 1][0], qf[2 * h + 1][1], qf[2 * h + 1][2],
+                     qf[2 * h + 1][3], b[2], b[3]);
+    }
   }
 }
 
-__global__ void __launch_bounds__(128) flash_attention_kernel(const __grid_constant__ FlashArgs a) {
-  __shared__ __align__(128) bf16 sQ[FBQ * FLD];
-  __shared__ __align__(128) bf16 sK[FBK * FLD];
-  __shared__ __align__(128) bf16 sV[FBK * FLD];
-  __shared__ __align__(128) float sS[FBQ * FLDS];
-  __shared__ float sDen[FBQ];
-
+template <bool STREAM>
+__global__ void __launch_bounds__(FLASH_WARPS * 32)
+flash_attention_kernel(const __grid_constant__ FlashArgs a, int tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int L = a.L;
-  const int q_tiles = (L + FBQ - 1) / FBQ;
-  const int qt = blockIdx.x % q_tiles;
-  const int bh = blockIdx.x / q_tiles;
+  const float scale = a.scale;
+  const int qt = blockIdx.x % tiles;
+  const int bh = blockIdx.x / tiles;
   const int h = bh % a.H, b = bh / a.H;
-  const int q0 = qt * FBQ;
   const bf16* qb = a.q + b * a.sq[0] + h * a.sq[1];
   const bf16* kb = a.k + b * a.sk[0] + h * a.sk[1];
   const bf16* vb = a.v + b * a.sv[0] + h * a.sv[1];
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int ra = (qt * (blockDim.x >> 5) + (threadIdx.x >> 5)) * 16 + g, rb = ra + 8;
+  const int rows = STREAM ? FLASH_RING : (L + 15) / 16 * 16;  // rows of a K (or V) slot
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + (STREAM ? 2 : 1) * rows * SMEM_ROW;
+  if (!STREAM) {
+    stage_rows(sK, kb, a.sk[2], L, rows);
+    cp_async_commit();
+    stage_rows(sV, vb, a.sv[2], L, rows);
+    cp_async_commit();
+  }
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* sSw = sS + warp * 16 * FLDS;          // the warp's 16 score rows
-  bf16* sPw = reinterpret_cast<bf16*>(sSw);    // bf16 P over the rows' starts
-  const int LDP = 2 * FLDS;
-
-  load_tile(sQ, qb, a.sq[2], q0, L);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[FHD / 16];
+  // q A fragments: (row ra, lanes 16ks + 2t, +1), (rb, those), (ra, 16ks +
+  // 8 + 2t, +1), (rb, those); zero past L
+  uint32_t qf[FHD / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < FHD / 16; ++kk)
-    wmma::load_matrix_sync(fq[kk], sQ + warp * 16 * FLD + kk * 16, FLD);
-
-  // S = Q K^T of this warp's 16 rows against the staged 64-key tile
-  auto scores = [&]() {
+  for (int ks = 0; ks < FHD / 16; ++ks)
 #pragma unroll
-    for (int j = 0; j < FBK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fs;
-      wmma::fill_fragment(fs, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < FHD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-        wmma::load_matrix_sync(fk, sK + j * 16 * FLD + kk * 16, FLD);
-        wmma::mma_sync(fs, fq[kk], fk, fs);
-      }
-      wmma::store_matrix_sync(sSw + j * 16, fs, FLDS, wmma::mem_row_major);
+    for (int r = 0; r < 4; ++r) {
+      const int row = r & 1 ? rb : ra;
+      qf[ks][r] = row < L ? __ldg(reinterpret_cast<const unsigned*>(
+                                qb + row * a.sq[2] + 16 * ks + (r >> 1) * 8 + 2 * t))
+                          : 0u;
     }
-    __syncwarp();
+
+  float m[2] = {-INFINITY, -INFINITY}, den[2] = {0.f, 0.f};
+  float o[FHD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < FHD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  // 16 keys (key0 ..) of pass 1 (the row max) or pass 2 (p, den, O += P V)
+  auto chunk = [&](bool second, const bf16* k, const bf16* v, int key0) {
+    float s[2][4];
+    flash_scores(s, qf, k, lane);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = key0 + 8 * nt + 2 * t + (e & 1) < L ? __fmul_rn(s[nt][e], scale)
+                                                            : -INFINITY;
+        if (second) {
+          s[nt][e] = expf(x - m[e >> 1]);
+          den[e >> 1] += s[nt][e];
+        } else {
+          m[e >> 1] = fmaxf(m[e >> 1], x);
+        }
+      }
+    if (second) pv_mma_16(o, s[0], s[1], v, lane);
   };
 
-  // pass 1: the exact row max over all L keys (lane-uniform per row)
-  float m[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) m[r] = -INFINITY;
-  for (int k0 = 0; k0 < L; k0 += FBK) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile(sK, kb, a.sk[2], k0, L);
+  if (!STREAM) {
+    cp_async_wait<1>();  // K has landed
     __syncthreads();
-    scores();
-    const bool ok0 = k0 + lane < L, ok1 = k0 + lane + 32 < L;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float s0 = ok0 ? sSw[r * FLDS + lane] * a.scale : -INFINITY;
-      const float s1 = ok1 ? sSw[r * FLDS + lane + 32] * a.scale : -INFINITY;
-      m[r] = fmaxf(m[r], warp_max(fmaxf(s0, s1)));
-    }
-    __syncwarp();  // the next tile's scores overwrite these rows
-  }
-
-  // pass 2: p = exp(s - m), its fp32 row sum, O += bf16(p) V
-  float den[16];
-#pragma unroll
-  for (int r = 0; r < 16; ++r) den[r] = 0.f;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo[FHD / 16];
-#pragma unroll
-  for (int jj = 0; jj < FHD / 16; ++jj) wmma::fill_fragment(fo[jj], 0.f);
-  for (int k0 = 0; k0 < L; k0 += FBK) {
+    for (int key0 = 0; key0 < L; key0 += 16) chunk(false, sK + key0 * SMEM_ROW, nullptr, key0);
+    m[0] = quad_max(m[0]), m[1] = quad_max(m[1]);
+    cp_async_wait<0>();  // and V
     __syncthreads();
-    load_tile(sK, kb, a.sk[2], k0, L);
-    load_tile(sV, vb, a.sv[2], k0, L);
-    __syncthreads();
-    scores();
-    const bool ok0 = k0 + lane < L, ok1 = k0 + lane + 32 < L;
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float p0 = ok0 ? expf(sSw[r * FLDS + lane] * a.scale - m[r]) : 0.f;
-      const float p1 = ok1 ? expf(sSw[r * FLDS + lane + 32] * a.scale - m[r]) : 0.f;
-      den[r] += warp_sum(p0 + p1);
-      __syncwarp();  // every lane has read row r before it is overwritten
-      sPw[r * LDP + lane] = __float2bfloat16(p0);
-      sPw[r * LDP + lane + 32] = __float2bfloat16(p1);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < FBK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-      wmma::load_matrix_sync(fp, sPw + kk * 16, LDP);
-#pragma unroll
-      for (int jj = 0; jj < FHD / 16; ++jj) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, sV + kk * 16 * FLD + jj * 16, FLD);
-        wmma::mma_sync(fo[jj], fp, fv, fo[jj]);
+    for (int key0 = 0; key0 < L; key0 += 16)
+      chunk(true, sK + key0 * SMEM_ROW, sV + key0 * SMEM_ROW, key0);
+  } else {
+    const int ktiles = (L + FLASH_RING - 1) / FLASH_RING;
+    auto stage = [&](int it) {  // item it: (pass it / ktiles, tile it % ktiles)
+      const int slot = it & 1, f0 = (it % ktiles) * FLASH_RING, nf = min(FLASH_RING, L - f0);
+      stage_rows(sK + slot * rows * SMEM_ROW, kb + f0 * a.sk[2], a.sk[2], nf, FLASH_RING);
+      if (it >= ktiles)
+        stage_rows(sV + slot * rows * SMEM_ROW, vb + f0 * a.sv[2], a.sv[2], nf, FLASH_RING);
+      cp_async_commit();
+    };
+    stage(0);
+    for (int it = 0; it < 2 * ktiles; ++it) {
+      if (it + 1 < 2 * ktiles) {
+        stage(it + 1);  // into the slot every warp released at the end of it - 1
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
       }
+      __syncthreads();
+      const int f0 = (it % ktiles) * FLASH_RING;
+      const bf16* k = sK + (it & 1) * rows * SMEM_ROW;
+      const bf16* v = sV + (it & 1) * rows * SMEM_ROW;
+      for (int c = 0; c < FLASH_RING && f0 + c < L; c += 16)
+        chunk(it >= ktiles, k + c * SMEM_ROW, v + c * SMEM_ROW, f0 + c);
+      if (it == ktiles - 1) m[0] = quad_max(m[0]), m[1] = quad_max(m[1]);
+      __syncthreads();
     }
-    __syncwarp();  // P is read before the next tile's scores land on it
   }
 
-  // o = bf16(O / den), 8 columns a store
-  if (lane == 0) {
-#pragma unroll
-    for (int r = 0; r < 16; ++r) sDen[warp * 16 + r] = den[r];
-  }
-#pragma unroll
-  for (int jj = 0; jj < FHD / 16; ++jj)
-    wmma::store_matrix_sync(sSw + jj * 16, fo[jj], FLDS, wmma::mem_row_major);
-  __syncwarp();
+  // o = bf16(O / den) through o's strides
+  den[0] = quad_sum(den[0]), den[1] = quad_sum(den[1]);
   bf16* ob = a.o + b * a.so[0] + h * a.so[1];
-  for (int c = lane; c < 16 * (FHD / 8); c += 32) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    const int gq = q0 + warp * 16 + r;
-    if (gq >= L) continue;
-    const float d = sDen[warp * 16 + r];
-    float o[8];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) o[i] = sSw[r * FLDS + col + i] / d;
-    *reinterpret_cast<uint4*>(ob + gq * a.so[2] + col) = float_to_bf16x8(o);
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (row >= L) continue;
+    bf16* dst = ob + row * a.so[2] + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < FHD / 8; ++dt)
+      *reinterpret_cast<uint32_t*>(dst + 8 * dt) =
+          pack_bf16x2(__fdiv_rn(o[dt][2 * half], den[half]),
+                      __fdiv_rn(o[dt][2 * half + 1], den[half]));
   }
 }
 
 }  // namespace
 
+extern "C" int aim_flash_attention_design(int L, int* smem) {
+  if (L <= 0) return -1;
+  int warps, tiles;
+  return flash_design(L, smem, &warps, &tiles);
+}
+
 extern "C" int aim_flash_attention_bf16(const FlashArgs* args, void* stream) {
   const FlashArgs& a = *args;
   if (a.L <= 0 || a.B < 0 || a.H <= 0) return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
-  const long long blocks = (long long)a.B * a.H * ((a.L + FBQ - 1) / FBQ);
+  int smem = 0, warps = 0, tiles = 0;
+  const int branch = flash_design(a.L, &smem, &warps, &tiles);
+  const long long blocks = (long long)a.B * a.H * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  flash_attention_kernel<<<(unsigned)blocks, 128, 0, (cudaStream_t)stream>>>(a);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (branch == FLASH_STAGED) {
+    err = cudaFuncSetAttribute(flash_attention_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_kernel<false><<<(unsigned)blocks, warps * 32, smem, s>>>(a, tiles);
+  } else {
+    err = cudaFuncSetAttribute(flash_attention_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    flash_attention_kernel<true><<<(unsigned)blocks, warps * 32, smem, s>>>(a, tiles);
+  }
   return (int)cudaGetLastError();
 }

@@ -77,15 +77,6 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 __device__ __forceinline__ float activation(int act, float v) {
   if (act == ACT_QUICK_GELU) return v * (1.f / (1.f + expf(-1.702f * v)));
   if (act == ACT_GELU_TANH)

@@ -45,9 +45,78 @@ _SIGNATURES = {
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "aim_flash_attention_bf16": [_P, _P],
+    "aim_flash_attention_design": [_I, _P],
     "aim_temporal_segment_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_temporal_segment_design": [_I, _P],
+    "aim_bf16_products": [_P, _P, _P, _P, _I, _P],
     "aim_temporal_segment_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
+
+# the shared memory one block may hold on sm_90, and one padded staged row
+# of 64 bf16 lanes (csrc/common.cuh: SMEM_BLOCK_MAX, SMEM_ROW_BYTES)
+SMEM_BLOCK_MAX, SMEM_ROW_BYTES = 232448, 144
+SEGMENT_RING, FLASH_RING = 64, 64  # frames / keys of one ring slot
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+def segment_fwd_design(frames: int) -> Tuple[str, int]:
+    """(branch, dynamic shared memory in bytes) of the segment forward core
+    at ``frames`` frames, as ``csrc/temporal_segment.cu::segment_design``
+    picks them: up to 64 frames the scores of a 16-frame strip stay in
+    registers ("registers64"), up to 128 in twice as many ("registers128"),
+    with K and V staged in rows padded to 16 frames; past 128 three passes
+    recompute them from K and V staged whole in rows padded to 32 frames
+    ("staged") while those fit one block, else from a double-buffered ring
+    of 64-frame tiles ("streamed")."""
+    if frames <= 0:
+        raise ValueError(f"frames must be positive, got {frames}")
+    if frames <= 128:
+        return ("registers64" if frames <= 64 else "registers128",
+                2 * _round_up(frames, 16) * SMEM_ROW_BYTES)
+    staged = 2 * _round_up(frames, 32) * SMEM_ROW_BYTES
+    if staged <= SMEM_BLOCK_MAX:
+        return "staged", staged
+    return "streamed", 2 * 2 * SEGMENT_RING * SMEM_ROW_BYTES
+
+
+def flash_fwd_design(length: int) -> Tuple[str, int]:
+    """(branch, dynamic shared memory in bytes) of the flash core at
+    ``length`` keys, as ``csrc/flash_attention.cu::flash_design`` picks
+    them: K and V of a (batch, head) staged whole in rows padded to 16
+    ("staged") while they fit one block, else streamed twice through a
+    double-buffered ring of 64-key tiles ("streamed")."""
+    if length <= 0:
+        raise ValueError(f"length must be positive, got {length}")
+    staged = 2 * _round_up(length, 16) * SMEM_ROW_BYTES
+    if staged <= SMEM_BLOCK_MAX:
+        return "staged", staged
+    return "streamed", 2 * 2 * FLASH_RING * SMEM_ROW_BYTES
+
+
+_DESIGNS = {
+    "aim_temporal_segment_design": (
+        segment_fwd_design, ("registers64", "registers128", "staged", "streamed")),
+    "aim_flash_attention_design": (flash_fwd_design, ("staged", "streamed")),
+}
+_designs_held = set()
+
+
+def _hold_design(c_name: str, size: int) -> None:
+    """Raise unless the kernel's C design function picks the branch and the
+    shared memory that its Python twin does at ``size``; once a size."""
+    if (c_name, size) in _designs_held:
+        return
+    plain, branches = _DESIGNS[c_name]
+    smem = ctypes.c_int(0)
+    code = getattr(library(), c_name)(size, ctypes.byref(smem))
+    got = (branches[code] if 0 <= code < len(branches) else code, smem.value)
+    if got != plain(size):
+        raise RuntimeError(f"{c_name}({size}) = {got}, its Python twin says {plain(size)}")
+    _designs_held.add((c_name, size))
+
 
 class _FlashArgs(ctypes.Structure):
     """``FlashArgs`` of ``csrc/flash_attention.cu``: q, k, v, o and their
@@ -189,7 +258,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, *, kn: bool = False, bias=None,
     derivative at a fp32 pre-activation, ``row_scale`` (fp32) scales each
     group of ``rows_per_scale`` rows, ``f32_pre_act`` stores the fp32
     result before ``act``. Returns ``(fp32 result or None, bf16 result or
-    None)``."""
+    None)``. Each launch adds one to ``launches``."""
     m, k = a.shape
     n = w.shape[1] if kn else w.shape[0]
     o32 = torch.empty((m, n), dtype=torch.float32, device=a.device) if out_f32 else None
@@ -199,7 +268,11 @@ def gemm(a: torch.Tensor, w: torch.Tensor, *, kn: bool = False, bias=None,
         _ptr(res_f32), _ptr(res_bf16), _ptr(aux), _ptr(row_scale),
         rows_per_scale, alpha, act, dact, int(f32_pre_act), _ptr(o32),
         _ptr(o16), _stream()), "aim_gemm_bf16")
+    gemm.launches += 1
     return o32, o16
+
+
+gemm.launches = 0
 
 
 def spatial_attention(qkv: torch.Tensor, frames: int, length: int,
@@ -290,13 +363,19 @@ def temporal_segment(qkv: torch.Tensor, clips: int, frames: int,
     """The segment-sum temporal core (``csrc/temporal_segment.cu``):
     (clips*frames*length, 3D) packed bf16 QKV -> (rows, D) bf16, with the
     TPU segment body's casts (bf16-rounded products, P normalised before it
-    is rounded, no final division)."""
+    is rounded, no final division), in the design ``segment_fwd_design``
+    picks for ``frames``. Each launch adds one to ``launches``."""
     d = qkv.shape[1] // 3
     out = torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
+    _hold_design("aim_temporal_segment_design", frames)
     _check(library().aim_temporal_segment_bf16(
         qkv.data_ptr(), out.data_ptr(), clips, frames, length, d, 64 ** -0.5,
         _stream()), "aim_temporal_segment_bf16")
+    temporal_segment.launches += 1
     return out
+
+
+temporal_segment.launches = 0
 
 
 def temporal_segment_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
@@ -329,6 +408,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
                       (ctypes.c_longlong * 3)(*v.stride()[:3]),
                       (ctypes.c_longlong * 3)(*o.stride()[:3]),
                       b, h, n, 1.0 / (hd ** 0.5))
+    _hold_design("aim_flash_attention_design", n)
     _check(library().aim_flash_attention_bf16(ctypes.byref(args), _stream()),
            "aim_flash_attention_bf16")
     return o
+
+
+def bf16_products(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 products of the segment forward core, ``__hmul2`` on packed
+    pairs, beside ``__floats2bfloat162_rn`` of the fp32 product, for
+    contiguous bf16 ``a`` and ``b`` of one even size: (packed, rounded)."""
+    if a.shape != b.shape or a.numel() % 2 or not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("bf16_products: a and b must be contiguous, of one even size")
+    packed, rounded = torch.empty_like(a), torch.empty_like(a)
+    _check(library().aim_bf16_products(
+        a.data_ptr(), b.data_ptr(), packed.data_ptr(), rounded.data_ptr(),
+        a.numel() // 2, _stream()), "aim_bf16_products")
+    return packed, rounded

@@ -183,7 +183,26 @@ Phases, in order; any failure raises and exits non-zero:
      clip), launches checked, kernel vs plain path on the probabilities and
      on one train step of one clip, eval clips/s and peak memory at 2
      clips, train clips/s and peak memory at 1 clip and a profile of one
-     step.
+     step;
+ 17. the segment forward core (csrc/temporal_segment.cu) and the flash core
+     alone at the branch points of their designs: the segment core at T =
+     33, 64, 65, 128, 129, 300 and 801 (ops.segment_fwd_design: scores in
+     registers to 64 and to 128 frames, three passes over staged rows, a
+     ring past 800) with 1 clip of 3 tokens and 2 heads, the flash core at
+     L = 801, past its staging bound (ops.flash_fwd_design; phase 13 holds
+     it at ATTENTION_SHAPES), each against its plain version, two launches
+     bit-equal and strided flash inputs bit-equal to contiguous ones; the
+     segment core's packed bf16 products bit-equal to the rounded fp32
+     product on random, subnormal, overflowing, signed-zero, infinite and
+     NaN pairs; the segment core's time alone on the packed QKV of 4 clips
+     of 64 frames against its plain version, its bound and
+     scaled_dot_product_attention on the (clips*L, H, T, 64) view of the
+     same q, k, v; the WMMA GEMM (csrc/gemm.cu) at the flagship's two
+     projections, (50432, 768) @ (768, 2304) and @ (768, 768), against its
+     plain version and torch.matmul, with its launches an eval forward and
+     a train step of the flagship (counted in phases 2 and 5).
+Every driven AIM path counts the segment forward core's launches: one a
+temporal step past LONG_CLIP_T = 32 frames, none at T <= 32.
 Every driven model's kernel path holds the plain path's top-1 class; a
 400-class head gets a seeded class lead in its bias first
 (separate_classes), as seeded weights spread the classes so evenly that the
@@ -201,7 +220,9 @@ input read once and each output written once, over its memory rate); the
 gated temporal forward's entry also holds, under emit_u, its time with the
 u output at 4 clips of ViT-L/14's 32 frames, as the composition runs it, and
 the entries of rows 2, 14, 16 and 23 hold under long_clip their times on
-the segment core at 4 clips of 64 frames; the last line is {"ok": true,
+the segment core at 4 clips of 64 frames; a last entry,
+temporal_segment_core, is the segment forward core alone at 4 clips of 64
+frames, with its launches on the ViT-B/16 64f eval path; the last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -301,6 +322,20 @@ def check_launches(label, launches, expected):
     log(f"  launches on the {label}: {launches}")
     if launches != want:
         raise AssertionError(f"{label}: expected launches {want}")
+
+
+# the segment forward core's and the WMMA GEMM's launches on each path,
+# read where that path's launch counts are read
+SEGMENT_CORE_LAUNCHES, GEMM_LAUNCHES = {}, {}
+
+
+def check_segment_core(path, launches, expected):
+    """The segment forward core launched ``expected`` times on ``path``;
+    recorded for the kernels line."""
+    log(f"  segment forward core launches on the {path} path: {launches}")
+    if launches != expected:
+        raise AssertionError(f"{path}: expected {expected} segment core launches")
+    SEGMENT_CORE_LAUNCHES[path] = launches
 
 
 def device_line() -> str:
@@ -993,6 +1028,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         inference_recognizer, init_recognizer, load_config, run_evaluation, train_model,
     )
     from adapt_image_models_torch.data.transforms import make_prepare_fn
+    from adapt_image_models_torch.ops import _kernels
     cfg = load_config(config, AIM_OPTIONS + list(options))
     if clip is not None:
         for split in ("train", "val", "test"):
@@ -1025,12 +1061,17 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         results, scores, _ = run_evaluation(cfg, model=model, batch_size=eval_batch,
                                             num_workers=2, return_scores=True)
         eval_launches = ops.launch_counts()  # ... and ends here
+        segment_eval = _kernels.temporal_segment.launches
     forwards = len(top5) + -(-eval_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://{seed}: {top5[0]}")
     log(f"  run_evaluation over {eval_videos} synthetic {views}-view videos "
         f"(max_testing_views={cfg['model']['test_cfg'].get('max_testing_views')}): {results}")
     check_launches(f"{label} eval path ({forwards} forwards x {layers} layers)",
                    eval_launches, {op: layers * forwards for op in ops.EVAL_OPS[1]})
+    # past LONG_CLIP_T every temporal step launches the segment core once;
+    # at T <= 32 nothing launches it
+    segment = not ops.use_full_core(frames)
+    check_segment_core(f"{label} eval", segment_eval, layers * forwards if segment else 0)
     if scores.shape != (eval_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad {label} eval scores {scores.shape}")
     if any(not (0 <= s <= 1) for r in top5 for _, s in r):
@@ -1066,6 +1107,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
                                      max_steps=steps, validate=False, device="cuda")
         torch.cuda.synchronize()
         train_launches = ops.launch_counts()  # ... and ends here
+        segment_train = _kernels.temporal_segment.launches
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and the checkpoint included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
@@ -1076,6 +1118,8 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
                        f"{', checkpointed' if passes == 2 else ''})", train_launches,
                        {op: layers * steps * (passes if k % 2 == 0 else 1)
                         for k, op in enumerate(train_names)})
+        check_segment_core(f"{label} train", segment_train,
+                           layers * steps * passes if segment else 0)
         if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError(f"{label} train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -2074,6 +2118,146 @@ def phase_16(card, errors):
     return eval_launches, train_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the segment forward core and the flash core, each alone, at the
+# branch points of their designs (ops.segment_fwd_design, ops.flash_fwd_design)
+
+SEGMENT_BRANCH_FRAMES = (33, 64, 65, 128, 129, 300, 801)
+FLASH_PAST_BOUND = (1, 2, 801)  # one key past the flash core's staging bound
+
+
+def core_checks(errors):
+    """Each core against its plain version at every branch point (1 clip of
+    3 tokens and 2 heads a frame count; the flash core past its staging
+    bound, phase 13 holding it at ATTENTION_SHAPES), two launches bit-equal;
+    the packed bf16 products of the segment core against the rounding of
+    the fp32 product, bit for bit."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.ops import _kernels
+    from adapt_image_models_torch.ops._common import temporal_segment_core_plain
+    for frames in SEGMENT_BRANCH_FRAMES:
+        g = torch.Generator().manual_seed(1700 + frames)
+        qkv = torch.randn(frames * 3, 3 * 128, generator=g).to("cuda", torch.bfloat16)
+        got = _kernels.temporal_segment(qkv, 1, frames, 3)
+        again = _kernels.temporal_segment(qkv, 1, frames, 3)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"the segment core is not deterministic at T={frames}")
+        err = compare(f"segment core at T={frames} ({ops.segment_fwd_design(frames)[0]})", got,
+                      temporal_segment_core_plain(qkv, 1, frames, 3, 2))
+        errors[ops.SEGMENT_CORE[0]] = max(err, errors.get(ops.SEGMENT_CORE[0], 0.0))
+    b, heads, length = FLASH_PAST_BOUND
+    q, k, v = attention_views(b, heads, length, 1701)
+    got = ops.flash_attention_core(q, k, v)
+    flat = ops.flash_attention_core(*(t.contiguous() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    if not torch.equal(got, flat):
+        raise AssertionError("the flash core reads strided and contiguous inputs apart")
+    err = compare(f"flash_attention_core at {FLASH_PAST_BOUND[:3]} + (64,) "
+                  f"({ops.flash_fwd_design(length)[0]})", got,
+                  ops.flash_attention_core_plain(q, k, v))
+    errors["flash_attention_core"] = max(err, errors.get("flash_attention_core", 0.0))
+    g = torch.Generator().manual_seed(1702)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, 1e-39,
+                            9.2e-41, 2.0 ** -133, 1e-20, 3e38, -3e38])
+    a = torch.cat([torch.randn(1 << 20, generator=g), special.repeat_interleave(len(special))])
+    c = torch.cat([torch.randn(1 << 20, generator=g), special.repeat(len(special))])
+    a, c = (t.to("cuda", torch.bfloat16) for t in (a, c))
+    packed, rounded = _kernels.bf16_products(a, c)
+    nan = torch.isnan(packed.float())
+    same = (torch.equal(nan, torch.isnan(rounded.float()))
+            and torch.equal(packed.view(torch.int16)[~nan], rounded.view(torch.int16)[~nan]))
+    log(f"  __hmul2 products vs __floats2bfloat162_rn(a*b) on {a.numel()} pairs (random, "
+        f"subnormal, overflowing, +-0, +-inf, NaN): {'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("packed bf16 products differ from the rounded fp32 product")
+
+
+def segment_core_timing(card, op_ms, library_ms):
+    """The segment forward core alone on the packed QKV of 4 clips of 64
+    frames (x = (256, 197, 768), 12 heads): kernel and plain version
+    (plain-kernel-kernel-plain, median of 20 each) and the library's
+    scaled_dot_product_attention on the (clips*L, H, T, 64) view of the
+    same q, k, v (relayout not timed)."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.ops import _kernels
+    from adapt_image_models_torch.ops._common import temporal_segment_core_plain
+    clips, frames = 4, LONG_FRAMES
+    g = torch.Generator().manual_seed(1710)
+    qkv = torch.randn(clips * frames * TOKENS, 3 * WIDTH, generator=g).to("cuda", torch.bfloat16)
+    fns = (lambda: temporal_segment_core_plain(qkv, clips, frames, TOKENS, HEADS),
+           lambda: _kernels.temporal_segment(qkv, clips, frames, TOKENS))
+    q, k, v = (t.view(clips, frames, TOKENS, HEADS, 64).permute(0, 2, 3, 1, 4)
+               .reshape(clips * TOKENS, HEADS, frames, 64).contiguous()
+               for t in qkv.split(WIDTH, -1))
+    with torch.no_grad():
+        t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+        lib = cuda_ms(lambda: sdpa(q, k, v))
+    name = ops.SEGMENT_CORE[0]
+    op_ms[name] = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+    library_ms[name] = lib
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from kernel_bounds_torch import bound_of, segment_core_work
+    b_ms, b_by = bound_of(*segment_core_work(clips, frames, TOKENS, WIDTH))
+    log(f"  segment forward core at x=({clips * frames}, {TOKENS}, {WIDTH}), T={frames} on "
+        f"{card}: kernel {op_ms[name][0]:.3f} ms, plain {op_ms[name][1]:.3f} ms, library "
+        f"(scaled_dot_product_attention on the {tuple(q.shape)} view) {lib:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}) (median of 20, CUDA events, plain-kernel-kernel-plain)")
+    return b_ms, b_by
+
+
+def gemm_timings(card):
+    """The WMMA GEMM (csrc/gemm.cu, no epilogue) at the flagship's two
+    projections, 50432 x 768 -> 2304 and -> 768: kernel, plain version
+    (fp32 matmul of the upcast operands, rounded) and torch.matmul on the
+    same tensors (plain-kernel-kernel-plain, median of 20), beside the
+    bound; their launches an eval forward and a train step come from
+    phases 2 and 5."""
+    import torch
+    from adapt_image_models_torch.ops import _kernels
+    from adapt_image_models_torch.ops._common import mm32
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from kernel_bounds_torch import GEMM_SHAPES, bound_of, gemm_work
+    g = torch.Generator().manual_seed(1720)
+    rows = {}
+    for m, k, n in GEMM_SHAPES:
+        a = torch.randn(m, k, generator=g).to("cuda", torch.bfloat16)
+        w = (0.02 * torch.randn(n, k, generator=g)).to("cuda", torch.bfloat16)
+        fns = (lambda: mm32(a, w).to(torch.bfloat16), lambda: _kernels.gemm(a, w)[1])
+        with torch.no_grad():
+            err = compare(f"WMMA GEMM ({m}, {k}) @ ({k}, {n})", fns[1](), fns[0]())
+            t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+            lib = cuda_ms(lambda: torch.matmul(a, w.t()))
+        b_ms, b_by = bound_of(*gemm_work(m, k, n))
+        rows[f"({m}, {k}) @ ({k}, {n})"] = dict(
+            ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2, library_ms=lib, bound_ms=b_ms,
+            bound_by=b_by, max_abs_err=err)
+        log(f"  WMMA GEMM ({m}, {k}) @ ({k}, {n}) on {card}: kernel {(t[1] + t[2]) / 2:.3f} ms "
+            f"({2 * m * k * n / ((t[1] + t[2]) / 2) / 1e9:.1f} TFLOP/s), plain "
+            f"{(t[0] + t[3]) / 2:.3f} ms, library (torch.matmul) {lib:.3f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        del a, w
+    log(f"  WMMA GEMM launches: {GEMM_LAUNCHES}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_17(card, errors, op_ms, library_ms):
+    """Phase 17 (see the module docstring): the two cores' checks into
+    ``errors``, the segment core's times into ``op_ms`` and
+    ``library_ms``, the GEMM's. Returns (the segment core's bound, the GEMM
+    rows)."""
+    log("phase 17: the segment forward core and the flash core at the branch points of "
+        "their designs")
+    core_checks(errors)
+    log(f"phase 17: timings on {card}")
+    seg_bound = segment_core_timing(card, op_ms, library_ms)
+    return seg_bound, gemm_timings(card)
+
+
 def main():
     import numpy as np
     import torch
@@ -2130,11 +2314,14 @@ def main():
         results, scores, _ = run_evaluation(cfg, model=model, batch_size=eval_batch,
                                             num_workers=2, return_scores=True)
         launches = ops.launch_counts()  # ... and ends here
+        segment_eval, gemm_eval = _kernels.temporal_segment.launches, _kernels.gemm.launches
     forwards = len(top5) + -(-n_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic videos: {results}")
     check_launches(f"eval path ({forwards} forwards x 12 layers)", launches,
                    {op: 12 * forwards for op in ops.EVAL_OPS[1]})
+    check_segment_core("flagship eval", segment_eval, 0)
+    GEMM_LAUNCHES["flagship eval forward"] = gemm_eval / forwards
     if scores.shape != (n_videos, 400) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad eval scores {scores.shape}")
     if any(not (0 <= s <= 1) for r in top5 for _, s in r):
@@ -2249,6 +2436,7 @@ def main():
                                      device="cuda")
         torch.cuda.synchronize()
         train_launches = ops.launch_counts()  # ... and ends here
+        segment_train, gemm_train = _kernels.temporal_segment.launches, _kernels.gemm.launches
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and validation included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
@@ -2256,6 +2444,11 @@ def main():
                        "validation forwards)", train_launches,
                        {**{op: 12 * steps for op in ops.TRAIN_OPS[1]},
                         **{op: 12 * n_val for op in ops.EVAL_OPS[1]}})
+        check_segment_core("flagship train", segment_train, 0)
+        GEMM_LAUNCHES["flagship train step"] = (
+            gemm_train - n_val * GEMM_LAUNCHES["flagship eval forward"]) / steps
+        log(f"  WMMA GEMM launches: {GEMM_LAUNCHES['flagship eval forward']:g} an eval "
+            f"forward, {GEMM_LAUNCHES['flagship train step']:g} a train step")
         if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError("train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -2850,6 +3043,9 @@ def main():
     # ---- phase 16: the temporal cores past their former frame bounds ------
     long144_launches, long144_train_launches = phase_16(card, errors)
 
+    # ---- phase 17: the segment forward core and the flash core alone -------
+    seg_bound, gemm_rows = phase_17(card, errors, op_ms, library_ms)
+
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
                           "fused_temporal_train_step", "fused_temporal_step_bwd_dx",
@@ -2924,6 +3120,16 @@ def main():
                 shape=f"x=({4 * LONG_FRAMES}, {TOKENS}, {WIDTH}), T={LONG_FRAMES}",
                 ms=layer_long[op][0], plain_ms=layer_long[op][1], bound_ms=b_ms,
                 bound_by=b_by, library_ms=None)
+    # the segment forward core alone, at 4 clips of 64 frames, with its
+    # launches on the first path that runs it
+    seg = ops.SEGMENT_CORE[0]
+    seg_path = next(p for p, n in SEGMENT_CORE_LAUNCHES.items() if n)
+    kernels.append(dict(
+        name=seg, route="cuda", source="adapt_image_models_torch/csrc/temporal_segment.cu",
+        replaces=ops.SEGMENT_CORE[1], path=seg_path, launches=SEGMENT_CORE_LAUNCHES[seg_path],
+        max_abs_err=errors[seg], ms=op_ms[seg][0], plain_ms=op_ms[seg][1],
+        bound_ms=seg_bound[0], bound_by=seg_bound[1], library_ms=library_ms[seg]))
+    log(f"WMMA GEMM rows: {json.dumps(gemm_rows)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -684,3 +684,71 @@ def test_layer_blocks_autograd_match_plain(cuda, block, n, heads):
             assert not a.any(), k
         else:
             _held(f"{block} {k}", a, p, e)
+
+
+# ---------------------------------------------------------------------------
+# the segment forward core and the flash core at their branch points
+# (ops.segment_fwd_design, ops.flash_fwd_design)
+
+
+@pytest.mark.parametrize("frames", [33, 64, 65, 128, 129, 300, 801])
+def test_segment_core_branches_match_plain(cuda, frames):
+    """The segment forward core at each branch point (registers to 64 and
+    to 128 frames, three passes over staged rows, past 800 the ring), 1
+    clip of 3 tokens, 2 heads: against its plain version and the unrounded
+    result; two launches bit-equal; one count a launch."""
+    from adapt_image_models_torch.ops import _kernels
+    from adapt_image_models_torch.ops._common import temporal_segment_core_plain
+    g = torch.Generator().manual_seed(60 + frames)
+    qkv = torch.randn(frames * 3, 3 * 128, generator=g).to(cuda, torch.bfloat16)
+    before = _kernels.temporal_segment.launches
+    got = _kernels.temporal_segment(qkv, 1, frames, 3)
+    again = _kernels.temporal_segment(qkv, 1, frames, 3)
+    torch.cuda.synchronize()
+    assert _kernels.temporal_segment.launches == before + 2
+    assert torch.equal(got, again)
+    want = temporal_segment_core_plain(qkv, 1, frames, 3, 2)
+    _held(f"segment T={frames}", got, want,
+          temporal_segment_core_plain(qkv.float(), 1, frames, 3, 2))
+    assert (got.float() - want.float()).abs().mean() < MEAN_TOL
+
+
+@pytest.mark.parametrize("b,heads,n", [(256, 12, 197), (64, 12, 197), (2, 12, 32), (8, 12, 32),
+                                       (8, 12, 8), (32, 16, 257), (1, 16, 32), (2, 12, 800),
+                                       (1, 2, 801)])
+def test_flash_core_branches_match_plain(cuda, b, heads, n):
+    """The flash core at every ``tools/kernel_bounds_torch.py``
+    ATTENTION_SHAPES entry and one key past the staging bound: against its
+    plain version and the unrounded result; strided views and contiguous
+    copies bit-equal; two launches bit-equal."""
+    q, k, v = _projection_views(cuda, b, heads, n, 70 + n)
+    out = ops.flash_attention_core(q, k, v)
+    again = ops.flash_attention_core(q, k, v)
+    flat = ops.flash_attention_core(*(t.contiguous() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    assert torch.equal(out, again) and torch.equal(out, flat)
+    want = ops.flash_attention_core_plain(q, k, v)
+    _held("out", out, want, ops.flash_attention_core_plain(q.float(), k.float(), v.float()))
+    assert (out.float() - want.float()).abs().mean() < MEAN_TOL
+
+
+def test_packed_bf16_products_equal_the_rounded_fp32_product(cuda):
+    """``__hmul2`` on packed bf16 pairs, as the segment forward core forms
+    its products, bit-equal to ``__floats2bfloat162_rn`` of the fp32
+    product on random, tiny (subnormal products), subnormal, huge
+    (overflowing), signed-zero, infinite and NaN pairs; NaN to NaN."""
+    from adapt_image_models_torch.ops import _kernels
+    g = torch.Generator().manual_seed(80)
+    special = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), 1.0, -1.0,
+                            1e-39, -1e-39, 9.2e-41, 2.0 ** -126, 2.0 ** -133, 1e-20, 3e38,
+                            -3e38])
+    a = torch.cat([torch.randn(1 << 16, generator=g), special.repeat_interleave(len(special)),
+                   torch.randn(4096, generator=g) * 1e-19])
+    b = torch.cat([torch.randn(1 << 16, generator=g), special.repeat(len(special)),
+                   torch.randn(4096, generator=g) * 1e-20])
+    a, b = (t[:t.numel() // 2 * 2].to(cuda, torch.bfloat16).contiguous() for t in (a, b))
+    packed, rounded = _kernels.bf16_products(a, b)
+    nan = torch.isnan(packed.float())
+    assert torch.equal(nan, torch.isnan(rounded.float())) and nan.any()
+    assert torch.equal(packed.view(torch.int16)[~nan], rounded.view(torch.int16)[~nan])
+    assert (rounded.float()[~nan] == 0).any()  # products that underflow

@@ -6,6 +6,8 @@ the repo (every function under ``adapt_image_models_tpu/ops/`` that reaches
     python tools/kernel_bounds_torch.py [--clips 32] [--frames 8]
         [--tokens 197] [--width 768]     # ViT-L/14: --tokens 257 --width 1024
     python tools/kernel_bounds_torch.py --attention   # row 13 at the ViT_CLIP paths' shapes
+    python tools/kernel_bounds_torch.py --cores --clips 4 --frames 64
+        # the segment forward core alone and the WMMA GEMM at the shape
 
 The bound of a function is the larger of two times: the FLOPs of its
 products (GEMMs and attention cores, 2 a multiply-add; elementwise work is
@@ -124,6 +126,36 @@ def attention_shape(b, heads, length, hd=64):
     return dict(clips=b, frames=1, tokens=length, width=heads * hd)
 
 
+def segment_core_work(clips=4, frames=64, tokens=197, width=768):
+    """(FLOPs, bytes) of the segment-sum forward core alone
+    (``_kernels.temporal_segment``) at x = (clips*frames, tokens, width):
+    packed bf16 QKV (rows, 3D) read once, the (rows, D) output written
+    once; per token and head T*T*64 products and their sums for the
+    scores and as many multiply-adds for P V, 2 FLOPs each (the same count
+    as row 13's core)."""
+    m = clips * frames * tokens
+    return 4 * m * frames * width, 2 * 4 * m * width
+
+
+def gemm_work(m, k, n):
+    """(FLOPs, bytes) of one WMMA GEMM (``csrc/gemm.cu``) with no epilogue:
+    bf16 (m, k) @ (k, n), the (m, k) and (n, k) operands read once and the
+    bf16 (m, n) result written once."""
+    return 2 * m * k * n, 2 * (m * k + n * k + m * n)
+
+
+# the flagship's two projection GEMMs (32 clips x 8 frames x 197 tokens =
+# 50432 rows of width 768): (rows, in, out) of W_qkv and W_o
+GEMM_SHAPES = ((50432, 768, 2304), (50432, 768, 768))
+
+
+def bound_of(flops, nbytes):
+    """(least milliseconds on one H100, "operations" or "bytes") of work
+    that does ``flops`` FLOPs and moves ``nbytes`` bytes."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def row_of(location):
     """The row of the kernel at ``location``, ``.../ops/<file>:<line>``."""
     path, line = location.rsplit("/", 1)[-1].split(":")
@@ -132,9 +164,7 @@ def row_of(location):
 
 def bound(row, **shape):
     """(least milliseconds on one H100, "operations" or "bytes")."""
-    flops, nbytes = work(row, **shape)
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    return bound_of(*work(row, **shape))
 
 
 def main(argv=None):
@@ -147,7 +177,22 @@ def main(argv=None):
                    help="count the u output of the gated steps (rows 12, 23)")
     p.add_argument("--attention", action="store_true",
                    help="row 13 (the flash core) at the ViT_CLIP paths' (B, H, L, 64)")
+    p.add_argument("--cores", action="store_true",
+                   help="the segment forward core alone at the shape, and the WMMA GEMM "
+                        "at the flagship's projections")
     args = p.parse_args(argv)
+    if args.cores:
+        print("| function | shape | GFLOP | MB | bound ms | bound by |")
+        print("|---|---|---|---|---|---|")
+        work_ = segment_core_work(args.clips, args.frames, args.tokens, args.width)
+        print(f"| segment forward core | x = ({args.clips * args.frames}, {args.tokens}, "
+              f"{args.width}), T={args.frames} | {work_[0] / 1e9:.2f} | {work_[1] / 1e6:.1f} | "
+              f"{bound_of(*work_)[0]:.4f} | {bound_of(*work_)[1]} |")
+        for m, k, n in GEMM_SHAPES:
+            work_ = gemm_work(m, k, n)
+            print(f"| WMMA GEMM | ({m}, {k}) @ ({k}, {n}) | {work_[0] / 1e9:.2f} | "
+                  f"{work_[1] / 1e6:.1f} | {bound_of(*work_)[0]:.4f} | {bound_of(*work_)[1]} |")
+        return
     if args.attention:
         print("| (B, H, L, hd) | GFLOP | MB | bound ms | bound by |")
         print("|---|---|---|---|---|")
