@@ -1,6 +1,8 @@
-// Attention cores of the fused AIM steps, head dim 64, bf16 in and out.
+// Attention cores of the fused AIM steps, head dim 64, bf16 in and out: the
+// temporal core and its backward, and the spatial core's backward (the
+// spatial forward core is csrc/flash_attention.cu's kernel).
 //
-// Both read the packed QKV rows the QKV GEMM writes, (rows, 3D) bf16 with
+// They read the packed QKV rows the QKV GEMM writes, (rows, 3D) bf16 with
 // columns [q | k | v] and head h at h*64 inside each, and write (rows, D)
 // bf16 with head h at columns h*64. Numerics follow the TPU kernels: scores
 // and softmax in fp32, the probabilities rounded to bf16 before the PV
@@ -16,178 +18,15 @@ namespace {
 
 constexpr int HD = 64;
 constexpr int LDQ = HD + 8;   // padded smem row for q/k/v tiles (elements)
-constexpr int BQ = 64;        // query rows per block: 4 warps x 16
+constexpr int BQ = 64;        // query rows per block of the spatial backward: 4 warps x 16
 constexpr int MAX_NP = 288;   // padded key count the block's smem holds
 constexpr int MAX_COLS = MAX_NP / 32;
 
-// Row stride (floats) of a warp's score rows. The bf16 P row reuses the
-// start of its score row (ld 2*LDS) and the 16x64 fp32 output tile reuses
-// the warp's rows, so a row holds max(NP, 64) floats, plus 4 against bank
+// Row stride (floats) of a warp's score rows in the spatial backward's
+// first kernel. The bf16 dS row reuses the start of its score row (ld
+// 2*LDS), so a row holds max(NP, 64) floats, plus 4 against bank
 // conflicts.
 __host__ __device__ inline int score_ld(int np) { return (np > HD ? np : HD) + 4; }
-
-// ---------------------------------------------------------------------------
-// Spatial core. Replaces the attention body of
-// adapt_image_models_tpu/ops/fused_qkv_attention.py::_attention_body: per
-// frame and head, softmax(q k^T / 8) v over the frame's L <= 288 tokens.
-// One block per (64-query tile, head, frame). K and V of the (frame, head)
-// are staged in shared memory (zero rows past L), each warp computes its 16
-// rows of scores with WMMA into shared memory, takes the softmax there
-// (writing bf16 probabilities over its own score rows), and multiplies by V.
-// Bound by the tensor cores and by shared-memory traffic; a flash-style
-// online softmax with wgmma is later work. ``PRENORM`` normalises the
-// probabilities in fp32 before rounding them for PV, as the TPU backward
-// kernel recomputes the forward (fused_qkv_attention.py:1256-1260).
-template <bool PRENORM>
-__device__ __forceinline__ void spatial_tile(const bf16* __restrict__ qkv,
-                                             bf16* __restrict__ out, int f, int h, int q0,
-                                             int L, int D, int NP, float scale,
-                                             unsigned char* smem) {
-  const int LDS = score_ld(NP);
-
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = sQ + BQ * LDQ;
-  bf16* sV = sK + NP * LDQ;
-  float* sS = reinterpret_cast<float*>(sV + NP * LDQ);
-  float* sDen = sS + BQ * LDS;
-
-  const size_t rs = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)f * L * rs;
-  for (int c = threadIdx.x; c < NP * (HD / 8); c += blockDim.x) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-    if (r < L) {
-      kv = *reinterpret_cast<const uint4*>(base + r * rs + D + h * HD + col);
-      vv = *reinterpret_cast<const uint4*>(base + r * rs + 2 * D + h * HD + col);
-    }
-    *reinterpret_cast<uint4*>(sK + r * LDQ + col) = kv;
-    *reinterpret_cast<uint4*>(sV + r * LDQ + col) = vv;
-  }
-  for (int c = threadIdx.x; c < BQ * (HD / 8); c += blockDim.x) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 qv = make_uint4(0, 0, 0, 0);
-    if (q0 + r < L) qv = *reinterpret_cast<const uint4*>(base + (q0 + r) * rs + h * HD + col);
-    *reinterpret_cast<uint4*>(sQ + r * LDQ + col) = qv;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* sSw = sS + warp * 16 * LDS;
-  bf16* sPw = reinterpret_cast<bf16*>(sSw);
-  const int LDP = 2 * LDS;
-
-  // S = Q K^T for this warp's 16 query rows
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wmma::load_matrix_sync(fq[kk], sQ + warp * 16 * LDQ + kk * 16, LDQ);
-  for (int j = 0; j < NP / 16; ++j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fs;
-    wmma::fill_fragment(fs, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-      wmma::load_matrix_sync(fk, sK + j * 16 * LDQ + kk * 16, LDQ);
-      wmma::mma_sync(fs, fq[kk], fk, fs);
-    }
-    wmma::store_matrix_sync(sSw + j * 16, fs, LDS, wmma::mem_row_major);
-  }
-  __syncwarp();
-
-  // softmax over the L real keys; P (bf16) overwrites the row's own scores
-  for (int r = 0; r < 16; ++r) {
-    float s[MAX_COLS];
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < MAX_COLS; ++i) {
-      const int c = lane + 32 * i;
-      s[i] = (c < L) ? sSw[r * LDS + c] * scale : -INFINITY;
-      m = fmaxf(m, s[i]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_COLS; ++i) {
-      const int c = lane + 32 * i;
-      s[i] = (c < L) ? expf(s[i] - m) : 0.f;
-      sum += s[i];
-    }
-    sum = warp_sum(sum);
-    __syncwarp();  // every lane has read row r before any lane overwrites it
-#pragma unroll
-    for (int i = 0; i < MAX_COLS; ++i) {
-      const int c = lane + 32 * i;
-      if (c < NP) sPw[r * LDP + c] = __float2bfloat16(PRENORM ? s[i] / sum : s[i]);
-    }
-    if (lane == 0) sDen[warp * 16 + r] = PRENORM ? 1.f : sum;
-  }
-  __syncwarp();
-
-  // O = P V
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo[HD / 16];
-#pragma unroll
-  for (int jj = 0; jj < HD / 16; ++jj) wmma::fill_fragment(fo[jj], 0.f);
-  for (int kk = 0; kk < NP / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-    wmma::load_matrix_sync(fp, sPw + kk * 16, LDP);
-#pragma unroll
-    for (int jj = 0; jj < HD / 16; ++jj) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-      wmma::load_matrix_sync(fv, sV + kk * 16 * LDQ + jj * 16, LDQ);
-      wmma::mma_sync(fo[jj], fp, fv, fo[jj]);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int jj = 0; jj < HD / 16; ++jj)
-    wmma::store_matrix_sync(sSw + jj * 16, fo[jj], LDS, wmma::mem_row_major);
-  __syncwarp();
-
-  for (int e = lane; e < 16 * HD; e += 32) {
-    const int r = e >> 6, c = e & (HD - 1);
-    const int gq = q0 + warp * 16 + r;
-    if (gq < L)
-      out[((size_t)f * L + gq) * D + h * HD + c] =
-          __float2bfloat16(sSw[r * LDS + c] / sDen[warp * 16 + r]);
-  }
-}
-
-template <bool PRENORM>
-__global__ void __launch_bounds__(128)
-spatial_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int L,
-                         int D, int NP, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  spatial_tile<PRENORM>(qkv, out, blockIdx.z, blockIdx.y, blockIdx.x * BQ, L, D, NP, scale,
-                        smem);
-}
-
-// The spatial core over groups of r frames (samples): replaces the core of
-// adapt_image_models_tpu/ops/fused_qkv_attention.py::_kernel_ln_r (:1131),
-// which runs r samples and all their heads in one grid cell (grid
-// -(-B // r), fused_ln_qkv_attention_r :1164). One block per (64-query
-// tile, group of r frames) walks the group's frames and, for each, every
-// head, with the per-(frame, head) tile of spatial_attention_kernel, so its
-// results are those of the r = 1 core bit for bit (as the TPU kernel's are,
-// :1119). The last group may hold fewer than r frames.
-__global__ void __launch_bounds__(128)
-spatial_attention_r_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int frames,
-                           int r, int L, int D, int NP, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  for (int s = 0; s < r; ++s) {
-    const int f = blockIdx.y * r + s;
-    if (f >= frames) break;  // the same for every thread of the block
-    for (int h = 0; h < D / HD; ++h) {
-      spatial_tile<false>(qkv, out, f, h, blockIdx.x * BQ, L, D, NP, scale, smem);
-      __syncthreads();  // every warp is done with the staged K, V before the next stage
-    }
-  }
-}
-
-size_t spatial_smem_bytes(int np) {
-  return (size_t)(BQ + 2 * np) * LDQ * sizeof(bf16) + (size_t)BQ * score_ld(np) * sizeof(float) +
-         BQ * sizeof(float);
-}
 
 // ---------------------------------------------------------------------------
 // Temporal core. Replaces the masked-full core of
@@ -277,10 +116,10 @@ temporal_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, 
 // written into the packed (rows, 3D) dqkv layout that the dy GEMM reads.
 // dQ needs whole score rows and dK, dV whole score columns, and a block's
 // shared memory holds neither the (L, L) P nor dS of a frame, so the core is
-// two kernels. The first takes 64 query rows per block, as the forward
-// core does: it recomputes S and P, forms rowsum(dP * P) in one pass over
-// 16-column blocks of dP and dS in a second (recomputing the 16x16 dP
-// block rather than holding a second score matrix), computes dQ, and
+// two kernels. The first takes 64 query rows per block: it recomputes S
+// and P, forms rowsum(dP * P) in one pass over 16-column blocks of dP and
+// dS in a second (recomputing the 16x16 dP block rather than holding a
+// second score matrix), computes dQ, and
 // writes bf16 P and dS to a scratch of (QP, KP) per (frame, head), zero
 // past L. The second takes 64 keys per block and reduces dV and dK over
 // the query axis from that scratch. Both are bound by the tensor cores and
@@ -820,38 +659,6 @@ temporal_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restri
 }
 
 }  // namespace
-
-extern "C" int aim_spatial_attention_bf16(const void* qkv, void* out, int frames, int L, int D,
-                                          float scale, int prenorm, void* stream) {
-  const int np = (L + 15) / 16 * 16;
-  if (D % HD || L <= 0 || np > MAX_NP) return (int)cudaErrorInvalidValue;
-  if (frames == 0) return 0;
-  const size_t bytes = spatial_smem_bytes(np);
-  auto kernel = prenorm ? spatial_attention_kernel<true> : spatial_attention_kernel<false>;
-  // above 48 KB of dynamic shared memory needs the opt-in, per device
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + BQ - 1) / BQ, D / HD, frames);
-  kernel<<<grid, 128, bytes, (cudaStream_t)stream>>>((const bf16*)qkv, (bf16*)out, L, D, np,
-                                                     scale);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int aim_spatial_attention_r_bf16(const void* qkv, void* out, int frames, int r, int L,
-                                            int D, float scale, void* stream) {
-  const int np = (L + 15) / 16 * 16;
-  if (D % HD || L <= 0 || np > MAX_NP || r <= 0) return (int)cudaErrorInvalidValue;
-  if (frames == 0) return 0;
-  const size_t bytes = spatial_smem_bytes(np);
-  const cudaError_t err = cudaFuncSetAttribute(
-      spatial_attention_r_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((L + BQ - 1) / BQ, (frames + r - 1) / r);
-  spatial_attention_r_kernel<<<grid, 128, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (bf16*)out, frames, r, L, D, np, scale);
-  return (int)cudaGetLastError();
-}
 
 extern "C" int aim_temporal_attention_bf16(const void* qkv, void* out, int clips, int T, int L,
                                            int D, float scale, void* stream) {

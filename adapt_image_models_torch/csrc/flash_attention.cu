@@ -35,14 +35,23 @@
 // tiles would pad it to 256; its fragment layouts let P go from the score
 // accumulators to the PV operand in registers.
 // Past the 800 keys whose K and V fit one block's shared memory they stream
-// twice through a double-buffered ring of 64-key tiles, K in the first pass
-// and K and V in the second. The length picks the branch (flash_design;
+// through a double-buffered ring of 64-key tiles once a pass, K in the
+// first passes and K and V in the last. The length picks the branch (flash_design;
 // the wrapper holds it to its twin ops._kernels.flash_fwd_design).
 //
 // q, k, v and o are read and written through their strides (elements,
 // head-dim stride 1), so the (B, L, H, 64) views the projections make are
 // taken as they are and o is written in the layout its out-projection
 // reads.
+//
+// It is also the spatial forward core of the fused AIM ops (replacing the
+// attention body of adapt_image_models_tpu/ops/fused_qkv_attention.py::
+// _attention_body, and the r-sample grouping of _kernel_ln_r :1131, which
+// means nothing on Hopper): ops/_kernels.py::spatial_attention passes the
+// q, k, v views of the packed (frames * L, 3D) QKV, strides (L * 3D, 64,
+// 3D), and o as the (frames * L, D) rows the out-projection reads. Its
+// casts are those of the TPU spatial body. PRENORM (the backward's
+// recompute) takes a third pass for the exact row sum, see the kernel.
 
 #include "common.cuh"
 
@@ -100,7 +109,12 @@ __device__ __forceinline__ void flash_scores(float (*c)[4], uint32_t (*qf)[4],
   }
 }
 
-template <bool STREAM>
+// PRENORM normalises p in fp32 by the exact row sum before rounding it, and
+// the divisor is then 1, as the TPU backward kernels recompute the spatial
+// forward (fused_qkv_attention.py:1256-1260): a pass over the keys between
+// the max and P V takes that sum first (an online sum would round p against
+// another value)
+template <bool STREAM, bool PRENORM>
 __global__ void __launch_bounds__(FLASH_WARPS * 32)
 flash_attention_kernel(const __grid_constant__ FlashArgs a, int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -141,8 +155,10 @@ flash_attention_kernel(const __grid_constant__ FlashArgs a, int tiles) {
   float o[FHD / 8][4];
 #pragma unroll
   for (int dt = 0; dt < FHD / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  // 16 keys (key0 ..) of pass 1 (the row max) or pass 2 (p, den, O += P V)
-  auto chunk = [&](bool second, const bf16* k, const bf16* v, int key0) {
+  // 16 keys (key0 ..) of pass 0 (the row max), of pass 1 under PRENORM
+  // (the row sum), or of the last pass (p, without PRENORM its sum, O += P V)
+  constexpr int PASSES = PRENORM ? 3 : 2;
+  auto chunk = [&](int pass, const bf16* k, const bf16* v, int key0) {
     float s[2][4];
     flash_scores(s, qf, k, lane);
 #pragma unroll
@@ -151,37 +167,45 @@ flash_attention_kernel(const __grid_constant__ FlashArgs a, int tiles) {
       for (int e = 0; e < 4; ++e) {
         const float x = key0 + 8 * nt + 2 * t + (e & 1) < L ? __fmul_rn(s[nt][e], scale)
                                                             : -INFINITY;
-        if (second) {
-          s[nt][e] = expf(x - m[e >> 1]);
-          den[e >> 1] += s[nt][e];
-        } else {
+        if (pass == 0) {
           m[e >> 1] = fmaxf(m[e >> 1], x);
+        } else {
+          s[nt][e] = expf(x - m[e >> 1]);
+          if (!PRENORM || pass == 1) den[e >> 1] += s[nt][e];
+          if (PRENORM && pass == 2) s[nt][e] = __fdiv_rn(s[nt][e], den[e >> 1]);
         }
       }
-    if (second) pv_mma_16(o, s[0], s[1], v, lane);
+    if (pass == PASSES - 1) pv_mma_16(o, s[0], s[1], v, lane);
+  };
+  auto pass_done = [&](int pass) {
+    if (pass == 0) m[0] = quad_max(m[0]), m[1] = quad_max(m[1]);
+    if (PRENORM && pass == 1) den[0] = quad_sum(den[0]), den[1] = quad_sum(den[1]);
   };
 
   if (!STREAM) {
     cp_async_wait<1>();  // K has landed
     __syncthreads();
-    for (int key0 = 0; key0 < L; key0 += 16) chunk(false, sK + key0 * SMEM_ROW, nullptr, key0);
-    m[0] = quad_max(m[0]), m[1] = quad_max(m[1]);
+#pragma unroll
+    for (int pass = 0; pass < PASSES - 1; ++pass) {
+      for (int key0 = 0; key0 < L; key0 += 16) chunk(pass, sK + key0 * SMEM_ROW, nullptr, key0);
+      pass_done(pass);
+    }
     cp_async_wait<0>();  // and V
     __syncthreads();
     for (int key0 = 0; key0 < L; key0 += 16)
-      chunk(true, sK + key0 * SMEM_ROW, sV + key0 * SMEM_ROW, key0);
+      chunk(PASSES - 1, sK + key0 * SMEM_ROW, sV + key0 * SMEM_ROW, key0);
   } else {
     const int ktiles = (L + FLASH_RING - 1) / FLASH_RING;
     auto stage = [&](int it) {  // item it: (pass it / ktiles, tile it % ktiles)
       const int slot = it & 1, f0 = (it % ktiles) * FLASH_RING, nf = min(FLASH_RING, L - f0);
       stage_rows(sK + slot * rows * SMEM_ROW, kb + f0 * a.sk[2], a.sk[2], nf, FLASH_RING);
-      if (it >= ktiles)
+      if (it >= (PASSES - 1) * ktiles)
         stage_rows(sV + slot * rows * SMEM_ROW, vb + f0 * a.sv[2], a.sv[2], nf, FLASH_RING);
       cp_async_commit();
     };
     stage(0);
-    for (int it = 0; it < 2 * ktiles; ++it) {
-      if (it + 1 < 2 * ktiles) {
+    for (int it = 0; it < PASSES * ktiles; ++it) {
+      if (it + 1 < PASSES * ktiles) {
         stage(it + 1);  // into the slot every warp released at the end of it - 1
         cp_async_wait<1>();
       } else {
@@ -192,14 +216,17 @@ flash_attention_kernel(const __grid_constant__ FlashArgs a, int tiles) {
       const bf16* k = sK + (it & 1) * rows * SMEM_ROW;
       const bf16* v = sV + (it & 1) * rows * SMEM_ROW;
       for (int c = 0; c < FLASH_RING && f0 + c < L; c += 16)
-        chunk(it >= ktiles, k + c * SMEM_ROW, v + c * SMEM_ROW, f0 + c);
-      if (it == ktiles - 1) m[0] = quad_max(m[0]), m[1] = quad_max(m[1]);
+        chunk(it / ktiles, k + c * SMEM_ROW, v + c * SMEM_ROW, f0 + c);
+      if (it % ktiles == ktiles - 1) pass_done(it / ktiles);
       __syncthreads();
     }
   }
 
-  // o = bf16(O / den) through o's strides
-  den[0] = quad_sum(den[0]), den[1] = quad_sum(den[1]);
+  // o = bf16(O / den) through o's strides; under PRENORM den is 1
+  if (PRENORM)
+    den[0] = den[1] = 1.f;
+  else
+    den[0] = quad_sum(den[0]), den[1] = quad_sum(den[1]);
   bf16* ob = a.o + b * a.so[0] + h * a.so[1];
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -214,6 +241,15 @@ flash_attention_kernel(const __grid_constant__ FlashArgs a, int tiles) {
   }
 }
 
+template <bool STREAM, bool PRENORM>
+int launch(const FlashArgs& a, int blocks, int warps, int smem, int tiles, cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<STREAM, PRENORM>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  flash_attention_kernel<STREAM, PRENORM><<<blocks, warps * 32, smem, s>>>(a, tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int aim_flash_attention_design(int L, int* smem) {
@@ -222,7 +258,7 @@ extern "C" int aim_flash_attention_design(int L, int* smem) {
   return flash_design(L, smem, &warps, &tiles);
 }
 
-extern "C" int aim_flash_attention_bf16(const FlashArgs* args, void* stream) {
+extern "C" int aim_flash_attention_bf16(const FlashArgs* args, int prenorm, void* stream) {
   const FlashArgs& a = *args;
   if (a.L <= 0 || a.B < 0 || a.H <= 0) return (int)cudaErrorInvalidValue;
   if (a.B == 0) return 0;
@@ -231,17 +267,9 @@ extern "C" int aim_flash_attention_bf16(const FlashArgs* args, void* stream) {
   const long long blocks = (long long)a.B * a.H * tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (branch == FLASH_STAGED) {
-    err = cudaFuncSetAttribute(flash_attention_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_kernel<false><<<(unsigned)blocks, warps * 32, smem, s>>>(a, tiles);
-  } else {
-    err = cudaFuncSetAttribute(flash_attention_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    flash_attention_kernel<true><<<(unsigned)blocks, warps * 32, smem, s>>>(a, tiles);
-  }
-  return (int)cudaGetLastError();
+  if (branch == FLASH_STAGED)
+    return prenorm ? launch<false, true>(a, (int)blocks, warps, smem, tiles, s)
+                   : launch<false, false>(a, (int)blocks, warps, smem, tiles, s);
+  return prenorm ? launch<true, true>(a, (int)blocks, warps, smem, tiles, s)
+                 : launch<true, false>(a, (int)blocks, warps, smem, tiles, s);
 }

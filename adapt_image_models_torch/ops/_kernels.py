@@ -39,12 +39,11 @@ _SIGNATURES = {
     "aim_row_scale_bf16": [_P, _P, _I, _F, _P, _P, _I, _I, _P],
     "aim_gemm_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F,
                       _I, _I, _I, _P, _P, _P],
-    "aim_spatial_attention_bf16": [_P, _P, _I, _I, _I, _F, _I, _P],
-    "aim_spatial_attention_r_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_gemm_design": [_I, _I, _I, _I, _P],
     "aim_spatial_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
-    "aim_flash_attention_bf16": [_P, _P],
+    "aim_flash_attention_bf16": [_P, _I, _P],
     "aim_flash_attention_design": [_I, _P],
     "aim_temporal_segment_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_segment_design": [_I, _P],
@@ -56,6 +55,13 @@ _SIGNATURES = {
 # of 64 bf16 lanes (csrc/common.cuh: SMEM_BLOCK_MAX, SMEM_ROW_BYTES)
 SMEM_BLOCK_MAX, SMEM_ROW_BYTES = 232448, 144
 SEGMENT_RING, FLASH_RING = 64, 64  # frames / keys of one ring slot
+# the GEMM's block tile rows and k depth, the stages of its ring by tile
+# width, and the slack its shared memory holds to align the swizzled
+# tiles plus the mbarriers (csrc/gemm.cu)
+GEMM_BM, GEMM_BK = 128, 64
+GEMM_STAGES = {128: 6, 256: 4}
+GEMM_SMEM_EXTRA = 1024 + 128
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def _round_up(a: int, b: int) -> int:
@@ -96,26 +102,47 @@ def flash_fwd_design(length: int) -> Tuple[str, int]:
     return "streamed", 2 * 2 * FLASH_RING * SMEM_ROW_BYTES
 
 
+def gemm_design(m: int, n: int, k: int, kn: bool = False) -> Tuple[str, int]:
+    """(branch, dynamic shared memory in bytes) of the GEMM at (m, k) @ (k,
+    n), the weight (n, k) or with ``kn`` (k, n), as
+    ``csrc/gemm.cu::gemm_design`` picks them: 128 x 256 block tiles
+    ("bn256") where n holds at least two 256-wide tiles and the tiles make
+    a full wave on the card's 132 SMs, else 128 x 128 ("bn128"); a ring of
+    6 or 4 stages of the 128 x 64 A tile and the 64-deep B tile, 192 KB
+    either way. Both layouts take the same tiles. TMA reads rows in 16-byte
+    units, so k and n must be multiples of 8."""
+    if m < 0 or n <= 0 or k <= 0 or n % 8 or k % 8:
+        raise ValueError(f"gemm: (m, n, k) = ({m}, {n}, {k}) needs m >= 0 and positive n, k "
+                         "divisible by 8")
+    tiles_m = -(-m // GEMM_BM)
+    bn = 256 if n >= 512 and tiles_m * -(-n // 256) >= SMS else 128
+    stage = 2 * GEMM_BK * (GEMM_BM + bn)
+    return f"bn{bn}", GEMM_STAGES[bn] * stage + GEMM_SMEM_EXTRA
+
+
 _DESIGNS = {
     "aim_temporal_segment_design": (
         segment_fwd_design, ("registers64", "registers128", "staged", "streamed")),
     "aim_flash_attention_design": (flash_fwd_design, ("staged", "streamed")),
+    "aim_gemm_design": (gemm_design, ("bn128", "bn256")),
 }
 _designs_held = set()
 
 
-def _hold_design(c_name: str, size: int) -> None:
+def _hold_design(c_name: str, *size: int) -> None:
     """Raise unless the kernel's C design function picks the branch and the
-    shared memory that its Python twin does at ``size``; once a size."""
-    if (c_name, size) in _designs_held:
+    shared memory that its Python twin does at ``size`` (a length, or the
+    GEMM's (m, n, k, kn)); once a size."""
+    key = (c_name, *size)
+    if key in _designs_held:
         return
     plain, branches = _DESIGNS[c_name]
     smem = ctypes.c_int(0)
-    code = getattr(library(), c_name)(size, ctypes.byref(smem))
+    code = getattr(library(), c_name)(*size, ctypes.byref(smem))
     got = (branches[code] if 0 <= code < len(branches) else code, smem.value)
-    if got != plain(size):
-        raise RuntimeError(f"{c_name}({size}) = {got}, its Python twin says {plain(size)}")
-    _designs_held.add((c_name, size))
+    if got != plain(*size):
+        raise RuntimeError(f"{c_name}{size} = {got}, its Python twin says {plain(*size)}")
+    _designs_held.add(key)
 
 
 class _FlashArgs(ctypes.Structure):
@@ -258,9 +285,17 @@ def gemm(a: torch.Tensor, w: torch.Tensor, *, kn: bool = False, bias=None,
     derivative at a fp32 pre-activation, ``row_scale`` (fp32) scales each
     group of ``rows_per_scale`` rows, ``f32_pre_act`` stores the fp32
     result before ``act``. Returns ``(fp32 result or None, bf16 result or
-    None)``. Each launch adds one to ``launches``."""
+    None)``. a and w must be contiguous and 16-byte aligned, k and n
+    multiples of 8 (``gemm_design``). Each launch adds one to ``launches``."""
     m, k = a.shape
     n = w.shape[1] if kn else w.shape[0]
+    if (w.shape[0] if kn else w.shape[1]) != k:
+        raise ValueError(f"gemm: a {tuple(a.shape)} and w {tuple(w.shape)} (kn={kn}) disagree")
+    gemm_design(m, n, k, kn)  # raises on what the kernel does not take
+    for t in (a, w):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("gemm: a and w must be contiguous and 16-byte aligned")
+    _hold_design("aim_gemm_design", m, n, k, int(kn))
     o32 = torch.empty((m, n), dtype=torch.float32, device=a.device) if out_f32 else None
     o16 = torch.empty((m, n), dtype=torch.bfloat16, device=a.device) if out_bf16 else None
     _check(library().aim_gemm_bf16(
@@ -275,17 +310,66 @@ def gemm(a: torch.Tensor, w: torch.Tensor, *, kn: bool = False, bias=None,
 gemm.launches = 0
 
 
+def gemm_plain(a: torch.Tensor, w: torch.Tensor, *, kn: bool = False, bias=None,
+               act: int = ACT_NONE, aux=None, dact: int = ACT_NONE,
+               alpha: float = 1.0, res_f32=None, row_scale=None,
+               rows_per_scale: int = 1, res_bf16=None, bias2=None,
+               out_f32: bool = False, out_bf16: bool = True, f32_pre_act: bool = False
+               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The plain version of ``gemm``, with its arguments and results: the
+    product of the upcast operands in fp32, then the epilogue in fp32 in
+    ``csrc/gemm.cu``'s order, rounded once at the end."""
+    from adapt_image_models_torch.ops._common import (
+        gelu_tanh, gelu_tanh_grad, quick_gelu, quick_gelu_grad,
+    )
+    acts = {ACT_NONE: lambda v: v, ACT_QUICK_GELU: quick_gelu, ACT_GELU_TANH: gelu_tanh}
+    grads = {ACT_NONE: torch.ones_like, ACT_QUICK_GELU: quick_gelu_grad,
+             ACT_GELU_TANH: gelu_tanh_grad}
+    v = a.float() @ (w.float() if kn else w.float().t())
+    if bias is not None:
+        v = v + bias.float()
+    pre = v if f32_pre_act else None
+    v = acts[act](v)
+    if aux is not None:
+        v = v * grads[dact](aux)
+    v = v * alpha
+    if res_f32 is not None:
+        v = res_f32 + v
+    if row_scale is not None:
+        rows = torch.arange(v.shape[0], device=v.device) // rows_per_scale
+        v = v * row_scale[rows][:, None]
+    if res_bf16 is not None:
+        v = res_bf16.float() + v
+    if bias2 is not None:
+        v = v + bias2.float()
+    return (pre if f32_pre_act else (v if out_f32 else None),
+            v.to(torch.bfloat16) if out_bf16 else None)
+
+
+def spatial_views(qkv: torch.Tensor, out: torch.Tensor, frames: int, length: int):
+    """The (frames, H, length, 64) q, k, v views of the packed (frames*length,
+    3D) QKV, strides (length*3D, 64, 3D), and the view of the (frames*length,
+    D) ``out`` in which the flash core writes o: what ``spatial_attention``
+    hands the flash core."""
+    d = qkv.shape[1] // 3
+    q, k, v = (t.view(frames, length, d // 64, 64).transpose(1, 2)
+               for t in qkv.split(d, dim=1))
+    return q, k, v, out.view(frames, length, d // 64, 64).transpose(1, 2)
+
+
 def spatial_attention(qkv: torch.Tensor, frames: int, length: int,
                       prenorm: bool = False) -> torch.Tensor:
-    """(frames*length, 3D) packed bf16 QKV -> (frames*length, D) bf16.
+    """(frames*length, 3D) packed bf16 QKV -> (frames*length, D) bf16: the
+    flash core (``flash_attention``) on the views ``spatial_views`` makes.
     ``prenorm`` normalises P before rounding it, as the TPU backward
-    kernel's recompute does."""
-    d = qkv.shape[1] // 3
-    out = torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
-    _check(library().aim_spatial_attention_bf16(
-        qkv.data_ptr(), out.data_ptr(), frames, length, d, 64 ** -0.5,
-        int(prenorm), _stream()), "aim_spatial_attention_bf16")
+    kernel's recompute does. Each launch adds one to ``launches``."""
+    out = torch.empty((qkv.shape[0], qkv.shape[1] // 3), dtype=qkv.dtype, device=qkv.device)
+    flash_attention(*spatial_views(qkv, out, frames, length), prenorm=prenorm)
+    spatial_attention.launches += 1
     return out
+
+
+spatial_attention.launches = 0
 
 
 def spatial_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, frames: int,
@@ -310,15 +394,13 @@ def spatial_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, frames: int,
 
 def spatial_attention_r(qkv: torch.Tensor, frames: int, length: int,
                         r: int) -> torch.Tensor:
-    """``spatial_attention`` with one block walking the heads of each group
-    of ``r`` frames (the last group may be short): the same output, bit
-    for bit."""
-    d = qkv.shape[1] // 3
-    out = torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
-    _check(library().aim_spatial_attention_r_bf16(
-        qkv.data_ptr(), out.data_ptr(), frames, r, length, d, 64 ** -0.5,
-        _stream()), "aim_spatial_attention_r_bf16")
-    return out
+    """``spatial_attention`` for the TPU kernel that groups ``r`` frames a
+    grid cell (the last group may be short): the grouping means nothing to
+    the flash core's launch, so this is the same launch, and the same
+    output bit for bit at every r."""
+    if r < 1:
+        raise ValueError(f"spatial_attention_r: r={r} < 1")
+    return spatial_attention(qkv, frames, length)
 
 
 def _row_stats(qkv: torch.Tensor) -> torch.Tensor:
@@ -395,13 +477,17 @@ def temporal_segment_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
     return (dqkv, out) if with_out else dqkv
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: Optional[torch.Tensor] = None, prenorm: bool = False) -> torch.Tensor:
     """softmax(q k^T / 8) v over (B, H, L, 64) bf16 q, k, v, read through
     their strides (head dim contiguous, the other strides multiples of 8
     elements). The output is (B, H, L, 64) laid out as (B, L, H, 64), so
-    that ``o.transpose(1, 2).reshape(B, L, H * 64)`` is a view."""
+    that ``o.transpose(1, 2).reshape(B, L, H * 64)`` is a view, or written
+    through the strides of the given ``o``. ``prenorm`` normalises P by the
+    row sum before rounding it (the divisor then 1)."""
     b, h, n, hd = q.shape
-    o = torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if o is None:
+        o = torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     args = _FlashArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                       (ctypes.c_longlong * 3)(*q.stride()[:3]),
                       (ctypes.c_longlong * 3)(*k.stride()[:3]),
@@ -409,7 +495,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
                       (ctypes.c_longlong * 3)(*o.stride()[:3]),
                       b, h, n, 1.0 / (hd ** 0.5))
     _hold_design("aim_flash_attention_design", n)
-    _check(library().aim_flash_attention_bf16(ctypes.byref(args), _stream()),
+    _check(library().aim_flash_attention_bf16(ctypes.byref(args), int(prenorm), _stream()),
            "aim_flash_attention_bf16")
     return o
 

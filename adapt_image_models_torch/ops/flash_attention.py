@@ -38,12 +38,14 @@ def _scale(hd: int) -> float:
 
 
 def flash_attention_core_plain(q: torch.Tensor, k: torch.Tensor,
-                               v: torch.Tensor) -> torch.Tensor:
+                               v: torch.Tensor, prenorm: bool = False) -> torch.Tensor:
     """Plain version with the TPU kernel's casts: fp32 scores times the
     scale, ``bf16(exp(s - max)) @ v / sum(exp(s - max))`` rounded to the
-    working dtype. (B, H, L, hd) -> (B, H, L, hd)."""
+    working dtype; with ``prenorm`` ``bf16(exp(s - max) / sum) @ v`` (the
+    kernel's launch as the spatial core of the TPU backward's recompute,
+    ``_kernels.spatial_attention``). (B, H, L, hd) -> (B, H, L, hd)."""
     s = (q.float() @ k.float().transpose(-1, -2)) * _scale(q.shape[-1])
-    return softmax_pv(s, v, v.dtype)
+    return softmax_pv(s, v, v.dtype, prenorm)
 
 
 def _check(q, k, v) -> None:

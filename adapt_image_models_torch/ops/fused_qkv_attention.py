@@ -6,10 +6,12 @@ fused_ln_attn_adapter_residual`` (:647, reached through
 ``fused_spatial_step_block`` :707). The TPU kernel runs the whole step for
 one frame in VMEM with every weight resident (Wqkv alone is 3.5 MB at
 ViT-B). An SM holds 227 KB, so on the H100 the step is a chain of
-hand-written kernels (``csrc/``): LayerNorm, the QKV GEMM, the spatial
-attention core, the out-proj GEMM, and the two adapter GEMMs whose last
-epilogue adds the adapter skip and the residual. The QKV and out-proj
-products and the attention core are bound by the tensor cores; the chain
+hand-written kernels (``csrc/``): LayerNorm, the QKV GEMM (``csrc/gemm.cu``,
+wgmma on TMA-loaded tiles), the spatial attention core (the flash core of
+``csrc/flash_attention.cu`` on the strided q, k, v views of the packed QKV),
+the out-proj GEMM, and the two adapter GEMMs whose last epilogue adds the
+adapter skip and the residual. The QKV and out-proj products are bound by
+the tensor cores, the attention core by its bytes; the chain
 also writes the (rows, 3D) QKV and a few (rows, D) intermediates to device
 memory, which fusing the LN and adapter into neighbouring kernels removes
 in later work.
@@ -57,17 +59,19 @@ GEMM, runs the spatial core backward, which also writes o from the
 normalised P, and dx = dqkv·W_qkv. Both are bound by the tensor cores (the
 two or three projections and the core's products); the chain writes the
 (rows, 3D) QKV and the core output to device memory between kernels. The
-core holds a frame's keys in shared memory, so L <= 288 (``csrc/
-attention.cu`` MAX_NP): the prompt token makes ViT-B/16's sequence 198.
+core's backward holds a frame's keys in shared memory, so L <= 288
+(``csrc/attention.cu`` MAX_NP) on every spatial op: the prompt token makes
+ViT-B/16's sequence 198.
 
 The LN block ``W_o · attn(LN x) + b_o`` (``CLIPAttention(ln=ln)``) and the
 adapter block ``Adapter(W_o · attn(x) + b_o)`` (``CLIPAttention(adapter=a)``)
 have, on the same kernels: the forwards ``fused_ln_qkv_attention``
 (replacing :446: the row LayerNorm, then the plain block's chain),
-``fused_ln_qkv_attention_r`` (:1164, the same function with one core block
-walking the heads of r samples) and ``fused_qkv_attention_adapter`` (:467:
-the plain block's chain with y kept in fp32 for the TPU kernels' adapter
-epilogue, which rows 1 and 12 run with the residual on); the LN block's
+``fused_ln_qkv_attention_r`` (:1164, the same function; its grouping of r
+samples a grid cell means nothing to the flash core's launch) and
+``fused_qkv_attention_adapter`` (:467: the plain block's chain with y kept
+in fp32 for the TPU kernels' adapter epilogue, which rows 1 and 12 run with
+the residual on); the LN block's
 backward ``fused_ln_qkv_attention_bwd`` (:848: (dx, dqkv, dy, y, o), the
 spatial twin of ``fused_ln_temporal_attention_bwd``). The autograd ops
 ``fused_ln_attention_block`` (:606), ``fused_ln_attention_block_frozen``
@@ -331,7 +335,7 @@ def fused_spatial_train_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 # tokens, no LayerNorm and no adapter inside.
 
 
-MAX_TOKENS = 288  # the keys a block of the spatial core holds (csrc/attention.cu)
+MAX_TOKENS = 288  # the keys a block of the spatial backward core holds (csrc/attention.cu)
 
 
 def _check_block(name, x, w_qkv, b_qkv, w_out, num_heads, vectors=(),
@@ -515,9 +519,9 @@ def fused_ln_qkv_attention_r(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     :1116-1122). CPU tensors take the plain version; CUDA tensors launch the
     row LayerNorm and the QKV GEMM over all B·L rows (row-wise work, so one
     launch covers every r·L-row group with the same result), the spatial
-    core with one block walking the heads of each group of r samples
-    (``csrc/attention.cu`` ``spatial_attention_r_kernel``) and the out-proj
-    GEMM: bit-equal to ``fused_ln_qkv_attention`` at every r, as the TPU
+    core (``_kernels.spatial_attention_r``: the flash core's launch, which
+    no grouping of samples changes) and the out-proj GEMM: bit-equal to
+    ``fused_ln_qkv_attention`` at every r by construction, as the TPU
     kernel is to its r = 1 form (:1119)."""
     _check_block("fused_ln_qkv_attention_r", x, w_qkv, b_qkv, w_out, num_heads,
                  ((b_out, x.shape[-1]),), ln=(ln_w, ln_b))

@@ -194,13 +194,31 @@ Phases, in order; any failure raises and exits non-zero:
      bit-equal and strided flash inputs bit-equal to contiguous ones; the
      segment core's packed bf16 products bit-equal to the rounded fp32
      product on random, subnormal, overflowing, signed-zero, infinite and
-     NaN pairs; the segment core's time alone on the packed QKV of 4 clips
-     of 64 frames against its plain version, its bound and
-     scaled_dot_product_attention on the (clips*L, H, T, 64) view of the
-     same q, k, v; the WMMA GEMM (csrc/gemm.cu) at the flagship's two
-     projections, (50432, 768) @ (768, 2304) and @ (768, 768), against its
-     plain version and torch.matmul, with its launches an eval forward and
-     a train step of the flagship (counted in phases 2 and 5).
+     NaN pairs; the GEMM (csrc/gemm.cu, wgmma on TMA-loaded tiles) against
+     its plain version (_kernels.gemm_plain) in both weight layouts at every
+     (M, N, K) of M in (1, 127, 129, 50432), N in (32, 192, 2304), K in (32,
+     192, 768, 3072), with and without a bias, and under every epilogue
+     option the op chains use at (129, 192, 768) and (50432, 2304, 768), two
+     launches bit-equal and the design the C entry picks held to
+     ops.gemm_design; the spatial forward core (the flash core's launch on
+     the packed QKV's views, _kernels.spatial_attention) against its plain
+     version at (256, 12, 197), (256, 12, 198) and (128, 16, 257), prenorm
+     on and off, two launches bit-equal, and row 10 bit-equal to row 5 at r
+     = 2 and 3 over 7 samples; then the timings: the segment core alone on
+     the packed QKV of 4 clips of 64 frames against its plain version, its
+     bound and scaled_dot_product_attention on the (clips*L, H, T, 64) view
+     of the same q, k, v; the GEMM alone at tools/kernel_bounds_torch.py's
+     GEMM_SHAPES (the flagship's two projections, ViT-L/14's QKV, the
+     adapter's down projection with bias and tanh GELU, two backward
+     products of the joint step with fp32 aux or residual) against its
+     plain version and torch.matmul, with its TFLOP/s and its bound
+     (epilogue bytes counted); the spatial forward core alone at those three
+     shapes, prenorm on and off, and the spatial backward core at (256, 12,
+     197), against their plain versions, scaled_dot_product_attention (its
+     autograd backward) and their bounds.
+The flagship's eval and train paths count the spatial forward core's
+launches (12 a forward; 24 a train step, the forward and the backward's
+prenorm recompute) and the GEMM's (144 a forward).
 Every driven AIM path counts the segment forward core's launches: one a
 temporal step past LONG_CLIP_T = 32 frames, none at T <= 32.
 Every driven model's kernel path holds the plain path's top-1 class; a
@@ -222,8 +240,10 @@ u output at 4 clips of ViT-L/14's 32 frames, as the composition runs it, and
 the entries of rows 2, 14, 16 and 23 hold under long_clip their times on
 the segment core at 4 clips of 64 frames; a last entry,
 temporal_segment_core, is the segment forward core alone at 4 clips of 64
-frames, with its launches on the ViT-B/16 64f eval path; the last line is {"ok": true,
-"device": {...}}.
+frames, with its launches on the ViT-B/16 64f eval path; spatial_attention_core is
+the spatial forward core alone at (256, 12, 197, 64) and gemm the GEMM at the
+flagship's QKV projection with no epilogue, each with its launches on the
+flagship eval path; the last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -324,7 +344,7 @@ def check_launches(label, launches, expected):
         raise AssertionError(f"{label}: expected launches {want}")
 
 
-# the segment forward core's and the WMMA GEMM's launches on each path,
+# the segment forward core's and the GEMM's launches on each path,
 # read where that path's launch counts are read
 SEGMENT_CORE_LAUNCHES, GEMM_LAUNCHES = {}, {}
 
@@ -336,6 +356,20 @@ def check_segment_core(path, launches, expected):
     if launches != expected:
         raise AssertionError(f"{path}: expected {expected} segment core launches")
     SEGMENT_CORE_LAUNCHES[path] = launches
+
+
+# the launches of the spatial forward core and of the GEMM on the flagship's
+# eval path, for the kernels line
+CORE_LAUNCHES = {}
+
+
+def check_core(kernel, path, launches, expected):
+    """A kernel with its own counter (``_kernels.spatial_attention``,
+    ``_kernels.gemm``) launched ``expected`` times on ``path``."""
+    log(f"  {kernel} launches on the {path} path: {launches}")
+    if launches != expected:
+        raise AssertionError(f"{path}: expected {expected} {kernel} launches")
+    CORE_LAUNCHES.setdefault(kernel, (path, launches))
 
 
 def device_line() -> str:
@@ -2209,53 +2243,251 @@ def segment_core_timing(card, op_ms, library_ms):
     return b_ms, b_by
 
 
-def gemm_timings(card):
-    """The WMMA GEMM (csrc/gemm.cu, no epilogue) at the flagship's two
-    projections, 50432 x 768 -> 2304 and -> 768: kernel, plain version
-    (fp32 matmul of the upcast operands, rounded) and torch.matmul on the
-    same tensors (plain-kernel-kernel-plain, median of 20), beside the
-    bound; their launches an eval forward and a train step come from
-    phases 2 and 5."""
+# the GEMM's ragged shapes (chip_smoke's checks: M = 1, 127, 129 and the
+# flagship's 50432 rows; N down to the checks' adapter width 32; K from 32
+# to the MLP's 3072) and the epilogue options the op chains use
+GEMM_CHECK_M, GEMM_CHECK_N, GEMM_CHECK_K = (1, 127, 129, 50432), (32, 192, 2304), (32, 192, 768,
+                                                                                   3072)
+
+
+def gemm_epilogues(m, n, g):
+    """(label, ``_kernels.gemm`` arguments) of every epilogue option the op
+    chains use (``ops/_common.py``, ``ops/fused_joint_mlp.py``), with
+    seeded operands."""
     import torch
-    from adapt_image_models_torch.ops import _kernels
-    from adapt_image_models_torch.ops._common import mm32
-    sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from kernel_bounds_torch import GEMM_SHAPES, bound_of, gemm_work
-    g = torch.Generator().manual_seed(1720)
-    rows = {}
-    for m, k, n in GEMM_SHAPES:
-        a = torch.randn(m, k, generator=g).to("cuda", torch.bfloat16)
-        w = (0.02 * torch.randn(n, k, generator=g)).to("cuda", torch.bfloat16)
-        fns = (lambda: mm32(a, w).to(torch.bfloat16), lambda: _kernels.gemm(a, w)[1])
-        with torch.no_grad():
-            err = compare(f"WMMA GEMM ({m}, {k}) @ ({k}, {n})", fns[1](), fns[0]())
-            t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
-            lib = cuda_ms(lambda: torch.matmul(a, w.t()))
-        b_ms, b_by = bound_of(*gemm_work(m, k, n))
-        rows[f"({m}, {k}) @ ({k}, {n})"] = dict(
-            ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2, library_ms=lib, bound_ms=b_ms,
-            bound_by=b_by, max_abs_err=err)
-        log(f"  WMMA GEMM ({m}, {k}) @ ({k}, {n}) on {card}: kernel {(t[1] + t[2]) / 2:.3f} ms "
-            f"({2 * m * k * n / ((t[1] + t[2]) / 2) / 1e9:.1f} TFLOP/s), plain "
-            f"{(t[0] + t[3]) / 2:.3f} ms, library (torch.matmul) {lib:.3f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
-        del a, w
-    log(f"  WMMA GEMM launches: {GEMM_LAUNCHES}")
+    from adapt_image_models_torch.ops import _kernels as K
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    bias, bias2, res16 = r(n, dtype=torch.bfloat16), r(n, dtype=torch.bfloat16), r(
+        m, n, dtype=torch.bfloat16)
+    res32, aux, gate = r(m, n), r(m, n), r(-(-m // 7))
+    return (("none", {}), ("bias", dict(bias=bias)),
+            ("bias, fp32 and bf16 out", dict(bias=bias, out_f32=True)),
+            ("bias, tanh GELU", dict(bias=bias, act=K.ACT_GELU_TANH)),
+            ("bias, QuickGELU", dict(bias=bias, act=K.ACT_QUICK_GELU)),
+            ("bias, fp32 pre-activation, tanh GELU",
+             dict(bias=bias, act=K.ACT_GELU_TANH, out_f32=True, f32_pre_act=True)),
+            ("aux tanh GELU'", dict(aux=aux, dact=K.ACT_GELU_TANH)),
+            ("aux QuickGELU'", dict(aux=aux, dact=K.ACT_QUICK_GELU)),
+            ("fp32 residual, fp32 out", dict(res_f32=res32, out_f32=True, out_bf16=False)),
+            ("bias, fp32 residual, row scale, bf16 residual",
+             dict(bias=bias, res_f32=res32, row_scale=gate, rows_per_scale=7, res_bf16=res16)),
+            ("bias, alpha, row scale, bf16 residual, bias2, fp32 out",
+             dict(bias=bias, alpha=0.8, row_scale=gate, rows_per_scale=7, res_bf16=res16,
+                  bias2=bias2, out_f32=True, out_bf16=False)),
+            ("bf16 residual", dict(res_bf16=res16)))
+
+
+def gemm_checks(errors):
+    """The GEMM (csrc/gemm.cu) against its plain version: both weight
+    layouts at every ragged (M, N, K) of GEMM_CHECK_*, with no epilogue and
+    with a bias, and every epilogue option of gemm_epilogues at (129, 192,
+    768) and (50432, 2304, 768); two launches bit-equal; the design the C
+    entry picks held to ops.gemm_design."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.ops import _kernels as K
+    g = torch.Generator(device="cuda").manual_seed(1730)
+    worst = 0.0
+    shapes = [(m, n, k) for m in GEMM_CHECK_M for n in GEMM_CHECK_N for k in GEMM_CHECK_K]
+    for kn in (False, True):
+        for m, n, k in shapes:
+            a = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+            w = (0.02 * torch.randn(*((k, n) if kn else (n, k)), generator=g,
+                                    device="cuda")).to(torch.bfloat16)
+            if (m, n, k) in ((129, 192, 768), (50432, 2304, 768)):
+                epilogues = gemm_epilogues(m, n, g)
+            else:
+                bias = torch.randn(n, generator=g, device="cuda").to(torch.bfloat16)
+                epilogues = (("none", {}), ("bias", dict(bias=bias)))
+            for label, kw in epilogues:
+                got = K.gemm(a, w, kn=kn, **kw)
+                again = K.gemm(a, w, kn=kn, **kw)
+                want = K.gemm_plain(a, w, kn=kn, **kw)
+                torch.cuda.synchronize()
+                if not all(x is None or torch.equal(x, y) for x, y in zip(got, again)):
+                    raise AssertionError(f"the GEMM is not deterministic at {(m, n, k, kn)}")
+                for x, y in zip(got, want):
+                    if (x is None) != (y is None):
+                        raise AssertionError(f"the GEMM's outputs differ from its plain "
+                                             f"version's at {(m, n, k, kn, label)}")
+                    if x is not None:
+                        diff = (x.float() - y.float()).abs()
+                        if not bool((diff <= ATOL + RTOL * y.float().abs()).all()) or \
+                                diff.mean().item() >= MEAN_TOL:
+                            compare(f"GEMM {(m, k, n)} kn={kn} {label}", x, y)
+                        worst = max(worst, diff.max().item())
+            if ("aim_gemm_design", m, n, k, int(kn)) not in K._designs_held:
+                raise AssertionError(f"ops.gemm_design was not held at {(m, n, k, kn)}")
+            del a, w, epilogues
     torch.cuda.empty_cache()
+    log(f"  GEMM vs plain at M {GEMM_CHECK_M} x N {GEMM_CHECK_N} x K {GEMM_CHECK_K}, both "
+        f"layouts ({len(shapes) * 2} shapes; every epilogue option at (129, 192, 768) and "
+        f"(50432, 2304, 768)), two launches bit-equal, designs held "
+        f"({sorted({ops.gemm_design(m, n, k)[0] for m, n, k in shapes})}): max_abs_err="
+        f"{worst:.3e} (tol {ATOL} + {RTOL}*|ref|, mean < {MEAN_TOL})")
+    errors["gemm"] = worst
+
+
+def gemm_timings(card):
+    """The GEMM alone at tools/kernel_bounds_torch.py's GEMM_SHAPES (the
+    flagship's two projections, ViT-L/14's QKV, the adapter's down
+    projection with bias and tanh GELU, two backward products of the joint
+    MLP step with fp32 aux or residual): kernel, plain version and
+    torch.matmul (the product alone) on the same tensors
+    (plain-kernel-kernel-plain, median of 20), TFLOP/s and the bound
+    (epilogue bytes counted)."""
+    import torch
+    from adapt_image_models_torch.ops import _kernels as K
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from kernel_ab_torch import gemm_epilogue
+    from kernel_bounds_torch import GEMM_SHAPES, bound_of, gemm_shape_work
+    g = torch.Generator(device="cuda").manual_seed(1720)
+    rows = {}
+    for label, m, k, n, layout, epilogue in GEMM_SHAPES:
+        kn = layout == "kn"
+        a = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        w = (0.02 * torch.randn(*((k, n) if kn else (n, k)), generator=g, device="cuda")).to(
+            torch.bfloat16)
+        kw = gemm_epilogue(epilogue, m, n, g)
+        fns = (lambda: K.gemm_plain(a, w, kn=kn, **kw), lambda: K.gemm(a, w, kn=kn, **kw))
+        with torch.no_grad():
+            got, want = fns[1](), fns[0]()
+            err = max(compare(f"GEMM {label} ({m}, {k}) @ ({k}, {n})", x, y)
+                      for x, y in zip(got, want) if x is not None)
+            t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+            lib = cuda_ms(lambda: torch.matmul(a, w if kn else w.t()))
+        b_ms, b_by = bound_of(*gemm_shape_work(m, k, n, epilogue))
+        ms = (t[1] + t[2]) / 2
+        rows[label] = dict(shape=f"({m}, {k}) @ ({k}, {n}) {layout}",
+                           epilogue="+".join(epilogue) or "none", ms=ms,
+                           tflops=2 * m * k * n / ms / 1e9, plain_ms=(t[0] + t[3]) / 2,
+                           library_ms=lib, bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+        log(f"  GEMM {label} ({m}, {k}) @ ({k}, {n}) {layout}, epilogue "
+            f"{rows[label]['epilogue']} on {card}: kernel {ms:.3f} ms "
+            f"({rows[label]['tflops']:.1f} TFLOP/s), plain {rows[label]['plain_ms']:.3f} ms, "
+            f"library (torch.matmul, the product alone) {lib:.3f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+        del a, w, kw
+        torch.cuda.empty_cache()
+    log(f"  GEMM launches: {GEMM_LAUNCHES}")
+    return rows
+
+
+def spatial_core_checks(errors):
+    """The spatial forward core (``_kernels.spatial_attention``: the flash
+    core's launch on the packed QKV's views) against its plain version at
+    SPATIAL_SHAPES, prenorm on and off, two launches bit-equal; row 10
+    (fused_ln_qkv_attention_r) bit-equal to row 5 at r = 2 and 3 over 7
+    samples (a short last group)."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import spatial_core_plain
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from kernel_bounds_torch import SPATIAL_SHAPES
+    g = torch.Generator().manual_seed(1740)
+    for frames, heads, length in SPATIAL_SHAPES:
+        qkv = torch.randn(frames * length, 3 * 64 * heads, generator=g).to("cuda", torch.bfloat16)
+        for prenorm in (False, True):
+            got = K.spatial_attention(qkv, frames, length, prenorm)
+            again = K.spatial_attention(qkv, frames, length, prenorm)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError("the spatial core is not deterministic")
+            err = compare(f"spatial forward core at ({frames}, {heads}, {length}, 64)"
+                          f"{', prenorm' if prenorm else ''}", got,
+                          spatial_core_plain(qkv, frames, length, heads, prenorm))
+            errors["spatial_attention_core"] = max(err, errors.get("spatial_attention_core", 0.0))
+        del qkv
+    x, ln, attn, _ = op_inputs(7, 1741, frames=1)
+    with torch.no_grad():
+        row5 = ops.fused_ln_qkv_attention(x, *ln, *attn[:4], HEADS)
+        for r in (2, 3):
+            row10 = ops.fused_ln_qkv_attention_r(x, *ln, *attn[:4], HEADS, r)
+            torch.cuda.synchronize()
+            if not torch.equal(row10, row5):
+                raise AssertionError(f"row 10 at r={r} differs from row 5")
+    log(f"  row 10 (fused_ln_qkv_attention_r) at r = 2, 3 on x={tuple(x.shape)}: bit-equal to "
+        "row 5")
+
+
+def spatial_core_timings(card, op_ms, library_ms):
+    """The spatial forward core alone at SPATIAL_SHAPES, prenorm on and
+    off, and its backward core (``_kernels.spatial_attention_bwd``) at the
+    first: kernel and plain version (plain-kernel-kernel-plain, median of
+    20) beside scaled_dot_product_attention on (frames, H, L, 64) copies of
+    q, k, v (relayout untimed; its autograd backward for the backward
+    core) and the bound. Returns {label: row}; the (256, 12, 197) forward
+    goes into ``op_ms`` and ``library_ms`` for the kernels line."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import spatial_core_bwd_plain, spatial_core_plain
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from kernel_bounds_torch import SPATIAL_SHAPES, bound_of, spatial_core_work
+    g = torch.Generator().manual_seed(1750)
+    rows = {}
+    for frames, heads, length in SPATIAL_SHAPES:
+        d = 64 * heads
+        qkv = torch.randn(frames * length, 3 * d, generator=g).to("cuda", torch.bfloat16)
+        q, k, v = (t.view(frames, length, heads, 64).transpose(1, 2).contiguous()
+                   for t in qkv.split(d, -1))
+        with torch.no_grad():
+            lib = cuda_ms(lambda: sdpa(q, k, v))
+            for prenorm in (False, True):
+                fns = (lambda: spatial_core_plain(qkv, frames, length, heads, prenorm),
+                       lambda: K.spatial_attention(qkv, frames, length, prenorm))
+                t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+                b_ms, b_by = bound_of(*spatial_core_work(frames, heads, length))
+                label = f"spatial forward ({frames}, {heads}, {length}, 64)" + (
+                    " prenorm" if prenorm else "")
+                rows[label] = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                                   library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+        if (frames, heads, length) == SPATIAL_SHAPES[0]:
+            name = "spatial_attention_core"
+            op_ms[name] = (rows[label.replace(" prenorm", "")]["ms"],
+                           rows[label.replace(" prenorm", "")]["plain_ms"])
+            library_ms[name] = lib
+            dout = torch.randn(frames * length, d, generator=g).to("cuda", torch.bfloat16)
+            do = dout.view(frames, length, heads, 64).transpose(1, 2).contiguous()
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            o = sdpa(qg, kg, vg)
+            lib_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
+                                                          retain_graph=True))
+            with torch.no_grad():
+                fns = (lambda: spatial_core_bwd_plain(qkv, dout, frames, length, heads),
+                       lambda: K.spatial_attention_bwd(qkv, dout, frames, length))
+                t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+            b_ms, b_by = bound_of(*spatial_core_work(frames, heads, length, backward=True))
+            rows[f"spatial backward ({frames}, {heads}, {length}, 64)"] = dict(
+                ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2, library_ms=lib_bwd,
+                bound_ms=b_ms, bound_by=b_by)
+            del dout, do, qg, kg, vg, o
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+    for label, row in rows.items():
+        log(f"  {label} on {card}: kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, "
+            f"library (scaled_dot_product_attention{' backward' if 'backward' in label else ''}"
+            f") {row['library_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     return rows
 
 
 def phase_17(card, errors, op_ms, library_ms):
-    """Phase 17 (see the module docstring): the two cores' checks into
-    ``errors``, the segment core's times into ``op_ms`` and
-    ``library_ms``, the GEMM's. Returns (the segment core's bound, the GEMM
-    rows)."""
+    """Phase 17 (see the module docstring): the cores' and the GEMM's
+    checks into ``errors``, the segment core's and the spatial forward
+    core's times into ``op_ms`` and ``library_ms``. Returns (the segment
+    core's bound, the GEMM rows, the spatial cores' rows)."""
     log("phase 17: the segment forward core and the flash core at the branch points of "
-        "their designs")
+        "their designs, the GEMM at ragged shapes, the spatial forward core alone")
     core_checks(errors)
+    gemm_checks(errors)
+    spatial_core_checks(errors)
     log(f"phase 17: timings on {card}")
     seg_bound = segment_core_timing(card, op_ms, library_ms)
-    return seg_bound, gemm_timings(card)
+    return seg_bound, gemm_timings(card), spatial_core_timings(card, op_ms, library_ms)
 
 
 def main():
@@ -2315,12 +2547,17 @@ def main():
                                             num_workers=2, return_scores=True)
         launches = ops.launch_counts()  # ... and ends here
         segment_eval, gemm_eval = _kernels.temporal_segment.launches, _kernels.gemm.launches
+        spatial_eval = _kernels.spatial_attention.launches
     forwards = len(top5) + -(-n_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic videos: {results}")
     check_launches(f"eval path ({forwards} forwards x 12 layers)", launches,
                    {op: 12 * forwards for op in ops.EVAL_OPS[1]})
     check_segment_core("flagship eval", segment_eval, 0)
+    # each of the 12 layers: one spatial core launch (the spatial step) and
+    # 12 GEMMs (4 products in each of the three steps)
+    check_core("spatial forward core", "flagship eval", spatial_eval, 12 * forwards)
+    check_core("GEMM", "flagship eval", gemm_eval, 144 * forwards)
     GEMM_LAUNCHES["flagship eval forward"] = gemm_eval / forwards
     if scores.shape != (n_videos, 400) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad eval scores {scores.shape}")
@@ -2437,6 +2674,7 @@ def main():
         torch.cuda.synchronize()
         train_launches = ops.launch_counts()  # ... and ends here
         segment_train, gemm_train = _kernels.temporal_segment.launches, _kernels.gemm.launches
+        spatial_train = _kernels.spatial_attention.launches
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and validation included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
@@ -2445,10 +2683,16 @@ def main():
                        {**{op: 12 * steps for op in ops.TRAIN_OPS[1]},
                         **{op: 12 * n_val for op in ops.EVAL_OPS[1]}})
         check_segment_core("flagship train", segment_train, 0)
+        # a train step's spatial core: the forward and the backward's
+        # prenorm recompute in each of the 12 layers
+        check_core("spatial forward core", "flagship train", spatial_train,
+                   24 * steps + 12 * n_val)
         GEMM_LAUNCHES["flagship train step"] = (
             gemm_train - n_val * GEMM_LAUNCHES["flagship eval forward"]) / steps
-        log(f"  WMMA GEMM launches: {GEMM_LAUNCHES['flagship eval forward']:g} an eval "
+        log(f"  GEMM launches: {GEMM_LAUNCHES['flagship eval forward']:g} an eval "
             f"forward, {GEMM_LAUNCHES['flagship train step']:g} a train step")
+        if not GEMM_LAUNCHES["flagship train step"]:
+            raise AssertionError("the flagship train path launched no GEMM")
         if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError("train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -3044,7 +3288,7 @@ def main():
     long144_launches, long144_train_launches = phase_16(card, errors)
 
     # ---- phase 17: the segment forward core and the flash core alone -------
-    seg_bound, gemm_rows = phase_17(card, errors, op_ms, library_ms)
+    seg_bound, gemm_rows, spatial_rows = phase_17(card, errors, op_ms, library_ms)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
@@ -3129,7 +3373,29 @@ def main():
         replaces=ops.SEGMENT_CORE[1], path=seg_path, launches=SEGMENT_CORE_LAUNCHES[seg_path],
         max_abs_err=errors[seg], ms=op_ms[seg][0], plain_ms=op_ms[seg][1],
         bound_ms=seg_bound[0], bound_by=seg_bound[1], library_ms=library_ms[seg]))
-    log(f"WMMA GEMM rows: {json.dumps(gemm_rows)}")
+    # the spatial forward core alone at (256, 12, 197, 64) and the GEMM at
+    # the flagship's QKV projection with no epilogue (GEMM_SHAPES' first
+    # row, the function torch.matmul computes), each with its launches on
+    # the flagship eval path
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from kernel_bounds_torch import SPATIAL_SHAPES, bound_of, spatial_core_work
+    spatial, path_launches = ops.SPATIAL_CORE[0], CORE_LAUNCHES["spatial forward core"]
+    kernels.append(dict(
+        name=spatial, route="cuda", source="adapt_image_models_torch/csrc/flash_attention.cu",
+        replaces=ops.SPATIAL_CORE[1], path=path_launches[0], launches=path_launches[1],
+        max_abs_err=errors[spatial], ms=op_ms[spatial][0], plain_ms=op_ms[spatial][1],
+        bound_ms=bound_of(*spatial_core_work(*SPATIAL_SHAPES[0]))[0],
+        bound_by=bound_of(*spatial_core_work(*SPATIAL_SHAPES[0]))[1],
+        library_ms=library_ms[spatial]))
+    qkv_row, path_launches = gemm_rows["W_qkv"], CORE_LAUNCHES["GEMM"]
+    kernels.append(dict(
+        name=ops.GEMM[0], route="cuda", source="adapt_image_models_torch/csrc/gemm.cu",
+        replaces=ops.GEMM[1], path=path_launches[0], launches=path_launches[1],
+        max_abs_err=errors["gemm"], ms=qkv_row["ms"], plain_ms=qkv_row["plain_ms"],
+        bound_ms=qkv_row["bound_ms"], bound_by=qkv_row["bound_by"],
+        library_ms=qkv_row["library_ms"]))
+    log(f"GEMM rows: {json.dumps(gemm_rows)}")
+    log(f"spatial core rows: {json.dumps(spatial_rows)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -27,7 +27,7 @@ Here, on the CPU:
 * the segment core's launch counter: CPU tensors take the plain version
   and launch nothing;
 * the core-only bounds of ``tools/kernel_bounds_torch.py`` (the segment
-  core alone, the WMMA GEMM at the flagship's projections).
+  core alone, the spatial cores alone, the GEMM at its timed shapes).
 """
 
 import numpy as np
@@ -200,7 +200,7 @@ def test_core_bounds(capsys):
     forward core moves q, k, v and o once (4 x 2 B x 64 a row and head)
     and does row 13's core FLOPs over the frames; the GEMM moves its two
     operands and its result once and does 2mkn FLOPs; ``--cores`` prints
-    both at the shape."""
+    the segment core at the shape and every GEMM of GEMM_SHAPES."""
     kb = _kernel_bounds()
     flops, nbytes = kb.segment_core_work(4, 64, 197, 768)
     rows = 4 * 64 * 197
@@ -214,4 +214,4 @@ def test_core_bounds(capsys):
     assert kb.bound_of(*kb.gemm_work(50432, 768, 2304))[1] == "operations"
     kb.main(["--cores", "--clips", "4", "--frames", "64"])
     out = capsys.readouterr().out
-    assert "segment forward core" in out and out.count("WMMA GEMM") == len(kb.GEMM_SHAPES)
+    assert "segment forward core" in out and out.count("wgmma GEMM") == len(kb.GEMM_SHAPES)

@@ -752,3 +752,97 @@ def test_packed_bf16_products_equal_the_rounded_fp32_product(cuda):
     assert torch.equal(nan, torch.isnan(rounded.float())) and nan.any()
     assert torch.equal(packed.view(torch.int16)[~nan], rounded.view(torch.int16)[~nan])
     assert (rounded.float()[~nan] == 0).any()  # products that underflow
+
+
+# ---------------------------------------------------------------------------
+# the GEMM (csrc/gemm.cu: wgmma on TMA-loaded tiles, ops.gemm_design) and the
+# spatial forward core (the flash core's launch on the packed QKV)
+
+
+def _gemm_epilogues(device, m, n, g):
+    """Every epilogue option the op chains give ``_kernels.gemm``."""
+    from adapt_image_models_torch.ops import _kernels as K
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(device, dtype)
+
+    bias, bias2 = r(n, dtype=torch.bfloat16), r(n, dtype=torch.bfloat16)
+    res16, res32, aux, gate = r(m, n, dtype=torch.bfloat16), r(m, n), r(m, n), r(-(-m // 5))
+    return ({}, dict(bias=bias), dict(bias=bias, out_f32=True),
+            dict(bias=bias, act=K.ACT_GELU_TANH), dict(bias=bias, act=K.ACT_QUICK_GELU),
+            dict(bias=bias, act=K.ACT_GELU_TANH, out_f32=True, f32_pre_act=True),
+            dict(aux=aux, dact=K.ACT_GELU_TANH), dict(aux=aux, dact=K.ACT_QUICK_GELU),
+            dict(res_f32=res32, out_f32=True, out_bf16=False),
+            dict(bias=bias, res_f32=res32, row_scale=gate, rows_per_scale=5, res_bf16=res16),
+            dict(bias=bias, alpha=0.8, row_scale=gate, rows_per_scale=5, res_bf16=res16,
+                 bias2=bias2, out_f32=True, out_bf16=False))
+
+
+@pytest.mark.parametrize("kn", [False, True])
+@pytest.mark.parametrize("m,n,k", [(1, 32, 32), (127, 192, 192), (129, 2304, 768),
+                                   (1000, 768, 3072), (257, 32, 768), (6000, 768, 192),
+                                   (16448, 3072, 1024)])
+def test_gemm_matches_plain_under_every_epilogue(cuda, kn, m, n, k):
+    """The GEMM in both weight layouts at ragged shapes (M = 1 and not a
+    multiple of 128, N and K down to 32, both tile widths of
+    ops.gemm_design), under every epilogue option the chains use: each
+    output within 1e-2 + 1.6e-2 |ref| of the plain version and a mean
+    error under MEAN_TOL; two launches bit-equal; one count a launch."""
+    from adapt_image_models_torch.ops import _kernels as K
+    g = torch.Generator().manual_seed(90 + m + n + k + kn)
+    a = torch.randn(m, k, generator=g).to(cuda, torch.bfloat16)
+    w = (0.05 * torch.randn(*((k, n) if kn else (n, k)), generator=g)).to(cuda, torch.bfloat16)
+    for kw in _gemm_epilogues(cuda, m, n, g):
+        before = K.gemm.launches
+        got, again = K.gemm(a, w, kn=kn, **kw), K.gemm(a, w, kn=kn, **kw)
+        torch.cuda.synchronize()
+        assert K.gemm.launches == before + 2
+        want = K.gemm_plain(a, w, kn=kn, **kw)
+        for x, y, z in zip(got, again, want):
+            assert (x is None) == (z is None), kw
+            if x is None:
+                continue
+            assert torch.equal(x, y), kw
+            err = (x.float() - z.float()).abs()
+            assert (err <= 1e-2 + 1.6e-2 * z.float().abs()).all(), (sorted(kw), err.max())
+            assert err.mean() < MEAN_TOL, (sorted(kw), err.mean())
+    assert ("aim_gemm_design", m, n, k, int(kn)) in K._designs_held
+
+
+def test_gemm_refuses_what_tma_cannot_read(cuda):
+    from adapt_image_models_torch.ops import _kernels as K
+    a = torch.zeros(64, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # N not a multiple of 8
+        K.gemm(a, torch.zeros(36, 96, device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # an operand off 16-byte alignment
+        K.gemm(torch.zeros(64 * 96 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(64, 96),
+               torch.zeros(32, 96, device=cuda, dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("frames,heads,n", [(256, 12, 197), (8, 12, 198), (8, 16, 257),
+                                            (3, 2, 1), (5, 2, 17), (2, 2, 288)])
+def test_spatial_core_matches_plain(cuda, frames, heads, n):
+    """The spatial forward core (the flash core on the packed QKV's views)
+    against its plain version and the unrounded result, prenorm on and
+    off; two launches bit-equal; one count a launch on its own counter,
+    none under ``flash_attention_core``; ``spatial_attention_r`` the same
+    launch at r = 2, 3 (a short last group)."""
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import spatial_core_plain
+    g = torch.Generator().manual_seed(95 + n)
+    qkv = torch.randn(frames * n, 3 * 64 * heads, generator=g).to(cuda, torch.bfloat16)
+    flash_before = ops.flash_attention_core.launches
+    for prenorm in (False, True):
+        before = K.spatial_attention.launches
+        got = K.spatial_attention(qkv, frames, n, prenorm)
+        again = K.spatial_attention(qkv, frames, n, prenorm)
+        torch.cuda.synchronize()
+        assert K.spatial_attention.launches == before + 2 and torch.equal(got, again)
+        want = spatial_core_plain(qkv, frames, n, heads, prenorm)
+        _held(f"spatial prenorm={prenorm}", got, want,
+              spatial_core_plain(qkv.float(), frames, n, heads, prenorm))
+        assert (got.float() - want.float()).abs().mean() < MEAN_TOL
+    for r in (2, 3):
+        assert torch.equal(K.spatial_attention_r(qkv, frames, n, r),
+                           K.spatial_attention(qkv, frames, n))
+    assert ops.flash_attention_core.launches == flash_before

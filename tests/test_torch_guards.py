@@ -113,12 +113,15 @@ def _imported_roots(path):
 
 def test_port_sources_import_no_jax_package():
     """No import of jax, flax or the JAX package in the port's modules,
-    chip_smoke.py or the port's tools; comments and docstrings that cite
-    JAX file paths are not imports."""
+    chip_smoke.py, the port's tools or the test files that also run on the
+    card's host, which has no JAX (``--noconftest``); comments and
+    docstrings that cite JAX file paths are not imports."""
     files = (glob.glob(os.path.join(ROOT, "adapt_image_models_torch", "**", "*.py"),
                        recursive=True)
              + [os.path.join(ROOT, "chip_smoke.py")]
-             + glob.glob(os.path.join(ROOT, "tools", "*_torch.py")))
+             + glob.glob(os.path.join(ROOT, "tools", "*_torch.py"))
+             + [os.path.join(ROOT, "tests", name)
+                for name in ("test_torch_cuda.py", "test_torch_gemm_design.py")])
     assert len(files) > 30
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"adapt_image_models_torch/models/backbones/vit_clip.py",

@@ -1,0 +1,169 @@
+#!/usr/bin/env python
+"""Time the GEMM (``csrc/gemm.cu``) and the spatial attention cores alone on
+one card in two source trees of the port, in turns A, B, B, A.
+
+    python tools/kernel_ab_torch.py --a PARENT_TREE --b . [--out FILE]
+
+Each turn is a subprocess that builds the tree's kernels from its
+``adapt_image_models_torch/csrc/`` (into that tree's ``csrc/build/``) and
+times them through the wrappers both trees have, ``_kernels.gemm``,
+``_kernels.spatial_attention`` and ``_kernels.spatial_attention_bwd``, at
+``tools/kernel_bounds_torch.py``'s GEMM_SHAPES and SPATIAL_SHAPES, on inputs
+made from one seed: median of 20 CUDA-event timings a function, after 3
+warm-ups. The same turn times the library call of each, ``torch.matmul``
+(the product alone) and ``scaled_dot_product_attention`` on the (frames, H,
+L, 64) copies of q, k, v (its autograd backward for the backward core). The
+table gives each tree's mean of its two turns beside the bound of
+``kernel_bounds_torch.py``, with the card's name and power limit. Needs
+one NVIDIA GPU; imports no JAX.
+"""
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _ms(fn, iters=20, warmup=3):
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def worker(tree):
+    """Time one tree's kernels; print one JSON object {name: [kernel ms,
+    library ms]}."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from adapt_image_models_torch.ops import _kernels
+    from kernel_bounds_torch import GEMM_SHAPES, SPATIAL_SHAPES
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_ab_torch: needs an NVIDIA GPU")
+    _kernels.library()
+    g = torch.Generator(device="cuda").manual_seed(2000)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    out = {}
+    with torch.no_grad():
+        for label, m, k, n, layout, epilogue in GEMM_SHAPES:
+            a = randn(m, k).to(torch.bfloat16)
+            kn = layout == "kn"
+            w = (0.02 * randn(*((k, n) if kn else (n, k)))).to(torch.bfloat16)
+            kw = gemm_epilogue(epilogue, m, n, g)
+            out[f"gemm {label}"] = [
+                _ms(lambda: _kernels.gemm(a, w, kn=kn, **kw)),
+                _ms(lambda: torch.matmul(a, w if kn else w.t()))]
+            del a, w, kw
+            torch.cuda.empty_cache()
+        for frames, heads, length in SPATIAL_SHAPES:
+            d = 64 * heads
+            qkv = randn(frames * length, 3 * d).to(torch.bfloat16)
+            q, k, v = (t.view(frames, length, heads, 64).transpose(1, 2).contiguous()
+                       for t in qkv.split(d, -1))
+            lib = _ms(lambda: sdpa(q, k, v))
+            for prenorm in (False, True):
+                out[f"spatial forward {(frames, heads, length)}{' prenorm' if prenorm else ''}"] = [
+                    _ms(lambda: _kernels.spatial_attention(qkv, frames, length, prenorm)), lib]
+            if (frames, heads, length) == SPATIAL_SHAPES[0]:
+                dout = randn(frames * length, d).to(torch.bfloat16)
+                do = dout.view(frames, length, heads, 64).transpose(1, 2).contiguous()
+                with torch.enable_grad():
+                    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+                    o = sdpa(qg, kg, vg)
+                    lib_bwd = _ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
+                                                              retain_graph=True))
+                out[f"spatial backward {(frames, heads, length)}"] = [
+                    _ms(lambda: _kernels.spatial_attention_bwd(qkv, dout, frames, length)),
+                    lib_bwd]
+            del qkv, q, k, v
+            torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+def gemm_epilogue(epilogue, m, n, g):
+    """The ``_kernels.gemm`` arguments of a GEMM_SHAPES entry's epilogue,
+    drawn on the card from the CUDA generator ``g``."""
+    import torch
+    from adapt_image_models_torch.ops import _kernels
+    kw = {}
+    if "bias" in epilogue:
+        kw["bias"] = (0.02 * torch.randn(n, generator=g, device="cuda")).to(torch.bfloat16)
+    if "act" in epilogue:
+        kw["act"] = _kernels.ACT_GELU_TANH
+    if "aux" in epilogue:
+        kw["aux"] = torch.randn(m, n, generator=g, device="cuda")
+        kw["dact"] = _kernels.ACT_QUICK_GELU
+    if "res_f32" in epilogue:
+        kw["res_f32"] = torch.randn(m, n, generator=g, device="cuda")
+    if "out_f32" in epilogue:
+        kw.update(out_f32=True, out_bf16=False)
+    return kw
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--a", required=True, help="the first tree (the parent)")
+    p.add_argument("--b", default=".", help="the second tree (the change)")
+    p.add_argument("--out", help="write the turns and the table as JSON here")
+    p.add_argument("--worker", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        sys.path.insert(0, HERE)
+        return worker(args.worker)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    turns = []
+    for tree in (args.a, args.b, args.b, args.a):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--a", args.a,
+                               "--worker", tree], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"turn on {tree} failed:\n{proc.stderr[-4000:]}")
+        turns.append((tree, json.loads(proc.stdout.strip().splitlines()[-1])))
+        print(f"turn {len(turns)} ({tree}): {json.dumps(turns[-1][1])}", flush=True)
+    sys.path.insert(0, HERE)
+    from kernel_bounds_torch import (
+        GEMM_SHAPES, SPATIAL_SHAPES, bound_of, gemm_shape_work, spatial_core_work,
+    )
+    bounds = {f"gemm {label}": (bound_of(*gemm_shape_work(m, k, n, e)), 2 * m * k * n)
+              for label, m, k, n, _, e in GEMM_SHAPES}
+    for shape in SPATIAL_SHAPES:
+        for name in (f"spatial forward {shape}", f"spatial forward {shape} prenorm"):
+            bounds[name] = (bound_of(*spatial_core_work(*shape)), None)
+        bounds[f"spatial backward {shape}"] = (bound_of(*spatial_core_work(*shape, True)), None)
+    rows = {}
+    print(f"| function | A ms | B ms | library ms | bound ms | B TFLOP/s |  ({card})")
+    for name in turns[0][1]:
+        a = statistics.mean(t[name][0] for tree, t in (turns[0], turns[3]))
+        b = statistics.mean(t[name][0] for tree, t in (turns[1], turns[2]))
+        lib = statistics.mean(t[name][1] for _, t in turns)
+        (bound_ms, bound_by), flops = bounds[name]
+        rate = f"{flops / b / 1e9:.0f}" if flops else ""
+        rows[name] = dict(a_ms=a, b_ms=b, library_ms=lib, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"| {name} | {a:.4f} | {b:.4f} | {lib:.4f} | {bound_ms:.4f} ({bound_by}) | "
+              f"{rate} |")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(dict(card=card, a=args.a, b=args.b, turns=turns, rows=rows), f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -7,7 +7,9 @@ the repo (every function under ``adapt_image_models_tpu/ops/`` that reaches
         [--tokens 197] [--width 768]     # ViT-L/14: --tokens 257 --width 1024
     python tools/kernel_bounds_torch.py --attention   # row 13 at the ViT_CLIP paths' shapes
     python tools/kernel_bounds_torch.py --cores --clips 4 --frames 64
-        # the segment forward core alone and the WMMA GEMM at the shape
+        # the segment forward core alone at the shape, the spatial forward
+        # and backward cores alone (SPATIAL_SHAPES) and the GEMM
+        # (GEMM_SHAPES)
 
 The bound of a function is the larger of two times: the FLOPs of its
 products (GEMMs and attention cores, 2 a multiply-add; elementwise work is
@@ -137,16 +139,59 @@ def segment_core_work(clips=4, frames=64, tokens=197, width=768):
     return 4 * m * frames * width, 2 * 4 * m * width
 
 
-def gemm_work(m, k, n):
-    """(FLOPs, bytes) of one WMMA GEMM (``csrc/gemm.cu``) with no epilogue:
-    bf16 (m, k) @ (k, n), the (m, k) and (n, k) operands read once and the
-    bf16 (m, n) result written once."""
-    return 2 * m * k * n, 2 * (m * k + n * k + m * n)
+def gemm_work(m, k, n, f32_reads=0, out_bytes=2, bias=False):
+    """(FLOPs, bytes) of one GEMM (``csrc/gemm.cu``): bf16 (m, k) @ (k, n),
+    the (m, k) and (k, n) operands read once, ``f32_reads`` fp32 (m, n)
+    tensors of its epilogue (aux, res_f32) read once, the (m, n) result
+    written once at ``out_bytes`` an element (2 bf16, 4 fp32, 6 both) and
+    the bf16 bias read once."""
+    nbytes = 2 * (m * k + n * k) + (4 * f32_reads + out_bytes) * m * n + (2 * n if bias else 0)
+    return 2 * m * k * n, nbytes
 
 
-# the flagship's two projection GEMMs (32 clips x 8 frames x 197 tokens =
-# 50432 rows of width 768): (rows, in, out) of W_qkv and W_o
-GEMM_SHAPES = ((50432, 768, 2304), (50432, 768, 768))
+# the GEMMs timed alone: (label, rows, in, out, layout, epilogue arguments
+# of ``_kernels.gemm``). The flagship's rows (32 clips x 8 frames x 197
+# tokens = 50432) through its two projections, ViT-L/14's QKV projection at
+# 4 clips x 32 frames x 257 tokens (32896 rows), the adapter's down
+# projection (N = D/4 = 192, bias and tanh GELU), and two backward products
+# of the joint MLP step (fused_joint_mlp_rows_bwd): g W_proj with the fp32
+# pre-activation h as aux (QuickGELU'), and dh W_fc on the fp32 residual
+# into an fp32 result
+GEMM_SHAPES = (
+    ("W_qkv", 50432, 768, 2304, "nk", ()),
+    ("W_o", 50432, 768, 768, "nk", ()),
+    ("ViT-L/14 W_qkv", 32896, 1024, 3072, "nk", ()),
+    ("adapter W_1", 50432, 768, 192, "nk", ("bias", "act")),
+    ("g W_proj, aux", 50432, 768, 3072, "kn", ("aux",)),
+    ("dh W_fc, res_f32", 50432, 3072, 768, "kn", ("res_f32", "out_f32")),
+)
+
+
+def gemm_shape_work(m, k, n, epilogue):
+    """``gemm_work`` of a GEMM_SHAPES entry: its epilogue's fp32 reads and
+    its output's bytes."""
+    f32_reads = sum(e in ("aux", "res_f32") for e in epilogue)
+    out_bytes = 4 if "out_f32" in epilogue else 2
+    return gemm_work(m, k, n, f32_reads, out_bytes, "bias" in epilogue)
+
+
+# the spatial cores alone: (frames, heads, tokens) of 32 clips x 8 frames of
+# ViT-B/16 (197 tokens), 8 clips x 32 frames of AIM_FLASH (198, the prompt
+# token) and 4 clips x 32 frames of ViT-L/14 (257)
+SPATIAL_SHAPES = ((256, 12, 197), (256, 12, 198), (128, 16, 257))
+
+
+def spatial_core_work(frames, heads, length, backward=False):
+    """(FLOPs, bytes) of the spatial forward core alone
+    (``_kernels.spatial_attention``: packed bf16 QKV (frames*L, 3D) read
+    once, (frames*L, D) written once, QK^T and PV) or of its backward
+    (``_kernels.spatial_attention_bwd``: QKV and the cotangent of o read,
+    dqkv written; S recomputed, dP, dV, dQ and dK)."""
+    rows, d = frames * length, 64 * heads
+    product = 2 * frames * heads * length * length * 64
+    if backward:
+        return 5 * product, 2 * rows * (3 * d + d + 3 * d)
+    return 2 * product, 2 * rows * (3 * d + d)
 
 
 def bound_of(flops, nbytes):
@@ -178,8 +223,8 @@ def main(argv=None):
     p.add_argument("--attention", action="store_true",
                    help="row 13 (the flash core) at the ViT_CLIP paths' (B, H, L, 64)")
     p.add_argument("--cores", action="store_true",
-                   help="the segment forward core alone at the shape, and the WMMA GEMM "
-                        "at the flagship's projections")
+                   help="the segment forward core alone at the shape, the spatial cores "
+                        "alone at SPATIAL_SHAPES and the GEMM at GEMM_SHAPES")
     args = p.parse_args(argv)
     if args.cores:
         print("| function | shape | GFLOP | MB | bound ms | bound by |")
@@ -188,9 +233,17 @@ def main(argv=None):
         print(f"| segment forward core | x = ({args.clips * args.frames}, {args.tokens}, "
               f"{args.width}), T={args.frames} | {work_[0] / 1e9:.2f} | {work_[1] / 1e6:.1f} | "
               f"{bound_of(*work_)[0]:.4f} | {bound_of(*work_)[1]} |")
-        for m, k, n in GEMM_SHAPES:
-            work_ = gemm_work(m, k, n)
-            print(f"| WMMA GEMM | ({m}, {k}) @ ({k}, {n}) | {work_[0] / 1e9:.2f} | "
+        for frames, heads, length in SPATIAL_SHAPES:
+            for backward in (False, True):
+                work_ = spatial_core_work(frames, heads, length, backward)
+                print(f"| spatial {'backward' if backward else 'forward'} core | "
+                      f"({frames}, {heads}, {length}, 64) | {work_[0] / 1e9:.2f} | "
+                      f"{work_[1] / 1e6:.1f} | {bound_of(*work_)[0]:.4f} | "
+                      f"{bound_of(*work_)[1]} |")
+        for label, m, k, n, layout, epilogue in GEMM_SHAPES:
+            work_ = gemm_shape_work(m, k, n, epilogue)
+            print(f"| wgmma GEMM {label} | ({m}, {k}) @ ({k}, {n}) {layout} "
+                  f"{'+'.join(epilogue) or 'no epilogue'} | {work_[0] / 1e9:.2f} | "
                   f"{work_[1] / 1e6:.1f} | {bound_of(*work_)[0]:.4f} | {bound_of(*work_)[1]} |")
         return
     if args.attention:
