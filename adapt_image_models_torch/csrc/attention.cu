@@ -1,6 +1,6 @@
-// Attention cores of the fused AIM steps, head dim 64, bf16 in and out: the
-// temporal core and its backward, and the spatial core's backward (the
-// spatial forward core is csrc/flash_attention.cu's kernel).
+// The temporal attention core of the fused AIM steps and its backward,
+// head dim 64, bf16 in and out (the spatial forward core is
+// csrc/flash_attention.cu's kernel, its backward csrc/spatial_bwd.cu's).
 //
 // They read the packed QKV rows the QKV GEMM writes, (rows, 3D) bf16 with
 // columns [q | k | v] and head h at h*64 inside each, and write (rows, D)
@@ -8,25 +8,11 @@
 // and softmax in fp32, the probabilities rounded to bf16 before the PV
 // product, the fp32 PV sum divided by the fp32 softmax denominator.
 
-#include <mma.h>
-
 #include "common.cuh"
-
-using namespace nvcuda;
 
 namespace {
 
 constexpr int HD = 64;
-constexpr int LDQ = HD + 8;   // padded smem row for q/k/v tiles (elements)
-constexpr int BQ = 64;        // query rows per block of the spatial backward: 4 warps x 16
-constexpr int MAX_NP = 288;   // padded key count the block's smem holds
-constexpr int MAX_COLS = MAX_NP / 32;
-
-// Row stride (floats) of a warp's score rows in the spatial backward's
-// first kernel. The bf16 dS row reuses the start of its score row (ld
-// 2*LDS), so a row holds max(NP, 64) floats, plus 4 against bank
-// conflicts.
-__host__ __device__ inline int score_ld(int np) { return (np > HD ? np : HD) + 4; }
 
 // ---------------------------------------------------------------------------
 // Temporal core. Replaces the masked-full core of
@@ -107,345 +93,10 @@ temporal_attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, 
 }
 
 // ---------------------------------------------------------------------------
-// Spatial core backward. Replaces the attention half of
-// adapt_image_models_tpu/ops/fused_qkv_attention.py::_kernel_step_bwd_dx
-// (:1288-1309): per frame and head, with P = softmax(q k^T / 8) normalised
-// in fp32 and dO the cotangent of the attention output,
-//   dV = bf16(P)^T dO,  dP = dO V^T,  dS = bf16(P * (dP - rowsum(dP * P))),
-//   dQ = dS K / 8,  dK = dS^T Q / 8,  each rounded to bf16,
-// written into the packed (rows, 3D) dqkv layout that the dy GEMM reads.
-// dQ needs whole score rows and dK, dV whole score columns, and a block's
-// shared memory holds neither the (L, L) P nor dS of a frame, so the core is
-// two kernels. The first takes 64 query rows per block: it recomputes S
-// and P, forms rowsum(dP * P) in one pass over 16-column blocks of dP and
-// dS in a second (recomputing the 16x16 dP block rather than holding a
-// second score matrix), computes dQ, and
-// writes bf16 P and dS to a scratch of (QP, KP) per (frame, head), zero
-// past L. The second takes 64 keys per block and reduces dV and dK over
-// the query axis from that scratch. Both are bound by the tensor cores and
-// shared memory at N=197; the scratch round trip (2 x bf16 (QP, KP) per
-// frame and head) is the price of not needing atomics. Given ``out``, the
-// first kernel also writes the core's output from the normalised P,
-// bf16(bf16(P) V), as the plain block's TPU backward (_kernel_plain_bwd
-// :947) emits it for the out-projection's weight cotangent: each warp
-// multiplies its 16 rows of bf16 P, just written to the scratch, by the
-// staged V.
-constexpr int BKEY = 64;  // key rows per block of the second kernel
-
-__global__ void __launch_bounds__(128)
-spatial_attention_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                               bf16* __restrict__ dqkv, bf16* __restrict__ P,
-                               bf16* __restrict__ dS, bf16* __restrict__ out, int L, int D,
-                               int NP, int KP, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int f = blockIdx.z;
-  const int H = gridDim.y;
-  const int LDS = score_ld(NP);
-  const int QP = gridDim.x * BQ;
-
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + BQ * LDQ;
-  bf16* sK = sdO + BQ * LDQ;
-  bf16* sV = sK + NP * LDQ;
-  float* sS = reinterpret_cast<float*>(sV + NP * LDQ);
-  float* sRow = sS + BQ * LDS;
-  float* sT = sRow + BQ;  // a 16x16 fp32 block per warp
-
-  const size_t rs = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)f * L * rs;
-  for (int c = threadIdx.x; c < NP * (HD / 8); c += blockDim.x) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-    if (r < L) {
-      kv = *reinterpret_cast<const uint4*>(base + r * rs + D + h * HD + col);
-      vv = *reinterpret_cast<const uint4*>(base + r * rs + 2 * D + h * HD + col);
-    }
-    *reinterpret_cast<uint4*>(sK + r * LDQ + col) = kv;
-    *reinterpret_cast<uint4*>(sV + r * LDQ + col) = vv;
-  }
-  for (int c = threadIdx.x; c < BQ * (HD / 8); c += blockDim.x) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    uint4 qv = make_uint4(0, 0, 0, 0), dv = qv;
-    if (q0 + r < L) {
-      qv = *reinterpret_cast<const uint4*>(base + (q0 + r) * rs + h * HD + col);
-      dv = *reinterpret_cast<const uint4*>(dout + ((size_t)f * L + q0 + r) * D + h * HD + col);
-    }
-    *reinterpret_cast<uint4*>(sQ + r * LDQ + col) = qv;
-    *reinterpret_cast<uint4*>(sdO + r * LDQ + col) = dv;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* sSw = sS + warp * 16 * LDS;
-  bf16* sDw = reinterpret_cast<bf16*>(sSw);  // bf16 dS over the row starts
-  const int LDP = 2 * LDS;
-  float* sTw = sT + warp * 256;
-  const size_t mat = ((size_t)f * H + h) * QP * KP;  // this (frame, head)'s scratch
-  const int rw = q0 + warp * 16;                     // the warp's first query row
-
-  // S = Q K^T
-  {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fq[HD / 16];
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wmma::load_matrix_sync(fq[kk], sQ + warp * 16 * LDQ + kk * 16, LDQ);
-    for (int j = 0; j < NP / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fs;
-      wmma::fill_fragment(fs, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fk;
-        wmma::load_matrix_sync(fk, sK + j * 16 * LDQ + kk * 16, LDQ);
-        wmma::mma_sync(fs, fq[kk], fk, fs);
-      }
-      wmma::store_matrix_sync(sSw + j * 16, fs, LDS, wmma::mem_row_major);
-    }
-  }
-  __syncwarp();
-
-  // P = e / sum(e) in fp32 over the L real keys (zero rows past L); bf16 P
-  // to the scratch
-  for (int r = 0; r < 16; ++r) {
-    float s[MAX_COLS];
-    float m = -INFINITY;
-#pragma unroll
-    for (int i = 0; i < MAX_COLS; ++i) {
-      const int c = lane + 32 * i;
-      s[i] = (c < L) ? sSw[r * LDS + c] * scale : -INFINITY;
-      m = fmaxf(m, s[i]);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < MAX_COLS; ++i) {
-      const int c = lane + 32 * i;
-      s[i] = (c < L) ? expf(s[i] - m) : 0.f;
-      sum += s[i];
-    }
-    sum = warp_sum(sum);
-    const bool real = rw + r < L;
-#pragma unroll
-    for (int i = 0; i < MAX_COLS; ++i) {
-      const int c = lane + 32 * i;
-      if (c < NP) sSw[r * LDS + c] = real ? s[i] / sum : 0.f;
-    }
-    bf16* prow = P + mat + (size_t)(rw + r) * KP;
-    for (int c = lane; c < KP; c += 32)
-      prow[c] = __float2bfloat16(c < NP ? sSw[r * LDS + c] : 0.f);
-  }
-  __syncwarp();  // also orders the warp's P stores before the loads below
-
-  if (out != nullptr) {  // O = bf16(P) V for the warp's 16 rows
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo[HD / 16];
-#pragma unroll
-    for (int jj = 0; jj < HD / 16; ++jj) wmma::fill_fragment(fo[jj], 0.f);
-    for (int kk = 0; kk < NP / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fp;
-      wmma::load_matrix_sync(fp, P + mat + (size_t)rw * KP + kk * 16, KP);
-#pragma unroll
-      for (int jj = 0; jj < HD / 16; ++jj) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fv;
-        wmma::load_matrix_sync(fv, sV + kk * 16 * LDQ + jj * 16, LDQ);
-        wmma::mma_sync(fo[jj], fp, fv, fo[jj]);
-      }
-    }
-    for (int jj = 0; jj < HD / 16; ++jj) {
-      wmma::store_matrix_sync(sTw, fo[jj], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e >> 4, c = e & 15;
-        if (rw + r < L)
-          out[((size_t)f * L + rw + r) * D + h * HD + jj * 16 + c] = __float2bfloat16(sTw[e]);
-      }
-      __syncwarp();
-    }
-  }
-
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fdo[HD / 16];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk)
-    wmma::load_matrix_sync(fdo[kk], sdO + warp * 16 * LDQ + kk * 16, LDQ);
-  // the 16x16 block j of dP = dO V^T into sTw
-  auto dp_block = [&](int j) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> fp;
-    wmma::fill_fragment(fp, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fv;
-      wmma::load_matrix_sync(fv, sV + j * 16 * LDQ + kk * 16, LDQ);
-      wmma::mma_sync(fp, fdo[kk], fv, fp);
-    }
-    wmma::store_matrix_sync(sTw, fp, 16, wmma::mem_row_major);
-    __syncwarp();
-  };
-
-  // pass 1: rowdot = sum_c dP * P; lane holds rows 2i + lane/16, column lane%16
-  float acc[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-  for (int j = 0; j < NP / 16; ++j) {
-    dp_block(j);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = i * 32 + lane;
-      acc[i] += sTw[idx] * sSw[(idx >> 4) * LDS + j * 16 + (idx & 15)];
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int o = 8; o > 0; o >>= 1) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], o);
-    if ((lane & 15) == 0) sRow[warp * 16 + 2 * i + (lane >> 4)] = acc[i];
-  }
-  __syncwarp();
-
-  // pass 2: dS = bf16(P * (dP - rowdot)) over the row starts, and to the scratch
-  for (int j = 0; j < NP / 16; ++j) {
-    dp_block(j);
-    float ds[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = i * 32 + lane;
-      const int r = idx >> 4;
-      ds[i] = sSw[r * LDS + j * 16 + (idx & 15)] * (sTw[idx] - sRow[warp * 16 + r]);
-    }
-    __syncwarp();  // block j of P is read before any bf16 write lands on it
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int idx = i * 32 + lane;
-      const int r = idx >> 4, c = j * 16 + (idx & 15);
-      const bf16 v = __float2bfloat16(ds[i]);
-      sDw[r * LDP + c] = v;
-      dS[mat + (size_t)(rw + r) * KP + c] = v;
-    }
-    __syncwarp();
-  }
-  for (int r = 0; r < 16; ++r)
-    for (int c = NP + lane; c < KP; c += 32)
-      dS[mat + (size_t)(rw + r) * KP + c] = __float2bfloat16(0.f);
-
-  // dQ = dS K / 8
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fq[HD / 16];
-#pragma unroll
-  for (int jj = 0; jj < HD / 16; ++jj) wmma::fill_fragment(fq[jj], 0.f);
-  for (int kk = 0; kk < NP / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fs;
-    wmma::load_matrix_sync(fs, sDw + kk * 16, LDP);
-#pragma unroll
-    for (int jj = 0; jj < HD / 16; ++jj) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fk;
-      wmma::load_matrix_sync(fk, sK + kk * 16 * LDQ + jj * 16, LDQ);
-      wmma::mma_sync(fq[jj], fs, fk, fq[jj]);
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int jj = 0; jj < HD / 16; ++jj)
-    wmma::store_matrix_sync(sSw + jj * 16, fq[jj], LDS, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 16 * HD; e += 32) {
-    const int r = e >> 6, c = e & (HD - 1);
-    if (rw + r < L)
-      dqkv[((size_t)f * L + rw + r) * rs + h * HD + c] =
-          __float2bfloat16(sSw[r * LDS + c] * scale);
-  }
-}
-
-size_t spatial_bwd_q_smem_bytes(int np) {
-  return (size_t)(2 * BQ + 2 * np) * LDQ * sizeof(bf16) +
-         (size_t)BQ * score_ld(np) * sizeof(float) + BQ * sizeof(float) +
-         4 * 256 * sizeof(float);
-}
-
-__global__ void __launch_bounds__(128)
-spatial_attention_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                                const bf16* __restrict__ P, const bf16* __restrict__ dS,
-                                bf16* __restrict__ dqkv, int L, int D, int QP, int KP,
-                                float scale) {
-  __shared__ __align__(128) bf16 sP[BQ * LDQ];
-  __shared__ __align__(128) bf16 sD[BQ * LDQ];
-  __shared__ __align__(128) bf16 sdO[BQ * LDQ];
-  __shared__ __align__(128) bf16 sQ[BQ * LDQ];
-  const int k0 = blockIdx.x * BKEY;
-  const int h = blockIdx.y;
-  const int f = blockIdx.z;
-  const int H = gridDim.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const size_t rs = 3 * (size_t)D;
-  const bf16* base = qkv + (size_t)f * L * rs;
-  const size_t mat = ((size_t)f * H + h) * QP * KP;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> fdv[HD / 16], fdk[HD / 16];
-#pragma unroll
-  for (int jj = 0; jj < HD / 16; ++jj) {
-    wmma::fill_fragment(fdv[jj], 0.f);
-    wmma::fill_fragment(fdk[jj], 0.f);
-  }
-  for (int qc = 0; qc < QP; qc += BQ) {
-    for (int c = threadIdx.x; c < BQ * (HD / 8); c += blockDim.x) {
-      const int r = c >> 3, col = (c & 7) * 8;
-      *reinterpret_cast<uint4*>(sP + r * LDQ + col) =
-          *reinterpret_cast<const uint4*>(P + mat + (size_t)(qc + r) * KP + k0 + col);
-      *reinterpret_cast<uint4*>(sD + r * LDQ + col) =
-          *reinterpret_cast<const uint4*>(dS + mat + (size_t)(qc + r) * KP + k0 + col);
-      uint4 qv = make_uint4(0, 0, 0, 0), dv = qv;
-      if (qc + r < L) {
-        qv = *reinterpret_cast<const uint4*>(base + (qc + r) * rs + h * HD + col);
-        dv = *reinterpret_cast<const uint4*>(dout + ((size_t)f * L + qc + r) * D + h * HD + col);
-      }
-      *reinterpret_cast<uint4*>(sQ + r * LDQ + col) = qv;
-      *reinterpret_cast<uint4*>(sdO + r * LDQ + col) = dv;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk) {
-      // (16 keys, 16 queries) blocks of P^T and dS^T: the scratch tiles read
-      // column-major
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fp, fs;
-      wmma::load_matrix_sync(fp, sP + kk * 16 * LDQ + warp * 16, LDQ);
-      wmma::load_matrix_sync(fs, sD + kk * 16 * LDQ + warp * 16, LDQ);
-#pragma unroll
-      for (int jj = 0; jj < HD / 16; ++jj) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fo, fq;
-        wmma::load_matrix_sync(fo, sdO + kk * 16 * LDQ + jj * 16, LDQ);
-        wmma::load_matrix_sync(fq, sQ + kk * 16 * LDQ + jj * 16, LDQ);
-        wmma::mma_sync(fdv[jj], fp, fo, fdv[jj]);
-        wmma::mma_sync(fdk[jj], fs, fq, fdk[jj]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // each warp stages its 16 x 64 results in fp32 over the (idle) tiles
-  float* out = reinterpret_cast<float*>(warp < 2 ? sP : sD) + (warp & 1) * 16 * (HD + 4);
-  for (int which = 0; which < 2; ++which) {
-#pragma unroll
-    for (int jj = 0; jj < HD / 16; ++jj)
-      wmma::store_matrix_sync(out + jj * 16, which ? fdk[jj] : fdv[jj], HD + 4,
-                              wmma::mem_row_major);
-    __syncwarp();
-    const float mul = which ? scale : 1.f;
-    bf16* dst = dqkv + (which ? D : 2 * D) + h * HD;
-    for (int e = lane; e < 16 * HD; e += 32) {
-      const int r = e >> 6, c = e & (HD - 1);
-      const int key = k0 + warp * 16 + r;
-      if (key < L)
-        dst[((size_t)f * L + key) * rs + c] = __float2bfloat16(out[r * (HD + 4) + c] * mul);
-    }
-    __syncwarp();
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Temporal core backward. Replaces the core half of
 // adapt_image_models_tpu/ops/fused_temporal_attention.py::
 // _kernel_temporal_step_bwd_dx (_grouped_core_bwd :815-857): the spatial
-// backward's maths over the T frames of each token position, in the native
+// backward's maths (csrc/spatial_bwd.cu) over the T frames of each token position, in the native
 // (B*T, L) row layout with stride L*3D between frames, no relayout, for any
 // T. One block per (token, clip, group of heads) of at most 256 threads: a
 // head has P = min(T, 256) threads, thread p takes query frames p, p + P,
@@ -670,32 +321,6 @@ extern "C" int aim_temporal_attention_bf16(const void* qkv, void* out, int clips
   const dim3 grid(L, clips, (heads + per_block - 1) / per_block);
   temporal_attention_kernel<<<grid, per_block * P, 0, (cudaStream_t)stream>>>(
       (const bf16*)qkv, (bf16*)out, T, L, D, P, scale);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int aim_spatial_attention_bwd_bf16(const void* qkv, const void* dout, void* dqkv,
-                                              void* p_scratch, void* ds_scratch, void* out,
-                                              int frames, int L, int D, float scale,
-                                              void* stream) {
-  const int np = (L + 15) / 16 * 16;
-  const int qp = (L + BQ - 1) / BQ * BQ;  // the scratch is (qp, qp) per frame and head
-  if (D % HD || L <= 0 || np > MAX_NP) return (int)cudaErrorInvalidValue;
-  if (frames == 0) return 0;
-  const size_t bytes = spatial_bwd_q_smem_bytes(np);
-  cudaError_t err = cudaFuncSetAttribute(spatial_attention_bwd_q_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_q(qp / BQ, D / HD, frames);
-  spatial_attention_bwd_q_kernel<<<grid_q, 128, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const bf16*)dout, (bf16*)dqkv, (bf16*)p_scratch, (bf16*)ds_scratch,
-      (bf16*)out, L, D, np, qp, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid_kv(qp / BKEY, D / HD, frames);
-  spatial_attention_bwd_kv_kernel<<<grid_kv, 128, 0, (cudaStream_t)stream>>>(
-      (const bf16*)qkv, (const bf16*)dout, (const bf16*)p_scratch, (const bf16*)ds_scratch,
-      (bf16*)dqkv, L, D, qp, qp, scale);
   return (int)cudaGetLastError();
 }
 

@@ -60,7 +60,7 @@ __device__ __forceinline__ void axpy_bf16(float w, const bf16* row, float* acc) 
 
 // ---------------------------------------------------------------------------
 // Tensor-core fragments and asynchronous copies of the attention cores
-// (csrc/flash_attention.cu, csrc/temporal_segment.cu).
+// (csrc/flash_attention.cu, csrc/spatial_bwd.cu, csrc/temporal_segment.cu).
 //
 // mma.sync m16n8k16, bf16 in, fp32 accumulate, for lane (g, t) = (lane / 4,
 // lane % 4): A (16 x 16, row-major) as four bf16 pairs: (row g, cols 2t, 2t
@@ -105,6 +105,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+// 4 bytes, likewise (the backward core's fp32 row statistics)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -173,5 +179,43 @@ __device__ __forceinline__ void pv_mma_16(float (*o)[4], const float* p0, const 
     ldmatrix_x4_trans(b, row + 16 * np);
     mma_bf16_16816(o[2 * np], a0, a1, a2, a3, b[0], b[1]);
     mma_bf16_16816(o[2 * np + 1], a0, a1, a2, a3, b[2], b[3]);
+  }
+}
+
+// the A fragments (k-steps of 16 lanes) of the 16-row strip whose lane rows
+// are ra and ra + 8 (ra = its first row + lane / 4), of a (rows, 64) bf16
+// matrix in device memory with row stride `stride` (elements): (ra, lanes
+// 16ks + 2t, +1), (ra + 8, those), (ra, 16ks + 8 + 2t, +1), (ra + 8,
+// those); zero at rows n and past
+__device__ __forceinline__ void load_a_frags(uint32_t (*f)[4], const bf16* src, long long stride,
+                                             int ra, int n, int t) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = r & 1 ? ra + 8 : ra;
+      f[ks][r] = row < n ? __ldg(reinterpret_cast<const unsigned*>(
+                               src + row * stride + 16 * ks + (r >> 1) * 8 + 2 * t))
+                         : 0u;
+    }
+}
+
+// c = A B^T for a 16-row strip against 16 rows: A's fragments af (from
+// load_a_frags), B the 16 padded shared rows sB (the first of them), the
+// result the two 16 x 8 fp32 C tiles (columns 0-7, 8-15); B's fragments by
+// ldmatrix. The attention cores' scores q k^T (and k q^T, dO v^T, v dO^T)
+__device__ __forceinline__ void qk_mma_16(float (*c)[4], uint32_t (*af)[4], const bf16* sB,
+                                          int lane) {
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // lanes 32h .. 32h + 31: k-steps 2h, 2h + 1
+      uint32_t b[4];
+      ldmatrix_x4(b, sB + (8 * nt + (lane & 7)) * SMEM_ROW + 32 * h + (lane >> 3) * 8);
+      mma_bf16_16816(c[nt], af[2 * h][0], af[2 * h][1], af[2 * h][2], af[2 * h][3], b[0], b[1]);
+      mma_bf16_16816(c[nt], af[2 * h + 1][0], af[2 * h + 1][1], af[2 * h + 1][2],
+                     af[2 * h + 1][3], b[2], b[3]);
+    }
   }
 }

@@ -23,7 +23,8 @@
 //    are neighbouring blocks, so a second tile finds K and V in L2;
 //  - one warp per strip holds its q A fragments in registers, read once;
 //  - pass 1 forms 16 x 16 score tiles with mma.sync m16n8k16 (K's B
-//    fragments by ldmatrix) and takes the exact row max by quad shuffles;
+//    fragments by ldmatrix, common.cuh::qk_mma_16) and takes the exact row
+//    max by quad shuffles;
 //  - pass 2 forms the same tiles again from the staged K (the same
 //    instructions, so the same values), p in fp32 and its fp32 row sum,
 //    and repacks bf16(p) from the C fragments as the A fragments of
@@ -91,24 +92,6 @@ int flash_design(int L, int* smem, int* warps, int* tiles) {
   return FLASH_STREAMED;
 }
 
-// c = the two 16 x 8 score tiles (unscaled) of a strip, q A fragments qf
-// (k-steps of 16 lanes), against the 16 key rows sK
-__device__ __forceinline__ void flash_scores(float (*c)[4], uint32_t (*qf)[4],
-                                             const bf16* sK, int lane) {
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {  // lanes 32h .. 32h + 31: k-steps 2h, 2h + 1
-      uint32_t b[4];
-      ldmatrix_x4(b, sK + (8 * nt + (lane & 7)) * SMEM_ROW + 32 * h + (lane >> 3) * 8);
-      mma_bf16_16816(c[nt], qf[2 * h][0], qf[2 * h][1], qf[2 * h][2], qf[2 * h][3], b[0], b[1]);
-      mma_bf16_16816(c[nt], qf[2 * h + 1][0], qf[2 * h + 1][1], qf[2 * h + 1][2],
-                     qf[2 * h + 1][3], b[2], b[3]);
-    }
-  }
-}
-
 // PRENORM normalises p in fp32 by the exact row sum before rounding it, and
 // the divisor is then 1, as the TPU backward kernels recompute the spatial
 // forward (fused_qkv_attention.py:1256-1260): a pass over the keys between
@@ -138,18 +121,8 @@ flash_attention_kernel(const __grid_constant__ FlashArgs a, int tiles) {
     cp_async_commit();
   }
 
-  // q A fragments: (row ra, lanes 16ks + 2t, +1), (rb, those), (ra, 16ks +
-  // 8 + 2t, +1), (rb, those); zero past L
-  uint32_t qf[FHD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < FHD / 16; ++ks)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = r & 1 ? rb : ra;
-      qf[ks][r] = row < L ? __ldg(reinterpret_cast<const unsigned*>(
-                                qb + row * a.sq[2] + 16 * ks + (r >> 1) * 8 + 2 * t))
-                          : 0u;
-    }
+  uint32_t qf[FHD / 16][4];  // q A fragments, zero past L
+  load_a_frags(qf, qb, a.sq[2], ra, L, t);
 
   float m[2] = {-INFINITY, -INFINITY}, den[2] = {0.f, 0.f};
   float o[FHD / 8][4];
@@ -160,7 +133,7 @@ flash_attention_kernel(const __grid_constant__ FlashArgs a, int tiles) {
   constexpr int PASSES = PRENORM ? 3 : 2;
   auto chunk = [&](int pass, const bf16* k, const bf16* v, int key0) {
     float s[2][4];
-    flash_scores(s, qf, k, lane);
+    qk_mma_16(s, qf, k, lane);
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll

@@ -4,7 +4,7 @@ train ops are autograd ops whose forward and backward are such wrappers."""
 
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._kernels import (  # noqa: F401
-    flash_fwd_design, gemm_design, segment_fwd_design,
+    flash_fwd_design, gemm_design, segment_fwd_design, spatial_bwd_design,
 )
 from adapt_image_models_torch.ops.flash_attention import (  # noqa: F401
     flash_attention_core, flash_attention_core_plain, flash_attention_entry,
@@ -219,13 +219,17 @@ def layer_block_ops(call: str, tokens: int, width: int):
 # 2, 14, 15, 16 and 23 launch past LONG_CLIP_T frames, once a call; the
 # spatial forward core (``_kernels.spatial_attention``, the flash core's
 # launch on the packed QKV), which every spatial op launches once a forward
-# in place of the TPU kernels' attention body; and the GEMM
+# in place of the TPU kernels' attention body; the spatial backward core
+# (``_kernels.spatial_attention_bwd``, rows and columns kernels), which every
+# spatial backward launches once in place of the attention half of the TPU
+# backward kernels; and the GEMM
 # (``_kernels.gemm``), which carries every product of every op's chain, the
 # QKV projection (``_project_qkv``) first. Their launches count apart from
 # the ops', each on the kernel's own counter (a spatial launch never counts
 # under ``flash_attention_core``)
 SEGMENT_CORE = ("temporal_segment_core", _TPU + "fused_temporal_attention.py:289")
 SPATIAL_CORE = ("spatial_attention_core", _TPU + "fused_qkv_attention.py:210")
+SPATIAL_BWD_CORE = ("spatial_attention_bwd_core", _TPU + "fused_qkv_attention.py:1288")
 GEMM = ("gemm", _TPU + "fused_qkv_attention.py:131")
 
 
@@ -234,6 +238,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     _kernels.temporal_segment.launches = 0
     _kernels.spatial_attention.launches = 0
+    _kernels.spatial_attention_bwd.launches = 0
     _kernels.gemm.launches = 0
 
 

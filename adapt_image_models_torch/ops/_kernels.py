@@ -40,7 +40,9 @@ _SIGNATURES = {
     "aim_gemm_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F,
                       _I, _I, _I, _P, _P, _P],
     "aim_gemm_design": [_I, _I, _I, _I, _P],
-    "aim_spatial_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "aim_spatial_attention_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    "aim_spatial_bwd_design": [_I, _P],
+    "aim_score_orientations": [_P, _P, _P, _P, _I, _P],
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "aim_flash_attention_bf16": [_P, _I, _P],
@@ -54,7 +56,8 @@ _SIGNATURES = {
 # the shared memory one block may hold on sm_90, and one padded staged row
 # of 64 bf16 lanes (csrc/common.cuh: SMEM_BLOCK_MAX, SMEM_ROW_BYTES)
 SMEM_BLOCK_MAX, SMEM_ROW_BYTES = 232448, 144
-SEGMENT_RING, FLASH_RING = 64, 64  # frames / keys of one ring slot
+SEGMENT_RING, FLASH_RING, SPATIAL_BWD_RING = 64, 64, 64  # rows of one ring slot
+STAT_BYTES = 12  # a row's (max, sum, rowdot) in the backward cores' fp32 scratch
 # the GEMM's block tile rows and k depth, the stages of its ring by tile
 # width, and the slack its shared memory holds to align the swizzled
 # tiles plus the mbarriers (csrc/gemm.cu)
@@ -102,6 +105,22 @@ def flash_fwd_design(length: int) -> Tuple[str, int]:
     return "streamed", 2 * 2 * FLASH_RING * SMEM_ROW_BYTES
 
 
+def spatial_bwd_design(length: int) -> Tuple[str, int]:
+    """(branch, dynamic shared memory in bytes) of the spatial backward core
+    at ``length`` tokens, as ``csrc/spatial_bwd.cu::spatial_bwd_design``
+    picks them, the shared memory its columns kernel takes (the larger of
+    its two): Q, dO and their rows' statistics staged whole in rows padded to
+    16 ("staged") while they fit one block, else streamed through a
+    double-buffered ring of 64-row tiles ("streamed"); its rows kernel
+    stages K and V the same way."""
+    if length <= 0:
+        raise ValueError(f"length must be positive, got {length}")
+    staged = _round_up(length, 16) * (2 * SMEM_ROW_BYTES + STAT_BYTES)
+    if staged <= SMEM_BLOCK_MAX:
+        return "staged", staged
+    return "streamed", 2 * SPATIAL_BWD_RING * (2 * SMEM_ROW_BYTES + STAT_BYTES)
+
+
 def gemm_design(m: int, n: int, k: int, kn: bool = False) -> Tuple[str, int]:
     """(branch, dynamic shared memory in bytes) of the GEMM at (m, k) @ (k,
     n), the weight (n, k) or with ``kn`` (k, n), as
@@ -124,6 +143,7 @@ _DESIGNS = {
     "aim_temporal_segment_design": (
         segment_fwd_design, ("registers64", "registers128", "staged", "streamed")),
     "aim_flash_attention_design": (flash_fwd_design, ("staged", "streamed")),
+    "aim_spatial_bwd_design": (spatial_bwd_design, ("staged", "streamed")),
     "aim_gemm_design": (gemm_design, ("bn128", "bn256")),
 }
 _designs_held = set()
@@ -375,21 +395,44 @@ spatial_attention.launches = 0
 def spatial_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, frames: int,
                           length: int, with_out: bool = False):
     """Cotangent ``dout`` (frames*length, D) of the spatial core's output ->
-    packed dqkv (frames*length, 3D), all bf16. With ``with_out`` also the
-    core's output recomputed from the fp32-normalised P, ``bf16(bf16(P)
-    V)`` (frames*length, D): returns (dqkv, out)."""
+    packed dqkv (frames*length, 3D), all bf16, in two launches
+    (``csrc/spatial_bwd.cu``: rows, then columns) that share a scratch of
+    three floats a (frame, head, row), in the design ``spatial_bwd_design``
+    picks for ``length``. With ``with_out`` also the core's output
+    recomputed from the fp32-normalised P, ``bf16(bf16(P) V)``
+    (frames*length, D): returns (dqkv, out). Each call adds one to
+    ``launches``."""
     d = qkv.shape[1] // 3
-    qp = -(-length // 64) * 64
     dqkv = torch.empty_like(qkv)
     out = torch.empty_like(dout) if with_out else None
-    # bf16 P and dS of every (frame, head), (qp, qp) each, zero past length
-    p = torch.empty((frames, d // 64, qp, qp), dtype=qkv.dtype, device=qkv.device)
-    ds = torch.empty_like(p)
+    stats = _row_stats(qkv)
+    _hold_design("aim_spatial_bwd_design", length)
     _check(library().aim_spatial_attention_bwd_bf16(
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), p.data_ptr(),
-        ds.data_ptr(), _ptr(out), frames, length, d, 64 ** -0.5, _stream()),
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out),
+        stats.data_ptr(), frames, length, d, 64 ** -0.5, _stream()),
         "aim_spatial_attention_bwd_bf16")
+    spatial_attention_bwd.launches += 1
     return (dqkv, out) if with_out else dqkv
+
+
+spatial_attention_bwd.launches = 0
+
+
+def score_orientations(q: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 scores of (n, 64) bf16 q and k (n a multiple of 16) in the
+    two orientations the spatial backward core forms them by mma.sync:
+    ``q k^T`` (its rows kernel) and the transpose of ``k q^T`` (its columns
+    kernel), each (n, n)."""
+    n = q.shape[0]
+    if q.shape != (n, 64) or k.shape != (n, 64) or n % 16 or not (
+            q.is_contiguous() and k.is_contiguous()):
+        raise ValueError("score_orientations: q and k must be contiguous (n, 64), n % 16 == 0")
+    s = torch.empty((n, n), dtype=torch.float32, device=q.device)
+    t = torch.empty_like(s)
+    _check(library().aim_score_orientations(q.data_ptr(), k.data_ptr(), s.data_ptr(),
+                                            t.data_ptr(), n, _stream()),
+           "aim_score_orientations")
+    return s, t
 
 
 def spatial_attention_r(qkv: torch.Tensor, frames: int, length: int,
@@ -404,8 +447,8 @@ def spatial_attention_r(qkv: torch.Tensor, frames: int, length: int,
 
 
 def _row_stats(qkv: torch.Tensor) -> torch.Tensor:
-    """Scratch of the temporal backward cores: (max, sum, rowdot) of every
-    (token, head, frame) row, three fp32 each."""
+    """Scratch of the backward cores: (max, sum, rowdot) of every (row,
+    head) of the packed QKV, three fp32 each."""
     d = qkv.shape[1] // 3
     return torch.empty(qkv.shape[0] * (d // 64) * 3, dtype=torch.float32,
                        device=qkv.device)

@@ -26,7 +26,7 @@ round the same intermediates:
   replaces the TPU kernel of that name (:1323, body :1220-1320): it
   recomputes the forward from x (with P normalised before the PV product,
   as that kernel does), runs the adapter backward through (K, N) GEMMs of
-  the frozen weights, the spatial core backward (``csrc/attention.cu``) and
+  the frozen weights, the spatial core backward (``csrc/spatial_bwd.cu``) and
   the LN backward with the residual, and emits dX with the adapter
   intermediates (u, dpre, a); the adapter's weight cotangents are formed
   from them as the JAX package forms them outside its kernel (:1520-1526);
@@ -58,10 +58,10 @@ rounded). The backward recomputes QKV, forms dO = g·W_o through the (K, N)
 GEMM, runs the spatial core backward, which also writes o from the
 normalised P, and dx = dqkv·W_qkv. Both are bound by the tensor cores (the
 two or three projections and the core's products); the chain writes the
-(rows, 3D) QKV and the core output to device memory between kernels. The
-core's backward holds a frame's keys in shared memory, so L <= 288
-(``csrc/attention.cu`` MAX_NP) on every spatial op: the prompt token makes
-ViT-B/16's sequence 198.
+(rows, 3D) QKV and the core output to device memory between kernels.
+Neither spatial core bounds the token count: the forward (the flash core)
+and the backward (``csrc/spatial_bwd.cu``) stage a frame's rows in shared
+memory while they fit and stream them through a ring past that.
 
 The LN block ``W_o · attn(LN x) + b_o`` (``CLIPAttention(ln=ln)``) and the
 adapter block ``Adapter(W_o · attn(x) + b_o)`` (``CLIPAttention(adapter=a)``)
@@ -335,9 +335,6 @@ def fused_spatial_train_step_plain(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
 # tokens, no LayerNorm and no adapter inside.
 
 
-MAX_TOKENS = 288  # the keys a block of the spatial backward core holds (csrc/attention.cu)
-
-
 def _check_block(name, x, w_qkv, b_qkv, w_out, num_heads, vectors=(),
                  kernel: bool = True, ln=(), adapter=()) -> None:
     """Validate a block's arguments (``ln``: its LayerNorm's scale and bias;
@@ -349,10 +346,6 @@ def _check_block(name, x, w_qkv, b_qkv, w_out, num_heads, vectors=(),
         matrices += ((adapter[0], (dh, d)), (adapter[1], (d, dh)))
     check_step_args(name, x, ln, matrices, ((b_qkv, 3 * d), *vectors), num_heads,
                     kernel)
-    if kernel and x.device.type == "cuda" and x.shape[1] > MAX_TOKENS:
-        raise NotImplementedError(
-            f"{name}: L={x.shape[1]} > {MAX_TOKENS} needs a spatial core that "
-            "streams over keys, not ported yet (ROADMAP queue 1, AIM_FLASH_DUAL)")
 
 
 def fused_qkv_attention_plain(x, w_qkv, b_qkv, w_out, b_out,
@@ -387,8 +380,8 @@ def _block_cuda(x2, w_qkv, b_qkv, w_out, b_out, core, f32: bool = False):
 def fused_qkv_attention(x, w_qkv, b_qkv, w_out, b_out,
                         num_heads: int) -> torch.Tensor:
     """``W_o · attn(x)`` over x (B, L, D), attention within each row. CPU
-    tensors take the plain version; CUDA tensors (bf16, head dim 64, L <=
-    288) launch the kernels: the QKV GEMM (+bias, bf16 out), the spatial
+    tensors take the plain version; CUDA tensors (bf16, head dim 64) launch
+    the kernels: the QKV GEMM (+bias, bf16 out), the spatial
     core and the out-proj GEMM (+bias, bf16 out)."""
     _check_block("fused_qkv_attention", x, w_qkv, b_qkv, w_out, num_heads,
                  ((b_out, x.shape[-1]),))
@@ -485,7 +478,7 @@ def fused_ln_qkv_attention(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     """``W_o · attn(LN x) + b_o`` over the raw residual stream x (B, L, D),
     attention within each row (replaces ``fused_ln_qkv_attention`` :446).
     CPU tensors take the plain version; CUDA tensors (bf16 x and weights,
-    fp32 LN, head dim 64, L <= 288) launch the kernels: the row LayerNorm,
+    fp32 LN, head dim 64) launch the kernels: the row LayerNorm,
     then the chain of ``fused_qkv_attention``."""
     _check_block("fused_ln_qkv_attention", x, w_qkv, b_qkv, w_out, num_heads,
                  ((b_out, x.shape[-1]),), ln=(ln_w, ln_b))

@@ -204,7 +204,13 @@ Phases, in order; any failure raises and exits non-zero:
      the packed QKV's views, _kernels.spatial_attention) against its plain
      version at (256, 12, 197), (256, 12, 198) and (128, 16, 257), prenorm
      on and off, two launches bit-equal, and row 10 bit-equal to row 5 at r
-     = 2 and 3 over 7 samples; then the timings: the segment core alone on
+     = 2 and 3 over 7 samples; the spatial backward core
+     (csrc/spatial_bwd.cu, _kernels.spatial_attention_bwd: a rows and a
+     columns kernel on mma.sync) against its plain version at (2, 2, 17),
+     the three shapes above, (4, 2, 289) and 768, 769 and 801 keys (both
+     sides of its staging bound, ops.spatial_bwd_design), dq, dk, dv and o,
+     two launches bit-equal, and its two mma orientations of the scores bit
+     for bit; then the timings: the segment core alone on
      the packed QKV of 4 clips of 64 frames against its plain version, its
      bound and scaled_dot_product_attention on the (clips*L, H, T, 64) view
      of the same q, k, v; the GEMM alone at tools/kernel_bounds_torch.py's
@@ -213,12 +219,21 @@ Phases, in order; any failure raises and exits non-zero:
      products of the joint step with fp32 aux or residual) against its
      plain version and torch.matmul, with its TFLOP/s and its bound
      (epilogue bytes counted); the spatial forward core alone at those three
-     shapes, prenorm on and off, and the spatial backward core at (256, 12,
-     197), against their plain versions, scaled_dot_product_attention (its
-     autograd backward) and their bounds.
+     shapes, prenorm on and off, and the spatial backward core at the
+     same three, against their plain versions, scaled_dot_product_attention
+     (its autograd backward) and their bounds; and, unchanged, the temporal
+     backward core at 32 clips of 8 frames and 4 of 64, the segment
+     backward core at 4 clips of 64 frames and the T <= 32 temporal forward
+     core at T = 8, 16 and 32 (x = (256, 197, 768)) against their plain
+     versions, scaled_dot_product_attention on the (clips*L, H, T, 64)
+     copies (its autograd backward for the backwards) and their bounds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
-prenorm recompute) and the GEMM's (144 a forward).
+prenorm recompute), the spatial backward core's (none a forward, 12 a
+train step) and the GEMM's (144 a forward); every AIM path driven through
+the entry points in phases 12, 14 and 16 and the AIM_FLASH train path
+count the spatial backward core's (one a layer a train step: 24 a ViT-L/14
+step, 12 an AIM_FLASH step).
 Every driven AIM path counts the segment forward core's launches: one a
 temporal step past LONG_CLIP_T = 32 frames, none at T <= 32.
 Every driven model's kernel path holds the plain path's top-1 class; a
@@ -243,7 +258,9 @@ temporal_segment_core, is the segment forward core alone at 4 clips of 64
 frames, with its launches on the ViT-B/16 64f eval path; spatial_attention_core is
 the spatial forward core alone at (256, 12, 197, 64) and gemm the GEMM at the
 flagship's QKV projection with no epilogue, each with its launches on the
-flagship eval path; the last line is {"ok": true, "device": {...}}.
+flagship eval path; spatial_attention_bwd_core is the spatial backward core
+alone at (256, 12, 197, 64), with its launches on the flagship train path;
+the last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -359,17 +376,21 @@ def check_segment_core(path, launches, expected):
 
 
 # the launches of the spatial forward core and of the GEMM on the flagship's
-# eval path, for the kernels line
+# eval path, and of the spatial backward core on its train path, for the
+# kernels line
 CORE_LAUNCHES = {}
 
 
 def check_core(kernel, path, launches, expected):
     """A kernel with its own counter (``_kernels.spatial_attention``,
-    ``_kernels.gemm``) launched ``expected`` times on ``path``."""
+    ``_kernels.spatial_attention_bwd``, ``_kernels.gemm``) launched
+    ``expected`` times on ``path``; the first path that launched it is
+    recorded for the kernels line."""
     log(f"  {kernel} launches on the {path} path: {launches}")
     if launches != expected:
         raise AssertionError(f"{path}: expected {expected} {kernel} launches")
-    CORE_LAUNCHES.setdefault(kernel, (path, launches))
+    if launches:
+        CORE_LAUNCHES.setdefault(kernel, (path, launches))
 
 
 def device_line() -> str:
@@ -1096,6 +1117,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
                                             num_workers=2, return_scores=True)
         eval_launches = ops.launch_counts()  # ... and ends here
         segment_eval = _kernels.temporal_segment.launches
+        spatial_bwd_eval = _kernels.spatial_attention_bwd.launches
     forwards = len(top5) + -(-eval_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://{seed}: {top5[0]}")
     log(f"  run_evaluation over {eval_videos} synthetic {views}-view videos "
@@ -1106,6 +1128,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
     # at T <= 32 nothing launches it
     segment = not ops.use_full_core(frames)
     check_segment_core(f"{label} eval", segment_eval, layers * forwards if segment else 0)
+    check_core("spatial backward core", f"{label} eval", spatial_bwd_eval, 0)
     if scores.shape != (eval_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad {label} eval scores {scores.shape}")
     if any(not (0 <= s <= 1) for r in top5 for _, s in r):
@@ -1142,6 +1165,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         torch.cuda.synchronize()
         train_launches = ops.launch_counts()  # ... and ends here
         segment_train = _kernels.temporal_segment.launches
+        spatial_bwd_train = _kernels.spatial_attention_bwd.launches
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and the checkpoint included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
@@ -1154,6 +1178,9 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
                         for k, op in enumerate(train_names)})
         check_segment_core(f"{label} train", segment_train,
                            layers * steps * passes if segment else 0)
+        # the spatial backward core once a layer a step, checkpointed or not
+        check_core("spatial backward core", f"{label} train", spatial_bwd_train,
+                   layers * steps)
         if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError(f"{label} train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -2414,14 +2441,70 @@ def spatial_core_checks(errors):
         "row 5")
 
 
+# the spatial backward core's checks: the model paths' shapes, past the 288
+# keys the former WMMA core held, and both sides of its staging bound (768
+# staged, 769 streamed)
+SPATIAL_BWD_SHAPES = ((2, 2, 17), (256, 12, 197), (256, 12, 198), (128, 16, 257), (4, 2, 289),
+                      (2, 2, 768), (2, 2, 769), (2, 2, 801))
+
+
+def spatial_bwd_checks(errors):
+    """The spatial backward core (``_kernels.spatial_attention_bwd``:
+    csrc/spatial_bwd.cu's rows and columns kernels) against its plain
+    version at SPATIAL_BWD_SHAPES: dq, dk, dv against
+    ``spatial_core_bwd_plain`` and o against the prenorm forward, under the
+    train ops' backward bound (compare_grad); two launches bit-equal; then
+    its two mma orientations of the scores (q k^T in the rows kernel, k q^T
+    in the columns kernel) bit for bit at n = 16, 208 and 1024."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import spatial_core_bwd_plain, spatial_core_plain
+    name = ops.SPATIAL_BWD_CORE[0]
+    g = torch.Generator().manual_seed(1760)
+    for frames, heads, length in SPATIAL_BWD_SHAPES:
+        d = 64 * heads
+        qkv = torch.randn(frames * length, 3 * d, generator=g).to("cuda", torch.bfloat16)
+        dout = torch.randn(frames * length, d, generator=g).to("cuda", torch.bfloat16)
+        dqkv, o = K.spatial_attention_bwd(qkv, dout, frames, length, with_out=True)
+        again = K.spatial_attention_bwd(qkv, dout, frames, length)
+        torch.cuda.synchronize()
+        if not torch.equal(dqkv, again):
+            raise AssertionError(f"the spatial backward core is not deterministic at {length}")
+        log(f"  spatial backward core at ({frames}, {heads}, {length}, 64) "
+            f"({ops.spatial_bwd_design(length)[0]}):")
+        want = spatial_core_bwd_plain(qkv, dout, frames, length, heads)
+        got = [(n, dqkv[:, i * d:(i + 1) * d], want[:, i * d:(i + 1) * d])
+               for i, n in enumerate(("dq", "dk", "dv"))]
+        got.append(("o", o, spatial_core_plain(qkv, frames, length, heads, prenorm=True)))
+        for label, k, p in got:
+            err, ok = compare_grad(label, k, p)
+            if not ok:
+                raise AssertionError(f"the spatial backward core's {label} disagrees with its "
+                                     f"plain version at {length}")
+            errors[name] = max(err, errors.get(name, 0.0))
+        del qkv, dout, dqkv, o, again, want, got
+    torch.cuda.empty_cache()
+    for n in (16, 208, 1024):
+        q, k = (torch.randn(n, 64, generator=g).to("cuda", torch.bfloat16) for _ in range(2))
+        s, t = K.score_orientations(q, k)
+        torch.cuda.synchronize()
+        same = torch.equal(s, t)
+        log(f"  scores q k^T and (k q^T)^T by mma.sync at n={n}: "
+            f"{'bit-equal' if same else 'DIFFER, max %.3e' % (s - t).abs().max().item()}")
+        if not same:
+            raise AssertionError("the two orientations of the scores differ: the columns "
+                                 "kernel's P and dS are no longer the rows kernel's")
+
+
 def spatial_core_timings(card, op_ms, library_ms):
     """The spatial forward core alone at SPATIAL_SHAPES, prenorm on and
-    off, and its backward core (``_kernels.spatial_attention_bwd``) at the
-    first: kernel and plain version (plain-kernel-kernel-plain, median of
+    off, and the spatial backward core (``_kernels.spatial_attention_bwd``)
+    at each: kernel and plain version (plain-kernel-kernel-plain, median of
     20) beside scaled_dot_product_attention on (frames, H, L, 64) copies of
     q, k, v (relayout untimed; its autograd backward for the backward
-    core) and the bound. Returns {label: row}; the (256, 12, 197) forward
-    goes into ``op_ms`` and ``library_ms`` for the kernels line."""
+    core) and the bound. Returns {label: row}; both cores at (256, 12, 197)
+    go into ``op_ms`` and ``library_ms`` for the kernels line."""
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from adapt_image_models_torch.ops import _kernels as K
@@ -2451,21 +2534,24 @@ def spatial_core_timings(card, op_ms, library_ms):
             op_ms[name] = (rows[label.replace(" prenorm", "")]["ms"],
                            rows[label.replace(" prenorm", "")]["plain_ms"])
             library_ms[name] = lib
-            dout = torch.randn(frames * length, d, generator=g).to("cuda", torch.bfloat16)
-            do = dout.view(frames, length, heads, 64).transpose(1, 2).contiguous()
-            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-            o = sdpa(qg, kg, vg)
-            lib_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
-                                                          retain_graph=True))
-            with torch.no_grad():
-                fns = (lambda: spatial_core_bwd_plain(qkv, dout, frames, length, heads),
-                       lambda: K.spatial_attention_bwd(qkv, dout, frames, length))
-                t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
-            b_ms, b_by = bound_of(*spatial_core_work(frames, heads, length, backward=True))
-            rows[f"spatial backward ({frames}, {heads}, {length}, 64)"] = dict(
-                ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2, library_ms=lib_bwd,
-                bound_ms=b_ms, bound_by=b_by)
-            del dout, do, qg, kg, vg, o
+        dout = torch.randn(frames * length, d, generator=g).to("cuda", torch.bfloat16)
+        do = dout.view(frames, length, heads, 64).transpose(1, 2).contiguous()
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        o = sdpa(qg, kg, vg)
+        lib_bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
+        with torch.no_grad():
+            fns = (lambda: spatial_core_bwd_plain(qkv, dout, frames, length, heads),
+                   lambda: K.spatial_attention_bwd(qkv, dout, frames, length))
+            t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+        b_ms, b_by = bound_of(*spatial_core_work(frames, heads, length, backward=True))
+        label = f"spatial backward ({frames}, {heads}, {length}, 64)"
+        rows[label] = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                           library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
+        if (frames, heads, length) == SPATIAL_SHAPES[0]:
+            name = "spatial_attention_bwd_core"
+            op_ms[name] = (rows[label]["ms"], rows[label]["plain_ms"])
+            library_ms[name] = lib_bwd
+        del dout, do, qg, kg, vg, o
         del qkv, q, k, v
         torch.cuda.empty_cache()
     for label, row in rows.items():
@@ -2475,19 +2561,91 @@ def spatial_core_timings(card, op_ms, library_ms):
     return rows
 
 
+def temporal_core_timings(card):
+    """The temporal cores alone, unchanged by this phase's checks, for the
+    library times the chain table lacks: the backward core
+    (``_kernels.temporal_attention_bwd``) at 32 clips of 8 frames and 4 of
+    64, the segment backward core (``_kernels.temporal_segment_bwd``, an
+    fp32 cotangent) at 4 clips of 64 frames, and the T <= 32 forward core
+    (``_kernels.temporal_attention``) at 32, 16 and 8 clips of 8, 16 and
+    32 frames (x = (256, 197, 768) each): kernel and plain version
+    (plain-kernel-kernel-plain, median of 20) beside
+    scaled_dot_product_attention on the (clips*L, H, T, 64) copies of q, k,
+    v (its autograd backward for the backward cores) and the bound.
+    Returns {label: row}."""
+    import torch
+    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import (
+        temporal_core_bwd_plain, temporal_core_plain, temporal_segment_core_bwd_plain,
+    )
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from kernel_bounds_torch import bound_of, spatial_core_work
+    g = torch.Generator().manual_seed(1770)
+    rows = {}
+    cases = (("temporal backward", 32, FRAMES), ("temporal backward", 4, LONG_FRAMES),
+             ("segment backward", 4, LONG_FRAMES), ("temporal forward", 32, 8),
+             ("temporal forward", 16, 16), ("temporal forward", 8, 32))
+    for kind, clips, frames in cases:
+        qkv = torch.randn(clips * frames * TOKENS, 3 * WIDTH, generator=g).to("cuda",
+                                                                              torch.bfloat16)
+        dout = torch.randn(clips * frames * TOKENS, WIDTH, generator=g).to("cuda")
+        if kind != "segment backward":
+            dout = dout.to(torch.bfloat16)
+        q, k, v, do = (t.view(clips, frames, TOKENS, HEADS, 64).permute(0, 2, 3, 1, 4)
+                       .reshape(clips * TOKENS, HEADS, frames, 64).to(torch.bfloat16)
+                       .contiguous() for t in (*qkv.split(WIDTH, -1), dout))
+        args = (clips, frames, TOKENS)
+        if kind == "temporal forward":
+            fns = (lambda: temporal_core_plain(qkv, *args, HEADS),
+                   lambda: K.temporal_attention(qkv, *args))
+            with torch.no_grad():
+                lib = cuda_ms(lambda: sdpa(q, k, v))
+        else:
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            o = sdpa(qg, kg, vg)
+            lib = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
+            del qg, kg, vg, o
+            fns = ((lambda: temporal_core_bwd_plain(qkv, dout, *args, HEADS),
+                    lambda: K.temporal_attention_bwd(qkv, dout, *args))
+                   if kind == "temporal backward" else
+                   (lambda: temporal_segment_core_bwd_plain(qkv, dout, *args, HEADS),
+                    lambda: K.temporal_segment_bwd(qkv, dout, *args)))
+        with torch.no_grad():
+            t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
+        flops, nbytes = spatial_core_work(clips * TOKENS, HEADS, frames,
+                                          backward=kind != "temporal forward")
+        if kind == "segment backward":  # its cotangent is fp32
+            nbytes += 2 * clips * frames * TOKENS * WIDTH
+        b_ms, b_by = bound_of(flops, nbytes)
+        label = f"{kind} core x=({clips * frames}, {TOKENS}, {WIDTH}), T={frames}"
+        rows[label] = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2, library_ms=lib,
+                           bound_ms=b_ms, bound_by=b_by)
+        log(f"  {label} on {card}: kernel {rows[label]['ms']:.3f} ms, plain "
+            f"{rows[label]['plain_ms']:.3f} ms, library (scaled_dot_product_attention"
+            f"{'' if kind == 'temporal forward' else ' backward'} on the {tuple(q.shape)} "
+            f"copies) {lib:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del qkv, dout, q, k, v, do
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_17(card, errors, op_ms, library_ms):
     """Phase 17 (see the module docstring): the cores' and the GEMM's
-    checks into ``errors``, the segment core's and the spatial forward
-    core's times into ``op_ms`` and ``library_ms``. Returns (the segment
-    core's bound, the GEMM rows, the spatial cores' rows)."""
+    checks into ``errors``, the segment core's and the spatial cores' times
+    into ``op_ms`` and ``library_ms``. Returns (the segment core's bound,
+    the GEMM rows, the spatial cores' rows, the temporal cores' rows)."""
     log("phase 17: the segment forward core and the flash core at the branch points of "
-        "their designs, the GEMM at ragged shapes, the spatial forward core alone")
+        "their designs, the GEMM at ragged shapes, the spatial forward and backward cores "
+        "alone")
     core_checks(errors)
     gemm_checks(errors)
     spatial_core_checks(errors)
+    spatial_bwd_checks(errors)
     log(f"phase 17: timings on {card}")
     seg_bound = segment_core_timing(card, op_ms, library_ms)
-    return seg_bound, gemm_timings(card), spatial_core_timings(card, op_ms, library_ms)
+    return (seg_bound, gemm_timings(card), spatial_core_timings(card, op_ms, library_ms),
+            temporal_core_timings(card))
 
 
 def main():
@@ -2548,6 +2706,7 @@ def main():
         launches = ops.launch_counts()  # ... and ends here
         segment_eval, gemm_eval = _kernels.temporal_segment.launches, _kernels.gemm.launches
         spatial_eval = _kernels.spatial_attention.launches
+        spatial_bwd_eval = _kernels.spatial_attention_bwd.launches
     forwards = len(top5) + -(-n_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic videos: {results}")
@@ -2557,6 +2716,7 @@ def main():
     # each of the 12 layers: one spatial core launch (the spatial step) and
     # 12 GEMMs (4 products in each of the three steps)
     check_core("spatial forward core", "flagship eval", spatial_eval, 12 * forwards)
+    check_core("spatial backward core", "flagship eval", spatial_bwd_eval, 0)
     check_core("GEMM", "flagship eval", gemm_eval, 144 * forwards)
     GEMM_LAUNCHES["flagship eval forward"] = gemm_eval / forwards
     if scores.shape != (n_videos, 400) or not (abs(scores.sum(1) - 1) < 1e-3).all():
@@ -2675,6 +2835,7 @@ def main():
         train_launches = ops.launch_counts()  # ... and ends here
         segment_train, gemm_train = _kernels.temporal_segment.launches, _kernels.gemm.launches
         spatial_train = _kernels.spatial_attention.launches
+        spatial_bwd_train = _kernels.spatial_attention_bwd.launches
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and validation included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
@@ -2687,6 +2848,8 @@ def main():
         # prenorm recompute in each of the 12 layers
         check_core("spatial forward core", "flagship train", spatial_train,
                    24 * steps + 12 * n_val)
+        # and the backward core once a layer a step (fused_step_bwd_dx)
+        check_core("spatial backward core", "flagship train", spatial_bwd_train, 12 * steps)
         GEMM_LAUNCHES["flagship train step"] = (
             gemm_train - n_val * GEMM_LAUNCHES["flagship eval forward"]) / steps
         log(f"  GEMM launches: {GEMM_LAUNCHES['flagship eval forward']:g} an eval "
@@ -3056,10 +3219,13 @@ def main():
                                      validate=False, device="cuda")
         torch.cuda.synchronize()
         flash_train_launches = ops.launch_counts()  # ... and ends here
+        flash_bwd_train = _kernels.spatial_attention_bwd.launches
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data and build included); losses {[round(h['loss'], 4) for h in history]}")
         check_launches(f"AIM_FLASH train path ({steps10} steps x 12 layers)",
                        flash_train_launches, {op: 12 * steps10 for op in ops.FLASH_TRAIN_OPS})
+        # the prompt-token block's backward (row 8) once a layer a step
+        check_core("spatial backward core", "AIM_FLASH train", flash_bwd_train, 12 * steps10)
         if state.step != steps10 or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError("AIM_FLASH train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -3288,7 +3454,8 @@ def main():
     long144_launches, long144_train_launches = phase_16(card, errors)
 
     # ---- phase 17: the segment forward core and the flash core alone -------
-    seg_bound, gemm_rows, spatial_rows = phase_17(card, errors, op_ms, library_ms)
+    seg_bound, gemm_rows, spatial_rows, temporal_rows = phase_17(card, errors, op_ms,
+                                                                 library_ms)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
@@ -3302,6 +3469,15 @@ def main():
         sources[op] = "adapt_image_models_torch/csrc/temporal_segment.cu"
     for op in LAYER_OPS:
         sources[op] = "adapt_image_models_torch/csrc/attention.cu"
+    # the spatial ops' attention cores: the flash core forward, the spatial
+    # backward core in the backwards
+    for op in ("fused_spatial_step", "fused_spatial_train_step", "fused_spatial_step_gated",
+               sblk, "fused_ln_qkv_attention", "fused_qkv_attention_adapter",
+               "fused_ln_qkv_attention_r"):
+        sources[op] = "adapt_image_models_torch/csrc/flash_attention.cu"
+    for op in ("fused_step_bwd_dx", sblk_bwd, "fused_ln_qkv_attention_bwd",
+               "fused_ln_qkv_attention_bwd_dx"):
+        sources[op] = "adapt_image_models_torch/csrc/spatial_bwd.cu"
     # each op's launches on the first of the eighteen paths that runs it
     counts = {}
     for path, run in (("flagship eval", launches), ("flagship train", train_launches),
@@ -3394,8 +3570,17 @@ def main():
         max_abs_err=errors["gemm"], ms=qkv_row["ms"], plain_ms=qkv_row["plain_ms"],
         bound_ms=qkv_row["bound_ms"], bound_by=qkv_row["bound_by"],
         library_ms=qkv_row["library_ms"]))
+    bwd, path_launches = ops.SPATIAL_BWD_CORE[0], CORE_LAUNCHES["spatial backward core"]
+    bwd_row = spatial_rows[f"spatial backward ({', '.join(map(str, SPATIAL_SHAPES[0]))}, 64)"]
+    kernels.append(dict(
+        name=bwd, route="cuda", source="adapt_image_models_torch/csrc/spatial_bwd.cu",
+        replaces=ops.SPATIAL_BWD_CORE[1], path=path_launches[0], launches=path_launches[1],
+        max_abs_err=errors[bwd], ms=op_ms[bwd][0], plain_ms=op_ms[bwd][1],
+        bound_ms=bwd_row["bound_ms"], bound_by=bwd_row["bound_by"],
+        library_ms=library_ms[bwd]))
     log(f"GEMM rows: {json.dumps(gemm_rows)}")
     log(f"spatial core rows: {json.dumps(spatial_rows)}")
+    log(f"temporal core rows: {json.dumps(temporal_rows)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

@@ -18,6 +18,12 @@ checked at 33, 48 and 64 frames, and the LN temporal block's backwards
 the forwards (rows 2, 14, 15, 23) and the backwards (rows 17 to 22) are
 also held at 144 and 300 frames, past the former shared-memory bounds.
 
+The spatial backward core (``csrc/spatial_bwd.cu``: a rows and a columns
+kernel on mma.sync) is held alone at the model paths' shapes, past the 288
+keys the former WMMA core held and on both sides of its staging bound, and
+the two mma orientations of its scores bit for bit; the plain spatial block
+runs forward and backward at 289 and 801 tokens.
+
 The LN-only and adapter-only attention blocks of ``CLIPAttention``
 (rows 5, 6, 7, 10 and 16) are held op by op, row 10 at r = 1, 2, 4 and at
 a batch that r does not divide, and through their autograd ops.
@@ -380,9 +386,15 @@ def test_spatial_block_kernels_match_plain(cuda, n, heads):
 
 
 def test_spatial_block_refuses_what_it_does_not_take(cuda):
-    x, _, _, ws = _args(cuda, 2, 289, 128, 32, 13)
-    with pytest.raises(NotImplementedError):  # more keys than the core holds
-        fused_qkv_attention(x, *ws[:4], 2)
+    """No token bound: at L = 289 and 801 (past the backward core's
+    staging bound) the block runs forward and backward and is held to its
+    plain version; what the kernels do not take still raises."""
+    for n in (289, 801):
+        x, _, _, ws = _args(cuda, 2, n, 128, 32, 13)
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(n)).to(x)
+        _block_check(fused_qkv_attention, fused_qkv_attention_bwd, fused_qkv_attention_plain,
+                     fused_qkv_attention_bwd_plain, fused_attention_block,
+                     fused_attention_block_plain, x, ws[:4], g, 2)
     with pytest.raises(ValueError):  # fp32 input
         fused_qkv_attention(x[:, :17].float().contiguous(), *ws[:4], 2)
     with pytest.raises(ValueError):  # a cotangent unlike x
@@ -752,6 +764,62 @@ def test_packed_bf16_products_equal_the_rounded_fp32_product(cuda):
     assert torch.equal(nan, torch.isnan(rounded.float())) and nan.any()
     assert torch.equal(packed.view(torch.int16)[~nan], rounded.view(torch.int16)[~nan])
     assert (rounded.float()[~nan] == 0).any()  # products that underflow
+
+
+# ---------------------------------------------------------------------------
+# the spatial backward core (csrc/spatial_bwd.cu: rows and columns kernels,
+# ops.spatial_bwd_design)
+
+
+def _grad_held(name, got, want):
+    """PERF.md section 2's bound for backward tensors: elementwise 1e-2
+    max|ref| + 1.6e-2 |ref|, and a mean error under 2**-8 of the mean."""
+    diff, ref = (got.float() - want.float()).abs(), want.float().abs()
+    assert (diff <= 1e-2 * ref.max() + 1.6e-2 * ref).all(), (name, diff.max(), ref.max())
+    assert diff.mean() <= 2 ** -8 * ref.mean(), (name, diff.mean(), ref.mean())
+
+
+@pytest.mark.parametrize("frames,heads,n", [(2, 2, 17), (256, 12, 197), (256, 12, 198),
+                                            (128, 16, 257), (4, 2, 289), (2, 2, 768),
+                                            (2, 2, 769), (2, 2, 801)])
+def test_spatial_backward_core_matches_plain(cuda, frames, heads, n):
+    """The spatial backward core at the model paths' shapes, past the former
+    288 keys and at its staging bound (768 staged, 769 and 801 streamed):
+    dq, dk, dv against ``spatial_core_bwd_plain`` and o against the prenorm
+    forward, under PERF.md's backward bound; two launches bit-equal; one
+    count a call; the design held to ``ops.spatial_bwd_design``."""
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import spatial_core_bwd_plain, spatial_core_plain
+    g = torch.Generator().manual_seed(110 + n)
+    d = 64 * heads
+    qkv = torch.randn(frames * n, 3 * d, generator=g).to(cuda, torch.bfloat16)
+    dout = torch.randn(frames * n, d, generator=g).to(cuda, torch.bfloat16)
+    before = K.spatial_attention_bwd.launches
+    dqkv = K.spatial_attention_bwd(qkv, dout, frames, n)
+    dqkv2, o = K.spatial_attention_bwd(qkv, dout, frames, n, with_out=True)
+    again, o2 = K.spatial_attention_bwd(qkv, dout, frames, n, with_out=True)
+    torch.cuda.synchronize()
+    assert K.spatial_attention_bwd.launches == before + 3
+    assert torch.equal(dqkv, dqkv2) and torch.equal(dqkv2, again) and torch.equal(o, o2)
+    want = spatial_core_bwd_plain(qkv, dout, frames, n, heads)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _grad_held(name, dqkv[:, i * d:(i + 1) * d], want[:, i * d:(i + 1) * d])
+    _grad_held("o", o, spatial_core_plain(qkv, frames, n, heads, prenorm=True))
+    assert ("aim_spatial_bwd_design", n) in K._designs_held
+
+
+def test_score_orientations_are_bit_equal(cuda):
+    """The columns kernel forms S^T = K Q^T where the rows kernel forms S =
+    Q K^T: on the card the two mma orientations give the same fp32 bits, so
+    both kernels round P and dS alike."""
+    from adapt_image_models_torch.ops import _kernels as K
+    g = torch.Generator().manual_seed(120)
+    for n in (16, 208, 1024):
+        q, k = (torch.randn(n, 64, generator=g).to(cuda, torch.bfloat16) for _ in range(2))
+        s, t = K.score_orientations(q, k)
+        torch.cuda.synchronize()
+        assert torch.equal(s, t), n
+        assert (s - q.float() @ k.float().t()).abs().max() < 1e-4
 
 
 # ---------------------------------------------------------------------------

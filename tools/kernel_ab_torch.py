@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Time the GEMM (``csrc/gemm.cu``) and the spatial attention cores alone on
-one card in two source trees of the port, in turns A, B, B, A.
+"""Time the GEMM (``csrc/gemm.cu``), the spatial attention cores alone and
+the TPU kernels that run the spatial backward core (PERF.md rows 7, 8, 9,
+11) on one card in two source trees of the port, in turns A, B, B, A.
 
     python tools/kernel_ab_torch.py --a PARENT_TREE --b . [--out FILE]
 
@@ -8,14 +9,17 @@ Each turn is a subprocess that builds the tree's kernels from its
 ``adapt_image_models_torch/csrc/`` (into that tree's ``csrc/build/``) and
 times them through the wrappers both trees have, ``_kernels.gemm``,
 ``_kernels.spatial_attention`` and ``_kernels.spatial_attention_bwd``, at
-``tools/kernel_bounds_torch.py``'s GEMM_SHAPES and SPATIAL_SHAPES, on inputs
-made from one seed: median of 20 CUDA-event timings a function, after 3
-warm-ups. The same turn times the library call of each, ``torch.matmul``
-(the product alone) and ``scaled_dot_product_attention`` on the (frames, H,
-L, 64) copies of q, k, v (its autograd backward for the backward core). The
-table gives each tree's mean of its two turns beside the bound of
-``kernel_bounds_torch.py``, with the card's name and power limit. Needs
-one NVIDIA GPU; imports no JAX.
+``tools/kernel_bounds_torch.py``'s GEMM_SHAPES and SPATIAL_SHAPES, and the
+ops ``fused_ln_qkv_attention_bwd`` (row 7), ``fused_ln_qkv_attention_bwd_dx``
+(row 9) and ``fused_step_bwd_dx`` (row 11) at x = (256, 197, 768) and
+``fused_qkv_attention_bwd`` (row 8) at AIM_FLASH's (256, 198, 768), 12
+heads, on inputs made from one seed: median of 20 CUDA-event timings a
+function, after 3 warm-ups. The same turn times the library call of each
+core, ``torch.matmul`` (the product alone) and
+``scaled_dot_product_attention`` on the (frames, H, L, 64) copies of q, k, v
+(its autograd backward for the backward core). The table gives each tree's
+mean of its two turns beside the bound of ``kernel_bounds_torch.py``, with
+the card's name and power limit. Needs one NVIDIA GPU; imports no JAX.
 """
 
 import argparse
@@ -81,20 +85,49 @@ def worker(tree):
             for prenorm in (False, True):
                 out[f"spatial forward {(frames, heads, length)}{' prenorm' if prenorm else ''}"] = [
                     _ms(lambda: _kernels.spatial_attention(qkv, frames, length, prenorm)), lib]
-            if (frames, heads, length) == SPATIAL_SHAPES[0]:
-                dout = randn(frames * length, d).to(torch.bfloat16)
-                do = dout.view(frames, length, heads, 64).transpose(1, 2).contiguous()
-                with torch.enable_grad():
-                    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-                    o = sdpa(qg, kg, vg)
-                    lib_bwd = _ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
-                                                              retain_graph=True))
-                out[f"spatial backward {(frames, heads, length)}"] = [
-                    _ms(lambda: _kernels.spatial_attention_bwd(qkv, dout, frames, length)),
-                    lib_bwd]
-            del qkv, q, k, v
+            dout = randn(frames * length, d).to(torch.bfloat16)
+            do = dout.view(frames, length, heads, 64).transpose(1, 2).contiguous()
+            with torch.enable_grad():
+                qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+                o = sdpa(qg, kg, vg)
+                lib_bwd = _ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
+                                                          retain_graph=True))
+            out[f"spatial backward {(frames, heads, length)}"] = [
+                _ms(lambda: _kernels.spatial_attention_bwd(qkv, dout, frames, length)),
+                lib_bwd]
+            del qkv, q, k, v, dout, do, qg, kg, vg, o
+            torch.cuda.empty_cache()
+        for row, shape in ROWS.items():
+            out[f"row {row}"] = [_ms(row_call(row, shape, g)), None]
             torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
+
+
+# the ops that run the spatial backward core, by PERF.md row: the (clips,
+# frames, tokens) of their timed x = (clips * frames, tokens, 768), 32 clips
+# of 8 frames or AIM_FLASH's 8 clips of 32 frames with the prompt token
+ROWS = {7: (32, 8, 197), 8: (8, 32, 198), 9: (32, 8, 197), 11: (32, 8, 197)}
+
+
+def row_call(row, shape, g):
+    """A call of the row's op at its ROWS shape, 12 heads, its weights, LN
+    and cotangent drawn on the card from ``g``."""
+    import torch
+    from adapt_image_models_torch import ops
+    clips, frames, tokens = shape
+    rows, d = clips * frames, 768
+
+    def r(*shape, s=0.05, dtype=torch.bfloat16):
+        return (s * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+
+    x, gr = r(rows, tokens, d, s=1.0), r(rows, tokens, d, s=1.0)
+    ln = (1 + r(d, s=0.1, dtype=torch.float32), r(d, s=0.1, dtype=torch.float32))
+    attn = (r(3 * d, d), r(3 * d), r(d, d), r(d))
+    adapter = (r(d // 4, d), r(d // 4), r(d, d // 4), r(d))
+    return {7: lambda: ops.fused_ln_qkv_attention_bwd(x, *ln, *attn[:3], gr, 12),
+            8: lambda: ops.fused_qkv_attention_bwd(x, *attn[:3], gr, 12),
+            9: lambda: ops.fused_ln_qkv_attention_bwd_dx(x, *ln, *attn[:3], gr, 12),
+            11: lambda: ops.fused_step_bwd_dx(x, *ln, *attn, *adapter, gr, 12, True)}[row]
 
 
 def gemm_epilogue(epilogue, m, n, g):
@@ -141,7 +174,7 @@ def main(argv=None):
         print(f"turn {len(turns)} ({tree}): {json.dumps(turns[-1][1])}", flush=True)
     sys.path.insert(0, HERE)
     from kernel_bounds_torch import (
-        GEMM_SHAPES, SPATIAL_SHAPES, bound_of, gemm_shape_work, spatial_core_work,
+        GEMM_SHAPES, SPATIAL_SHAPES, bound, bound_of, gemm_shape_work, spatial_core_work,
     )
     bounds = {f"gemm {label}": (bound_of(*gemm_shape_work(m, k, n, e)), 2 * m * k * n)
               for label, m, k, n, _, e in GEMM_SHAPES}
@@ -149,17 +182,20 @@ def main(argv=None):
         for name in (f"spatial forward {shape}", f"spatial forward {shape} prenorm"):
             bounds[name] = (bound_of(*spatial_core_work(*shape)), None)
         bounds[f"spatial backward {shape}"] = (bound_of(*spatial_core_work(*shape, True)), None)
+    for row, (clips, frames, tokens) in ROWS.items():
+        bounds[f"row {row}"] = (bound(row, clips=clips, frames=frames, tokens=tokens), None)
     rows = {}
     print(f"| function | A ms | B ms | library ms | bound ms | B TFLOP/s |  ({card})")
     for name in turns[0][1]:
         a = statistics.mean(t[name][0] for tree, t in (turns[0], turns[3]))
         b = statistics.mean(t[name][0] for tree, t in (turns[1], turns[2]))
-        lib = statistics.mean(t[name][1] for _, t in turns)
+        lib = (statistics.mean(t[name][1] for _, t in turns)
+               if turns[0][1][name][1] is not None else None)
         (bound_ms, bound_by), flops = bounds[name]
         rate = f"{flops / b / 1e9:.0f}" if flops else ""
         rows[name] = dict(a_ms=a, b_ms=b, library_ms=lib, bound_ms=bound_ms, bound_by=bound_by)
-        print(f"| {name} | {a:.4f} | {b:.4f} | {lib:.4f} | {bound_ms:.4f} ({bound_by}) | "
-              f"{rate} |")
+        print(f"| {name} | {a:.4f} | {b:.4f} | {'' if lib is None else f'{lib:.4f}'} | "
+              f"{bound_ms:.4f} ({bound_by}) | {rate} |")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, a=args.a, b=args.b, turns=turns, rows=rows), f, indent=1)

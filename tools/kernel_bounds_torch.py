@@ -186,7 +186,10 @@ def spatial_core_work(frames, heads, length, backward=False):
     (``_kernels.spatial_attention``: packed bf16 QKV (frames*L, 3D) read
     once, (frames*L, D) written once, QK^T and PV) or of its backward
     (``_kernels.spatial_attention_bwd``: QKV and the cotangent of o read,
-    dqkv written; S recomputed, dP, dV, dQ and dK)."""
+    dqkv written; S recomputed, dP, dV, dQ and dK). Only the core's own
+    inputs and outputs count: not the scratch of three floats a row that
+    its two kernels share, which the work does not need. A temporal core
+    does the same work at (clips * tokens, heads, T)."""
     rows, d = frames * length, 64 * heads
     product = 2 * frames * heads * length * length * 64
     if backward:
