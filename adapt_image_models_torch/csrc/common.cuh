@@ -17,12 +17,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // 8 bf16 values (one 16-byte load) -> fp32.
 __device__ __forceinline__ void bf16x8_to_float(const uint4& u, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
@@ -40,22 +34,6 @@ __device__ __forceinline__ uint4 float_to_bf16x8(const float* f) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
   return u;
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-
-// acc += w * row over one 64-lane head row of bf16
-__device__ __forceinline__ void axpy_bf16(float w, const bf16* row, float* acc) {
-  const uint4* rp = reinterpret_cast<const uint4*>(row);
-  float t[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    bf16x8_to_float(rp[c], t);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[8 * c + e] += w * t[e];
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -152,34 +130,28 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// a 64-lane fp32 head row times mul, rounded to bf16 at dst
-__device__ __forceinline__ void store_bf16_row(bf16* dst, const float* a, float mul) {
-  uint4* dp = reinterpret_cast<uint4*>(dst);
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    float o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = a[8 * c + e] * mul;
-    dp[c] = float_to_bf16x8(o);
-  }
-}
-
-// o (16 x 64 fp32 C fragments, eight 8-lane tiles) += P V over 16 key rows:
-// P the bf16 rounding of the fp32 C fragments p0 (keys 0-7) and p1 (keys
-// 8-15), repacked as the A fragment in registers; V's B fragments by
+// o (16 x 64 fp32 C fragments, eight 8-lane tiles) += A V over 16 rows of
+// V: A the 16 x 16 bf16 A fragment (a[0..3]), V's B fragments by
 // ldmatrix.trans from the padded shared rows sV (the first of the 16)
-__device__ __forceinline__ void pv_mma_16(float (*o)[4], const float* p0, const float* p1,
-                                          const bf16* sV, int lane) {
-  const uint32_t a0 = pack_bf16x2(p0[0], p0[1]), a1 = pack_bf16x2(p0[2], p0[3]);
-  const uint32_t a2 = pack_bf16x2(p1[0], p1[1]), a3 = pack_bf16x2(p1[2], p1[3]);
+__device__ __forceinline__ void pv_mma_16_a(float (*o)[4], const uint32_t* a, const bf16* sV,
+                                            int lane) {
   const bf16* row = sV + ((lane & 7) + ((lane >> 3) & 1) * 8) * SMEM_ROW + (lane >> 4) * 8;
 #pragma unroll
   for (int np = 0; np < 4; ++np) {
     uint32_t b[4];
     ldmatrix_x4_trans(b, row + 16 * np);
-    mma_bf16_16816(o[2 * np], a0, a1, a2, a3, b[0], b[1]);
-    mma_bf16_16816(o[2 * np + 1], a0, a1, a2, a3, b[2], b[3]);
+    mma_bf16_16816(o[2 * np], a[0], a[1], a[2], a[3], b[0], b[1]);
+    mma_bf16_16816(o[2 * np + 1], a[0], a[1], a[2], a[3], b[2], b[3]);
   }
+}
+
+// o += P V over 16 key rows: P the bf16 rounding of the fp32 C fragments p0
+// (keys 0-7) and p1 (keys 8-15), repacked as the A fragment in registers
+__device__ __forceinline__ void pv_mma_16(float (*o)[4], const float* p0, const float* p1,
+                                          const bf16* sV, int lane) {
+  const uint32_t a[4] = {pack_bf16x2(p0[0], p0[1]), pack_bf16x2(p0[2], p0[3]),
+                         pack_bf16x2(p1[0], p1[1]), pack_bf16x2(p1[2], p1[3])};
+  pv_mma_16_a(o, a, sV, lane);
 }
 
 // the A fragments (k-steps of 16 lanes) of the 16-row strip whose lane rows
@@ -200,6 +172,14 @@ __device__ __forceinline__ void load_a_frags(uint32_t (*f)[4], const bf16* src, 
     }
 }
 
+// load_a_frags from the 16 padded shared rows s (the first of the strip)
+// by ldmatrix: matrix m of k-step ks is rows 8(m & 1) .., lanes 16ks + 8(m >> 1) ..
+__device__ __forceinline__ void ldmatrix_a_frags(uint32_t (*f)[4], const bf16* s, int lane) {
+  const bf16* row = s + ((lane & 7) + ((lane >> 3) & 1) * 8) * SMEM_ROW + (lane >> 4) * 8;
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) ldmatrix_x4(f[ks], row + 16 * ks);
+}
+
 // c = A B^T for a 16-row strip against 16 rows: A's fragments af (from
 // load_a_frags), B the 16 padded shared rows sB (the first of them), the
 // result the two 16 x 8 fp32 C tiles (columns 0-7, 8-15); B's fragments by
@@ -218,4 +198,63 @@ __device__ __forceinline__ void qk_mma_16(float (*c)[4], uint32_t (*af)[4], cons
                      af[2 * h + 1][3], b[2], b[3]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The segment-sum products of the TPU kernels' long-clip design
+// (csrc/temporal_segment.cu forward, csrc/temporal_bwd.cuh backward).
+
+constexpr uint32_t BF16X2_ONE = 0x3F803F80u;
+
+__device__ __forceinline__ uint32_t hmul2_bits(uint32_t a, uint32_t b) {
+  const __nv_bfloat162 p = __hmul2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// c[nt] = the 16 x 8 score tile (unscaled) of a strip, q rows (qa, qb) of
+// lane (g, t) as 32 packed bf16 pairs each (in registers, or a padded shared
+// row), against key frames 8nt .. 8nt + 7 of the staged rows sK,
+// for nt < live (the others are zero). Lane (g, t) holds the segment
+// matrix's B fragments: rows 2t, 2t + 1 of col g are 1 iff t == g, rows 2t
+// + 8, 2t + 9 iff t + 4 == g. k-step s takes lanes 2s, 2s + 1 of the 8 key
+// frames; the k loop is outside the tile loop so that the NT accumulator
+// chains interleave.
+template <int NT>
+__device__ __forceinline__ void segment_scores(float (*c)[4], const uint32_t* qa,
+                                               const uint32_t* qb, const bf16* sK, int g, int t,
+                                               int live) {
+  const uint32_t b0 = t == g ? BF16X2_ONE : 0u, b1 = t + 4 == g ? BF16X2_ONE : 0u;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) c[nt][0] = c[nt][1] = c[nt][2] = c[nt][3] = 0.f;
+#pragma unroll
+  for (int s4 = 0; s4 < 8; ++s4) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt < live) {
+        const uint4 ka = *reinterpret_cast<const uint4*>(sK + (8 * nt + t) * SMEM_ROW + 8 * s4);
+        const uint4 kb =
+            *reinterpret_cast<const uint4*>(sK + (8 * nt + t + 4) * SMEM_ROW + 8 * s4);
+        const uint32_t ak[4] = {ka.x, ka.y, ka.z, ka.w}, bk[4] = {kb.x, kb.y, kb.z, kb.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = 4 * s4 + e;
+          mma_bf16_16816(c[nt], hmul2_bits(qa[s], ak[e]), hmul2_bits(qb[s], ak[e]),
+                         hmul2_bits(qa[s], bk[e]), hmul2_bits(qb[s], bk[e]), b0, b1);
+        }
+      }
+    }
+  }
+}
+
+// the scores times scale, -inf past the clip's last frame; c[nt][e] is key
+// frame key0 + 8nt + 2t + (e & 1). __fmul_rn keeps the product apart from
+// the exponent's subtraction, as the plain version rounds it.
+template <int NT>
+__device__ __forceinline__ void scale_mask(float (*c)[4], int key0, int t, int T, float scale) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      c[nt][e] = key0 + 8 * nt + 2 * t + (e & 1) < T ? __fmul_rn(c[nt][e], scale) : -INFINITY;
 }

@@ -1,0 +1,19 @@
+// The segment-sum temporal core's backward (csrc/temporal_bwd.cuh has its
+// design and kernels): the C entries of its design function and its launch.
+
+#include "temporal_bwd.cuh"
+
+extern "C" int aim_temporal_segment_bwd_design(int T, int* smem) {
+  if (T <= 0) return -1;
+  int per_block;
+  return temporal_bwd_design(T, true, smem, &per_block);
+}
+
+// the segment core's backward: dout (rows, D) fp32; stats, the streamed
+// branch's scratch of (rows, D / 64, 3) fp32, may be null on the others
+extern "C" int aim_temporal_segment_bwd_bf16(const void* qkv, const void* dout, void* dqkv,
+                                             void* out, void* stats, int clips, int T, int L,
+                                             int D, float scale, void* stream) {
+  return temporal_bwd<true>(qkv, dout, dqkv, out, stats, clips, T, L, D, scale,
+                            (cudaStream_t)stream);
+}

@@ -5,6 +5,7 @@ train ops are autograd ops whose forward and backward are such wrappers."""
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._kernels import (  # noqa: F401
     flash_fwd_design, gemm_design, segment_fwd_design, spatial_bwd_design,
+    temporal_bwd_design, temporal_segment_bwd_design,
 )
 from adapt_image_models_torch.ops.flash_attention import (  # noqa: F401
     flash_attention_core, flash_attention_core_plain, flash_attention_entry,
@@ -222,7 +223,10 @@ def layer_block_ops(call: str, tokens: int, width: int):
 # in place of the TPU kernels' attention body; the spatial backward core
 # (``_kernels.spatial_attention_bwd``, rows and columns kernels), which every
 # spatial backward launches once in place of the attention half of the TPU
-# backward kernels; and the GEMM
+# backward kernels; the two temporal backward cores
+# (``_kernels.temporal_attention_bwd``, the full core's, which rows 17, 18,
+# 21 and 22 launch once a call, and ``_kernels.temporal_segment_bwd``, the
+# segment core's, rows 19 and 20); and the GEMM
 # (``_kernels.gemm``), which carries every product of every op's chain, the
 # QKV projection (``_project_qkv``) first. Their launches count apart from
 # the ops', each on the kernel's own counter (a spatial launch never counts
@@ -230,6 +234,8 @@ def layer_block_ops(call: str, tokens: int, width: int):
 SEGMENT_CORE = ("temporal_segment_core", _TPU + "fused_temporal_attention.py:289")
 SPATIAL_CORE = ("spatial_attention_core", _TPU + "fused_qkv_attention.py:210")
 SPATIAL_BWD_CORE = ("spatial_attention_bwd_core", _TPU + "fused_qkv_attention.py:1288")
+TEMPORAL_BWD_CORE = ("temporal_attention_bwd_core", _TPU + "fused_temporal_attention.py:815")
+SEGMENT_BWD_CORE = ("temporal_segment_bwd_core", _TPU + "fused_temporal_attention.py:1117")
 GEMM = ("gemm", _TPU + "fused_qkv_attention.py:131")
 
 
@@ -239,6 +245,8 @@ def reset_launch_counts() -> None:
     _kernels.temporal_segment.launches = 0
     _kernels.spatial_attention.launches = 0
     _kernels.spatial_attention_bwd.launches = 0
+    _kernels.temporal_attention_bwd.launches = 0
+    _kernels.temporal_segment_bwd.launches = 0
     _kernels.gemm.launches = 0
 
 

@@ -45,19 +45,25 @@ _SIGNATURES = {
     "aim_score_orientations": [_P, _P, _P, _P, _I, _P],
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_temporal_bwd_design": [_I, _P],
     "aim_flash_attention_bf16": [_P, _I, _P],
     "aim_flash_attention_design": [_I, _P],
     "aim_temporal_segment_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_segment_design": [_I, _P],
     "aim_bf16_products": [_P, _P, _P, _P, _I, _P],
     "aim_temporal_segment_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_temporal_segment_bwd_design": [_I, _P],
 }
 
 # the shared memory one block may hold on sm_90, and one padded staged row
 # of 64 bf16 lanes (csrc/common.cuh: SMEM_BLOCK_MAX, SMEM_ROW_BYTES)
 SMEM_BLOCK_MAX, SMEM_ROW_BYTES = 232448, 144
-SEGMENT_RING, FLASH_RING, SPATIAL_BWD_RING = 64, 64, 64  # rows of one ring slot
+SEGMENT_RING, FLASH_RING, SPATIAL_BWD_RING, TEMPORAL_BWD_RING = 64, 64, 64, 64  # ring slot rows
 STAT_BYTES = 12  # a row's (max, sum, rowdot) in the backward cores' fp32 scratch
+# the temporal backward cores (csrc/temporal_bwd.cuh): the most frames whose
+# scores stay in registers, and the warps of a register block and of a
+# streamed one
+TEMPORAL_BWD_REGISTERS, TEMPORAL_BWD_WARPS, TEMPORAL_BWD_STREAM_WARPS = 144, 4, 8
 # the GEMM's block tile rows and k depth, the stages of its ring by tile
 # width, and the slack its shared memory holds to align the swizzled
 # tiles plus the mbarriers (csrc/gemm.cu)
@@ -121,6 +127,42 @@ def spatial_bwd_design(length: int) -> Tuple[str, int]:
     return "streamed", 2 * SPATIAL_BWD_RING * (2 * SMEM_ROW_BYTES + STAT_BYTES)
 
 
+def _temporal_bwd_design(frames: int, row_sets: int) -> Tuple[str, int]:
+    if frames <= 0:
+        raise ValueError(f"frames must be positive, got {frames}")
+    tp = _round_up(frames, 16)
+    if frames <= TEMPORAL_BWD_REGISTERS:
+        per_block = max(1, TEMPORAL_BWD_WARPS // (tp // 16))
+        return "registers", per_block * (row_sets * tp * SMEM_ROW_BYTES + 2 * tp * (tp + 8) * 2)
+    staged = tp * (row_sets * SMEM_ROW_BYTES + STAT_BYTES)
+    if staged <= SMEM_BLOCK_MAX:
+        return "staged", staged
+    ring = max(2 * 2 * TEMPORAL_BWD_RING * SMEM_ROW_BYTES,
+               2 * TEMPORAL_BWD_RING * ((row_sets - 2) * SMEM_ROW_BYTES + STAT_BYTES))
+    return "streamed", ring + TEMPORAL_BWD_STREAM_WARPS * 2 * 16 * SMEM_ROW_BYTES
+
+
+def temporal_bwd_design(frames: int) -> Tuple[str, int]:
+    """(branch, dynamic shared memory in bytes) of the full temporal core's
+    backward at ``frames`` frames, as ``csrc/temporal_bwd.cuh::
+    temporal_bwd_design`` picks them: up to 144 frames a strip's scores stay
+    in registers and a block owns 4, 2 or 1 (token, clip, head) problems of
+    1, 2 or 3-9 strips of 16 frames, each with its q, k, v and dO rows
+    padded to 16 frames and its (T, T) bf16 P and dS tiles ("registers");
+    past that one problem a block, its rows and their statistics staged
+    whole ("staged") while they fit, else a double-buffered ring of 64-frame
+    tiles and the strips of 16 rows of its eight warps ("streamed"), the
+    only branch that reads the (rows, H, 3) fp32 scratch."""
+    return _temporal_bwd_design(frames, 4)
+
+
+def temporal_segment_bwd_design(frames: int) -> Tuple[str, int]:
+    """``temporal_bwd_design`` for the segment core's backward, whose fp32
+    dO is staged as three bf16 terms (hi, mid, lo): six row sets where the
+    full core has four."""
+    return _temporal_bwd_design(frames, 6)
+
+
 def gemm_design(m: int, n: int, k: int, kn: bool = False) -> Tuple[str, int]:
     """(branch, dynamic shared memory in bytes) of the GEMM at (m, k) @ (k,
     n), the weight (n, k) or with ``kn`` (k, n), as
@@ -144,6 +186,9 @@ _DESIGNS = {
         segment_fwd_design, ("registers64", "registers128", "staged", "streamed")),
     "aim_flash_attention_design": (flash_fwd_design, ("staged", "streamed")),
     "aim_spatial_bwd_design": (spatial_bwd_design, ("staged", "streamed")),
+    "aim_temporal_bwd_design": (temporal_bwd_design, ("registers", "staged", "streamed")),
+    "aim_temporal_segment_bwd_design": (
+        temporal_segment_bwd_design, ("registers", "staged", "streamed")),
     "aim_gemm_design": (gemm_design, ("bn128", "bn256")),
 }
 _designs_held = set()
@@ -447,8 +492,9 @@ def spatial_attention_r(qkv: torch.Tensor, frames: int, length: int,
 
 
 def _row_stats(qkv: torch.Tensor) -> torch.Tensor:
-    """Scratch of the backward cores: (max, sum, rowdot) of every (row,
-    head) of the packed QKV, three fp32 each."""
+    """Scratch of the spatial backward core and of the temporal backward
+    cores' streamed branch: (max, sum, rowdot) of every (row, head) of the
+    packed QKV, three fp32 each."""
     d = qkv.shape[1] // 3
     return torch.empty(qkv.shape[0] * (d // 64) * 3, dtype=torch.float32,
                        device=qkv.device)
@@ -469,18 +515,24 @@ def temporal_attention(qkv: torch.Tensor, clips: int, frames: int,
 def temporal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
                            frames: int, length: int, with_out: bool = False):
     """Cotangent ``dout`` (rows, D) of the temporal core's output -> packed
-    dqkv (rows, 3D), all bf16. With ``with_out`` also the core's output
-    recomputed from the fp32-normalised P, ``bf16(bf16(P) V)`` (rows, D),
-    as the TPU backward kernels emit it: returns (dqkv, out)."""
+    dqkv (rows, 3D), all bf16, in one launch of ``csrc/temporal_bwd.cuh`` in
+    the design ``temporal_bwd_design`` picks for ``frames``. With
+    ``with_out`` also the core's output recomputed from the fp32-normalised
+    P, ``bf16(bf16(P) V)`` (rows, D), as the TPU backward kernels emit it:
+    returns (dqkv, out). Each launch adds one to ``launches``."""
     d = qkv.shape[1] // 3
     dqkv = torch.empty_like(qkv)
     out = torch.empty_like(dout) if with_out else None
-    stats = _row_stats(qkv)
+    stats = _row_stats(qkv) if temporal_bwd_design(frames)[0] == "streamed" else None
+    _hold_design("aim_temporal_bwd_design", frames)
     _check(library().aim_temporal_attention_bwd_bf16(
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out),
-        stats.data_ptr(), clips, frames, length, d, 64 ** -0.5, _stream()),
-        "aim_temporal_attention_bwd_bf16")
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out), _ptr(stats), clips,
+        frames, length, d, 64 ** -0.5, _stream()), "aim_temporal_attention_bwd_bf16")
+    temporal_attention_bwd.launches += 1
     return (dqkv, out) if with_out else dqkv
+
+
+temporal_attention_bwd.launches = 0
 
 
 def temporal_segment(qkv: torch.Tensor, clips: int, frames: int,
@@ -506,18 +558,24 @@ temporal_segment.launches = 0
 def temporal_segment_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
                          frames: int, length: int, with_out: bool = False):
     """Backward of the segment core for the fp32 cotangent ``dout`` (rows,
-    D) of its output: packed bf16 dqkv (rows, 3D); with ``with_out`` also
-    the core's output recomputed, (dqkv, out)."""
+    D) of its output: packed bf16 dqkv (rows, 3D), in one launch of
+    ``csrc/temporal_bwd.cuh`` in the design ``temporal_segment_bwd_design``
+    picks for ``frames``; with ``with_out`` also the core's output
+    recomputed, (dqkv, out). Each launch adds one to ``launches``."""
     d = qkv.shape[1] // 3
     dqkv = torch.empty_like(qkv)
     out = (torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
            if with_out else None)
-    stats = _row_stats(qkv)
+    stats = _row_stats(qkv) if temporal_segment_bwd_design(frames)[0] == "streamed" else None
+    _hold_design("aim_temporal_segment_bwd_design", frames)
     _check(library().aim_temporal_segment_bwd_bf16(
-        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out),
-        stats.data_ptr(), clips, frames, length, d, 64 ** -0.5, _stream()),
-        "aim_temporal_segment_bwd_bf16")
+        qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), _ptr(out), _ptr(stats), clips,
+        frames, length, d, 64 ** -0.5, _stream()), "aim_temporal_segment_bwd_bf16")
+    temporal_segment_bwd.launches += 1
     return (dqkv, out) if with_out else dqkv
+
+
+temporal_segment_bwd.launches = 0
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -28,7 +28,7 @@ round the same intermediates:
   (``fused_temporal_step_bwd_dx``) replaces the kernel of that name (:1568):
   it recomputes the forward from x, runs the adapter backward through (K,
   N) GEMMs of the frozen weights, the temporal core backward
-  (``csrc/attention.cu``) and the LN backward, and emits dX with the
+  (``csrc/temporal_bwd.cuh``) and the LN backward, and emits dX with the
   adapter intermediates (u, dpre, a) from which the adapter's weight
   cotangents are formed as the JAX package forms them outside its kernel
   (:1797-1800);
@@ -81,11 +81,13 @@ GEMM keeps y in fp32 for the TPU kernels' adapter epilogue (tanh GELU,
 vector-Jacobian product of its full-softmax XLA reference
 (``temporal_adapter_block_xla``, ``_ref_adapter_impl`` :606) recomputed.
 
-Frames: every core serves any T. The forward cores give a head min(T,
-256) threads, each taking every such frame in turn; the backward cores
-stream the frames through shared memory in tiles and keep three floats a
-row between their row and column passes (``csrc/attention.cu``,
-``csrc/temporal_segment.cu``).
+Frames: every core serves any T. The full forward core gives a head
+min(T, 256) threads, each taking every such frame in turn; the segment
+forward core and the two backward cores (``csrc/temporal_bwd.cuh``) pick a
+design by T: up to 64 frames the scores of a strip stay in registers and
+the backward forms its five products once, past that the rows are staged
+in shared memory or streamed through a ring (``ops.temporal_bwd_design``,
+``ops.temporal_segment_bwd_design``).
 
 The wrappers take the plain version for CPU tensors (the tests) and launch
 the kernels for CUDA tensors; they never fall back.
@@ -389,7 +391,7 @@ def fused_ln_temporal_attention_bwd_dx_segment(x, ln_w, ln_b, w_qkv, b_qkv, w_ou
     kernel of the composition backward past LONG_CLIP_T frames (the 64-frame
     AIM's train step). CPU tensors take the plain version; CUDA tensors
     launch the kernels: LN, the QKV GEMM, the (K, N) GEMM of g through W_o
-    (fp32 out), the segment core's backward (``csrc/temporal_segment.cu``),
+    (fp32 out), the segment core's backward (``csrc/temporal_bwd.cuh``),
     the (K, N) GEMM of dqkv through W_qkv and the LN backward."""
     dx = _ln_bwd("fused_ln_temporal_attention_bwd_dx_segment", x, ln_w, ln_b, w_qkv,
                  b_qkv, w_out, g, num_frames, num_heads, segment=True, dx_only=True,

@@ -210,7 +210,13 @@ Phases, in order; any failure raises and exits non-zero:
      the three shapes above, (4, 2, 289) and 768, 769 and 801 keys (both
      sides of its staging bound, ops.spatial_bwd_design), dq, dk, dv and o,
      two launches bit-equal, and its two mma orientations of the scores bit
-     for bit; then the timings: the segment core alone on
+     for bit; the two temporal backward cores (csrc/temporal_bwd.cuh,
+     _kernels.temporal_attention_bwd and _kernels.temporal_segment_bwd) on
+     one clip at T = 1, 8, 16, 17, 32, 33, 64, 65, 144, 145 and each core's
+     first streamed T (ops.temporal_bwd_design,
+     ops.temporal_segment_bwd_design), at 197 tokens and 12 heads and at 257
+     tokens and 16 heads, dq, dk, dv and o against their plain versions,
+     two launches bit-equal; then the timings: the segment core alone on
      the packed QKV of 4 clips of 64 frames against its plain version, its
      bound and scaled_dot_product_attention on the (clips*L, H, T, 64) view
      of the same q, k, v; the GEMM alone at tools/kernel_bounds_torch.py's
@@ -221,19 +227,25 @@ Phases, in order; any failure raises and exits non-zero:
      (epilogue bytes counted); the spatial forward core alone at those three
      shapes, prenorm on and off, and the spatial backward core at the
      same three, against their plain versions, scaled_dot_product_attention
-     (its autograd backward) and their bounds; and, unchanged, the temporal
-     backward core at 32 clips of 8 frames and 4 of 64, the segment
-     backward core at 4 clips of 64 frames and the T <= 32 temporal forward
-     core at T = 8, 16 and 32 (x = (256, 197, 768)) against their plain
-     versions, scaled_dot_product_attention on the (clips*L, H, T, 64)
-     copies (its autograd backward for the backwards) and their bounds.
+     (its autograd backward) and their bounds; and the temporal backward
+     cores at tools/kernel_bounds_torch.py's TEMPORAL_BWD_SHAPES (the full
+     core at 32 clips of 8 frames, ViT-L/14's 4 clips of 32, 4 clips of 64
+     and 1 of 144; the segment core at the last two) and the T <= 32
+     temporal forward core at T = 8, 16 and 32 (x = (256, 197, 768))
+     against their plain versions, scaled_dot_product_attention on the
+     (clips*L, H, T, 64) copies (its autograd backward for the backwards)
+     and their bounds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
 train step) and the GEMM's (144 a forward); every AIM path driven through
 the entry points in phases 12, 14 and 16 and the AIM_FLASH train path
 count the spatial backward core's (one a layer a train step: 24 a ViT-L/14
-step, 12 an AIM_FLASH step).
+step, 12 an AIM_FLASH step). The flagship, SSv2, AIM_FLASH and every AIM
+path driven through the entry points count the two temporal backward
+cores' (none in eval; one a layer a train step, the segment core's past
+LONG_CLIP_T = 32 frames and the full core's up to it: 12 a flagship, SSv2,
+AIM_FLASH, ViT-B/16 32f, 64f and 144f step, 24 a ViT-L/14 step).
 Every driven AIM path counts the segment forward core's launches: one a
 temporal step past LONG_CLIP_T = 32 frames, none at T <= 32.
 Every driven model's kernel path holds the plain path's top-1 class; a
@@ -260,6 +272,9 @@ the spatial forward core alone at (256, 12, 197, 64) and gemm the GEMM at the
 flagship's QKV projection with no epilogue, each with its launches on the
 flagship eval path; spatial_attention_bwd_core is the spatial backward core
 alone at (256, 12, 197, 64), with its launches on the flagship train path;
+temporal_attention_bwd_core and temporal_segment_bwd_core are the temporal
+backward cores alone, at 32 clips of 8 frames and at 4 clips of 64, with
+their launches on the flagship and the ViT-B/16 64f train paths;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -393,6 +408,20 @@ def check_core(kernel, path, launches, expected):
         CORE_LAUNCHES.setdefault(kernel, (path, launches))
 
 
+def temporal_bwd_launches():
+    """The temporal backward cores' own counters, (full core, segment core)."""
+    from adapt_image_models_torch.ops import _kernels
+    return _kernels.temporal_attention_bwd.launches, _kernels.temporal_segment_bwd.launches
+
+
+def check_temporal_bwd(path, launches, full, segment):
+    """The full core's backward launched ``full`` times on ``path`` and the
+    segment core's ``segment`` times (``launches``: temporal_bwd_launches()
+    read where the path's run ends)."""
+    check_core("temporal backward core", path, launches[0], full)
+    check_core("segment backward core", path, launches[1], segment)
+
+
 def device_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -413,18 +442,24 @@ def compare(name, got, want):
     return max_abs
 
 
-def compare_grad(name, got, want):
-    """Max abs error of a backward tensor against its plain version, with
-    tolerances relative to the reference's scale; returns (max abs error,
-    passed)."""
+def grad_err(got, want):
+    """A backward tensor against its plain version, with tolerances
+    relative to the reference's scale: (max abs error, passed, max abs
+    error / max|ref|, mean abs error / mean|ref|)."""
     diff = (got.float() - want.float()).abs()
     ref = want.float().abs()
     scale, mean_ref = ref.max().item(), ref.mean().item()
     excess = (diff - (GRAD_ATOL * scale + RTOL * ref)).max().item()
     max_abs, mean_abs = diff.max().item(), diff.mean().item()
     ok = excess <= 0 and mean_abs <= GRAD_MEAN_REL * mean_ref
-    log(f"    {name}: max_abs_err={max_abs:.3e} (max|ref| {scale:.3e}) "
-        f"mean_abs_err/mean|ref|={mean_abs / max(mean_ref, 1e-30):.3e} "
+    return max_abs, ok, max_abs / max(scale, 1e-30), mean_abs / max(mean_ref, 1e-30)
+
+
+def compare_grad(name, got, want):
+    """grad_err with a log line; returns (max abs error, passed)."""
+    max_abs, ok, _, mean_rel = grad_err(got, want)
+    log(f"    {name}: max_abs_err={max_abs:.3e} (max|ref| {want.float().abs().max().item():.3e}) "
+        f"mean_abs_err/mean|ref|={mean_rel:.3e} "
         f"{'ok' if ok else 'FAILS'} (tol {GRAD_ATOL}*max|ref| + {RTOL}*|ref|, "
         f"mean < {GRAD_MEAN_REL}*mean|ref|)")
     return max_abs, ok
@@ -1118,6 +1153,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         eval_launches = ops.launch_counts()  # ... and ends here
         segment_eval = _kernels.temporal_segment.launches
         spatial_bwd_eval = _kernels.spatial_attention_bwd.launches
+        temporal_bwd_eval = temporal_bwd_launches()
     forwards = len(top5) + -(-eval_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://{seed}: {top5[0]}")
     log(f"  run_evaluation over {eval_videos} synthetic {views}-view videos "
@@ -1129,6 +1165,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
     segment = not ops.use_full_core(frames)
     check_segment_core(f"{label} eval", segment_eval, layers * forwards if segment else 0)
     check_core("spatial backward core", f"{label} eval", spatial_bwd_eval, 0)
+    check_temporal_bwd(f"{label} eval", temporal_bwd_eval, 0, 0)
     if scores.shape != (eval_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad {label} eval scores {scores.shape}")
     if any(not (0 <= s <= 1) for r in top5 for _, s in r):
@@ -1166,6 +1203,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         train_launches = ops.launch_counts()  # ... and ends here
         segment_train = _kernels.temporal_segment.launches
         spatial_bwd_train = _kernels.spatial_attention_bwd.launches
+        temporal_bwd_train = temporal_bwd_launches()
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and the checkpoint included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
@@ -1181,6 +1219,10 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         # the spatial backward core once a layer a step, checkpointed or not
         check_core("spatial backward core", f"{label} train", spatial_bwd_train,
                    layers * steps)
+        # and one temporal backward core once a layer a step: the segment
+        # core's past LONG_CLIP_T, else the full core's
+        check_temporal_bwd(f"{label} train", temporal_bwd_train,
+                           0 if segment else layers * steps, layers * steps if segment else 0)
         if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError(f"{label} train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -2562,13 +2604,13 @@ def spatial_core_timings(card, op_ms, library_ms):
 
 
 def temporal_core_timings(card):
-    """The temporal cores alone, unchanged by this phase's checks, for the
-    library times the chain table lacks: the backward core
-    (``_kernels.temporal_attention_bwd``) at 32 clips of 8 frames and 4 of
-    64, the segment backward core (``_kernels.temporal_segment_bwd``, an
-    fp32 cotangent) at 4 clips of 64 frames, and the T <= 32 forward core
-    (``_kernels.temporal_attention``) at 32, 16 and 8 clips of 8, 16 and
-    32 frames (x = (256, 197, 768) each): kernel and plain version
+    """The temporal cores alone: the backward cores (``_kernels.
+    temporal_attention_bwd`` and ``_kernels.temporal_segment_bwd``, an fp32
+    cotangent) at tools/kernel_bounds_torch.py's TEMPORAL_BWD_SHAPES (32
+    clips of 8 frames, ViT-L/14's 4 of 32, 4 of 64 and 1 of 144; the
+    segment core at the last two, the long clips it serves) and the T <= 32
+    forward core (``_kernels.temporal_attention``) at 32, 16 and 8 clips of
+    8, 16 and 32 frames (x = (256, 197, 768) each): kernel and plain version
     (plain-kernel-kernel-plain, median of 20) beside
     scaled_dot_product_attention on the (clips*L, H, T, 64) copies of q, k,
     v (its autograd backward for the backward cores) and the bound.
@@ -2580,45 +2622,49 @@ def temporal_core_timings(card):
         temporal_core_bwd_plain, temporal_core_plain, temporal_segment_core_bwd_plain,
     )
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from kernel_bounds_torch import bound_of, spatial_core_work
+    from kernel_bounds_torch import (
+        TEMPORAL_BWD_SHAPES, bound_of, spatial_core_work, temporal_bwd_work,
+    )
     g = torch.Generator().manual_seed(1770)
     rows = {}
-    cases = (("temporal backward", 32, FRAMES), ("temporal backward", 4, LONG_FRAMES),
-             ("segment backward", 4, LONG_FRAMES), ("temporal forward", 32, 8),
-             ("temporal forward", 16, 16), ("temporal forward", 8, 32))
-    for kind, clips, frames in cases:
-        qkv = torch.randn(clips * frames * TOKENS, 3 * WIDTH, generator=g).to("cuda",
+    cases = [("temporal backward", clips, frames, tokens, heads)
+             for _, clips, frames, tokens, heads in TEMPORAL_BWD_SHAPES]
+    cases += [("segment backward", clips, frames, tokens, heads)
+              for _, clips, frames, tokens, heads in TEMPORAL_BWD_SHAPES if frames > 32]
+    cases += [("temporal forward", clips, frames, TOKENS, HEADS)
+              for clips, frames in ((32, 8), (16, 16), (8, 32))]
+    for kind, clips, frames, tokens, heads in cases:
+        width = 64 * heads
+        qkv = torch.randn(clips * frames * tokens, 3 * width, generator=g).to("cuda",
                                                                               torch.bfloat16)
-        dout = torch.randn(clips * frames * TOKENS, WIDTH, generator=g).to("cuda")
+        dout = torch.randn(clips * frames * tokens, width, generator=g).to("cuda")
         if kind != "segment backward":
             dout = dout.to(torch.bfloat16)
-        q, k, v, do = (t.view(clips, frames, TOKENS, HEADS, 64).permute(0, 2, 3, 1, 4)
-                       .reshape(clips * TOKENS, HEADS, frames, 64).to(torch.bfloat16)
-                       .contiguous() for t in (*qkv.split(WIDTH, -1), dout))
-        args = (clips, frames, TOKENS)
+        q, k, v, do = (t.view(clips, frames, tokens, heads, 64).permute(0, 2, 3, 1, 4)
+                       .reshape(clips * tokens, heads, frames, 64).to(torch.bfloat16)
+                       .contiguous() for t in (*qkv.split(width, -1), dout))
+        args = (clips, frames, tokens)
         if kind == "temporal forward":
-            fns = (lambda: temporal_core_plain(qkv, *args, HEADS),
+            fns = (lambda: temporal_core_plain(qkv, *args, heads),
                    lambda: K.temporal_attention(qkv, *args))
             with torch.no_grad():
                 lib = cuda_ms(lambda: sdpa(q, k, v))
+            work = spatial_core_work(clips * tokens, heads, frames)
         else:
             qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
             o = sdpa(qg, kg, vg)
             lib = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
             del qg, kg, vg, o
-            fns = ((lambda: temporal_core_bwd_plain(qkv, dout, *args, HEADS),
+            fns = ((lambda: temporal_core_bwd_plain(qkv, dout, *args, heads),
                     lambda: K.temporal_attention_bwd(qkv, dout, *args))
                    if kind == "temporal backward" else
-                   (lambda: temporal_segment_core_bwd_plain(qkv, dout, *args, HEADS),
+                   (lambda: temporal_segment_core_bwd_plain(qkv, dout, *args, heads),
                     lambda: K.temporal_segment_bwd(qkv, dout, *args)))
+            work = temporal_bwd_work(clips, frames, tokens, heads, kind == "segment backward")
         with torch.no_grad():
             t = [cuda_ms(fns[i]) for i in (0, 1, 1, 0)]
-        flops, nbytes = spatial_core_work(clips * TOKENS, HEADS, frames,
-                                          backward=kind != "temporal forward")
-        if kind == "segment backward":  # its cotangent is fp32
-            nbytes += 2 * clips * frames * TOKENS * WIDTH
-        b_ms, b_by = bound_of(flops, nbytes)
-        label = f"{kind} core x=({clips * frames}, {TOKENS}, {WIDTH}), T={frames}"
+        b_ms, b_by = bound_of(*work)
+        label = f"{kind} core x=({clips * frames}, {tokens}, {width}), T={frames}"
         rows[label] = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2, library_ms=lib,
                            bound_ms=b_ms, bound_by=b_by)
         log(f"  {label} on {card}: kernel {rows[label]['ms']:.3f} ms, plain "
@@ -2628,6 +2674,65 @@ def temporal_core_timings(card):
         del qkv, dout, q, k, v, do
         torch.cuda.empty_cache()
     return rows
+
+
+# the temporal backward cores' checks: the register branch's strips, its last
+# (144) and the staged branch's first (145), and each core's first streamed T
+# (found from its design), at ViT-B/16's and ViT-L/14's widths
+TEMPORAL_BWD_FRAMES = (1, 8, 16, 17, 32, 33, 64, 65, 144, 145)
+TEMPORAL_BWD_WIDTHS = ((TOKENS, HEADS), (LARGE["tokens"], LARGE["heads"]))
+
+
+def temporal_bwd_checks(errors):
+    """Each temporal backward core on one clip at TEMPORAL_BWD_FRAMES and
+    its first streamed T, at TEMPORAL_BWD_WIDTHS: dq, dk, dv and o against
+    its plain version under the train ops' backward bound (compare_grad's
+    bound, one line a case), two launches bit-equal."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import (
+        temporal_core_bwd_plain, temporal_core_plain, temporal_segment_core_bwd_plain,
+    )
+    g = torch.Generator().manual_seed(1780)
+    for (name, _), fn, design in (
+            (ops.TEMPORAL_BWD_CORE, K.temporal_attention_bwd, ops.temporal_bwd_design),
+            (ops.SEGMENT_BWD_CORE, K.temporal_segment_bwd, ops.temporal_segment_bwd_design)):
+        segment = fn is K.temporal_segment_bwd
+        streamed = next(t for t in range(145, 4096) if design(t)[0] == "streamed")
+        for frames in TEMPORAL_BWD_FRAMES + (streamed,):
+            for tokens, heads in TEMPORAL_BWD_WIDTHS:
+                d = 64 * heads
+                qkv = torch.randn(frames * tokens, 3 * d, generator=g).to("cuda", torch.bfloat16)
+                dout = torch.randn(frames * tokens, d, generator=g).to("cuda")
+                if not segment:
+                    dout = dout.to(torch.bfloat16)
+                dqkv, o = fn(qkv, dout, 1, frames, tokens, with_out=True)
+                again, o2 = fn(qkv, dout, 1, frames, tokens, with_out=True)
+                torch.cuda.synchronize()
+                if not (torch.equal(dqkv, again) and torch.equal(o, o2)):
+                    raise AssertionError(f"{name} is not deterministic at T={frames}")
+                if segment:
+                    want, want_o = temporal_segment_core_bwd_plain(qkv, dout, 1, frames, tokens,
+                                                                   heads)
+                else:
+                    want = temporal_core_bwd_plain(qkv, dout, 1, frames, tokens, heads)
+                    want_o = temporal_core_plain(qkv, 1, frames, tokens, heads, prenorm=True)
+                parts = [(n, dqkv[:, i * d:(i + 1) * d], want[:, i * d:(i + 1) * d])
+                         for i, n in enumerate(("dq", "dk", "dv"))] + [("o", o, want_o)]
+                worst = 0.0
+                for label, k, p in parts:
+                    err, ok, rel, _ = grad_err(k, p)
+                    if not ok:
+                        raise AssertionError(f"{name}'s {label} disagrees with its plain version "
+                                             f"at T={frames}, ({tokens}, {heads})")
+                    errors[name] = max(err, errors.get(name, 0.0))
+                    worst = max(worst, rel)
+                log(f"  {name} at T={frames} ({design(frames)[0]}), 1 clip of {tokens} tokens, "
+                    f"{heads} heads: dq, dk, dv, o within the backward bound, max err / "
+                    f"max|ref| {worst:.2e}; two launches bit-equal")
+                del qkv, dout, dqkv, o, again, o2, want, want_o, parts
+        torch.cuda.empty_cache()
 
 
 def phase_17(card, errors, op_ms, library_ms):
@@ -2642,6 +2747,7 @@ def phase_17(card, errors, op_ms, library_ms):
     gemm_checks(errors)
     spatial_core_checks(errors)
     spatial_bwd_checks(errors)
+    temporal_bwd_checks(errors)
     log(f"phase 17: timings on {card}")
     seg_bound = segment_core_timing(card, op_ms, library_ms)
     return (seg_bound, gemm_timings(card), spatial_core_timings(card, op_ms, library_ms),
@@ -2707,6 +2813,7 @@ def main():
         segment_eval, gemm_eval = _kernels.temporal_segment.launches, _kernels.gemm.launches
         spatial_eval = _kernels.spatial_attention.launches
         spatial_bwd_eval = _kernels.spatial_attention_bwd.launches
+        temporal_bwd_eval = temporal_bwd_launches()
     forwards = len(top5) + -(-n_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic videos: {results}")
@@ -2717,6 +2824,7 @@ def main():
     # 12 GEMMs (4 products in each of the three steps)
     check_core("spatial forward core", "flagship eval", spatial_eval, 12 * forwards)
     check_core("spatial backward core", "flagship eval", spatial_bwd_eval, 0)
+    check_temporal_bwd("flagship eval", temporal_bwd_eval, 0, 0)
     check_core("GEMM", "flagship eval", gemm_eval, 144 * forwards)
     GEMM_LAUNCHES["flagship eval forward"] = gemm_eval / forwards
     if scores.shape != (n_videos, 400) or not (abs(scores.sum(1) - 1) < 1e-3).all():
@@ -2836,6 +2944,7 @@ def main():
         segment_train, gemm_train = _kernels.temporal_segment.launches, _kernels.gemm.launches
         spatial_train = _kernels.spatial_attention.launches
         spatial_bwd_train = _kernels.spatial_attention_bwd.launches
+        temporal_bwd_train = temporal_bwd_launches()
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and validation included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
@@ -2850,6 +2959,8 @@ def main():
                    24 * steps + 12 * n_val)
         # and the backward core once a layer a step (fused_step_bwd_dx)
         check_core("spatial backward core", "flagship train", spatial_bwd_train, 12 * steps)
+        # and the temporal backward core once a layer a step (fused_temporal_step_bwd_dx)
+        check_temporal_bwd("flagship train", temporal_bwd_train, 12 * steps, 0)
         GEMM_LAUNCHES["flagship train step"] = (
             gemm_train - n_val * GEMM_LAUNCHES["flagship eval forward"]) / steps
         log(f"  GEMM launches: {GEMM_LAUNCHES['flagship eval forward']:g} an eval "
@@ -2993,12 +3104,14 @@ def main():
         results, scores, _ = run_evaluation(cfg8, model=model8, batch_size=eval_batch,
                                             num_workers=2, return_scores=True)
         ssv2_launches = ops.launch_counts()  # ... and ends here
+        ssv2_bwd_eval = temporal_bwd_launches()
     forwards = len(top5) + -(-n_videos // eval_batch) * -(-views // chunk)
     log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic 3-crop videos in chunks of {chunk} "
         f"views: {results}")
     check_launches(f"SSv2 eval path ({forwards} forwards x 12 layers)", ssv2_launches,
                    {op: 12 * forwards for op in ops.EVAL_OPS[2]})
+    check_temporal_bwd("SSv2 eval", ssv2_bwd_eval, 0, 0)
     if scores.shape != (n_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad SSv2 eval scores {scores.shape}")
     if any(not (0 <= s <= 1) for r in top5 for _, s in r):
@@ -3034,10 +3147,13 @@ def main():
                                      validate=False, device="cuda")
         torch.cuda.synchronize()
         ssv2_train_launches = ops.launch_counts()  # ... and ends here
+        ssv2_bwd_train = temporal_bwd_launches()
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data and build included); losses {[round(h['loss'], 4) for h in history]}")
         check_launches(f"SSv2 train path ({steps8} steps x 12 layers)",
                        ssv2_train_launches, {op: 12 * steps8 for op in ops.TRAIN_OPS[2]})
+        # the plain temporal block's backward (row 18) once a layer a step
+        check_temporal_bwd("SSv2 train", ssv2_bwd_train, 12 * steps8, 0)
         if state.step != steps8 or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError("SSv2 train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -3178,11 +3294,13 @@ def main():
         results, scores, _ = run_evaluation(cfg10, model=model10, batch_size=eval_batch,
                                             num_workers=2, return_scores=True)
         flash_launches = ops.launch_counts()  # ... and ends here
+        flash_bwd_eval = temporal_bwd_launches()
     forwards = len(top5) + -(-n_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic 3-crop videos: {results}")
     check_launches(f"AIM_FLASH eval path ({forwards} forwards x 12 layers)", flash_launches,
                    {op: 12 * forwards for op in ops.FLASH_EVAL_OPS})
+    check_temporal_bwd("AIM_FLASH eval", flash_bwd_eval, 0, 0)
     if scores.shape != (n_videos, classes10) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad AIM_FLASH eval scores {scores.shape}")
     if any(not (0 <= s <= 1) for r in top5 for _, s in r):
@@ -3220,12 +3338,15 @@ def main():
         torch.cuda.synchronize()
         flash_train_launches = ops.launch_counts()  # ... and ends here
         flash_bwd_train = _kernels.spatial_attention_bwd.launches
+        flash_tbwd_train = temporal_bwd_launches()
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data and build included); losses {[round(h['loss'], 4) for h in history]}")
         check_launches(f"AIM_FLASH train path ({steps10} steps x 12 layers)",
                        flash_train_launches, {op: 12 * steps10 for op in ops.FLASH_TRAIN_OPS})
         # the prompt-token block's backward (row 8) once a layer a step
         check_core("spatial backward core", "AIM_FLASH train", flash_bwd_train, 12 * steps10)
+        # the class token's temporal block backward (row 18) once a layer a step
+        check_temporal_bwd("AIM_FLASH train", flash_tbwd_train, 12 * steps10, 0)
         if state.step != steps10 or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError("AIM_FLASH train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -3463,10 +3584,7 @@ def main():
                           "fused_spatial_train_step", "fused_step_bwd_dx", blk, blk_bwd,
                           sblk, sblk_bwd, *composition_ops)}
     sources["flash_attention_core"] = "adapt_image_models_torch/csrc/flash_attention.cu"
-    sources["fused_ln_temporal_attention_bwd"] = "adapt_image_models_torch/csrc/attention.cu"
-    for op in ("fused_ln_temporal_attention", "fused_ln_temporal_attention_bwd_segment",
-               "fused_ln_temporal_attention_bwd_dx_segment"):
-        sources[op] = "adapt_image_models_torch/csrc/temporal_segment.cu"
+    sources["fused_ln_temporal_attention"] = "adapt_image_models_torch/csrc/temporal_segment.cu"
     for op in LAYER_OPS:
         sources[op] = "adapt_image_models_torch/csrc/attention.cu"
     # the spatial ops' attention cores: the flash core forward, the spatial
@@ -3478,6 +3596,11 @@ def main():
     for op in ("fused_step_bwd_dx", sblk_bwd, "fused_ln_qkv_attention_bwd",
                "fused_ln_qkv_attention_bwd_dx"):
         sources[op] = "adapt_image_models_torch/csrc/spatial_bwd.cu"
+    # the temporal backwards' cores
+    for op in ("fused_temporal_step_bwd_dx", blk_bwd, "fused_ln_temporal_attention_bwd",
+               "fused_ln_temporal_attention_bwd_dx", "fused_ln_temporal_attention_bwd_segment",
+               "fused_ln_temporal_attention_bwd_dx_segment"):
+        sources[op] = "adapt_image_models_torch/csrc/temporal_bwd.cuh"
     # each op's launches on the first of the eighteen paths that runs it
     counts = {}
     for path, run in (("flagship eval", launches), ("flagship train", train_launches),
@@ -3578,6 +3701,20 @@ def main():
         max_abs_err=errors[bwd], ms=op_ms[bwd][0], plain_ms=op_ms[bwd][1],
         bound_ms=bwd_row["bound_ms"], bound_by=bwd_row["bound_by"],
         library_ms=library_ms[bwd]))
+    # the temporal backward cores alone, the full core's at the flagship's 32
+    # clips of 8 frames and the segment core's at 4 clips of 64, each with
+    # its launches on the first path that runs it
+    for (core, replaces), kernel, label in (
+            (ops.TEMPORAL_BWD_CORE, "temporal backward core",
+             f"temporal backward core x=({32 * FRAMES}, {TOKENS}, {WIDTH}), T={FRAMES}"),
+            (ops.SEGMENT_BWD_CORE, "segment backward core",
+             f"segment backward core x=({4 * LONG_FRAMES}, {TOKENS}, {WIDTH}), T={LONG_FRAMES}")):
+        row, (path, n) = temporal_rows[label], CORE_LAUNCHES[kernel]
+        kernels.append(dict(
+            name=core, route="cuda", source="adapt_image_models_torch/csrc/temporal_bwd.cuh",
+            replaces=replaces, path=path, launches=n, max_abs_err=errors[core], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
     log(f"GEMM rows: {json.dumps(gemm_rows)}")
     log(f"spatial core rows: {json.dumps(spatial_rows)}")
     log(f"temporal core rows: {json.dumps(temporal_rows)}")

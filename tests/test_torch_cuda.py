@@ -24,6 +24,10 @@ keys the former WMMA core held and on both sides of its staging bound, and
 the two mma orientations of its scores bit for bit; the plain spatial block
 runs forward and backward at 289 and 801 tokens.
 
+The two temporal backward cores (``csrc/temporal_bwd.cuh``: the full core's
+and the segment core's, on mma.sync) are held alone at every branch point
+of their designs, both model widths, with two launches bit-equal.
+
 The LN-only and adapter-only attention blocks of ``CLIPAttention``
 (rows 5, 6, 7, 10 and 16) are held op by op, row 10 at r = 1, 2, 4 and at
 a batch that r does not divide, and through their autograd ops.
@@ -820,6 +824,59 @@ def test_score_orientations_are_bit_equal(cuda):
         torch.cuda.synchronize()
         assert torch.equal(s, t), n
         assert (s - q.float() @ k.float().t()).abs().max() < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the temporal backward cores (csrc/temporal_bwd.cuh, ops.temporal_bwd_design,
+# ops.temporal_segment_bwd_design)
+
+# the frames of the checks: the register branch's strips (1, 16, 17, 32, 33,
+# 64, 65), whose dP is held whole to 64 frames and formed twice past that,
+# its last (144, ViT-B/16 144f) and the staged branch's first (145), and
+# each core's first streamed T
+TEMPORAL_BWD_FRAMES = (1, 8, 16, 17, 32, 33, 64, 65, 144, 145)
+FIRST_STREAMED = {"full": 385, "segment": 257}
+
+
+@pytest.mark.parametrize("tokens,heads", [(197, 12), (257, 16)])
+@pytest.mark.parametrize("frames", TEMPORAL_BWD_FRAMES + ("streamed",))
+@pytest.mark.parametrize("core", ["full", "segment"])
+def test_temporal_backward_cores_match_plain(cuda, core, frames, tokens, heads):
+    """Each temporal backward core on one clip at T frames, ViT-B/16's and
+    ViT-L/14's widths: dq, dk, dv and o against its plain version
+    (``temporal_core_bwd_plain`` and the prenorm forward, or
+    ``temporal_segment_core_bwd_plain``) under PERF.md's backward bound; two
+    launches bit-equal; one count a launch; the design held to its twin."""
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import (
+        temporal_core_bwd_plain, temporal_core_plain, temporal_segment_core_bwd_plain,
+    )
+    frames = FIRST_STREAMED[core] if frames == "streamed" else frames
+    segment = core == "segment"
+    fn, design = ((K.temporal_segment_bwd, "aim_temporal_segment_bwd_design") if segment
+                  else (K.temporal_attention_bwd, "aim_temporal_bwd_design"))
+    g = torch.Generator().manual_seed(130 + frames)
+    d = 64 * heads
+    qkv = torch.randn(frames * tokens, 3 * d, generator=g).to(cuda, torch.bfloat16)
+    dout = torch.randn(frames * tokens, d, generator=g).to(cuda)
+    if not segment:
+        dout = dout.to(torch.bfloat16)
+    before = fn.launches
+    dqkv = fn(qkv, dout, 1, frames, tokens)
+    dqkv2, o = fn(qkv, dout, 1, frames, tokens, with_out=True)
+    again, o2 = fn(qkv, dout, 1, frames, tokens, with_out=True)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 3
+    assert torch.equal(dqkv, dqkv2) and torch.equal(dqkv2, again) and torch.equal(o, o2)
+    if segment:
+        want, want_o = temporal_segment_core_bwd_plain(qkv, dout, 1, frames, tokens, heads)
+    else:
+        want = temporal_core_bwd_plain(qkv, dout, 1, frames, tokens, heads)
+        want_o = temporal_core_plain(qkv, 1, frames, tokens, heads, prenorm=True)
+    for i, name in enumerate(("dq", "dk", "dv")):
+        _grad_held(name, dqkv[:, i * d:(i + 1) * d], want[:, i * d:(i + 1) * d])
+    _grad_held("o", o, want_o)
+    assert (design, frames) in K._designs_held
 
 
 # ---------------------------------------------------------------------------

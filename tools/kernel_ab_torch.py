@@ -1,23 +1,23 @@
 #!/usr/bin/env python
-"""Time the GEMM (``csrc/gemm.cu``), the spatial attention cores alone and
-the TPU kernels that run the spatial backward core (PERF.md rows 7, 8, 9,
-11) on one card in two source trees of the port, in turns A, B, B, A.
+"""Time the GEMM (``csrc/gemm.cu``), the spatial attention cores and the
+temporal backward cores alone, and the TPU kernels that run the backward
+cores (PERF.md rows 7, 8, 9, 11 and 17-22), on one card in two source trees
+of the port, in turns A, B, B, A.
 
     python tools/kernel_ab_torch.py --a PARENT_TREE --b . [--out FILE]
 
 Each turn is a subprocess that builds the tree's kernels from its
 ``adapt_image_models_torch/csrc/`` (into that tree's ``csrc/build/``) and
 times them through the wrappers both trees have, ``_kernels.gemm``,
-``_kernels.spatial_attention`` and ``_kernels.spatial_attention_bwd``, at
-``tools/kernel_bounds_torch.py``'s GEMM_SHAPES and SPATIAL_SHAPES, and the
-ops ``fused_ln_qkv_attention_bwd`` (row 7), ``fused_ln_qkv_attention_bwd_dx``
-(row 9) and ``fused_step_bwd_dx`` (row 11) at x = (256, 197, 768) and
-``fused_qkv_attention_bwd`` (row 8) at AIM_FLASH's (256, 198, 768), 12
-heads, on inputs made from one seed: median of 20 CUDA-event timings a
-function, after 3 warm-ups. The same turn times the library call of each
-core, ``torch.matmul`` (the product alone) and
-``scaled_dot_product_attention`` on the (frames, H, L, 64) copies of q, k, v
-(its autograd backward for the backward core). The table gives each tree's
+``_kernels.spatial_attention``, ``_kernels.spatial_attention_bwd``,
+``_kernels.temporal_attention_bwd`` and ``_kernels.temporal_segment_bwd``, at
+``tools/kernel_bounds_torch.py``'s GEMM_SHAPES, SPATIAL_SHAPES and
+TEMPORAL_BWD_SHAPES, and the ops of ROWS at their model shapes, on inputs
+made from one seed: median of 20 CUDA-event timings a function, after 3
+warm-ups. The same turn times the library call of each core,
+``torch.matmul`` (the product alone) and ``scaled_dot_product_attention``
+on the (frames, H, L, 64) copies of q, k, v ((clips*L, H, T, 64) for a
+temporal core; its autograd backward for a backward core). The table gives each tree's
 mean of its two turns beside the bound of ``kernel_bounds_torch.py``, with
 the card's name and power limit. Needs one NVIDIA GPU; imports no JAX.
 """
@@ -55,7 +55,7 @@ def worker(tree):
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from adapt_image_models_torch.ops import _kernels
-    from kernel_bounds_torch import GEMM_SHAPES, SPATIAL_SHAPES
+    from kernel_bounds_torch import GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab_torch: needs an NVIDIA GPU")
     _kernels.library()
@@ -97,25 +97,54 @@ def worker(tree):
                 lib_bwd]
             del qkv, q, k, v, dout, do, qg, kg, vg, o
             torch.cuda.empty_cache()
-        for row, shape in ROWS.items():
-            out[f"row {row}"] = [_ms(row_call(row, shape, g)), None]
+        for label, clips, frames, tokens, heads in TEMPORAL_BWD_SHAPES:
+            d, rows = 64 * heads, clips * frames * tokens
+            qkv = randn(rows, 3 * d).to(torch.bfloat16)
+            dout = randn(rows, d)
+            q, k, v, do = (t.view(clips, frames, tokens, heads, 64).permute(0, 2, 3, 1, 4)
+                           .reshape(clips * tokens, heads, frames, 64).to(torch.bfloat16)
+                           .contiguous() for t in (*qkv.split(d, -1), dout))
+            with torch.enable_grad():
+                qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+                o = sdpa(qg, kg, vg)
+                lib_bwd = _ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do,
+                                                          retain_graph=True))
+            d16 = dout.to(torch.bfloat16)
+            args = (clips, frames, tokens)
+            out[f"temporal backward {label}"] = [
+                _ms(lambda: _kernels.temporal_attention_bwd(qkv, d16, *args)), lib_bwd]
+            out[f"segment backward {label}"] = [
+                _ms(lambda: _kernels.temporal_segment_bwd(qkv, dout, *args)), lib_bwd]
+            del qkv, dout, d16, q, k, v, do, qg, kg, vg, o
+            torch.cuda.empty_cache()
+        for row, *shape in ROWS:
+            out[row_label(row, *shape)] = [_ms(row_call(row, shape, g)), None]
             torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
 
 
-# the ops that run the spatial backward core, by PERF.md row: the (clips,
-# frames, tokens) of their timed x = (clips * frames, tokens, 768), 32 clips
-# of 8 frames or AIM_FLASH's 8 clips of 32 frames with the prompt token
-ROWS = {7: (32, 8, 197), 8: (8, 32, 198), 9: (32, 8, 197), 11: (32, 8, 197)}
+# the ops that run a backward core, by PERF.md row, each at the (clips,
+# frames, tokens, width) of its timed x = (clips * frames, tokens, width),
+# heads width / 64: 32 clips of 8 frames, AIM_FLASH's 8 clips of 32 frames
+# with the prompt token (row 8), 4 clips of 64 frames on the segment core
+# (rows 17, 19, 20) and ViT-L/14's 4 clips of 32 frames (row 21)
+ROWS = ((7, 32, 8, 197, 768), (8, 8, 32, 198, 768), (9, 32, 8, 197, 768),
+        (11, 32, 8, 197, 768), (17, 32, 8, 197, 768), (17, 4, 64, 197, 768),
+        (18, 32, 8, 197, 768), (19, 4, 64, 197, 768), (20, 4, 64, 197, 768),
+        (21, 32, 8, 197, 768), (21, 4, 32, 257, 1024), (22, 32, 8, 197, 768))
+
+
+def row_label(row, clips, frames, tokens, width):
+    return f"row {row} x=({clips * frames}, {tokens}, {width}) T={frames}"
 
 
 def row_call(row, shape, g):
-    """A call of the row's op at its ROWS shape, 12 heads, its weights, LN
-    and cotangent drawn on the card from ``g``."""
+    """A call of the row's op at its ROWS shape, its weights, LN and
+    cotangent drawn on the card from ``g``."""
     import torch
     from adapt_image_models_torch import ops
-    clips, frames, tokens = shape
-    rows, d = clips * frames, 768
+    clips, frames, tokens, d = shape
+    rows, heads = clips * frames, d // 64
 
     def r(*shape, s=0.05, dtype=torch.bfloat16):
         return (s * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
@@ -124,10 +153,22 @@ def row_call(row, shape, g):
     ln = (1 + r(d, s=0.1, dtype=torch.float32), r(d, s=0.1, dtype=torch.float32))
     attn = (r(3 * d, d), r(3 * d), r(d, d), r(d))
     adapter = (r(d // 4, d), r(d // 4), r(d, d // 4), r(d))
-    return {7: lambda: ops.fused_ln_qkv_attention_bwd(x, *ln, *attn[:3], gr, 12),
-            8: lambda: ops.fused_qkv_attention_bwd(x, *attn[:3], gr, 12),
-            9: lambda: ops.fused_ln_qkv_attention_bwd_dx(x, *ln, *attn[:3], gr, 12),
-            11: lambda: ops.fused_step_bwd_dx(x, *ln, *attn, *adapter, gr, 12, True)}[row]
+    gate = torch.ones(rows, device="cuda")
+    return {7: lambda: ops.fused_ln_qkv_attention_bwd(x, *ln, *attn[:3], gr, heads),
+            8: lambda: ops.fused_qkv_attention_bwd(x, *attn[:3], gr, heads),
+            9: lambda: ops.fused_ln_qkv_attention_bwd_dx(x, *ln, *attn[:3], gr, heads),
+            11: lambda: ops.fused_step_bwd_dx(x, *ln, *attn, *adapter, gr, heads, True),
+            17: lambda: ops.fused_ln_temporal_attention_bwd(x, *ln, *attn[:3], gr, frames,
+                                                            heads),
+            18: lambda: ops.fused_temporal_attention_bwd(x, *attn[:3], gr, frames, heads),
+            19: lambda: ops.fused_ln_temporal_attention_bwd_segment(
+                x, *ln, *attn[:3], gr, frames, heads),
+            20: lambda: ops.fused_ln_temporal_attention_bwd_dx_segment(
+                x, *ln, *attn[:3], gr, frames, heads),
+            21: lambda: ops.fused_ln_temporal_attention_bwd_dx(x, *ln, *attn[:3], gr, frames,
+                                                               heads),
+            22: lambda: ops.fused_temporal_step_bwd_dx(x, gate, *ln, *attn, *adapter, gr,
+                                                       frames, heads, True)}[row]
 
 
 def gemm_epilogue(epilogue, m, n, g):
@@ -174,7 +215,8 @@ def main(argv=None):
         print(f"turn {len(turns)} ({tree}): {json.dumps(turns[-1][1])}", flush=True)
     sys.path.insert(0, HERE)
     from kernel_bounds_torch import (
-        GEMM_SHAPES, SPATIAL_SHAPES, bound, bound_of, gemm_shape_work, spatial_core_work,
+        GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES, bound, bound_of, gemm_shape_work,
+        spatial_core_work, temporal_bwd_work,
     )
     bounds = {f"gemm {label}": (bound_of(*gemm_shape_work(m, k, n, e)), 2 * m * k * n)
               for label, m, k, n, _, e in GEMM_SHAPES}
@@ -182,8 +224,13 @@ def main(argv=None):
         for name in (f"spatial forward {shape}", f"spatial forward {shape} prenorm"):
             bounds[name] = (bound_of(*spatial_core_work(*shape)), None)
         bounds[f"spatial backward {shape}"] = (bound_of(*spatial_core_work(*shape, True)), None)
-    for row, (clips, frames, tokens) in ROWS.items():
-        bounds[f"row {row}"] = (bound(row, clips=clips, frames=frames, tokens=tokens), None)
+    for label, clips, frames, tokens, heads in TEMPORAL_BWD_SHAPES:
+        for core in ("temporal", "segment"):
+            bounds[f"{core} backward {label}"] = (bound_of(*temporal_bwd_work(
+                clips, frames, tokens, heads, core == "segment")), None)
+    for row, clips, frames, tokens, width in ROWS:
+        bounds[row_label(row, clips, frames, tokens, width)] = (
+            bound(row, clips=clips, frames=frames, tokens=tokens, width=width), None)
     rows = {}
     print(f"| function | A ms | B ms | library ms | bound ms | B TFLOP/s |  ({card})")
     for name in turns[0][1]:

@@ -197,6 +197,21 @@ def spatial_core_work(frames, heads, length, backward=False):
     return 2 * product, 2 * rows * (3 * d + d)
 
 
+# the temporal backward cores alone (tools/kernel_ab_torch.py, chip_smoke.py
+# phase 17): (label, clips, frames, tokens, heads) of the flagship's 32 clips
+# of 8 frames, ViT-L/14's 4 of 32, ViT-B/16's 4 of 64 and 1 of 144
+TEMPORAL_BWD_SHAPES = (("32x8f", 32, 8, 197, 12), ("L14 4x32f", 4, 32, 257, 16),
+                       ("4x64f", 4, 64, 197, 12), ("1x144f", 1, 144, 197, 12))
+
+
+def temporal_bwd_work(clips, frames, tokens, heads, segment=False):
+    """(FLOPs, bytes) of a temporal backward core alone: the spatial
+    backward's work at (clips * tokens, heads, T), with the segment core's
+    cotangent in fp32 (two more bytes an element)."""
+    flops, nbytes = spatial_core_work(clips * tokens, heads, frames, backward=True)
+    return flops, nbytes + (2 * clips * frames * tokens * 64 * heads if segment else 0)
+
+
 def bound_of(flops, nbytes):
     """(least milliseconds on one H100, "operations" or "bytes") of work
     that does ``flops`` FLOPs and moves ``nbytes`` bytes."""
