@@ -115,6 +115,14 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long
   }
 }
 
+// frame 0's row of the temporal cores' problem p = (b*L + n)*H + h (token
+// n of clip b, head h) in the (B*T*L, .) rows of the native layout: (b*T)*L
+// + n; neighbouring p are neighbouring heads of one (b, n)
+__device__ __forceinline__ long long first_row(long long p, int T, int L, int H) {
+  const long long bn = p / H;
+  return bn / L * T * L + bn % L;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&p);

@@ -191,12 +191,6 @@ __device__ __forceinline__ const uint32_t* pairs(const bf16* row) {
   return reinterpret_cast<const uint32_t*>(row);
 }
 
-// frame 0's row of problem p = (b*L + n)*H + h: (b*T)*L + n
-__device__ __forceinline__ long long first_row(long long p, int T, int L, int H) {
-  const long long bn = p / H;
-  return bn / L * T * L + bn % L;
-}
-
 // ---------------------------------------------------------------------------
 // T <= 144: ks strips of 16 frames, scores in registers, P and dS in shared
 // tiles, five products. KS is ks up to TB_HELD_STRIPS, where a warp holds

@@ -5,7 +5,7 @@ train ops are autograd ops whose forward and backward are such wrappers."""
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._kernels import (  # noqa: F401
     flash_fwd_design, gemm_design, segment_fwd_design, spatial_bwd_design,
-    temporal_bwd_design, temporal_segment_bwd_design,
+    temporal_bwd_design, temporal_fwd_design, temporal_segment_bwd_design,
 )
 from adapt_image_models_torch.ops.flash_attention import (  # noqa: F401
     flash_attention_core, flash_attention_core_plain, flash_attention_entry,
@@ -216,6 +216,9 @@ def layer_block_ops(call: str, tokens: int, width: int):
     raise KeyError(call)
 
 
+# the full temporal forward core (``_kernels.temporal_attention``), which
+# rows 2, 14, 15, 16 and 23 launch up to LONG_CLIP_T frames, once a call,
+# and row 22 once a call at every T (the whole-step backward's recompute);
 # the segment-sum forward core (``_kernels.temporal_segment``), which rows
 # 2, 14, 15, 16 and 23 launch past LONG_CLIP_T frames, once a call; the
 # spatial forward core (``_kernels.spatial_attention``, the flash core's
@@ -228,9 +231,12 @@ def layer_block_ops(call: str, tokens: int, width: int):
 # 21 and 22 launch once a call, and ``_kernels.temporal_segment_bwd``, the
 # segment core's, rows 19 and 20); and the GEMM
 # (``_kernels.gemm``), which carries every product of every op's chain, the
-# QKV projection (``_project_qkv``) first. Their launches count apart from
+# QKV projection (``_project_qkv``) first; and the row passes
+# (``_kernels.layernorm``, ``layernorm_bwd``, ``row_scale``) that open and
+# close the chains. Their launches count apart from
 # the ops', each on the kernel's own counter (a spatial launch never counts
 # under ``flash_attention_core``)
+TEMPORAL_CORE = ("temporal_attention_core", _TPU + "fused_temporal_attention.py:147")
 SEGMENT_CORE = ("temporal_segment_core", _TPU + "fused_temporal_attention.py:289")
 SPATIAL_CORE = ("spatial_attention_core", _TPU + "fused_qkv_attention.py:210")
 SPATIAL_BWD_CORE = ("spatial_attention_bwd_core", _TPU + "fused_qkv_attention.py:1288")
@@ -242,7 +248,11 @@ GEMM = ("gemm", _TPU + "fused_qkv_attention.py:131")
 def reset_launch_counts() -> None:
     for fn, _ in KERNEL_OPS.values():
         fn.launches = 0
+    _kernels.temporal_attention.launches = 0
     _kernels.temporal_segment.launches = 0
+    _kernels.layernorm.launches = 0
+    _kernels.layernorm_bwd.launches = 0
+    _kernels.row_scale.launches = 0
     _kernels.spatial_attention.launches = 0
     _kernels.spatial_attention_bwd.launches = 0
     _kernels.temporal_attention_bwd.launches = 0

@@ -44,6 +44,7 @@ _SIGNATURES = {
     "aim_spatial_bwd_design": [_I, _P],
     "aim_score_orientations": [_P, _P, _P, _P, _I, _P],
     "aim_temporal_attention_bf16": [_P, _P, _I, _I, _I, _I, _F, _P],
+    "aim_temporal_attention_design": [_I, _P],
     "aim_temporal_attention_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     "aim_temporal_bwd_design": [_I, _P],
     "aim_flash_attention_bf16": [_P, _I, _P],
@@ -59,11 +60,16 @@ _SIGNATURES = {
 # of 64 bf16 lanes (csrc/common.cuh: SMEM_BLOCK_MAX, SMEM_ROW_BYTES)
 SMEM_BLOCK_MAX, SMEM_ROW_BYTES = 232448, 144
 SEGMENT_RING, FLASH_RING, SPATIAL_BWD_RING, TEMPORAL_BWD_RING = 64, 64, 64, 64  # ring slot rows
+TEMPORAL_FWD_RING = 64
 STAT_BYTES = 12  # a row's (max, sum, rowdot) in the backward cores' fp32 scratch
 # the temporal backward cores (csrc/temporal_bwd.cuh): the most frames whose
 # scores stay in registers, and the warps of a register block and of a
 # streamed one
 TEMPORAL_BWD_REGISTERS, TEMPORAL_BWD_WARPS, TEMPORAL_BWD_STREAM_WARPS = 144, 4, 8
+# the full temporal forward core (csrc/attention.cu): the most frames whose
+# scores stay in registers, the most frames of the problems that share a
+# strip, and the warps of a register block
+TEMPORAL_FWD_REGISTERS, TEMPORAL_FWD_PAIR, TEMPORAL_FWD_WARPS = 144, 8, 4
 # the GEMM's block tile rows and k depth, the stages of its ring by tile
 # width, and the slack its shared memory holds to align the swizzled
 # tiles plus the mbarriers (csrc/gemm.cu)
@@ -95,6 +101,31 @@ def segment_fwd_design(frames: int) -> Tuple[str, int]:
     if staged <= SMEM_BLOCK_MAX:
         return "staged", staged
     return "streamed", 2 * 2 * SEGMENT_RING * SMEM_ROW_BYTES
+
+
+def temporal_fwd_design(frames: int) -> Tuple[str, int]:
+    """(branch, dynamic shared memory in bytes) of the full temporal forward
+    core at ``frames`` frames, as ``csrc/attention.cu::temporal_fwd_design``
+    picks them: up to 144 frames a strip's scores stay in registers and a
+    block owns 8 (token, clip, head) problems of up to 8 frames, two to a
+    strip of 16 rows, each with its q, k and v rows padded to 8 frames, or
+    4, 2 or 1 problems of 1, 2 or 3-9 strips of 16 frames, their rows
+    padded to 16 frames ("registers"); past that one problem a block
+    recomputes the scores in three passes over its k and v rows staged
+    whole ("staged") while they fit, else streamed through a double-buffered
+    ring of 64-frame tiles ("streamed"). No branch takes a scratch."""
+    if frames <= 0:
+        raise ValueError(f"frames must be positive, got {frames}")
+    tp = _round_up(frames, 16)
+    if frames <= TEMPORAL_FWD_PAIR:
+        return "registers", 2 * TEMPORAL_FWD_WARPS * 3 * TEMPORAL_FWD_PAIR * SMEM_ROW_BYTES
+    if frames <= TEMPORAL_FWD_REGISTERS:
+        per_block = max(1, TEMPORAL_FWD_WARPS // (tp // 16))
+        return "registers", per_block * 3 * tp * SMEM_ROW_BYTES
+    staged = 2 * tp * SMEM_ROW_BYTES
+    if staged <= SMEM_BLOCK_MAX:
+        return "staged", staged
+    return "streamed", 2 * 2 * TEMPORAL_FWD_RING * SMEM_ROW_BYTES
 
 
 def flash_fwd_design(length: int) -> Tuple[str, int]:
@@ -185,6 +216,7 @@ _DESIGNS = {
     "aim_temporal_segment_design": (
         segment_fwd_design, ("registers64", "registers128", "staged", "streamed")),
     "aim_flash_attention_design": (flash_fwd_design, ("staged", "streamed")),
+    "aim_temporal_attention_design": (temporal_fwd_design, ("registers", "staged", "streamed")),
     "aim_spatial_bwd_design": (spatial_bwd_design, ("staged", "streamed")),
     "aim_temporal_bwd_design": (temporal_bwd_design, ("registers", "staged", "streamed")),
     "aim_temporal_segment_bwd_design": (
@@ -302,13 +334,18 @@ def _check(code: int, name: str) -> None:
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    """(rows, D) bf16 -> (rows, D) bf16, fp32 statistics and affine."""
+    """(rows, D) bf16 -> (rows, D) bf16, fp32 statistics and affine. Each
+    launch adds one to ``launches``."""
     rows, d = x.shape
     y = torch.empty_like(x)
     _check(library().aim_layernorm_bf16(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, d,
         eps, _stream()), "aim_layernorm_bf16")
+    layernorm.launches += 1
     return y
+
+
+layernorm.launches = 0
 
 
 def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
@@ -316,26 +353,36 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
                   eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm backward plus the residual cotangent: x, g (rows, D) bf16,
     dy (rows, D) fp32 -> dx (rows, D) bf16. With no ``g`` the LN backward
-    alone, as the dX-only backwards close."""
+    alone, as the dX-only backwards close. Each launch adds one to
+    ``launches``."""
     rows, d = x.shape
     dx = torch.empty_like(x)
     _check(library().aim_layernorm_bwd_bf16(
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), _ptr(g),
         dx.data_ptr(), rows, d, eps, _stream()), "aim_layernorm_bwd_bf16")
+    layernorm_bwd.launches += 1
     return dx
+
+
+layernorm_bwd.launches = 0
 
 
 def row_scale(g: torch.Tensor, scale: torch.Tensor, rows_per_scale: int,
               alpha: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """``g * alpha * scale[row // rows_per_scale]`` for (rows, D) bf16 g and
-    fp32 scale; returns the fp32 result and its bf16 rounding."""
+    fp32 scale; returns the fp32 result and its bf16 rounding. Each launch
+    adds one to ``launches``."""
     rows, d = g.shape
     o32 = torch.empty((rows, d), dtype=torch.float32, device=g.device)
     o16 = torch.empty_like(g)
     _check(library().aim_row_scale_bf16(
         g.data_ptr(), scale.data_ptr(), rows_per_scale, alpha, o32.data_ptr(),
         o16.data_ptr(), rows, d, _stream()), "aim_row_scale_bf16")
+    row_scale.launches += 1
     return o32, o16
+
+
+row_scale.launches = 0
 
 
 def gemm(a: torch.Tensor, w: torch.Tensor, *, kn: bool = False, bias=None,
@@ -502,14 +549,23 @@ def _row_stats(qkv: torch.Tensor) -> torch.Tensor:
 
 def temporal_attention(qkv: torch.Tensor, clips: int, frames: int,
                        length: int) -> torch.Tensor:
-    """(clips*frames*length, 3D) packed bf16 QKV -> (rows, D) bf16, each
-    token attending across the frames of its clip."""
+    """The full temporal core (``csrc/attention.cu``): (clips*frames*length,
+    3D) packed bf16 QKV -> (rows, D) bf16, each token attending across the
+    frames of its clip, with the TPU masked-full core's casts (unnormalised
+    P rounded for P V, the fp32 sum divided by the fp32 row sum), in one
+    launch in the design ``temporal_fwd_design`` picks for ``frames``. Only
+    the output is allocated. Each launch adds one to ``launches``."""
     d = qkv.shape[1] // 3
     out = torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
+    _hold_design("aim_temporal_attention_design", frames)
     _check(library().aim_temporal_attention_bf16(
         qkv.data_ptr(), out.data_ptr(), clips, frames, length, d, 64 ** -0.5,
         _stream()), "aim_temporal_attention_bf16")
+    temporal_attention.launches += 1
     return out
+
+
+temporal_attention.launches = 0
 
 
 def temporal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,

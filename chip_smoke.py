@@ -230,11 +230,22 @@ Phases, in order; any failure raises and exits non-zero:
      (its autograd backward) and their bounds; and the temporal backward
      cores at tools/kernel_bounds_torch.py's TEMPORAL_BWD_SHAPES (the full
      core at 32 clips of 8 frames, ViT-L/14's 4 clips of 32, 4 clips of 64
-     and 1 of 144; the segment core at the last two) and the T <= 32
-     temporal forward core at T = 8, 16 and 32 (x = (256, 197, 768))
-     against their plain versions, scaled_dot_product_attention on the
-     (clips*L, H, T, 64) copies (its autograd backward for the backwards)
-     and their bounds.
+     and 1 of 144; the segment core at the last two) and the full temporal
+     forward core at its TEMPORAL_FWD_SHAPES (T = 8, 16 and 32 at x = (256,
+     197, 768), ViT-L/14's 4 clips of 32) against their plain versions,
+     scaled_dot_product_attention on the (clips*L, H, T, 64) copies (its
+     autograd backward for the backwards) and their bounds. Also in phase
+     17: the full temporal forward core (csrc/attention.cu,
+     _kernels.temporal_attention, on mma.sync) on one clip at T = 1, 8, 9,
+     16, 17, 32, 33 and each branch edge of ops.temporal_fwd_design (144,
+     145, 800, 801: registers, three passes over staged rows, a ring), at
+     197 tokens / 12 heads and 257 / 16, against its plain version under
+     the forward bound, two launches bit-equal, its C design held to the
+     twin at every T to 1200; and the row passes of csrc/layernorm.cu
+     (LayerNorm forward, its backward with and without g, row_scale) alone
+     at ROW_PASS_SHAPES ((50432, 768), (32896, 1024)), held to their
+     plain versions under the forward bound and timed against them,
+     torch's layer_norm (its autograd backward) and their bounds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -247,7 +258,20 @@ cores' (none in eval; one a layer a train step, the segment core's past
 LONG_CLIP_T = 32 frames and the full core's up to it: 12 a flagship, SSv2,
 AIM_FLASH, ViT-B/16 32f, 64f and 144f step, 24 a ViT-L/14 step).
 Every driven AIM path counts the segment forward core's launches: one a
-temporal step past LONG_CLIP_T = 32 frames, none at T <= 32.
+temporal step past LONG_CLIP_T = 32 frames, none at T <= 32. Every driven
+path counts the full temporal forward core's (_kernels.temporal_attention):
+one a layer an eval forward at T <= 32 (12 a flagship, SSv2, AIM_FLASH or
+AIM_FLASH_WIN forward, 24 a ViT-L/14 32f one), none past 32 frames (64f,
+144f) or on ViT_CLIP; a train step adds one a layer a forward (two with
+use_checkpoint) and one a layer for the whole-step backward's recompute
+(ViT-B at T <= 16): 24 a flagship step, 12 an SSv2 or AIM_FLASH step, 48 a
+ViT-L/14 32f step, 12 a ViT-B/16 32f step; 3 on the LN block layer path and
+4 on the CLIPAttention layer path. The flagship and every AIM path driven
+through the entry points count the row passes' (csrc/layernorm.cu): the
+LayerNorm 3 a layer an eval forward and 3 a layer a train step's forward
+(twice checkpointed) plus 3 in its backwards, the LayerNorm backward 3 a
+layer a step, row_scale (the gated cotangent) one a layer a step, two where
+the temporal step takes the whole-step backward.
 Every driven model's kernel path holds the plain path's top-1 class; a
 400-class head gets a seeded class lead in its bias first
 (separate_classes), as seeded weights spread the classes so evenly that the
@@ -272,9 +296,13 @@ the spatial forward core alone at (256, 12, 197, 64) and gemm the GEMM at the
 flagship's QKV projection with no epilogue, each with its launches on the
 flagship eval path; spatial_attention_bwd_core is the spatial backward core
 alone at (256, 12, 197, 64), with its launches on the flagship train path;
-temporal_attention_bwd_core and temporal_segment_bwd_core are the temporal
-backward cores alone, at 32 clips of 8 frames and at 4 clips of 64, with
-their launches on the flagship and the ViT-B/16 64f train paths;
+temporal_attention_core, temporal_attention_bwd_core and
+temporal_segment_bwd_core are the full temporal forward core and the
+temporal backward cores alone, at 32 clips of 8 frames (the segment core's
+at 4 clips of 64), with their launches on the flagship eval, flagship
+train and ViT-B/16 64f train paths; layernorm, layernorm_bwd (with g) and
+row_scale are the row passes alone at (50432, 768), with their launches on
+the flagship eval or train path;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -397,10 +425,10 @@ CORE_LAUNCHES = {}
 
 
 def check_core(kernel, path, launches, expected):
-    """A kernel with its own counter (``_kernels.spatial_attention``,
-    ``_kernels.spatial_attention_bwd``, ``_kernels.gemm``) launched
-    ``expected`` times on ``path``; the first path that launched it is
-    recorded for the kernels line."""
+    """A kernel with its own counter (``_kernels.temporal_attention``,
+    ``_kernels.spatial_attention``, ``_kernels.spatial_attention_bwd``,
+    ``_kernels.gemm``, ...) launched ``expected`` times on ``path``; the
+    first path that launched it is recorded for the kernels line."""
     log(f"  {kernel} launches on the {path} path: {launches}")
     if launches != expected:
         raise AssertionError(f"{path}: expected {expected} {kernel} launches")
@@ -408,18 +436,45 @@ def check_core(kernel, path, launches, expected):
         CORE_LAUNCHES.setdefault(kernel, (path, launches))
 
 
-def temporal_bwd_launches():
-    """The temporal backward cores' own counters, (full core, segment core)."""
+def temporal_launches():
+    """The full temporal cores' and the segment backward core's own counters:
+    (full forward core, full backward core, segment backward core)."""
     from adapt_image_models_torch.ops import _kernels
-    return _kernels.temporal_attention_bwd.launches, _kernels.temporal_segment_bwd.launches
+    return (_kernels.temporal_attention.launches, _kernels.temporal_attention_bwd.launches,
+            _kernels.temporal_segment_bwd.launches)
 
 
-def check_temporal_bwd(path, launches, full, segment):
-    """The full core's backward launched ``full`` times on ``path`` and the
-    segment core's ``segment`` times (``launches``: temporal_bwd_launches()
-    read where the path's run ends)."""
-    check_core("temporal backward core", path, launches[0], full)
-    check_core("segment backward core", path, launches[1], segment)
+def check_temporal(path, launches, forward, full, segment):
+    """The full temporal forward core launched ``forward`` times on ``path``,
+    the full core's backward ``full`` times and the segment core's backward
+    ``segment`` times (``launches``: temporal_launches() read where the
+    path's run ends)."""
+    check_core("temporal forward core", path, launches[0], forward)
+    check_core("temporal backward core", path, launches[1], full)
+    check_core("segment backward core", path, launches[2], segment)
+
+
+# the row passes of csrc/layernorm.cu: (wrapper, label, the TPU code each
+# replaces: the LN prologue of every step kernel, the LN backward and the
+# gated branch cotangent closing every step backward kernel)
+ROW_PASS_KERNELS = (
+    ("layernorm", "LayerNorm", "adapt_image_models_tpu/ops/fused_qkv_attention.py:96"),
+    ("layernorm_bwd", "LayerNorm backward",
+     "adapt_image_models_tpu/ops/fused_qkv_attention.py:1312"),
+    ("row_scale", "row_scale", "adapt_image_models_tpu/ops/fused_qkv_attention.py:1273"))
+
+
+def row_pass_launches():
+    """The row passes' own counters, in ROW_PASS_KERNELS' order."""
+    from adapt_image_models_torch.ops import _kernels
+    return tuple(getattr(_kernels, fn).launches for fn, _, _ in ROW_PASS_KERNELS)
+
+
+def check_row_passes(path, launches, *expected):
+    """Each row pass launched as ROW_PASS_KERNELS' entry of ``expected`` on
+    ``path`` (``launches``: row_pass_launches() read where the run ends)."""
+    for (_, label, _), n, want in zip(ROW_PASS_KERNELS, launches, expected):
+        check_core(label, path, n, want)
 
 
 def device_line() -> str:
@@ -1153,8 +1208,11 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         eval_launches = ops.launch_counts()  # ... and ends here
         segment_eval = _kernels.temporal_segment.launches
         spatial_bwd_eval = _kernels.spatial_attention_bwd.launches
-        temporal_bwd_eval = temporal_bwd_launches()
+        temporal_eval = temporal_launches()
+        rows_eval = row_pass_launches()
     forwards = len(top5) + -(-eval_videos // eval_batch)
+    # the LN prologue of each of a layer's three steps
+    check_row_passes(f"{label} eval", rows_eval, 3 * layers * forwards, 0, 0)
     log(f"  inference_recognizer top-5 of synthetic://{seed}: {top5[0]}")
     log(f"  run_evaluation over {eval_videos} synthetic {views}-view videos "
         f"(max_testing_views={cfg['model']['test_cfg'].get('max_testing_views')}): {results}")
@@ -1165,7 +1223,9 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
     segment = not ops.use_full_core(frames)
     check_segment_core(f"{label} eval", segment_eval, layers * forwards if segment else 0)
     check_core("spatial backward core", f"{label} eval", spatial_bwd_eval, 0)
-    check_temporal_bwd(f"{label} eval", temporal_bwd_eval, 0, 0)
+    # the full forward core once a temporal step up to LONG_CLIP_T
+    check_temporal(f"{label} eval", temporal_eval, 0 if segment else layers * forwards, 0,
+                   0)
     if scores.shape != (eval_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad {label} eval scores {scores.shape}")
     if any(not (0 <= s <= 1) for r in top5 for _, s in r):
@@ -1203,7 +1263,8 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         train_launches = ops.launch_counts()  # ... and ends here
         segment_train = _kernels.temporal_segment.launches
         spatial_bwd_train = _kernels.spatial_attention_bwd.launches
-        temporal_bwd_train = temporal_bwd_launches()
+        temporal_train = temporal_launches()
+        rows_train = row_pass_launches()
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and the checkpoint included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
@@ -1221,8 +1282,18 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
                    layers * steps)
         # and one temporal backward core once a layer a step: the segment
         # core's past LONG_CLIP_T, else the full core's
-        check_temporal_bwd(f"{label} train", temporal_bwd_train,
-                           0 if segment else layers * steps, layers * steps if segment else 0)
+        # the full forward core once a forward of a temporal step up to
+        # LONG_CLIP_T (twice checkpointed), and once more in the whole-step
+        # backward's recompute where the JAX package takes that design
+        whole = bb.get("num_tadapter", 1) == 1 and ops.tstep_whole_cell_fits(frames, bb["width"])
+        check_temporal(f"{label} train", temporal_train,
+                       0 if segment else layers * steps * (passes + whole),
+                       0 if segment else layers * steps, layers * steps if segment else 0)
+        # each step's LN in every forward and again in its backward, which
+        # closes with the LN backward; the gated cotangent in the joint
+        # step's backward and the temporal whole step's
+        check_row_passes(f"{label} train", rows_train, 3 * layers * steps * (passes + 1),
+                         3 * layers * steps, layers * steps * (1 + whole))
         if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError(f"{label} train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -1397,11 +1468,15 @@ def drive_vitclip(card):
         results, scores, _ = run_evaluation(cfg, model=model, batch_size=eval_batch,
                                             num_workers=2, return_scores=True)
         eval_launches = ops.launch_counts()  # ... and ends here
+        vc_temporal = temporal_launches()
     forwards = len(top5) + -(-n_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://1600: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic {views}-view videos: {results}")
     check_launches(f"ViT_CLIP eval path ({forwards} forwards x 12 layers x 2 attentions)",
                    eval_launches, {op: n * forwards for op, n in per_forward.items()})
+    # ViT_CLIP's class-token attention over frames is a plain attention: no
+    # temporal core
+    check_temporal("ViT_CLIP eval", vc_temporal, 0, 0, 0)
     if scores.shape != (n_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad ViT_CLIP eval scores {scores.shape}")
     clips = np.random.default_rng(16).integers(0, 256, (2, views, frames, 224, 224, 3),
@@ -1435,6 +1510,7 @@ def drive_vitclip(card):
                                      max_steps=steps, validate=False, device="cuda")
         torch.cuda.synchronize()
         train_launches = ops.launch_counts()  # ... and ends here
+        check_temporal("ViT_CLIP train", temporal_launches(), 0, 0, 0)
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s; losses "
             f"{[round(h['loss'], 4) for h in history]}")
         check_launches(f"ViT_CLIP train path ({steps} steps x 12 layers x 2 attentions; the "
@@ -1784,6 +1860,10 @@ def drive_ln_block():
     ops.reset_launch_counts()  # this path's run starts here
     got = run()
     launches = ops.launch_counts()  # ... and ends here
+    # the full forward core in row 15 at T = 8, 24 and 8 frozen; the full
+    # backward core in rows 17 (T = 8) and 21 (8 frozen), the segment one in
+    # rows 19 (T = 24) and 20 (64 frozen); T = 64's VJP launches neither
+    check_temporal("LN temporal block layer", temporal_launches(), 3, 2, 2)
     check_launches("LN temporal block layer (T, frozen) in " + str(LN_BLOCK_CASES),
                    launches, {"fused_ln_temporal_attention": len(LN_BLOCK_CASES),
                               "fused_ln_temporal_attention_bwd": 1,
@@ -2005,6 +2085,10 @@ def drive_attention_layer():
     ops.reset_launch_counts()  # this path's run starts here
     got = run(row10=True)
     launches = ops.launch_counts()  # ... and ends here
+    # row 16 launches the full forward core at T = 8 and 32 at each width
+    # (the segment core at 64); its backward, the reference's VJP, no core
+    check_temporal("CLIPAttention layer path", temporal_launches(), 2 * len(LAYER_WIDTHS), 0,
+                   0)
     expected = {"fused_ln_qkv_attention_r": len(LAYER_WIDTHS)}
     for _, geom in LAYER_WIDTHS:
         for _, call, _, _, _ in LAYER_CALLS:
@@ -2608,10 +2692,11 @@ def temporal_core_timings(card):
     temporal_attention_bwd`` and ``_kernels.temporal_segment_bwd``, an fp32
     cotangent) at tools/kernel_bounds_torch.py's TEMPORAL_BWD_SHAPES (32
     clips of 8 frames, ViT-L/14's 4 of 32, 4 of 64 and 1 of 144; the
-    segment core at the last two, the long clips it serves) and the T <= 32
-    forward core (``_kernels.temporal_attention``) at 32, 16 and 8 clips of
-    8, 16 and 32 frames (x = (256, 197, 768) each): kernel and plain version
-    (plain-kernel-kernel-plain, median of 20) beside
+    segment core at the last two, the long clips it serves) and the full
+    forward core (``_kernels.temporal_attention``) at its
+    TEMPORAL_FWD_SHAPES (32, 16 and 8 clips of 8, 16 and 32 frames, x =
+    (256, 197, 768) each, and ViT-L/14's 4 clips of 32): kernel and plain
+    version (plain-kernel-kernel-plain, median of 20) beside
     scaled_dot_product_attention on the (clips*L, H, T, 64) copies of q, k,
     v (its autograd backward for the backward cores) and the bound.
     Returns {label: row}."""
@@ -2623,7 +2708,8 @@ def temporal_core_timings(card):
     )
     sys.path.insert(0, os.path.join(ROOT, "tools"))
     from kernel_bounds_torch import (
-        TEMPORAL_BWD_SHAPES, bound_of, spatial_core_work, temporal_bwd_work,
+        TEMPORAL_BWD_SHAPES, TEMPORAL_FWD_SHAPES, bound_of, temporal_bwd_work,
+        temporal_fwd_work,
     )
     g = torch.Generator().manual_seed(1770)
     rows = {}
@@ -2631,8 +2717,8 @@ def temporal_core_timings(card):
              for _, clips, frames, tokens, heads in TEMPORAL_BWD_SHAPES]
     cases += [("segment backward", clips, frames, tokens, heads)
               for _, clips, frames, tokens, heads in TEMPORAL_BWD_SHAPES if frames > 32]
-    cases += [("temporal forward", clips, frames, TOKENS, HEADS)
-              for clips, frames in ((32, 8), (16, 16), (8, 32))]
+    cases += [("temporal forward", clips, frames, tokens, heads)
+              for _, clips, frames, tokens, heads in TEMPORAL_FWD_SHAPES]
     for kind, clips, frames, tokens, heads in cases:
         width = 64 * heads
         qkv = torch.randn(clips * frames * tokens, 3 * width, generator=g).to("cuda",
@@ -2649,7 +2735,7 @@ def temporal_core_timings(card):
                    lambda: K.temporal_attention(qkv, *args))
             with torch.no_grad():
                 lib = cuda_ms(lambda: sdpa(q, k, v))
-            work = spatial_core_work(clips * tokens, heads, frames)
+            work = temporal_fwd_work(clips, frames, tokens, heads)
         else:
             qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
             o = sdpa(qg, kg, vg)
@@ -2674,6 +2760,139 @@ def temporal_core_timings(card):
         del qkv, dout, q, k, v, do
         torch.cuda.empty_cache()
     return rows
+
+
+# the full temporal forward core's checks: two problems to a strip at T = 1
+# and 8, one strip at 9 and 16, two at 17 and 32, three at 33; then each
+# branch's last and first T and the first streamed T, found from its design
+# (144 | 145, 800 | 801), at TEMPORAL_BWD_WIDTHS
+TEMPORAL_FWD_FRAMES = (1, 8, 9, 16, 17, 32, 33)
+TEMPORAL_FWD_DESIGN_FRAMES = 1200  # the C design is held to its twin to here
+
+
+def temporal_core_plain_by_tokens(qkv, clips, frames, tokens, heads, chunk=16):
+    """``temporal_core_plain`` on ``chunk`` token positions at a time (each
+    position attends on its own), so that its (T, T) scores stay a few GB at
+    800 frames of 257 tokens."""
+    import torch
+    from adapt_image_models_torch.ops._common import temporal_core_plain
+    d = qkv.shape[1] // 3
+    rows = qkv.view(clips * frames, tokens, 3 * d)
+    out = torch.empty(clips * frames, tokens, d, dtype=qkv.dtype, device=qkv.device)
+    for n0 in range(0, tokens, chunk):
+        part = rows[:, n0:n0 + chunk]
+        n = part.shape[1]
+        out[:, n0:n0 + n] = temporal_core_plain(part.reshape(-1, 3 * d), clips, frames, n,
+                                                heads).view(clips * frames, n, d)
+    return out.view(-1, d)
+
+
+def temporal_fwd_checks(errors):
+    """The full temporal forward core (``_kernels.temporal_attention``) on
+    one clip at TEMPORAL_FWD_FRAMES and at every branch edge of
+    ``ops.temporal_fwd_design``, at TEMPORAL_BWD_WIDTHS: against its plain
+    version under the forward bound (compare), two launches bit-equal; its C
+    design held to its Python twin at every T to
+    TEMPORAL_FWD_DESIGN_FRAMES."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.ops import _kernels as K
+    for frames in range(1, TEMPORAL_FWD_DESIGN_FRAMES + 1):
+        K._hold_design("aim_temporal_attention_design", frames)
+    log("  aim_temporal_attention_design agrees with ops.temporal_fwd_design at T = 1 .. "
+        f"{TEMPORAL_FWD_DESIGN_FRAMES}")
+    branch = [None] + [ops.temporal_fwd_design(t)[0]
+                       for t in range(1, TEMPORAL_FWD_DESIGN_FRAMES + 1)]
+    edges = sorted({e for t in range(2, TEMPORAL_FWD_DESIGN_FRAMES + 1)
+                    if branch[t] != branch[t - 1] for e in (t - 1, t)})
+    name = ops.TEMPORAL_CORE[0]
+    g = torch.Generator(device="cuda").manual_seed(1790)
+    for frames in TEMPORAL_FWD_FRAMES + tuple(edges):
+        for tokens, heads in TEMPORAL_BWD_WIDTHS:
+            d = 64 * heads
+            qkv = torch.randn(frames * tokens, 3 * d, generator=g,
+                              device="cuda").to(torch.bfloat16)
+            got = K.temporal_attention(qkv, 1, frames, tokens)
+            again = K.temporal_attention(qkv, 1, frames, tokens)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} is not deterministic at T={frames}")
+            err = compare(f"{name} at T={frames} ({branch[frames]}), 1 clip of {tokens} "
+                          f"tokens, {heads} heads (two launches bit-equal)", got,
+                          temporal_core_plain_by_tokens(qkv, 1, frames, tokens, heads))
+            errors[name] = max(err, errors.get(name, 0.0))
+            del qkv, got, again
+    torch.cuda.empty_cache()
+
+
+def row_pass_timings(card, errors):
+    """The row passes of ``csrc/layernorm.cu`` alone at
+    tools/kernel_bounds_torch.py's ROW_PASS_SHAPES: ``_kernels.layernorm``
+    against ``layer_norm_fp32`` and ``torch.nn.functional.layer_norm`` (bf16
+    x, gamma and beta: on the card it refuses fp32 ones beside bf16 x);
+    ``_kernels.layernorm_bwd`` with and without the residual cotangent g
+    against ``layer_norm_bwd_plain`` and the autograd backward of that
+    ``layer_norm`` call for x alone (its cotangent in bf16);
+    ``_kernels.row_scale`` (one gate a frame of rows, alpha 0.8)
+    against its plain product, with no library call; each kernel and plain
+    plain-kernel-kernel-plain, median of 20, beside its bound; each
+    kernel's output held to its plain version under the forward bound
+    (compare) into ``errors``. Returns {label: row}."""
+    import torch
+    from torch.nn.functional import layer_norm
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import (
+        _gated, layer_norm_bwd_plain, layer_norm_fp32,
+    )
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    from kernel_bounds_torch import ROW_PASS_SHAPES, bound_of, row_pass_work
+    g = torch.Generator(device="cuda").manual_seed(1795)
+    rows_out = {}
+    for (rows, width), tokens in zip(ROW_PASS_SHAPES, (TOKENS, LARGE["tokens"])):
+        def r(*shape, s=1.0):
+            return s * torch.randn(*shape, generator=g, device="cuda")
+        x, res = r(rows, width).to(torch.bfloat16), r(rows, width).to(torch.bfloat16)
+        w, b, dy = 1 + r(width, s=0.1), r(width, s=0.1), r(rows, width)
+        gate = r(rows // tokens).abs()
+        dy16, w16, b16 = (t.to(torch.bfloat16) for t in (dy, w, b))
+        xg = x.clone().requires_grad_()
+        y = layer_norm(xg, (width,), w16, b16)
+        cases = (
+            ("layernorm", lambda: layer_norm_fp32(x, w, b).to(torch.bfloat16),
+             lambda: K.layernorm(x, w, b), lambda: layer_norm(x, (width,), w16, b16)),
+            ("layernorm_bwd", lambda: layer_norm_bwd_plain(x, dy, w, res).to(torch.bfloat16),
+             lambda: K.layernorm_bwd(x, dy, w, res),
+             lambda: torch.autograd.grad(y, xg, dy16, retain_graph=True)),
+            ("layernorm_bwd_no_g", lambda: layer_norm_bwd_plain(x, dy, w).to(torch.bfloat16),
+             lambda: K.layernorm_bwd(x, dy, w),
+             lambda: torch.autograd.grad(y, xg, dy16, retain_graph=True)),
+            ("row_scale", lambda: (lambda z: (z, z.to(torch.bfloat16)))(
+                _gated(res.float() * 0.8, gate, tokens)),
+             lambda: K.row_scale(res, gate, tokens, 0.8), None))
+        for kind, plain, kernel, library in cases:
+            grad = kind.startswith("layernorm_bwd")
+            name = "row_scale" if kind == "row_scale" else kind.replace("_no_g", "")
+            with torch.no_grad():
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+            for k, p in zip(got if kind == "row_scale" else (got,),
+                            want if kind == "row_scale" else (want,)):
+                err = compare(f"{kind} ({rows}, {width})", k, p)
+                errors[name] = max(err, errors.get(name, 0.0))
+            del got, want
+            with torch.set_grad_enabled(grad):
+                t = [cuda_ms((plain, kernel)[i]) for i in (0, 1, 1, 0)]
+                lib = cuda_ms(library) if library else None
+            b_ms, b_by = bound_of(*row_pass_work(kind, rows, width, tokens))
+            label = f"{kind} ({rows}, {width})"
+            rows_out[label] = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                                   library_ms=lib, bound_ms=b_ms, bound_by=b_by)
+            log(f"  {label} on {card}: kernel {rows_out[label]['ms']:.4f} ms, plain "
+                f"{rows_out[label]['plain_ms']:.4f} ms, library "
+                f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})")
+        del x, res, w, b, dy, dy16, w16, b16, gate, xg, y
+        torch.cuda.empty_cache()
+    return rows_out
 
 
 # the temporal backward cores' checks: the register branch's strips, its last
@@ -2739,7 +2958,8 @@ def phase_17(card, errors, op_ms, library_ms):
     """Phase 17 (see the module docstring): the cores' and the GEMM's
     checks into ``errors``, the segment core's and the spatial cores' times
     into ``op_ms`` and ``library_ms``. Returns (the segment core's bound,
-    the GEMM rows, the spatial cores' rows, the temporal cores' rows)."""
+    the GEMM rows, the spatial cores' rows, the temporal cores' rows, the
+    row passes' rows)."""
     log("phase 17: the segment forward core and the flash core at the branch points of "
         "their designs, the GEMM at ragged shapes, the spatial forward and backward cores "
         "alone")
@@ -2748,10 +2968,11 @@ def phase_17(card, errors, op_ms, library_ms):
     spatial_core_checks(errors)
     spatial_bwd_checks(errors)
     temporal_bwd_checks(errors)
+    temporal_fwd_checks(errors)
     log(f"phase 17: timings on {card}")
     seg_bound = segment_core_timing(card, op_ms, library_ms)
     return (seg_bound, gemm_timings(card), spatial_core_timings(card, op_ms, library_ms),
-            temporal_core_timings(card))
+            temporal_core_timings(card), row_pass_timings(card, errors))
 
 
 def main():
@@ -2813,7 +3034,8 @@ def main():
         segment_eval, gemm_eval = _kernels.temporal_segment.launches, _kernels.gemm.launches
         spatial_eval = _kernels.spatial_attention.launches
         spatial_bwd_eval = _kernels.spatial_attention_bwd.launches
-        temporal_bwd_eval = temporal_bwd_launches()
+        temporal_eval = temporal_launches()
+        rows_eval = row_pass_launches()
     forwards = len(top5) + -(-n_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic videos: {results}")
@@ -2824,7 +3046,8 @@ def main():
     # 12 GEMMs (4 products in each of the three steps)
     check_core("spatial forward core", "flagship eval", spatial_eval, 12 * forwards)
     check_core("spatial backward core", "flagship eval", spatial_bwd_eval, 0)
-    check_temporal_bwd("flagship eval", temporal_bwd_eval, 0, 0)
+    check_temporal("flagship eval", temporal_eval, 12 * forwards, 0, 0)
+    check_row_passes("flagship eval", rows_eval, 36 * forwards, 0, 0)
     check_core("GEMM", "flagship eval", gemm_eval, 144 * forwards)
     GEMM_LAUNCHES["flagship eval forward"] = gemm_eval / forwards
     if scores.shape != (n_videos, 400) or not (abs(scores.sum(1) - 1) < 1e-3).all():
@@ -2944,7 +3167,8 @@ def main():
         segment_train, gemm_train = _kernels.temporal_segment.launches, _kernels.gemm.launches
         spatial_train = _kernels.spatial_attention.launches
         spatial_bwd_train = _kernels.spatial_attention_bwd.launches
-        temporal_bwd_train = temporal_bwd_launches()
+        temporal_train = temporal_launches()
+        rows_train = row_pass_launches()
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data, build and validation included); losses "
             f"{[round(h['loss'], 4) for h in history]}")
@@ -2959,8 +3183,16 @@ def main():
                    24 * steps + 12 * n_val)
         # and the backward core once a layer a step (fused_step_bwd_dx)
         check_core("spatial backward core", "flagship train", spatial_bwd_train, 12 * steps)
-        # and the temporal backward core once a layer a step (fused_temporal_step_bwd_dx)
-        check_temporal_bwd("flagship train", temporal_bwd_train, 12 * steps, 0)
+        # and the temporal backward core once a layer a step
+        # (fused_temporal_step_bwd_dx), the forward core twice (the forward
+        # and that backward's recompute) and once a validation forward
+        check_temporal("flagship train", temporal_train, 24 * steps + 12 * n_val,
+                       12 * steps, 0)
+        # the row passes: 6 LayerNorms a layer a step (three steps, forward
+        # and backward) and 3 a validation forward, 3 LN backwards, 2
+        # gated cotangents (the temporal and joint steps' backwards)
+        check_row_passes("flagship train", rows_train, 72 * steps + 36 * n_val, 36 * steps,
+                         24 * steps)
         GEMM_LAUNCHES["flagship train step"] = (
             gemm_train - n_val * GEMM_LAUNCHES["flagship eval forward"]) / steps
         log(f"  GEMM launches: {GEMM_LAUNCHES['flagship eval forward']:g} an eval "
@@ -3104,14 +3336,15 @@ def main():
         results, scores, _ = run_evaluation(cfg8, model=model8, batch_size=eval_batch,
                                             num_workers=2, return_scores=True)
         ssv2_launches = ops.launch_counts()  # ... and ends here
-        ssv2_bwd_eval = temporal_bwd_launches()
+        ssv2_bwd_eval = temporal_launches()
     forwards = len(top5) + -(-n_videos // eval_batch) * -(-views // chunk)
     log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic 3-crop videos in chunks of {chunk} "
         f"views: {results}")
     check_launches(f"SSv2 eval path ({forwards} forwards x 12 layers)", ssv2_launches,
                    {op: 12 * forwards for op in ops.EVAL_OPS[2]})
-    check_temporal_bwd("SSv2 eval", ssv2_bwd_eval, 0, 0)
+    # the plain temporal block (row 14) launches the forward core once a layer
+    check_temporal("SSv2 eval", ssv2_bwd_eval, 12 * forwards, 0, 0)
     if scores.shape != (n_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad SSv2 eval scores {scores.shape}")
     if any(not (0 <= s <= 1) for r in top5 for _, s in r):
@@ -3147,13 +3380,14 @@ def main():
                                      validate=False, device="cuda")
         torch.cuda.synchronize()
         ssv2_train_launches = ops.launch_counts()  # ... and ends here
-        ssv2_bwd_train = temporal_bwd_launches()
+        ssv2_bwd_train = temporal_launches()
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data and build included); losses {[round(h['loss'], 4) for h in history]}")
         check_launches(f"SSv2 train path ({steps8} steps x 12 layers)",
                        ssv2_train_launches, {op: 12 * steps8 for op in ops.TRAIN_OPS[2]})
-        # the plain temporal block's backward (row 18) once a layer a step
-        check_temporal_bwd("SSv2 train", ssv2_bwd_train, 12 * steps8, 0)
+        # the plain temporal block's forward (row 14) and backward (row 18)
+        # once a layer a step; the backward recomputes no forward
+        check_temporal("SSv2 train", ssv2_bwd_train, 12 * steps8, 12 * steps8, 0)
         if state.step != steps8 or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError("SSv2 train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -3294,13 +3528,14 @@ def main():
         results, scores, _ = run_evaluation(cfg10, model=model10, batch_size=eval_batch,
                                             num_workers=2, return_scores=True)
         flash_launches = ops.launch_counts()  # ... and ends here
-        flash_bwd_eval = temporal_bwd_launches()
+        flash_bwd_eval = temporal_launches()
     forwards = len(top5) + -(-n_videos // eval_batch)
     log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
     log(f"  run_evaluation over {n_videos} synthetic 3-crop videos: {results}")
     check_launches(f"AIM_FLASH eval path ({forwards} forwards x 12 layers)", flash_launches,
                    {op: 12 * forwards for op in ops.FLASH_EVAL_OPS})
-    check_temporal_bwd("AIM_FLASH eval", flash_bwd_eval, 0, 0)
+    # the class token's temporal block (row 14) once a layer
+    check_temporal("AIM_FLASH eval", flash_bwd_eval, 12 * forwards, 0, 0)
     if scores.shape != (n_videos, classes10) or not (abs(scores.sum(1) - 1) < 1e-3).all():
         raise AssertionError(f"bad AIM_FLASH eval scores {scores.shape}")
     if any(not (0 <= s <= 1) for r in top5 for _, s in r):
@@ -3338,15 +3573,16 @@ def main():
         torch.cuda.synchronize()
         flash_train_launches = ops.launch_counts()  # ... and ends here
         flash_bwd_train = _kernels.spatial_attention_bwd.launches
-        flash_tbwd_train = temporal_bwd_launches()
+        flash_tbwd_train = temporal_launches()
         log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
             f"(data and build included); losses {[round(h['loss'], 4) for h in history]}")
         check_launches(f"AIM_FLASH train path ({steps10} steps x 12 layers)",
                        flash_train_launches, {op: 12 * steps10 for op in ops.FLASH_TRAIN_OPS})
         # the prompt-token block's backward (row 8) once a layer a step
         check_core("spatial backward core", "AIM_FLASH train", flash_bwd_train, 12 * steps10)
-        # the class token's temporal block backward (row 18) once a layer a step
-        check_temporal_bwd("AIM_FLASH train", flash_tbwd_train, 12 * steps10, 0)
+        # the class token's temporal block forward (row 14) and backward (row
+        # 18) once a layer a step
+        check_temporal("AIM_FLASH train", flash_tbwd_train, 12 * steps10, 12 * steps10, 0)
         if state.step != steps10 or not all(np.isfinite(h["loss"]) for h in history):
             raise AssertionError("AIM_FLASH train_model did not take finite steps")
         trained = state.model.state_dict()
@@ -3401,12 +3637,15 @@ def main():
     with torch.no_grad():
         p_win = model_win.forward_test(x)
     win_launches = ops.launch_counts()
+    win_temporal = temporal_launches()
     log(f"  {os.path.relpath(FLASH_WIN_CONFIG, ROOT)} ({bb_win['type']}, "
         f"{bb_win['num_frames']} frames, windows {tuple(bb_win['window_size'])}, not_shift "
         f"{bb_win['not_shift']}): one forward of 2 clips, probabilities {tuple(p_win.shape)}, "
         f"finite={bool(torch.isfinite(p_win).all())}")
     check_launches("AIM_FLASH_WIN forward (12 layers)", win_launches,
                    {op: 12 for op in ops.FLASH_EVAL_OPS})
+    # the class token's temporal block over 16 frames once a layer
+    check_temporal("AIM_FLASH_WIN forward", win_temporal, 12, 0, 0)
     if not (torch.isfinite(p_win).all() and (p_win.sum(1) - 1).abs().max() < 1e-3):
         raise AssertionError("the AIM_FLASH_WIN forward is not a probability")
     del model_win, x
@@ -3575,8 +3814,8 @@ def main():
     long144_launches, long144_train_launches = phase_16(card, errors)
 
     # ---- phase 17: the segment forward core and the flash core alone -------
-    seg_bound, gemm_rows, spatial_rows, temporal_rows = phase_17(card, errors, op_ms,
-                                                                 library_ms)
+    seg_bound, gemm_rows, spatial_rows, temporal_rows, row_pass_rows = phase_17(
+        card, errors, op_ms, library_ms)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
@@ -3701,23 +3940,39 @@ def main():
         max_abs_err=errors[bwd], ms=op_ms[bwd][0], plain_ms=op_ms[bwd][1],
         bound_ms=bwd_row["bound_ms"], bound_by=bwd_row["bound_by"],
         library_ms=library_ms[bwd]))
-    # the temporal backward cores alone, the full core's at the flagship's 32
-    # clips of 8 frames and the segment core's at 4 clips of 64, each with
-    # its launches on the first path that runs it
+    # the full temporal forward core and the temporal backward cores alone,
+    # the full cores at the flagship's 32 clips of 8 frames and the segment
+    # core's backward at 4 clips of 64, each with its launches on the first
+    # path that runs it
     for (core, replaces), kernel, label in (
+            (ops.TEMPORAL_CORE, "temporal forward core",
+             f"temporal forward core x=({32 * FRAMES}, {TOKENS}, {WIDTH}), T={FRAMES}"),
             (ops.TEMPORAL_BWD_CORE, "temporal backward core",
              f"temporal backward core x=({32 * FRAMES}, {TOKENS}, {WIDTH}), T={FRAMES}"),
             (ops.SEGMENT_BWD_CORE, "segment backward core",
              f"segment backward core x=({4 * LONG_FRAMES}, {TOKENS}, {WIDTH}), T={LONG_FRAMES}")):
         row, (path, n) = temporal_rows[label], CORE_LAUNCHES[kernel]
         kernels.append(dict(
-            name=core, route="cuda", source="adapt_image_models_torch/csrc/temporal_bwd.cuh",
+            name=core, route="cuda",
+            source="adapt_image_models_torch/csrc/" + (
+                "attention.cu" if core == ops.TEMPORAL_CORE[0] else "temporal_bwd.cuh"),
             replaces=replaces, path=path, launches=n, max_abs_err=errors[core], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row["library_ms"]))
+    # the row passes alone at the flagship's (50432, 768) (LayerNorm's
+    # backward with g, as the step backwards run it), each with its launches
+    # on the first path that runs it
+    for fn, label, replaces in ROW_PASS_KERNELS:
+        row, (path, n) = row_pass_rows[f"{fn} (50432, 768)"], CORE_LAUNCHES[label]
+        kernels.append(dict(
+            name=fn, route="cuda", source="adapt_image_models_torch/csrc/layernorm.cu",
+            replaces=replaces, path=path, launches=n, max_abs_err=errors[fn], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"]))
     log(f"GEMM rows: {json.dumps(gemm_rows)}")
     log(f"spatial core rows: {json.dumps(spatial_rows)}")
     log(f"temporal core rows: {json.dumps(temporal_rows)}")
+    log(f"row pass rows: {json.dumps(row_pass_rows)}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": torch.cuda.device_count()}}))

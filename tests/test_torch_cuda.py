@@ -25,7 +25,8 @@ the two mma orientations of its scores bit for bit; the plain spatial block
 runs forward and backward at 289 and 801 tokens.
 
 The two temporal backward cores (``csrc/temporal_bwd.cuh``: the full core's
-and the segment core's, on mma.sync) are held alone at every branch point
+and the segment core's, on mma.sync) and the full temporal forward core
+(``csrc/attention.cu``, on mma.sync) are held alone at every branch point
 of their designs, both model widths, with two launches bit-equal.
 
 The LN-only and adapter-only attention blocks of ``CLIPAttention``
@@ -877,6 +878,43 @@ def test_temporal_backward_cores_match_plain(cuda, core, frames, tokens, heads):
         _grad_held(name, dqkv[:, i * d:(i + 1) * d], want[:, i * d:(i + 1) * d])
     _grad_held("o", o, want_o)
     assert (design, frames) in K._designs_held
+
+
+# ---------------------------------------------------------------------------
+# the full temporal forward core (csrc/attention.cu, ops.temporal_fwd_design)
+
+# two problems to a strip at T = 1 and 8, one strip at 9 and 16, two at 17
+# and 32, three at 33, the register branch's last (144) and the staged
+# branch's first (145) at both model widths; an odd count of problems (3
+# heads), whose last strip holds one; the staged branch's last (800) and the
+# streamed branch's first (801) at 17 tokens and 2 heads, where the plain
+# version's (T, T) scores stay small
+TEMPORAL_FWD_CASES = ([(t, 197, 12) for t in (1, 8, 9, 16, 17, 32, 33, 144, 145)]
+                      + [(t, 257, 16) for t in (1, 8, 9, 16, 17, 32, 33, 144, 145)]
+                      + [(8, 5, 3), (800, 17, 2), (801, 17, 2)])
+
+
+@pytest.mark.parametrize("frames,tokens,heads", TEMPORAL_FWD_CASES)
+def test_temporal_forward_core_branches_match_plain(cuda, frames, tokens, heads):
+    """The full temporal forward core on one clip at each branch point of
+    its design: against ``temporal_core_plain`` and the unrounded result;
+    two launches bit-equal; one count a launch; the design held to its
+    twin."""
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import temporal_core_plain
+    g = torch.Generator().manual_seed(170 + frames)
+    qkv = torch.randn(frames * tokens, 3 * 64 * heads, generator=g).to(cuda, torch.bfloat16)
+    before = K.temporal_attention.launches
+    got = K.temporal_attention(qkv, 1, frames, tokens)
+    again = K.temporal_attention(qkv, 1, frames, tokens)
+    torch.cuda.synchronize()
+    assert K.temporal_attention.launches == before + 2
+    assert torch.equal(got, again)
+    want = temporal_core_plain(qkv, 1, frames, tokens, heads)
+    _held(f"temporal forward T={frames}", got, want,
+          temporal_core_plain(qkv.float(), 1, frames, tokens, heads))
+    assert (got.float() - want.float()).abs().mean() < MEAN_TOL
+    assert ("aim_temporal_attention_design", frames) in K._designs_held
 
 
 # ---------------------------------------------------------------------------

@@ -122,7 +122,7 @@ def test_port_sources_import_no_jax_package():
              + glob.glob(os.path.join(ROOT, "tools", "*_torch.py"))
              + [os.path.join(ROOT, "tests", name)
                 for name in ("test_torch_cuda.py", "test_torch_gemm_design.py",
-                             "test_torch_temporal_bwd.py")])
+                             "test_torch_temporal_bwd.py", "test_torch_temporal_fwd.py")])
     assert len(files) > 30
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"adapt_image_models_torch/models/backbones/vit_clip.py",

@@ -1,18 +1,20 @@
 #!/usr/bin/env python
-"""Time the GEMM (``csrc/gemm.cu``), the spatial attention cores and the
-temporal backward cores alone, and the TPU kernels that run the backward
-cores (PERF.md rows 7, 8, 9, 11 and 17-22), on one card in two source trees
-of the port, in turns A, B, B, A.
+"""Time the GEMM (``csrc/gemm.cu``), the spatial attention cores, the
+temporal backward cores and the full temporal forward core alone, and the
+TPU kernels that run the backward cores (PERF.md rows 7, 8, 9, 11 and
+17-22), on one card in two source trees of the port, in turns A, B, B, A.
 
     python tools/kernel_ab_torch.py --a PARENT_TREE --b . [--out FILE]
+        [--only "temporal forward"]   # the functions whose names hold it
 
 Each turn is a subprocess that builds the tree's kernels from its
 ``adapt_image_models_torch/csrc/`` (into that tree's ``csrc/build/``) and
 times them through the wrappers both trees have, ``_kernels.gemm``,
 ``_kernels.spatial_attention``, ``_kernels.spatial_attention_bwd``,
-``_kernels.temporal_attention_bwd`` and ``_kernels.temporal_segment_bwd``, at
-``tools/kernel_bounds_torch.py``'s GEMM_SHAPES, SPATIAL_SHAPES and
-TEMPORAL_BWD_SHAPES, and the ops of ROWS at their model shapes, on inputs
+``_kernels.temporal_attention_bwd``, ``_kernels.temporal_segment_bwd`` and
+``_kernels.temporal_attention``, at ``tools/kernel_bounds_torch.py``'s
+GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES and TEMPORAL_FWD_SHAPES,
+and the ops of ROWS at their model shapes, on inputs
 made from one seed: median of 20 CUDA-event timings a function, after 3
 warm-ups. The same turn times the library call of each core,
 ``torch.matmul`` (the product alone) and ``scaled_dot_product_attention``
@@ -48,14 +50,16 @@ def _ms(fn, iters=20, warmup=3):
     return statistics.median(times)
 
 
-def worker(tree):
-    """Time one tree's kernels; print one JSON object {name: [kernel ms,
-    library ms]}."""
+def worker(tree, only=""):
+    """Time one tree's kernels whose names hold ``only``; print one JSON
+    object {name: [kernel ms, library ms]}."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from torch.nn.functional import scaled_dot_product_attention as sdpa
     from adapt_image_models_torch.ops import _kernels
-    from kernel_bounds_torch import GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES
+    from kernel_bounds_torch import (
+        GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES, TEMPORAL_FWD_SHAPES,
+    )
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab_torch: needs an NVIDIA GPU")
     _kernels.library()
@@ -64,9 +68,14 @@ def worker(tree):
     def randn(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
 
+    def wanted(*names):
+        return any(only in name for name in names)
+
     out = {}
     with torch.no_grad():
         for label, m, k, n, layout, epilogue in GEMM_SHAPES:
+            if not wanted(f"gemm {label}"):
+                continue
             a = randn(m, k).to(torch.bfloat16)
             kn = layout == "kn"
             w = (0.02 * randn(*((k, n) if kn else (n, k)))).to(torch.bfloat16)
@@ -77,6 +86,9 @@ def worker(tree):
             del a, w, kw
             torch.cuda.empty_cache()
         for frames, heads, length in SPATIAL_SHAPES:
+            if not wanted(f"spatial forward {(frames, heads, length)} prenorm",
+                          f"spatial backward {(frames, heads, length)}"):
+                continue
             d = 64 * heads
             qkv = randn(frames * length, 3 * d).to(torch.bfloat16)
             q, k, v = (t.view(frames, length, heads, 64).transpose(1, 2).contiguous()
@@ -98,6 +110,8 @@ def worker(tree):
             del qkv, q, k, v, dout, do, qg, kg, vg, o
             torch.cuda.empty_cache()
         for label, clips, frames, tokens, heads in TEMPORAL_BWD_SHAPES:
+            if not wanted(f"temporal backward {label}", f"segment backward {label}"):
+                continue
             d, rows = 64 * heads, clips * frames * tokens
             qkv = randn(rows, 3 * d).to(torch.bfloat16)
             dout = randn(rows, d)
@@ -117,7 +131,22 @@ def worker(tree):
                 _ms(lambda: _kernels.temporal_segment_bwd(qkv, dout, *args)), lib_bwd]
             del qkv, dout, d16, q, k, v, do, qg, kg, vg, o
             torch.cuda.empty_cache()
+        for label, clips, frames, tokens, heads in TEMPORAL_FWD_SHAPES:
+            if not wanted(f"temporal forward {label}"):
+                continue
+            d = 64 * heads
+            qkv = randn(clips * frames * tokens, 3 * d).to(torch.bfloat16)
+            q, k, v = (t.view(clips, frames, tokens, heads, 64).permute(0, 2, 3, 1, 4)
+                       .reshape(clips * tokens, heads, frames, 64).contiguous()
+                       for t in qkv.split(d, -1))
+            out[f"temporal forward {label}"] = [
+                _ms(lambda: _kernels.temporal_attention(qkv, clips, frames, tokens)),
+                _ms(lambda: sdpa(q, k, v))]
+            del qkv, q, k, v
+            torch.cuda.empty_cache()
         for row, *shape in ROWS:
+            if not wanted(row_label(row, *shape)):
+                continue
             out[row_label(row, *shape)] = [_ms(row_call(row, shape, g)), None]
             torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
@@ -196,11 +225,12 @@ def main(argv=None):
     p.add_argument("--a", required=True, help="the first tree (the parent)")
     p.add_argument("--b", default=".", help="the second tree (the change)")
     p.add_argument("--out", help="write the turns and the table as JSON here")
+    p.add_argument("--only", default="", help="time only the functions whose names hold this")
     p.add_argument("--worker", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.worker:
         sys.path.insert(0, HERE)
-        return worker(args.worker)
+        return worker(args.worker, args.only)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
@@ -208,15 +238,16 @@ def main(argv=None):
     turns = []
     for tree in (args.a, args.b, args.b, args.a):
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--a", args.a,
-                               "--worker", tree], capture_output=True, text=True)
+                               "--only", args.only, "--worker", tree],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"turn on {tree} failed:\n{proc.stderr[-4000:]}")
         turns.append((tree, json.loads(proc.stdout.strip().splitlines()[-1])))
         print(f"turn {len(turns)} ({tree}): {json.dumps(turns[-1][1])}", flush=True)
     sys.path.insert(0, HERE)
     from kernel_bounds_torch import (
-        GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES, bound, bound_of, gemm_shape_work,
-        spatial_core_work, temporal_bwd_work,
+        GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES, TEMPORAL_FWD_SHAPES, bound,
+        bound_of, gemm_shape_work, spatial_core_work, temporal_bwd_work, temporal_fwd_work,
     )
     bounds = {f"gemm {label}": (bound_of(*gemm_shape_work(m, k, n, e)), 2 * m * k * n)
               for label, m, k, n, _, e in GEMM_SHAPES}
@@ -228,6 +259,9 @@ def main(argv=None):
         for core in ("temporal", "segment"):
             bounds[f"{core} backward {label}"] = (bound_of(*temporal_bwd_work(
                 clips, frames, tokens, heads, core == "segment")), None)
+    for label, clips, frames, tokens, heads in TEMPORAL_FWD_SHAPES:
+        bounds[f"temporal forward {label}"] = (bound_of(*temporal_fwd_work(
+            clips, frames, tokens, heads)), None)
     for row, clips, frames, tokens, width in ROWS:
         bounds[row_label(row, clips, frames, tokens, width)] = (
             bound(row, clips=clips, frames=frames, tokens=tokens, width=width), None)

@@ -8,8 +8,9 @@ the repo (every function under ``adapt_image_models_tpu/ops/`` that reaches
     python tools/kernel_bounds_torch.py --attention   # row 13 at the ViT_CLIP paths' shapes
     python tools/kernel_bounds_torch.py --cores --clips 4 --frames 64
         # the segment forward core alone at the shape, the spatial forward
-        # and backward cores alone (SPATIAL_SHAPES) and the GEMM
-        # (GEMM_SHAPES)
+        # and backward cores alone (SPATIAL_SHAPES), the full temporal
+        # forward core alone (TEMPORAL_FWD_SHAPES), the GEMM (GEMM_SHAPES)
+        # and the row passes (ROW_PASS_SHAPES)
 
 The bound of a function is the larger of two times: the FLOPs of its
 products (GEMMs and attention cores, 2 a multiply-add; elementwise work is
@@ -212,6 +213,44 @@ def temporal_bwd_work(clips, frames, tokens, heads, segment=False):
     return flops, nbytes + (2 * clips * frames * tokens * 64 * heads if segment else 0)
 
 
+# the full temporal forward core alone (tools/kernel_ab_torch.py,
+# chip_smoke.py phase 17): (label, clips, frames, tokens, heads) of x = (256,
+# 197, 768) at the three frame counts of the models that take it (the
+# flagship's 32 clips of 8 frames, 16 of 16, 8 of 32) and ViT-L/14's 4 clips
+# of 32 frames (257 tokens, 16 heads)
+TEMPORAL_FWD_SHAPES = (("32x8f", 32, 8, 197, 12), ("16x16f", 16, 16, 197, 12),
+                       ("8x32f", 8, 32, 197, 12), ("L14 4x32f", 4, 32, 257, 16))
+
+
+def temporal_fwd_work(clips, frames, tokens, heads):
+    """(FLOPs, bytes) of the full temporal forward core alone
+    (``_kernels.temporal_attention``): the spatial forward's work at (clips *
+    tokens, heads, T), packed QKV read once and the output written once."""
+    return spatial_core_work(clips * tokens, heads, frames)
+
+
+# the row passes of csrc/layernorm.cu alone (chip_smoke.py phase 17): (rows,
+# width) of the flagship's 32 clips x 8 frames x 197 tokens and ViT-L/14's 4
+# clips x 32 frames x 257 tokens
+ROW_PASS_SHAPES = ((50432, 768), (32896, 1024))
+ROW_PASSES = ("layernorm", "layernorm_bwd", "layernorm_bwd_no_g", "row_scale")
+
+
+def row_pass_work(kind, rows, width, rows_per_scale=197):
+    """(FLOPs, bytes) of one row pass of ``csrc/layernorm.cu``: no products,
+    so its bound is its bytes. ``layernorm``: bf16 x read, bf16 y written,
+    fp32 gamma and beta; ``layernorm_bwd``: bf16 x, fp32 dy and bf16 g read,
+    bf16 dx written, fp32 gamma (``layernorm_bwd_no_g``: without g);
+    ``row_scale``: bf16 g read, its fp32 product and that product's bf16
+    rounding written, one fp32 scale a group of ``rows_per_scale`` rows."""
+    act = rows * width
+    nbytes = {"layernorm": 4 * act + 8 * width,
+              "layernorm_bwd": 10 * act + 4 * width,
+              "layernorm_bwd_no_g": 8 * act + 4 * width,
+              "row_scale": 8 * act + 4 * -(-rows // rows_per_scale)}[kind]
+    return 0, nbytes
+
+
 def bound_of(flops, nbytes):
     """(least milliseconds on one H100, "operations" or "bytes") of work
     that does ``flops`` FLOPs and moves ``nbytes`` bytes."""
@@ -258,6 +297,16 @@ def main(argv=None):
                       f"({frames}, {heads}, {length}, 64) | {work_[0] / 1e9:.2f} | "
                       f"{work_[1] / 1e6:.1f} | {bound_of(*work_)[0]:.4f} | "
                       f"{bound_of(*work_)[1]} |")
+        for label, clips, frames, tokens, heads in TEMPORAL_FWD_SHAPES:
+            work_ = temporal_fwd_work(clips, frames, tokens, heads)
+            print(f"| temporal forward core {label} | x = ({clips * frames}, {tokens}, "
+                  f"{64 * heads}), T={frames} | {work_[0] / 1e9:.2f} | {work_[1] / 1e6:.1f} | "
+                  f"{bound_of(*work_)[0]:.4f} | {bound_of(*work_)[1]} |")
+        for rows, width in ROW_PASS_SHAPES:
+            for kind in ROW_PASSES:
+                work_ = row_pass_work(kind, rows, width)
+                print(f"| {kind} | ({rows}, {width}) | 0 | {work_[1] / 1e6:.1f} | "
+                      f"{bound_of(*work_)[0]:.4f} | {bound_of(*work_)[1]} |")
         for label, m, k, n, layout, epilogue in GEMM_SHAPES:
             work_ = gemm_shape_work(m, k, n, epilogue)
             print(f"| wgmma GEMM {label} | ({m}, {k}) @ ({k}, {n}) {layout} "
