@@ -4,7 +4,7 @@ train ops are autograd ops whose forward and backward are such wrappers."""
 
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._kernels import (  # noqa: F401
-    flash_fwd_design, gemm_design, segment_fwd_design, spatial_bwd_design,
+    flash_fwd_design, gemm_design, row_pass_design, segment_fwd_design, spatial_bwd_design,
     temporal_bwd_design, temporal_fwd_design, temporal_segment_bwd_design,
 )
 from adapt_image_models_torch.ops.flash_attention import (  # noqa: F401

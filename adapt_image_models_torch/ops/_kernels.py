@@ -36,6 +36,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "aim_layernorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
     "aim_layernorm_bwd_bf16": [_P, _P, _P, _P, _P, _I, _I, _F, _P],
+    "aim_row_pass_design": [_I, _I, _P],
     "aim_row_scale_bf16": [_P, _P, _I, _F, _P, _P, _I, _I, _P],
     "aim_gemm_bf16": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _F,
                       _I, _I, _I, _P, _P, _P],
@@ -77,6 +78,14 @@ GEMM_BM, GEMM_BK = 128, 64
 GEMM_STAGES = {128: 6, 256: 4}
 GEMM_SMEM_EXTRA = 1024 + 128
 SMS = 132  # streaming multiprocessors of an H100 SXM
+# the LayerNorm row passes (csrc/layernorm.cu): the kinds in the order of
+# their C numbers, the widest row held in registers, the warps of a register
+# block and of a streamed one, and the blocks an SM of the register branch
+# by chunks a lane (1 .. 4)
+ROW_PASS_KINDS = ("forward", "backward")
+ROW_PASS_REGISTERS = 1024
+ROW_PASS_WARPS, ROW_PASS_STREAM_WARPS = 4, 8
+ROW_PASS_BLOCKS = (8, 6, 4, 3)
 
 
 def _round_up(a: int, b: int) -> int:
@@ -212,6 +221,25 @@ def gemm_design(m: int, n: int, k: int, kn: bool = False) -> Tuple[str, int]:
     return f"bn{bn}", GEMM_STAGES[bn] * stage + GEMM_SMEM_EXTRA
 
 
+def row_pass_design(kind: str, d: int) -> Tuple[str, int, int, int]:
+    """(branch, chunks a lane, warps a block, blocks an SM) of the LayerNorm
+    ``kind`` ("forward" or "backward") at width ``d``, as
+    ``csrc/layernorm.cu::row_pass_design`` picks them (both kinds alike): a
+    lane holds its CPL = ceil(d / 256) chunks of 8 values of a row in
+    registers, with a grid of persistent 4-warp blocks, ROW_PASS_BLOCKS[CPL
+    - 1] an SM, walking the rows ("registers"), up to d = 1024; past that
+    one warp a row, 8 rows a block, sweeping it from L1 ("streamed", CPL
+    and blocks an SM 0)."""
+    if kind not in ROW_PASS_KINDS:
+        raise ValueError(f"row pass kind must be one of {ROW_PASS_KINDS}, got {kind!r}")
+    if d <= 0 or d % 8:
+        raise ValueError(f"row pass: D={d} must be a positive multiple of 8")
+    if d > ROW_PASS_REGISTERS:
+        return "streamed", 0, ROW_PASS_STREAM_WARPS, 0
+    cpl = -(-d // 256)
+    return "registers", cpl, ROW_PASS_WARPS, ROW_PASS_BLOCKS[cpl - 1]
+
+
 _DESIGNS = {
     "aim_temporal_segment_design": (
         segment_fwd_design, ("registers64", "registers128", "staged", "streamed")),
@@ -222,23 +250,29 @@ _DESIGNS = {
     "aim_temporal_segment_bwd_design": (
         temporal_segment_bwd_design, ("registers", "staged", "streamed")),
     "aim_gemm_design": (gemm_design, ("bn128", "bn256")),
+    "aim_row_pass_design": (lambda kind, d: row_pass_design(ROW_PASS_KINDS[kind], d),
+                            ("registers", "streamed")),
 }
 _designs_held = set()
 
 
 def _hold_design(c_name: str, *size: int) -> None:
     """Raise unless the kernel's C design function picks the branch and the
-    shared memory that its Python twin does at ``size`` (a length, or the
-    GEMM's (m, n, k, kn)); once a size."""
+    numbers that its Python twin does at ``size`` (a length, the GEMM's (m,
+    n, k, kn), a row pass's (kind number, D)); once a size. The twin returns
+    (branch, *numbers) and the C function writes the numbers (the shared
+    memory; a row pass's chunks a lane, warps a block and blocks an SM) to
+    the ints its last argument points at."""
     key = (c_name, *size)
     if key in _designs_held:
         return
     plain, branches = _DESIGNS[c_name]
-    smem = ctypes.c_int(0)
-    code = getattr(library(), c_name)(*size, ctypes.byref(smem))
-    got = (branches[code] if 0 <= code < len(branches) else code, smem.value)
-    if got != plain(*size):
-        raise RuntimeError(f"{c_name}{size} = {got}, its Python twin says {plain(*size)}")
+    want = plain(*size)
+    numbers = (ctypes.c_int * (len(want) - 1))()
+    code = getattr(library(), c_name)(*size, numbers)
+    got = (branches[code] if 0 <= code < len(branches) else code, *numbers)
+    if got != want:
+        raise RuntimeError(f"{c_name}{size} = {got}, its Python twin says {want}")
     _designs_held.add(key)
 
 
@@ -324,7 +358,11 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    """The raw handle of the current device's current CUDA stream (what
+    ``torch.cuda.current_stream().cuda_stream`` gives, without building a
+    Stream object a call: several microseconds of a short kernel's host
+    time)."""
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device())
 
 
 def _check(code: int, name: str) -> None:
@@ -332,11 +370,54 @@ def _check(code: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {code}")
 
 
+def _row_pass_args(name: str, x: torch.Tensor, bf16=(), f32=(), vectors=(), like_x=(),
+                   unaligned=()) -> Tuple[int, int]:
+    """(rows, D) of a row pass's (rows, D) ``x``; raise ``ValueError`` unless
+    every given tensor is a contiguous CUDA tensor on x's device, of its
+    dtype (x and ``bf16`` bf16, ``f32`` and ``unaligned`` fp32), 16-byte
+    aligned (the kernels read rows and vectors in 16-byte pieces;
+    ``unaligned`` is read by the element), D a positive multiple of 8,
+    ``vectors`` of shape (D,) and ``like_x`` of x's shape. Nothing here needs
+    the library. The checks take the cheapest tensor attributes: a call's
+    host time counts wherever the card waits for it."""
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be (rows, D), got {tuple(x.shape)}")
+    rows, d = x.shape
+    if d <= 0 or d % 8:
+        raise ValueError(f"{name}: D={d} must be a positive multiple of 8")
+    device = x.get_device()
+    for dtype, tensors, aligned in ((torch.bfloat16, (x, *bf16), True),
+                                    (torch.float32, f32, True),
+                                    (torch.float32, unaligned, False)):
+        for t in tensors:
+            if not t.is_cuda:
+                raise ValueError(f"{name}: the kernel takes CUDA tensors, got one on {t.device}")
+            if t.get_device() != device:
+                raise ValueError(f"{name}: all tensors must be on {x.device}, got {t.device}")
+            if t.dtype is not dtype:
+                raise ValueError(f"{name}: x and g must be bf16; gamma, beta, dy and scale "
+                                 f"fp32; got {t.dtype}")
+            if not t.is_contiguous():
+                raise ValueError(f"{name}: tensors must be contiguous")
+            if aligned and t.data_ptr() & 15:
+                raise ValueError(f"{name}: tensors must be 16-byte aligned")
+    for t in vectors:
+        if t.dim() != 1 or t.size(0) != d:
+            raise ValueError(f"{name}: gamma and beta must be ({d},), got {tuple(t.shape)}")
+    for t in like_x:
+        if t.size() != x.size():
+            raise ValueError(f"{name}: dy and g must be {tuple(x.shape)}, got {tuple(t.shape)}")
+    return rows, d
+
+
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float = 1e-5) -> torch.Tensor:
-    """(rows, D) bf16 -> (rows, D) bf16, fp32 statistics and affine. Each
-    launch adds one to ``launches``."""
-    rows, d = x.shape
+    """(rows, D) bf16 -> (rows, D) bf16, fp32 statistics and affine (fp32
+    ``weight`` and ``bias``), in one launch of the design
+    ``row_pass_design("forward", D)`` picks. Each launch adds one to
+    ``launches``."""
+    rows, d = _row_pass_args("layernorm", x, f32=(weight, bias), vectors=(weight, bias))
+    _hold_design("aim_row_pass_design", 0, d)  # kind 0: the forward
     y = torch.empty_like(x)
     _check(library().aim_layernorm_bf16(
         x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), rows, d,
@@ -352,10 +433,14 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
                   g: Optional[torch.Tensor] = None,
                   eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm backward plus the residual cotangent: x, g (rows, D) bf16,
-    dy (rows, D) fp32 -> dx (rows, D) bf16. With no ``g`` the LN backward
-    alone, as the dX-only backwards close. Each launch adds one to
-    ``launches``."""
-    rows, d = x.shape
+    dy (rows, D) fp32, fp32 ``weight`` -> dx (rows, D) bf16, in one launch
+    of the design ``row_pass_design("backward", D)`` picks. With no ``g``
+    the LN backward alone, as the dX-only backwards close. Each launch adds
+    one to ``launches``."""
+    given = () if g is None else (g,)
+    rows, d = _row_pass_args("layernorm_bwd", x, bf16=given, f32=(dy, weight),
+                             vectors=(weight,), like_x=(dy, *given))
+    _hold_design("aim_row_pass_design", 1, d)  # kind 1: the backward
     dx = torch.empty_like(x)
     _check(library().aim_layernorm_bwd_bf16(
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), _ptr(g),
@@ -370,9 +455,15 @@ layernorm_bwd.launches = 0
 def row_scale(g: torch.Tensor, scale: torch.Tensor, rows_per_scale: int,
               alpha: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """``g * alpha * scale[row // rows_per_scale]`` for (rows, D) bf16 g and
-    fp32 scale; returns the fp32 result and its bf16 rounding. Each launch
-    adds one to ``launches``."""
-    rows, d = g.shape
+    fp32 scale of one value a group of ``rows_per_scale`` rows; returns the
+    fp32 result and its bf16 rounding. Each launch adds one to
+    ``launches``."""
+    rows, d = _row_pass_args("row_scale", g, unaligned=(scale,))
+    if rows_per_scale <= 0:
+        raise ValueError(f"row_scale: rows_per_scale={rows_per_scale} must be positive")
+    if tuple(scale.shape) != (-(-rows // rows_per_scale),):
+        raise ValueError(f"row_scale: scale must be ({-(-rows // rows_per_scale)},), one a "
+                         f"group of {rows_per_scale} rows, got {tuple(scale.shape)}")
     o32 = torch.empty((rows, d), dtype=torch.float32, device=g.device)
     o16 = torch.empty_like(g)
     _check(library().aim_row_scale_bf16(

@@ -241,11 +241,17 @@ Phases, in order; any failure raises and exits non-zero:
      145, 800, 801: registers, three passes over staged rows, a ring), at
      197 tokens / 12 heads and 257 / 16, against its plain version under
      the forward bound, two launches bit-equal, its C design held to the
-     twin at every T to 1200; and the row passes of csrc/layernorm.cu
-     (LayerNorm forward, its backward with and without g, row_scale) alone
-     at ROW_PASS_SHAPES ((50432, 768), (32896, 1024)), held to their
-     plain versions under the forward bound and timed against them,
-     torch's layer_norm (its autograd backward) and their bounds.
+     twin at every T to 1200; the LayerNorm forward and its backward with
+     and without g (csrc/layernorm.cu) at 1, 7, 33 and 4097 rows of widths
+     8, 200, 768, 1024, 1032, 2048 and 2056 (both sides of the branch
+     edge of ops.row_pass_design) against their plain versions under the
+     forward bound, two launches bit-equal, their C design held to the
+     twin at every width to 4096; and the row passes (LayerNorm forward,
+     its backward with and without g, row_scale) alone at ROW_PASS_SHAPES
+     ((50432, 768), (32896, 1024)), held to their plain versions under the
+     forward bound and timed against them, torch's layer_norm and
+     native_layer_norm_backward and their bounds, as single calls and as a
+     call in a run of 10 launches.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -302,7 +308,8 @@ temporal backward cores alone, at 32 clips of 8 frames (the segment core's
 at 4 clips of 64), with their launches on the flagship eval, flagship
 train and ViT-B/16 64f train paths; layernorm, layernorm_bwd (with g) and
 row_scale are the row passes alone at (50432, 768), with their launches on
-the flagship eval or train path;
+the flagship eval or train path, with ms_run10 and library_ms_run10 beside
+ms and library_ms, a call in a run of 10 launches;
 the last line is {"ok": true, "device": {...}}.
 """
 
@@ -484,15 +491,18 @@ def device_line() -> str:
     return out.splitlines()[0]
 
 
-def compare(name, got, want):
-    """Max abs error of ``got`` against ``want``; raises past tolerance."""
+def compare(name, got, want, quiet=False):
+    """Max abs error of ``got`` against ``want``; raises past tolerance.
+    ``quiet`` logs nothing unless it raises."""
     diff = (got.float() - want.float()).abs()
     excess = (diff - (ATOL + RTOL * want.float().abs())).max().item()
     max_abs, mean_abs = diff.max().item(), diff.mean().item()
     rel = max_abs / max(want.float().abs().max().item(), 1e-30)
-    log(f"  {name}: max_abs_err={max_abs:.3e} mean_abs_err={mean_abs:.3e} "
-        f"max_err/max|ref|={rel:.3e} (tol {ATOL} + {RTOL}*|ref|, mean < {MEAN_TOL})")
-    if not (excess <= 0 and mean_abs < MEAN_TOL):
+    ok = excess <= 0 and mean_abs < MEAN_TOL
+    if not quiet or not ok:
+        log(f"  {name}: max_abs_err={max_abs:.3e} mean_abs_err={mean_abs:.3e} "
+            f"max_err/max|ref|={rel:.3e} (tol {ATOL} + {RTOL}*|ref|, mean < {MEAN_TOL})")
+    if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return max_abs
 
@@ -520,8 +530,11 @@ def compare_grad(name, got, want):
     return max_abs, ok
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Median milliseconds per call, CUDA events around each call."""
+def cuda_ms(fn, iters=20, warmup=3, launches=1):
+    """Median milliseconds per call, CUDA events around each call, or around
+    a run of ``launches`` calls (divided by it): the card then runs the calls
+    back to back while the host enqueues the next, so a short kernel's time
+    leaves out the host time of its wrapper."""
     import torch
     for _ in range(warmup):
         fn()
@@ -531,10 +544,11 @@ def cuda_ms(fn, iters=20, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -2825,19 +2839,89 @@ def temporal_fwd_checks(errors):
     torch.cuda.empty_cache()
 
 
+# the row passes' checks (ops.row_pass_design): both sides of the branch
+# edge, one chunk a lane (8; 200, lanes without a chunk), the models' three
+# and four (768; 1024, the last register width) and the streamed branch
+# (1032, 2048, 2056), at one row, fewer rows than a block's warps, a ragged
+# count and more rows than the persistent grid has warps; the C design held
+# to its twin at every width to ROW_PASS_DESIGN_WIDTH
+ROW_PASS_EDGE_ROWS = (1, 7, 33, 4097)
+ROW_PASS_EDGE_WIDTHS = (8, 200, 768, 1024, 1032, 2048, 2056)
+ROW_PASS_DESIGN_WIDTH = 4096
+
+
+def row_pass_checks(errors):
+    """The LayerNorm forward and its backward with and without g at
+    ROW_PASS_EDGE_ROWS x ROW_PASS_EDGE_WIDTHS against ``layer_norm_fp32``
+    and ``layer_norm_bwd_plain`` under the forward bound (compare), two
+    launches bit-equal, one line a width; ``aim_row_pass_design`` held to
+    ``ops.row_pass_design`` for both kinds (C numbers 0 and 1) at every
+    width to ROW_PASS_DESIGN_WIDTH."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import layer_norm_bwd_plain, layer_norm_fp32
+    t0 = time.perf_counter()
+    for kind in range(len(K.ROW_PASS_KINDS)):
+        for d in range(8, ROW_PASS_DESIGN_WIDTH + 1, 8):
+            K._hold_design("aim_row_pass_design", kind, d)
+    log(f"  aim_row_pass_design agrees with ops.row_pass_design at D = 8 .. "
+        f"{ROW_PASS_DESIGN_WIDTH} (forward and backward)")
+    g = torch.Generator(device="cuda").manual_seed(1797)
+    for d in ROW_PASS_EDGE_WIDTHS:
+        worst = {}
+        for rows in ROW_PASS_EDGE_ROWS:
+            def r(*shape, s=1.0):
+                return s * torch.randn(*shape, generator=g, device="cuda")
+            x, res = (0.5 + r(rows, d)).to(torch.bfloat16), r(rows, d).to(torch.bfloat16)
+            w, b, dy = 1 + r(d, s=0.1), r(d, s=0.1), r(rows, d)
+            for name, kernel, plain in (
+                    ("layernorm", lambda: K.layernorm(x, w, b),
+                     lambda: layer_norm_fp32(x, w, b)),
+                    ("layernorm_bwd", lambda: K.layernorm_bwd(x, dy, w, res),
+                     lambda: layer_norm_bwd_plain(x, dy, w, res)),
+                    ("layernorm_bwd_no_g", lambda: K.layernorm_bwd(x, dy, w),
+                     lambda: layer_norm_bwd_plain(x, dy, w))):
+                got, again = kernel(), kernel()
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} is not deterministic at ({rows}, {d})")
+                err = compare(f"{name} ({rows}, {d})", got, plain().to(torch.bfloat16),
+                              quiet=True)
+                key = name.replace("_no_g", "")
+                errors[key] = max(err, errors.get(key, 0.0))
+                worst[name] = max(err, worst.get(name, 0.0))
+        log(f"  row passes at D={d} (forward {ops.row_pass_design('forward', d)[0]}, backward "
+            f"{ops.row_pass_design('backward', d)[0]}), rows {ROW_PASS_EDGE_ROWS}: within the "
+            f"forward bound, max abs err {json.dumps(worst)}; two launches bit-equal")
+    torch.cuda.empty_cache()
+    log(f"  the row passes' checks took {time.perf_counter() - t0:.1f} s")
+
+
+ROW_PASS_RUN = 10  # launches a timed run of a row pass (cuda_ms)
+
+
 def row_pass_timings(card, errors):
     """The row passes of ``csrc/layernorm.cu`` alone at
     tools/kernel_bounds_torch.py's ROW_PASS_SHAPES: ``_kernels.layernorm``
     against ``layer_norm_fp32`` and ``torch.nn.functional.layer_norm`` (bf16
     x, gamma and beta: on the card it refuses fp32 ones beside bf16 x);
     ``_kernels.layernorm_bwd`` with and without the residual cotangent g
-    against ``layer_norm_bwd_plain`` and the autograd backward of that
-    ``layer_norm`` call for x alone (its cotangent in bf16);
-    ``_kernels.row_scale`` (one gate a frame of rows, alpha 0.8)
-    against its plain product, with no library call; each kernel and plain
-    plain-kernel-kernel-plain, median of 20, beside its bound; each
-    kernel's output held to its plain version under the forward bound
-    (compare) into ``errors``. Returns {label: row}."""
+    against ``layer_norm_bwd_plain`` and ``aten.native_layer_norm_backward``
+    called directly for dx, its statistics formed beforehand (on the card
+    it refuses an fp32 dy beside a bf16 x, so the library call reads an
+    fp32 copy of x and writes fp32 dx, and adds g with ``add_``, a second
+    call; ``library_bf16_ms`` is the same call on bf16 x, dy and gamma,
+    which moves fewer bytes than the kernel); ``_kernels.row_scale`` (one
+    gate a frame of rows, alpha 0.8) against its plain product, with no
+    library call. Each kernel and plain plain-kernel-kernel-plain, median of
+    20 single calls (``ms``, ``plain_ms``, ``library_ms``); the kernel and
+    the library call also as runs of ROW_PASS_RUN launches (``ms_run10``,
+    ``library_ms_run10``: the card runs them back to back while the host
+    enqueues the next, so a call's host time hides behind the card's
+    work); beside its bound. Each kernel's output is held to its plain
+    version under the forward bound (compare) into ``errors``. Returns
+    {label: row}."""
     import torch
     from torch.nn.functional import layer_norm
     from adapt_image_models_torch.ops import _kernels as K
@@ -2845,52 +2929,64 @@ def row_pass_timings(card, errors):
         _gated, layer_norm_bwd_plain, layer_norm_fp32,
     )
     sys.path.insert(0, os.path.join(ROOT, "tools"))
-    from kernel_bounds_torch import ROW_PASS_SHAPES, bound_of, row_pass_work
+    from kernel_bounds_torch import ROW_PASS_SHAPES, ROW_PASS_TOKENS, bound_of, row_pass_work
+    aten = torch.ops.aten
     g = torch.Generator(device="cuda").manual_seed(1795)
     rows_out = {}
-    for (rows, width), tokens in zip(ROW_PASS_SHAPES, (TOKENS, LARGE["tokens"])):
+    for (rows, width), tokens in zip(ROW_PASS_SHAPES, ROW_PASS_TOKENS):
         def r(*shape, s=1.0):
             return s * torch.randn(*shape, generator=g, device="cuda")
         x, res = r(rows, width).to(torch.bfloat16), r(rows, width).to(torch.bfloat16)
         w, b, dy = 1 + r(width, s=0.1), r(width, s=0.1), r(rows, width)
         gate = r(rows // tokens).abs()
         dy16, w16, b16 = (t.to(torch.bfloat16) for t in (dy, w, b))
-        xg = x.clone().requires_grad_()
-        y = layer_norm(xg, (width,), w16, b16)
+
+        def ln_bwd(x_, dy_, w_):
+            """native_layer_norm_backward's dx on these dtypes, its mean and
+            rstd formed here, outside the timed call."""
+            _, mean, rstd = aten.native_layer_norm(x_, (width,), w_, None, 1e-5)
+            return lambda: aten.native_layer_norm_backward(
+                dy_, x_, (width,), mean, rstd, w_, None, (True, False, False))[0]
+        bwd32, bwd16 = ln_bwd(x.float(), dy, w), ln_bwd(x, dy16, w16)
         cases = (
             ("layernorm", lambda: layer_norm_fp32(x, w, b).to(torch.bfloat16),
-             lambda: K.layernorm(x, w, b), lambda: layer_norm(x, (width,), w16, b16)),
+             lambda: K.layernorm(x, w, b), lambda: layer_norm(x, (width,), w16, b16), None),
             ("layernorm_bwd", lambda: layer_norm_bwd_plain(x, dy, w, res).to(torch.bfloat16),
-             lambda: K.layernorm_bwd(x, dy, w, res),
-             lambda: torch.autograd.grad(y, xg, dy16, retain_graph=True)),
+             lambda: K.layernorm_bwd(x, dy, w, res), lambda: bwd32().add_(res),
+             lambda: bwd16().add_(res)),
             ("layernorm_bwd_no_g", lambda: layer_norm_bwd_plain(x, dy, w).to(torch.bfloat16),
-             lambda: K.layernorm_bwd(x, dy, w),
-             lambda: torch.autograd.grad(y, xg, dy16, retain_graph=True)),
+             lambda: K.layernorm_bwd(x, dy, w), bwd32, bwd16),
             ("row_scale", lambda: (lambda z: (z, z.to(torch.bfloat16)))(
                 _gated(res.float() * 0.8, gate, tokens)),
-             lambda: K.row_scale(res, gate, tokens, 0.8), None))
-        for kind, plain, kernel, library in cases:
-            grad = kind.startswith("layernorm_bwd")
+             lambda: K.row_scale(res, gate, tokens, 0.8), None, None))
+        for kind, plain, kernel, library, library_bf16 in cases:
             name = "row_scale" if kind == "row_scale" else kind.replace("_no_g", "")
             with torch.no_grad():
                 got, want = kernel(), plain()
                 torch.cuda.synchronize()
-            for k, p in zip(got if kind == "row_scale" else (got,),
-                            want if kind == "row_scale" else (want,)):
-                err = compare(f"{kind} ({rows}, {width})", k, p)
-                errors[name] = max(err, errors.get(name, 0.0))
-            del got, want
-            with torch.set_grad_enabled(grad):
+                for k, p in zip(got if kind == "row_scale" else (got,),
+                                want if kind == "row_scale" else (want,)):
+                    err = compare(f"{kind} ({rows}, {width})", k, p)
+                    errors[name] = max(err, errors.get(name, 0.0))
+                del got, want
                 t = [cuda_ms((plain, kernel)[i]) for i in (0, 1, 1, 0)]
                 lib = cuda_ms(library) if library else None
+                lib16 = cuda_ms(library_bf16) if library_bf16 else None
+                run = cuda_ms(kernel, launches=ROW_PASS_RUN)
+                lib_run = cuda_ms(library, launches=ROW_PASS_RUN) if library else None
             b_ms, b_by = bound_of(*row_pass_work(kind, rows, width, tokens))
             label = f"{kind} ({rows}, {width})"
             rows_out[label] = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
-                                   library_ms=lib, bound_ms=b_ms, bound_by=b_by)
-            log(f"  {label} on {card}: kernel {rows_out[label]['ms']:.4f} ms, plain "
+                                   library_ms=lib, bound_ms=b_ms, bound_by=b_by, ms_run10=run,
+                                   library_ms_run10=lib_run, library_bf16_ms=lib16)
+            log(f"  {label} on {card}: one call: kernel {rows_out[label]['ms']:.4f} ms, plain "
                 f"{rows_out[label]['plain_ms']:.4f} ms, library "
-                f"{'none' if lib is None else f'{lib:.4f} ms'}, bound {b_ms:.4f} ms ({b_by})")
-        del x, res, w, b, dy, dy16, w16, b16, gate, xg, y
+                f"{'none' if lib is None else f'{lib:.4f} ms'}"
+                f"{'' if lib16 is None else f' (bf16 {lib16:.4f} ms)'}; a call in a run of "
+                f"{ROW_PASS_RUN}: kernel {run:.4f} ms, library "
+                f"{'none' if lib_run is None else f'{lib_run:.4f} ms'}; bound {b_ms:.4f} ms "
+                f"({b_by})")
+        del x, res, w, b, dy, dy16, w16, b16, gate, bwd32, bwd16, cases
         torch.cuda.empty_cache()
     return rows_out
 
@@ -2969,6 +3065,7 @@ def phase_17(card, errors, op_ms, library_ms):
     spatial_bwd_checks(errors)
     temporal_bwd_checks(errors)
     temporal_fwd_checks(errors)
+    row_pass_checks(errors)
     log(f"phase 17: timings on {card}")
     seg_bound = segment_core_timing(card, op_ms, library_ms)
     return (seg_bound, gemm_timings(card), spatial_core_timings(card, op_ms, library_ms),
@@ -3968,7 +4065,8 @@ def main():
             name=fn, route="cuda", source="adapt_image_models_torch/csrc/layernorm.cu",
             replaces=replaces, path=path, launches=n, max_abs_err=errors[fn], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row["library_ms"]))
+            library_ms=row["library_ms"], ms_run10=row["ms_run10"],
+            library_ms_run10=row["library_ms_run10"]))
     log(f"GEMM rows: {json.dumps(gemm_rows)}")
     log(f"spatial core rows: {json.dumps(spatial_rows)}")
     log(f"temporal core rows: {json.dumps(temporal_rows)}")

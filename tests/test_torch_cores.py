@@ -95,7 +95,7 @@ class _FakeLibrary:
         self.code, self.smem = code, smem
 
     def _design(self, size, smem_ref):
-        smem_ref._obj.value = self.smem
+        smem_ref[0] = self.smem
         return self.code
 
     aim_temporal_segment_design = aim_flash_attention_design = _design

@@ -1009,3 +1009,54 @@ def test_spatial_core_matches_plain(cuda, frames, heads, n):
         assert torch.equal(K.spatial_attention_r(qkv, frames, n, r),
                            K.spatial_attention(qkv, frames, n))
     assert ops.flash_attention_core.launches == flash_before
+
+
+# ---------------------------------------------------------------------------
+# the LayerNorm row passes (csrc/layernorm.cu, ops.row_pass_design)
+
+# both sides of the designs' branch edge: one chunk a lane (8, 200: lanes
+# without a chunk), the models' three and four (768; 1024, the last
+# register width), and the streamed branch (1032, 2048, 2056); one row,
+# fewer rows than a block's warps, a ragged count, and more rows than the
+# persistent grid has warps at 768 and 1024 (the forward's prefetch)
+ROW_PASS_ROWS = (1, 7, 33, 4097)
+ROW_PASS_WIDTHS = (8, 200, 768, 1024, 1032, 2048, 2056)
+# PERF.md §2's forward bound, kernel vs plain version on the card
+ROW_ATOL, ROW_RTOL, ROW_MEAN_TOL = 1e-2, 1.6e-2, 1e-4
+
+
+@pytest.mark.parametrize("d", ROW_PASS_WIDTHS)
+@pytest.mark.parametrize("rows", ROW_PASS_ROWS)
+def test_row_passes_match_plain(cuda, rows, d):
+    """The LayerNorm forward and its backward with and without the
+    residual cotangent g against ``layer_norm_fp32`` and
+    ``layer_norm_bwd_plain`` (rounded to bf16) under the forward bound; two
+    launches bit-equal; one count a launch; both designs held to their
+    twin."""
+    from adapt_image_models_torch.ops import _kernels as K
+    from adapt_image_models_torch.ops._common import layer_norm_bwd_plain, layer_norm_fp32
+    g = torch.Generator().manual_seed(1400 + rows + d)
+
+    def r(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=g)).to(cuda)
+
+    x, res = (0.5 + r(rows, d)).to(torch.bfloat16), r(rows, d).to(torch.bfloat16)
+    w, b, dy = 1 + r(d, s=0.1), r(d, s=0.1), r(rows, d)
+    cases = (("forward", K.layernorm, lambda: K.layernorm(x, w, b),
+              lambda: layer_norm_fp32(x, w, b)),
+             ("backward with g", K.layernorm_bwd, lambda: K.layernorm_bwd(x, dy, w, res),
+              lambda: layer_norm_bwd_plain(x, dy, w, res)),
+             ("backward without g", K.layernorm_bwd, lambda: K.layernorm_bwd(x, dy, w),
+              lambda: layer_norm_bwd_plain(x, dy, w)))
+    for name, fn, kernel, plain in cases:
+        before = fn.launches
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert got.dtype == torch.bfloat16 and got.shape == x.shape
+        assert torch.equal(got, again), name
+        want = plain().to(torch.bfloat16).float()
+        err = (got.float() - want).abs()
+        assert (err <= ROW_ATOL + ROW_RTOL * want.abs()).all(), (name, err.max().item())
+        assert err.mean() < ROW_MEAN_TOL, (name, err.mean().item())
+    assert {("aim_row_pass_design", kind, d) for kind in (0, 1)} <= K._designs_held

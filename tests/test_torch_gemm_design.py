@@ -106,7 +106,7 @@ class _FakeLibrary:
         self.code, self.smem = code, smem
 
     def aim_gemm_design(self, m, n, k, kn, smem_ref):
-        smem_ref._obj.value = self.smem
+        smem_ref[0] = self.smem
         return self.code
 
 

@@ -156,7 +156,7 @@ class _FakeLibrary:
 
     def aim_spatial_bwd_design(self, length, smem_ref):
         branch, smem = self.wrong or ops.spatial_bwd_design(length)
-        smem_ref._obj.value = smem
+        smem_ref[0] = smem
         return ("staged", "streamed").index(branch)
 
     def aim_spatial_attention_bwd_bf16(self, *args):

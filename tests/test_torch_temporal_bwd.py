@@ -120,7 +120,7 @@ class _FakeLibrary:
 
     def _design(self, design, frames, smem_ref):
         branch, smem = design(frames)
-        smem_ref._obj.value = smem
+        smem_ref[0] = smem
         return ("registers", "staged", "streamed").index(branch)
 
     def aim_temporal_bwd_design(self, frames, smem_ref):
@@ -198,7 +198,7 @@ class _WrongDesign(_FakeLibrary):
 
     def _design(self, design, frames, smem_ref):
         branch = super()._design(design, frames, smem_ref)
-        smem_ref._obj.value += 16
+        smem_ref[0] += 16
         return branch
 
 

@@ -100,7 +100,7 @@ class _FakeLibrary:
 
     def aim_temporal_attention_design(self, frames, smem_ref):
         branch, smem = ops.temporal_fwd_design(frames)
-        smem_ref._obj.value = smem + self.extra
+        smem_ref[0] = smem + self.extra
         return ("registers", "staged", "streamed").index(branch)
 
     def aim_temporal_attention_bf16(self, *args):

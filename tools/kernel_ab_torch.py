@@ -1,30 +1,43 @@
 #!/usr/bin/env python
 """Time the GEMM (``csrc/gemm.cu``), the spatial attention cores, the
-temporal backward cores and the full temporal forward core alone, and the
-TPU kernels that run the backward cores (PERF.md rows 7, 8, 9, 11 and
+temporal backward cores, the full temporal forward core and the row passes
+(``csrc/layernorm.cu``) alone, the flagship's spatial step (PERF.md row 1)
+and the TPU kernels that run the backward cores (rows 7, 8, 9, 11 and
 17-22), on one card in two source trees of the port, in turns A, B, B, A.
 
     python tools/kernel_ab_torch.py --a PARENT_TREE --b . [--out FILE]
         [--only "temporal forward"]   # the functions whose names hold it
+        [--only "row pass"]           # the row passes alone
+        [--only "row "]               # the row passes and the PERF.md rows
 
 Each turn is a subprocess that builds the tree's kernels from its
 ``adapt_image_models_torch/csrc/`` (into that tree's ``csrc/build/``) and
 times them through the wrappers both trees have, ``_kernels.gemm``,
 ``_kernels.spatial_attention``, ``_kernels.spatial_attention_bwd``,
-``_kernels.temporal_attention_bwd``, ``_kernels.temporal_segment_bwd`` and
-``_kernels.temporal_attention``, at ``tools/kernel_bounds_torch.py``'s
-GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES and TEMPORAL_FWD_SHAPES,
-and the ops of ROWS at their model shapes, on inputs
-made from one seed: median of 20 CUDA-event timings a function, after 3
-warm-ups. The same turn times the library call of each core,
-``torch.matmul`` (the product alone) and ``scaled_dot_product_attention``
-on the (frames, H, L, 64) copies of q, k, v ((clips*L, H, T, 64) for a
-temporal core; its autograd backward for a backward core). The table gives each tree's
-mean of its two turns beside the bound of ``kernel_bounds_torch.py``, with
-the card's name and power limit. Needs one NVIDIA GPU; imports no JAX.
+``_kernels.temporal_attention_bwd``, ``_kernels.temporal_segment_bwd``,
+``_kernels.temporal_attention``, ``_kernels.layernorm``,
+``_kernels.layernorm_bwd`` and ``_kernels.row_scale``, at
+``tools/kernel_bounds_torch.py``'s GEMM_SHAPES, SPATIAL_SHAPES,
+TEMPORAL_BWD_SHAPES, TEMPORAL_FWD_SHAPES and ROW_PASS_SHAPES, and the ops of
+ROWS at their model shapes, on inputs made from one seed: median of 20
+CUDA-event timings a function, after 3 warm-ups. The same turn times the
+library call of each core, ``torch.matmul`` (the product alone),
+``scaled_dot_product_attention`` on the (frames, H, L, 64) copies of q, k,
+v ((clips*L, H, T, 64) for a temporal core; its autograd backward for a
+backward core), ``layer_norm`` with bf16 gamma and beta, and for the
+LayerNorm backward ``native_layer_norm_backward``'s dx on an fp32 copy of x
+(it refuses an fp32 dy beside a bf16 x), with ``add_`` of g where the
+kernel adds g. A row pass and its library call are also timed as runs
+of RUN launches between two events, which leave out the wrapper's host
+time, and the row pass's output gets a digest, a hash of its bytes, so that
+the table shows whether the two trees' outputs are bit-equal on the same
+inputs. The table gives each tree's mean of its two turns beside
+the bound of ``kernel_bounds_torch.py``, with the card's name and power
+limit. Needs one NVIDIA GPU; imports no JAX.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -34,7 +47,10 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _ms(fn, iters=20, warmup=3):
+def _ms(fn, iters=20, warmup=3, launches=1):
+    """Median milliseconds a call: CUDA events around each call, or around a
+    run of ``launches`` calls, divided by it (the wrapper's host time then
+    hides behind the card's work)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -43,22 +59,37 @@ def _ms(fn, iters=20, warmup=3):
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(launches):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
+
+
+RUN = 10  # launches a timed run of a row pass
+
+
+def digest(out):
+    """A hash of the bytes of a tensor or a tuple of tensors."""
+    import torch
+    h = hashlib.sha256()
+    for t in out if isinstance(out, tuple) else (out,):
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def worker(tree, only=""):
     """Time one tree's kernels whose names hold ``only``; print one JSON
-    object {name: [kernel ms, library ms]}."""
+    object {name: [kernel ms, library ms]}, a row pass's with its output's
+    digest third."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
-    from torch.nn.functional import scaled_dot_product_attention as sdpa
+    from torch.nn.functional import layer_norm, scaled_dot_product_attention as sdpa
     from adapt_image_models_torch.ops import _kernels
     from kernel_bounds_torch import (
-        GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES, TEMPORAL_FWD_SHAPES,
+        GEMM_SHAPES, ROW_PASS_SHAPES, ROW_PASS_TOKENS, ROW_PASSES, SPATIAL_SHAPES,
+        TEMPORAL_BWD_SHAPES, TEMPORAL_FWD_SHAPES,
     )
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab_torch: needs an NVIDIA GPU")
@@ -144,6 +175,36 @@ def worker(tree, only=""):
                 _ms(lambda: sdpa(q, k, v))]
             del qkv, q, k, v
             torch.cuda.empty_cache()
+        for (rows, width), tokens in zip(ROW_PASS_SHAPES, ROW_PASS_TOKENS):
+            names = {kind: f"row pass {kind} ({rows}, {width})" for kind in ROW_PASSES}
+            if not wanted(*names.values()):
+                continue
+            x, res = (randn(rows, width).to(torch.bfloat16) for _ in range(2))
+            w, b, dy = 1 + 0.1 * randn(width), 0.1 * randn(width), randn(rows, width)
+            gate = randn(rows // tokens).abs()
+            w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+            x32 = x.float()  # the library's backward refuses an fp32 dy beside a bf16 x
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x32, (width,), w, None, 1e-5)
+
+            def ln_bwd():
+                return torch.ops.aten.native_layer_norm_backward(
+                    dy, x32, (width,), mean, rstd, w, None, (True, False, False))[0]
+            calls = {
+                "layernorm": (lambda: _kernels.layernorm(x, w, b),
+                              lambda: layer_norm(x, (width,), w16, b16)),
+                "layernorm_bwd": (lambda: _kernels.layernorm_bwd(x, dy, w, res),
+                                  lambda: ln_bwd().add_(res)),
+                "layernorm_bwd_no_g": (lambda: _kernels.layernorm_bwd(x, dy, w), ln_bwd),
+                "row_scale": (lambda: _kernels.row_scale(res, gate, tokens, 0.8), None)}
+            for kind, (kernel, library) in calls.items():
+                if not wanted(names[kind]):
+                    continue
+                lib = _ms(library) if library else None
+                lib_run = _ms(library, launches=RUN) if library else None
+                out[names[kind]] = [_ms(kernel), lib, digest(kernel())]
+                out[f"{names[kind]}, a run of {RUN}"] = [_ms(kernel, launches=RUN), lib_run]
+            del x, res, w, b, dy, gate, w16, b16, x32, mean, rstd, calls
+            torch.cuda.empty_cache()
         for row, *shape in ROWS:
             if not wanted(row_label(row, *shape)):
                 continue
@@ -152,12 +213,13 @@ def worker(tree, only=""):
     print(json.dumps(out), flush=True)
 
 
-# the ops that run a backward core, by PERF.md row, each at the (clips,
-# frames, tokens, width) of its timed x = (clips * frames, tokens, width),
-# heads width / 64: 32 clips of 8 frames, AIM_FLASH's 8 clips of 32 frames
-# with the prompt token (row 8), 4 clips of 64 frames on the segment core
-# (rows 17, 19, 20) and ViT-L/14's 4 clips of 32 frames (row 21)
-ROWS = ((7, 32, 8, 197, 768), (8, 8, 32, 198, 768), (9, 32, 8, 197, 768),
+# the flagship's spatial step (row 1) and the ops that run a backward core,
+# by PERF.md row, each at the (clips, frames, tokens, width) of its timed x =
+# (clips * frames, tokens, width), heads width / 64: 32 clips of 8 frames,
+# AIM_FLASH's 8 clips of 32 frames with the prompt token (row 8), 4 clips
+# of 64 frames on the segment core (rows 17, 19, 20) and ViT-L/14's 4 clips
+# of 32 frames (row 21)
+ROWS = ((1, 32, 8, 197, 768), (7, 32, 8, 197, 768), (8, 8, 32, 198, 768), (9, 32, 8, 197, 768),
         (11, 32, 8, 197, 768), (17, 32, 8, 197, 768), (17, 4, 64, 197, 768),
         (18, 32, 8, 197, 768), (19, 4, 64, 197, 768), (20, 4, 64, 197, 768),
         (21, 32, 8, 197, 768), (21, 4, 32, 257, 1024), (22, 32, 8, 197, 768))
@@ -183,7 +245,8 @@ def row_call(row, shape, g):
     attn = (r(3 * d, d), r(3 * d), r(d, d), r(d))
     adapter = (r(d // 4, d), r(d // 4), r(d, d // 4), r(d))
     gate = torch.ones(rows, device="cuda")
-    return {7: lambda: ops.fused_ln_qkv_attention_bwd(x, *ln, *attn[:3], gr, heads),
+    return {1: lambda: ops.fused_spatial_step(x, *ln, *attn, *adapter, heads, True),
+            7: lambda: ops.fused_ln_qkv_attention_bwd(x, *ln, *attn[:3], gr, heads),
             8: lambda: ops.fused_qkv_attention_bwd(x, *attn[:3], gr, heads),
             9: lambda: ops.fused_ln_qkv_attention_bwd_dx(x, *ln, *attn[:3], gr, heads),
             11: lambda: ops.fused_step_bwd_dx(x, *ln, *attn, *adapter, gr, heads, True),
@@ -246,8 +309,9 @@ def main(argv=None):
         print(f"turn {len(turns)} ({tree}): {json.dumps(turns[-1][1])}", flush=True)
     sys.path.insert(0, HERE)
     from kernel_bounds_torch import (
-        GEMM_SHAPES, SPATIAL_SHAPES, TEMPORAL_BWD_SHAPES, TEMPORAL_FWD_SHAPES, bound,
-        bound_of, gemm_shape_work, spatial_core_work, temporal_bwd_work, temporal_fwd_work,
+        GEMM_SHAPES, ROW_PASS_SHAPES, ROW_PASS_TOKENS, ROW_PASSES, SPATIAL_SHAPES,
+        TEMPORAL_BWD_SHAPES, TEMPORAL_FWD_SHAPES, bound, bound_of, gemm_shape_work,
+        row_pass_work, spatial_core_work, temporal_bwd_work, temporal_fwd_work,
     )
     bounds = {f"gemm {label}": (bound_of(*gemm_shape_work(m, k, n, e)), 2 * m * k * n)
               for label, m, k, n, _, e in GEMM_SHAPES}
@@ -262,11 +326,17 @@ def main(argv=None):
     for label, clips, frames, tokens, heads in TEMPORAL_FWD_SHAPES:
         bounds[f"temporal forward {label}"] = (bound_of(*temporal_fwd_work(
             clips, frames, tokens, heads)), None)
+    for (rows_, width), tokens in zip(ROW_PASS_SHAPES, ROW_PASS_TOKENS):
+        for kind in ROW_PASSES:
+            name = f"row pass {kind} ({rows_}, {width})"
+            bounds[name] = bounds[f"{name}, a run of {RUN}"] = (
+                bound_of(*row_pass_work(kind, rows_, width, tokens)), None)
     for row, clips, frames, tokens, width in ROWS:
         bounds[row_label(row, clips, frames, tokens, width)] = (
             bound(row, clips=clips, frames=frames, tokens=tokens, width=width), None)
     rows = {}
-    print(f"| function | A ms | B ms | library ms | bound ms | B TFLOP/s |  ({card})")
+    print(f"| function | A ms | B ms | library ms | bound ms | B TFLOP/s | A = B bits |  "
+          f"({card})")
     for name in turns[0][1]:
         a = statistics.mean(t[name][0] for tree, t in (turns[0], turns[3]))
         b = statistics.mean(t[name][0] for tree, t in (turns[1], turns[2]))
@@ -275,8 +345,12 @@ def main(argv=None):
         (bound_ms, bound_by), flops = bounds[name]
         rate = f"{flops / b / 1e9:.0f}" if flops else ""
         rows[name] = dict(a_ms=a, b_ms=b, library_ms=lib, bound_ms=bound_ms, bound_by=bound_by)
+        same = ""
+        if len(turns[0][1][name]) > 2:  # every turn's digest the same: bit-equal outputs
+            rows[name]["bit_equal"] = len({t[name][2] for _, t in turns}) == 1
+            same = "yes" if rows[name]["bit_equal"] else "NO"
         print(f"| {name} | {a:.4f} | {b:.4f} | {'' if lib is None else f'{lib:.4f}'} | "
-              f"{bound_ms:.4f} ({bound_by}) | {rate} |")
+              f"{bound_ms:.4f} ({bound_by}) | {rate} | {same} |")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(dict(card=card, a=args.a, b=args.b, turns=turns, rows=rows), f, indent=1)

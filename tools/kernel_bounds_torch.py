@@ -233,6 +233,7 @@ def temporal_fwd_work(clips, frames, tokens, heads):
 # width) of the flagship's 32 clips x 8 frames x 197 tokens and ViT-L/14's 4
 # clips x 32 frames x 257 tokens
 ROW_PASS_SHAPES = ((50432, 768), (32896, 1024))
+ROW_PASS_TOKENS = (197, 257)  # rows a frame at each shape: row_scale's gate is one a frame
 ROW_PASSES = ("layernorm", "layernorm_bwd", "layernorm_bwd_no_g", "row_scale")
 
 
