@@ -14,9 +14,12 @@ the port's copy of the JAX package's (``data/pipeline.py``, ``loader.py``,
   (and the per-GPU batch divided by update_interval, as the reference does)
 * EvalHook                         -> periodic run_evaluation + save_best
 * CheckpointHook + auto_resume     -> CheckpointManager saves + latest
+* load_from / clip_pretrained      -> convert.load_aim_pretrained /
+  load_clip_pretrained over the seeded initialisation, before the freeze
+  and the optimizer (JAX ``apis/train.py:166-182``)
 
-Not ported yet: data parallelism (ROADMAP queue 1), OmniSource multi-dataset training, ``load_from`` of
-a released checkpoint into a train run and ``clip_pretrained``.
+Not ported yet: data parallelism (ROADMAP queue 1) and OmniSource
+multi-dataset training.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from adapt_image_models_torch.convert import load_aim_pretrained, load_clip_pretrained
 from adapt_image_models_torch.core.checkpoint import CheckpointManager
 from adapt_image_models_torch.core.optim import build_optimizer
 from adapt_image_models_torch.core.schedule import build_schedule
@@ -60,9 +64,6 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     """Run the training recipe of ``cfg`` on ``device``; returns
     (TrainState, history of logged metrics)."""
     work_dir = work_dir or cfg.get("work_dir", "./work_dir")
-    for key in ("load_from", "clip_pretrained"):
-        if cfg.get(key):
-            raise NotImplementedError(f"{key} in a train run is not ported yet")
 
     model_cfg = dict(cfg["model"])
     test_cfg = model_cfg.pop("test_cfg", None)
@@ -71,6 +72,12 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     model = build_model(model_cfg, train_cfg=train_cfg, test_cfg=test_cfg,
                         device=device)
     model.init_weights(torch.Generator().manual_seed(seed))
+    if cfg.get("load_from"):
+        logger.info(f"loading checkpoint {cfg['load_from']}")
+        load_aim_pretrained(model, cfg["load_from"])
+    if cfg.get("clip_pretrained"):
+        logger.info(f"loading CLIP weights {cfg['clip_pretrained']}")
+        load_clip_pretrained(model, cfg["clip_pretrained"])
     freeze_params(model)  # the fused train ops refuse a trainable CLIP weight
 
     data_cfg = cfg["data"]

@@ -15,6 +15,15 @@ checkpoint in flash-attn's layout (the AIM_FLASH family: ``attn.Wqkv``,
 ``mlp.fc1``/``fc2``) has those keys renamed to CLIP's first, as
 ``adapt_image_models_tpu/convert/aim_import.py::_normalize_flash_keys``
 (:30-51) renames them; unlike it, only when the checkpoint has that layout.
+
+A train run's two inputs merge into the initialised model instead, with
+the JAX package's semantics: ``load_aim_pretrained`` (``load_from``,
+``adapt_image_models_tpu/convert/aim_import.py:64-131``, ``strict=False``)
+takes a released AIM checkpoint's CLIP core, temporal embedding, adapters
+and head classifier; ``load_clip_pretrained`` (``clip_pretrained``,
+``adapt_image_models_tpu/convert/clip_import.py:51-108``) takes a CLIP
+visual state dict into ``backbone.*`` and drops ``proj``. Each leaves every
+other tensor at its initialisation and raises on a shape mismatch.
 """
 
 from __future__ import annotations
@@ -80,17 +89,124 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _load(checkpoint):
+    if isinstance(checkpoint, str):
+        checkpoint = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    return checkpoint
+
+
 def load_checkpoint(model: torch.nn.Module,
                     checkpoint: Union[str, Mapping[str, Any]]) -> torch.nn.Module:
     """Load a released AIM checkpoint (path or mapping) into ``model``,
     strictly. Tensors are copied to the model's device."""
-    if isinstance(checkpoint, str):
-        checkpoint = torch.load(checkpoint, map_location="cpu", weights_only=True)
+    checkpoint = _load(checkpoint)
     sd = checkpoint.get("state_dict", checkpoint)
     sd = {k: v for k, v in sd.items() if k not in DROPPED_KEYS}
     if any(old in k for k in sd for old, _ in FLASH_KEY_ALIASES):
         sd = {_unflash(k): v for k, v in sd.items()}
     model.load_state_dict(sd, strict=True)
+    return model
+
+
+# the adapters a released checkpoint may hold per layer
+# (``aim_import.py:23-28``; the ZeroI2V linear adapters included)
+ADAPTER_NAMES = (
+    "S_Adapter", "T_Adapter", "T_Adapter_in", "MLP_Adapter",
+    "Attn_Adapter_in", "Attn_Adapter_q", "Attn_Adapter_k", "Attn_Adapter_v",
+    "Attn_Adapter_out", "MLP_Adapter_in", "MLP_Adapter_out",
+)
+# CLIP's visual encoder as the AIM family holds it (``clip_import.py``'s key
+# map, in the torch names both sides share); ``proj`` has no place
+CLIP_KEYS = ("conv1.weight", "class_embedding", "positional_embedding",
+             "ln_pre.weight", "ln_pre.bias", "ln_post.weight", "ln_post.bias")
+CLIP_LAYER_KEYS = tuple(f"{m}.{p}" for m, ps in (
+    ("attn", ("in_proj_weight", "in_proj_bias", "out_proj.weight", "out_proj.bias")),
+    ("ln_1", ("weight", "bias")), ("ln_2", ("weight", "bias")),
+    ("mlp", ("c_fc.weight", "c_fc.bias", "c_proj.weight", "c_proj.bias"))) for p in ps)
+_LAYER = "transformer.resblocks.{}."
+
+
+def clip_visual_keys(layers: int):
+    """The CLIP visual state dict's keys that a model of ``layers`` blocks
+    holds under ``backbone.``."""
+    return list(CLIP_KEYS) + [_LAYER.format(i) + k for i in range(layers)
+                              for k in CLIP_LAYER_KEYS]
+
+
+def _layers(keys, prefix: str) -> int:
+    """The number of ``transformer.resblocks.{i}`` blocks under ``prefix``."""
+    head = prefix + "transformer.resblocks."
+    found = {int(k[len(head):].split(".")[0]) for k in keys if k.startswith(head)}
+    return max(found) + 1 if found else 0
+
+
+def _merge(model: torch.nn.Module, tensors: Mapping[str, Any], strict: bool) -> None:
+    """Copy ``tensors`` over the model's own, in their dtype and on their
+    device. A key the model lacks raises ``KeyError`` where ``strict``, else
+    is skipped; a shape unlike the model's raises ``ValueError``. Nothing is
+    copied before every key has been checked."""
+    own = model.state_dict()
+    missing = [k for k in tensors if k not in own]
+    if missing and strict:
+        raise KeyError(f"checkpoint keys not in model: {missing[:8]}")
+    tensors = {k: torch.as_tensor(v) for k, v in tensors.items() if k in own}
+    for k, v in tensors.items():
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f"shape mismatch at {k}: model {tuple(own[k].shape)} "
+                             f"vs checkpoint {tuple(v.shape)}")
+    with torch.no_grad():
+        for k, v in tensors.items():
+            own[k].copy_(v.float())
+
+
+def load_aim_pretrained(model: torch.nn.Module,
+                        checkpoint: Union[str, Mapping[str, Any]]) -> torch.nn.Module:
+    """A train run's ``load_from``: merge a released AIM checkpoint (path,
+    mmcv ``{'state_dict': ...}`` or a bare state dict; CLIP's or
+    flash-attn's layout) over the initialised ``model``, as
+    ``load_aim_checkpoint_into_params(strict=False)``. It takes the
+    backbone's CLIP core (every key required), ``temporal_embedding``, each
+    adapter of ``ADAPTER_NAMES`` that the checkpoint's first block holds,
+    and the head's ``fc_cls``; skips what the model lacks; raises
+    ``ValueError`` on a shape mismatch, a block count unlike the model's
+    included (the JAX package's layer-stacked shapes differ there)."""
+    sd = _load(checkpoint)
+    sd = sd.get("state_dict", sd)
+    bsd = {_unflash(k[len("backbone."):]): v for k, v in sd.items()
+           if k.startswith("backbone.")}
+    layers = _layers(bsd, "")
+    if not layers:
+        raise ValueError("no transformer.resblocks.* keys found")
+    keys = clip_visual_keys(layers)
+    if "temporal_embedding" in bsd:
+        keys.append("temporal_embedding")
+    for name in ADAPTER_NAMES:
+        if _LAYER.format(0) + f"{name}.D_fc1.weight" in bsd:
+            keys += [_LAYER.format(i) + f"{name}.{fc}.{p}" for i in range(layers)
+                     for fc in ("D_fc1", "D_fc2") for p in ("weight", "bias")]
+    tensors = {"backbone." + k: bsd[k] for k in keys}
+    own_layers = _layers(model.state_dict(), "backbone.")
+    if own_layers != layers:
+        raise ValueError(f"shape mismatch at backbone.transformer.resblocks: model "
+                         f"{own_layers} blocks vs checkpoint {layers}")
+    if "cls_head.fc_cls.weight" in sd:
+        tensors.update({k: sd[k] for k in ("cls_head.fc_cls.weight", "cls_head.fc_cls.bias")})
+    _merge(model, tensors, strict=False)
+    return model
+
+
+def load_clip_pretrained(model: torch.nn.Module,
+                         clip_sd: Union[str, Mapping[str, Any]]) -> torch.nn.Module:
+    """A train run's ``clip_pretrained``: merge a CLIP visual state dict
+    (path or mapping; keys ``conv1.weight``, ``transformer.resblocks.{i}.*``,
+    ...) into ``backbone.*`` of the initialised ``model``, as
+    ``load_clip_into_params``: the model's block count of layers is read,
+    ``proj`` and any other key is left out, a key the reader needs and the
+    state dict lacks or a CLIP key the model lacks raises ``KeyError``, a
+    shape mismatch ``ValueError``."""
+    sd = _load(clip_sd)
+    layers = _layers(model.state_dict(), "backbone.")
+    _merge(model, {"backbone." + k: sd[k] for k in clip_visual_keys(layers)}, strict=True)
     return model
 
 

@@ -25,7 +25,9 @@ as the JAX package applies them outside its kernel, around the fused op
 ``attention_core="xla"`` every step is plain PyTorch framework ops, with
 exact-erf GELU adapters as in the JAX package, differentiated by autograd.
 
-The window path (``wind_attn``) raises. ``use_checkpoint`` recomputes each
+With ``wind_attn`` the blocks are ``AIMWindowBlock``s (3D (shifted-)window
+attention, the class token's temporal attention and prompt; see its
+docstring). ``use_checkpoint`` recomputes each
 block's forward in the backward (``torch.utils.checkpoint``, non-reentrant),
 as the JAX package wraps its blocks in ``nn.remat`` (``aim.py:381-382``):
 a block then keeps only its input, and its forward (the fused ops' kernels
@@ -44,6 +46,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from adapt_image_models_torch.models.backbones.window import (
+    layer_windows, shift_mask, window_attention,
+)
 from adapt_image_models_torch.models.builder import BACKBONES
 from adapt_image_models_torch.models.layers import (
     Adapter, CLIPAttention, CLIPMLP, LayerNormFP32, normal_, resolve_dtype,
@@ -65,14 +70,16 @@ def drop_rates(layers: int, drop_path_rate: float):
     return [float(r) for r in np.linspace(0.0, drop_path_rate, layers, dtype=np.float32)]
 
 
-def run_blocks(blocks, rates, x: torch.Tensor, generator: Optional[torch.Generator],
-               use_checkpoint: bool, **kwargs) -> torch.Tensor:
-    """``x`` through each block in turn: its gates drawn from ``generator``
-    at its rate (``block.gates``), then ``block(x, gates, **kwargs)``, under
+def run_blocks(blocks, rates, x, generator: Optional[torch.Generator],
+               use_checkpoint: bool, **kwargs):
+    """``x`` (a tensor, or a tuple of streams of one row count) through
+    each block in turn: its gates drawn from ``generator`` at its rate
+    (``block.gates``), then ``block(x, gates, **kwargs)``, under
     ``torch.utils.checkpoint`` where ``use_checkpoint`` is set and autograd
     records."""
+    lead = x[0] if isinstance(x, tuple) else x
     for block, rate in zip(blocks, rates):
-        gates = block.gates(x.shape[0], rate, generator, x.device)
+        gates = block.gates(lead.shape[0], rate, generator, lead.device)
         if use_checkpoint and torch.is_grad_enabled():
             x = checkpoint(block, x, gates, use_reentrant=False, **kwargs)
         else:
@@ -154,23 +161,95 @@ class AIMBlock(nn.Module):
         return x + self.mlp(xn) + drop_path(scale * self.MLP_Adapter(xn), gate_j)
 
 
+class AIMWindowBlock(AIMBlock):
+    """AIM block with 3D (shifted-)window attention and the temporal class
+    prompt (``aim.py:210-325``): window attention over the patch tokens
+    (``ln_1`` first; on a shifted layer the roll by -shift and the additive
+    shift mask), the class token's attention across frames, ``x + gate_t ·
+    T_Adapter([cls_attn; windows])``; with ``prompt`` the class token's
+    temporal output is inserted after the class token for ``attn(ln_1 x)``
+    and dropped before ``S_Adapter`` (with its skip); then the joint step
+    ``x + mlp(ln_2 x) + gate_m · s · MLP_Adapter(ln_2 x)``. The window
+    attention takes the masked framework ops under either core, as in the
+    JAX package; under ``"fused"`` the class token's attention is
+    ``fused_temporal_block`` and the prompt's ``fused_attention_block``."""
+
+    def __init__(self, d_model: int, num_heads: int, num_frames: int, input_hw: int,
+                 window_size=(32, 2, 2), shift: bool = False, prompt: bool = True,
+                 adapter_scale: float = 0.5, compute_dtype=torch.float32,
+                 attention_core: str = "xla", device=None):
+        super().__init__(d_model, num_heads, num_frames, adapter_scale,
+                         compute_dtype=compute_dtype, attention_core=attention_core,
+                         device=device)
+        self.input_hw = input_hw
+        self.prompt = prompt
+        self.window_size, self.shift_size = layer_windows(num_frames, input_hw,
+                                                          window_size, shift)
+
+    def forward(self, x: torch.Tensor, gates=(None, None),
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        bt, n, d = x.shape
+        t, h = self.num_frames, self.input_hw
+        if h * h != n - 1:
+            raise ValueError(f"token count {n} != {h}x{h}+1")
+        gate_t, gate_m = gates
+        win = window_attention(self.attn, self.ln_1(x[:, 1:]).reshape(bt // t, t, h, h, d),
+                               self.window_size, self.shift_size, mask)
+        cls_attn = self.attn(self.ln_1(x[:, :1]), temporal_frames=t)
+        xt = self.T_Adapter(torch.cat([cls_attn, win.reshape(bt, h * h, d)], dim=1))
+        x = x + drop_path(xt, gate_t)
+        if self.prompt:
+            xp = torch.cat([x[:, :1], cls_attn.to(x.dtype), x[:, 1:]], dim=1)
+            out = self.attn(self.ln_1(xp))
+            x = x + self.S_Adapter(torch.cat([out[:, :1], out[:, 2:]], dim=1))
+        else:
+            x = x + self.S_Adapter(self.attn(self.ln_1(x)))
+        xn = self.ln_2(x)
+        scale = torch.tensor(self.adapter_scale, dtype=x.dtype, device=x.device)
+        return x + self.mlp(xn) + drop_path(scale * self.MLP_Adapter(xn), gate_m)
+
+
 class AIMTransformer(nn.Module):
     """The depth stack: a ``ModuleList`` where the JAX package scans (see
-    ``drop_rates`` and ``run_blocks``)."""
+    ``drop_rates`` and ``run_blocks``). With ``wind_attn`` the blocks are
+    ``AIMWindowBlock``s, the odd ones shifted unless ``not_shift`` (the JAX
+    package's scanned shift flag as a Python flag of each block), and the
+    additive shift mask (``window.shift_mask``) is a buffer of this module,
+    on the model's device; ``num_tadapter`` and ``joint_core`` do not apply
+    there, as in the JAX package."""
 
     def __init__(self, layers: int, d_model: int, num_heads: int,
                  drop_path_rate: float = 0.0, use_checkpoint: bool = False,
-                 **block_kwargs):
+                 wind_attn: bool = False, input_hw: int = 14, window_size=(32, 2, 2),
+                 not_shift: bool = True, prompt: bool = True, **block_kwargs):
         super().__init__()
         self.drop_rates = drop_rates(layers, drop_path_rate)
         self.use_checkpoint = use_checkpoint
-        self.resblocks = nn.ModuleList(
-            AIMBlock(d_model, num_heads, **block_kwargs) for _ in range(layers))
+        self.wind_attn = wind_attn
+        mask = None
+        if wind_attn:
+            common = {k: v for k, v in block_kwargs.items()
+                      if k not in ("num_tadapter", "joint_core")}
+            blocks = [AIMWindowBlock(d_model, num_heads, input_hw=input_hw,
+                                     window_size=window_size,
+                                     shift=i % 2 == 1 and not not_shift, prompt=prompt,
+                                     **common)
+                      for i in range(layers)]
+            shifts = [blk.shift_size for blk in blocks if any(blk.shift_size)]
+            if shifts:
+                mask = shift_mask((block_kwargs["num_frames"], input_hw, input_hw),
+                                  blocks[0].window_size, shifts[0],
+                                  device=block_kwargs.get("device"))
+        else:
+            blocks = [AIMBlock(d_model, num_heads, **block_kwargs) for _ in range(layers)]
+        self.resblocks = nn.ModuleList(blocks)
+        self.register_buffer("shift_mask", mask, persistent=False)
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        kwargs = {"mask": self.shift_mask} if self.wind_attn else {}
         return run_blocks(self.resblocks, self.drop_rates, x, generator,
-                          self.use_checkpoint)
+                          self.use_checkpoint, **kwargs)
 
 
 class VideoViT(nn.Module):
@@ -252,19 +331,18 @@ class AIM(VideoViT):
                  wind_attn: bool = False, window_size=(32, 2, 2),
                  not_shift: bool = True, prompt: bool = True,
                  pretrained=None, device=None):
-        if wind_attn:
-            raise NotImplementedError("AIM window path (wind_attn=True) is not "
-                                      "ported yet (ROADMAP queue 1, AIM window path)")
         if num_tadapter not in (1, 2):
             raise ValueError(f"num_tadapter must be 1 or 2, got {num_tadapter}")
         if joint_core not in ("sample", "rows", "xla"):
             raise ValueError(f"unknown joint_core={joint_core!r}")
-        # window_size, not_shift and prompt (the window path) are accepted
-        # so that one config builds either package. CLIP weights come
-        # through convert.load_checkpoint, not ``pretrained``.
+        # CLIP weights come through convert (load_checkpoint, or a train
+        # run's load_from / clip_pretrained), not ``pretrained``
         transformer = AIMTransformer(
             layers, width, heads, drop_path_rate=drop_path_rate,
-            use_checkpoint=use_checkpoint, num_frames=num_frames, adapter_scale=adapter_scale,
+            use_checkpoint=use_checkpoint, wind_attn=wind_attn,
+            input_hw=input_resolution // patch_size, window_size=tuple(window_size),
+            not_shift=not_shift, prompt=prompt, num_frames=num_frames,
+            adapter_scale=adapter_scale,
             num_tadapter=num_tadapter, compute_dtype=resolve_dtype(compute_dtype),
             attention_core=attention_core, joint_core=joint_core, device=device)
         super().__init__(transformer, input_resolution, num_frames, patch_size,

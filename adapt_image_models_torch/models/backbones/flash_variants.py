@@ -1,7 +1,7 @@
-"""AIM_FLASH / AIM_FLASH_WIN, the fork's flash-attn AIM variants (parity:
-``adapt_image_models_tpu/models/backbones/flash_variants.py:39-212,
-301-428``; reference ``vitclip_aim_flash.py`` and
-``vitclip_aim_flash_win.py``).
+"""AIM_FLASH / AIM_FLASH_WIN / AIM_FLASH_DUAL, the fork's flash-attn AIM
+variants (parity: ``adapt_image_models_tpu/models/backbones/
+flash_variants.py:39-508``; reference ``vitclip_aim_flash.py``,
+``vitclip_aim_flash_win.py`` and ``vitclip_aim_flash_dual.py``).
 
 Per block, in the residual stream's (B·T, N, D) layout, every adapter
 without its skip:
@@ -29,8 +29,22 @@ LayerNorms and the MLP. The shift mask is built once per model, in numpy,
 and kept on the model's device; the JAX package's traced per-layer shift
 flag is a Python flag of each block (odd layers, unless ``not_shift``).
 ``use_checkpoint`` recomputes each block in the backward, with the gates
-drawn before it (``aim.run_blocks``). AIM_FLASH_DUAL is not ported: its
-side stream attends over more keys than the spatial core holds.
+drawn before it (``aim.run_blocks``).
+
+AIM_FLASH_DUAL carries two streams, both from ``ln_pre``'s output, and
+returns their sum. The main stream is the frozen CLIP block ``x + attn(ln_1
+x)``, ``x + mlp(ln_2 x)``, run under ``torch.no_grad`` as the JAX package's
+``stop_gradient``. The side stream attends within unshifted windows, each
+after its prompt (the wt class tokens of its frames), over ``wt + wh·ww·wt``
+keys (800 at the shipped (16, 7, 7)); the prompts' outputs, pooled over a
+frame's spatial windows, become its class token, which attends across
+frames; then ``T_Adapter`` over all tokens (no residual), ``+ s ·
+S_Adapter(x_main)`` and the joint step with one drop-path gate. Both
+streams' attentions take the fused ops under ``"fused"``
+(``fused_attention_block`` over tokens, ``fused_temporal_block`` over
+frames). The side stream takes the prompt outputs themselves, the JAX
+package's documented departure from the reference's mis-slice
+(``flash_variants.py:222-225``).
 """
 
 from __future__ import annotations
@@ -49,8 +63,8 @@ from adapt_image_models_torch.models.backbones.aim import (
     VideoViT, drop_path, drop_path_gate, drop_rates, run_blocks,
 )
 from adapt_image_models_torch.models.backbones.window import (
-    compute_shift_mask, get_window_size, pad_to_windows, window_partition,
-    window_reverse,
+    from_windows, layer_windows, shift_mask, to_windows, window_attention,
+    window_prompts,
 )
 
 
@@ -125,10 +139,8 @@ class AIMFlashWindowBlock(AIMFlashBlock):
         super().__init__(d_model, num_heads, num_frames, **kwargs)
         self.input_hw = input_hw
         self.win_prompt = win_prompt
-        hw = input_hw
-        self.window_size, shift_size = get_window_size(
-            (num_frames, hw, hw), tuple(window_size), tuple(i // 2 for i in window_size))
-        self.shift_size = shift_size if shift else (0, 0, 0)
+        self.window_size, self.shift_size = layer_windows(num_frames, input_hw,
+                                                          window_size, shift)
 
     def windows(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Window attention over ``x``'s patch tokens -> (B·T, H·W, D)."""
@@ -136,29 +148,13 @@ class AIMFlashWindowBlock(AIMFlashBlock):
         t, h = self.num_frames, self.input_hw
         b = bt // t
         ws = self.window_size
-        wt = ws[0]
-        win = pad_to_windows(self.ln_1(x[:, 1:]).reshape(b, t, h, h, d), ws)
-        tp, hp, wp = win.shape[1:4]
-        shifted = any(self.shift_size)
-        if shifted:
-            win = torch.roll(win, tuple(-s for s in self.shift_size), dims=(1, 2, 3))
-        parts = window_partition(win, ws)  # (B·nW, L, D)
+        prompt = None
         if self.win_prompt:
-            # each window's prompt: the wt class tokens of the frames of its
-            # temporal window, the same for each of its spatial windows
-            n_wt = tp // wt
-            clsw = self.ln_1(x[:, :1]).reshape(b, n_wt, 1, wt, d)
-            clsw = clsw.expand(b, n_wt, parts.shape[0] // (b * n_wt), wt, d)
-            parts = torch.cat([clsw.reshape(-1, wt, d).to(parts.dtype), parts], dim=1)
-        if not shifted:  # the JAX package's mask times a shift flag of 0
-            mask = torch.zeros((), device=x.device)
-        parts = self.attn(parts, mask=mask)
-        if self.win_prompt:
-            parts = parts[:, wt:]
-        win = window_reverse(parts.to(self.attn.compute_dtype), ws, b, tp, hp, wp)
-        if shifted:
-            win = torch.roll(win, self.shift_size, dims=(1, 2, 3))
-        return win[:, :t, :h, :h].reshape(bt, h * h, d)
+            n_win = int(np.prod([-(-n // w) for n, w in zip((t, h, h), ws)]))
+            prompt = window_prompts(self.ln_1(x[:, :1]), b, n_win, ws[0])
+        win = window_attention(self.attn, self.ln_1(x[:, 1:]).reshape(b, t, h, h, d), ws,
+                               self.shift_size, mask, prompt)
+        return win.reshape(bt, h * h, d)
 
     def forward(self, x: torch.Tensor, gates=(None, None, None),
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -176,7 +172,7 @@ class FlashTransformer(nn.Module):
     ``transformer.resblocks.{i}`` (see ``aim.drop_rates`` and
     ``aim.run_blocks``); with ``wind_attn`` the odd
     blocks are shifted unless ``not_shift``, and the additive shift mask
-    (``compute_shift_mask``, padded with zeros for the window prompts) is a
+    (``window.shift_mask``, padded with zeros for the window prompts) is a
     buffer of this module, on the model's device."""
 
     def __init__(self, layers: int, d_model: int, num_heads: int,
@@ -203,11 +199,8 @@ class FlashTransformer(nn.Module):
         shifts = [blk.shift_size for blk in blocks if wind_attn and any(blk.shift_size)]
         if shifts:
             ws = blocks[0].window_size
-            tp, hp, wp = (-(-n // w) * w for n, w in zip((num_frames, input_hw, input_hw), ws))
-            mask = compute_shift_mask(tp, hp, wp, ws, shifts[0])
-            if win_prompt:
-                mask = np.pad(mask, ((0, 0), (ws[0], 0), (ws[0], 0)))
-            mask = torch.from_numpy(mask)[:, None].to(device)  # (nW, 1, L, L)
+            mask = shift_mask((num_frames, input_hw, input_hw), ws, shifts[0],
+                              ws[0] if win_prompt else 0, device)
         self.register_buffer("shift_mask", mask, persistent=False)
 
     def forward(self, x: torch.Tensor,
@@ -251,3 +244,111 @@ class AIM_FLASH_WIN(AIM_FLASH):
 
     def __init__(self, wind_attn: bool = True, window_size=(16, 7, 7), **kwargs):
         super().__init__(wind_attn=wind_attn, window_size=window_size, **kwargs)
+
+
+class AIMFlashDualBlock(nn.Module):
+    """The AIM_FLASH_DUAL block (``flash_variants.py:215-298``) over the
+    carry (main stream, side stream); see the module docstring."""
+
+    def __init__(self, d_model: int, num_heads: int, num_frames: int, input_hw: int,
+                 window_size=(8, 7, 7), adapter_scale: float = 0.5,
+                 compute_dtype=torch.float32, attention_core: str = "xla", device=None):
+        super().__init__()
+        cdt = resolve_dtype(compute_dtype)
+        self.num_frames = num_frames
+        self.input_hw = input_hw
+        self.adapter_scale = adapter_scale
+        self.compute_dtype = cdt
+        self.window_size, _ = layer_windows(num_frames, input_hw, window_size, False)
+        self.attn = CLIPAttention(d_model, num_heads, cdt, attention_core, device=device)
+        self.ln_1 = LayerNormFP32(d_model, device=device)
+        self.ln_2 = LayerNormFP32(d_model, device=device)
+        self.mlp = CLIPMLP(d_model, cdt, device=device)
+        for name in ("S_Adapter", "T_Adapter", "MLP_Adapter"):
+            setattr(self, name, Adapter(d_model, skip_connect=False, compute_dtype=cdt,
+                                        device=device))
+
+    def gates(self, rows: int, drop_rate: float,
+              generator: Optional[torch.Generator], device):
+        """The joint step's drop-path gate (None in eval)."""
+        if not self.training:
+            return (None,)
+        return (drop_path_gate(rows, drop_rate, generator, device),)
+
+    def side_windows(self, xt: torch.Tensor):
+        """Attention over the side stream's windows, each after its prompt ->
+        (the windows' outputs (B·T, H·W, D), the new class token (B·T, 1, D):
+        the prompts' outputs averaged over a frame's spatial windows)."""
+        bt, _, d = xt.shape
+        t, h = self.num_frames, self.input_hw
+        b = bt // t
+        ws = self.window_size
+        wt = ws[0]
+        parts, padded = to_windows(xt[:, 1:].reshape(b, t, h, h, d), ws)
+        n_win = parts.shape[0] // b
+        prompt = window_prompts(xt[:, :1], b, n_win, wt)
+        parts = self.attn(self.ln_1(torch.cat([prompt.to(parts.dtype), parts], dim=1)))
+        win = from_windows(parts[:, wt:].to(self.compute_dtype), ws, b, padded, (t, h, h))
+        n_wt = padded[0] // wt
+        pooled = parts[:, :wt].reshape(b, n_wt, n_win // n_wt, wt, d).transpose(2, 3)
+        # the mean of the JAX package's jnp.mean: an fp32 sum, then rounded
+        cls = pooled.reshape(bt, n_win // n_wt, d).float().mean(1, keepdim=True)
+        return win.reshape(bt, h * h, d), cls.to(parts.dtype)
+
+    def forward(self, carry, gates=(None,)):
+        x, xt = carry
+        (gate,) = gates
+        with torch.no_grad():  # the frozen main stream (stop_gradient)
+            x = x + self.attn(self.ln_1(x))
+            x = x + self.mlp(self.ln_2(x))
+        win, cls = self.side_windows(xt)
+        cls_attn = self.attn(self.ln_1(cls), temporal_frames=self.num_frames)
+        cdt = self.compute_dtype
+        scale = torch.tensor(self.adapter_scale, dtype=x.dtype, device=x.device)
+        xn = self.T_Adapter(torch.cat([cls_attn.to(cdt), win], dim=1))
+        xn = xn + scale * self.S_Adapter(x)
+        xm = self.ln_2(xn)
+        xn = xn + self.mlp(xm) + drop_path(scale * self.MLP_Adapter(xm), gate)
+        return x, xn.to(xt.dtype)
+
+
+class DualTransformer(nn.Module):
+    """The AIM_FLASH_DUAL depth stack (``_DualTransformer`` :484-508):
+    both streams start as the input, the output is their sum."""
+
+    def __init__(self, layers: int, d_model: int, num_heads: int, num_frames: int,
+                 input_hw: int, drop_path_rate: float = 0.2, **block_kwargs):
+        super().__init__()
+        self.drop_rates = drop_rates(layers, drop_path_rate)
+        self.resblocks = nn.ModuleList(
+            AIMFlashDualBlock(d_model, num_heads, num_frames, input_hw, **block_kwargs)
+            for _ in range(layers))
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x, xt = run_blocks(self.resblocks, self.drop_rates, (x, x), generator, False)
+        return x + xt
+
+
+@BACKBONES.register_module()
+class AIM_FLASH_DUAL(VideoViT):
+    """The dual-stream variant (``flash_variants.py:431-482``); see the
+    module docstring. ``prompt``, ``wind_attn`` and ``not_shift`` are
+    accepted, as the JAX package's fields are, and change nothing: the side
+    stream always takes unshifted windows with their prompts. No block is
+    checkpointed: the JAX package's DUAL stack has no remat."""
+
+    def __init__(self, input_resolution: int = 224, num_frames: int = 8,
+                 patch_size: int = 16, width: int = 768, layers: int = 12,
+                 heads: int = 12, drop_path_rate: float = 0.2, adapter_scale: float = 0.5,
+                 window_size=(8, 7, 7), prompt: bool = True, wind_attn: bool = False,
+                 not_shift: bool = True, compute_dtype=torch.float32,
+                 attention_core: str = "xla", device=None):
+        transformer = DualTransformer(
+            layers, width, heads, num_frames, input_resolution // patch_size,
+            drop_path_rate=drop_path_rate,
+            window_size=tuple(window_size), adapter_scale=adapter_scale,
+            compute_dtype=resolve_dtype(compute_dtype), attention_core=attention_core,
+            device=device)
+        super().__init__(transformer, input_resolution, num_frames, patch_size,
+                         width, compute_dtype, device)

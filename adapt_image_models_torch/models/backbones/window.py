@@ -4,14 +4,17 @@
 
 Each layer knows whether it is shifted, so the shift is a Python roll; the
 additive mask of the shifted layout is computed once, in numpy, by the
-model that uses it.
+model that uses it (``shift_mask``). ``to_windows``, ``from_windows``,
+``window_prompts`` and ``window_attention`` are the window steps that the
+AIM window block, the AIM_FLASH window block and the AIM_FLASH_DUAL side
+stream share.
 """
 
 from __future__ import annotations
 
 from functools import reduce
 from operator import mul
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +33,16 @@ def get_window_size(x_size: Tuple[int, int, int],
             ws[i] = x_size[i]
             ss[i] = 0
     return tuple(ws), tuple(ss)
+
+
+def layer_windows(num_frames: int, input_hw: int, window_size: Tuple[int, int, int],
+                  shift: bool):
+    """(window size, shift) of a layer over a (T, H, H) patch grid: the
+    windows clamped to the grid, shifted by half a window on a shifted
+    layer (none on a clamped axis), else not at all."""
+    ws, ss = get_window_size((num_frames, input_hw, input_hw), tuple(window_size),
+                             tuple(i // 2 for i in window_size))
+    return ws, ss if shift else (0, 0, 0)
 
 
 def window_partition(x: torch.Tensor, window_size: Tuple[int, int, int]) -> torch.Tensor:
@@ -87,3 +100,68 @@ def pad_to_windows(x: torch.Tensor, window_size: Tuple[int, int, int]) -> torch.
     if pad_t or pad_h or pad_w:
         x = F.pad(x, (0, 0, 0, pad_w, 0, pad_h, 0, pad_t))
     return x
+
+
+def to_windows(x: torch.Tensor, window_size: Tuple[int, int, int],
+               shift_size: Tuple[int, int, int] = (0, 0, 0)):
+    """(B, T, H, W, C) -> ((B·nW, L, C) windows of x zero-padded and, on a
+    shifted layer, rolled by -shift; the padded extent (Tp, Hp, Wp))."""
+    win = pad_to_windows(x, window_size)
+    if any(shift_size):
+        win = torch.roll(win, tuple(-s for s in shift_size), dims=(1, 2, 3))
+    return window_partition(win, window_size), tuple(win.shape[1:4])
+
+
+def from_windows(parts: torch.Tensor, window_size: Tuple[int, int, int], b: int,
+                 padded: Tuple[int, int, int], size: Tuple[int, int, int],
+                 shift_size: Tuple[int, int, int] = (0, 0, 0)) -> torch.Tensor:
+    """Inverse of :func:`to_windows` -> (B, T, H, W, C) cropped to ``size``."""
+    win = window_reverse(parts, window_size, b, *padded)
+    if any(shift_size):
+        win = torch.roll(win, shift_size, dims=(1, 2, 3))
+    t, h, w = size
+    return win[:, :t, :h, :w]
+
+
+def window_prompts(cls: torch.Tensor, b: int, n_win: int, wt: int) -> torch.Tensor:
+    """(B·T, 1, C) class tokens -> (B·nW, wt, C), each window's prompt: the
+    wt class tokens of the frames of its temporal window, the same for each
+    of its spatial windows (``n_win`` windows a clip)."""
+    d = cls.shape[-1]
+    n_wt = cls.shape[0] // (b * wt)
+    clsw = cls.reshape(b, n_wt, 1, wt, d).expand(b, n_wt, n_win // n_wt, wt, d)
+    return clsw.reshape(-1, wt, d)
+
+
+def window_attention(attn, x: torch.Tensor, window_size: Tuple[int, int, int],
+                     shift_size: Tuple[int, int, int], mask: Optional[torch.Tensor],
+                     prompt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``attn(parts, mask=mask)`` over the (shifted) 3D windows of (B, T, H,
+    W, C) ``x``, each window after its ``prompt`` rows (B·nW, P, C) where
+    given -> (B, T, H, W, C) in ``attn.compute_dtype``. An unshifted layer
+    takes a zero mask, as the JAX package multiplies its mask by a shift
+    flag of 0: the masked framework-op core either way."""
+    b, t, h, w, _ = x.shape
+    parts, padded = to_windows(x, window_size, shift_size)
+    if prompt is not None:
+        parts = torch.cat([prompt.to(parts.dtype), parts], dim=1)
+    if not any(shift_size):
+        mask = torch.zeros((), device=x.device)
+    parts = attn(parts, mask=mask)
+    if prompt is not None:
+        parts = parts[:, prompt.shape[1]:]
+    return from_windows(parts.to(attn.compute_dtype), window_size, b, padded, (t, h, w),
+                        shift_size)
+
+
+def shift_mask(size: Tuple[int, int, int], window_size: Tuple[int, int, int],
+               shift_size: Tuple[int, int, int], prompt_len: int = 0,
+               device=None) -> torch.Tensor:
+    """The additive mask (nW, 1, L, L) of the shifted layout of a (T, H, W)
+    grid padded to the windows, with ``prompt_len`` zero rows and columns
+    first for the window prompts, on ``device``."""
+    tp, hp, wp = (-(-n // w) * w for n, w in zip(size, window_size))
+    mask = compute_shift_mask(tp, hp, wp, window_size, shift_size)
+    if prompt_len:
+        mask = np.pad(mask, ((0, 0), (prompt_len, 0), (prompt_len, 0)))
+    return torch.from_numpy(mask)[:, None].to(device)

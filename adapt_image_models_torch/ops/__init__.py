@@ -180,6 +180,20 @@ def train_ops(num_tadapter: int, num_frames: int, tokens: int, width: int,
 FLASH_EVAL_OPS = ("fused_temporal_attention", "fused_qkv_attention")
 FLASH_TRAIN_OPS = FLASH_EVAL_OPS + ("fused_temporal_attention_bwd",
                                     "fused_qkv_attention_bwd")
+# the launches a layer of the AIM window path (``AIMWindowBlock``) and of
+# AIM_FLASH_DUAL makes in an eval forward and in a train step (checkpointing
+# off): the class token's temporal block, and the spatial block over the
+# tokens with the prompt (window AIM) or over the main stream and, with the
+# prompts, over each window of the side stream (DUAL: the main stream runs
+# under no_grad, so only the side stream's spatial block has a backward).
+# The window attention, adapters, LayerNorms and MLP are framework ops, as
+# in the JAX package
+WINDOW_EVAL_OPS = {"fused_temporal_attention": 1, "fused_qkv_attention": 1}
+WINDOW_TRAIN_OPS = {**WINDOW_EVAL_OPS, "fused_temporal_attention_bwd": 1,
+                    "fused_qkv_attention_bwd": 1}
+DUAL_EVAL_OPS = {"fused_temporal_attention": 1, "fused_qkv_attention": 2}
+DUAL_TRAIN_OPS = {**DUAL_EVAL_OPS, "fused_temporal_attention_bwd": 1,
+                  "fused_qkv_attention_bwd": 1}
 
 
 # the launches a ViT_CLIP layer makes in an eval forward and in a train step,

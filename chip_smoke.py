@@ -251,7 +251,38 @@ Phases, in order; any failure raises and exits non-zero:
      ((50432, 768), (32896, 1024)), held to their plain versions under the
      forward bound and timed against them, torch's layer_norm and
      native_layer_norm_backward and their bounds, as single calls and as a
-     call in a run of 10 launches.
+     call in a run of 10 launches;
+ 18. the AIM window path: configs/recognition/vit/AIM/AIM_base_diving48.py
+     as shipped (AIM ViT-B/16, 32 frames, (32, 2, 2) windows shifted on odd
+     layers, the prompt token, 48 classes, bf16, attention_core="fused") on
+     seeded weights with every adapter's D_fc2 and the temporal embedding
+     nonzero and a class lead: init_recognizer, inference_recognizer and
+     run_evaluation on synthetic videos, the kernel path against the plain
+     path on the probabilities, train_model for 2 steps of 2 clips started
+     from the model's weights through load_from, one train step kernel vs
+     plain, eval clips/s and peak memory at 8 clips
+     (kernel and xla paths), train clips/s and peak memory at 2 and 8 clips
+     (xla at 2) and a profile of one step at 8, the launches of
+     ops.WINDOW_EVAL_OPS and WINDOW_TRAIN_OPS and of the cores under them
+     checked on each run; then one forward of aim_window_base_hmdb51.py (16
+     frames, unshifted (16, 7, 7) windows of 784 tokens);
+ 19. AIM_FLASH_DUAL: configs/recognition/vit/AIM/AIM_flash_dual_base_hmdb51.py
+     as shipped (32 frames, the side stream's (16, 7, 7) windows with their
+     prompts: 800 keys) through the same drive with ops.DUAL_EVAL_OPS and
+     DUAL_TRAIN_OPS (row 4 twice a layer, on the frozen main stream and the
+     side stream; row 8 once, the side stream's only); then rows 4 and 8 at
+     the side stream's x (16, 800, 768) against their plain versions, and
+     the spatial forward core (the flash core's staged branch at its limit)
+     and backward core (its streamed ring) alone at (16, 12, 800, 64)
+     against their plain versions, scaled_dot_product_attention forward
+     and backward and their bounds;
+ 20. a train run from files: train_model on the DUAL config (1 step of 1
+     clip) from clip_pretrained (a CLIP visual state dict saved from a model
+     seeded 1) and from load_from (phase 19's model saved in flash-attn's
+     layout): at the AIM freeze the model holds the file's tensors bit for
+     bit and the run's seeded initialisation elsewhere, and after the step
+     the frozen tensors still equal the file's.
+Phases 18, 19 and 20 log their seconds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -283,7 +314,7 @@ Every driven model's kernel path holds the plain path's top-1 class; a
 (separate_classes), as seeded weights spread the classes so evenly that the
 top two can lie within the kernel-vs-plain gap.
 The line before the last is a JSON object with one entry per kernel, with
-its launches on the first of the eighteen paths above that runs it (path), and
+its launches on the first of the twenty-two paths above that runs it (path), and
 its time (at 32 clips of 8 frames; the spatial block at 8 clips of the
 AIM_FLASH path's 32 frames; the composition's three ops at 4 clips of
 ViT-L/14's 32 frames; the flash core at (256, 12, 197, 64), 8 clips of
@@ -2637,10 +2668,10 @@ def spatial_bwd_checks(errors):
                                  "kernel's P and dS are no longer the rows kernel's")
 
 
-def spatial_core_timings(card, op_ms, library_ms):
-    """The spatial forward core alone at SPATIAL_SHAPES, prenorm on and
-    off, and the spatial backward core (``_kernels.spatial_attention_bwd``)
-    at each: kernel and plain version (plain-kernel-kernel-plain, median of
+def spatial_core_timings(card, op_ms, library_ms, shapes=None):
+    """The spatial forward core alone at ``shapes`` (SPATIAL_SHAPES unless
+    given), prenorm on and off, and the spatial backward core
+    (``_kernels.spatial_attention_bwd``) at each: kernel and plain version (plain-kernel-kernel-plain, median of
     20) beside scaled_dot_product_attention on (frames, H, L, 64) copies of
     q, k, v (relayout untimed; its autograd backward for the backward
     core) and the bound. Returns {label: row}; both cores at (256, 12, 197)
@@ -2653,7 +2684,7 @@ def spatial_core_timings(card, op_ms, library_ms):
     from kernel_bounds_torch import SPATIAL_SHAPES, bound_of, spatial_core_work
     g = torch.Generator().manual_seed(1750)
     rows = {}
-    for frames, heads, length in SPATIAL_SHAPES:
+    for frames, heads, length in shapes or SPATIAL_SHAPES:
         d = 64 * heads
         qkv = torch.randn(frames * length, 3 * d, generator=g).to("cuda", torch.bfloat16)
         q, k, v = (t.view(frames, length, heads, 64).transpose(1, 2).contiguous()
@@ -3070,6 +3101,378 @@ def phase_17(card, errors, op_ms, library_ms):
     seg_bound = segment_core_timing(card, op_ms, library_ms)
     return (seg_bound, gemm_timings(card), spatial_core_timings(card, op_ms, library_ms),
             temporal_core_timings(card), row_pass_timings(card, errors))
+
+
+# ---- phases 18-20: the AIM window path, AIM_FLASH_DUAL, a run from files ----
+
+WINDOW_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "AIM",
+                             "AIM_base_diving48.py")
+WINDOW16_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "AIM",
+                               "aim_window_base_hmdb51.py")
+DUAL_CONFIG = os.path.join(ROOT, "configs", "recognition", "vit", "AIM",
+                           "AIM_flash_dual_base_hmdb51.py")
+# the DUAL side stream's keys at the shipped (16, 7, 7): 16 prompts + 16 x 49
+DUAL_KEYS = 800
+# over the window paths' 48 and 51 classes, AIM_FLASH's bound: about 4x and
+# 6x the gaps read on the first run (4.711e-5 window AIM, 3.397e-5 DUAL)
+WINDOW_PROB_ATOL = DUAL_PROB_ATOL = 2e-4
+
+
+def path_cores():
+    """The cores' and the GEMM's own counters, read where a path's run ends."""
+    from adapt_image_models_torch.ops import _kernels as K
+    return dict(spatial=K.spatial_attention.launches, spatial_bwd=K.spatial_attention_bwd.launches,
+                gemm=K.gemm.launches, segment=K.temporal_segment.launches,
+                temporal=temporal_launches(), rows=row_pass_launches())
+
+
+def check_block_cores(path, cores, per_layer, n):
+    """The kernels under the plain blocks of a window or DUAL path: the
+    spatial forward core once a spatial block forward, its backward core once
+    a spatial backward, the full temporal forward core once a class-token
+    block forward (T <= LONG_CLIP_T) and its backward core once a backward,
+    no segment core and no row pass (the plain blocks have no LayerNorm), and
+    the GEMM launched. ``per_layer``: WINDOW_*_OPS or DUAL_*_OPS; ``n``:
+    layers times forwards or steps."""
+    check_core("spatial forward core", path, cores["spatial"],
+               per_layer["fused_qkv_attention"] * n)
+    check_core("spatial backward core", path, cores["spatial_bwd"],
+               per_layer.get("fused_qkv_attention_bwd", 0) * n)
+    check_segment_core(path, cores["segment"], 0)
+    check_temporal(path, cores["temporal"], per_layer["fused_temporal_attention"] * n,
+                   per_layer.get("fused_temporal_attention_bwd", 0) * n, 0)
+    check_row_passes(path, cores["rows"], 0, 0, 0)
+    log(f"  GEMM launches on the {path} path: {cores['gemm']}")
+    if not cores["gemm"]:
+        raise AssertionError(f"{path}: the GEMM never launched")
+
+
+def drive_window_family(card, label, config, expected, eval_ops, train_ops, prob_atol, seed,
+                        phase, train_clips=2, steps=2):
+    """A window-family recipe (the AIM window path, AIM_FLASH_DUAL) as
+    shipped, at full depth and width on seeded weights, as phase 10 drives
+    AIM_FLASH: init_recognizer, inference_recognizer and run_evaluation on
+    synthetic videos with the launches of ``eval_ops`` (a layer a forward)
+    and of the cores checked; the kernel path against the plain path on the
+    probabilities; train_model for ``steps`` steps of ``train_clips`` clips,
+    started from the model's weights (``load_from``), with the launches of
+    ``train_ops`` (a layer a step) checked, frozen
+    weights bitwise unchanged, trainable ones moved and the checkpoint
+    reloaded; one train step kernel vs plain (PERF.md §2's bounds); then
+    eval clips/s and peak memory at 8 clips (kernel and xla paths) and
+    train clips/s and peak memory at 2 and 8 clips with a profile of one
+    step at 8. Returns (cfg, weights, classes, eval launches, train
+    launches)."""
+    import copy
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import (
+        inference_recognizer, init_recognizer, load_config, run_evaluation, train_model,
+    )
+    from adapt_image_models_torch.core.checkpoint import CheckpointManager
+    from adapt_image_models_torch.data.transforms import make_prepare_fn
+    from adapt_image_models_torch.models import build_model
+    cfg = load_config(config)
+    bb = cfg["model"]["backbone"]
+    got = {k: tuple(bb[k]) if isinstance(bb[k], (list, tuple)) else bb[k] for k in expected}
+    if got != expected:
+        raise AssertionError(f"unexpected {label} backbone {bb}")
+    layers, frames = bb["layers"], bb["num_frames"]
+    classes = cfg["model"]["cls_head"]["num_classes"]
+    t0 = time.perf_counter()
+    model = init_recognizer(cfg, device="cuda", seed=0)
+    randomize_adapters(model, seed=seed)
+    lead = separate_classes(model, seed=seed)
+    tr = model.backbone.transformer
+    mask = getattr(tr, "shift_mask", None)
+    log(f"{phase}: built {os.path.relpath(config, ROOT)} ({label}: {bb['type']}, {layers} "
+        f"layers, width {bb['width']}, {frames} frames, windows "
+        f"{tuple(tr.resblocks[0].window_size)}) on cuda, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, {classes} classes "
+        f"(class {lead} led), shifted layers "
+        f"{[i for i, b in enumerate(tr.resblocks) if any(getattr(b, 'shift_size', ()))]}, "
+        f"shift mask {None if mask is None else tuple(mask.shape)}, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    n_videos, eval_batch = 4, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "ann.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"synthetic://{seed * 100 + i} {i % classes}"
+                              for i in range(n_videos)))
+        cfg["data"]["test"]["ann_file"] = ann
+        ops.reset_launch_counts()  # this eval path's run starts here
+        top5 = [inference_recognizer(model, cfg, f"synthetic://{k}") for k in range(2)]
+        results, scores, _ = run_evaluation(cfg, model=model, batch_size=eval_batch,
+                                            num_workers=2, return_scores=True)
+        torch.cuda.synchronize()
+        eval_launches = ops.launch_counts()  # ... and ends here
+        eval_cores = path_cores()
+    forwards = len(top5) + -(-n_videos // eval_batch)
+    log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
+    log(f"  run_evaluation over {n_videos} synthetic videos: {results}")
+    check_launches(f"{label} eval path ({forwards} forwards x {layers} layers)", eval_launches,
+                   {op: n * layers * forwards for op, n in eval_ops.items()})
+    check_block_cores(f"{label} eval", eval_cores, eval_ops, layers * forwards)
+    if scores.shape != (n_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
+        raise AssertionError(f"bad {label} eval scores {scores.shape}")
+    if any(not (0 <= p <= 1) for r in top5 for _, p in r):
+        raise AssertionError(f"{label} inference scores are not probabilities")
+
+    clips = np.random.default_rng(seed).integers(0, 256, (2, 3, frames, 224, 224, 3),
+                                                 dtype=np.uint8)
+    imgs = make_prepare_fn(device="cuda")(clips)
+    with torch.no_grad():
+        p_kernel = model.forward_test(imgs)
+        with plain_ops():
+            p_plain = model.forward_test(imgs)
+    hold_top1(f"{label} model on {tuple(imgs.shape)}", p_kernel, p_plain, prob_atol)
+    del imgs, p_kernel, p_plain
+    torch.cuda.empty_cache()
+
+    log(f"  train_model on {os.path.relpath(config, ROOT)}: {steps} steps of {train_clips} "
+        "clips through the recipe's train pipeline, from this model's weights (load_from)")
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ann = os.path.join(tmp, "train.txt")
+        with open(train_ann, "w") as f:
+            f.write("\n".join(f"synthetic://{seed * 100 + 50 + i} {i % classes}"
+                              for i in range(steps * train_clips)))
+        # the run starts from this model (load_from): from the seeded
+        # initialisation, whose zero D_fc2 cut the DUAL side stream's
+        # gradient below the last block (it has no residual), a few steps
+        # would leave the earlier blocks' adapters without a gradient
+        initial = {k: v.clone() for k, v in model.state_dict().items()}
+        start = os.path.join(tmp, "start.pth")
+        torch.save({"state_dict": {k: v.cpu() for k, v in initial.items()}}, start)
+        tcfg = copy.deepcopy(cfg)
+        tcfg["data"]["train"]["ann_file"] = train_ann
+        tcfg["data"].update(workers_per_gpu=4, videos_per_gpu=train_clips)
+        tcfg.update(total_epochs=1, checkpoint_config=dict(interval=1),
+                    log_config=dict(interval=1), load_from=start)
+        work = os.path.join(tmp, "work")
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()  # this train path's run starts here
+        state, history = train_model(tcfg, work_dir=work, seed=0, max_steps=steps,
+                                     validate=False, device="cuda")
+        torch.cuda.synchronize()
+        train_launches = ops.launch_counts()  # ... and ends here
+        train_cores = path_cores()
+        log(f"  train_model: {state.step} steps in {time.perf_counter() - t0:.1f} s "
+            f"(data and build included); losses {[round(h['loss'], 4) for h in history]}")
+        check_launches(f"{label} train path ({steps} steps x {layers} layers)",
+                       train_launches, {op: n * layers * steps for op, n in train_ops.items()})
+        check_block_cores(f"{label} train", train_cores, train_ops, layers * steps)
+        if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
+            raise AssertionError(f"{label} train_model did not take finite steps")
+        trained = state.model.state_dict()
+        trainable = {n for n, p in state.model.named_parameters() if p.requires_grad}
+        frozen_same = all(torch.equal(initial[n], trained[n])
+                          for n in initial if n not in trainable)
+        moved = {n for n in trainable if not torch.equal(initial[n], trained[n])}
+        log(f"  {len(trainable)} trainable tensors "
+            f"({sum(state.model.get_parameter(n).numel() for n in trainable) / 1e6:.2f}M "
+            f"params), {len(moved)} moved; frozen bitwise unchanged: {frozen_same}")
+        if not frozen_same or moved != trainable:
+            raise AssertionError("frozen weights moved or trainable ones did not: "
+                                 f"{sorted(trainable - moved)[:8]}")
+        reloaded = init_recognizer(tcfg, checkpoint=CheckpointManager(work).path(1),
+                                   device="cuda")
+        if not all(torch.equal(v, trained[k]) for k, v in reloaded.state_dict().items()):
+            raise AssertionError(f"the {label} checkpoint does not reload through "
+                                 "init_recognizer")
+        log("  checkpoint reloaded through init_recognizer")
+        del state, reloaded, initial, trained
+    torch.cuda.empty_cache()
+    weights = model.state_dict()
+    compare_train_step(cfg, weights, train_clips, classes)
+    torch.cuda.empty_cache()
+
+    log(f"  {label} timings on {card}")
+    mcfg = {k: v for k, v in cfg["model"].items() if k not in ("test_cfg", "train_cfg")}
+    xla = build_model({**mcfg, "backbone": {**bb, "attention_core": "xla"}},
+                      test_cfg=cfg["model"]["test_cfg"], device="cuda").eval()
+    xla.load_state_dict(weights)
+    x = torch.randn(8, 1, 3, frames, 224, 224, device="cuda")
+    for path, m in (("kernel", model), ("framework-op (xla)", xla)):
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ms = cuda_ms(lambda: m.forward_test(x), iters=5, warmup=2)
+        mem = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"  {label} forward_test batch 8 of {frames} frames ({path} path): {ms:.2f} ms, "
+            f"{8 / ms * 1e3:.2f} clips/s, peak memory {mem:.2f} GiB (median of 5 after 2 "
+            "warm-ups, CUDA events)")
+    del x, xla, model
+    torch.cuda.empty_cache()
+    train_timings(cfg, weights, classes, label, batches=(2, 8), xla_batches=(2,))
+    torch.cuda.empty_cache()
+    return cfg, weights, classes, eval_launches, train_launches
+
+
+def phase_18(card):
+    """The AIM window path: AIM_base_diving48.py as shipped (32 frames,
+    (32, 2, 2) windows shifted on odd layers, the prompt; drive_window_family),
+    then one forward of aim_window_base_hmdb51.py (16 frames, unshifted
+    (16, 7, 7) windows of 784 tokens) with its launches. Returns the
+    diving48 path's (eval launches, train launches)."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import init_recognizer, load_config
+    t0 = time.perf_counter()
+    _, _, _, eval_launches, train_launches = drive_window_family(
+        card, "window AIM", WINDOW_CONFIG,
+        dict(type="AIM", wind_attn=True, window_size=(32, 2, 2), not_shift=False,
+             prompt=True, attention_core="fused", compute_dtype="bfloat16", width=WIDTH,
+             layers=12, num_frames=FLASH_FRAMES),
+        ops.WINDOW_EVAL_OPS, ops.WINDOW_TRAIN_OPS, WINDOW_PROB_ATOL, seed=18,
+        phase="phase 18")
+    cfg16 = load_config(WINDOW16_CONFIG)
+    bb16 = cfg16["model"]["backbone"]
+    model16 = init_recognizer(cfg16, device="cuda", seed=0)
+    randomize_adapters(model16, seed=19)
+    x = torch.randn(2, 1, 3, bb16["num_frames"], 224, 224, device="cuda")
+    ops.reset_launch_counts()  # this forward starts here
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        p16 = model16.forward_test(x)
+    torch.cuda.synchronize()
+    launches16, cores16 = ops.launch_counts(), path_cores()  # ... and ends here
+    log(f"  {os.path.relpath(WINDOW16_CONFIG, ROOT)} ({bb16['num_frames']} frames, windows "
+        f"{tuple(bb16['window_size'])}, not_shift {bb16['not_shift']}): one forward of 2 clips, "
+        f"probabilities {tuple(p16.shape)}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    check_launches("window AIM 16f forward (12 layers)", launches16,
+                   {op: 12 * n for op, n in ops.WINDOW_EVAL_OPS.items()})
+    check_block_cores("window AIM 16f forward", cores16, ops.WINDOW_EVAL_OPS, 12)
+    if not (torch.isfinite(p16).all() and (p16.sum(1) - 1).abs().max() < 1e-3):
+        raise AssertionError("the 16-frame window AIM forward is not a probability")
+    del model16, x, p16
+    torch.cuda.empty_cache()
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    return eval_launches, train_launches
+
+
+def phase_19(card, errors):
+    """AIM_FLASH_DUAL: AIM_flash_dual_base_hmdb51.py as shipped
+    (drive_window_family; rows 4 twice a layer, 8 once, on the side stream
+    only), then rows 4 and 8 at the side stream's (2 clips x 8 windows, 800,
+    768) against their plain versions, and the spatial forward core (the
+    flash core's staged branch at its limit) and backward core (its streamed
+    ring) alone at (16, 12, 800, 64) against their plain versions,
+    scaled_dot_product_attention forward and backward and their bounds.
+    Returns (cfg, weights, eval launches, train launches, core rows)."""
+    import torch
+    from adapt_image_models_torch import ops
+    t0 = time.perf_counter()
+    cfg, weights, _, eval_launches, train_launches = drive_window_family(
+        card, "DUAL", DUAL_CONFIG,
+        dict(type="AIM_FLASH_DUAL", window_size=(16, 7, 7), attention_core="fused",
+             compute_dtype="bfloat16", width=WIDTH, layers=12, num_frames=FLASH_FRAMES),
+        ops.DUAL_EVAL_OPS, ops.DUAL_TRAIN_OPS, DUAL_PROB_ATOL, seed=19, phase="phase 19")
+    windows = 2 * (FLASH_FRAMES // 16) * (14 // 7) ** 2
+    x, wts, g = block_inputs(windows, 1, seed=1900, tokens=DUAL_KEYS)
+    shape = f"x={tuple(x.shape)} bf16, {HEADS} heads"
+    log(f"phase 19: rows 4 and 8 at the DUAL side stream's {shape} "
+        f"(forward {ops.flash_fwd_design(DUAL_KEYS)[0]}, backward "
+        f"{ops.spatial_bwd_design(DUAL_KEYS)[0]})")
+    sblk = "fused_qkv_attention"
+    out = ops.fused_qkv_attention(x, *wts, HEADS)
+    got = ops.fused_qkv_attention_bwd(x, *wts[:3], g, HEADS)
+    err = compare(f"{sblk} out", out, ops.fused_qkv_attention_plain(x, *wts, HEADS))
+    errors[sblk] = max(err, errors.get(sblk, 0.0))
+    failures = []
+    for tensor, a, b in zip(("dx", "dqkv", "o"), got,
+                            ops.fused_qkv_attention_bwd_plain(x, *wts[:3], g, HEADS)):
+        err, ok = compare_grad(tensor, a, b)
+        if tensor == "dx":
+            errors[sblk + "_bwd"] = max(err, errors.get(sblk + "_bwd", 0.0))
+        if not ok:
+            failures.append(tensor)
+    if failures:
+        raise AssertionError(f"rows 4 and 8 disagree with their plain versions at {shape}: "
+                             f"{failures}")
+    del x, wts, g, out, got
+    torch.cuda.empty_cache()
+    rows = spatial_core_timings(card, {}, {}, shapes=((windows, HEADS, DUAL_KEYS),))
+    log(f"phase 19: {time.perf_counter() - t0:.1f} s")
+    return cfg, weights, eval_launches, train_launches, rows
+
+
+def phase_20(cfg, weights):
+    """A train run started from files on the card: ``train_model`` on the
+    DUAL config (1 step of 1 clip) with ``clip_pretrained``, a CLIP visual
+    state dict taken from a model seeded 1, then with ``load_from``, phase
+    19's model (seeded adapters, the class lead) saved in flash-attn's
+    layout. Right after the loads (at the AIM freeze) the model holds the
+    file's tensors bit for bit and, for the rest, the run's seeded
+    initialisation; after the step the frozen tensors still equal the
+    file's."""
+    import copy
+    import torch
+    from adapt_image_models_torch.apis import init_recognizer, train_model
+    from adapt_image_models_torch.apis import train as train_api
+    from adapt_image_models_torch.convert.checkpoint import FLASH_KEY_ALIASES, clip_visual_keys
+    t0 = time.perf_counter()
+    layers = cfg["model"]["backbone"]["layers"]
+    clip_names = {"backbone." + k for k in clip_visual_keys(layers)}
+    clip_source = {k: v.cpu() for k, v in init_recognizer(cfg, device="cuda", seed=1)
+                   .state_dict().items() if k in clip_names}
+    seeded = {k: v.cpu() for k, v in init_recognizer(cfg, device="cuda", seed=0)
+              .state_dict().items()}
+    aim_source = {k: v.cpu() for k, v in weights.items()}
+
+    def flash_name(key):
+        for old, new in FLASH_KEY_ALIASES:
+            if new in key:
+                return key.replace(new, old)
+        return key
+
+    freeze = train_api.freeze_params
+    with tempfile.TemporaryDirectory() as tmp:
+        clip_path, aim_path = os.path.join(tmp, "clip.pt"), os.path.join(tmp, "aim.pth")
+        torch.save({k[len("backbone."):]: v for k, v in clip_source.items()}, clip_path)
+        torch.save({"state_dict": {flash_name(k): v for k, v in aim_source.items()}},
+                   aim_path)
+        ann = os.path.join(tmp, "train.txt")
+        with open(ann, "w") as f:
+            f.write("synthetic://2000 1\n")
+        tcfg = copy.deepcopy(cfg)
+        tcfg["data"]["train"]["ann_file"] = ann
+        tcfg["data"].update(workers_per_gpu=1, videos_per_gpu=1)
+        tcfg.update(total_epochs=1, checkpoint_config=dict(interval=1),
+                    log_config=dict(interval=1))
+        for key, path, loaded, source in (("clip_pretrained", clip_path, clip_names, clip_source),
+                                          ("load_from", aim_path, set(aim_source), aim_source)):
+            at_freeze = {}
+
+            def record(model):
+                at_freeze.update({k: v.cpu() for k, v in model.state_dict().items()})
+                return freeze(model)
+
+            train_api.freeze_params = record
+            try:
+                state, history = train_model(dict(tcfg, **{key: path}),
+                                             work_dir=os.path.join(tmp, key), seed=0,
+                                             max_steps=1, validate=False, device="cuda")
+            finally:
+                train_api.freeze_params = freeze
+            want = {k: source[k] if k in loaded else seeded[k] for k in seeded}
+            held = [k for k in want if not torch.equal(at_freeze[k], want[k])]
+            trainable = {n for n, p in state.model.named_parameters() if p.requires_grad}
+            after = state.model.state_dict()
+            kept = [k for k in loaded - trainable if not torch.equal(after[k].cpu(), source[k])]
+            log(f"phase 20: train_model with {key} ({len(loaded)} tensors from the file, "
+                f"{len(want) - len(loaded & set(want))} at the seeded init): 1 step, loss "
+                f"{history[-1]['loss']:.4f}; at the freeze {len(want) - len(held)} of "
+                f"{len(want)} tensors as expected bit for bit; after the step "
+                f"{len(loaded - trainable) - len(kept)} of {len(loaded - trainable)} frozen "
+                "file tensors unchanged")
+            if held or kept or not all(torch.isfinite(torch.tensor(h["loss"]))
+                                       for h in history):
+                raise AssertionError(f"the {key} run does not hold the file's weights: "
+                                     f"{(held + kept)[:8]}")
+            del state
+            torch.cuda.empty_cache()
+    log(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -3914,6 +4317,18 @@ def main():
     seg_bound, gemm_rows, spatial_rows, temporal_rows, row_pass_rows = phase_17(
         card, errors, op_ms, library_ms)
 
+    # ---- phase 18: the AIM window path -------------------------------------
+    window_launches, window_train_launches = phase_18(card)
+
+    # ---- phase 19: AIM_FLASH_DUAL and rows 4, 8 at 800 keys -----------------
+    cfg19, weights19, dual_launches, dual_train_launches, dual_rows = phase_19(card, errors)
+    spatial_rows.update(dual_rows)
+
+    # ---- phase 20: a train run from clip_pretrained and load_from ----------
+    phase_20(cfg19, weights19)
+    del weights19
+    torch.cuda.empty_cache()
+
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
                           "fused_temporal_train_step", "fused_temporal_step_bwd_dx",
@@ -3937,7 +4352,7 @@ def main():
                "fused_ln_temporal_attention_bwd_dx", "fused_ln_temporal_attention_bwd_segment",
                "fused_ln_temporal_attention_bwd_dx_segment"):
         sources[op] = "adapt_image_models_torch/csrc/temporal_bwd.cuh"
-    # each op's launches on the first of the eighteen paths that runs it
+    # each op's launches on the first of the twenty-two paths that runs it
     counts = {}
     for path, run in (("flagship eval", launches), ("flagship train", train_launches),
                       ("SSv2 eval", ssv2_launches), ("SSv2 train", ssv2_train_launches),
@@ -3954,7 +4369,10 @@ def main():
                       ("LN temporal block layer", ln_launches),
                       ("CLIPAttention layer path", layer_launches),
                       ("ViT-B/16 144f eval", long144_launches),
-                      ("ViT-B/16 144f train", long144_train_launches)):
+                      ("ViT-B/16 144f train", long144_train_launches),
+                      ("window AIM eval", window_launches),
+                      ("window AIM train", window_train_launches),
+                      ("DUAL eval", dual_launches), ("DUAL train", dual_train_launches)):
         counts.update({op: (path, n) for op, n in run.items() if n and op not in counts})
     kernels = []
     for op in ops.KERNEL_OPS:

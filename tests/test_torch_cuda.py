@@ -379,10 +379,13 @@ def test_temporal_block_kernels_match_plain(cuda, t, heads, n):
                  fused_temporal_block, fused_temporal_block_plain, x, ws[:4], g, t, heads)
 
 
-@pytest.mark.parametrize("n,heads", [(17, 2), (197, 12), (198, 12), (257, 16)])
+@pytest.mark.parametrize("n,heads", [(17, 2), (197, 12), (198, 12), (257, 16), (800, 12)])
 def test_spatial_block_kernels_match_plain(cuda, n, heads):
     """The plain spatial attention block; 198 is ViT-B/16's tokens with the
-    prompt token."""
+    prompt token, 800 AIM_FLASH_DUAL's side stream (16 prompt and 16 x 49
+    window keys at the shipped (16, 7, 7)): the flash core's staged branch
+    at its limit and the spatial backward core's streamed ring (rows 4 and
+    8)."""
     x, _, _, ws = _args(cuda, 6, n, 64 * heads, 16 * heads, 11)
     g = torch.randn(x.shape, generator=torch.Generator().manual_seed(12)).to(x)
     _block_check(fused_qkv_attention, fused_qkv_attention_bwd, fused_qkv_attention_plain,

@@ -166,7 +166,6 @@ def test_load_checkpoint_is_strict(jax_params, tmp_path):
 
 
 @pytest.mark.parametrize("override,exc", [
-    (dict(wind_attn=True), NotImplementedError),
     (dict(num_tadapter=3), ValueError),
     (dict(joint_core="tiles"), ValueError),
     (dict(attention_core="pallas"), ValueError),  # an unknown core
