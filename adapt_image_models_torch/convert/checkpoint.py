@@ -5,8 +5,11 @@ state dict of this package, whose keys are the reference's own
 (``backbone.transformer.resblocks.{i}.attn.in_proj_weight``,
 ``cls_head.fc_cls.weight``, ...). It un-stacks the ``nn.scan`` layer axis,
 transposes Dense kernels (in, out) -> (out, in) and the conv kernel HWIO ->
-OIHW, and renames LayerNorm ``scale`` -> ``weight``. It is the inverse of
-``adapt_image_models_tpu/convert/aim_import.py::convert_aim_checkpoint``.
+OIHW, renames LayerNorm ``scale`` -> ``weight`` and drops the inner ``ln``
+level of ViT_ImageNet's eps-1e-6 LayerNorms (``norm1/ln/scale`` ->
+``norm1.weight``). It is the inverse of
+``adapt_image_models_tpu/convert/aim_import.py::convert_aim_checkpoint``
+and, for ViT_ImageNet, of ``convert/timm_import.py::convert_timm_vit``.
 
 ``load_checkpoint`` loads a released AIM ``.pth`` (mmcv ``{'state_dict':
 ...}`` or a bare state dict) with ``strict=True`` after removing the keys
@@ -14,7 +17,8 @@ the model has no place for (CLIP's output projection ``proj``). A
 checkpoint in flash-attn's layout (the AIM_FLASH family: ``attn.Wqkv``,
 ``mlp.fc1``/``fc2``) has those keys renamed to CLIP's first, as
 ``adapt_image_models_tpu/convert/aim_import.py::_normalize_flash_keys``
-(:30-51) renames them; unlike it, only when the checkpoint has that layout.
+(:30-51) renames them; unlike it, only the keys the model lacks under
+their own name (ViT_ImageNet's MLP is ``fc1``/``fc2``).
 
 A train run's two inputs merge into the initialised model instead, with
 the JAX package's semantics: ``load_aim_pretrained`` (``load_from``,
@@ -34,6 +38,9 @@ import numpy as np
 import torch
 
 _ROOTS = {"backbone_module": "backbone", "head_module": "cls_head"}
+# the ``nn.scan`` stacks whose leading axis is the layer: CLIP's blocks, and
+# ViT_ImageNet's timm-named ``blocks``
+SCAN_STACKS = (("transformer", "resblocks"), ("blocks",))
 DROPPED_KEYS = ("backbone.proj",)
 
 # flash-attn's FlashMHA (``Wqkv``, ``out_proj``) and FlashMlp (``fc1``,
@@ -58,6 +65,10 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 def _leaf(path: Tuple[str, ...], arr: np.ndarray):
     """(torch name, torch-layout array) of one JAX leaf."""
     *mods, name = path
+    if mods[-2:-1] in (["norm1"], ["norm2"], ["ln_post"]) and mods[-1] == "ln":
+        # ViT_ImageNet's ``LayerNormEps6`` wraps its LayerNorm (norm1/ln/scale
+        # is norm1.weight); every other LayerNorm named ``ln`` keeps its name
+        mods = mods[:-1]
     if name == "in_proj_kernel":
         return mods + ["in_proj_weight"], arr.T
     if name == "kernel":
@@ -78,11 +89,11 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         if root not in _ROOTS:
             raise KeyError(f"unexpected param root {root!r}")
         rest = tuple(rest)
-        if rest[:2] == ("transformer", "resblocks"):  # scan-stacked layers
+        stack = next((s for s in SCAN_STACKS if rest[:len(s)] == s), None)
+        if stack is not None:  # scan-stacked layers
             for i in range(arr.shape[0]):
-                names, leaf = _leaf(rest[2:], arr[i])
-                key = ".".join([_ROOTS[root], "transformer", "resblocks", str(i), *names])
-                sd[key] = torch.tensor(leaf)
+                names, leaf = _leaf(rest[len(stack):], arr[i])
+                sd[".".join([_ROOTS[root], *stack, str(i), *names])] = torch.tensor(leaf)
         else:
             names, leaf = _leaf(rest, arr)
             sd[".".join([_ROOTS[root], *names])] = torch.tensor(leaf)
@@ -101,9 +112,10 @@ def load_checkpoint(model: torch.nn.Module,
     strictly. Tensors are copied to the model's device."""
     checkpoint = _load(checkpoint)
     sd = checkpoint.get("state_dict", checkpoint)
-    sd = {k: v for k, v in sd.items() if k not in DROPPED_KEYS}
-    if any(old in k for k in sd for old, _ in FLASH_KEY_ALIASES):
-        sd = {_unflash(k): v for k, v in sd.items()}
+    own = model.state_dict()
+    # a key of flash-attn's layout takes CLIP's name where the model lacks
+    # it: ViT_ImageNet's own MLP is ``mlp.fc1``/``fc2``
+    sd = {k if k in own else _unflash(k): v for k, v in sd.items() if k not in DROPPED_KEYS}
     model.load_state_dict(sd, strict=True)
     return model
 

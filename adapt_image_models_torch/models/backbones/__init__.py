@@ -2,6 +2,11 @@ from adapt_image_models_torch.models.backbones.aim import AIM  # noqa: F401
 from adapt_image_models_torch.models.backbones.flash_variants import (  # noqa: F401
     AIM_FLASH, AIM_FLASH_WIN,
 )
+from adapt_image_models_torch.models.backbones.restuning import (  # noqa: F401
+    ViT_CLIP_FLASH_RES_TUNING, ViT_CLIP_RES_TUNING,
+)
 from adapt_image_models_torch.models.backbones.vit_clip import (  # noqa: F401
     ViT_CLIP, ViT_CLIP_FLASH,
 )
+from adapt_image_models_torch.models.backbones.vit_imagenet import ViT_ImageNet  # noqa: F401
+from adapt_image_models_torch.models.backbones.zeroi2v import ViT_CLIP_ZEROI2V  # noqa: F401

@@ -95,6 +95,26 @@ def drop_path(x: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
     return x * gate.to(x.dtype).view((x.shape[0],) + (1,) * (x.dim() - 1))
 
 
+class BlockStack(nn.Module):
+    """A depth stack of one block class, registered as ``resblocks``: a
+    ``ModuleList`` where the JAX package scans (see ``drop_rates`` and
+    ``run_blocks``). ``x`` may be a tuple of streams, which comes back as
+    one."""
+
+    def __init__(self, block_cls, layers: int, d_model: int, num_heads: int,
+                 drop_path_rate: float = 0.1, use_checkpoint: bool = False,
+                 **block_kwargs):
+        super().__init__()
+        self.drop_rates = drop_rates(layers, drop_path_rate)
+        self.use_checkpoint = use_checkpoint
+        self.resblocks = nn.ModuleList(
+            block_cls(d_model, num_heads, **block_kwargs) for _ in range(layers))
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        return run_blocks(self.resblocks, self.drop_rates, x, generator,
+                          self.use_checkpoint)
+
+
 class AIMBlock(nn.Module):
     """One AIM residual attention block."""
 

@@ -44,7 +44,7 @@ from adapt_image_models_torch.models.layers import (
     Adapter, CLIPAttention, CLIPMLP, LayerNormFP32, resolve_dtype,
 )
 from adapt_image_models_torch.models.backbones.aim import (
-    VideoViT, drop_path, drop_path_gate, drop_rates, run_blocks,
+    BlockStack, VideoViT, drop_path, drop_path_gate,
 )
 
 # PatchShift pattern C: (row % step, col % step) -> roll along the frames;
@@ -122,25 +122,6 @@ class ViTCLIPBlock(nn.Module):
         return x + self.mlp(xn) + drop_path(scale * self.MLP_Adapter(xn), gate_m)
 
 
-class ViTCLIPTransformer(nn.Module):
-    """The depth stack (``vit_clip.py:132-163``): a ``ModuleList`` where the
-    JAX package scans (see ``aim.drop_rates`` and ``aim.run_blocks``)."""
-
-    def __init__(self, layers: int, d_model: int, num_heads: int,
-                 drop_path_rate: float = 0.1, use_checkpoint: bool = False,
-                 **block_kwargs):
-        super().__init__()
-        self.drop_rates = drop_rates(layers, drop_path_rate)
-        self.use_checkpoint = use_checkpoint
-        self.resblocks = nn.ModuleList(
-            ViTCLIPBlock(d_model, num_heads, **block_kwargs) for _ in range(layers))
-
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return run_blocks(self.resblocks, self.drop_rates, x, generator,
-                          self.use_checkpoint)
-
-
 @BACKBONES.register_module()
 class ViT_CLIP(VideoViT):
     """CLIP ViT with the ViT_CLIP blocks (see the module docstring)."""
@@ -152,8 +133,8 @@ class ViT_CLIP(VideoViT):
                  use_checkpoint: bool = False, compute_dtype=torch.float32,
                  attention_core: str = "xla", pretrained=None, device=None):
         # CLIP weights come through convert.load_checkpoint, not ``pretrained``
-        transformer = ViTCLIPTransformer(
-            layers, width, heads, drop_path_rate=drop_path_rate,
+        transformer = BlockStack(
+            ViTCLIPBlock, layers, width, heads, drop_path_rate=drop_path_rate,
             use_checkpoint=use_checkpoint, num_frames=num_frames,
             adapter_scale=adapter_scale, shift=shift,
             compute_dtype=resolve_dtype(compute_dtype),

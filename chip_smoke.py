@@ -281,8 +281,27 @@ Phases, in order; any failure raises and exits non-zero:
      seeded 1) and from load_from (phase 19's model saved in flash-attn's
      layout): at the AIM freeze the model holds the file's tensors bit for
      bit and the run's seeded initialisation elsewhere, and after the step
-     the frozen tensors still equal the file's.
-Phases 18, 19 and 20 log their seconds.
+     the frozen tensors still equal the file's;
+ 21. the last ViT-family backbones, framework ops only (the JAX package
+     runs no Pallas kernel there): res-tuning
+     (flash_attn/vitclip_flash_restuning_base_hmdb51.py, 32 frames), ZeroI2V
+     (zeroI2V/vitclip_zeroI2V_base_hmdb51.py, 32 frames, bottleneck adapters
+     and the temporal class token; zeroI2V/zeroi2v_base_k400.py, 8 frames,
+     linear adapters) and ViT_ImageNet (vit_imagenet_k400.py, 8 frames), each
+     as shipped on seeded weights with nonzero adapters and a class lead:
+     init_recognizer, inference_recognizer and run_evaluation on synthetic
+     videos, the bf16 probabilities against an fp32 model of the same
+     weights on the card (same top-1, within the path's bound in
+     LAST_VIT_PATHS) and that model against the port's fp32 forward on the
+     host CPU on one clip
+     (LAST_VIT_CPU_ATOL), train_model for 2 steps (frozen tensors bitwise
+     unchanged), one backward with a finite, nonzero gradient on every
+     trainable tensor, no launch of any fused op or core on any of these
+     runs, eval clips/s and peak memory at 8 clips of 32 frames or 32 of 8,
+     train clips/s and peak memory at 2 and 8 clips of 32 frames or 8 and 32
+     of 8, and a profile of one step at the larger batch; then one forward
+     of 2 clips of each other config of these backbones.
+Phases 18, 19, 20 and 21 log their seconds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -3475,6 +3494,250 @@ def phase_20(cfg, weights):
     log(f"phase 20: {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the last ViT-family backbones (res-tuning, ZeroI2V, ViT_ImageNet)
+
+VIT_DIR = os.path.join(ROOT, "configs", "recognition", "vit")
+# (label, config, the backbone keys it must ship, train batches in clips,
+# bound on the card's bf16 probabilities against its fp32 forward of the
+# same weights): the 32-frame paths train at 2 and 8 clips, the 8-frame ones
+# at 8 and 32, the same 64 and 256 frames a step. bf16 rounds the stream,
+# q/k/v, the probabilities and every product; each bound is about 10x the
+# gap read on an H100 (NVIDIA H100 80GB HBM3, 700.00 W) on that path:
+# 1.031e-4 and 8.397e-5 on the 51-class paths, 2.304e-5 and 2.720e-5 on the
+# 400-class ones, whose probabilities are smaller
+LAST_VIT_PATHS = (
+    ("res-tuning", "flash_attn/vitclip_flash_restuning_base_hmdb51.py",
+     dict(type="ViT_CLIP_FLASH_RES_TUNING", num_frames=32, width=WIDTH, layers=12,
+          compute_dtype="bfloat16"), (2, 8), 1e-3),
+    ("ZeroI2V", "zeroI2V/vitclip_zeroI2V_base_hmdb51.py",
+     dict(type="ViT_CLIP_ZEROI2V", num_frames=32, width=WIDTH, layers=12,
+          linear_adapter=False, with_t_cls_token=True, shift_type="ths",
+          compute_dtype="bfloat16"), (2, 8), 8e-4),
+    ("ZeroI2V linear", "zeroI2V/zeroi2v_base_k400.py",
+     dict(type="ViT_CLIP_ZEROI2V", num_frames=8, width=WIDTH, layers=12,
+          linear_adapter=True, shift_type="ths", compute_dtype="bfloat16"), (8, 32), 2.5e-4),
+    ("ViT_ImageNet", "vit_imagenet_k400.py",
+     dict(type="ViT_ImageNet", num_frames=8, embed_dim=WIDTH, depth=12,
+          compute_dtype="bfloat16"), (8, 32), 2.5e-4),
+)
+# the other four configs of these backbones: one forward of 2 clips each
+LAST_VIT_BUILT = ("flash_attn/vitclip_flash_restuning_base_diving48.py",
+                  "zeroI2V/vitclip_zeroI2V_base_diving48.py",
+                  "zeroI2V/vitclip_zeroI2V_base_sthv2.py", "vit_imagenet_ssv2.py")
+# the card's fp32 probabilities against the port's fp32 forward on the host
+# CPU, one clip (TF32 off): only the summation order differs
+LAST_VIT_CPU_ATOL = 1e-4
+
+
+def check_no_launches(path, launches, cores):
+    """No fused op and no core of csrc/ launched on ``path``: these
+    backbones run framework ops, as the JAX package runs no TPU kernel
+    there."""
+    fired = {op: n for op, n in launches.items() if n}
+    for core, n in cores.items():
+        if any(n) if isinstance(n, tuple) else n:
+            fired[core] = n
+    log(f"  launches on the {path} path: none of {len(launches)} fused ops and "
+        f"{len(cores)} core counters" if not fired else f"  launches on {path}: {fired}")
+    if fired:
+        raise AssertionError(f"{path}: kernels launched on a framework-op path: {fired}")
+
+
+def drive_last_vit(card, label, name, expected, batches, bf16_atol, seed):
+    """One of LAST_VIT_PATHS as shipped, at full depth and width on seeded
+    weights (nonzero adapters, a class lead): init_recognizer,
+    inference_recognizer and run_evaluation on synthetic videos with no
+    launch; the bf16 probabilities against an fp32 model of the same
+    weights on the card, and that model against the port's fp32 forward on
+    the host CPU on one clip; train_model for 2 steps of ``batches[0]``
+    clips through the recipe's train pipeline from this model's weights
+    (load_from; ViT_ImageNet from its seeded init, as load_from reads CLIP's
+    layout only), no launch, frozen tensors bitwise unchanged, trainable ones
+    moved; one backward of ``batches[0]`` clips with a finite loss and a
+    finite, nonzero gradient on every trainable tensor; eval clips/s and
+    peak memory at ``batches[1]`` clips, train clips/s and peak memory at
+    both batches and a profile of one step at the larger."""
+    import copy
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import (
+        inference_recognizer, init_recognizer, load_config, run_evaluation, train_model,
+    )
+    from adapt_image_models_torch.data.transforms import make_prepare_fn
+    from adapt_image_models_torch.models import build_model
+    from adapt_image_models_torch.models.losses import cross_entropy
+    t_path = time.perf_counter()
+    config = os.path.join(VIT_DIR, name)
+    cfg = load_config(config)
+    bb = cfg["model"]["backbone"]
+    if {k: bb.get(k) for k in expected} != expected:
+        raise AssertionError(f"unexpected {label} backbone {bb}")
+    frames = bb["num_frames"]
+    classes = cfg["model"]["cls_head"]["num_classes"]
+    model = init_recognizer(cfg, device="cuda", seed=0)
+    randomize_adapters(model, seed=seed)
+    lead = separate_classes(model, seed=seed)
+    log(f"phase 21: built {name} ({label}: {bb['type']}, {frames} frames) on cuda, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, {classes} classes "
+        f"(class {lead} led), in {time.perf_counter() - t_path:.1f} s")
+    n_videos, eval_batch = 4, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "ann.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"synthetic://{seed * 100 + i} {i % classes}"
+                              for i in range(n_videos)))
+        cfg["data"]["test"]["ann_file"] = ann
+        ops.reset_launch_counts()  # this eval path's run starts here
+        top5 = [inference_recognizer(model, cfg, f"synthetic://{k}") for k in range(2)]
+        results, scores, _ = run_evaluation(cfg, model=model, batch_size=eval_batch,
+                                            num_workers=2, return_scores=True)
+        torch.cuda.synchronize()
+        check_no_launches(f"{label} eval", ops.launch_counts(), path_cores())  # ... ends here
+    log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
+    log(f"  run_evaluation over {n_videos} synthetic videos: {results}")
+    if scores.shape != (n_videos, classes) or not (abs(scores.sum(1) - 1) < 1e-3).all():
+        raise AssertionError(f"bad {label} eval scores {scores.shape}")
+
+    weights = model.state_dict()
+    mcfg = {k: v for k, v in cfg["model"].items() if k not in ("test_cfg", "train_cfg")}
+    fp32_cfg = {**mcfg, "backbone": {**bb, "compute_dtype": "float32"}}
+    model32 = build_model(fp32_cfg, test_cfg=cfg["model"]["test_cfg"], device="cuda").eval()
+    model32.load_state_dict(weights)
+    clips = np.random.default_rng(seed).integers(0, 256, (2, 1, frames, 224, 224, 3),
+                                                 dtype=np.uint8)
+    imgs = make_prepare_fn(device="cuda")(clips)
+    with torch.no_grad():
+        p16, p32 = model.forward_test(imgs), model32.forward_test(imgs)
+    err = (p16 - p32).abs().max().item()
+    same = bool((p16.argmax(1) == p32.argmax(1)).all())
+    log(f"  bf16 vs fp32 on the card, {tuple(imgs.shape)}: probability max_abs_err "
+        f"{err:.3e} (tol {bf16_atol}), top-1 equal {same}, "
+        f"finite {bool(torch.isfinite(p16).all())}")
+    if not (err < bf16_atol and same and torch.isfinite(p16).all()):
+        raise AssertionError(f"{label}: the bf16 model disagrees with the fp32 model")
+    host = build_model(fp32_cfg, test_cfg=cfg["model"]["test_cfg"], device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in weights.items()})
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        p_host = host.forward_test(imgs[:1].cpu())
+    err = (p32[:1].cpu() - p_host).abs().max().item()
+    log(f"  fp32 on the card vs fp32 on the host CPU, one clip: probability max_abs_err "
+        f"{err:.3e} (tol {LAST_VIT_CPU_ATOL}; host forward {time.perf_counter() - t0:.1f} s)")
+    if not err < LAST_VIT_CPU_ATOL:
+        raise AssertionError(f"{label}: the card's fp32 forward disagrees with the host's")
+    del model32, host, imgs, p16, p32
+    torch.cuda.empty_cache()
+
+    train_clips, steps = batches[0], 2
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ann = os.path.join(tmp, "train.txt")
+        with open(train_ann, "w") as f:
+            f.write("\n".join(f"synthetic://{seed * 100 + 50 + i} {i % classes}"
+                              for i in range(steps * train_clips)))
+        tcfg = copy.deepcopy(cfg)
+        tcfg["data"]["train"]["ann_file"] = train_ann
+        tcfg["data"].update(workers_per_gpu=4, videos_per_gpu=train_clips)
+        tcfg.update(total_epochs=1, log_config=dict(interval=1))
+        # load_from takes a checkpoint of CLIP's layout (transformer.resblocks),
+        # as in the JAX package: ViT_ImageNet's run starts from its seeded
+        # initialisation, whose zero D_fc2 leave D_fc1's bias without a
+        # gradient, so there only some trainable tensors must move
+        resumable = any(".transformer.resblocks." in k for k in weights)
+        if resumable:
+            start = os.path.join(tmp, "start.pth")
+            torch.save({"state_dict": {k: v.cpu() for k, v in weights.items()}}, start)
+            tcfg["load_from"] = start
+            initial = weights
+        else:
+            initial = init_recognizer(tcfg, device="cuda", seed=0).state_dict()
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()  # this train path's run starts here
+        state, history = train_model(tcfg, work_dir=os.path.join(tmp, "work"), seed=0,
+                                     max_steps=steps, validate=False, device="cuda")
+        torch.cuda.synchronize()
+        check_no_launches(f"{label} train", ops.launch_counts(), path_cores())  # ... ends here
+    log(f"  train_model on {name}: {state.step} steps of {train_clips} clips in "
+        f"{time.perf_counter() - t0:.1f} s (data and build included); losses "
+        f"{[round(h['loss'], 4) for h in history]}")
+    if state.step != steps or not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"{label} train_model did not take finite steps")
+    trained = state.model.state_dict()
+    trainable = {n for n, p in state.model.named_parameters() if p.requires_grad}
+    frozen_same = all(torch.equal(initial[n], trained[n]) for n in initial if n not in trainable)
+    moved = {n for n in trainable if not torch.equal(initial[n], trained[n])}
+    log(f"  {len(trainable)} trainable tensors "
+        f"({sum(state.model.get_parameter(n).numel() for n in trainable) / 1e6:.2f}M params), "
+        f"{len(moved)} moved (from {'this model, load_from' if resumable else 'the seeded init'})"
+        f"; frozen bitwise unchanged: {frozen_same}")
+    if not frozen_same or not moved or (resumable and moved != trainable):
+        raise AssertionError(f"{label}: frozen weights moved or trainable ones did not: "
+                             f"{sorted(trainable - moved)[:8]}")
+    del state, trained, initial
+    torch.cuda.empty_cache()
+
+    tstate, _ = train_setup(cfg, weights=weights)
+    m = tstate.model.train()
+    batch = torch.randn(train_clips, 3, frames, 224, 224, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+    labels = torch.arange(train_clips, device="cuda") * 37 % classes
+    loss = cross_entropy(m(batch.to(torch.bfloat16), torch.Generator("cuda").manual_seed(1)),
+                         labels)
+    loss.backward()
+    grads = {n: p.grad for n, p in m.named_parameters() if p.requires_grad}
+    bad = [n for n, g in grads.items()
+           if g is None or not bool(torch.isfinite(g).all()) or not bool(g.abs().sum() > 0)]
+    log(f"  one backward of {train_clips} clips: loss {loss.item():.4f}; {len(grads) - len(bad)} "
+        f"of {len(grads)} trainable tensors with a finite, nonzero gradient")
+    if not bool(torch.isfinite(loss)) or bad:
+        raise AssertionError(f"{label}: gradients missing, zero or not finite: {bad[:8]}")
+    del tstate, m, batch, loss, grads
+    torch.cuda.empty_cache()
+
+    log(f"  {label} timings on {card}")
+    eval_timing(label, model, batches[1], frames, path="framework-op path")
+    del model
+    torch.cuda.empty_cache()
+    train_timings(cfg, weights, classes, label, batches=batches,
+                  cores=((None, "framework-op"),))
+    torch.cuda.empty_cache()
+    log(f"phase 21: {label} path in {time.perf_counter() - t_path:.1f} s")
+
+
+def phase_21(card):
+    """The last ViT-family backbones: each of LAST_VIT_PATHS through
+    drive_last_vit, then one forward of 2 clips of each LAST_VIT_BUILT
+    config as shipped, with no launch."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import init_recognizer, load_config
+    t0 = time.perf_counter()
+    for k, path in enumerate(LAST_VIT_PATHS):
+        drive_last_vit(card, *path, seed=2100 + k)
+    for name in LAST_VIT_BUILT:
+        cfg = load_config(os.path.join(VIT_DIR, name))
+        bb = cfg["model"]["backbone"]
+        model = init_recognizer(cfg, device="cuda", seed=0)
+        randomize_adapters(model, seed=2110)
+        x = torch.randn(2, 1, 3, bb["num_frames"], 224, 224, device="cuda")
+        ops.reset_launch_counts()  # this forward starts here
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            p = model.forward_test(x)
+        torch.cuda.synchronize()
+        log(f"phase 21: {name} ({bb['type']}, {bb['num_frames']} frames"
+            f"{', num_tadapter 2' if bb.get('num_tadapter') == 2 else ''}): one forward of 2 "
+            f"clips, probabilities {tuple(p.shape)}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check_no_launches(f"{name} forward", ops.launch_counts(), path_cores())
+        if not (torch.isfinite(p).all() and (p.sum(1) - 1).abs().max() < 1e-3):
+            raise AssertionError(f"{name}: the forward is not a probability")
+        del model, x, p
+        torch.cuda.empty_cache()
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import numpy as np
     import torch
@@ -4328,6 +4591,9 @@ def main():
     phase_20(cfg19, weights19)
     del weights19
     torch.cuda.empty_cache()
+
+    # ---- phase 21: res-tuning, ZeroI2V and ViT_ImageNet ----------------------
+    phase_21(card)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",

@@ -72,6 +72,8 @@ from adapt_image_models_torch.ops import (
 )
 from adapt_image_models_torch.parallel import freeze_params
 
+from share_cores import share_cores  # noqa: F401 (autouse: the worker's share of the cores)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, D, HEADS = 2, 128, 2
 RES, PATCH, LAYERS, T, CLASSES = 64, 16, 2, 4, 5

@@ -44,6 +44,7 @@ from adapt_image_models_torch.parallel import freeze_params
 from test_torch_vitclip import (  # the toy geometry and seeded JAX weights
     CLASSES, D, HEADS, LAYERS, RES, T, _jax_ctx, _model_cfg, _port, jax_params,  # noqa: F401
 )
+from share_cores import share_cores  # noqa: F401 (autouse: the worker's share of the cores)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPT = dict(type="AdamW", lr=3e-4, betas=(0.9, 0.999), weight_decay=0.05,
