@@ -5,9 +5,15 @@ state dict of this package, whose keys are the reference's own
 (``backbone.transformer.resblocks.{i}.attn.in_proj_weight``,
 ``cls_head.fc_cls.weight``, ...). It un-stacks the ``nn.scan`` layer axis,
 transposes Dense kernels (in, out) -> (out, in) and the conv kernel HWIO ->
-OIHW, renames LayerNorm ``scale`` -> ``weight`` and drops the inner ``ln``
+OIHW (a Conv3D's (kt, kh, kw, in, out) -> (out, in, kt, kh, kw), the Swin
+stems), renames LayerNorm ``scale`` -> ``weight``, drops the inner ``ln``
 level of ViT_ImageNet's eps-1e-6 LayerNorms (``norm1/ln/scale`` ->
-``norm1.weight``). It is the inverse of
+``norm1.weight``) and gives the Swin backbones' unrolled stages the
+reference's names: ``layers_{i}_blocks_{j}`` -> ``layers.{i}.blocks.{j}``,
+``layers_{i}_downsample`` -> ``layers.{i}.downsample``. The relative-position
+tables, ``cls_token``, ``pos_embed`` and ``time_embed`` keep their layout;
+TimeSformer's scanned ``blocks`` un-stack as ViT_ImageNet's do. It is the
+inverse of
 ``adapt_image_models_tpu/convert/aim_import.py::convert_aim_checkpoint``
 and, for ViT_ImageNet, of ``convert/timm_import.py::convert_timm_vit``.
 
@@ -32,6 +38,7 @@ other tensor at its initialisation and raises on a shape mismatch.
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping, Tuple, Union
 
 import numpy as np
@@ -62,9 +69,23 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), np.asarray(v, np.float32)
 
 
+# a Swin backbone's unrolled stage modules and their torch names
+_SWIN_STAGE = re.compile(r"^layers_(\d+)_(blocks_(\d+)|downsample)$")
+
+
+def _swin_names(mod: str):
+    m = _SWIN_STAGE.match(mod)
+    if m is None:
+        return [mod]
+    if m.group(3) is None:
+        return ["layers", m.group(1), "downsample"]
+    return ["layers", m.group(1), "blocks", m.group(3)]
+
+
 def _leaf(path: Tuple[str, ...], arr: np.ndarray):
     """(torch name, torch-layout array) of one JAX leaf."""
     *mods, name = path
+    mods = [part for mod in mods for part in _swin_names(mod)]
     if mods[-2:-1] in (["norm1"], ["norm2"], ["ln_post"]) and mods[-1] == "ln":
         # ViT_ImageNet's ``LayerNormEps6`` wraps its LayerNorm (norm1/ln/scale
         # is norm1.weight); every other LayerNorm named ``ln`` keeps its name
@@ -74,6 +95,8 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray):
     if name == "kernel":
         if arr.ndim == 4:  # conv HWIO -> OIHW
             return mods + ["weight"], arr.transpose(3, 2, 0, 1)
+        if arr.ndim == 5:  # conv3d DHWIO -> OIDHW
+            return mods + ["weight"], arr.transpose(4, 3, 0, 1, 2)
         return mods + ["weight"], arr.T
     if name == "scale":
         return mods + ["weight"], arr

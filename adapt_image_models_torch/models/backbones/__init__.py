@@ -5,6 +5,13 @@ from adapt_image_models_torch.models.backbones.flash_variants import (  # noqa: 
 from adapt_image_models_torch.models.backbones.restuning import (  # noqa: F401
     ViT_CLIP_FLASH_RES_TUNING, ViT_CLIP_RES_TUNING,
 )
+from adapt_image_models_torch.models.backbones.swin2d_adapter import (  # noqa: F401
+    SwinTransformer2D_Adapter,
+)
+from adapt_image_models_torch.models.backbones.swin3d import (  # noqa: F401
+    SwinTransformer2D, SwinTransformer3D,
+)
+from adapt_image_models_torch.models.backbones.timesformer import TimeSformer  # noqa: F401
 from adapt_image_models_torch.models.backbones.vit_clip import (  # noqa: F401
     ViT_CLIP, ViT_CLIP_FLASH,
 )

@@ -126,6 +126,32 @@ class LayerNormFP32(nn.Module):
         return layer_norm_fp32(x, self.weight, self.bias, self.eps).to(x.dtype)
 
 
+def flax_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=float32)`` (flax 0.12): fp32 statistics
+    with the fast variance E[x²] - E[x]², clamped at 0, the scale folded
+    into the reciprocal standard deviation; returns fp32."""
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = torch.clamp(x32.square().mean(-1, keepdim=True) - mean.square(), min=0.0)
+    return (x32 - mean) * (torch.rsqrt(var + eps) * weight.float()) + bias.float()
+
+
+class LayerNormFlax(nn.Module):
+    """The Swin backbones' LayerNorm, flax ``nn.LayerNorm(epsilon=1e-5,
+    dtype=jnp.float32)`` (see ``flax_layer_norm``): unlike
+    ``LayerNormFP32`` its output stays fp32, whatever the input's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return flax_layer_norm(x, self.weight, self.bias, self.eps)
+
+
 class Adapter(nn.Module):
     """MLP-bottleneck adapter ``D_fc1 -> GELU(exact) -> D_fc2`` with an
     optional skip. ``D_fc2`` is zero-initialised."""

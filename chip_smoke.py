@@ -300,8 +300,19 @@ Phases, in order; any failure raises and exits non-zero:
      runs, eval clips/s and peak memory at 8 clips of 32 frames or 32 of 8,
      train clips/s and peak memory at 2 and 8 clips of 32 frames or 8 and 32
      of 8, and a profile of one step at the larger batch; then one forward
-     of 2 clips of each other config of these backbones.
-Phases 18, 19, 20 and 21 log their seconds.
+     of 2 clips of each other config of these backbones;
+ 22. TimeSformer, Swin2D-Adapter and Video Swin, framework ops only (the JAX
+     package reaches no Pallas kernel in timesformer.py, swin2d_adapter.py
+     or swin3d.py), through the same drive as phase 21 (VIDEO_PATHS):
+     vit/timesformer_k400.py (ViT-B/16, 8 frames; eval at 32 clips, train
+     at 8 and 32), swin/swin2d_adapter_base_k400.py (Swin2D-Adapter-B, 32
+     frames) and swin/swin_base_patch244_window877_kinetics400_1k.py (Video
+     Swin-B, 32 frames, windows (8, 7, 7)), each 32-frame Swin with eval at 8
+     clips and train at 2 and 8 (the recipes' batch a card); their
+     train_model runs start from the seeded init, as load_from reads CLIP's
+     layout only; then one forward of 2 clips of each of the seven other
+     configs of these backbones (VIDEO_BUILT).
+Phases 18, 19, 20, 21 and 22 log their seconds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -797,6 +808,13 @@ TRAIN_BWD = {"fused_temporal": "fused_temporal_step_bwd_dx",
              "fused_joint": "fused_joint_mlp_rows_bwd"}
 
 
+def clip_frames(cfg):
+    """The frames of a clip of ``cfg``: its test pipeline's SampleFrames
+    ``clip_len`` (a Video Swin backbone has no ``num_frames``)."""
+    return next(step["clip_len"] for step in cfg["data"]["test"]["pipeline"]
+                if step["type"] == "SampleFrames")
+
+
 def train_setup(cfg, core=None, weights=None, use_checkpoint=None):
     """A model of ``cfg`` on the card with ``core`` and ``use_checkpoint``
     (the config's own where None), loaded with ``weights`` and frozen by the
@@ -903,7 +921,7 @@ def train_timings(cfg, weights, classes, label, batches=(8, 32), xla_batches=Non
     batch."""
     import numpy as np
     import torch
-    frames = cfg["model"]["backbone"]["num_frames"]
+    frames = clip_frames(cfg)
     for clips in batches:
         timing_batch = {"imgs": torch.randn(clips, 1, 3, frames, 224, 224, device="cuda",
                                             dtype=torch.bfloat16),
@@ -1013,13 +1031,15 @@ def block_timings(op_ms, name, block, x, wts, g, rest, relayout, label):
 
 def randomize_adapters(model, seed):
     """Seeded non-zero values where the initialisers put zeros (each
-    adapter's D_fc2 and the temporal embedding), so every kernel product
-    shapes the output, as it would with trained adapters."""
+    adapter's D_fc2, the temporal embedding and TimeSformer's temporal_fc),
+    so every kernel product shapes the output and every tensor gets a
+    gradient, as it would with trained weights."""
     import torch
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if ".D_fc2." in name or name.endswith("temporal_embedding"):
+            if (".D_fc2." in name or ".temporal_fc." in name
+                    or name.endswith("temporal_embedding")):
                 p.copy_(0.02 * torch.randn(p.shape, generator=g))
 
 
@@ -3495,39 +3515,64 @@ def phase_20(cfg, weights):
 
 
 # ---------------------------------------------------------------------------
-# phase 21: the last ViT-family backbones (res-tuning, ZeroI2V, ViT_ImageNet)
+# phases 21 and 22: the backbones of framework ops only (res-tuning, ZeroI2V,
+# ViT_ImageNet; TimeSformer, Swin2D-Adapter and Video Swin)
 
-VIT_DIR = os.path.join(ROOT, "configs", "recognition", "vit")
-# (label, config, the backbone keys it must ship, train batches in clips,
-# bound on the card's bf16 probabilities against its fp32 forward of the
-# same weights): the 32-frame paths train at 2 and 8 clips, the 8-frame ones
-# at 8 and 32, the same 64 and 256 frames a step. bf16 rounds the stream,
-# q/k/v, the probabilities and every product; each bound is about 10x the
-# gap read on an H100 (NVIDIA H100 80GB HBM3, 700.00 W) on that path:
-# 1.031e-4 and 8.397e-5 on the 51-class paths, 2.304e-5 and 2.720e-5 on the
-# 400-class ones, whose probabilities are smaller
+RECOGNITION_DIR = os.path.join(ROOT, "configs", "recognition")
+# (label, config under configs/recognition, the backbone keys it must ship,
+# train batches in clips, bound on the card's bf16 probabilities against its
+# fp32 forward of the same weights): the 32-frame paths train at 2 and 8
+# clips, the 8-frame ones at 8 and 32, the same 64 and 256 frames a step.
+# bf16 rounds the stream, q/k/v, the probabilities and every product; each
+# bound is about 10x the gap read on an H100 (NVIDIA H100 80GB HBM3, 700.00
+# W) on that path: 1.031e-4 and 8.397e-5 on the 51-class paths, 2.304e-5 and
+# 2.720e-5 on the 400-class ones, whose probabilities are smaller
 LAST_VIT_PATHS = (
-    ("res-tuning", "flash_attn/vitclip_flash_restuning_base_hmdb51.py",
+    ("res-tuning", "vit/flash_attn/vitclip_flash_restuning_base_hmdb51.py",
      dict(type="ViT_CLIP_FLASH_RES_TUNING", num_frames=32, width=WIDTH, layers=12,
           compute_dtype="bfloat16"), (2, 8), 1e-3),
-    ("ZeroI2V", "zeroI2V/vitclip_zeroI2V_base_hmdb51.py",
+    ("ZeroI2V", "vit/zeroI2V/vitclip_zeroI2V_base_hmdb51.py",
      dict(type="ViT_CLIP_ZEROI2V", num_frames=32, width=WIDTH, layers=12,
           linear_adapter=False, with_t_cls_token=True, shift_type="ths",
           compute_dtype="bfloat16"), (2, 8), 8e-4),
-    ("ZeroI2V linear", "zeroI2V/zeroi2v_base_k400.py",
+    ("ZeroI2V linear", "vit/zeroI2V/zeroi2v_base_k400.py",
      dict(type="ViT_CLIP_ZEROI2V", num_frames=8, width=WIDTH, layers=12,
           linear_adapter=True, shift_type="ths", compute_dtype="bfloat16"), (8, 32), 2.5e-4),
-    ("ViT_ImageNet", "vit_imagenet_k400.py",
+    ("ViT_ImageNet", "vit/vit_imagenet_k400.py",
      dict(type="ViT_ImageNet", num_frames=8, embed_dim=WIDTH, depth=12,
           compute_dtype="bfloat16"), (8, 32), 2.5e-4),
 )
 # the other four configs of these backbones: one forward of 2 clips each
-LAST_VIT_BUILT = ("flash_attn/vitclip_flash_restuning_base_diving48.py",
-                  "zeroI2V/vitclip_zeroI2V_base_diving48.py",
-                  "zeroI2V/vitclip_zeroI2V_base_sthv2.py", "vit_imagenet_ssv2.py")
+LAST_VIT_BUILT = ("vit/flash_attn/vitclip_flash_restuning_base_diving48.py",
+                  "vit/zeroI2V/vitclip_zeroI2V_base_diving48.py",
+                  "vit/zeroI2V/vitclip_zeroI2V_base_sthv2.py", "vit/vit_imagenet_ssv2.py")
 # the card's fp32 probabilities against the port's fp32 forward on the host
 # CPU, one clip (TF32 off): only the summation order differs
 LAST_VIT_CPU_ATOL = 1e-4
+# phase 22, as LAST_VIT_PATHS: TimeSformer ViT-B/16 8f trains at 8 and 32
+# clips, the two 32-frame Swin-B at 2 and at the recipes' 8 a card, which fit
+# an H100 (NVIDIA H100 80GB HBM3, 700.00 W) without use_checkpoint (neither
+# JAX Swin has it): 30.69 and 62.61 GiB. The bf16 bounds are about 10x the
+# gaps read on that card: 3.800e-5, 1.896e-5 and 2.262e-5
+VIDEO_PATHS = (
+    ("TimeSformer", "vit/timesformer_k400.py",
+     dict(type="TimeSformer", num_frames=8, embed_dims=WIDTH, num_transformer_layers=12,
+          compute_dtype="bfloat16"), (8, 32), 4e-4),
+    ("Swin2D-Adapter-B", "swin/swin2d_adapter_base_k400.py",
+     dict(type="SwinTransformer2D_Adapter", num_frames=32, embed_dim=128,
+          depths=(2, 2, 18, 2), window_size=7, compute_dtype="bfloat16"), (2, 8), 2e-4),
+    ("Video Swin-B", "swin/swin_base_patch244_window877_kinetics400_1k.py",
+     dict(type="SwinTransformer3D", embed_dim=128, depths=(2, 2, 18, 2),
+          window_size=(8, 7, 7), compute_dtype="bfloat16"), (2, 8), 2.5e-4),
+)
+# the other seven configs of these backbones: one forward of 2 clips each
+VIDEO_BUILT = ("swin/swin2d_adapter_patch244_window7_kinetics400_1k.py",
+               "swin/swin2d_adapter_patch244_window7_sthv2_1k.py",
+               "swin/swin_tiny_patch244_window877_kinetics400_1k.py",
+               "swin/swin_small_patch244_window877_kinetics400_1k.py",
+               "swin/swin_base_patch244_window877_kinetics400_22k.py",
+               "swin/swin_base_patch244_window877_kinetics600_22k.py",
+               "swin/swin_base_patch244_window1677_sthv2.py")
 
 
 def check_no_launches(path, launches, cores):
@@ -3544,20 +3589,21 @@ def check_no_launches(path, launches, cores):
         raise AssertionError(f"{path}: kernels launched on a framework-op path: {fired}")
 
 
-def drive_last_vit(card, label, name, expected, batches, bf16_atol, seed):
-    """One of LAST_VIT_PATHS as shipped, at full depth and width on seeded
-    weights (nonzero adapters, a class lead): init_recognizer,
-    inference_recognizer and run_evaluation on synthetic videos with no
-    launch; the bf16 probabilities against an fp32 model of the same
-    weights on the card, and that model against the port's fp32 forward on
-    the host CPU on one clip; train_model for 2 steps of ``batches[0]``
-    clips through the recipe's train pipeline from this model's weights
-    (load_from; ViT_ImageNet from its seeded init, as load_from reads CLIP's
-    layout only), no launch, frozen tensors bitwise unchanged, trainable ones
-    moved; one backward of ``batches[0]`` clips with a finite loss and a
-    finite, nonzero gradient on every trainable tensor; eval clips/s and
-    peak memory at ``batches[1]`` clips, train clips/s and peak memory at
-    both batches and a profile of one step at the larger."""
+def drive_framework_path(card, label, name, expected, batches, bf16_atol, seed, phase):
+    """One of LAST_VIT_PATHS or VIDEO_PATHS as shipped, at full depth and
+    width on seeded weights (nonzero adapters and temporal_fc, a class
+    lead): init_recognizer, inference_recognizer and run_evaluation on
+    synthetic videos with no launch; the bf16 probabilities against an fp32
+    model of the same weights on the card, and that model against the
+    port's fp32 forward on the host CPU on one clip; train_model for 2
+    steps of ``batches[0]`` clips through the recipe's train pipeline from
+    this model's weights (load_from, which reads CLIP's layout only, as in
+    the JAX package: the other backbones from their seeded init), no
+    launch, frozen tensors bitwise unchanged, trainable ones moved; one
+    backward of ``batches[0]`` clips with a finite loss and a finite,
+    nonzero gradient on every trainable tensor; eval clips/s and peak
+    memory at ``batches[1]`` clips, train clips/s and peak memory at both
+    batches and a profile of one step at the larger."""
     import copy
     import numpy as np
     import torch
@@ -3569,17 +3615,20 @@ def drive_last_vit(card, label, name, expected, batches, bf16_atol, seed):
     from adapt_image_models_torch.models import build_model
     from adapt_image_models_torch.models.losses import cross_entropy
     t_path = time.perf_counter()
-    config = os.path.join(VIT_DIR, name)
-    cfg = load_config(config)
+    cfg = load_config(os.path.join(RECOGNITION_DIR, name))
     bb = cfg["model"]["backbone"]
-    if {k: bb.get(k) for k in expected} != expected:
+
+    def norm(v):
+        return tuple(v) if isinstance(v, list) else v
+
+    if {k: norm(bb.get(k)) for k in expected} != expected:
         raise AssertionError(f"unexpected {label} backbone {bb}")
-    frames = bb["num_frames"]
+    frames = clip_frames(cfg)
     classes = cfg["model"]["cls_head"]["num_classes"]
     model = init_recognizer(cfg, device="cuda", seed=0)
     randomize_adapters(model, seed=seed)
     lead = separate_classes(model, seed=seed)
-    log(f"phase 21: built {name} ({label}: {bb['type']}, {frames} frames) on cuda, "
+    log(f"{phase}: built {name} ({label}: {bb['type']}, {frames} frames) on cuda, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, {classes} classes "
         f"(class {lead} led), in {time.perf_counter() - t_path:.1f} s")
     n_videos, eval_batch = 4, 2
@@ -3641,9 +3690,10 @@ def drive_last_vit(card, label, name, expected, batches, bf16_atol, seed):
         tcfg["data"].update(workers_per_gpu=4, videos_per_gpu=train_clips)
         tcfg.update(total_epochs=1, log_config=dict(interval=1))
         # load_from takes a checkpoint of CLIP's layout (transformer.resblocks),
-        # as in the JAX package: ViT_ImageNet's run starts from its seeded
-        # initialisation, whose zero D_fc2 leave D_fc1's bias without a
-        # gradient, so there only some trainable tensors must move
+        # as in the JAX package: the other backbones' runs start from their
+        # seeded initialisation, whose zero D_fc2 and temporal_fc leave some
+        # tensors without a gradient, so there only some trainable tensors
+        # must move
         resumable = any(".transformer.resblocks." in k for k in weights)
         if resumable:
             start = os.path.join(tmp, "start.pth")
@@ -3702,31 +3752,27 @@ def drive_last_vit(card, label, name, expected, batches, bf16_atol, seed):
     train_timings(cfg, weights, classes, label, batches=batches,
                   cores=((None, "framework-op"),))
     torch.cuda.empty_cache()
-    log(f"phase 21: {label} path in {time.perf_counter() - t_path:.1f} s")
+    log(f"{phase}: {label} path in {time.perf_counter() - t_path:.1f} s")
 
 
-def phase_21(card):
-    """The last ViT-family backbones: each of LAST_VIT_PATHS through
-    drive_last_vit, then one forward of 2 clips of each LAST_VIT_BUILT
-    config as shipped, with no launch."""
+def forward_configs(phase, names, seed):
+    """One forward of 2 clips of each config of ``names`` (under
+    configs/recognition) as shipped on seeded weights, with no launch."""
     import torch
     from adapt_image_models_torch import ops
     from adapt_image_models_torch.apis import init_recognizer, load_config
-    t0 = time.perf_counter()
-    for k, path in enumerate(LAST_VIT_PATHS):
-        drive_last_vit(card, *path, seed=2100 + k)
-    for name in LAST_VIT_BUILT:
-        cfg = load_config(os.path.join(VIT_DIR, name))
-        bb = cfg["model"]["backbone"]
+    for name in names:
+        cfg = load_config(os.path.join(RECOGNITION_DIR, name))
+        bb, frames = cfg["model"]["backbone"], clip_frames(cfg)
         model = init_recognizer(cfg, device="cuda", seed=0)
-        randomize_adapters(model, seed=2110)
-        x = torch.randn(2, 1, 3, bb["num_frames"], 224, 224, device="cuda")
+        randomize_adapters(model, seed=seed)
+        x = torch.randn(2, 1, 3, frames, 224, 224, device="cuda")
         ops.reset_launch_counts()  # this forward starts here
         torch.cuda.reset_peak_memory_stats()
         with torch.no_grad():
             p = model.forward_test(x)
         torch.cuda.synchronize()
-        log(f"phase 21: {name} ({bb['type']}, {bb['num_frames']} frames"
+        log(f"{phase}: {name} ({bb['type']}, {frames} frames"
             f"{', num_tadapter 2' if bb.get('num_tadapter') == 2 else ''}): one forward of 2 "
             f"clips, probabilities {tuple(p.shape)}, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
@@ -3735,7 +3781,28 @@ def phase_21(card):
             raise AssertionError(f"{name}: the forward is not a probability")
         del model, x, p
         torch.cuda.empty_cache()
+
+
+def phase_21(card):
+    """The last ViT-family backbones: each of LAST_VIT_PATHS through
+    drive_framework_path, then one forward of 2 clips of each
+    LAST_VIT_BUILT config as shipped, with no launch."""
+    t0 = time.perf_counter()
+    for k, path in enumerate(LAST_VIT_PATHS):
+        drive_framework_path(card, *path, seed=2100 + k, phase="phase 21")
+    forward_configs("phase 21", LAST_VIT_BUILT, seed=2110)
     log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_22(card):
+    """TimeSformer, Swin2D-Adapter and Video Swin: each of VIDEO_PATHS
+    through drive_framework_path, then one forward of 2 clips of each
+    VIDEO_BUILT config as shipped, with no launch."""
+    t0 = time.perf_counter()
+    for k, path in enumerate(VIDEO_PATHS):
+        drive_framework_path(card, *path, seed=2200 + k, phase="phase 22")
+    forward_configs("phase 22", VIDEO_BUILT, seed=2210)
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -4594,6 +4661,9 @@ def main():
 
     # ---- phase 21: res-tuning, ZeroI2V and ViT_ImageNet ----------------------
     phase_21(card)
+
+    # ---- phase 22: TimeSformer, Swin2D-Adapter and Video Swin -----------------
+    phase_22(card)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",

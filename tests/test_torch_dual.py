@@ -57,6 +57,7 @@ from adapt_image_models_torch.parallel import freeze_params
 from test_torch_flash import (  # the toy geometry and the flash tests' helpers
     CLASSES, D, HEADS, LAYERS, OPT, RES, T, TOL, _jax_eval, _np, _randomize,
 )
+from share_cores import share_cores  # noqa: F401 (autouse: the worker's share of the cores)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PATCH = 16

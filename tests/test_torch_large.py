@@ -63,6 +63,7 @@ from adapt_image_models_torch.core.train_state import TrainState, make_train_ste
 from adapt_image_models_torch.models import build_model
 from adapt_image_models_torch import ops
 from adapt_image_models_torch.parallel import freeze_params
+from share_cores import share_cores  # noqa: F401 (autouse: the worker's share of the cores)
 
 # the modules, not the functions of the same names that ``ops`` exports
 tfqa = importlib.import_module("adapt_image_models_torch.ops.fused_qkv_attention")

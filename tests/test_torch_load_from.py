@@ -36,6 +36,7 @@ from adapt_image_models_torch.convert.checkpoint import clip_visual_keys
 from adapt_image_models_torch.models import build_model
 
 from test_torch_flash import _flash_layout, _randomize
+from share_cores import share_cores  # noqa: F401 (autouse: the worker's share of the cores)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 D, HEADS, LAYERS, T, RES, CLASSES = 128, 2, 2, 4, 64, 5

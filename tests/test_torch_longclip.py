@@ -71,6 +71,7 @@ from adapt_image_models_torch.models import build_model
 from adapt_image_models_torch.models.layers import CLIPAttention, LayerNormFP32
 from adapt_image_models_torch.ops._common import temporal_segment_core_plain
 from adapt_image_models_torch.parallel import freeze_params
+from share_cores import share_cores  # noqa: F401 (autouse: the worker's share of the cores)
 
 tfta = importlib.import_module("adapt_image_models_torch.ops.fused_temporal_attention")
 

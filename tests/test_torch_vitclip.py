@@ -54,6 +54,7 @@ from adapt_image_models_torch.ops import (
     flash_attention_core, flash_attention_core_plain, flash_attention_entry,
     fused_attention, launch_counts, reset_launch_counts, xla_attention_core,
 )
+from share_cores import share_cores  # noqa: F401 (autouse: the worker's share of the cores)
 
 D, HEADS = 128, 2
 RES, PATCH, LAYERS, T, CLASSES = 64, 16, 2, 4, 5

@@ -40,7 +40,7 @@ from adapt_image_models_tpu.core.train_state import (
 )
 from adapt_image_models_tpu.models import build_model as build_jax_model
 from adapt_image_models_tpu.models.backbones import zeroi2v as jax_zeroi2v
-from adapt_image_models_tpu.parallel.partition import partition_params
+from adapt_image_models_tpu.parallel.partition import merge_params, partition_params
 from adapt_image_models_torch.apis import (
     inference_recognizer, init_recognizer, load_config, run_evaluation, train_model,
 )
@@ -118,13 +118,14 @@ def port_from_jax(cfg, params):
     return model
 
 
-def eval_matches_jax(cfg, params, frames, res, dtype):
+def eval_matches_jax(cfg, params, frames, res, dtype, port_cfg=None):
     """extract_feat and forward_test over 3 views of 2 clips against the JAX
-    model on the same weights, within ``TOL``; nothing launches."""
+    model on the same weights, within ``TOL``; nothing launches.
+    ``port_cfg`` builds the port's model where it differs from ``cfg``."""
     imgs = np.random.default_rng(2).standard_normal(
         (2, 3, 3, frames, res, res)).astype(np.float32)
     want_feat, want_prob = _jax_eval(build_jax_model(cfg), params, jnp.asarray(imgs))
-    model = port_from_jax(cfg, params).eval()
+    model = port_from_jax(port_cfg or cfg, params).eval()
     reset_launch_counts()
     with torch.no_grad():
         got_feat = model.extract_feat(torch.from_numpy(imgs)).float().numpy()
@@ -135,12 +136,15 @@ def eval_matches_jax(cfg, params, frames, res, dtype):
     np.testing.assert_allclose(got_prob, np.asarray(want_prob), rtol=0, atol=prob_tol)
 
 
-def trajectory_matches_jax(cfg, params, frames, res, steps=4, batch=2):
-    """``steps`` AdamW steps (drop path off so that no draw differs): the
-    port's train step after the AIM freeze against JAX ``make_train_step``
-    after ``partition_params``; the same tensors train on both sides."""
+def trajectory_matches_jax(cfg, params, frames, res, steps=4, batch=2, opt=OPT,
+                           grad_clip=None, port_cfg=None):
+    """``steps`` AdamW steps (drop path off so that no draw differs) of the
+    optimizer ``opt`` with ``grad_clip``: the port's train step after the
+    AIM freeze against JAX ``make_train_step`` after ``partition_params``;
+    the same tensors train on both sides. ``port_cfg`` builds the port's
+    model where it differs from ``cfg``."""
     trainable, _ = partition_params(params)
-    tx = jax_build_optimizer(OPT, trainable, schedule=3e-4)
+    tx = jax_build_optimizer(opt, trainable, schedule=3e-4, grad_clip=grad_clip)
     state = create_train_state(params, tx)
     rng = np.random.default_rng(3)
     batches = [(rng.standard_normal((batch, 1, 3, frames, res, res)).astype(np.float32),
@@ -152,15 +156,19 @@ def trajectory_matches_jax(cfg, params, frames, res, steps=4, batch=2):
                               jax.random.PRNGKey(0))
         losses_j.append(float(metrics["loss"]))
 
-    model = port_from_jax(cfg, params)
+    model = port_from_jax(port_cfg or cfg, params)
     freeze_params(model)
-    opt = build_optimizer(OPT, model, 3e-4)
+    opt = build_optimizer(opt, model, 3e-4, grad_clip=grad_clip)
     tstate = TrainState(model, opt)
     train_step = make_train_step(model, opt)
     losses_t = [float(train_step(tstate, {"imgs": torch.from_numpy(imgs), "label": labels},
                                  0)["loss"]) for imgs, labels in batches]
     np.testing.assert_allclose(losses_t, losses_j, rtol=1e-3)
-    assert losses_t[-1] < losses_t[0]
+    # the first batch's loss again, after the steps: below where it began
+    with torch.no_grad():
+        again = float(torch.nn.functional.cross_entropy(
+            model(torch.from_numpy(batches[0][0])), torch.from_numpy(batches[0][1])))
+    assert again < losses_t[0], (again, losses_t)
     got = dict(model.named_parameters())
     want = params_from_jax(state.trainable)
     assert set(want) == {n for n, p in got.items() if p.requires_grad}
@@ -168,6 +176,34 @@ def trajectory_matches_jax(cfg, params, frames, res, steps=4, batch=2):
         np.testing.assert_allclose(got[name].detach().numpy(), w.numpy(),
                                    rtol=1e-3, atol=5e-6, err_msg=name)
     return want
+
+
+def gradients_match_jax(cfg, params, frames, res, port_cfg=None):
+    """The gradients of the cross-entropy of 2 clips (eval mode: no draw)
+    with respect to the trainable tensors after the AIM freeze against
+    ``jax.grad`` over JAX's trainable tree (``partition_params``), the same
+    tensors on both sides. ``port_cfg`` builds the port's model where it
+    differs from ``cfg``. Returns (JAX's, the port's) gradients by name."""
+    # jnp leaves: a frozen numpy table indexed by a traced index would not trace
+    trainable, frozen = partition_params(jax.tree_util.tree_map(jnp.asarray, params))
+    rng = np.random.default_rng(4)
+    imgs = rng.standard_normal((2, 3, frames, res, res)).astype(np.float32)
+    labels = np.arange(2) % CLASSES
+    jmodel = build_jax_model(cfg)
+
+    def loss(tree):
+        logits = jmodel.apply({"params": merge_params(tree, frozen)}, jnp.asarray(imgs))
+        logp = jax.nn.log_softmax(logits)
+        return -jnp.mean(jnp.take_along_axis(logp, jnp.asarray(labels)[:, None], 1))
+
+    want = params_from_jax(jax.jit(jax.grad(loss))(trainable))
+    model = port_from_jax(port_cfg or cfg, params)
+    freeze_params(model)
+    logits = model.eval()(torch.from_numpy(imgs))
+    torch.nn.functional.cross_entropy(logits, torch.from_numpy(labels)).backward()
+    got = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
+    assert set(got) == set(want)
+    return want, got
 
 
 def every_adapter_gets_a_gradient(cfg, frames, res):
@@ -234,16 +270,20 @@ def clip_pretrained_matches_jax(tmp_path, cfg, params):
     assert moved == {"backbone." + k for k in clip_visual_keys(LAYERS)}
 
 
-def config_runs_through_the_entry_points(tmp_path, name, **backbone):
-    """``name`` as shipped but for ``backbone``'s toy widths, on the CPU:
+def config_runs_through_the_entry_points(tmp_path, name, directory="vit", **backbone):
+    """``name`` (under ``configs/recognition/<directory>``) as shipped but
+    for ``backbone``'s toy widths, on the CPU:
     init_recognizer, inference_recognizer and run_evaluation through its
     test pipeline, then train_model for one step through its train pipeline
     and the AIM freeze; nothing launches, the frozen tensors stay as they
     were bit for bit and some trainable one moves; the checkpoint reloads
     through init_recognizer bit for bit."""
-    cfg = load_config(os.path.join(ROOT, "configs", "recognition", "vit", name))
-    cfg["model"]["backbone"].update(backbone)
-    cfg["model"]["cls_head"]["in_channels"] = backbone.get("width", backbone.get("embed_dim"))
+    cfg = load_config(os.path.join(ROOT, "configs", "recognition", directory, name))
+    bb = cfg["model"]["backbone"]
+    bb.update(backbone)
+    # the backbone's own width key; a Swin doubles it at each patch merging
+    width = next(bb[k] for k in ("width", "embed_dim", "embed_dims") if k in bb)
+    cfg["model"]["cls_head"]["in_channels"] = width * 2 ** (len(bb.get("depths", (1,))) - 1)
     classes = cfg["model"]["cls_head"]["num_classes"]
     ann = tmp_path / "ann.txt"
     ann.write_text("synthetic://0 1\nsynthetic://1 3\n")
