@@ -1,5 +1,5 @@
-"""Evaluation on one device (parity: ``adapt_image_models_tpu/apis/
-test.py:34-180``, NCTHW recipes).
+"""Evaluation, on one device or data-parallel (parity:
+``adapt_image_models_tpu/apis/test.py:34-180``, NCTHW recipes).
 
 ``run_evaluation`` streams the split through the port's host loader
 (``data/loader.py``), scores every sample with a multi-view eval step and
@@ -7,8 +7,13 @@ calls ``dataset.evaluate``. ``max_testing_views`` chunks the view axis to
 bound memory on long multi-view protocols; the last chunk may be shorter,
 as in the reference (``recognizer3d.py:38-60``), so that the SSv2 recipe's
 3 views run in chunks of 2 (the JAX package refuses a view count that the
-chunk does not divide). Data parallelism is in ROADMAP
-queue 1.
+chunk does not divide).
+
+Under a process group (``launcher="pytorch"``, or a group joined before)
+each rank scores its shard of the split, the loader's ``padded[rank::W]``
+(padded by wrap to a multiple of W), ``all_gather_rows`` brings every
+shard's scores to every rank, and they are put back in dataset order and
+cut to the split's length, so every rank gets the one-process result.
 """
 
 from __future__ import annotations
@@ -27,6 +32,9 @@ from adapt_image_models_torch.data.transforms import (
 )
 from adapt_image_models_torch.models.layers import resolve_dtype
 from adapt_image_models_torch.models.recognizers.recognizer3d import average_clip
+from adapt_image_models_torch.parallel.distributed import (
+    all_gather_rows, get_dist_info, init_distributed,
+)
 
 
 def make_chunked_eval_step(model: torch.nn.Module, prepare_fn,
@@ -59,9 +67,18 @@ def run_evaluation(cfg: Dict[str, Any], model: Optional[torch.nn.Module] = None,
                    metrics=("top_k_accuracy", "mean_class_accuracy"),
                    batch_size: Optional[int] = None,
                    num_workers: Optional[int] = None,
-                   return_scores: bool = False, device="cuda", seed: int = 0):
+                   return_scores: bool = False, device="cuda", seed: int = 0,
+                   launcher: Optional[str] = None):
     """Evaluate ``model`` (or one built from ``cfg`` on ``device`` with
-    weights from ``seed``) on ``cfg.data[split]``."""
+    weights from ``seed``) on ``cfg.data[split]``; ``launcher="pytorch"``
+    joins torchrun's process group and builds the model on the rank's
+    device of ``device``'s type (a given model's device). ``batch_size`` is
+    a rank's."""
+    if launcher == "pytorch":
+        device = init_distributed(device=device if model is None else model_device(model))
+    elif launcher not in (None, "none"):
+        raise ValueError(f"launcher {launcher!r}: expected None, 'none' or 'pytorch'")
+    rank, world = get_dist_info()
     if model is None:
         model = init_recognizer(cfg, device=device, seed=seed)
     model.eval()
@@ -85,9 +102,16 @@ def run_evaluation(cfg: Dict[str, Any], model: Optional[torch.nn.Module] = None,
                                        test_cfg.get("average_clips", "prob"),
                                        test_cfg.get("max_testing_views"))
     loader = VideoLoader(dataset, proc, batch_size=batch_size, shuffle=False,
-                         num_workers=num_workers, drop_last=False)
-    scores = [eval_step(batch["imgs"]).cpu().numpy() for batch in loader]
-    scores = np.concatenate(scores)[:len(dataset)]
+                         num_workers=num_workers, drop_last=False,
+                         num_shards=world, shard_index=rank)
+    if world == 1:
+        scores = [eval_step(batch["imgs"]).cpu().numpy() for batch in loader]
+        scores = np.concatenate(scores)[:len(dataset)]
+    else:
+        local = torch.cat([eval_step(batch["imgs"]) for batch in loader])
+        # (W * per_shard, C) in rank order; shard r holds padded[r::W]
+        blocks = all_gather_rows(local).cpu().numpy().reshape((world,) + local.shape)
+        scores = blocks.transpose(1, 0, 2).reshape(-1, local.shape[-1])[:len(dataset)]
     results = dataset.evaluate(scores, metrics=metrics)
     if return_scores:
         return results, scores, dataset.labels()

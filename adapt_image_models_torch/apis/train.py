@@ -1,5 +1,5 @@
-"""Training on one device (parity: ``adapt_image_models_tpu/apis/
-train.py:57-354``).
+"""Training, on one device or data-parallel (parity:
+``adapt_image_models_tpu/apis/train.py:57-354``).
 
 ``train_model(cfg)`` drives the recipe of an mmcv-layout config: model,
 data, optimizer, lr_config, total_epochs, checkpointing and periodic
@@ -18,14 +18,26 @@ the port's copy of the JAX package's (``data/pipeline.py``, ``loader.py``,
   load_clip_pretrained over the seeded initialisation, before the freeze
   and the optimizer (JAX ``apis/train.py:166-182``)
 
-Not ported yet: data parallelism (ROADMAP queue 1) and OmniSource
-multi-dataset training.
+* DDP (tools/dist_train.sh)        -> ``launcher="pytorch"``: one process a
+  card under torchrun (``parallel/distributed.py``); the loader shards the
+  epoch by rank at ``videos_per_gpu // update_interval`` a rank, so the
+  global micro-batch is that times the world size and ``steps_per_epoch``
+  counts the sharded loader (JAX ``apis/train.py:95-115``); no learning
+  rate is rescaled
+
+Under a process group the model is seeded (and loaded) on every rank, then
+broadcast from rank 0; the train step averages gradients and metrics
+across ranks (``core/train_state.py``); rank 0 alone writes checkpoints and
+logs (``utils/logger.py``); a SIGTERM on any rank stops every rank at the
+same step; evaluation runs sharded. Without a group the single-device path
+runs and no collective is called.
+
+Not ported yet: OmniSource multi-dataset training (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import contextlib
-import logging
 import signal
 import threading
 import time
@@ -47,9 +59,11 @@ from adapt_image_models_torch.data.transforms import (
 )
 from adapt_image_models_torch.models import build_loss, build_model
 from adapt_image_models_torch.models.layers import resolve_dtype
-from adapt_image_models_torch.parallel import freeze_params
+from adapt_image_models_torch.parallel import (
+    all_gather_rows, broadcast_module_, freeze_params, get_dist_info, init_distributed,
+)
+from adapt_image_models_torch.utils.logger import get_root_logger
 
-logger = logging.getLogger("adapt_image_models_torch")
 
 def _norm_cfg(pipeline):
     for item in pipeline:
@@ -60,9 +74,18 @@ def _norm_cfg(pipeline):
 
 def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
                 validate: bool = True, seed: int = 0, auto_resume: bool = False,
-                max_steps: Optional[int] = None, device="cuda"):
+                max_steps: Optional[int] = None, device="cuda",
+                launcher: Optional[str] = None):
     """Run the training recipe of ``cfg`` on ``device``; returns
-    (TrainState, history of logged metrics)."""
+    (TrainState, history of logged metrics). ``launcher="pytorch"`` joins
+    torchrun's process group (``init_distributed``), and the run is
+    data-parallel on the rank's device of ``device``'s type."""
+    if launcher == "pytorch":
+        device = init_distributed(device=device)
+    elif launcher not in (None, "none"):
+        raise ValueError(f"launcher {launcher!r}: expected None, 'none' or 'pytorch'")
+    rank, world = get_dist_info()
+    logger = get_root_logger()
     work_dir = work_dir or cfg.get("work_dir", "./work_dir")
 
     model_cfg = dict(cfg["model"])
@@ -78,6 +101,7 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     if cfg.get("clip_pretrained"):
         logger.info(f"loading CLIP weights {cfg['clip_pretrained']}")
         load_clip_pretrained(model, cfg["clip_pretrained"])
+    broadcast_module_(model)  # every rank starts from rank 0's weights
     freeze_params(model)  # the fused train ops refuse a trainable CLIP weight
 
     data_cfg = cfg["data"]
@@ -94,7 +118,14 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     loader = VideoLoader(dataset, build_sample_processor(pipeline),
                          batch_size=videos // update_interval, shuffle=True,
                          seed=seed, num_workers=int(data_cfg.get("workers_per_gpu", 4)),
-                         drop_last=True)
+                         drop_last=True, num_shards=world, shard_index=rank)
+    if world > 1:
+        # the step averages the ranks' means: right for equal shards alone
+        shards = all_gather_rows(torch.tensor([[len(loader), loader.batch_size]],
+                                              device=device))
+        if not bool((shards == shards[0]).all()):
+            raise ValueError(f"the global micro-batch does not split evenly over {world} "
+                             f"ranks: (steps, rows) a rank {shards.tolist()}")
     mean, std = _norm_cfg(pipeline)
     prepare = make_prepare_fn(mean or CLIP_MEAN, std or CLIP_STD,
                               dtype=resolve_dtype(backbone_cfg.get("compute_dtype")),
@@ -130,7 +161,8 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
         log_interval=int((cfg.get("log_config") or {}).get("interval", 20)))
     with preemption_guard() as preempted:
         history = _train_loop(cfg, state, train_step, loader, ckpt_mgr, start_epoch,
-                              total_epochs, max_steps, seed + 1, preempted, **loop)
+                              total_epochs, max_steps, seed + 1, preempted, device,
+                              **loop)
     return state, history
 
 
@@ -139,12 +171,15 @@ def preemption_guard():
     """Yields an Event that SIGTERM sets; the loop then checkpoints the
     current epoch at the next step boundary and returns, so ``auto_resume``
     replays that epoch with the optimizer's step count (and so the LR
-    schedule) intact. Handlers install on the main thread only."""
+    schedule) intact. Handlers install on the main thread only. torchrun
+    forwards SIGTERM to every rank, but a rank may see it a step late, so
+    the loop averages the flag across ranks in each train step's
+    all_reduce under a process group, and every rank stops at one step."""
     preempted = threading.Event()
     prev = None
     if threading.current_thread() is threading.main_thread():
         def on_sigterm(signum, frame):
-            logger.warning("SIGTERM received: checkpointing for a clean exit")
+            get_root_logger().warning("SIGTERM received: checkpointing for a clean exit")
             preempted.set()
         prev = signal.signal(signal.SIGTERM, on_sigterm)
     try:
@@ -155,18 +190,26 @@ def preemption_guard():
 
 
 def _train_loop(cfg, state, train_step, loader, ckpt_mgr, start_epoch,
-                total_epochs, max_steps, step_seed, preempted, eval_interval,
+                total_epochs, max_steps, step_seed, preempted, device, eval_interval,
                 save_best_key, ckpt_interval, log_interval):
+    logger = get_root_logger()
+    world = get_dist_info()[1]
     history = []
     global_step = 0
     for epoch in range(start_epoch, total_epochs):
         loader.set_epoch(epoch)
         t0, n_clips = time.time(), 0
         for i, batch in enumerate(loader):
-            metrics = train_step(state, batch, step_seed)
-            n_clips += batch["imgs"].shape[0] * batch["imgs"].shape[1]
+            # under a group a rank's preemption flag rides in the step's
+            # all_reduce: a mean above 0 means some rank saw a SIGTERM
+            stop = ([torch.tensor([float(preempted.is_set())], device=device)]
+                    if world > 1 else [])
+            metrics = train_step(state, batch, step_seed, reduce_with=stop)
+            # clips of the global batch: every rank's shard is this size
+            n_clips += batch["imgs"].shape[0] * batch["imgs"].shape[1] * world
             global_step += 1
-            if preempted.is_set():
+            stopped = bool(stop[0] > 0) if stop else preempted.is_set()
+            if stopped:
                 ckpt_mgr.save(state, epoch)  # resume replays this epoch
                 logger.info(f"preempted at epoch {epoch + 1} iter {i + 1}: "
                             "checkpoint saved")

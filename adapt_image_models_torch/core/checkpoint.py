@@ -6,6 +6,11 @@
 ``init_recognizer(cfg, checkpoint=...)`` like a released AIM checkpoint.
 ``checkpoints.json`` keeps the ``latest`` pointer for ``auto_resume``, the
 list ``max_keep`` prunes, and the EvalHook-style ``best`` record.
+
+Under a process group every rank calls ``save`` and ``save_best`` with the
+same state; rank 0 alone writes, then every rank waits at a barrier, so a
+rank that goes on to ``latest_epoch`` or ``restore`` reads the files rank 0
+wrote. Every rank restores from the same file.
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ import os
 from typing import Any, Dict, Optional
 
 import torch
+
+from adapt_image_models_torch.parallel.distributed import barrier, is_main_process
 
 
 class CheckpointManager:
@@ -51,17 +58,19 @@ class CheckpointManager:
 
     def save(self, state, epoch: int) -> str:
         path = self.path(epoch)
-        self._write(state, epoch, path)
-        meta = self._read_meta()
-        meta["latest"] = epoch
-        meta["all"] = sorted(set(meta["all"] + [epoch]))
-        if self.max_keep:
-            keep = meta["all"][-self.max_keep:]
-            for e in meta["all"]:
-                if e not in keep and e != meta.get("best") and os.path.exists(self.path(e)):
-                    os.remove(self.path(e))
-            meta["all"] = keep
-        self._write_meta(meta)
+        if is_main_process():
+            self._write(state, epoch, path)
+            meta = self._read_meta()
+            meta["latest"] = epoch
+            meta["all"] = sorted(set(meta["all"] + [epoch]))
+            if self.max_keep:
+                keep = meta["all"][-self.max_keep:]
+                for e in meta["all"]:
+                    if e not in keep and e != meta.get("best") and os.path.exists(self.path(e)):
+                        os.remove(self.path(e))
+                meta["all"] = keep
+            self._write_meta(meta)
+        barrier()
         return path
 
     def save_best(self, state, epoch: int, score: float) -> bool:
@@ -69,12 +78,14 @@ class CheckpointManager:
         when ``score`` beats the best so far."""
         meta = self._read_meta()
         prev = meta.get("best_score")
-        if prev is not None and not score > prev:
-            return False
-        self._write(state, epoch, self.path("best"))
-        meta["best"], meta["best_score"] = epoch, float(score)
-        self._write_meta(meta)
-        return True
+        better = prev is None or score > prev
+        barrier()  # every rank has read the record before rank 0 rewrites it
+        if better and is_main_process():
+            self._write(state, epoch, self.path("best"))
+            meta["best"], meta["best_score"] = epoch, float(score)
+            self._write_meta(meta)
+        barrier()
+        return better
 
     def latest_epoch(self) -> Optional[int]:
         return self._read_meta().get("latest")

@@ -12,8 +12,21 @@ the optimizer update and on-device metrics (loss, top1_acc, top5_acc,
 grad_norm of the micro-batch gradients). The drop-path and dropout draws
 come from a generator seeded from ``(seed, state.step)``, as the JAX step
 draws from ``fold_in(rng, step)``; the blending draws from one seeded from
-``(seed, state.step, 1)``. One device; data parallelism is in ROADMAP
-queue 1.
+``(seed, state.step, 1)``.
+
+Under a process group (``parallel/distributed.py``) the step is the JAX
+package's ``shard_map`` step (``core/train_state.py:210-232``): each rank
+runs it on its shard of the global batch, whose row order is rank-major;
+one all_reduce averages the gradients, the loss and the accuracies across
+ranks before the gradient norm, the clip and the update, so every rank
+applies the same update. Past world size 1 the rank is folded into the
+drop-path and dropout generator, as JAX folds ``axis_index``. The blending
+runs over the global batch, as JAX blends before ``shard_map``: its λ and
+box come from the unfolded generator, the same on every rank, and a row's
+partner is the row before it in the global batch, so a rank needs only the
+previous rank's last row (``blend_global``). Every rank's micro-batch must
+hold as many rows (``apis/train.py`` checks it once, when it builds the
+loader). Without a group none of this runs and no collective is called.
 """
 
 from __future__ import annotations
@@ -26,6 +39,9 @@ import torch
 
 from adapt_image_models_torch.core.optim import Optimizer, global_norm
 from adapt_image_models_torch.models.losses import cross_entropy, soft_cross_entropy
+from adapt_image_models_torch.parallel.distributed import (
+    all_gather_rows, all_reduce_mean_, get_dist_info, is_distributed,
+)
 
 
 @dataclass
@@ -35,14 +51,50 @@ class TrainState:
     step: int = 0  # train_step calls (micro-batches), as the JAX state.step
 
 
-def step_generator(seed: int, step: int, device, stream: int = 0) -> torch.Generator:
+def step_generator(seed: int, step: int, device, stream: int = 0,
+                   rank: Optional[int] = None) -> torch.Generator:
     """A generator on ``device`` seeded from (seed, step), and ``stream``
-    when it is not 0: the port's ``fold_in(rng, step)``."""
-    key = [seed, step] + ([stream] if stream else [])
+    when it is not 0 or a ``rank`` is given, and ``rank``: the port's
+    ``fold_in(rng, step)`` (and ``fold_in(., axis_index)``)."""
+    key = [seed, step] + ([stream] if stream or rank is not None else [])
+    key += [] if rank is None else [rank]
     entropy = np.random.SeedSequence(key).generate_state(2, np.uint32)
     g = torch.Generator(device=device)
     g.manual_seed(int(entropy[0]) << 32 | int(entropy[1]))
     return g
+
+
+def drop_generator(seed: int, step: int, device) -> torch.Generator:
+    """The step's drop-path and dropout generator: ``step_generator(seed,
+    step, device)``, with the rank folded in past world size 1 (JAX folds
+    ``axis_index``, ``core/train_state.py:221``; its single-device step
+    does not)."""
+    rank, world = get_dist_info()
+    return step_generator(seed, step, device, rank=rank if world > 1 else None)
+
+
+def blend_global(blending: Callable, imgs: torch.Tensor, labels: torch.Tensor,
+                 generator: torch.Generator):
+    """``blending`` of the global batch whose rows ``imgs`` and ``labels``
+    are this rank's (rank-major), as (this rank's blended rows, their soft
+    targets). Every rank draws from the same ``generator``. A blend pairs
+    row i with row i - 1 and works row by row, and neither λ nor the CutMix
+    box depends on the batch size: so under a process group a rank blends
+    its rows behind the previous rank's last row (rank 0 takes the last
+    rank's), which one all_gather of every rank's last image and label, as
+    bytes, brings, and drops that row's output."""
+    if not is_distributed():
+        return blending(imgs, labels, generator)
+    rank, world = get_dist_info()
+    img, label = imgs[-1:].contiguous(), labels[-1:].contiguous()
+    row = torch.cat([img.view(torch.uint8).reshape(-1), label.view(torch.uint8).reshape(-1)])
+    prev = all_gather_rows(row[None])[(rank - 1) % world]
+    n = img.numel() * img.element_size()
+    prev_img = prev[:n].clone().view(img.dtype).view(img.shape)
+    prev_label = prev[n:].clone().view(label.dtype).view(label.shape)
+    out, targets = blending(torch.cat([prev_img, imgs]), torch.cat([prev_label, labels]),
+                            generator)
+    return out[1:], targets[1:]
 
 
 def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, topk=(1, 5)):
@@ -64,13 +116,17 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     out on the device) or prepared (B[, V], C, T, H, W), 'label': (B,) int
     or (B, C) soft}. Views fold into the batch. ``blending`` (imgs, labels,
     generator) -> (imgs, soft targets) (``data.blending.build_blending``)
-    runs before the forward; the accuracies use the hard labels.
-    ``loss_fn`` (logits, targets) defaults to hard or soft cross entropy by
-    the target's shape.
+    runs before the forward, over the global batch (``blend_global``); the
+    accuracies use the hard labels. ``loss_fn`` (logits, targets) defaults
+    to hard or soft cross entropy by the target's shape. Under a process
+    group, ``train_step(..., reduce_with=tensors)`` averages these
+    one-element tensors across ranks, in place, in the step's one
+    all_reduce (the train loop's preemption flag).
     """
     params = optimizer.params
 
-    def train_step(state: TrainState, batch: Dict, seed: int) -> Dict[str, torch.Tensor]:
+    def train_step(state: TrainState, batch: Dict, seed: int,
+                   reduce_with=()) -> Dict[str, torch.Tensor]:
         model.train()
         device = params[0].device
         imgs = batch["imgs"]
@@ -80,9 +136,9 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
         labels = torch.as_tensor(np.asarray(batch["label"])).to(device)
         targets = labels
         if blending is not None:
-            imgs, targets = blending(imgs, labels,
-                                     step_generator(seed, state.step, "cpu", 1))
-        logits = model(imgs, generator=step_generator(seed, state.step, device))
+            imgs, targets = blend_global(blending, imgs, labels,
+                                         step_generator(seed, state.step, "cpu", 1))
+        logits = model(imgs, generator=drop_generator(seed, state.step, device))
         if loss_fn is not None:
             loss = loss_fn(logits, targets)
         elif targets.dim() == logits.dim():
@@ -93,12 +149,15 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
         # under shift=True) gets a zero gradient, as jax.grad gives it
         grads = torch.autograd.grad(loss, params, allow_unused=True,
                                     materialize_grads=True)
-        grad_norm = global_norm(grads)
-        optimizer.update(grads)
+        loss = loss.detach()
         acc_labels = labels if labels.dim() == 1 else labels.argmax(-1)
         top1, top5 = topk_accuracy(logits.detach(), acc_labels)
+        if is_distributed():
+            all_reduce_mean_([*grads, loss, top1, top5, *reduce_with])
+        grad_norm = global_norm(grads)
+        optimizer.update(grads)
         state.step += 1
-        return {"loss": loss.detach(), "top1_acc": top1, "top5_acc": top5,
+        return {"loss": loss, "top1_acc": top1, "top5_acc": top5,
                 "grad_norm": grad_norm}
 
     return train_step

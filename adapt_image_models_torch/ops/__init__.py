@@ -259,20 +259,23 @@ SEGMENT_BWD_CORE = ("temporal_segment_bwd_core", _TPU + "fused_temporal_attentio
 GEMM = ("gemm", _TPU + "fused_qkv_attention.py:131")
 
 
+# the kernels inside the op chains, each wrapper with its own counter
+CORE_KERNELS = ("temporal_attention", "temporal_segment", "layernorm", "layernorm_bwd",
+                "row_scale", "spatial_attention", "spatial_attention_bwd",
+                "temporal_attention_bwd", "temporal_segment_bwd", "gemm")
+
+
 def reset_launch_counts() -> None:
     for fn, _ in KERNEL_OPS.values():
         fn.launches = 0
-    _kernels.temporal_attention.launches = 0
-    _kernels.temporal_segment.launches = 0
-    _kernels.layernorm.launches = 0
-    _kernels.layernorm_bwd.launches = 0
-    _kernels.row_scale.launches = 0
-    _kernels.spatial_attention.launches = 0
-    _kernels.spatial_attention_bwd.launches = 0
-    _kernels.temporal_attention_bwd.launches = 0
-    _kernels.temporal_segment_bwd.launches = 0
-    _kernels.gemm.launches = 0
+    for name in CORE_KERNELS:
+        getattr(_kernels, name).launches = 0
 
 
 def launch_counts(names=None) -> dict:
     return {name: KERNEL_OPS[name][0].launches for name in (names or KERNEL_OPS)}
+
+
+def core_launch_counts() -> dict:
+    """The launches of each kernel of ``CORE_KERNELS`` in this process."""
+    return {name: getattr(_kernels, name).launches for name in CORE_KERNELS}

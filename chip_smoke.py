@@ -311,8 +311,31 @@ Phases, in order; any failure raises and exits non-zero:
      clips and train at 2 and 8 (the recipes' batch a card); their
      train_model runs start from the seeded init, as load_from reads CLIP's
      layout only; then one forward of 2 clips of each of the seven other
-     configs of these backbones (VIDEO_BUILT).
-Phases 18, 19, 20, 21 and 22 log their seconds.
+     configs of these backbones (VIDEO_BUILT);
+ 23. data parallelism: tools/train_torch.py and tools/test_torch.py on the
+     flagship config at full width, each run a child process under
+     torchrun --standalone (python -m torch.distributed.run) or alone, two
+     waves of runs at once, every train run from one checkpoint of seeded
+     weights with nonzero adapters and a class lead (load_from), 3 steps,
+     no validation: (a) NCCL at world size 1 (--launcher pytorch) against
+     the same run without a launcher at the recipe's 8 clips, losses, grad
+     norms and every tensor after the steps bit-equal, and the rank's
+     launch counts (its log's last line) checked against 12 launches of
+     each train op a step and the kernels' counts of phase 5; (b) two gloo
+     ranks of 4 clips on the one card (NCCL runs no two ranks on one
+     device) against one process of 8 clips on the same global batch, drop
+     path and the head's dropout off: per step the loss and the grad norm,
+     and the update of every trainable tensor, within DP_LOSS_RTOL,
+     DP_NORM_RTOL and DP_UPDATE_REL, with step 1's gradients of both runs
+     (after the all_reduce) compared per tensor, and a planted fault (rank
+     0 stepping on its own rows' gradients) that must break DP_UPDATE_REL;
+     blend_global over two gloo ranks and one NCCL rank on 8 flagship
+     clips, Mixup, CutMix and label smoothing, each rank's rows bit-equal
+     to the one-process blend; (c)
+     tools/test_torch.py over 10 videos, two gloo ranks of 2 videos a
+     batch against one process at batch 2: probabilities within
+     DP_PROB_ATOL, the same top-1 and the same metrics.
+Phases 18, 19, 20, 21, 22 and 23 log their seconds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -344,7 +367,8 @@ Every driven model's kernel path holds the plain path's top-1 class; a
 (separate_classes), as seeded weights spread the classes so evenly that the
 top two can lie within the kernel-vs-plain gap.
 The line before the last is a JSON object with one entry per kernel, with
-its launches on the first of the twenty-two paths above that runs it (path), and
+its launches on the first of the twenty-two paths above that runs it (path; phase
+23's runs are child processes, each with counters of its own), and
 its time (at 32 clips of 8 frames; the spatial block at 8 clips of the
 AIM_FLASH path's 32 frames; the composition's three ops at 4 clips of
 ViT-L/14's 32 frames; the flash core at (256, 12, 197, 64), 8 clips of
@@ -3805,6 +3829,402 @@ def phase_22(card):
     log(f"phase 22: {time.perf_counter() - t0:.1f} s")
 
 
+# phase 23: data parallelism through torchrun. (a) NCCL at world size 1
+# against the run without a launcher: bit-equal. (b) two gloo ranks of 4
+# clips on the card against one process of 8 on the same global batch
+# (the same clips a step, in another row order: rank r takes padded[r::2]),
+# drop path and dropout off (the rank is folded into their draws):
+# per step the loss within DP_LOSS_RTOL and the grad norm within
+# DP_NORM_RTOL, relative, and after the steps, per trainable tensor,
+# sum|diff| / sum|ref| of the update within DP_UPDATE_REL. Both runs write
+# the gradients of their first update, after the all_reduce (--dp-child
+# probe): their per-tensor gap and sign flips are logged, with AdamW's
+# first step applied to both (lr g / (|g| + eps)). A planted fault
+# (--dp-child fault: rank 0 runs the all_reduce on copies and steps on its
+# own 4 rows' gradients) must break DP_UPDATE_REL. [H100 readings: step 1's
+# gradients of the sound runs differ per tensor by a median of 1.97e-3, at
+# most 2.48e-3, about bf16's unit roundoff 2**-9, with no sign flipped in
+# 10966672 elements; after 3 steps the update differs by at most 6.182e-3
+# (median 2.718e-3); the fault's update differs by 4.045e-2 on its least
+# tensor, 0.731 on its median one. DP_UPDATE_REL = 2**-6 lies between them,
+# near their geometric mean 1.58e-2: the issue's 2**-8 sits below 23 of the
+# sound run's 149 tensors.] The blends of DP_BLENDINGS over two gloo ranks and one
+# NCCL rank on the card (--dp-child blend, the (b) run's 8 clips of the
+# flagship's shape, bf16) must give each rank's rows of the one-process
+# blend bit for bit. (c) evaluation of DP_EVAL_VIDEOS videos over two gloo
+# ranks, 2 videos a rank a batch, against one process at batch 2:
+# probabilities within DP_PROB_ATOL, the same top-1 and the same metrics
+DP_STEPS, DP_EVAL_VIDEOS, DP_BLEND_SEED = 3, 10, 2323
+DP_LOSS_RTOL, DP_NORM_RTOL, DP_UPDATE_REL, DP_PROB_ATOL = 1e-4, 1e-3, 2 ** -6, 1e-5
+DP_BLENDINGS = (dict(type="MixupBlending", num_classes=400, alpha=0.2),
+                dict(type="CutmixBlending", num_classes=400, alpha=0.2),
+                dict(type="LabelSmoothing", num_classes=400, smoothing=0.1))
+
+
+def dp_blend(out_dir, backend):
+    """A rank of phase 23's blend check: its rows of each blend of
+    DP_BLENDINGS (``blend_global``) against the one-process blend of the
+    whole seeded batch, written to ``<out_dir>/blend_<world>_rank<r>.json``."""
+    import torch
+    from adapt_image_models_torch.core.train_state import blend_global, step_generator
+    from adapt_image_models_torch.data.blending import build_blending
+    from adapt_image_models_torch.parallel import get_dist_info, init_distributed
+    device = init_distributed(backend, device="cuda")
+    rank, world = get_dist_info()
+    g = torch.Generator().manual_seed(DP_BLEND_SEED)
+    clips = 8
+    imgs = torch.randn((clips, 3, 8, 224, 224), generator=g).to(device, torch.bfloat16)
+    labels = torch.randint(0, 400, (clips,), generator=g).to(device)
+    rows = slice(rank * clips // world, (rank + 1) * clips // world)
+    equal = {}
+    for cfg in DP_BLENDINGS:
+        blending = build_blending(cfg)
+        got = blend_global(blending, imgs[rows], labels[rows],
+                           step_generator(DP_BLEND_SEED, 1, "cpu", 1))
+        want = blending(imgs, labels, step_generator(DP_BLEND_SEED, 1, "cpu", 1))
+        equal[cfg["type"]] = all(a.device == device and torch.equal(a, b[rows])
+                                 for a, b in zip(got, want))
+    with open(os.path.join(out_dir, f"blend_{world}_rank{rank}.json"), "w") as f:
+        json.dump({"backend": torch.distributed.get_backend(), "equal": equal}, f)
+    torch.distributed.destroy_process_group()
+
+
+def dp_child(mode, out_dir, *argv):
+    """A child process of phase 23 (``chip_smoke.py --dp-child MODE OUT
+    ...``). ``blend BACKEND``: a rank of ``dp_blend``. ``probe TOOL ARGS``
+    and ``fault TOOL ARGS`` run the tool here; the first optimizer update
+    of rank 0 (or of the one process) writes the gradients it gets, after
+    the all_reduce, to ``<OUT>/grads_step1.pt``. ``fault`` plants a fault
+    on rank 0: its all_reduce runs on copies, so the collective completes,
+    and it keeps its own gradients, loss and accuracies."""
+    import runpy
+    import torch
+    sys.path.insert(0, ROOT)
+    if mode == "blend":
+        return dp_blend(out_dir, *argv)
+    from adapt_image_models_torch.core import optim, train_state
+    rank0 = int(os.environ.get("RANK", 0)) == 0
+    update = optim.Optimizer.update
+
+    def probed_update(self, grads):
+        grads = list(grads)
+        if self.updates == 0 and rank0:
+            names = {id(p): n for group in self.torch.param_groups
+                     for n, p in zip(group["names"], group["params"])}
+            os.makedirs(out_dir, exist_ok=True)
+            torch.save({names[id(p)]: g.detach().float().cpu()
+                        for p, g in zip(self.params, grads)},
+                       os.path.join(out_dir, "grads_step1.pt"))
+        return update(self, grads)
+    optim.Optimizer.update = probed_update
+    if mode == "fault":
+        reduce_ = train_state.all_reduce_mean_
+
+        def all_reduce_mean_(tensors):
+            tensors = list(tensors)
+            if rank0:
+                reduce_([t.detach().clone() for t in tensors])
+                return tensors
+            return reduce_(tensors)
+        train_state.all_reduce_mean_ = all_reduce_mean_
+    elif mode != "probe":
+        raise SystemExit(f"chip_smoke --dp-child: unknown mode {mode!r}")
+    sys.argv = list(argv)
+    runpy.run_path(argv[0], run_name="__main__")
+
+
+def torchrun(nproc, *argv):
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            f"--nproc_per_node={nproc}", *argv]
+
+
+def tool_cmd(script, *args, nproc=None, child=None):
+    """``tools/<script> args``, under ``torchrun --standalone`` with
+    ``--launcher pytorch`` when ``nproc`` is given, and through
+    ``chip_smoke.py --dp-child MODE OUT`` when ``child`` = (MODE, OUT) is."""
+    argv = [os.path.join(ROOT, "tools", script), *args]
+    if child is not None:
+        argv = [os.path.abspath(__file__), "--dp-child", *child, *argv]
+    if nproc is None:
+        return [sys.executable, *argv]
+    return torchrun(nproc, *argv, "--launcher", "pytorch")
+
+
+def run_children(cmds, log_dir, timeout=600):
+    """Run the commands of ``cmds`` ({name: argv}) at once, each one's
+    output into ``<log_dir>/<name>.log``, and wait for all; raise, with
+    the tail of each failed one's output, unless all exit 0. Returns
+    {name: output}. A command still running at the end is terminated
+    (torchrun passes SIGTERM on to its ranks), then killed."""
+    procs = {}
+    try:
+        for name, cmd in cmds.items():
+            with open(os.path.join(log_dir, f"{name}.log"), "w") as f:
+                procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                               stderr=subprocess.STDOUT)
+        deadline = time.time() + timeout
+        for p in procs.values():
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+    outs = {}
+    for name in cmds:
+        with open(os.path.join(log_dir, f"{name}.log")) as f:
+            outs[name] = f.read()
+    failed = [name for name, p in procs.items() if p.returncode != 0]
+    if failed:
+        raise AssertionError("phase 23: " + "; ".join(
+            f"{name} exited {procs[name].returncode}:\n{outs[name][-3000:]}"
+            for name in failed))
+    return outs
+
+
+def train_run(work):
+    """(history, state dict) of a train_torch.py run's work dir."""
+    import torch
+    with open(os.path.join(work, "history.json")) as f:
+        history = json.load(f)
+    ckpt = torch.load(os.path.join(work, "ckpt_1.pth"), map_location="cpu",
+                      weights_only=True)
+    return history, ckpt["state_dict"]
+
+
+def rank_launches(out):
+    """The fused ops' and the kernels' launches a train_torch.py run logs."""
+    import re
+    found = re.findall(r"kernel launches: (\{.*\})", out)
+    if not found:
+        raise AssertionError("phase 23: the run logged no kernel launches")
+    return json.loads(found[-1])
+
+
+def step1_readings(got, ref, eps):
+    """Step 1's gradients of two runs ({name: fp32}): per tensor the gap
+    sum|got - ref| / sum|ref|, the elements whose sign differs, the largest
+    |ref| among those over its tensor's mean |ref|, and the gap of AdamW's
+    first step on each, lr g / (|g| + eps) (lr and the decay are the
+    runs' own and cancel)."""
+    import torch
+    gap, adam, flips, flip_scale, n = {}, {}, 0, 0.0, 0
+    for k, r in ref.items():
+        g, r = got[k].double(), r.double()
+        gap[k] = float((g - r).abs().sum() / r.abs().sum())
+        ur, ug = r / (r.abs() + eps), g / (g.abs() + eps)
+        adam[k] = float((ug - ur).abs().sum() / ur.abs().sum())
+        flipped = (g * r) < 0
+        flips += int(flipped.sum())
+        n += r.numel()
+        if flipped.any():
+            flip_scale = max(flip_scale, float(r.abs()[flipped].max() / r.abs().mean()))
+    return gap, adam, flips, n, flip_scale
+
+
+def phase_23(card):
+    """Data parallelism through torchrun on the flagship at full width:
+    (a) NCCL at world size 1 bit-equal to the run without a launcher, with
+    the rank's launch counters checked; (b) two gloo ranks on the one card
+    (NCCL runs no two ranks on one device) against one process on the same
+    global batch, with step 1's gradients of both, a planted fault that
+    the update's bound must catch, and the blends over two gloo ranks and
+    one NCCL rank bit-equal to the one-process blend; (c) evaluation over
+    two gloo ranks against one process. Each run is a child process, the
+    runs of a wave at once."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import init_recognizer, load_config
+    from adapt_image_models_torch.parallel import is_trainable_name
+    t0 = time.perf_counter()
+    cfg = load_config(CONFIG)
+    clips = cfg["data"]["videos_per_gpu"]
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ann, eval_ann = os.path.join(tmp, "train.txt"), os.path.join(tmp, "eval.txt")
+        with open(train_ann, "w") as f:
+            f.write("\n".join(f"synthetic://{2300 + i} {i % 400}"
+                              for i in range(DP_STEPS * clips)))
+        # every run starts from these weights (load_from, test_torch.py's
+        # checkpoint): nonzero adapters, so that each trainable tensor has
+        # a gradient of its own from the first step, and a class lead
+        model = init_recognizer(cfg, device="cuda", seed=0)
+        randomize_adapters(model, seed=23)
+        lead = separate_classes(model, seed=23)
+        initial = {k: v.cpu() for k, v in model.state_dict().items()}
+        ckpt = os.path.join(tmp, "start.pth")
+        torch.save({"state_dict": model.state_dict()}, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        with open(eval_ann, "w") as f:  # half the videos of the lead class
+            f.write("\n".join(f"synthetic://{2400 + i} {lead if i % 2 else (lead + i) % 400}"
+                              for i in range(DP_EVAL_VIDEOS)))
+
+        def train(name, *options, nproc=None, backend=None, child=None):
+            work = os.path.join(tmp, name)
+            return tool_cmd("train_torch.py", CONFIG, "--work-dir", work,
+                            "--max-steps", str(DP_STEPS), "--no-validate", "--seed", "0",
+                            "--load-from", ckpt,
+                            *(("--dist-backend", backend) if backend else ()),
+                            "--cfg-options", f"data.train.ann_file={train_ann}",
+                            "data.workers_per_gpu=2", "log_config.interval=1",
+                            "checkpoint_config.interval=1", *options, nproc=nproc,
+                            child=child and (child, work))
+
+        def evaluate(name, nproc=None, backend=None):
+            return tool_cmd("test_torch.py", CONFIG, "--checkpoint", ckpt,
+                            "--dump-scores", os.path.join(tmp, f"{name}.npz"),
+                            "--out", os.path.join(tmp, f"{name}.json"),
+                            *(("--dist-backend", backend) if backend else ()),
+                            "--cfg-options", f"data.test.ann_file={eval_ann}",
+                            "data.test_dataloader.videos_per_gpu=2",
+                            "data.test_dataloader.workers_per_gpu=2", nproc=nproc)
+
+        def blend(nproc, backend):
+            return torchrun(nproc, os.path.abspath(__file__), "--dp-child", "blend", tmp,
+                            backend)
+
+        # no draw that the rank folds into: drop path and the head's dropout
+        no_drop = ("model.backbone.drop_path_rate=0", "model.cls_head.dropout_ratio=0")
+        half = f"data.videos_per_gpu={clips // 2}"
+        outs = run_children({
+            "a_nccl_ws1": train("a_nccl_ws1", nproc=1, backend="nccl"),
+            "a_none": train("a_none"),
+            "b_none_8": train("b_none_8", *no_drop, child="probe"),
+            "blend_gloo_2": blend(2, "gloo"),
+            "blend_nccl_1": blend(1, "nccl"),
+        }, tmp)
+        outs.update(run_children({
+            "b_gloo_2x4": train("b_gloo_2x4", *no_drop, half, nproc=2, backend="gloo",
+                                child="probe"),
+            "b_fault_2x4": train("b_fault_2x4", *no_drop, half, nproc=2, backend="gloo",
+                                 child="fault"),
+            "c_gloo_2": evaluate("c_gloo_2", nproc=2, backend="gloo"),
+            "c_none": evaluate("c_none"),
+        }, tmp))
+        log(f"phase 23: the runs took {time.perf_counter() - t0:.1f} s (two waves of "
+            "child processes)")
+
+        # (a) NCCL at world size 1 against no launcher: bit for bit
+        hist_d, sd_d = train_run(os.path.join(tmp, "a_nccl_ws1"))
+        hist_n, sd_n = train_run(os.path.join(tmp, "a_none"))
+        log(f"  (a) NCCL world size 1, {clips} clips: losses {[h['loss'] for h in hist_d]}, "
+            f"grad norms {[h['grad_norm'] for h in hist_d]}")
+        log(f"      no launcher:                losses {[h['loss'] for h in hist_n]}, "
+            f"grad norms {[h['grad_norm'] for h in hist_n]}")
+        if "rank / world: 0 / 1" not in outs["a_nccl_ws1"]:
+            raise AssertionError("phase 23 (a): the run did not join a group of one rank")
+        if hist_d != hist_n or len(hist_d) != DP_STEPS:
+            raise AssertionError("phase 23 (a): NCCL at world size 1 logged other metrics")
+        unequal = [k for k in sd_n if not torch.equal(sd_d[k], sd_n[k])]
+        if unequal or set(sd_d) != set(sd_n):
+            raise AssertionError(f"phase 23 (a): tensors differ: {unequal[:5]}")
+        log(f"      losses, grad norms and all {len(sd_n)} tensors bit-equal")
+        counts = rank_launches(outs["a_nccl_ws1"])
+        check_launches(f"NCCL rank's train path ({DP_STEPS} steps x 12 layers)",
+                       {op: counts.get(op, 0) for op in ops.KERNEL_OPS},
+                       {op: 12 * DP_STEPS for op in ops.TRAIN_OPS[1]})
+        for kernel, want in (("spatial_attention", 24), ("spatial_attention_bwd", 12),
+                             ("temporal_attention", 24), ("temporal_attention_bwd", 12),
+                             ("layernorm", 72), ("layernorm_bwd", 36), ("row_scale", 24)):
+            check_core(kernel, "NCCL rank's train", counts.get(kernel, 0), want * DP_STEPS)
+        check_core("gemm", "NCCL rank's train", counts.get("gemm", 0),
+                   GEMM_LAUNCHES["flagship train step"] * DP_STEPS)
+
+        # (b) two gloo ranks of 4 clips against one process of 8, and the
+        # planted fault against the same process
+        hist_1, sd_1 = train_run(os.path.join(tmp, "b_none_8"))
+
+        def against_one_process(name):
+            hist, sd = train_run(os.path.join(tmp, name))
+            if len(hist) != DP_STEPS or len(hist_1) != DP_STEPS:
+                raise AssertionError(f"phase 23 (b): {name} did not take every step")
+            loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hist, hist_1)]
+            norm_rel = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                        for a, b in zip(hist, hist_1)]
+            update_rel = {}
+            for k in sd_1:
+                if is_trainable_name(k):
+                    ref = sd_1[k].double() - initial[k].double()
+                    got = sd[k].double() - initial[k].double()
+                    update_rel[k] = float((got - ref).abs().sum() / ref.abs().sum())
+            frozen_moved = [k for k in sd_1 if not is_trainable_name(k)
+                            and not (torch.equal(sd[k], initial[k])
+                                     and torch.equal(sd_1[k], initial[k]))]
+            worst = max(update_rel, key=update_rel.get)
+            log(f"  (b) {name} vs 1 process x {clips}: losses {[h['loss'] for h in hist]} vs "
+                f"{[h['loss'] for h in hist_1]} (relative {[f'{r:.3e}' for r in loss_rel]}, "
+                f"bound {DP_LOSS_RTOL:g}); grad norms {[h['grad_norm'] for h in hist]} vs "
+                f"{[h['grad_norm'] for h in hist_1]} (relative "
+                f"{[f'{r:.3e}' for r in norm_rel]}, bound {DP_NORM_RTOL:g}); update "
+                f"sum|diff| / sum|ref| at most {update_rel[worst]:.3e} ({worst}), median "
+                f"{statistics.median(update_rel.values()):.3e}, least "
+                f"{min(update_rel.values()):.3e}, {sum(r > 2 ** -8 for r in update_rel.values())}"
+                f" of {len(update_rel)} trainable tensors over 2**-8, bound {DP_UPDATE_REL:g}")
+            ok = (max(loss_rel) <= DP_LOSS_RTOL and max(norm_rel) <= DP_NORM_RTOL
+                  and update_rel[worst] <= DP_UPDATE_REL and not frozen_moved)
+            return ok, update_rel[worst], frozen_moved
+
+        failures = []
+        if "rank / world: 0 / 2" not in outs["b_gloo_2x4"]:
+            failures.append("(b): the run did not join a group of two ranks")
+        ok, _, frozen_moved = against_one_process("b_gloo_2x4")
+        if not ok:
+            failures.append(f"(b): two ranks disagree with one process (frozen tensors "
+                            f"moved: {frozen_moved[:5]})")
+        eps = cfg["optimizer"].get("eps", 1e-8)
+        g_1, g_2, g_f = (torch.load(os.path.join(tmp, name, "grads_step1.pt"))
+                         for name in ("b_none_8", "b_gloo_2x4", "b_fault_2x4"))
+        for name, got in (("two ranks", g_2), ("the fault's rank 0", g_f)):
+            gap, adam, flips, n, flip_scale = step1_readings(got, g_1, eps)
+            worst = max(gap, key=gap.get)
+            adam_worst = max(adam, key=adam.get)
+            log(f"      step 1's gradients, {name} vs 1 process: sum|diff| / sum|ref| at most "
+                f"{gap[worst]:.3e} ({worst}), median {statistics.median(gap.values()):.3e}; "
+                f"{flips} of {n} elements change sign, the largest |g| among them "
+                f"{flip_scale:.3e} x its tensor's mean |g|; AdamW's first step on them: "
+                f"at most {adam[adam_worst]:.3e} ({adam_worst}), median "
+                f"{statistics.median(adam.values()):.3e}")
+        fault_ok, fault_worst, _ = against_one_process("b_fault_2x4")
+        if fault_ok or fault_worst <= DP_UPDATE_REL:
+            failures.append(f"(b): the planted fault passed the update's bound "
+                            f"({fault_worst:.3e} <= {DP_UPDATE_REL:g})")
+        blends = {}
+        for world in (2, 1):
+            for r in range(world):
+                with open(os.path.join(tmp, f"blend_{world}_rank{r}.json")) as f:
+                    blends[f"{world} rank(s), rank {r}"] = json.load(f)
+        log(f"  (b) blends of {len(DP_BLENDINGS)} kinds over {clips} clips of "
+            f"(3, 8, 224, 224) bf16, each rank's rows vs the one-process blend: {blends}")
+        if sorted(b["backend"] for b in blends.values()) != ["gloo", "gloo", "nccl"] or not all(
+                all(b["equal"].values()) and len(b["equal"]) == len(DP_BLENDINGS)
+                for b in blends.values()):
+            failures.append("(b): a rank's blended rows differ from the one-process blend")
+
+        # (c) evaluation over two gloo ranks against one process
+        got, want = (np.load(os.path.join(tmp, f"{n}.npz")) for n in ("c_gloo_2", "c_none"))
+        with open(os.path.join(tmp, "c_gloo_2.json")) as f:
+            res_2 = json.load(f)
+        with open(os.path.join(tmp, "c_none.json")) as f:
+            res_1 = json.load(f)
+        err = float(np.abs(got["scores"] - want["scores"]).max())
+        same_top1 = bool((got["scores"].argmax(1) == want["scores"].argmax(1)).all())
+        log(f"  (c) eval of {DP_EVAL_VIDEOS} videos, gloo 2 ranks x 2 vs 1 process x 2: "
+            f"probabilities max abs diff {err:.3e} (bound {DP_PROB_ATOL:g}), the same "
+            f"top-1: {same_top1}, metrics {res_2} vs {res_1}")
+        if (got["scores"].shape != (DP_EVAL_VIDEOS, 400) or err > DP_PROB_ATOL
+                or not same_top1 or res_2 != res_1
+                or not np.array_equal(got["labels"], want["labels"])):
+            failures.append("(c): distributed evaluation disagrees")
+        if failures:
+            raise AssertionError(f"phase 23 {failures}")
+    log(f"phase 23: {time.perf_counter() - t0:.1f} s on {card}")
+
+
 def main():
     import numpy as np
     import torch
@@ -4665,6 +5085,9 @@ def main():
     # ---- phase 22: TimeSformer, Swin2D-Adapter and Video Swin -----------------
     phase_22(card)
 
+    # ---- phase 23: data parallelism through torchrun ---------------------------
+    phase_23(card)
+
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
                           "fused_temporal_train_step", "fused_temporal_step_bwd_dx",
@@ -4830,4 +5253,7 @@ def main():
                                            "count": torch.cuda.device_count()}}))
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-child"]:
+        dp_child(*sys.argv[2:])
+    else:
+        main()

@@ -29,6 +29,7 @@ import os, sys, tempfile
 import torch
 from adapt_image_models_torch.apis import init_recognizer, run_evaluation, train_model
 import adapt_image_models_torch.convert, adapt_image_models_torch.ops, adapt_image_models_torch.data.transforms
+import adapt_image_models_torch.parallel.distributed, adapt_image_models_torch.utils.env
 tmp = tempfile.mkdtemp()
 ann = os.path.join(tmp, "ann.txt")
 with open(ann, "w") as f:
@@ -123,7 +124,7 @@ def test_port_sources_import_no_jax_package():
              + [os.path.join(ROOT, "tests", name)
                 for name in ("test_torch_cuda.py", "test_torch_gemm_design.py",
                              "test_torch_temporal_bwd.py", "test_torch_temporal_fwd.py",
-                             "test_torch_row_passes.py")])
+                             "test_torch_row_passes.py", "torch_dist_worker.py")])
     assert len(files) > 30
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"adapt_image_models_torch/models/backbones/vit_clip.py",
@@ -143,6 +144,21 @@ def test_entry_points_default_to_the_card():
     for tool in ("test_torch.py", "train_torch.py"):
         src = open(os.path.join(ROOT, "tools", tool)).read()
         assert 'add_argument("--device", default="cuda"' in src, tool
+
+
+def test_dist_launchers_run_the_port():
+    """tools/dist_{train,test}_torch.sh start torchrun over the port's tools
+    with --launcher pytorch, never the JAX package's tools."""
+    scripts = sorted(glob.glob(os.path.join(ROOT, "tools", "dist_*_torch.sh")))
+    assert [os.path.basename(p) for p in scripts] == ["dist_test_torch.sh",
+                                                       "dist_train_torch.sh"]
+    for path in scripts:
+        src = open(path).read()
+        tool = os.path.basename(path)[len("dist_"):-len(".sh")] + ".py"
+        assert os.access(path, os.X_OK), path
+        assert "torch.distributed.run" in src and "--launcher pytorch" in src, path
+        assert f'"$(dirname "$0")/{tool}"' in src, path
+        assert "/train.py" not in src and "/test.py" not in src, path
 
 
 def _run_smoke(cwd):
