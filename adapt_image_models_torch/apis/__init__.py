@@ -2,7 +2,7 @@
 training."""
 
 from adapt_image_models_torch.apis.inference import (  # noqa: F401
-    inference_recognizer, init_recognizer, load_config,
+    inference_recognizer, init_recognizer, load_config, model_config,
 )
 from adapt_image_models_torch.apis.test import (  # noqa: F401
     make_chunked_eval_step, run_evaluation,

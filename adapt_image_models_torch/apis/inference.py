@@ -5,7 +5,9 @@ inference.py:24-86``).
 ``init_recognizer(cfg, checkpoint, device, seed)`` -> model in eval mode;
 ``inference_recognizer(model, cfg, video)`` -> top-k (class, score) pairs.
 The host pipeline is ``data.pipeline.build_sample_processor``, which also
-reads ``synthetic://<seed>`` sources.
+reads ``synthetic://<seed>`` sources. A 2D recipe (``FormatShape`` NCHW or
+NCHW_Flow) is prepared as (1, S, C, H, W) segments and scored by one
+forward, its one view through ``average_clip`` (JAX ``inference.py:60-80``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from adapt_image_models_torch.config.config import Config, apply_cfg_options
 from adapt_image_models_torch.convert import load_checkpoint
 from adapt_image_models_torch.data.pipeline import build_sample_processor
 from adapt_image_models_torch.data.transforms import (
-    layout_from_pipeline, make_prepare_fn,
+    init_sample_shape, layout_from_pipeline, make_prepare_fn,
 )
 from adapt_image_models_torch.models import build_model
 from adapt_image_models_torch.models.recognizers.recognizer3d import average_clip
@@ -35,11 +37,26 @@ def model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+def model_config(cfg: Dict[str, Any], split: str = "test") -> Dict[str, Any]:
+    """``cfg['model']`` for the samples of ``cfg.data[split]``'s pipeline:
+    a ``Recognizer2D``'s backbone gets ``in_channels``, the channels of the
+    frames it will see, axis 2 of ``init_sample_shape`` (3 for NCHW, 2T for
+    NCHW_Flow, T for an NCTHW clip, whose colours fold as segments), which
+    the JAX package's flax stem infers from its init sample."""
+    model_cfg = dict(cfg["model"])
+    if model_cfg.get("type") != "Recognizer2D":
+        return model_cfg
+    pipeline = cfg["data"][split]["pipeline"]
+    channels = init_sample_shape(pipeline, build_sample_processor(pipeline))[2]
+    return {**model_cfg, "backbone": {**model_cfg["backbone"], "in_channels": channels}}
+
+
 def init_recognizer(cfg: Dict[str, Any], checkpoint: Optional[str] = None,
                     device="cuda", seed: int = 0) -> torch.nn.Module:
-    """Build the recognizer of ``cfg`` on ``device`` with weights drawn from
-    ``seed``, then load ``checkpoint`` (a released AIM ``.pth``) if given."""
-    model_cfg = dict(cfg["model"])
+    """Build the recognizer of ``cfg`` (for its test pipeline's samples) on
+    ``device`` with weights drawn from ``seed``, then load ``checkpoint``
+    (a released AIM ``.pth`` or a port checkpoint, strictly) if given."""
+    model_cfg = model_config(cfg)
     test_cfg = model_cfg.pop("test_cfg", None)
     model_cfg.pop("train_cfg", None)
     model = build_model(model_cfg, test_cfg=test_cfg, device=device)
@@ -53,17 +70,21 @@ def init_recognizer(cfg: Dict[str, Any], checkpoint: Optional[str] = None,
 def inference_recognizer(model: torch.nn.Module, cfg: Dict[str, Any], video: str,
                          topk: int = 5, return_features: bool = False):
     """Run the test pipeline on one video; return the top-k (class, score)
-    pairs, and the per-view backbone features when ``return_features``."""
+    pairs, and the per-view backbone features when ``return_features``
+    (a 2D recipe's: the (1, S', D) per-segment features)."""
     pipeline = cfg["data"]["test"]["pipeline"]
     proc = build_sample_processor(pipeline)
     clips, _ = proc(video, label=0)
-    prepare = make_prepare_fn(proc.mean, proc.std,
-                              layout=layout_from_pipeline(pipeline),
+    layout = layout_from_pipeline(pipeline)
+    prepare = make_prepare_fn(proc.mean, proc.std, layout=layout,
                               device=model_device(model))
-    views = prepare(clips[None])  # (1, V, C, T, H, W)
+    views = prepare(clips[None])  # (1, V, C, T, H, W) or 2D (1, S, C, H, W)
     model.eval()
-    v = views.shape[1]
-    flat = views.reshape((v,) + tuple(views.shape[2:]))
+    if layout == "NCTHW":
+        v = views.shape[1]
+        flat = views.reshape((v,) + tuple(views.shape[2:]))
+    else:  # the segment contract: the head's consensus averages them
+        v, flat = 1, views
     feats = model.extract_feat(flat)
     logits = model.cls_head(feats)
     avg = (cfg["model"].get("test_cfg") or {}).get("average_clips", "prob")

@@ -9,6 +9,11 @@ as in the reference (``recognizer3d.py:38-60``), so that the SSv2 recipe's
 3 views run in chunks of 2 (the JAX package refuses a view count that the
 chunk does not divide).
 
+A 2D recipe (``FormatShape`` NCHW or NCHW_Flow) is prepared as (B, S, C,
+H, W) segments: one forward a batch, the scores ``average_clip`` of its
+one view (JAX ``test.py:37-75``); ``max_testing_views`` is refused there,
+as in JAX, since the consensus needs every segment in one pass.
+
 Under a process group (``launcher="pytorch"``, or a group joined before)
 each rank scores its shard of the split, the loader's ``padded[rank::W]``
 (padded by wrap to a multiple of W), ``all_gather_rows`` brings every
@@ -39,13 +44,22 @@ from adapt_image_models_torch.parallel.distributed import (
 
 def make_chunked_eval_step(model: torch.nn.Module, prepare_fn,
                            average_clips: Optional[str] = "prob",
-                           max_testing_views: Optional[int] = None):
+                           max_testing_views: Optional[int] = None,
+                           segment_layout: bool = False):
     """(B, V, T, H, W, C) uint8 -> (B, num_classes) scores, running the
     model on at most ``max_testing_views`` views of each sample at a time
-    (the last chunk holds the views left over)."""
+    (the last chunk holds the views left over). ``segment_layout``: the
+    prepared batch is ``Recognizer2D``'s (B, S, C, H, W), scored in one
+    forward."""
+    if segment_layout and max_testing_views is not None:
+        raise ValueError("max_testing_views is not supported for 2D segment recipes "
+                         "(FormatShape NCHW*): the consensus head consumes all "
+                         "segments in one pass")
 
     @torch.no_grad()
     def eval_step(imgs_uint8) -> torch.Tensor:
+        if segment_layout:
+            return average_clip(model(prepare_fn(imgs_uint8)), 1, average_clips)
         imgs = prepare_fn(imgs_uint8)  # (B, V, C, T, H, W)
         b, v = imgs.shape[:2]
         if max_testing_views is None or v <= max_testing_views:
@@ -95,12 +109,13 @@ def run_evaluation(cfg: Dict[str, Any], model: Optional[torch.nn.Module] = None,
     proc = build_sample_processor(pipeline)
     compute_dtype = resolve_dtype(
         cfg["model"].get("backbone", {}).get("compute_dtype"))
-    prepare = make_prepare_fn(proc.mean, proc.std, dtype=compute_dtype,
-                              layout=layout_from_pipeline(pipeline),
+    layout = layout_from_pipeline(pipeline)
+    prepare = make_prepare_fn(proc.mean, proc.std, dtype=compute_dtype, layout=layout,
                               device=model_device(model))
     eval_step = make_chunked_eval_step(model, prepare,
                                        test_cfg.get("average_clips", "prob"),
-                                       test_cfg.get("max_testing_views"))
+                                       test_cfg.get("max_testing_views"),
+                                       segment_layout=layout != "NCTHW")
     loader = VideoLoader(dataset, proc, batch_size=batch_size, shuffle=False,
                          num_workers=num_workers, drop_last=False,
                          num_shards=world, shard_index=rank)

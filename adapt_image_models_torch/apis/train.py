@@ -17,6 +17,15 @@ the port's copy of the JAX package's (``data/pipeline.py``, ``loader.py``,
 * load_from / clip_pretrained      -> convert.load_aim_pretrained /
   load_clip_pretrained over the seeded initialisation, before the freeze
   and the optimizer (JAX ``apis/train.py:166-182``)
+* frozen_stages / bn_frozen         -> the backbone tensors the prefixes of
+  ``parallel.frozen_stage_prefixes`` match stay frozen (JAX
+  ``apis/train.py:193-208``); their BatchNorms' running statistics still
+  move in a train-mode forward, as in JAX
+* BatchNorm state                   -> the running statistics are buffers of
+  the model: each train-mode forward (one a micro-batch) updates them,
+  evaluation reads them, checkpoints carry them, and under a process group
+  every BatchNorm normalises with the global batch's statistics
+  (``models.layers.batch_moments``), as JAX's data-sharded jit does
 
 * DDP (tools/dist_train.sh)        -> ``launcher="pytorch"``: one process a
   card under torchrun (``parallel/distributed.py``); the loader shards the
@@ -45,6 +54,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from adapt_image_models_torch.apis.inference import model_config
 from adapt_image_models_torch.convert import load_aim_pretrained, load_clip_pretrained
 from adapt_image_models_torch.core.checkpoint import CheckpointManager
 from adapt_image_models_torch.core.optim import build_optimizer
@@ -60,7 +70,8 @@ from adapt_image_models_torch.data.transforms import (
 from adapt_image_models_torch.models import build_loss, build_model
 from adapt_image_models_torch.models.layers import resolve_dtype
 from adapt_image_models_torch.parallel import (
-    all_gather_rows, broadcast_module_, freeze_params, get_dist_info, init_distributed,
+    all_gather_rows, broadcast_module_, freeze_params, freeze_prefixes, frozen_stage_prefixes,
+    get_dist_info, init_distributed,
 )
 from adapt_image_models_torch.utils.logger import get_root_logger
 
@@ -88,7 +99,7 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     logger = get_root_logger()
     work_dir = work_dir or cfg.get("work_dir", "./work_dir")
 
-    model_cfg = dict(cfg["model"])
+    model_cfg = model_config(cfg, "train")
     test_cfg = model_cfg.pop("test_cfg", None)
     train_cfg = model_cfg.pop("train_cfg", None)
     backbone_cfg = model_cfg.get("backbone", {})
@@ -103,6 +114,7 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
         load_clip_pretrained(model, cfg["clip_pretrained"])
     broadcast_module_(model)  # every rank starts from rank 0's weights
     freeze_params(model)  # the fused train ops refuse a trainable CLIP weight
+    freeze_prefixes(model, frozen_stage_prefixes(backbone_cfg))
 
     data_cfg = cfg["data"]
     if isinstance(data_cfg["train"], (list, tuple)):

@@ -12,8 +12,15 @@ level of ViT_ImageNet's eps-1e-6 LayerNorms (``norm1/ln/scale`` ->
 reference's names: ``layers_{i}_blocks_{j}`` -> ``layers.{i}.blocks.{j}``,
 ``layers_{i}_downsample`` -> ``layers.{i}.downsample``. The relative-position
 tables, ``cls_token``, ``pos_embed`` and ``time_embed`` keep their layout;
-TimeSformer's scanned ``blocks`` un-stack as ViT_ImageNet's do. It is the
-inverse of
+TimeSformer's scanned ``blocks`` un-stack as ViT_ImageNet's do. The 2D
+ResNets' unrolled blocks take the reference's dotted names the same way:
+``layer{i}_{j}`` -> ``layer{i}.{j}``, a block's non-local
+``layer{i}_{j}_nonlocal`` -> ``layer{i}.{j}.non_local``; their grouped
+conv kernels go HWIO -> OIHW as any (the input axis is per group in both
+layouts), NonLocal3d's 1x1x1 kernels (1, 1, 1, I, O) -> (O, I, 1, 1, 1).
+Given the whole flax ``variables`` (``params`` and ``batch_stats``), the
+BatchNorm statistics ``mean`` / ``var`` become the buffers
+``running_mean`` / ``running_var``. It is the inverse of
 ``adapt_image_models_tpu/convert/aim_import.py::convert_aim_checkpoint``
 and, for ViT_ImageNet, of ``convert/timm_import.py::convert_timm_vit``.
 
@@ -73,10 +80,19 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
 _SWIN_STAGE = re.compile(r"^layers_(\d+)_(blocks_(\d+)|downsample)$")
 
 
+# a 2D ResNet's unrolled blocks and their non-local modules
+_RESNET_BLOCK = re.compile(r"^layer(\d+)_(\d+)(_nonlocal)?$")
+# flax BatchNorm statistics and the port's buffers
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
 def _swin_names(mod: str):
     m = _SWIN_STAGE.match(mod)
     if m is None:
-        return [mod]
+        m = _RESNET_BLOCK.match(mod)
+        if m is None:
+            return [mod]
+        return [f"layer{m.group(1)}", m.group(2)] + (["non_local"] if m.group(3) else [])
     if m.group(3) is None:
         return ["layers", m.group(1), "downsample"]
     return ["layers", m.group(1), "blocks", m.group(3)]
@@ -100,12 +116,16 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray):
         return mods + ["weight"], arr.T
     if name == "scale":
         return mods + ["weight"], arr
-    return mods + [name], arr
+    return mods + [_BATCH_STATS.get(name, name)], arr
 
 
 def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX ``Recognizer3D`` params (the tree under ``'params'``, numpy or
-    array leaves) -> this package's state dict (fp32 CPU tensors)."""
+    """JAX recognizer params (the tree under ``'params'``) or whole
+    ``variables`` (``params`` and ``batch_stats``), numpy or array leaves
+    -> this package's state dict (fp32 CPU tensors)."""
+    if "params" in params:
+        trees = [params["params"], params.get("batch_stats", {})]
+        return {k: v for tree in trees for k, v in params_from_jax(tree).items()}
     sd = {}
     for path, arr in _flatten(params):
         root, *rest = path

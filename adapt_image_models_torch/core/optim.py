@@ -19,6 +19,16 @@ chain becomes:
 
 torch's AdamW decays ``p *= 1 - lr * wd`` before the Adam step, optax adds
 ``wd * p`` to the Adam direction; both subtract ``lr * (adam + wd * p)``.
+
+The CNN recipes' ``SGD`` (and ``CopyOfSGD``, its alias) is the JAX chain
+``add_decayed_weights`` then ``optax.sgd(momentum, nesterov)``: the decay
+joins the gradient before the momentum trace, which is torch's SGD with
+``weight_decay`` and ``dampening=0`` (its trace starts at the first
+gradient, optax's at zeros plus the first gradient: the same). The order
+is clip, decay, momentum, ``lr_mult``. As in JAX, ``constructor``
+(``TSMOptimizerConstructor``) is ignored and ``paramwise_cfg`` reads only
+``custom_keys``, so the TSM recipes' ``fc_lr5`` is ignored (a departure
+from the reference, ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -64,7 +74,7 @@ def param_settings(name: str, paramwise_cfg: Optional[dict]) -> Tuple[bool, floa
 
 
 class Optimizer:
-    """AdamW over named parameters, with the schedule, global-norm
+    """AdamW or SGD over named parameters, with the schedule, global-norm
     clipping and micro-batch accumulation applied around ``torch.optim``.
     Call ``update(grads)`` once per micro-batch with the gradients of
     ``params`` (in order); it returns True when it stepped."""
@@ -74,9 +84,10 @@ class Optimizer:
                  grad_clip: Optional[float] = None, update_interval: int = 1):
         cfg = dict(optimizer_cfg)
         opt_type = cfg.pop("type", "AdamW")
-        if opt_type != "AdamW":
-            raise KeyError(f"unsupported optimizer type {opt_type} (the port "
-                           "has AdamW, which every AIM recipe uses)")
+        if opt_type not in ("AdamW", "SGD", "CopyOfSGD"):
+            raise KeyError(f"unsupported optimizer type {opt_type} (the port has "
+                           "AdamW and SGD)")
+        cfg.pop("constructor", None)
         paramwise = cfg.pop("paramwise_cfg", None)
         weight_decay = cfg.pop("weight_decay", 0.0)
         self.params = [p for _, p in named_params]
@@ -95,9 +106,14 @@ class Optimizer:
                 "weight_decay": weight_decay if decays else 0.0})
             group["params"].append(p)
             group["names"].append(name)
-        self.torch = torch.optim.AdamW(list(groups.values()), lr=0.0,
-                                       betas=tuple(cfg.pop("betas", (0.9, 0.999))),
-                                       eps=cfg.pop("eps", 1e-8))
+        if opt_type == "AdamW":
+            self.torch = torch.optim.AdamW(list(groups.values()), lr=0.0,
+                                           betas=tuple(cfg.pop("betas", (0.9, 0.999))),
+                                           eps=cfg.pop("eps", 1e-8))
+        else:
+            self.torch = torch.optim.SGD(list(groups.values()), lr=0.0,
+                                         momentum=cfg.pop("momentum", 0.9),
+                                         nesterov=cfg.pop("nesterov", False))
 
     @property
     def param_groups(self):

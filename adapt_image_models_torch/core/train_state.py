@@ -12,7 +12,11 @@ the optimizer update and on-device metrics (loss, top1_acc, top5_acc,
 grad_norm of the micro-batch gradients). The drop-path and dropout draws
 come from a generator seeded from ``(seed, state.step)``, as the JAX step
 draws from ``fold_in(rng, step)``; the blending draws from one seeded from
-``(seed, state.step, 1)``.
+``(seed, state.step, 1)``. The train-mode forward updates every
+BatchNorm's running statistics, once a micro-batch (under
+``update_interval`` too), as flax's mutated ``batch_stats`` are (JAX
+``core/train_state.py:160-180``); evaluation runs the model in eval mode,
+which reads them and updates none.
 
 Under a process group (``parallel/distributed.py``) the step is the JAX
 package's ``shard_map`` step (``core/train_state.py:210-232``): each rank

@@ -5,6 +5,10 @@ from adapt_image_models_torch.models.backbones.flash_variants import (  # noqa: 
 from adapt_image_models_torch.models.backbones.restuning import (  # noqa: F401
     ViT_CLIP_FLASH_RES_TUNING, ViT_CLIP_RES_TUNING,
 )
+from adapt_image_models_torch.models.backbones.resnet import (  # noqa: F401
+    ResNet, ResNetTSM, ResNeXt,
+)
+from adapt_image_models_torch.models.backbones.resnet3d import NonLocal3d  # noqa: F401
 from adapt_image_models_torch.models.backbones.swin2d_adapter import (  # noqa: F401
     SwinTransformer2D_Adapter,
 )

@@ -249,16 +249,23 @@ class SwinTransformer2D(_SwinTrunk):
     Input  : (N, C, H, W) or (B, C, T, H, W) float, H = W = ``img_size``.
     Output : (N, C_final) or (B·T, C_final) fp32, the token mean of each
     frame.
+
+    ``in_channels`` (3 by default) is the stem's input channels, a key the
+    JAX backbone does not have: its flax stem infers them from the init
+    sample. ``Recognizer2D`` folds axis 1 of a 5-D NCTHW batch as segments,
+    as JAX does, so the two ``swin2d_base_patch4_window7_*`` recipes give
+    the trunk frames of T channels; ``apis.inference.model_config`` sets
+    the key from the recipe's init sample shape.
     """
 
     def __init__(self, patch_size: int = 4, embed_dim: int = 96,
                  depths: Sequence[int] = (2, 2, 6, 2),
                  num_heads: Sequence[int] = (3, 6, 12, 24), window_size: int = 7,
                  img_size: int = 224, compute_dtype=torch.float32,
-                 pretrained: Optional[str] = None, device=None):
+                 pretrained: Optional[str] = None, in_channels: int = 3, device=None):
         super().__init__()
         self.patch_size = patch_size
-        self.patch_embed = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size,
+        self.patch_embed = nn.Conv2d(in_channels, embed_dim, patch_size, stride=patch_size,
                                      device=device)
         self.patch_norm = LayerNormFlax(embed_dim, device=device)
         self._build(embed_dim, depths, num_heads, (1, window_size, window_size),

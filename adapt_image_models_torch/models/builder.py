@@ -15,7 +15,10 @@ LOSSES = Registry("loss")
 
 
 def build_backbone(cfg, device=None):
-    return BACKBONES.build(dict(cfg), device=device)
+    # 'torchvision.*' / 'timm.*' / 'mmcls.*' types resolve to the port's own
+    # backbone (JAX builder.py:18-24)
+    from adapt_image_models_torch.models.backbone_sources import resolve_backbone_source
+    return BACKBONES.build(resolve_backbone_source(dict(cfg)), device=device)
 
 
 def build_head(cfg, device=None):

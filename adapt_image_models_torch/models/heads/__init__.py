@@ -1,1 +1,3 @@
 from adapt_image_models_torch.models.heads.i3d_head import I3DHead  # noqa: F401
+from adapt_image_models_torch.models.heads.misc_heads import TSMHead  # noqa: F401
+from adapt_image_models_torch.models.heads.tsn_head import TSNHead  # noqa: F401

@@ -29,9 +29,11 @@ Random draws (drop path, dropout) take an explicit ``torch.Generator``.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from adapt_image_models_torch.ops import (
@@ -45,7 +47,8 @@ from adapt_image_models_torch.ops._common import (
     exact_gelu, layer_norm_fp32, quick_gelu,
 )
 
-_DTYPES = {"float32": torch.float32, "fp32": torch.float32,
+_DTYPES = {"float64": torch.float64, "fp64": torch.float64,
+           "float32": torch.float32, "fp32": torch.float32,
            "bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
            "float16": torch.float16, "fp16": torch.float16}
 
@@ -76,6 +79,13 @@ def trunc_normal_(param: torch.Tensor, std: float, generator: torch.Generator) -
     t = torch.empty(param.shape, dtype=torch.float32)
     nn.init.trunc_normal_(t, std=s, a=-2 * s, b=2 * s, generator=generator)
     param.copy_(t)
+
+
+def lecun_normal_(param: torch.Tensor, generator: torch.Generator) -> None:
+    """flax's default kernel initialiser (``lecun_normal``): truncated
+    normal of variance 1 / fan_in, where a conv's fan_in is its kernel's
+    input channels (per group) times its window."""
+    trunc_normal_(param, param[0].numel() ** -0.5, generator)
 
 
 @torch.no_grad()
@@ -150,6 +160,103 @@ class LayerNormFlax(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return flax_layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """TF "SAME" padding of one axis, as flax's ``padding="SAME"``: the
+    output has ceil(size / stride) positions and the odd pixel goes last,
+    so a stride 2 on an even size pads asymmetrically (7x7/2 on 224: (2,
+    3); 3x3/2 on 56: (0, 1))."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1,
+                groups: int = 1) -> torch.Tensor:
+    """flax ``nn.Conv(padding="SAME", use_bias=False)`` of NCHW ``x`` with
+    an OIHW ``weight``: torch's symmetric ``padding`` where SAME is
+    symmetric, an explicit zero pad where it is not."""
+    (top, bottom), (left, right) = (same_pads(x.shape[d], weight.shape[d], stride)
+                                    for d in (-2, -1))
+    if top == bottom and left == right:
+        return F.conv2d(x, weight, stride=stride, padding=(top, left), groups=groups)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, stride=stride,
+                    groups=groups)
+
+
+def max_pool2d_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax ``nn.max_pool(padding="SAME")`` of NCHW ``x``: padded with
+    -inf, asymmetrically where SAME is (3x3/2 on 112: (0, 1))."""
+    (top, bottom), (left, right) = (same_pads(x.shape[d], kernel, stride) for d in (-2, -1))
+    if top == bottom and left == right:
+        return F.max_pool2d(x, kernel, stride, padding=(top, left))
+    return F.max_pool2d(F.pad(x, (left, right, top, bottom), value=-math.inf), kernel, stride)
+
+
+def batch_moments(x32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(mean, variance) of fp32 (N, C, ...) ``x32`` per channel over the
+    global batch, as flax's ``_compute_stats`` (flax 0.12.3, fast variance):
+    E[x²] - E[x]², clamped at 0 (the biased variance). Under a process
+    group the ranks' (Σx, Σx², count) are summed by one differentiable
+    all_reduce (``parallel.distributed.all_reduce_sum``), so every rank
+    normalises with the statistics of the whole batch, as XLA:SPMD does
+    for the JAX package's data-sharded step."""
+    from adapt_image_models_torch.parallel.distributed import all_reduce_sum
+    c = x32.shape[1]
+    dims = [0, *range(2, x32.dim())]
+    count = x32.new_full((1,), x32.numel() // c)
+    sums = all_reduce_sum(torch.cat([x32.sum(dims), (x32 * x32).sum(dims), count]))
+    mean = sums[:c] / sums[2 * c]
+    var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
+    return mean, var
+
+
+class BatchNormFlax(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over dim 1 of an
+    (N, C, ...) input (flax 0.12.3, ``normalization.py``), where torch's
+    defaults differ. In train mode it normalises with the batch's
+    ``batch_moments`` (fp32, biased variance) and updates the running
+    statistics as ``r = 0.9 r + 0.1 stat`` with that biased variance
+    (``nn.BatchNorm2d`` would take the unbiased one); in eval mode it reads
+    them and changes nothing. The output is fp32 whatever the input's
+    dtype (float64 stays float64), as flax promotes against its fp32 scale
+    and bias:
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. ``running_mean``
+    and ``running_var`` are fp32 buffers, so ``state_dict`` checkpoints
+    carry them. ``zero_init`` starts the scale at 0 (NonLocal3d's
+    ``bn_out``)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.9,
+                 zero_init: bool = False, device=None):
+        super().__init__()
+        self.eps, self.momentum, self.zero_init = eps, momentum, zero_init
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean", torch.zeros(num_features, device=device))
+        self.register_buffer("running_var", torch.ones(num_features, device=device))
+
+    @torch.no_grad()
+    def init_weights(self, generator: Optional[torch.Generator] = None) -> None:
+        self.weight.fill_(0.0 if self.zero_init else 1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # at least fp32, as flax promotes: a float64 input stays float64
+        x32 = x.to(torch.promote_types(x.dtype, torch.float32))
+        if self.training:
+            mean, var = batch_moments(x32)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x32 - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
 
 
 class Adapter(nn.Module):

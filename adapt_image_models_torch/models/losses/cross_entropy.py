@@ -1,7 +1,8 @@
 """Classification losses (parity: ``adapt_image_models_tpu/models/losses/
-cross_entropy.py:18-66``): hard int labels take the cross entropy, soft
+cross_entropy.py:18-73``): hard int labels take the cross entropy, soft
 (one-hot or blended) labels ``-(soft * log_softmax(logits)).sum(1).mean()``;
-both in fp32."""
+multi-hot labels of the ``multi_class`` recipes the binary cross entropy
+with logits (``BCELossWithLogits``); all in fp32."""
 
 from __future__ import annotations
 
@@ -47,3 +48,25 @@ class CrossEntropyLoss:
         else:
             loss = cross_entropy(logits, labels, self.class_weight)
         return self.loss_weight * loss
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor, labels: torch.Tensor,
+                                     weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean over every element of max(z, 0) - z·y + log1p(exp(-|z|)), the
+    JAX package's stable form."""
+    z, y = logits.float(), labels.float()
+    per = torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-z.abs()))
+    if weight is not None:
+        per = per * weight
+    return per.mean()
+
+
+@LOSSES.register_module()
+class BCELossWithLogits:
+    """The multi-label loss of the HVU and MMiT TSN recipes."""
+
+    def __init__(self, loss_weight: float = 1.0):
+        self.loss_weight = loss_weight
+
+    def __call__(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        return self.loss_weight * binary_cross_entropy_with_logits(logits, labels)

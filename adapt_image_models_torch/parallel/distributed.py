@@ -17,6 +17,15 @@ on CUDA tensors itself, so the helpers pass CUDA tensors to gloo as they
 are and stage nothing; the blend's neighbour row travels by all_gather, as
 gloo's send and recv take CPU tensors only.
 
+BatchNorm under a group (``all_reduce_sum``): the JAX package's CNN train
+step is a ``jax.jit`` over a data-sharded batch (``apis/train.py:243-253``),
+so XLA:SPMD computes each BatchNorm's mean and variance over the global
+batch. The port's ``models.layers.BatchNormFlax`` all-reduces its (Σx, Σx²,
+count) in the forward and the gradient of those sums in the backward: one
+all_reduce of 2C + 1 floats per BatchNorm layer per pass (53 layers in
+ResNet-50, so 53 in a forward and 53 more in its backward). Evaluation
+reads the running statistics and calls no collective.
+
 Not ported: the hybrid multi-slice mesh (``mesh.py:39-72``; ``torchrun
 --nnodes`` runs this code across hosts, untested here) and the
 tensor-parallel rules (``parallel/sharding_rules.py``).
@@ -142,6 +151,32 @@ def all_reduce_mean_(tensors: Iterable[torch.Tensor]) -> List[torch.Tensor]:
     dist.all_reduce(flat)
     _copy_into(tensors, flat.div_(dist.get_world_size()))
     return tensors
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over ranks of a tensor, whose gradient is the sum over ranks
+    of the gradients: every rank's loss reads the global sum, so each
+    rank's share of it carries every rank's cotangent."""
+
+    @staticmethod
+    def forward(ctx, t):
+        t = t.clone()
+        dist.all_reduce(t)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g)
+        return g
+
+
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """Differentiable sum of ``t`` over ranks (one all_reduce forward, one
+    backward); ``t`` itself without a group."""
+    if not is_distributed():
+        return t
+    return _AllReduceSum.apply(t)
 
 
 def broadcast_module_(model: torch.nn.Module, src: int = 0) -> torch.nn.Module:

@@ -335,7 +335,27 @@ Phases, in order; any failure raises and exits non-zero:
      tools/test_torch.py over 10 videos, two gloo ranks of 2 videos a
      batch against one process at batch 2: probabilities within
      DP_PROB_ATOL, the same top-1 and the same metrics.
-Phases 18, 19, 20, 21, 22 and 23 log their seconds.
+ 24. 2D CNN recognition, framework ops only (cuDNN convolutions, the
+     port's BatchNormFlax; TF32 off unless a timing says on): TSN
+     (tsn/tsn_r50_video_1x1x8_100e_kinetics400_rgb.py, ResNet-50, a test
+     video of 25 segments x ThreeCrop 256) and TSM
+     (tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py, ResNetTSM-50, 8
+     segments) as shipped on seeded weights, their running statistics
+     calibrated by one train-mode forward at momentum 0: init_recognizer,
+     inference_recognizer and run_evaluation on synthetic videos, the
+     card's fp32 against the host CPU's on one test video (CNN_CPU_ATOL),
+     train_model for 2 steps of 4 videos with the in-loop evaluation (the
+     running statistics moved, left alone by the evaluation and restored
+     bit for bit by the checkpoint), eval and train clips/s and peak
+     memory at 8 and the recipes' 32 / 8 videos, TF32 off and on, and a
+     profile of one train step; one forward of tsm_nl_dot_product,
+     tsn_rn101_32x4d and tsn_swin as shipped and of tsn_fp16 in bf16
+     against fp32 (CNN_BF16_ATOL); TSM through tools/train_torch.py
+     (children with NVIDIA_TF32_OVERRIDE=0 and no dropout): NCCL at world
+     size 1 bit-equal to no launcher, two gloo ranks of 4 videos against
+     one process of 8 (CNN_DP_*: every BatchNorm over the global batch).
+     No fused op or core launches on any of these paths.
+Phases 18, 19, 20, 21, 22, 23 and 24 log their seconds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -3890,8 +3910,10 @@ def dp_blend(out_dir, backend):
 
 
 def dp_child(mode, out_dir, *argv):
-    """A child process of phase 23 (``chip_smoke.py --dp-child MODE OUT
-    ...``). ``blend BACKEND``: a rank of ``dp_blend``. ``probe TOOL ARGS``
+    """A child process of phase 23 or 24 (``chip_smoke.py --dp-child MODE
+    OUT ...``). ``blend BACKEND``: a rank of ``dp_blend``. ``deterministic
+    TOOL ARGS`` runs the tool with cuDNN's deterministic algorithms (phase
+    24: its convolutions' backward otherwise sums with atomics). ``probe TOOL ARGS``
     and ``fault TOOL ARGS`` run the tool here; the first optimizer update
     of rank 0 (or of the one process) writes the gradients it gets, after
     the all_reduce, to ``<OUT>/grads_step1.pt``. ``fault`` plants a fault
@@ -3902,6 +3924,10 @@ def dp_child(mode, out_dir, *argv):
     sys.path.insert(0, ROOT)
     if mode == "blend":
         return dp_blend(out_dir, *argv)
+    if mode == "deterministic":  # cuDNN's deterministic algorithms, no autotuning
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        sys.argv = list(argv)
+        return runpy.run_path(argv[0], run_name="__main__")
     from adapt_image_models_torch.core import optim, train_state
     rank0 = int(os.environ.get("RANK", 0)) == 0
     update = optim.Optimizer.update
@@ -3950,17 +3976,18 @@ def tool_cmd(script, *args, nproc=None, child=None):
     return torchrun(nproc, *argv, "--launcher", "pytorch")
 
 
-def run_children(cmds, log_dir, timeout=600):
-    """Run the commands of ``cmds`` ({name: argv}) at once, each one's
-    output into ``<log_dir>/<name>.log``, and wait for all; raise, with
-    the tail of each failed one's output, unless all exit 0. Returns
-    {name: output}. A command still running at the end is terminated
-    (torchrun passes SIGTERM on to its ranks), then killed."""
+def run_children(cmds, log_dir, timeout=600, env=None):
+    """Run the commands of ``cmds`` ({name: argv}) at once (in ``env``, the
+    environment when None), each one's output into ``<log_dir>/<name>.log``,
+    and wait for all; raise, with the tail of each failed one's output,
+    unless all exit 0. Returns {name: output}. A command still running at
+    the end is terminated (torchrun passes SIGTERM on to its ranks), then
+    killed."""
     procs = {}
     try:
         for name, cmd in cmds.items():
             with open(os.path.join(log_dir, f"{name}.log"), "w") as f:
-                procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=f, env=env,
                                                stderr=subprocess.STDOUT)
         deadline = time.time() + timeout
         for p in procs.values():
@@ -3980,7 +4007,7 @@ def run_children(cmds, log_dir, timeout=600):
             outs[name] = f.read()
     failed = [name for name, p in procs.items() if p.returncode != 0]
     if failed:
-        raise AssertionError("phase 23: " + "; ".join(
+        raise AssertionError("child processes: " + "; ".join(
             f"{name} exited {procs[name].returncode}:\n{outs[name][-3000:]}"
             for name in failed))
     return outs
@@ -4224,6 +4251,441 @@ def phase_23(card):
             raise AssertionError(f"phase 23 {failures}")
     log(f"phase 23: {time.perf_counter() - t0:.1f} s on {card}")
 
+
+
+# ---------------------------------------------------------------------------
+# phase 24: 2D CNN recognition, Recognizer2D over ResNet and ResNetTSM with
+# the TSN and TSM heads, framework ops only (cuDNN convolutions and the
+# port's BatchNormFlax), as the JAX package runs no Pallas kernel there
+
+# (label, config under configs/recognition, the backbone keys it must ship,
+# timing batches in videos: 8 and the recipe's videos_per_gpu)
+CNN_PATHS = (
+    ("TSN-R50", "tsn/tsn_r50_video_1x1x8_100e_kinetics400_rgb.py",
+     dict(type="ResNet", depth=50), (8, 32)),
+    ("TSM-R50", "tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py",
+     dict(type="ResNetTSM", depth=50, num_frames=8), (8,)),
+)
+# one forward of 2 videos each, as shipped; the fp16 recipe's bf16 model is
+# also held to an fp32 model of the same weights on the card
+CNN_BUILT = ("tsm/tsm_nl_dot_product_r50_1x1x8_50e_kinetics400_rgb.py",
+             "tsn/custom_backbones/tsn_rn101_32x4d_320p_1x1x3_100e_kinetics400_rgb.py",
+             "tsn/custom_backbones/tsn_swin_transformer_video_320p_1x1x3_100e_kinetics400_rgb.py")
+CNN_FP16 = "tsn/tsn_fp16_r50_1x1x3_100e_kinetics400_rgb.py"
+# the card's bf16 probabilities against its fp32 ones (tsn_fp16, a class
+# lead), and the card's fp32 against the host CPU's on one video (TF32 off),
+# with the logits' largest gap over their largest magnitude (a class lead
+# saturates the 400-class softmax, so the probabilities alone say little).
+# [H100 readings (NVIDIA H100 80GB HBM3, 700.00 W): bf16 6.289e-5; the host
+# 1.304e-8 and 3.725e-9, logits 1.746e-6 (TSN) and 5.946e-7 (TSM)]
+CNN_BF16_ATOL, CNN_CPU_ATOL, CNN_LOGIT_REL = 1e-3, 1e-4, 1e-4
+# TSM through tools/train_torch.py, children with TF32 off
+# (NVIDIA_TF32_OVERRIDE=0), cuDNN's deterministic algorithms and no dropout:
+# NCCL at world size 1 against no launcher over CNN_DP_STEPS steps, bit for
+# bit; two gloo ranks of 4 videos against one process of 8 over one step
+# (from there on the recipe's SGD at lr 0.02 is chaotic from a seeded
+# start: the loss climbs, and step 1's rounding grows ~100x a step): the
+# loss and grad norm relative, per tensor sum|diff| / sum|ref| of the
+# running statistics, and of the update, whose bound is CNN_DP_UPDATE_FACTOR
+# times the largest gap of the recipe's own fp32 gradient to its float64
+# one at that start (fp32_grad_noise: the backbone's gradients there are
+# BatchNorm backwards of a near-uniform cotangent, whose terms cancel)
+CNN_DP_STEPS = 3
+CNN_DP_LOSS_RTOL, CNN_DP_NORM_RTOL, CNN_DP_STATS_REL, CNN_DP_UPDATE_FACTOR = 1e-5, 1e-4, 1e-4, 3
+
+
+def test_sample_shape(cfg):
+    """(S, C, H, W) of one prepared test video of a 2D recipe: every view
+    (clips x crops) of the test pipeline becomes segments."""
+    from adapt_image_models_torch.data.pipeline import build_sample_processor
+    proc = build_sample_processor(cfg["data"]["test"]["pipeline"])
+    h, w = proc.output_size()
+    return (proc.num_views * proc.sampler.clip_len, 3, h, w)
+
+
+def train_sample_shape(cfg):
+    from adapt_image_models_torch.data.pipeline import build_sample_processor
+    from adapt_image_models_torch.data.transforms import init_sample_shape
+    pipe = cfg["data"]["train"]["pipeline"]
+    return init_sample_shape(pipe, build_sample_processor(pipe))[1:]
+
+
+def calibrate_batch_norms(model, x):
+    """Running statistics at a trained network's scale: one train-mode
+    forward of ``x`` with every BatchNorm's momentum at 0 keeps the batch's
+    mean and biased variance; the model is left in eval mode."""
+    import torch
+    from adapt_image_models_torch.models.layers import BatchNormFlax
+    norms = [m for m in model.modules() if isinstance(m, BatchNormFlax)]
+    model.train()
+    for m in norms:
+        m.momentum = 0.0
+    with torch.no_grad():
+        model(x)
+    for m in norms:
+        m.momentum = 0.9
+    return model.eval()
+
+
+def class_probs(model, x, cfg):
+    """forward_test's scores as probabilities: the recipes with
+    ``average_clips=None`` score with the logits."""
+    import torch
+    p = model.forward_test(x).float()
+    return p if (cfg["model"].get("test_cfg") or {}).get("average_clips") == "prob" \
+        else torch.softmax(p, dim=-1)
+
+
+@contextlib.contextmanager
+def tf32(on):
+    """cuDNN's and cuBLAS's TF32 flags set to ``on`` (torch's defaults:
+    True for cuDNN, False for cuBLAS), restored after."""
+    import torch
+    before = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def cnn_model(cfg, seed, device="cuda"):
+    """init_recognizer's model of ``cfg`` with calibrated running
+    statistics and a class lead."""
+    import torch
+    from adapt_image_models_torch.apis import init_recognizer
+    model = init_recognizer(cfg, device=device, seed=0)
+    x = torch.randn(1, *test_sample_shape(cfg), device=device,
+                    generator=torch.Generator(device).manual_seed(seed))
+    calibrate_batch_norms(model, x)
+    separate_classes(model, seed)
+    return model
+
+
+def drive_cnn_path(card, label, name, expected, batches, seed):
+    """One of CNN_PATHS as shipped (ResNet-50, 400 classes) on seeded
+    weights with calibrated running statistics and a class lead:
+    init_recognizer, inference_recognizer and run_evaluation on synthetic
+    videos through the recipe's test pipeline, no launch; the card's fp32
+    against the host CPU's on one test video; train_model for 2 steps of 4
+    videos with the in-loop evaluation (running statistics moved, left
+    alone by the evaluation, restored bit for bit by the checkpoint, every
+    tensor moved, no launch); then eval and train clips/s and peak memory
+    at ``batches`` videos, TF32 off and on, and a profile of one train step
+    at the largest."""
+    import copy
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import (
+        inference_recognizer, init_recognizer, model_config, run_evaluation, train_model,
+    )
+    from adapt_image_models_torch.apis import load_config
+    from adapt_image_models_torch.core.checkpoint import CheckpointManager
+    from adapt_image_models_torch.models import build_model
+    t_path = time.perf_counter()
+    cfg = load_config(os.path.join(RECOGNITION_DIR, name))
+    bb = cfg["model"]["backbone"]
+    if {k: bb.get(k) for k in expected} != expected:
+        raise AssertionError(f"unexpected {label} backbone {bb}")
+    classes = cfg["model"]["cls_head"]["num_classes"]
+    sample = test_sample_shape(cfg)
+    model = cnn_model(cfg, seed)
+    log(f"phase 24: built {name} ({label}: {bb['type']}-{bb['depth']}, a test video "
+        f"{sample} segments x channels x H x W) on cuda, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M params, {classes} classes, "
+        f"in {time.perf_counter() - t_path:.1f} s")
+    n_videos = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "ann.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"synthetic://{seed * 100 + i} {i % classes}"
+                              for i in range(n_videos)))
+        cfg["data"]["test"]["ann_file"] = ann
+        ops.reset_launch_counts()  # this eval path's run starts here
+        top5 = [inference_recognizer(model, cfg, f"synthetic://{k}") for k in range(2)]
+        results, scores, _ = run_evaluation(cfg, model=model, batch_size=2, num_workers=2,
+                                            return_scores=True)
+        torch.cuda.synchronize()
+        check_no_launches(f"{label} eval", ops.launch_counts(), path_cores())  # ... ends here
+    log(f"  inference_recognizer top-5 of synthetic://0: {top5[0]}")
+    log(f"  run_evaluation over {n_videos} synthetic videos: {results}")
+    if scores.shape != (n_videos, classes) or not np.isfinite(scores).all():
+        raise AssertionError(f"bad {label} eval scores {scores.shape}")
+
+    weights = model.state_dict()
+    mcfg = {k: v for k, v in model_config(cfg).items() if k not in ("test_cfg", "train_cfg")}
+    host = build_model(mcfg, test_cfg=cfg["model"]["test_cfg"], device="cpu").eval()
+    host.load_state_dict({k: v.cpu() for k, v in weights.items()})
+    x = torch.randn(1, *sample, generator=torch.Generator().manual_seed(seed))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        p_host = class_probs(host, x, cfg)
+    host_s = time.perf_counter() - t0
+    with torch.no_grad():
+        p_card = class_probs(model, x.cuda(), cfg).cpu()
+        logits_host, logits_card = host(x), model(x.cuda()).cpu()
+    err = (p_card - p_host).abs().max().item()
+    logit_rel = ((logits_card - logits_host).abs().max() / logits_host.abs().max()).item()
+    log(f"  fp32 on the card vs fp32 on the host CPU, one test video {tuple(x.shape)}: "
+        f"probability max_abs_err {err:.3e} (tol {CNN_CPU_ATOL}; host forward {host_s:.1f} s), "
+        f"logits max|diff| / max|host| {logit_rel:.3e} (tol {CNN_LOGIT_REL}), top-1 equal "
+        f"{bool((p_card.argmax(1) == p_host.argmax(1)).all())}")
+    if not (err < CNN_CPU_ATOL and logit_rel < CNN_LOGIT_REL):
+        raise AssertionError(f"{label}: the card's fp32 forward disagrees with the host's")
+    del host, x
+    torch.cuda.empty_cache()
+
+    train_clips, steps = 4, 2
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ann, val_ann = os.path.join(tmp, "train.txt"), os.path.join(tmp, "val.txt")
+        with open(train_ann, "w") as f:
+            f.write("\n".join(f"synthetic://{seed * 100 + 50 + i} {i % classes}"
+                              for i in range(steps * train_clips)))
+        with open(val_ann, "w") as f:
+            f.write("\n".join(f"synthetic://{seed * 100 + 90 + i} {i % classes}"
+                              for i in range(2)))
+        tcfg = copy.deepcopy(cfg)
+        tcfg["data"]["train"]["ann_file"] = train_ann
+        tcfg["data"]["val"]["ann_file"] = val_ann
+        tcfg["data"].update(workers_per_gpu=4, videos_per_gpu=train_clips)
+        tcfg["data"]["val_dataloader"] = dict(videos_per_gpu=2, workers_per_gpu=2)
+        tcfg.update(total_epochs=1, log_config=dict(interval=1),
+                    evaluation=dict(interval=1), checkpoint_config=dict(interval=1))
+        initial = init_recognizer(tcfg, device="cuda", seed=0).state_dict()
+        work = os.path.join(tmp, "work")
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()  # this train path's run starts here
+        state, history = train_model(tcfg, work_dir=work, seed=0, max_steps=steps,
+                                     validate=True, device="cuda")
+        torch.cuda.synchronize()
+        check_no_launches(f"{label} train", ops.launch_counts(), path_cores())  # ... ends here
+        trained = state.model.state_dict()
+        restored = init_recognizer(tcfg, checkpoint=CheckpointManager(work).path(1),
+                                   device="cuda").state_dict()
+    stats = [k for k in trained if "running" in k]
+    stats_moved = sum(not torch.equal(trained[k], initial[k]) for k in stats)
+    tensors_moved = sum(not torch.equal(trained[n], initial[n])
+                        for n, _ in state.model.named_parameters())
+    n_tensors = sum(1 for _ in state.model.parameters())
+    same = all(torch.equal(restored[k], v) for k, v in trained.items())
+    log(f"  train_model on {name}: {state.step} steps of {train_clips} videos and the in-loop "
+        f"evaluation in {time.perf_counter() - t0:.1f} s (data and build included); losses "
+        f"{[round(h['loss'], 4) for h in history]}; running statistics moved in "
+        f"{stats_moved} of {len(stats)} buffers, {tensors_moved} of {n_tensors} tensors "
+        f"moved; the checkpoint (written before the evaluation) equals the model after "
+        f"the evaluation, buffers included, bit for bit: {same}")
+    if (state.step != steps or not all(np.isfinite(h["loss"]) for h in history)
+            or stats_moved != len(stats) or tensors_moved != n_tensors or not same):
+        raise AssertionError(f"{label}: train_model's running statistics or tensors wrong")
+    del state, trained, restored, initial
+    torch.cuda.empty_cache()
+
+    log(f"  {label} timings on {card}")
+    for videos in batches:
+        x = torch.randn(videos, *sample, device="cuda")
+        for on in (False, True):
+            torch.cuda.reset_peak_memory_stats()
+            with tf32(on), torch.no_grad():
+                ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
+            log(f"  {label} forward_test {videos} videos of {sample} (TF32 "
+                f"{'on' if on else 'off'}): {ms:.2f} ms, {videos / ms * 1e3:.2f} videos/s, "
+                f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                "(median of 5 after 2 warm-ups, CUDA events)")
+        del x
+    del model
+    torch.cuda.empty_cache()
+    shape = train_sample_shape(cfg)
+    for videos in batches:
+        batch = {"imgs": torch.randn(videos, *shape, device="cuda"),
+                 "label": np.arange(videos) % classes}
+        tstate, step_fn = train_setup(cfg, weights=weights)
+        for on in (False, True):
+            torch.cuda.reset_peak_memory_stats()
+            with tf32(on):
+                ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=2)
+            log(f"  {label} train step {videos} videos of {shape} (TF32 "
+                f"{'on' if on else 'off'}): {ms:.2f} ms, {videos / ms * 1e3:.1f} videos/s, "
+                f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                "(median of 5 after 2 warm-ups, CUDA events)")
+        if videos == batches[-1]:
+            with tf32(True):
+                profile_step(step_fn, tstate, batch, f"{label} {videos}-video (TF32 on)")
+        del tstate, step_fn, batch
+        torch.cuda.empty_cache()
+    log(f"phase 24: {label} path in {time.perf_counter() - t_path:.1f} s")
+
+
+def cnn_forwards(seed):
+    """One forward of 2 videos of each CNN_BUILT recipe as shipped, and of
+    the fp16 recipe in bf16 against an fp32 model of its weights, on the
+    card with no launch."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import load_config, model_config
+    from adapt_image_models_torch.models import build_model
+    for name in CNN_BUILT + (CNN_FP16,):
+        cfg = load_config(os.path.join(RECOGNITION_DIR, name))
+        bb = cfg["model"]["backbone"]
+        model = cnn_model(cfg, seed)
+        x = torch.randn(2, *test_sample_shape(cfg), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+        ops.reset_launch_counts()  # this forward starts here
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            p = class_probs(model, x, cfg)
+        torch.cuda.synchronize()
+        log(f"phase 24: {name} ({bb['type']}, compute {bb.get('compute_dtype', 'float32')}): "
+            f"one forward of 2 videos of {tuple(x.shape[1:])}, scores {tuple(p.shape)}, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check_no_launches(f"{name} forward", ops.launch_counts(), path_cores())
+        if not (torch.isfinite(p).all() and (p.sum(1) - 1).abs().max() < 1e-3):
+            raise AssertionError(f"{name}: the forward is not finite")
+        if name == CNN_FP16:
+            mcfg = {k: v for k, v in model_config(cfg).items()
+                    if k not in ("test_cfg", "train_cfg")}
+            mcfg["backbone"] = dict(mcfg["backbone"], compute_dtype="float32")
+            model32 = build_model(mcfg, test_cfg=cfg["model"]["test_cfg"], device="cuda").eval()
+            model32.load_state_dict(model.state_dict())
+            with torch.no_grad():
+                p32 = class_probs(model32, x, cfg)
+            err = (p - p32).abs().max().item()
+            same = bool((p.argmax(1) == p32.argmax(1)).all())
+            log(f"  bf16 vs fp32 on the card: probability max_abs_err {err:.3e} (tol "
+                f"{CNN_BF16_ATOL}), top-1 equal {same}")
+            if not (err < CNN_BF16_ATOL and same):
+                raise AssertionError(f"{name}: the bf16 model disagrees with the fp32 model")
+            del model32
+        del model, x, p
+        torch.cuda.empty_cache()
+
+
+def cnn_data_parallel(card):
+    """TSM-R50 through tools/train_torch.py: NCCL at world size 1 against no
+    launcher over CNN_DP_STEPS steps, bit for bit (the one-rank all_reduce
+    of each BatchNorm's sums and of their gradients is a copy), and two
+    gloo ranks of 4 videos against one process of 8 over a step (every
+    BatchNorm over the global batch); each child with TF32 off, cuDNN's
+    deterministic algorithms and no dropout, no kernel launched."""
+    import torch
+    label, name = CNN_PATHS[1][:2]
+    config = os.path.join(RECOGNITION_DIR, name)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "train.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"synthetic://{2450 + i} {i % 400}"
+                              for i in range(CNN_DP_STEPS * 8)))
+
+        def train(run, videos, steps, nproc=None, backend=None):
+            work = os.path.join(tmp, run)
+            return tool_cmd("train_torch.py", config, "--work-dir", work,
+                            "--max-steps", str(steps), "--no-validate", "--seed", "0",
+                            *(("--dist-backend", backend) if backend else ()),
+                            "--cfg-options", f"data.train.ann_file={ann}",
+                            f"data.videos_per_gpu={videos}", "data.workers_per_gpu=2",
+                            "log_config.interval=1", "checkpoint_config.interval=1",
+                            "model.cls_head.dropout_ratio=0", nproc=nproc,
+                            child=("deterministic", work))
+
+        outs = run_children({
+            "d_nccl_ws1": train("d_nccl_ws1", 8, CNN_DP_STEPS, nproc=1, backend="nccl"),
+            "d_none": train("d_none", 8, CNN_DP_STEPS),
+            "d_none_1": train("d_none_1", 8, 1),
+            "d_gloo_2x4": train("d_gloo_2x4", 4, 1, nproc=2, backend="gloo"),
+        }, tmp, env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
+        runs = {run: train_run(os.path.join(tmp, run)) for run in outs}
+    for run, out in outs.items():
+        fired = {k: n for k, n in rank_launches(out).items() if n}
+        if fired:
+            raise AssertionError(f"phase 24 {run}: kernels launched on the CNN path: {fired}")
+    if "rank / world: 0 / 1" not in outs["d_nccl_ws1"] or \
+            "rank / world: 0 / 2" not in outs["d_gloo_2x4"]:
+        raise AssertionError("phase 24: a run did not join its process group")
+    (hist_d, sd_d), (hist_n, sd_n) = runs["d_nccl_ws1"], runs["d_none"]
+    (hist_2, sd_2), (hist_1, sd_1) = runs["d_gloo_2x4"], runs["d_none_1"]
+    unequal = [k for k in sd_n if not torch.equal(sd_d[k], sd_n[k])]
+    log(f"phase 24: {label} data parallel, {CNN_DP_STEPS} steps (children, TF32 off): NCCL "
+        f"world size 1 vs no launcher: losses {[h['loss'] for h in hist_d]} vs "
+        f"{[h['loss'] for h in hist_n]}, {len(sd_n) - len(unequal)} of {len(sd_n)} tensors and "
+        f"buffers bit-equal; no kernel launched in any run")
+    from adapt_image_models_torch.apis import init_recognizer, load_config
+    initial = init_recognizer(load_config(config), device="cpu", seed=0).state_dict()
+    loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hist_2, hist_1)]
+    norm_rel = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                for a, b in zip(hist_2, hist_1)]
+    noise = fp32_grad_noise(load_config(config), 8, seed=2460)
+    worst_noise = max(noise, key=noise.get)
+    update_bound = CNN_DP_UPDATE_FACTOR * noise[worst_noise]
+    log(f"  {label}'s fp32 gradient at the seeded start vs its float64 gradient (8 random "
+        f"videos, on the card): sum|diff| / sum|ref| at most {noise[worst_noise]:.3e} "
+        f"({worst_noise}), median {statistics.median(noise.values()):.3e}")
+    update_rel, stats_rel = {}, {}
+    for k, ref in sd_1.items():
+        if "running" in k:
+            stats_rel[k] = float((sd_2[k].double() - ref.double()).abs().sum()
+                                 / ref.double().abs().sum())
+        else:
+            d_ref = ref.double() - initial[k].double()
+            update_rel[k] = float((sd_2[k].double() - ref.double()).abs().sum()
+                                  / max(float(d_ref.abs().sum()), 1e-30))
+    worst_u, worst_s = max(update_rel, key=update_rel.get), max(stats_rel, key=stats_rel.get)
+    log(f"  two gloo ranks x 4 vs one process x 8, one step: loss relative "
+        f"{[f'{r:.3e}' for r in loss_rel]} (bound {CNN_DP_LOSS_RTOL:g}), grad norm "
+        f"{[f'{r:.3e}' for r in norm_rel]} (bound {CNN_DP_NORM_RTOL:g}); update sum|diff| / "
+        f"sum|ref| at most {update_rel[worst_u]:.3e} ({worst_u}), median "
+        f"{statistics.median(update_rel.values()):.3e} (bound {update_bound:.3e}, "
+        f"{CNN_DP_UPDATE_FACTOR}x the fp32 gradient's own gap); running "
+        f"statistics at most {stats_rel[worst_s]:.3e} ({worst_s}), median "
+        f"{statistics.median(stats_rel.values()):.3e} (bound {CNN_DP_STATS_REL:g})")
+    if (hist_d != hist_n or unequal or len(hist_n) != CNN_DP_STEPS or len(hist_2) != 1
+            or max(loss_rel) > CNN_DP_LOSS_RTOL or max(norm_rel) > CNN_DP_NORM_RTOL
+            or update_rel[worst_u] > update_bound or stats_rel[worst_s] > CNN_DP_STATS_REL):
+        raise AssertionError("phase 24: data parallelism of the CNN path disagrees")
+    log(f"phase 24: data parallel runs in {time.perf_counter() - t0:.1f} s on {card}")
+
+
+def fp32_grad_noise(cfg, videos, seed):
+    """Per tensor sum|g32 - g64| / sum|g64| of one train-mode backward of
+    ``cfg``'s seeded model (the train step's seed 0, no dropout) on
+    ``videos`` random videos on the card, fp32 (TF32 off) against float64:
+    the fp32 gradient's own error at that start."""
+    import torch
+    from adapt_image_models_torch.apis import model_config
+    from adapt_image_models_torch.models import build_model
+    from adapt_image_models_torch.models.losses import cross_entropy
+    mcfg = {k: v for k, v in model_config(cfg, "train").items()
+            if k not in ("test_cfg", "train_cfg")}
+    mcfg["cls_head"] = dict(mcfg["cls_head"], dropout_ratio=0.0)
+    x = torch.randn(videos, *train_sample_shape(cfg), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    labels = torch.arange(videos, device="cuda") % mcfg["cls_head"]["num_classes"]
+    grads = []
+    for dtype in (torch.float32, torch.float64):
+        bb = dict(mcfg["backbone"], compute_dtype="float64" if dtype == torch.float64 else None)
+        m = build_model(dict(mcfg, backbone=bb), device="cuda")
+        m.init_weights(torch.Generator().manual_seed(0))
+        m = m.to(dtype).train()
+        with tf32(False):
+            cross_entropy(m(x.to(dtype)), labels).backward()
+        grads.append({n: p.grad for n, p in m.named_parameters()})
+        del m
+    gaps = {n: float((grads[0][n].double() - g).abs().sum() / g.abs().sum())
+            for n, g in grads[1].items()}
+    torch.cuda.empty_cache()
+    return gaps
+
+
+def phase_24(card):
+    """2D CNN recognition: each of CNN_PATHS through drive_cnn_path, one
+    forward of each CNN_BUILT recipe and of the fp16 recipe (bf16 against
+    fp32), then TSM's data parallelism (cnn_data_parallel)."""
+    t0 = time.perf_counter()
+    for k, path in enumerate(CNN_PATHS):
+        drive_cnn_path(card, *path, seed=2400 + k)
+    cnn_forwards(seed=2410)
+    cnn_data_parallel(card)
+    log(f"phase 24: {time.perf_counter() - t0:.1f} s")
 
 def main():
     import numpy as np
@@ -5087,6 +5549,9 @@ def main():
 
     # ---- phase 23: data parallelism through torchrun ---------------------------
     phase_23(card)
+
+    # ---- phase 24: 2D CNN recognition (TSN, TSM) ------------------------------
+    phase_24(card)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",

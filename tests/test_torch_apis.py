@@ -121,8 +121,11 @@ def test_prepare_fn_normalizes_and_formats():
     np.testing.assert_allclose(
         x.float().numpy(), format_ncthw(torch.from_numpy(want)).numpy(),
         rtol=1e-2, atol=1e-2)  # bf16 rounding of O(1) values
-    with pytest.raises(NotImplementedError):
-        make_prepare_fn(layout="NCHW")
+    # the 2D layouts (tests/test_torch_resnet2d.py holds them to JAX); an
+    # unknown one is refused, as in the JAX package
+    assert make_prepare_fn(layout="NCHW")(clips).shape == (2, 12, 3, 8, 8)
+    with pytest.raises(ValueError):
+        make_prepare_fn(layout="NTCHW")
 
 
 def test_test_torch_cli(tmp_path, ann):

@@ -21,7 +21,16 @@ process and against the JAX package's train step.
   continues the uninterrupted trajectory (1e-6);
 * (vii) the refusals: nccl on the CPU, nccl with two ranks on one card,
   ``launcher="pytorch"`` without torchrun's environment, shards of unequal
-  size; and ``tools/dist_{train,test}_torch.sh`` over two CPU ranks.
+  size; and ``tools/dist_{train,test}_torch.sh`` over two CPU ranks;
+* (viii) BatchNorm over the global batch: the 2D toy of
+  ``tests/test_torch_recognizer2d_train.py`` (ResNetTSM-18, SGD with a
+  clip, 3 steps of 4 clips) on two ranks of 2 clips against JAX's step on
+  one device over the 4 clips, whose jit computes each BatchNorm's
+  statistics over the whole batch: losses 1e-5 relative, tensors 1e-3 and
+  running statistics 2e-5 sum-relative [readings: 5.0e-7, 3.2e-8,
+  5.3e-7]. The same steps with each rank's own statistics (the gradients
+  still averaged), run in one process, miss those bounds [0.13, 1.1e-2,
+  0.11], so the test sees the ranks' statistics summed.
 
 The two ranks are spawned once for the module (``tests/torch_dist_worker.py``,
 which imports no JAX); the single-process references run here.
@@ -62,6 +71,8 @@ from adapt_image_models_torch.parallel import distributed, freeze_params, init_d
 
 import torch_dist_worker as W
 from share_cores import share_cores  # noqa: F401 (autouse: the worker's share of the cores)
+from test_torch_recognizer2d_train import jax_trajectory, seeded_variables
+from test_torch_resnet2d import _sum_rel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_dist_worker.py")
@@ -161,10 +172,25 @@ def blend_batch():
 
 
 @pytest.fixture(scope="module")
-def ranks(tmp_path_factory, jax_params, batches, blend_batch):
+def cnn_variables():
+    return seeded_variables(W.cnn_model_cfg(), seed=7)[1]
+
+
+@pytest.fixture(scope="module")
+def cnn_batches():
+    rng = np.random.default_rng(200)
+    return [(torch.from_numpy(rng.standard_normal(
+                (W.GLOBAL_B, 4, 3, 32, 32)).astype(np.float32)),
+             torch.from_numpy((np.arange(W.GLOBAL_B) + step) % W.CLASSES))
+            for step in range(W.CNN_STEPS)]
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory, jax_params, batches, blend_batch, cnn_variables, cnn_batches):
     """Both ranks' outputs and the run's directory."""
     d = tmp_path_factory.mktemp("ranks")
     torch.save({"weights": params_from_jax(jax_params), "batches": batches,
+                "cnn_weights": params_from_jax(cnn_variables), "cnn_batches": cnn_batches,
                 "blend": blend_batch,
                 "train_ann": _write_ann(d / "train.txt", W.TRAIN_VIDEOS),
                 "eval_ann": _write_ann(d / "eval.txt", W.EVAL_VIDEOS)},
@@ -222,6 +248,57 @@ def test_two_ranks_match_jax(ranks, jax_params, batches):
     want = params_from_jax(state.trainable)
     assert set(want) == set(got["trainable"])
     _close(got["trainable"], want, 2e-5, "two ranks vs JAX")
+
+
+def _cnn_gaps(run, want_losses, want):
+    loss = max(abs(a - b) / abs(b) for a, b in zip(run["loss"], want_losses))
+    tensors = max(_sum_rel(run["state"][k], v) for k, v in want.items() if "running" not in k)
+    stats = max(_sum_rel(run["state"][k], v) for k, v in want.items() if "running" in k)
+    return loss, tensors, stats
+
+
+def _local_statistics_run(weights, data):
+    """The steps two ranks would take with each rank's own BatchNorm
+    statistics: each half of the batch forward and backward alone, the
+    gradients and losses averaged, rank 0's running statistics kept."""
+    from adapt_image_models_torch.models.losses import cross_entropy
+    model = build_model(W.cnn_model_cfg())
+    model.load_state_dict(weights, strict=True)
+    opt = build_optimizer(W.CNN_OPT, model, W.CNN_OPT["lr"], W.CNN_CLIP)
+    model.train()
+    losses = []
+    for imgs, labels in data:
+        half, grads, loss = len(imgs) // 2, None, 0.0
+        for r in range(2):
+            rows = slice(r * half, (r + 1) * half)
+            part = cross_entropy(model(imgs[rows]), labels[rows])
+            g = torch.autograd.grad(part, opt.params)
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            loss += float(part) / 2
+            if r == 0:
+                kept = {k: v.clone() for k, v in model.state_dict().items() if "running" in k}
+        model.load_state_dict(kept, strict=False)
+        opt.update([g / 2 for g in grads])
+        losses.append(loss)
+    return {"loss": losses, "state": model.state_dict()}
+
+
+def test_two_ranks_batch_norm_matches_jax_global_batch(ranks, cnn_variables, cnn_batches):
+    """(viii): two ranks' BatchNorms normalise with the global batch's
+    statistics, as JAX's one-device step over the whole batch does; both
+    ranks hold the same tensors and statistics; per-rank statistics would
+    miss the bounds."""
+    out = ranks[1]
+    for k, v in out[0]["cnn"]["state"].items():
+        assert torch.equal(v, out[1]["cnn"]["state"][k]), k
+    data = [(imgs.numpy(), labels.numpy()) for imgs, labels in cnn_batches]
+    want_losses, _, want = jax_trajectory(W.cnn_model_cfg(), cnn_variables, W.CNN_OPT,
+                                          W.CNN_CLIP, 1, data)
+    loss, tensors, stats = _cnn_gaps(out[0]["cnn"], want_losses, want)
+    assert loss < 1e-5 and tensors < 1e-3 and stats < 2e-5, (loss, tensors, stats)
+    local = _local_statistics_run(params_from_jax(cnn_variables), cnn_batches)
+    loss, tensors, stats = _cnn_gaps(local, want_losses, want)
+    assert loss > 1e-5 and tensors > 1e-3 and stats > 2e-5, (loss, tensors, stats)
 
 
 @pytest.mark.parametrize("dtype", W.BLEND_DTYPES)

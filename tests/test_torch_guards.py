@@ -22,7 +22,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "adapt_image_models_tpu")
 # toy AIM at 6 frames and the LN temporal block, frozen and not; and the
 # LN-only and adapter-only calls of tests/test_torch_attention_blocks.py
 # (the LN block over tokens, frozen and not, the adapter block over tokens
-# and over frames), forward and backward;
+# and over frames), forward and backward; a train-mode forward and backward
+# of a toy Recognizer2D (ResNetTSM with a non-local block and the temporal
+# pool), which moves its BatchNorms' running statistics;
 # tests/conftest.py imports jax, so this must run in a fresh interpreter
 NO_JAX_SCRIPT = r"""
 import os, sys, tempfile
@@ -90,6 +92,15 @@ for frozen, kwargs in ((False, dict(ln=LayerNormFP32(128))), (True, dict(ln=Laye
     x = torch.randn(12, 5, 128).to(torch.bfloat16).requires_grad_()
     attn(x, **kwargs).float().sum().backward()
     assert torch.isfinite(x.grad.float()).all()
+from adapt_image_models_torch.models import build_model
+cnn = build_model(dict(type="Recognizer2D",
+    backbone=dict(type="ResNetTSM", depth=50, num_frames=4, stage_blocks=(1, 1, 1, 1),
+                  base_channels=16, non_local=((0,), (1,), 0, 0), temporal_pool=True),
+    cls_head=dict(type="TSMHead", num_classes=3, in_channels=512)))
+cnn.init_weights(torch.Generator().manual_seed(0))
+cnn.train()
+cnn(torch.randn(2, 4, 3, 33, 33)).sum().backward()
+assert cnn.backbone.bn1.running_mean.abs().sum() > 0
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN_MODULES", bad)
 """ % (FORBIDDEN,)

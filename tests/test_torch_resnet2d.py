@@ -1,0 +1,590 @@
+"""The 2D segment recognizers of the PyTorch port against the JAX package:
+``Recognizer2D`` over ResNet, ResNeXt and ResNetTSM (non-local blocks,
+temporal pool) with the TSN and TSM heads, and the pieces where torch's
+defaults differ from flax's: ``BatchNormFlax`` (flax's fast variance, the
+biased running variance, fp32 output) and the TF "SAME" padding of the
+strided convs and of the max pool.
+
+The same seeded numpy inputs and weights go through the JAX model and the
+port; the JAX ``variables`` (params and batch_stats, the BatchNorms'
+scales, biases and statistics drawn away from their constants) convert
+with ``params_from_jax`` and load strictly. Toy geometry: ResNet-18 and
+ResNet-50 at ``stage_blocks=(1, 1, 1, 1)``, ``base_channels=16``, on 64²
+and 63² frames, 3 or 4 segments of 2 clips. Each case holds the eval
+forward (running statistics), the train-mode forward (batch statistics),
+the running statistics it leaves and the gradient of every tensor against
+``jax.grad``.
+
+Tolerances (CPU readings in brackets). Eval logits and features 2e-5 of
+their largest magnitude [2.0e-6]; probabilities 1e-6 absolute [6e-8];
+BatchNormFlax alone 2e-6 relative [2.4e-7]; SAME convs 1e-5 [1e-6], pools
+bit-equal; bf16 logits 3e-2 of the largest [8e-3]. Train mode is held to
+the port's float64 evaluation of the same weights (see
+``test_recognizer2d_matches_jax``), per tensor sum|diff| / sum|ref|: JAX's
+fp32 logits within 5e-4 [1.7e-4], running statistics 1e-4 [2.3e-5],
+gradients 1e-2 [2.8e-3], 1e-1 through a non-local block [5.3e-2]; the
+port's fp32 within 1.5x of JAX's gap [logits 1.8e-5, statistics 3.9e-6,
+gradients 1.2e-3 (the stem's weight, as JAX's), 2.1e-4 through a
+non-local block]. The float64 arbiter is JAX's function: JAX run at
+compute_dtype float64 meets it within 3e-5 (``test_float64_jax_meets_
+float64_port``), so the fp32 gaps are rounding.
+"""
+
+import glob
+import os
+
+import numpy as np
+import pytest
+
+import flax.linen as fnn
+import jax
+import jax.numpy as jnp
+import torch
+
+from adapt_image_models_tpu.config.config import Config as JaxConfig
+from adapt_image_models_tpu.data.pipeline import build_sample_processor as jax_processor
+from adapt_image_models_tpu.data.transforms import (
+    init_sample_shape as jax_init_sample_shape, make_prepare_fn as jax_prepare_fn,
+)
+from adapt_image_models_tpu.models import build_model as build_jax_model
+from adapt_image_models_tpu.models.backbones.resnet import temporal_shift as jax_shift
+from adapt_image_models_tpu.models.builder import BACKBONES as JAX_BACKBONES
+from adapt_image_models_torch.apis import load_config, model_config
+from adapt_image_models_torch.convert import params_from_jax
+from adapt_image_models_torch.data.pipeline import build_sample_processor
+from adapt_image_models_torch.data.transforms import (
+    IMAGENET_MEAN, IMAGENET_STD, init_sample_shape, make_prepare_fn,
+)
+from adapt_image_models_torch.models import build_model
+from adapt_image_models_torch.models.backbone_sources import resolve_backbone_source
+from adapt_image_models_torch.models.backbones.resnet import temporal_shift
+from adapt_image_models_torch.models.builder import build_backbone
+from adapt_image_models_torch.models.layers import (
+    BatchNormFlax, conv2d_same, max_pool2d_same, same_pads,
+)
+
+from share_cores import share_cores  # noqa: F401 (autouse: the worker's share of the cores)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RECOGNITION = os.path.join(ROOT, "configs", "recognition")
+CLASSES = 5
+TOY = dict(stage_blocks=(1, 1, 1, 1), base_channels=16)
+NL3 = ((0,), (1,), (1,), (0,))  # a non-local after stage 2's and 3's block
+
+
+def _np(a):
+    return np.asarray(jnp.asarray(a, jnp.float32))
+
+
+def _rel(got, want):
+    """max |got - want| over max |want|."""
+    got = got.detach().float().numpy() if isinstance(got, torch.Tensor) else _np(got)
+    want = _np(want)
+    assert got.shape == want.shape
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _sum_rel(got, want):
+    """sum |got - want| over sum |want|, the repo's per-tensor measure of
+    trajectories (``tests/test_torch_distributed.py``)."""
+    got, want = got.detach().double(), torch.as_tensor(want).double()
+    return float((got - want).abs().sum() / want.abs().sum().clamp(min=1e-30))
+
+
+def grads_close(model, want_grads, rel=1e-4, floor=1e-7):
+    """Each parameter's gradient within ``rel`` of its largest element plus
+    ``floor`` of the model's largest gradient: the biases that feed a
+    BatchNorm, or phi's under a softmax, have a zero gradient, of which both
+    packages compute rounding noise."""
+    top = max(float(g.abs().max()) for g in want_grads.values())
+    for n, p in model.named_parameters():
+        want = want_grads[n]
+        err = float((p.grad - want).abs().max())
+        assert err <= rel * float(want.abs().max()) + floor * top, (n, err)
+
+
+def model_cfg(backbone, head="TSNHead", **head_kw):
+    channels = backbone.pop("out_channels")
+    return dict(type="Recognizer2D", backbone=backbone,
+                cls_head=dict(type=head, num_classes=CLASSES, in_channels=channels,
+                              dropout_ratio=0.0, **head_kw))
+
+
+CASES = {
+    "r18_64": (dict(type="ResNet", depth=18, out_channels=128, **TOY), 64, 3),
+    "r18_63": (dict(type="ResNet", depth=18, out_channels=128, **TOY), 63, 3),
+    "r50_64": (dict(type="ResNet", depth=50, out_channels=512, **TOY), 64, 3),
+    "r50_63": (dict(type="ResNet", depth=50, out_channels=512, **TOY), 63, 3),
+    "resnext": (dict(type="ResNeXt", depth=50, out_channels=512, **TOY), 64, 3),
+    "tsm_pool": (dict(type="ResNetTSM", depth=50, num_frames=4, temporal_pool=True,
+                      out_channels=512, **TOY), 63, 4),
+    "nl_gaussian": (dict(type="ResNetTSM", depth=50, num_frames=4, non_local=NL3,
+                         non_local_cfg=dict(mode="gaussian", sub_sample=True),
+                         out_channels=512, **TOY), 64, 4),
+    "nl_embedded": (dict(type="ResNetTSM", depth=50, num_frames=4, non_local=NL3,
+                         non_local_cfg=dict(mode="embedded_gaussian", sub_sample=True,
+                                            use_scale=True), out_channels=512, **TOY), 63, 4),
+    "nl_dot": (dict(type="ResNetTSM", depth=50, num_frames=4, non_local=NL3,
+                    non_local_cfg=dict(mode="dot_product", sub_sample=True,
+                                       norm_cfg=dict(type="BN3d", requires_grad=True)),
+                    out_channels=512, **TOY), 64, 4),
+    # a stage-level non-local (an int flag) after stage 2, with the pool
+    "nl_stage_pool": (dict(type="ResNetTSM", depth=18, num_frames=4, non_local=(0, 1, 0, 0),
+                           temporal_pool=True, out_channels=128, **TOY), 64, 4),
+}
+
+
+def _draw(tree, seed):
+    """Seeded values for a tree of shape structs: conv and dense kernels
+    N(0, 1/fan_in), the BatchNorms' scale and variance in [0.6, 1.4), their
+    bias and mean N(0, 0.2²), conv biases N(0, 0.1²)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape = tuple(leaf.shape)
+        if name == "kernel":
+            return (rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))).astype(np.float32)
+        if name in ("scale", "var"):
+            return (0.6 + 0.8 * rng.random(shape)).astype(np.float32)
+        if name in ("mean", "bias"):
+            return (0.2 * rng.standard_normal(shape)).astype(np.float32)
+        return (0.02 * rng.standard_normal(shape)).astype(np.float32)
+    return jax.tree_util.tree_map_with_path(draw, tree)
+
+
+def jax_variables(cfg, shape, seed=0, **build):
+    """The JAX model of ``cfg`` and seeded variables (params and
+    batch_stats) of the shapes its init gives on ``shape``."""
+    jmodel = build_jax_model(cfg, **build)
+    tree = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
+                          jax.ShapeDtypeStruct(shape, jnp.float32))
+    return jmodel, _draw(tree, seed)
+
+
+def port_model(cfg, variables):
+    model = build_model(cfg)
+    model.load_state_dict(params_from_jax(variables), strict=True)
+    return model
+
+
+def _clips(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+def _case(name):
+    backbone, res, segs = CASES[name]
+    cfg = model_cfg(dict(backbone), "TSMHead" if "TSM" in backbone["type"] else "TSNHead")
+    return cfg, (2, segs, 3, res, res)
+
+
+# ---- the pieces where torch's defaults differ ---------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(6, 8, 7, 5), (2, 8, 3, 4, 4)])
+def test_batch_norm_matches_flax(shape, dtype):
+    """BatchNormFlax against flax nn.BatchNorm(momentum=0.9) on (N, C, ...)
+    input: the train-mode output, the running statistics it leaves (the
+    biased variance), the eval-mode output, fp32 whatever the input, and
+    the train-mode gradients of input, scale and bias."""
+    rng = np.random.default_rng(3)
+    x = (1.5 + 2.0 * rng.standard_normal(shape)).astype(np.float32)
+    c = shape[1]
+    scale, bias = 0.5 + rng.random(c), 0.1 * rng.standard_normal(c)
+    mean, var = 0.3 * rng.standard_normal(c), 0.5 + rng.random(c)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    x_last = np.moveaxis(x, 1, -1)  # flax normalises the last axis
+    bn = fnn.BatchNorm(momentum=0.9, epsilon=1e-5)
+    variables = {"params": {"scale": jnp.asarray(scale, jnp.float32),
+                            "bias": jnp.asarray(bias, jnp.float32)},
+                 "batch_stats": {"mean": jnp.asarray(mean, jnp.float32),
+                                 "var": jnp.asarray(var, jnp.float32)}}
+    xj = jnp.asarray(x_last).astype(jdt)
+    want, mut = bn.apply(variables, xj, use_running_average=False, mutable=["batch_stats"])
+    want_eval = bn.apply({**variables, **mut}, xj, use_running_average=True)
+
+    port = BatchNormFlax(c)
+    with torch.no_grad():
+        port.weight.copy_(torch.tensor(scale)), port.bias.copy_(torch.tensor(bias))
+        port.running_mean.copy_(torch.tensor(mean)), port.running_var.copy_(torch.tensor(var))
+    xt = torch.tensor(x).to(tdt).requires_grad_()
+    got = port(xt)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    assert _rel(got, np.moveaxis(_np(want), -1, 1)) < 2e-6
+    for key, buf in (("mean", port.running_mean), ("var", port.running_var)):
+        assert _rel(buf, mut["batch_stats"][key]) < 2e-6, key
+    port.eval()
+    before = port.running_mean.clone(), port.running_var.clone()
+    assert _rel(port(xt), np.moveaxis(_np(want_eval), -1, 1)) < 2e-6
+    assert torch.equal(port.running_mean, before[0]) and torch.equal(port.running_var, before[1])
+
+    if dtype == "float32":
+        g = rng.standard_normal(shape).astype(np.float32)
+
+        def loss(params, xj):
+            y, _ = bn.apply({**variables, "params": params}, xj, use_running_average=False,
+                            mutable=["batch_stats"])
+            return jnp.sum(y * jnp.asarray(np.moveaxis(g, 1, -1)))
+        gp, gx = jax.grad(loss, argnums=(0, 1))(variables["params"], xj)
+        port.train()
+        (port(xt) * torch.tensor(g)).sum().backward()
+        assert _rel(xt.grad, np.moveaxis(_np(gx), -1, 1)) < 1e-5
+        assert _rel(port.weight.grad, gp["scale"]) < 1e-5
+        assert _rel(port.bias.grad, gp["bias"]) < 1e-5
+
+
+@pytest.mark.parametrize("size", [63, 64, 112, 224])
+@pytest.mark.parametrize("kernel,stride", [(7, 2), (3, 2), (1, 2), (3, 1)])
+def test_same_padding_matches_flax(size, kernel, stride):
+    """conv2d_same and max_pool2d_same against flax's padding="SAME" conv
+    and -inf-padded max pool, on odd and even sizes; the pads of the
+    asymmetric cases the ResNet stem and stages meet."""
+    rng = np.random.default_rng(size + kernel)
+    x = rng.standard_normal((1, 3, size, size)).astype(np.float32)
+    w = rng.standard_normal((kernel, kernel, 3, 4)).astype(np.float32)
+    xj = jnp.asarray(np.moveaxis(x, 1, -1))
+    conv = fnn.Conv(4, (kernel, kernel), (stride, stride), use_bias=False)
+    want = conv.apply({"params": {"kernel": jnp.asarray(w)}}, xj)
+    got = conv2d_same(torch.tensor(x), torch.tensor(w.transpose(3, 2, 0, 1)), stride)
+    assert _rel(got, np.moveaxis(_np(want), -1, 1)) < 1e-5
+    if kernel > 1:
+        want = fnn.max_pool(xj, (kernel, kernel), (stride, stride), padding="SAME")
+        got = max_pool2d_same(torch.tensor(x), kernel, stride)
+        assert _rel(got, np.moveaxis(_np(want), -1, 1)) == 0.0
+    assert same_pads(224, 7, 2) == (2, 3) and same_pads(56, 3, 2) == (0, 1)
+    assert same_pads(112, 3, 2) == (0, 1) and same_pads(63, 3, 2) == (1, 1)
+
+
+def test_temporal_shift_matches_jax():
+    """TSM's shift of NCHW frames equals JAX's of channels-last frames."""
+    x = _clips((6, 16, 3, 5), 4)  # 2 clips x 3 frames, 16 channels
+    want = jax_shift(jnp.asarray(np.moveaxis(x, 1, -1)), 3)
+    got = temporal_shift(torch.tensor(x), 3)
+    np.testing.assert_array_equal(got.numpy(), np.moveaxis(_np(want), -1, 1))
+    assert float(got[2::3, :2].abs().sum()) == 0.0  # last frame: zeros in
+    assert float(got[0::3, 2:4].abs().sum()) == 0.0  # first frame
+
+
+# ---- the recognizer ---------------------------------------------------------------
+
+def _train_loss(jmodel, variables, xj, labels):
+    def loss_fn(params):
+        logits, mut = jmodel.apply({**variables, "params": params}, xj, deterministic=False,
+                                   mutable=["batch_stats"])
+        logp = jax.nn.log_softmax(logits)
+        return -jnp.mean(logp[jnp.arange(len(labels)), labels]), (logits, mut)
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(variables["params"])
+
+
+def zero_gradient(name, cfg):
+    """Whether the loss's gradient of tensor ``name`` is 0 in exact
+    arithmetic: a non-local block's ``conv_out`` bias (``bn_out`` removes
+    any per-channel constant in train mode) and, under a softmax (every
+    mode but dot_product), the biases of ``g`` (rows of the attention sum
+    to 1, so it adds a constant) and ``phi`` (it adds a constant to a
+    row's logits)."""
+    if name.endswith("conv_out.bias"):
+        return True
+    mode = (cfg["backbone"].get("non_local_cfg") or {}).get("mode", "embedded_gaussian")
+    return mode != "dot_product" and name.endswith(("g.bias", "phi.bias"))
+
+
+def _gaps(got, ref, floor=0.0):
+    """Per tensor of ``ref``: sum |got - ref| over sum |ref| plus ``floor``
+    per element."""
+    return {n: float((got[n].double() - r.double()).abs().sum()
+                     / (r.double().abs().sum() + floor * r.numel())) for n, r in ref.items()}
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_recognizer2d_matches_jax(name):
+    """The eval forward against JAX (2e-5). Then a train-mode forward (the
+    batch statistics), the running statistics it leaves and every tensor's
+    gradient. In train mode fp32 rounding grows through the stages (each
+    BatchNorm divides by a batch deviation; a non-local block's softmax
+    over x·x is sharp; the biases under a softmax or a BatchNorm have a
+    zero gradient, of which both packages compute noise), so both
+    packages' fp32 results are held to the port's float64 evaluation of
+    the same weights, the arbiter: JAX's must lie within the bounds below
+    of it (the port's float64 function is JAX's), and the port's must be
+    about as close to it as JAX's: within 1.5x of JAX's largest gap over
+    the tensors (the stem's weight gradient sums positions whose terms
+    cancel, and both fp32 packages round it alike)."""
+    cfg, shape = _case(name)
+    jmodel, variables = jax_variables(cfg, shape)
+    model = port_model(cfg, variables)
+    x = _clips(shape, 5)
+    xj, xt = jnp.asarray(x), torch.tensor(x)
+
+    model.eval()
+    with torch.no_grad():
+        assert _rel(model(xt), jax.jit(jmodel.apply)(variables, xj)) < 2e-5
+
+    labels = np.arange(shape[0]) % CLASSES
+    (_, (want, mut)), grads = _train_loss(jmodel, variables, xj, labels)
+    runs = {}
+    cfg64 = dict(cfg, backbone=dict(cfg["backbone"], compute_dtype="float64"))
+    for key, m, inp in (("port", model, xt), ("f64", port_model(cfg64, variables).double(),
+                                               xt.double())):
+        m.train()
+        logits = m(inp)
+        torch.nn.functional.cross_entropy(logits, torch.tensor(labels)).backward()
+        runs[key] = {"logits": logits.detach(), **{n: p.grad for n, p in m.named_parameters()},
+                     **{k: v for k, v in m.state_dict().items() if "running" in k}}
+    jax_run = {"logits": torch.tensor(np.asarray(want)), **params_from_jax(grads),
+               **params_from_jax({"params": {}, "batch_stats": mut["batch_stats"]})}
+    assert set(jax_run) == set(runs["port"])
+    ref = runs["f64"]
+    top = max(float(ref[n].abs().max()) for n, _ in model.named_parameters())
+    port_gap, jax_gap = _gaps(runs["port"], ref, 1e-6 * top), _gaps(jax_run, ref, 1e-6 * top)
+    groups = {"logits": ["logits"], "statistics": [k for k in ref if "running" in k],
+              "gradients": [n for n, _ in model.named_parameters() if not zero_gradient(n, cfg)]}
+    nl = "non_local" in cfg["backbone"]
+    for group, bound in (("logits", 5e-4), ("statistics", 1e-4),
+                         ("gradients", 1e-1 if nl else 1e-2)):
+        worst_jax = max(jax_gap[n] for n in groups[group])
+        worst_port = max(port_gap[n] for n in groups[group])
+        assert worst_jax < bound, group
+        assert worst_port <= 1.5 * worst_jax + 1e-7, group
+
+
+@pytest.mark.parametrize("name", ["tsm_pool", "nl_dot", "nl_embedded"])
+def test_float64_jax_meets_float64_port(name):
+    """The arbiter is the JAX package's function: JAX at compute_dtype
+    float64 (x64 on, in this test alone) and the port at float64, on the
+    same weights, give train-mode logits within 1e-5 of their largest and
+    every gradient (but the zero-gradient biases) within 3e-5 sum-relative
+    [readings: logits 1.7e-6, gradients 1.0e-7 (temporal pool), 7.8e-7
+    (dot product), 6.2e-6 (embedded gaussian)]. JAX's non-local einsums
+    and heads stay fp32 (``preferred_element_type``, ``Dense(dtype=
+    float32)``), as the port's do."""
+    cfg, shape = _case(name)
+    _, variables = jax_variables(cfg, shape)
+    x = _clips(shape, 5)
+    labels = np.arange(shape[0]) % CLASSES
+    with jax.enable_x64(True):
+        jcfg = dict(cfg, backbone=dict(cfg["backbone"], compute_dtype=jnp.float64))
+        v64 = jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), variables)
+        (_, (want, _)), grads = _train_loss(build_jax_model(jcfg), v64,
+                                            jnp.asarray(x, jnp.float64), labels)
+        want, grads = np.asarray(want), jax.tree_util.tree_map(np.asarray, grads)
+    cfg64 = dict(cfg, backbone=dict(cfg["backbone"], compute_dtype="float64"))
+    model = port_model(cfg64, variables).double().train()
+    logits = model(torch.tensor(x).double())
+    torch.nn.functional.cross_entropy(logits, torch.tensor(labels)).backward()
+    assert _rel(logits, want) < 1e-5
+    gaps = _gaps({n: p.grad for n, p in model.named_parameters()}, params_from_jax(grads))
+    assert max(v for n, v in gaps.items() if not zero_gradient(n, cfg)) < 3e-5
+
+
+def test_recognizer2d_bf16_matches_jax():
+    """compute_dtype bfloat16 (the tsn_fp16 recipe's): the convs in bf16,
+    every BatchNorm's output fp32, the logits near JAX's."""
+    cfg, shape = _case("nl_embedded")
+    cfg["backbone"]["compute_dtype"] = "bfloat16"
+    jcfg = dict(cfg, backbone=dict(cfg["backbone"], compute_dtype=jnp.bfloat16))
+    jmodel, variables = jax_variables(jcfg, shape)
+    model = port_model(cfg, variables).eval()
+    x = _clips(shape, 6)
+    with torch.no_grad():
+        got = model(torch.tensor(x))
+    assert got.dtype == torch.float32
+    assert _rel(got, jmodel.apply(variables, jnp.asarray(x))) < 3e-2
+
+
+@pytest.mark.parametrize("average_clips", [None, "prob", "score"])
+@pytest.mark.parametrize("head", ["TSNHead", "TSMHead"])
+def test_heads_and_forward_test_match_jax(head, average_clips):
+    """forward_test through each head (TSN: the mean before the fc; TSM:
+    after it) under each average_clips: None gives the logits."""
+    backbone = dict(type="ResNetTSM" if head == "TSMHead" else "ResNet", depth=18,
+                    out_channels=128, **TOY)
+    if head == "TSMHead":
+        backbone["num_frames"] = 4
+    cfg = dict(model_cfg(backbone, head), test_cfg=dict(average_clips=average_clips))
+    shape = (2, 4, 3, 32, 32)
+    jmodel, variables = jax_variables({k: v for k, v in cfg.items() if k != "test_cfg"},
+                                      shape, test_cfg=cfg["test_cfg"])
+    model = build_model({k: v for k, v in cfg.items() if k != "test_cfg"},
+                        test_cfg=cfg["test_cfg"])
+    model.load_state_dict(params_from_jax(variables), strict=True)
+    model.eval()
+    x = _clips(shape, 7)
+    with torch.no_grad():
+        got = model.forward_test(torch.tensor(x))
+    want = jmodel.apply(variables, jnp.asarray(x), method=jmodel.forward_test)
+    if average_clips == "prob":
+        np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-6)
+        np.testing.assert_allclose(got.sum(1).numpy(), 1.0, rtol=1e-5)
+    else:
+        assert _rel(got, want) < 2e-5
+
+
+def test_extract_feat_and_out_indices_match_jax():
+    """extract_feat's (B, S', D) per-segment features (the pool halves S),
+    and a backbone with two out_indices: the tuple of those stages' maps,
+    NCHW here, channels-last in JAX."""
+    cfg, shape = _case("tsm_pool")
+    jmodel, variables = jax_variables(cfg, shape)
+    model = port_model(cfg, variables).eval()
+    x = _clips(shape, 8)
+    with torch.no_grad():
+        got = model.extract_feat(torch.tensor(x))
+    want = jmodel.apply(variables, jnp.asarray(x), method=jmodel.extract_feat)
+    assert got.shape == (2, 2, 512)
+    assert _rel(got, want) < 2e-5
+
+    bb = dict(type="ResNet", depth=18, out_indices=(1, 3), **TOY)
+    jbb = JAX_BACKBONES.build(dict(bb))
+    frames = _clips((3, 3, 40, 40), 9)
+    bvars = _draw(jax.eval_shape(jbb.init, jax.random.PRNGKey(2), jnp.asarray(frames)), 3)
+    port = build_backbone(bb)
+    sd = params_from_jax({"params": {"backbone_module": bvars["params"]},
+                          "batch_stats": {"backbone_module": bvars["batch_stats"]}})
+    port.load_state_dict({k[len("backbone."):]: v for k, v in sd.items()}, strict=True)
+    port.eval()
+    with torch.no_grad():
+        outs = port(torch.tensor(frames))
+    wants = jbb.apply(bvars, jnp.asarray(frames))
+    assert [tuple(o.shape) for o in outs] == [(3, 32, 5, 5), (3, 128, 2, 2)]
+    for o, w in zip(outs, wants):
+        assert o.dtype == torch.float32
+        assert _rel(o, np.moveaxis(_np(w), -1, 1)) < 2e-5
+
+
+def test_ncthw_clip_folds_its_colours_as_segments():
+    """ROADMAP queue 3's toy, decided as JAX does: a Recognizer2D over
+    SwinTransformer2D(embed_dim=32, depths=(2, 2), num_heads=(2, 4))
+    initialised on an NCTHW clip (1, 3, 8, 56, 56) has a patch_embed kernel
+    of (4, 4, 8, 32); the port's trunk takes in_channels=8 (model_config
+    reads it from the recipe's init sample) and gives JAX's scores."""
+    bb = dict(type="SwinTransformer2D", embed_dim=32, depths=(2, 2), num_heads=(2, 4),
+              window_size=7)
+    cfg = dict(type="Recognizer2D", backbone=bb,
+               cls_head=dict(type="TSNHead", num_classes=CLASSES, in_channels=64,
+                             dropout_ratio=0.0))
+    jmodel = build_jax_model(cfg)
+    variables = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 3, 8, 56, 56)))
+    assert variables["params"]["backbone_module"]["patch_embed"]["kernel"].shape == (4, 4, 8, 32)
+    pipe = [dict(type="SampleFrames", clip_len=8, frame_interval=2, num_clips=1),
+            dict(type="Resize", scale=(-1, 64)), dict(type="CenterCrop", crop_size=56),
+            dict(type="Normalize", mean=[0, 0, 0], std=[1, 1, 1]),
+            dict(type="FormatShape", input_format="NCTHW")]
+    port_cfg = model_config({"model": cfg, "data": {"test": {"pipeline": pipe}}})
+    assert port_cfg["backbone"]["in_channels"] == 8
+    model = build_model(dict(port_cfg, backbone=dict(port_cfg["backbone"], img_size=56)))
+    model.load_state_dict(params_from_jax(variables), strict=True)
+    model.eval()
+    x = _clips((2, 3, 8, 56, 56), 10)
+    with torch.no_grad():
+        got = model(torch.tensor(x))
+    assert _rel(got, jmodel.apply(variables, jnp.asarray(x))) < 2e-5
+
+
+# ---- data layouts ----------------------------------------------------------------
+
+@pytest.mark.parametrize("layout", ["NCTHW", "NCHW", "NCHW_Flow"])
+def test_prepare_layouts_match_jax(layout):
+    """make_prepare_fn's three layouts, with and without a view axis, and
+    init_sample_shape, against the JAX package's."""
+    mean, std = IMAGENET_MEAN, IMAGENET_STD
+    for shape in ((2, 3, 4, 6, 5, 3), (2, 4, 6, 5, 3)):
+        clips = np.random.default_rng(len(shape)).integers(0, 256, shape, np.uint8)
+        got = make_prepare_fn(mean, std, layout=layout)(clips)
+        want = jax_prepare_fn(mean, std, layout=layout)(jnp.asarray(clips))
+        assert got.shape == tuple(want.shape)
+        np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-6, atol=1e-6)
+    pipe = [dict(type="SampleFrames", clip_len=2, frame_interval=1, num_clips=3),
+            dict(type="Resize", scale=(-1, 40)), dict(type="CenterCrop", crop_size=32),
+            dict(type="Normalize", mean=list(mean), std=list(std)),
+            dict(type="FormatShape", input_format=layout)]
+    got = init_sample_shape(pipe, build_sample_processor(pipe))
+    assert got == jax_init_sample_shape(pipe, jax_processor(pipe))
+
+
+# ---- the recipes --------------------------------------------------------------
+
+PAIRS = {("ResNet", "TSNHead"), ("ResNetTSM", "TSMHead"), ("mmcls.ResNeXt", "TSNHead"),
+         ("timm.swin_base_patch4_window7_224", "TSNHead"), ("SwinTransformer2D", "TSNHead")}
+
+
+def _recipes():
+    out = []
+    for path in sorted(glob.glob(os.path.join(RECOGNITION, "**", "*.py"), recursive=True)):
+        try:
+            model = JaxConfig.fromfile(path).to_dict().get("model", {})
+        except Exception:  # a _base_ fragment or a non-config file
+            continue
+        if (model.get("type") == "Recognizer2D" and not model.get("neck")
+                and (model["backbone"]["type"], model["cls_head"]["type"]) in PAIRS):
+            out.append(os.path.relpath(path, RECOGNITION))
+    return out
+
+
+RECIPES = _recipes()
+# one recipe per backbone type, and the three the others do not reach: a
+# non-local one, a flow one (10 input channels) and the MiT one, whose test
+# pipeline has no FormatShape (NCTHW: the stem takes 1 channel, as in JAX)
+HELD_TO_JAX = ("tsn/tsn_r50_1x1x3_100e_kinetics400_rgb.py",
+               "tsm/tsm_nl_dot_product_r50_1x1x8_50e_kinetics400_rgb.py",
+               "tsn/custom_backbones/tsn_rn101_32x4d_320p_1x1x3_100e_kinetics400_rgb.py",
+               "tsn/custom_backbones/tsn_swin_transformer_video_320p_1x1x3_100e_kinetics400_rgb.py",
+               "swin/swin2d_base_patch4_window7_kinetics400_1k.py",
+               "tsn/tsn_r50_320p_1x1x3_110e_kinetics400_flow.py",
+               "tsn/tsn_r50_1x1x6_100e_mit_rgb.py")
+
+
+def test_every_2d_recipe_builds():
+    """The 86 Recognizer2D recipes over ResNet, ResNetTSM, mmcls.ResNeXt,
+    timm.swin_* and SwinTransformer2D build as shipped (on the meta
+    device), each with a finite parameter count."""
+    assert len(RECIPES) == 86
+    for name in RECIPES:
+        cfg = load_config(os.path.join(RECOGNITION, name))
+        mcfg = model_config(cfg)
+        mcfg.pop("train_cfg", None)
+        model = build_model(mcfg, test_cfg=mcfg.pop("test_cfg", None), device="meta")
+        assert sum(p.numel() for p in model.parameters()) > 10_000_000, name
+
+
+@pytest.mark.parametrize("name", HELD_TO_JAX)
+def test_recipe_keys_and_shapes_match_jax(name):
+    """The port's state dict has the keys and shapes of jax.eval_shape of
+    the JAX model's init on the recipe's init sample (the BatchNorm
+    statistics included), so the parameter counts are equal."""
+    cfg = load_config(os.path.join(RECOGNITION, name))
+    pipe = cfg["data"]["test"]["pipeline"]
+    mcfg = {k: v for k, v in cfg["model"].items() if k not in ("test_cfg", "train_cfg")}
+    tree = jax.eval_shape(build_jax_model(mcfg).init, jax.random.PRNGKey(0),
+                          jax.ShapeDtypeStruct(jax_init_sample_shape(pipe, jax_processor(pipe)),
+                                               jnp.float32))
+    zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32), tree)
+    want = {k: tuple(v.shape) for k, v in params_from_jax(zeros).items()}
+    pcfg = model_config(cfg)
+    pcfg.pop("train_cfg", None)
+    model = build_model(pcfg, test_cfg=pcfg.pop("test_cfg", None), device="meta")
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == want
+    n_jax = sum(int(np.prod(s.shape)) for s in jax.tree_util.tree_leaves(tree["params"]))
+    assert sum(p.numel() for p in model.parameters()) == n_jax
+
+
+def test_backbone_sources():
+    """torchvision / timm / mmcls types resolve to the port's backbones,
+    the config's keys over the table's; an unported target raises the
+    registry's KeyError, pretrained=True a ValueError."""
+    assert resolve_backbone_source(dict(type="torchvision.resnet50", depth=18)) == dict(
+        type="ResNet", depth=18)
+    assert resolve_backbone_source(dict(type="mmcls.ResNeXt", depth=101))["type"] == "ResNeXt"
+    assert build_backbone(dict(type="torchvision.resnext50_32x4d"), device="meta").conv1.weight.shape == (64, 3, 7, 7)
+    swin = resolve_backbone_source(dict(type="timm.swin_base_patch4_window7_224"))
+    assert swin["type"] == "SwinTransformer2D" and swin["embed_dim"] == 128
+    with pytest.raises(KeyError):
+        build_backbone(dict(type="torchvision.densenet161"))
+    with pytest.raises(KeyError):
+        resolve_backbone_source(dict(type="timm.vit_base_patch16_224"))
+    with pytest.raises(ValueError):
+        resolve_backbone_source(dict(type="torchvision.resnet50", pretrained=True))
+    with pytest.raises(NotImplementedError):
+        build_model(dict(type="Recognizer2D", backbone=dict(type="ResNet", depth=18),
+                         cls_head=dict(type="TSNHead", num_classes=2, in_channels=512),
+                         neck=dict(type="TPN")))

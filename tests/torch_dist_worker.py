@@ -31,6 +31,11 @@ BLENDINGS = ("MixupBlending", "CutmixBlending", "LabelSmoothing")
 BLEND_DTYPES = ("float32", "bfloat16")
 BLEND_SEED, BLEND_STEP = 7, 3
 EVAL_VIDEOS, TRAIN_VIDEOS, VIDEOS_PER_RANK = 7, 8, 2
+# the 2D toy of tests/test_torch_recognizer2d_train.py: ResNetTSM-18 at
+# stage_blocks (1, 1, 1, 1), 16 base channels, 4 segments of 32² frames
+CNN_STEPS = 3
+CNN_OPT = dict(type="SGD", lr=0.05, momentum=0.9, weight_decay=1e-3)
+CNN_CLIP = 0.5
 
 
 def toy_model_cfg(core="fused", drop_path=0.0):
@@ -42,6 +47,30 @@ def toy_model_cfg(core="fused", drop_path=0.0):
         cls_head=dict(type="I3DHead", num_classes=CLASSES, in_channels=D,
                       dropout_ratio=0.0),
         test_cfg=dict(average_clips="prob"))
+
+
+def cnn_model_cfg():
+    return dict(type="Recognizer2D",
+                backbone=dict(type="ResNetTSM", depth=18, num_frames=4,
+                              stage_blocks=(1, 1, 1, 1), base_channels=16),
+                cls_head=dict(type="TSMHead", num_classes=CLASSES, in_channels=128,
+                              num_segments=4, dropout_ratio=0.0))
+
+
+def cnn_trajectory(weights, batches, rows=slice(None)):
+    """SGD steps of the 2D toy on ``rows`` of each global batch: losses,
+    and every tensor and running statistic after them. Under a process
+    group every BatchNorm normalises with the global batch's statistics."""
+    from adapt_image_models_torch.core.optim import build_optimizer
+    from adapt_image_models_torch.core.train_state import TrainState, make_train_step
+    from adapt_image_models_torch.models import build_model
+    model = build_model(cnn_model_cfg())
+    model.load_state_dict(weights, strict=True)
+    opt = build_optimizer(CNN_OPT, model, CNN_OPT["lr"], CNN_CLIP)
+    state, step = TrainState(model, opt), make_train_step(model, opt)
+    losses = [float(step(state, {"imgs": imgs[rows], "label": labels[rows]}, 0)["loss"])
+              for imgs, labels in batches]
+    return {"loss": losses, "state": {k: v.clone() for k, v in model.state_dict().items()}}
 
 
 def blending_cfg(kind):
@@ -158,6 +187,10 @@ def main(out_dir):
     # (ii) the toy's train steps on this rank's rows of each global batch
     out["train"] = toy_trajectory(inp["weights"], inp["batches"],
                                   slice(rank * per, (rank + 1) * per))
+    # (viii) the 2D toy's SGD steps on this rank's rows: BatchNorm over
+    # the global batch
+    out["cnn"] = cnn_trajectory(inp["cnn_weights"], inp["cnn_batches"],
+                                slice(rank * per, (rank + 1) * per))
     # (vii) shards of 2 and 1 rows: one global micro-batch of 3, which
     # train_model refuses when it builds the loader
     try:
