@@ -37,18 +37,35 @@ def model_device(model: torch.nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+# the Recognizer3D backbones whose stem takes its input channels from the
+# init sample in the JAX package (C3D also its fc6 width)
+CNN3D_BACKBONES = ("ResNet3d", "ResNet3dSlowOnly", "ResNet3dCSN", "ResNet3dLayer", "C3D",
+                   "ResNet2Plus1d", "ResNet3dSlowFast", "X3D")
+
+
 def model_config(cfg: Dict[str, Any], split: str = "test") -> Dict[str, Any]:
-    """``cfg['model']`` for the samples of ``cfg.data[split]``'s pipeline:
-    a ``Recognizer2D``'s backbone gets ``in_channels``, the channels of the
-    frames it will see, axis 2 of ``init_sample_shape`` (3 for NCHW, 2T for
-    NCHW_Flow, T for an NCTHW clip, whose colours fold as segments), which
-    the JAX package's flax stem infers from its init sample."""
+    """``cfg['model']`` for the samples of ``cfg.data[split]``'s pipeline,
+    with the sizes the JAX package's flax modules infer from their init
+    sample (``init_sample_shape``) and torch needs at construction:
+
+    * a ``Recognizer2D``'s backbone gets ``in_channels``, the channels of
+      the frames it will see, axis 2 (3 for NCHW, 2T for NCHW_Flow, T for
+      an NCTHW clip, whose colours fold as segments);
+    * a ``Recognizer3D``'s 3D CNN (``CNN3D_BACKBONES``) gets axis 1, which
+      is 3 for every NCTHW recipe, whatever ``in_channels`` the config
+      sets (the flow recipes' 2, as JAX's init dummy); C3D also gets its
+      ``clip_size``, the sample's (T, H, W), which fixes ``fc6``'s width."""
     model_cfg = dict(cfg["model"])
-    if model_cfg.get("type") != "Recognizer2D":
+    rtype, btype = model_cfg.get("type"), model_cfg.get("backbone", {}).get("type")
+    if rtype != "Recognizer2D" and not (rtype == "Recognizer3D" and btype in CNN3D_BACKBONES):
         return model_cfg
     pipeline = cfg["data"][split]["pipeline"]
-    channels = init_sample_shape(pipeline, build_sample_processor(pipeline))[2]
-    return {**model_cfg, "backbone": {**model_cfg["backbone"], "in_channels": channels}}
+    shape = init_sample_shape(pipeline, build_sample_processor(pipeline))
+    if rtype == "Recognizer2D":
+        sizes = {"in_channels": shape[2]}
+    else:
+        sizes = {"in_channels": shape[1], **({"clip_size": shape[2:]} if btype == "C3D" else {})}
+    return {**model_cfg, "backbone": {**model_cfg["backbone"], **sizes}}
 
 
 def init_recognizer(cfg: Dict[str, Any], checkpoint: Optional[str] = None,
@@ -71,7 +88,9 @@ def inference_recognizer(model: torch.nn.Module, cfg: Dict[str, Any], video: str
                          topk: int = 5, return_features: bool = False):
     """Run the test pipeline on one video; return the top-k (class, score)
     pairs, and the per-view backbone features when ``return_features``
-    (a 2D recipe's: the (1, S', D) per-segment features)."""
+    (a 2D recipe's: the (1, S', D) per-segment features; SlowFast's: the
+    tuple of its pathways' maps, where JAX's ``np.asarray`` of the tuple
+    fails)."""
     pipeline = cfg["data"]["test"]["pipeline"]
     proc = build_sample_processor(pipeline)
     clips, _ = proc(video, label=0)
@@ -92,5 +111,7 @@ def inference_recognizer(model: torch.nn.Module, cfg: Dict[str, Any], video: str
     order = np.argsort(scores)[::-1][:topk]
     results: List[Tuple[int, float]] = [(int(i), float(scores[i])) for i in order]
     if return_features:
+        if isinstance(feats, tuple):
+            return results, tuple(f.float().cpu().numpy() for f in feats)
         return results, feats.float().cpu().numpy()
     return results

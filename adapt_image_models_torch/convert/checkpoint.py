@@ -18,6 +18,15 @@ ResNets' unrolled blocks take the reference's dotted names the same way:
 ``layer{i}_{j}_nonlocal`` -> ``layer{i}.{j}.non_local``; their grouped
 conv kernels go HWIO -> OIHW as any (the input axis is per group in both
 layouts), NonLocal3d's 1x1x1 kernels (1, 1, 1, I, O) -> (O, I, 1, 1, 1).
+The 3D CNNs use the same block rule (a stage-level ``layer{i}_nonlocal``
+keeps its name, as the port's attribute is named alike); X3D's unrolled
+``stage{i}_block{j}`` become ``stage{i}.{j}``; SlowFast's ``fast_path`` /
+``slow_path``, ``lateral_{i}`` / ``lateral_bn_{i}``, X3D's ``conv1_s`` /
+``conv1_t`` / ``se``, R(2+1)D's ``conv_s`` / ``bn_s`` / ``conv_t``, CSN's
+``conv2_ip`` and C3D's ``conv{n}{a,b}`` / ``fc6`` / ``fc7`` keep theirs.
+Conv3D kernels (kT, kH, kW, I, O) go to (O, I, kT, kH, kW), a depthwise
+one's (kT, kH, kW, 1, O) to (O, 1, kT, kH, kW); C3D's ``fc6`` keeps JAX's
+channels-last row order, which the port's C3D flattens to.
 Given the whole flax ``variables`` (``params`` and ``batch_stats``), the
 BatchNorm statistics ``mean`` / ``var`` become the buffers
 ``running_mean`` / ``running_var``. It is the inverse of
@@ -82,6 +91,8 @@ _SWIN_STAGE = re.compile(r"^layers_(\d+)_(blocks_(\d+)|downsample)$")
 
 # a 2D ResNet's unrolled blocks and their non-local modules
 _RESNET_BLOCK = re.compile(r"^layer(\d+)_(\d+)(_nonlocal)?$")
+# X3D's unrolled blocks
+_X3D_BLOCK = re.compile(r"^stage(\d+)_block(\d+)$")
 # flax BatchNorm statistics and the port's buffers
 _BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
 
@@ -91,7 +102,8 @@ def _swin_names(mod: str):
     if m is None:
         m = _RESNET_BLOCK.match(mod)
         if m is None:
-            return [mod]
+            m = _X3D_BLOCK.match(mod)
+            return [mod] if m is None else [f"stage{m.group(1)}", m.group(2)]
         return [f"layer{m.group(1)}", m.group(2)] + (["non_local"] if m.group(3) else [])
     if m.group(3) is None:
         return ["layers", m.group(1), "downsample"]

@@ -1,3 +1,5 @@
 from adapt_image_models_torch.models.heads.i3d_head import I3DHead  # noqa: F401
-from adapt_image_models_torch.models.heads.misc_heads import TSMHead  # noqa: F401
+from adapt_image_models_torch.models.heads.misc_heads import (  # noqa: F401
+    SlowFastHead, TSMHead, X3DHead,
+)
 from adapt_image_models_torch.models.heads.tsn_head import TSNHead  # noqa: F401

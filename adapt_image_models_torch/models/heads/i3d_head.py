@@ -1,5 +1,7 @@
 """I3D classification head (parity: ``adapt_image_models_tpu/models/heads/
-i3d_head.py:18-41``): mean over every axis between batch and channels,
+i3d_head.py:18-41``): mean over every axis between batch and channels
+(none on a (B, D) input, such as C3D's, where ``jnp.mean(x, axis=())`` is
+the identity and torch's ``mean(dim=())`` would reduce every axis),
 dropout (train mode only, drawn from an explicit generator), and an fp32
 ``fc_cls``."""
 
@@ -31,8 +33,10 @@ class I3DHead(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """(B, T, D) or (B, T, H, W, D) features -> (B, num_classes) fp32."""
-        x = x.mean(dim=tuple(range(1, x.dim() - 1)))
+        """(B, D), (B, T, D) or (B, T, H, W, D) features -> (B, num_classes)
+        fp32."""
+        if x.dim() > 2:
+            x = x.mean(dim=tuple(range(1, x.dim() - 1)))
         if self.training and self.dropout_ratio > 0:
             x = dropout(x, self.dropout_ratio, generator)
         x = x.float()

@@ -194,6 +194,38 @@ def max_pool2d_same(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
     return F.max_pool2d(F.pad(x, (left, right, top, bottom), value=-math.inf), kernel, stride)
 
 
+def _triple(v) -> Tuple[int, int, int]:
+    return tuple(v) if isinstance(v, (tuple, list)) else (v, v, v)
+
+
+def conv3d_same(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
+                stride=1, dilation=1, groups: int = 1) -> torch.Tensor:
+    """flax ``nn.Conv(padding="SAME")`` of NCDHW ``x`` with an OIDHW
+    ``weight`` (``groups`` a depthwise or grouped conv, ``bias`` added):
+    each axis padded as ``same_pads`` of its effective kernel (k - 1)·d + 1,
+    so strided and dilated convs pad as flax does, the odd pad last (I3D's
+    (5, 7, 7)/2 stem on T = 32 pads T by (1, 2)); torch's symmetric
+    ``padding`` where SAME is symmetric, an explicit zero pad where not."""
+    stride, dilation = _triple(stride), _triple(dilation)
+    pads = [same_pads(x.shape[2 + d], (weight.shape[2 + d] - 1) * dilation[d] + 1, stride[d])
+            for d in range(3)]
+    if all(a == b for a, b in pads):
+        return F.conv3d(x, weight, bias, stride, tuple(a for a, _ in pads), dilation, groups)
+    flat = [p for a, b in reversed(pads) for p in (a, b)]
+    return F.conv3d(F.pad(x, flat), weight, bias, stride, 0, dilation, groups)
+
+
+def max_pool3d_same(x: torch.Tensor, kernel, stride) -> torch.Tensor:
+    """flax ``nn.max_pool(padding="SAME")`` of NCDHW ``x``: padded with
+    -inf, asymmetrically where SAME is."""
+    kernel, stride = _triple(kernel), _triple(stride)
+    pads = [same_pads(x.shape[2 + d], kernel[d], stride[d]) for d in range(3)]
+    if all(a == b and 2 * a <= k for (a, b), k in zip(pads, kernel)):
+        return F.max_pool3d(x, kernel, stride, padding=tuple(a for a, _ in pads))
+    flat = [p for a, b in reversed(pads) for p in (a, b)]
+    return F.max_pool3d(F.pad(x, flat, value=-math.inf), kernel, stride)
+
+
 def batch_moments(x32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean, variance) of fp32 (N, C, ...) ``x32`` per channel over the
     global batch, as flax's ``_compute_stats`` (flax 0.12.3, fast variance):

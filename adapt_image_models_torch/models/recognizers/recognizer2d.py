@@ -32,8 +32,7 @@ class Recognizer2D(nn.Module):
                  test_cfg: Optional[Dict[str, Any]] = None, device=None):
         super().__init__()
         if neck:
-            raise NotImplementedError("the TPN neck is not ported yet (ROADMAP queue 1, "
-                                      "CNN recognition)")
+            raise NotImplementedError("the TPN neck is not ported yet (ROADMAP queue 1, item 4.3)")
         self.backbone = build_backbone(backbone, device=device)
         self.cls_head = build_head(cls_head, device=device)
         self.train_cfg = train_cfg

@@ -1,5 +1,8 @@
 """3D recognizer: backbone + cls head + multi-view aggregation (parity:
-``adapt_image_models_tpu/models/recognizers/recognizer3d.py:29-102``)."""
+``adapt_image_models_tpu/models/recognizers/recognizer3d.py:29-102``). A
+backbone's features go to the head as they come: the (B, T, D) tokens of
+the ViTs, a channels-last (B, T', H', W', C) map of Video Swin or a 3D
+CNN, C3D's (B, D), or SlowFast's tuple of pathway maps."""
 
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ class Recognizer3D(nn.Module):
                  test_cfg: Optional[Dict[str, Any]] = None, device=None):
         super().__init__()
         if neck:
-            raise NotImplementedError("necks are not ported yet (ROADMAP queue 1, CNN recognition)")
+            raise NotImplementedError("the TPN neck is not ported yet (ROADMAP queue 1, item 4.3)")
         self.backbone = build_backbone(backbone, device=device)
         self.cls_head = build_head(cls_head, device=device)
         self.train_cfg = train_cfg
@@ -60,7 +63,7 @@ class Recognizer3D(nn.Module):
         self.cls_head.init_weights(generator)
 
     def extract_feat(self, imgs: torch.Tensor,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator: Optional[torch.Generator] = None):
         return self.backbone(_fold_views(imgs), generator)
 
     def forward(self, imgs: torch.Tensor,

@@ -4296,10 +4296,13 @@ CNN_DP_LOSS_RTOL, CNN_DP_NORM_RTOL, CNN_DP_STATS_REL, CNN_DP_UPDATE_FACTOR = 1e-
 
 def test_sample_shape(cfg):
     """(S, C, H, W) of one prepared test video of a 2D recipe: every view
-    (clips x crops) of the test pipeline becomes segments."""
+    (clips x crops) of the test pipeline becomes segments; (V, C, T, H, W)
+    of a Recognizer3D recipe."""
     from adapt_image_models_torch.data.pipeline import build_sample_processor
     proc = build_sample_processor(cfg["data"]["test"]["pipeline"])
     h, w = proc.output_size()
+    if cfg["model"]["type"] == "Recognizer3D":
+        return (proc.num_views, 3, proc.sampler.clip_len, h, w)
     return (proc.num_views * proc.sampler.clip_len, 3, h, w)
 
 
@@ -4318,7 +4321,8 @@ def calibrate_batch_norms(model, x):
     from adapt_image_models_torch.models.layers import BatchNormFlax
     norms = [m for m in model.modules() if isinstance(m, BatchNormFlax)]
     model.train()
-    for m in norms:
+    for m in norms:  # the ones norm_eval or frozen stages keep in eval mode too
+        m.train()
         m.momentum = 0.0
     with torch.no_grad():
         model(x)
@@ -4349,6 +4353,15 @@ def tf32(on):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
 
 
+def as_videos(cfg):
+    """``cfg`` with a rawframe recipe's datasets read as videos, as the
+    synthetic:// sources are; its pipelines as shipped."""
+    for split in ("train", "val", "test"):
+        if cfg["data"][split]["type"] == "RawframeDataset":
+            cfg["data"][split].update(type="VideoDataset", data_prefix="")
+    return cfg
+
+
 def cnn_model(cfg, seed, device="cuda"):
     """init_recognizer's model of ``cfg`` with calibrated running
     statistics and a class lead."""
@@ -4362,17 +4375,20 @@ def cnn_model(cfg, seed, device="cuda"):
     return model
 
 
-def drive_cnn_path(card, label, name, expected, batches, seed):
-    """One of CNN_PATHS as shipped (ResNet-50, 400 classes) on seeded
+def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_batches=None,
+                   host_views=None):
+    """One of CNN_PATHS (or CNN3D_PATHS) as shipped (400 classes) on seeded
     weights with calibrated running statistics and a class lead:
     init_recognizer, inference_recognizer and run_evaluation on synthetic
     videos through the recipe's test pipeline, no launch; the card's fp32
-    against the host CPU's on one test video; train_model for 2 steps of 4
-    videos with the in-loop evaluation (running statistics moved, left
-    alone by the evaluation, restored bit for bit by the checkpoint, every
-    tensor moved, no launch); then eval and train clips/s and peak memory
-    at ``batches`` videos, TF32 off and on, and a profile of one train step
-    at the largest."""
+    against the host CPU's on one test video (its first ``host_views``
+    views where given); train_model for 2 steps of 4 videos with the
+    in-loop evaluation (running statistics moved, left alone by the
+    evaluation, restored bit for bit by the checkpoint, every tensor moved,
+    no launch); then eval videos/s (and clips/s: views) at ``batches``
+    videos and train videos/s at ``train_batches`` (``batches`` where None)
+    with peak memory, TF32 off and on, and a profile of one train step at
+    the largest."""
     import copy
     import numpy as np
     import torch
@@ -4384,15 +4400,18 @@ def drive_cnn_path(card, label, name, expected, batches, seed):
     from adapt_image_models_torch.core.checkpoint import CheckpointManager
     from adapt_image_models_torch.models import build_model
     t_path = time.perf_counter()
-    cfg = load_config(os.path.join(RECOGNITION_DIR, name))
+    cfg = as_videos(load_config(os.path.join(RECOGNITION_DIR, name)))
     bb = cfg["model"]["backbone"]
     if {k: bb.get(k) for k in expected} != expected:
         raise AssertionError(f"unexpected {label} backbone {bb}")
     classes = cfg["model"]["cls_head"]["num_classes"]
     sample = test_sample_shape(cfg)
     model = cnn_model(cfg, seed)
-    log(f"phase 24: built {name} ({label}: {bb['type']}-{bb['depth']}, a test video "
-        f"{sample} segments x channels x H x W) on cuda, "
+    dims = ("views x channels x T x H x W" if len(sample) == 5
+            else "segments x channels x H x W")
+    log(f"phase {phase}: built {name} ({label}: {bb['type']}"
+        f"{'-' + str(bb['depth']) if 'depth' in bb else ''}, a test video {sample} {dims}) on "
+        "cuda, "
         f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M params, {classes} classes, "
         f"in {time.perf_counter() - t_path:.1f} s")
     n_videos = 4
@@ -4418,6 +4437,8 @@ def drive_cnn_path(card, label, name, expected, batches, seed):
     host = build_model(mcfg, test_cfg=cfg["model"]["test_cfg"], device="cpu").eval()
     host.load_state_dict({k: v.cpu() for k, v in weights.items()})
     x = torch.randn(1, *sample, generator=torch.Generator().manual_seed(seed))
+    if host_views:
+        x = x[:, :host_views]
     t0 = time.perf_counter()
     with torch.no_grad():
         p_host = class_probs(host, x, cfg)
@@ -4482,21 +4503,24 @@ def drive_cnn_path(card, label, name, expected, batches, seed):
     torch.cuda.empty_cache()
 
     log(f"  {label} timings on {card}")
+    views = sample[0] if len(sample) == 5 else None
     for videos in batches:
         x = torch.randn(videos, *sample, device="cuda")
         for on in (False, True):
             torch.cuda.reset_peak_memory_stats()
             with tf32(on), torch.no_grad():
                 ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
+            clips = f" ({videos * views / ms * 1e3:.1f} clips/s)" if views else ""
             log(f"  {label} forward_test {videos} videos of {sample} (TF32 "
-                f"{'on' if on else 'off'}): {ms:.2f} ms, {videos / ms * 1e3:.2f} videos/s, "
-                f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                f"{'on' if on else 'off'}): {ms:.2f} ms, {videos / ms * 1e3:.2f} videos/s"
+                f"{clips}, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
                 "(median of 5 after 2 warm-ups, CUDA events)")
         del x
     del model
     torch.cuda.empty_cache()
     shape = train_sample_shape(cfg)
-    for videos in batches:
+    train_batches = train_batches or batches
+    for videos in train_batches:
         batch = {"imgs": torch.randn(videos, *shape, device="cuda"),
                  "label": np.arange(videos) % classes}
         tstate, step_fn = train_setup(cfg, weights=weights)
@@ -4508,12 +4532,12 @@ def drive_cnn_path(card, label, name, expected, batches, seed):
                 f"{'on' if on else 'off'}): {ms:.2f} ms, {videos / ms * 1e3:.1f} videos/s, "
                 f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
                 "(median of 5 after 2 warm-ups, CUDA events)")
-        if videos == batches[-1]:
+        if videos == train_batches[-1]:
             with tf32(True):
                 profile_step(step_fn, tstate, batch, f"{label} {videos}-video (TF32 on)")
         del tstate, step_fn, batch
         torch.cuda.empty_cache()
-    log(f"phase 24: {label} path in {time.perf_counter() - t_path:.1f} s")
+    log(f"phase {phase}: {label} path in {time.perf_counter() - t_path:.1f} s")
 
 
 def cnn_forwards(seed):
@@ -4686,6 +4710,162 @@ def phase_24(card):
     cnn_forwards(seed=2410)
     cnn_data_parallel(card)
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 25: 3D CNN recognition, Recognizer3D over ResNet3d (I3D), SlowFast,
+# X3D, SlowOnly, CSN, C3D and R(2+1)D with the I3D, SlowFast and X3D heads,
+# framework ops only (cuDNN 3D convolutions and the port's BatchNormFlax),
+# as the JAX package runs no Pallas kernel there
+
+# (label, config under configs/recognition, the backbone keys it must ship,
+# eval timing batches in videos: the recipe's test batch of 1 and 8, train
+# timing batches: 8 and the recipe's videos_per_gpu)
+CNN3D_PATHS = (
+    ("I3D-R50", "i3d/i3d_r50_video_32x2x1_100e_kinetics400_rgb.py",
+     dict(type="ResNet3d", depth=50, conv1_kernel=(5, 7, 7)), (1, 8), (8,)),
+    ("SlowFast-R50", "slowfast/slowfast_r50_video_4x16x1_256e_kinetics400_rgb.py",
+     dict(type="ResNet3dSlowFast", alpha=8, beta_inv=8), (1, 8), (8,)),
+    ("X3D-M", "x3d/x3d_m_16x5x1_facebook_kinetics400_rgb.py",
+     dict(type="X3D", gamma_w=1.0, gamma_b=2.25, gamma_d=2.2), (1, 8), (1, 8)),
+)
+# the card's fp32 against the host CPU's on a test video's first views: a
+# whole I3D test video (30 views, 3.9 TFLOP) would take the host ~100 s at
+# the ~40 GFLOP/s PR 19's TSN reading implies
+CNN3D_HOST_VIEWS = 3
+# one forward of 2 videos each, as shipped (the ircsn bnfrozen recipe also
+# one train step), and the posec3d backbone on a seeded 17-channel clip
+CNN3D_BUILT = ("slowonly/slowonly_r50_4x16x1_256e_kinetics400_rgb.py",
+               "slowonly/slowonly_nl_embedded_gaussian_r50_4x16x1_150e_kinetics400_rgb.py",
+               "csn/ircsn_ig65m_pretrained_bnfrozen_r152_32x2x1_58e_kinetics400_rgb.py",
+               "c3d/c3d_sports1m_16x1x1_45e_ucf101_rgb.py",
+               "r2plus1d/r2plus1d_r34_8x8x1_180e_kinetics400_rgb.py")
+CNN3D_BNFROZEN = CNN3D_BUILT[2]
+POSEC3D_CONFIG = os.path.join(ROOT, "configs", "skeleton", "posec3d",
+                              "slowonly_r50_u48_240e_ntu60_xsub_keypoint.py")
+
+
+def view_gflop(cfg, split="test"):
+    """GFLOP of one view of ``split``'s pipeline through the recognizer of
+    ``cfg`` (convolutions and matmuls, ``torch.utils.flop_counter`` on the
+    meta device: no compute)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from adapt_image_models_torch.apis import model_config
+    from adapt_image_models_torch.data.pipeline import build_sample_processor
+    from adapt_image_models_torch.models import build_model
+    mcfg = {k: v for k, v in model_config(cfg, split).items()
+            if k not in ("test_cfg", "train_cfg")}
+    model = build_model(mcfg, device="meta").eval()
+    proc = build_sample_processor(cfg["data"][split]["pipeline"])
+    h, w = proc.output_size()
+    with FlopCounterMode(display=False) as counter:
+        model(torch.empty(1, 3, proc.sampler.clip_len, h, w, device="meta"))
+    return counter.get_total_flops() / 1e9
+
+
+def bnfrozen_train_step(cfg, model, seed):
+    """One train step of the ircsn bnfrozen recipe (norm_eval and
+    bn_frozen) from ``model``'s weights, with the trainer's partition: every
+    BatchNorm statistic and affine stays bit for bit, the convs move."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch.core.optim import build_optimizer
+    from adapt_image_models_torch.core.train_state import TrainState, make_train_step
+    from adapt_image_models_torch.models.layers import BatchNormFlax
+    from adapt_image_models_torch.parallel import (
+        freeze_params, freeze_prefixes, frozen_stage_prefixes,
+    )
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    freeze_params(model)
+    freeze_prefixes(model, frozen_stage_prefixes(cfg["model"]["backbone"]))
+    opt = build_optimizer(cfg["optimizer"], model, cfg["optimizer"]["lr"])
+    step = make_train_step(model, opt)
+    videos = cfg["data"]["videos_per_gpu"]
+    imgs = torch.randn(videos, *train_sample_shape(cfg), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(seed))
+    metrics = step(TrainState(model, opt), {"imgs": imgs, "label": np.arange(videos)}, 0)
+    after = model.state_dict()
+    norms = {f"{n}.{k}" for n, m in model.named_modules() if isinstance(m, BatchNormFlax)
+             for k in ("weight", "bias", "running_mean", "running_var")}
+    kept = sum(torch.equal(after[k], before[k]) for k in norms)
+    moved = sum(not torch.equal(after[n], before[n])
+                for n, p in model.named_parameters() if p.requires_grad)
+    trainable = sum(p.requires_grad for p in model.parameters())
+    log(f"  one train step of {videos} videos (norm_eval, bn_frozen): loss "
+        f"{float(metrics['loss']):.4f}; {kept} of {len(norms)} BatchNorm statistics and "
+        f"affines bit-equal, {moved} of {trainable} trainable tensors moved")
+    if kept != len(norms) or moved != trainable or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError("the bnfrozen train step moved a BatchNorm or left a conv")
+
+
+def cnn3d_forwards(seed):
+    """One forward of 2 videos of each CNN3D_BUILT recipe as shipped (C3D's
+    (B, 4096) features through the I3D head give a score a video), the
+    ircsn bnfrozen recipe's train step, and the posec3d backbone on a
+    seeded (2, 17, 48, 56, 56) clip; no launch."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import load_config
+    from adapt_image_models_torch.models.builder import build_backbone
+    for name in CNN3D_BUILT:
+        cfg = load_config(os.path.join(RECOGNITION_DIR, name))
+        bb = cfg["model"]["backbone"]
+        classes = cfg["model"]["cls_head"]["num_classes"]
+        model = cnn_model(cfg, seed)
+        x = torch.randn(2, *test_sample_shape(cfg), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+        ops.reset_launch_counts()  # this forward starts here
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            p = class_probs(model, x, cfg)
+        torch.cuda.synchronize()
+        log(f"phase 25: {name} ({bb['type']}): one forward of 2 videos of "
+            f"{tuple(x.shape[1:])} ({view_gflop(cfg):.1f} GFLOP a view) in "
+            f"{time.perf_counter() - t0:.2f} s (first call), scores {tuple(p.shape)}, peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check_no_launches(f"{name} forward", ops.launch_counts(), path_cores())
+        if not (p.shape == (2, classes) and torch.isfinite(p).all()
+                and (p.sum(1) - 1).abs().max() < 1e-3 and not torch.equal(p[0], p[1])):
+            raise AssertionError(f"{name}: the forward is not a finite score a video")
+        if name == CNN3D_BNFROZEN:
+            del x, p
+            bnfrozen_train_step(cfg, model, seed)
+        del model
+        torch.cuda.empty_cache()
+    bb = load_config(POSEC3D_CONFIG)["model"]["backbone"]
+    net = build_backbone(bb, device="cuda")
+    net.init_weights(torch.Generator().manual_seed(seed))
+    x = torch.randn(2, bb["in_channels"], 48, 56, 56, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(seed))
+    calibrate_batch_norms(net, x)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        feats = net(x)
+    torch.cuda.synchronize()
+    log(f"phase 25: {os.path.relpath(POSEC3D_CONFIG, ROOT)}'s backbone ({bb['type']}, "
+        f"in_channels {bb['in_channels']}) on a seeded clip {tuple(x.shape)}: features "
+        f"{tuple(feats.shape)}")
+    check_no_launches("posec3d backbone forward", ops.launch_counts(), path_cores())
+    if feats.shape != (2, 24, 7, 7, 512) or not torch.isfinite(feats).all():
+        raise AssertionError("the posec3d backbone's features are wrong")
+
+
+def phase_25(card):
+    """3D CNN recognition: each of CNN3D_PATHS through drive_cnn_path (a
+    view's GFLOP beside), then cnn3d_forwards."""
+    from adapt_image_models_torch.apis import load_config
+    t0 = time.perf_counter()
+    for k, (label, name, expected, batches, train_batches) in enumerate(CNN3D_PATHS):
+        cfg = load_config(os.path.join(RECOGNITION_DIR, name))
+        log(f"phase 25: {label} reckons {view_gflop(cfg):.1f} GFLOP a test view and "
+            f"{view_gflop(cfg, 'train'):.1f} a train clip (forward)")
+        drive_cnn_path(card, label, name, expected, batches, seed=2500 + k, phase=25,
+                       train_batches=train_batches, host_views=CNN3D_HOST_VIEWS)
+    cnn3d_forwards(seed=2510)
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s")
+
 
 def main():
     import numpy as np
@@ -5552,6 +5732,9 @@ def main():
 
     # ---- phase 24: 2D CNN recognition (TSN, TSM) ------------------------------
     phase_24(card)
+
+    # ---- phase 25: 3D CNN recognition (I3D, SlowFast, X3D, ...) ---------------
+    phase_25(card)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",

@@ -38,7 +38,6 @@ which imports no JAX); the single-process references run here.
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -76,12 +75,6 @@ from test_torch_resnet2d import _sum_rel
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_dist_worker.py")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _write_ann(path, n):
@@ -196,7 +189,7 @@ def ranks(tmp_path_factory, jax_params, batches, blend_batch, cnn_variables, cnn
                 "eval_ann": _write_ann(d / "eval.txt", W.EVAL_VIDEOS)},
                d / "inputs.pt")
     env = dict(os.environ, WORLD_SIZE="2", LOCAL_WORLD_SIZE="2",
-               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(W.free_port()))
     env.pop("XLA_FLAGS", None)
     procs = [subprocess.Popen([sys.executable, WORKER, str(d)],
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT,
@@ -325,7 +318,7 @@ def test_drop_path_generators_differ_across_ranks(ranks):
 def _torchrun_env(monkeypatch, world=1, local_world=None):
     for key, value in dict(RANK="0", WORLD_SIZE=str(world), LOCAL_RANK="0",
                            LOCAL_WORLD_SIZE=str(local_world or world),
-                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port())).items():
+                           MASTER_ADDR="127.0.0.1", MASTER_PORT=str(W.free_port())).items():
         monkeypatch.setenv(key, value)
 
 
@@ -456,7 +449,7 @@ def test_dist_launchers_on_two_cpu_ranks(tmp_path):
     cfg = W.tiny_cfg(_write_ann(tmp_path / "ann.txt", W.EVAL_VIDEOS), str(tmp_path / "w"))
     cfg_path = tmp_path / "tiny.py"
     cfg_path.write_text("\n".join(f"{k} = {v!r}" for k, v in cfg.items()) + "\n")
-    env = dict(os.environ, PYTHON=sys.executable, PORT=str(_free_port()))
+    env = dict(os.environ, PYTHON=sys.executable, PORT=str(W.free_port()))
     env.pop("XLA_FLAGS", None)
     work = tmp_path / "w"
     train = subprocess.run(
@@ -470,7 +463,7 @@ def test_dist_launchers_on_two_cpu_ranks(tmp_path):
     assert sorted(os.listdir(work)) == ["checkpoints.json", "ckpt_1.pth", "history.json",
                                         "train.log"]
 
-    env["PORT"] = str(_free_port())
+    env["PORT"] = str(W.free_port())
     ckpt, scores_path = work / "ckpt_1.pth", tmp_path / "scores.npz"
     test = subprocess.run(
         ["bash", os.path.join(ROOT, "tools", "dist_test_torch.sh"), "2", str(cfg_path),

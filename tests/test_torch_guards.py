@@ -24,7 +24,9 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "adapt_image_models_tpu")
 # (the LN block over tokens, frozen and not, the adapter block over tokens
 # and over frames), forward and backward; a train-mode forward and backward
 # of a toy Recognizer2D (ResNetTSM with a non-local block and the temporal
-# pool), which moves its BatchNorms' running statistics;
+# pool), which moves its BatchNorms' running statistics; the same of toy 3D
+# CNNs (SlowFast, X3D, CSN with a non-local stage, R(2+1)D, C3D), and precise
+# BN over one of them;
 # tests/conftest.py imports jax, so this must run in a fresh interpreter
 NO_JAX_SCRIPT = r"""
 import os, sys, tempfile
@@ -101,6 +103,22 @@ cnn.init_weights(torch.Generator().manual_seed(0))
 cnn.train()
 cnn(torch.randn(2, 4, 3, 33, 33)).sum().backward()
 assert cnn.backbone.bn1.running_mean.abs().sum() > 0
+from adapt_image_models_torch.utils.precise_bn import compute_precise_bn_stats
+for bb, head, width, t in (
+        (dict(type="ResNet3dSlowFast", alpha=4, base_channels=16, stage_blocks=(1, 1, 1, 1)),
+         "SlowFastHead", 576, 8),
+        (dict(type="X3D", base_channels=8, stage_blocks=(1, 1, 1, 1)), "X3DHead", 144, 4),
+        (dict(type="ResNet3dCSN", depth=50, base_channels=8, stage_blocks=(1, 1, 1, 1),
+              bottleneck_mode="ip", non_local=(0, 1, 0, 0)), "I3DHead", 256, 4),
+        (dict(type="ResNet2Plus1d", stage_blocks=(1, 1, 1, 1)), "I3DHead", 512, 4),
+        (dict(type="C3D", clip_size=(16, 32, 32)), "I3DHead", 4096, 16)):
+    net = build_model(dict(type="Recognizer3D", backbone=bb,
+                           cls_head=dict(type=head, num_classes=3, in_channels=width)))
+    net.init_weights(torch.Generator().manual_seed(0))
+    net.train()
+    net(torch.randn(2, 3, t, 32, 32), torch.Generator().manual_seed(1)).sum().backward()
+compute_precise_bn_stats(cnn, [{"imgs": torch.randn(2, 4, 3, 33, 33)}],
+                         prepare_fn=torch.as_tensor)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN_MODULES", bad)
 """ % (FORBIDDEN,)
@@ -139,7 +157,12 @@ def test_port_sources_import_no_jax_package():
     assert len(files) > 30
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"adapt_image_models_torch/models/backbones/vit_clip.py",
-            "adapt_image_models_torch/ops/flash_attention.py"} <= names
+            "adapt_image_models_torch/ops/flash_attention.py",
+            "adapt_image_models_torch/models/backbones/resnet3d.py",
+            "adapt_image_models_torch/models/backbones/slowfast.py",
+            "adapt_image_models_torch/models/backbones/mobilenet.py",
+            "adapt_image_models_torch/models/common.py",
+            "adapt_image_models_torch/utils/precise_bn.py"} <= names
     bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {f: b for f, b in bad.items() if b}

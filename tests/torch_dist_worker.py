@@ -9,10 +9,16 @@ reads ``<dir>/inputs.pt`` (weights, global batches, annotation files) and
 writes ``<dir>/rank<r>.pt`` with what each of the test's parts reads. It
 imports no JAX: a rank is a process of the port. The configs here are the
 test's too, which runs the single-process references.
+
+    python tests/torch_dist_worker.py <dir> slowfast
+
+runs only the SGD steps of the toy SlowFast of
+``tests/test_torch_recognizer3d_cnn_train.py`` on this rank's rows.
 """
 
 import os
 import signal
+import socket
 import sys
 import threading
 import time
@@ -57,14 +63,31 @@ def cnn_model_cfg():
                               num_segments=4, dropout_ratio=0.0))
 
 
-def cnn_trajectory(weights, batches, rows=slice(None)):
-    """SGD steps of the 2D toy on ``rows`` of each global batch: losses,
-    and every tensor and running statistic after them. Under a process
-    group every BatchNorm normalises with the global batch's statistics."""
+def slowfast_model_cfg():
+    """The toy SlowFast: base width 16 (the Fast pathway 2 wide), alpha 4,
+    one block a stage, over 8 frames of 32²."""
+    return dict(type="Recognizer3D",
+                backbone=dict(type="ResNet3dSlowFast", alpha=4, base_channels=16,
+                              stage_blocks=(1, 1, 1, 1)),
+                cls_head=dict(type="SlowFastHead", num_classes=CLASSES, in_channels=512 + 64,
+                              dropout_ratio=0.0))
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cnn_trajectory(weights, batches, rows=slice(None), cfg=None):
+    """SGD steps of the 2D toy (or of ``cfg``) on ``rows`` of each global
+    batch: losses, and every tensor and running statistic after them.
+    Under a process group every BatchNorm normalises with the global
+    batch's statistics."""
     from adapt_image_models_torch.core.optim import build_optimizer
     from adapt_image_models_torch.core.train_state import TrainState, make_train_step
     from adapt_image_models_torch.models import build_model
-    model = build_model(cnn_model_cfg())
+    model = build_model(cfg or cnn_model_cfg())
     model.load_state_dict(weights, strict=True)
     opt = build_optimizer(CNN_OPT, model, CNN_OPT["lr"], CNN_CLIP)
     state, step = TrainState(model, opt), make_train_step(model, opt)
@@ -168,6 +191,18 @@ def sigterm_when_armed():
         time.sleep(0.05)
 
 
+def slowfast_main(out_dir):
+    from adapt_image_models_torch.parallel import get_dist_info, init_distributed
+    init_distributed(device="cpu")
+    rank, world = get_dist_info()
+    inp = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=False)
+    per = len(inp["slowfast_batches"][0][0]) // world
+    out = cnn_trajectory(inp["slowfast_weights"], inp["slowfast_batches"],
+                         slice(rank * per, (rank + 1) * per), slowfast_model_cfg())
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
 def main(out_dir):
     torch.set_num_threads(1)
     from adapt_image_models_torch.apis import init_recognizer, run_evaluation, train_model
@@ -243,4 +278,8 @@ def main(out_dir):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    if sys.argv[2:] == ["slowfast"]:
+        torch.set_num_threads(1)
+        slowfast_main(sys.argv[1])
+    else:
+        main(sys.argv[1])
