@@ -8,6 +8,13 @@ The host pipeline is ``data.pipeline.build_sample_processor``, which also
 reads ``synthetic://<seed>`` sources. A 2D recipe (``FormatShape`` NCHW or
 NCHW_Flow) is prepared as (1, S, C, H, W) segments and scored by one
 forward, its one view through ``average_clip`` (JAX ``inference.py:60-80``).
+An audio recipe (``AudioRecognizer``: its pipeline loads audio, and
+``build_sample_processor`` compiles it into ``data/audio.py``'s
+``AudioSampleProcessor``) reads ``video`` as the audio file (a ``.wav``, or
+a ``.npy`` of log-mel features) of a video of ``total_frames`` frames,
+which the reference's annotation lines give; its (1, S, 1, T, F) segments
+are one view, as a 2D recipe's. The JAX package's entry points stop at
+video recipes there.
 """
 
 from __future__ import annotations
@@ -50,22 +57,29 @@ def model_config(cfg: Dict[str, Any], split: str = "test") -> Dict[str, Any]:
 
     * a ``Recognizer2D``'s backbone gets ``in_channels``, the channels of
       the frames it will see, axis 2 (3 for NCHW, 2T for NCHW_Flow, T for
-      an NCTHW clip, whose colours fold as segments);
+      an NCTHW clip, whose colours fold as segments); so does an
+      ``AudioRecognizer``'s, axis 2 of its (1, S, 1, T, F) segments;
     * a ``Recognizer3D``'s 3D CNN (``CNN3D_BACKBONES``) gets axis 1, which
       is 3 for every NCTHW recipe, whatever ``in_channels`` the config
       sets (the flow recipes' 2, as JAX's init dummy); C3D also gets its
       ``clip_size``, the sample's (T, H, W), which fixes ``fc6``'s width."""
     model_cfg = dict(cfg["model"])
     rtype, btype = model_cfg.get("type"), model_cfg.get("backbone", {}).get("type")
-    if rtype != "Recognizer2D" and not (rtype == "Recognizer3D" and btype in CNN3D_BACKBONES):
+    if rtype not in ("Recognizer2D", "AudioRecognizer") and not (
+            rtype == "Recognizer3D" and btype in CNN3D_BACKBONES):
         return model_cfg
     pipeline = cfg["data"][split]["pipeline"]
-    shape = init_sample_shape(pipeline, build_sample_processor(pipeline))
-    if rtype == "Recognizer2D":
+    shape = sample_shape(pipeline)
+    if rtype in ("Recognizer2D", "AudioRecognizer"):
         sizes = {"in_channels": shape[2]}
     else:
         sizes = {"in_channels": shape[1], **({"clip_size": shape[2:]} if btype == "C3D" else {})}
     return {**model_cfg, "backbone": {**model_cfg["backbone"], **sizes}}
+
+
+def sample_shape(pipeline):
+    """The model-init sample of ``pipeline``'s recipe (``init_sample_shape``)."""
+    return init_sample_shape(pipeline, build_sample_processor(pipeline))
 
 
 def init_recognizer(cfg: Dict[str, Any], checkpoint: Optional[str] = None,
@@ -85,32 +99,34 @@ def init_recognizer(cfg: Dict[str, Any], checkpoint: Optional[str] = None,
 
 @torch.no_grad()
 def inference_recognizer(model: torch.nn.Module, cfg: Dict[str, Any], video: str,
-                         topk: int = 5, return_features: bool = False):
+                         topk: int = 5, return_features: bool = False,
+                         total_frames: Optional[int] = None):
     """Run the test pipeline on one video; return the top-k (class, score)
-    pairs, and the per-view backbone features when ``return_features``
-    (a 2D recipe's: the (1, S', D) per-segment features; SlowFast's: the
-    tuple of its pathways' maps, where JAX's ``np.asarray`` of the tuple
-    fails)."""
+    pairs, and the per-view features of ``model.extract_feat`` when
+    ``return_features`` (a 2D recipe's: the (1, S', D) per-segment
+    features; SlowFast's: the tuple of its pathways' maps, where JAX's
+    ``np.asarray`` of the tuple fails; an audio recipe's (1, S, D)). An
+    audio recipe needs ``total_frames``, the video's frame count."""
     pipeline = cfg["data"]["test"]["pipeline"]
     proc = build_sample_processor(pipeline)
-    clips, _ = proc(video, label=0)
+    clips, _ = proc(video, label=0, total_frames=total_frames)
     layout = layout_from_pipeline(pipeline)
     prepare = make_prepare_fn(proc.mean, proc.std, layout=layout,
                               device=model_device(model))
-    views = prepare(clips[None])  # (1, V, C, T, H, W) or 2D (1, S, C, H, W)
+    # (1, V, C, T, H, W), 2D (1, S, C, H, W) or audio (1, S, 1, T, F)
+    views = prepare(clips[None])
     model.eval()
     if layout == "NCTHW":
         v = views.shape[1]
         flat = views.reshape((v,) + tuple(views.shape[2:]))
     else:  # the segment contract: the head's consensus averages them
         v, flat = 1, views
-    feats = model.extract_feat(flat)
-    logits = model.cls_head(feats)
     avg = (cfg["model"].get("test_cfg") or {}).get("average_clips", "prob")
-    scores = average_clip(logits, v, avg)[0].cpu().numpy()
+    scores = average_clip(model(flat), v, avg)[0].cpu().numpy()
     order = np.argsort(scores)[::-1][:topk]
     results: List[Tuple[int, float]] = [(int(i), float(scores[i])) for i in order]
     if return_features:
+        feats = model.extract_feat(flat)
         if isinstance(feats, tuple):
             return results, tuple(f.float().cpu().numpy() for f in feats)
         return results, feats.float().cpu().numpy()

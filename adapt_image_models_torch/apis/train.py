@@ -41,6 +41,11 @@ logs (``utils/logger.py``); a SIGTERM on any rank stops every rank at the
 same step; evaluation runs sharded. Without a group the single-device path
 runs and no collective is called.
 
+An audio recipe (``AudioRecognizer``, ``data/audio.py``) trains on the
+float (B, S, 1, T, F) spectrogram segments of its pipeline's
+``AudioSampleProcessor``, which only move to the device (layout
+``NCTF``); the JAX package's ``train_model`` reads video recipes only.
+
 Not ported yet: OmniSource multi-dataset training (ROADMAP queue 1).
 """
 

@@ -27,6 +27,13 @@ keeps its name, as the port's attribute is named alike); X3D's unrolled
 Conv3D kernels (kT, kH, kW, I, O) go to (O, I, kT, kH, kW), a depthwise
 one's (kT, kH, kW, 1, O) to (O, 1, kT, kH, kW); C3D's ``fc6`` keeps JAX's
 channels-last row order, which the port's C3D flattens to.
+The TPN neck (``neck_module`` -> ``neck``), the audio trunk and the rest of
+the 2D backbones keep their JAX names (``aux_conv``, ``spatial0_0_bn``,
+``level_fusion_1.level0_conv``; TIN's ``layer{i}.{j}.tin`` and
+``.block``; MobileNetV2's ``expand`` / ``dw`` / ``project``; TAM's
+``g_fc1`` ...; DenseNet's ``denseblock{i}_layer{j}``); their 1-D conv
+kernels (K, I, O) go to (O, I, K), a depthwise 2D one's (kH, kW, 1, O) to
+(O, 1, kH, kW).
 Given the whole flax ``variables`` (``params`` and ``batch_stats``), the
 BatchNorm statistics ``mean`` / ``var`` become the buffers
 ``running_mean`` / ``running_var``. It is the inverse of
@@ -60,7 +67,7 @@ from typing import Any, Dict, Mapping, Tuple, Union
 import numpy as np
 import torch
 
-_ROOTS = {"backbone_module": "backbone", "head_module": "cls_head"}
+_ROOTS = {"backbone_module": "backbone", "neck_module": "neck", "head_module": "cls_head"}
 # the ``nn.scan`` stacks whose leading axis is the layer: CLIP's blocks, and
 # ViT_ImageNet's timm-named ``blocks``
 SCAN_STACKS = (("transformer", "resblocks"), ("blocks",))
@@ -125,7 +132,7 @@ def _leaf(path: Tuple[str, ...], arr: np.ndarray):
             return mods + ["weight"], arr.transpose(3, 2, 0, 1)
         if arr.ndim == 5:  # conv3d DHWIO -> OIDHW
             return mods + ["weight"], arr.transpose(4, 3, 0, 1, 2)
-        return mods + ["weight"], arr.T
+        return mods + ["weight"], arr.T  # Dense (I, O) -> (O, I); 1-D conv (K, I, O) -> (O, I, K)
     if name == "scale":
         return mods + ["weight"], arr
     return mods + [_BATCH_STATS.get(name, name)], arr

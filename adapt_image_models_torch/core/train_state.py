@@ -16,7 +16,12 @@ draws from ``fold_in(rng, step)``; the blending draws from one seeded from
 BatchNorm's running statistics, once a micro-batch (under
 ``update_interval`` too), as flax's mutated ``batch_stats`` are (JAX
 ``core/train_state.py:160-180``); evaluation runs the model in eval mode,
-which reads them and updates none.
+which reads them and updates none. A neck with an aux head (the TPN) adds
+its aux CE term, weighted by the neck's ``aux_weight``, to the loss that
+is logged and optimised (JAX ``core/train_state.py:104-113, 195-199``): the
+model keeps the aux logits of its train-mode forward as ``aux_logits``,
+scored against the same targets as the logits (soft CE where the batch is
+blended), and the step logs the term as ``aux_loss``.
 
 Under a process group (``parallel/distributed.py``) the step is the JAX
 package's ``shard_map`` step (``core/train_state.py:210-232``): each rank
@@ -128,6 +133,11 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     all_reduce (the train loop's preemption flag).
     """
     params = optimizer.params
+    aux_weight = float(getattr(getattr(model, "neck", None), "aux_weight", 0.0))
+
+    def ce(logits, targets):
+        return (soft_cross_entropy(logits, targets) if targets.dim() == logits.dim()
+                else cross_entropy(logits, targets))
 
     def train_step(state: TrainState, batch: Dict, seed: int,
                    reduce_with=()) -> Dict[str, torch.Tensor]:
@@ -143,25 +153,26 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
             imgs, targets = blend_global(blending, imgs, labels,
                                          step_generator(seed, state.step, "cpu", 1))
         logits = model(imgs, generator=drop_generator(seed, state.step, device))
-        if loss_fn is not None:
-            loss = loss_fn(logits, targets)
-        elif targets.dim() == logits.dim():
-            loss = soft_cross_entropy(logits, targets)
-        else:
-            loss = cross_entropy(logits, targets)
+        loss = loss_fn(logits, targets) if loss_fn is not None else ce(logits, targets)
+        aux = {}
+        if aux_weight:
+            aux["aux_loss"] = ce(model.aux_logits, targets)
+            model.aux_logits = None
+            loss = loss + aux_weight * aux["aux_loss"]
         # a trainable tensor the loss does not reach (ViT_CLIP's T_Adapter
         # under shift=True) gets a zero gradient, as jax.grad gives it
         grads = torch.autograd.grad(loss, params, allow_unused=True,
                                     materialize_grads=True)
         loss = loss.detach()
+        aux = {k: v.detach() for k, v in aux.items()}
         acc_labels = labels if labels.dim() == 1 else labels.argmax(-1)
         top1, top5 = topk_accuracy(logits.detach(), acc_labels)
         if is_distributed():
-            all_reduce_mean_([*grads, loss, top1, top5, *reduce_with])
+            all_reduce_mean_([*grads, loss, top1, top5, *aux.values(), *reduce_with])
         grad_norm = global_norm(grads)
         optimizer.update(grads)
         state.step += 1
         return {"loss": loss, "top1_acc": top1, "top5_acc": top5,
-                "grad_norm": grad_norm}
+                "grad_norm": grad_norm, **aux}
 
     return train_step

@@ -3,6 +3,7 @@
 (``sampling``), decoding (``video_reader``, ``cpp_decoder``), the
 geometric and RandAugment transforms (``transforms_host``,
 ``randaugment``), the pipeline compiler (``pipeline``), the loader
-(``loader``) and the datasets (``datasets``). The device stage: the
-normalise-and-layout prepare (``transforms``) and batch blending
+(``loader``), the datasets (``datasets``) and the audio stage (``audio``). The device stage: the
+normalise-and-layout prepare (``transforms``; an audio recipe's float
+segments only move to the device) and batch blending
 (``blending``)."""

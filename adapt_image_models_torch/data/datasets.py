@@ -1,12 +1,20 @@
 """Datasets: annotation parsing + evaluation (parity:
-``adapt_image_models_tpu/data/datasets.py``, the two types the port's
-recipes use; the others are in ROADMAP queue 1).
+``adapt_image_models_tpu/data/datasets.py``: the video and rawframe types
+and the audio ones, ``:136-310``; the others are in ROADMAP queue 1).
 
 Parity targets:
 * ``VideoDataset`` (``mmaction/datasets/video_dataset.py``): txt lines of
   ``<filename> <label>`` (or multiple labels when ``multi_class``).
 * ``RawframeDataset`` (``rawframe_dataset.py``): lines of
   ``<frame_dir> <total_frames> <label...>``.
+* ``AudioDataset`` / ``AudioFeatureDataset`` (``audio_dataset.py``,
+  ``audio_feature_dataset.py``): lines of ``<audio path> <total_frames>
+  <label...>``, a ``.wav`` or a ``.npy`` log-mel feature file, which the
+  loader reads through the pipeline's ``AudioSampleProcessor``; and
+  ``AudioVisualDataset`` (``audio_visual_dataset.py``), rawframe lines with
+  an audio feature file and an optional video beside each, which prepares
+  its own joint samples (``prepare_sample(idx, rng)``, which the loader
+  calls).
 * ``BaseDataset.evaluate`` (``base.py:138-241``): top_k_accuracy /
   mean_class_accuracy / mean_average_precision metrics over collected
   per-sample scores.
@@ -188,3 +196,109 @@ class RawframeDataset(BaseVideoDataset):
                     info["offset"] = offset
                 infos.append(info)
         return infos
+
+
+@DATASETS.register_module()
+class AudioDataset(BaseVideoDataset):
+    """``<path> <total_frames> <label...>`` lines, the path suffixed with
+    ``suffix`` where it lacks it; the pipeline's ``AudioSampleProcessor``
+    makes a sample's (S, 1, frames, mels) float32 spectrogram segments from
+    the file (``filename``) and the frame count."""
+
+    def __init__(self, *args, suffix: str = "", **kw):
+        self.suffix = suffix
+        super().__init__(*args, **kw)
+
+    def load_annotations(self):
+        infos = []
+        with open(self.ann_file) as f:
+            for line in f:
+                parts = line.strip().split()
+                if not parts:
+                    continue
+                path = parts[0]
+                if self.data_prefix:
+                    path = osp.join(self.data_prefix, path)
+                if self.suffix and not path.endswith(self.suffix):
+                    path += self.suffix
+                if self.multi_class:
+                    if self.num_classes is None:
+                        raise ValueError("multi_class requires num_classes")
+                    label = np.zeros(self.num_classes, np.float32)
+                    label[[int(x) for x in parts[2:]]] = 1.0
+                else:
+                    label = int(parts[2])
+                infos.append(dict(filename=path, total_frames=int(parts[1]), label=label,
+                                  start_index=self.start_index))
+        return infos
+
+
+@DATASETS.register_module()
+class AudioFeatureDataset(AudioDataset):
+    """Pre-extracted ``.npy`` log-mel features: ``AudioDataset`` lines
+    whose paths take the ``.npy`` suffix by default."""
+
+    def __init__(self, *args, suffix: str = ".npy", **kw):
+        super().__init__(*args, suffix=suffix, **kw)
+
+
+@DATASETS.register_module()
+class AudioVisualDataset(RawframeDataset):
+    """Rawframe lines whose samples are joint: ``audio_prefix`` /
+    ``video_prefix`` place each entry's ``.npy`` audio features and
+    optional ``.mp4``. ``prepare_sample`` splits the pipeline into its audio
+    steps and its visual ones and runs both from one rng state, so the
+    shared ``SampleFrames`` draws the same frames for both."""
+
+    _AUDIO_STEPS = ("AudioDecodeInit", "LoadAudioFeature", "AudioDecode",
+                    "AudioFeatureSelector", "AudioAmplify", "MelSpectrogram",
+                    "FormatAudioShape")
+
+    def __init__(self, ann_file, pipeline=None, audio_prefix: str = "",
+                 video_prefix: str = "", **kw):
+        self.audio_prefix = audio_prefix
+        self.video_prefix = video_prefix
+        super().__init__(ann_file, pipeline=pipeline, **kw)
+
+    def load_annotations(self):
+        infos = super().load_annotations()
+        for info in infos:
+            rel = (osp.relpath(info["frame_dir"], self.data_prefix) if self.data_prefix
+                   else info["frame_dir"])
+            if self.audio_prefix:
+                info["audio_path"] = osp.join(self.audio_prefix, rel + ".npy")
+            if self.video_prefix:
+                info["filename"] = osp.join(self.video_prefix, rel + ".mp4")
+        return infos
+
+    def prepare_sample(self, idx: int, rng=None) -> Dict[str, Any]:
+        from adapt_image_models_torch.data.audio import AudioSampleProcessor
+        from adapt_image_models_torch.data.pipeline import build_sample_processor
+        from adapt_image_models_torch.data.video_reader import RawFrameReader
+        if not hasattr(self, "_av_procs"):
+            audio_steps = [s for s in self.pipeline
+                           if s["type"] in self._AUDIO_STEPS or s["type"] == "SampleFrames"]
+            visual_steps = [s for s in self.pipeline if s["type"] not in self._AUDIO_STEPS]
+            self._av_procs = (AudioSampleProcessor(audio_steps),
+                              build_sample_processor(visual_steps))
+        audio_proc, visual_proc = self._av_procs
+        rng = rng if rng is not None else np.random.default_rng()
+        info = self.video_infos[idx]
+        state = rng.bit_generator.state
+        if "filename" in info:
+            clips, label = visual_proc(info["filename"], info["label"], rng=rng,
+                                       start_index=info.get("start_index", 0))
+        else:
+            reader = RawFrameReader(
+                info["frame_dir"], info["total_frames"],
+                filename_tmpl=info.get("filename_tmpl", "img_{:05}.jpg"),
+                start_index=info.get("start_index", 1), offset=info.get("offset", 0))
+            clips, label = visual_proc(reader, info["label"], rng=rng,
+                                       total_frames=info["total_frames"],
+                                       start_index=info.get("start_index", 1))
+        replay = np.random.default_rng()
+        replay.bit_generator.state = state  # the same frame indices
+        audios, _ = audio_proc(info["audio_path"], label, rng=replay,
+                               total_frames=info["total_frames"],
+                               start_index=info.get("start_index", 0))
+        return {"imgs": clips, "audios": audios, "label": label}

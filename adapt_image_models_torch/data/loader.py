@@ -7,6 +7,9 @@ Replaces torch ``DataLoader`` + ``DistributedSampler`` + ``collate``
 * seeded per-epoch shuffling with per-process (host) sharding — same
   determinism contract as the reference's epoch-seeded DistributedSampler
 * a thread pool decoding/transforming samples into fixed-shape uint8 arrays
+  (an audio recipe's processor: float32 spectrogram segments; a dataset
+  with its own ``prepare_sample``, ``AudioVisualDataset``: whatever that
+  returns)
 * prefetch: up to ``prefetch`` host batches are assembled while the
   previous step computes; the device stage (``transforms.make_prepare_fn``)
   moves each batch to the model's device
@@ -24,6 +27,7 @@ from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 
+from adapt_image_models_torch.data.audio import AudioSampleProcessor
 from adapt_image_models_torch.data.pipeline import SampleProcessor, build_sample_processor
 
 
@@ -34,7 +38,11 @@ class VideoLoader:
                  drop_last: Optional[bool] = None,
                  num_shards: int = 1, shard_index: int = 0):
         self.dataset = dataset
-        if isinstance(pipeline, SampleProcessor):
+        if hasattr(dataset, "prepare_sample"):
+            # the dataset prepares its own samples (AudioVisualDataset's
+            # two modalities from one rng state)
+            self.processor = None
+        elif isinstance(pipeline, (SampleProcessor, AudioSampleProcessor)):
             self.processor = pipeline
         else:
             self.processor = build_sample_processor(pipeline)
@@ -73,10 +81,13 @@ class VideoLoader:
 
     def _load_one(self, idx: int) -> Dict[str, Any]:
         rng = np.random.default_rng((self.seed, self.epoch, int(idx)))
+        if self.processor is None:
+            return self.dataset.prepare_sample(int(idx), rng)
         info = self.dataset[int(idx)]
-        if "filename" in info:
+        if "filename" in info:  # a video or an audio file
             clips, label = self.processor(
                 info["filename"], info["label"], rng=rng,
+                total_frames=info.get("total_frames"),
                 start_index=info.get("start_index", 0))
         else:  # rawframes
             from adapt_image_models_torch.data.video_reader import (

@@ -25,6 +25,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from adapt_image_models_torch.data import transforms_host as TH
+from adapt_image_models_torch.data.audio import AudioSampleProcessor, is_audio_pipeline
 from adapt_image_models_torch.data.sampling import SampleFrames
 from adapt_image_models_torch.data.video_reader import open_video
 
@@ -318,8 +319,11 @@ def _pair(x) -> Tuple[int, int]:
 
 def build_sample_processor(pipeline_cfg: Sequence[Dict[str, Any]],
                            test_mode: Optional[bool] = None,
-                           io_backend: str = "auto") -> SampleProcessor:
-    """Compile an mmaction-style pipeline config list."""
+                           io_backend: str = "auto"):
+    """Compile an mmaction-style pipeline config list: a ``SampleProcessor``,
+    or an audio pipeline's ``AudioSampleProcessor``."""
+    if is_audio_pipeline(pipeline_cfg):
+        return AudioSampleProcessor(pipeline_cfg)
     sampler = None
     steps: List[Tuple[str, Dict[str, Any]]] = []
     mean, std, to_bgr = (122.769, 116.74, 104.04), (68.493, 66.63, 70.321), False

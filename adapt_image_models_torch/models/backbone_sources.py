@@ -5,10 +5,8 @@ The reference recognizer builds a backbone whose ``type`` carries a source
 prefix from that library. The JAX package, and the port with it, resolves
 each known name to its own registered backbone with the architecture's
 hyper-parameters, which keeps the ``(B·S, C, H, W) -> (B·S, C_out)``
-contract of ``Recognizer2D``. A name whose target the port has not
-ported yet (``DenseNet``, ``MobileNetV2``) raises the registry's
-``KeyError`` when ``build_backbone`` builds it. ``pretrained=True`` (a
-torch-hub download) is refused: there is no network, and a silent random
+contract of ``Recognizer2D``. ``pretrained=True`` (a torch-hub download)
+is refused: there is no network, and a silent random
 initialisation would be a trap.
 """
 

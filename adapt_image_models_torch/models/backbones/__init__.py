@@ -8,10 +8,14 @@ from adapt_image_models_torch.models.backbones.restuning import (  # noqa: F401
 from adapt_image_models_torch.models.backbones.resnet import (  # noqa: F401
     ResNet, ResNetTSM, ResNeXt,
 )
-from adapt_image_models_torch.models.backbones.mobilenet import ResNet2Plus1d  # noqa: F401
-from adapt_image_models_torch.models.backbones.resnet3d import (  # noqa: F401
-    C3D, NonLocal3d, ResNet3d, ResNet3dCSN, ResNet3dLayer, ResNet3dSlowOnly,
+from adapt_image_models_torch.models.backbones.densenet import DenseNet  # noqa: F401
+from adapt_image_models_torch.models.backbones.mobilenet import (  # noqa: F401
+    MobileNetV2, MobileNetV2TSM, ResNet2Plus1d, TANet,
 )
+from adapt_image_models_torch.models.backbones.resnet3d import (  # noqa: F401
+    C3D, NonLocal3d, ResNet3d, ResNet3dCSN, ResNet3dLayer, ResNet3dSlowOnly, ResNetAudio,
+)
+from adapt_image_models_torch.models.backbones.resnet_tin import ResNetTIN  # noqa: F401
 from adapt_image_models_torch.models.backbones.slowfast import X3D, ResNet3dSlowFast  # noqa: F401
 from adapt_image_models_torch.models.backbones.swin2d_adapter import (  # noqa: F401
     SwinTransformer2D_Adapter,

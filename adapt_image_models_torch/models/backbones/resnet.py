@@ -72,17 +72,10 @@ def _conv(cin: int, cout: int, k: int, groups: int = 1, device=None) -> nn.Conv2
     return nn.Conv2d(cin, cout, k, groups=groups, bias=False, device=device)
 
 
-class _Block(nn.Module):
-    """The residual blocks' shared parts: the TSM shift of the residual
-    branch, the projection shortcut where the shapes change, the
-    block's optional non-local module and the seeded initialisation."""
-
-    def _shortcut(self, inplanes: int, out: int, stride: int, device) -> None:
-        if stride != 1 or inplanes != out:
-            self.downsample_conv = _conv(inplanes, out, 1, device=device)
-            self.downsample_bn = BatchNormFlax(out, device=device)
-        else:
-            self.downsample_conv = None
+class _Conv2dNet(nn.Module):
+    """The 2D conv nets' shared parts (these blocks, MobileNetV2's): a conv
+    in ``compute_dtype`` with flax's SAME padding, and the seeded
+    initialisation."""
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -95,6 +88,19 @@ class _Block(nn.Module):
     def conv(self, x: torch.Tensor, conv: nn.Conv2d, stride: int = 1) -> torch.Tensor:
         cdt = self.compute_dtype
         return conv2d_same(x.to(cdt), conv.weight.to(cdt), stride, conv.groups)
+
+
+class _Block(_Conv2dNet):
+    """The residual blocks' shared parts: the TSM shift of the residual
+    branch, the projection shortcut where the shapes change and the
+    block's optional non-local module."""
+
+    def _shortcut(self, inplanes: int, out: int, stride: int, device) -> None:
+        if stride != 1 or inplanes != out:
+            self.downsample_conv = _conv(inplanes, out, 1, device=device)
+            self.downsample_bn = BatchNormFlax(out, device=device)
+        else:
+            self.downsample_conv = None
 
     def shifted(self, x: torch.Tensor, frames: Optional[int]) -> torch.Tensor:
         return temporal_shift(x, frames) if self.tsm else x
@@ -224,15 +230,23 @@ class ResNet(nn.Module):
             for j in range(n_blocks):
                 nl = (make_non_local(planes * block_cls.expansion)
                       if per_block and j < len(flags) and flags[j] else None)
-                stage.append(block_cls(inplanes, planes, 2 if (i > 0 and j == 0) else 1,
-                                       tsm=num_frames is not None, compute_dtype=cdt,
-                                       non_local=nl, device=device, **extra))
+                stage.append(self.make_block(block_cls, inplanes, planes,
+                                             2 if (i > 0 and j == 0) else 1,
+                                             tsm=num_frames is not None, compute_dtype=cdt,
+                                             non_local=nl, device=device, **extra))
                 inplanes = planes * block_cls.expansion
             setattr(self, f"layer{i + 1}", stage)
             if not per_block and flags:
                 setattr(self, f"layer{i + 1}_nonlocal", make_non_local(inplanes))
             self.stage_names.append(f"layer{i + 1}")
             planes *= 2
+
+    def make_block(self, block_cls, inplanes: int, planes: int, stride: int,
+                   **kwargs) -> nn.Module:
+        """One residual block of the depth's kind (``BasicBlock`` or
+        ``Bottleneck``); ``ResNetTIN`` and ``TANet`` build theirs here. A
+        block is called as ``block(h, frames)`` and has a ``non_local``."""
+        return block_cls(inplanes, planes, stride, **kwargs)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:

@@ -2,8 +2,10 @@
 and the non-local block (parity:
 ``adapt_image_models_tpu/models/backbones/resnet3d.py:47-348, 392-426``).
 ``NonLocal3d`` also serves the 2D ResNet's ``non_local`` stages (the
-``tsm_nl_*`` recipes) over a clip's segments. ``ResNetAudio`` is not ported
-yet (ROADMAP queue 1, item 4.5).
+``tsm_nl_*`` recipes) over a clip's segments. ``ResNetAudio``
+(``resnet3d.py:351-390``) is the audio recipes' 2D trunk, kept here as in
+JAX: a ``ConvAudio`` stem over (B·S, 1, frames, mels) spectrograms, then the
+2D ResNet's blocks, every stage's first at stride 2.
 
 Framework ops only, as the JAX package runs no Pallas kernel here: cuDNN
 3D convolutions in NCDHW, the port's ``BatchNormFlax`` and flax's "SAME"
@@ -71,7 +73,7 @@ def init_cnn(root: nn.Module, generator: torch.Generator) -> None:
     and dense kernels ``lecun_normal``, biases 0, BatchNorm scale 1
     (``bn_out`` 0), bias 0, running mean 0 and variance 1."""
     for m in root.modules():
-        if isinstance(m, (nn.Conv3d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 m.bias.zero_()
@@ -425,6 +427,63 @@ class ResNet3dCSN(ResNet3dCore):
 
 def _valid(size: int, kernel: int, stride: int, pad: int = 0) -> int:
     return (size + 2 * pad - kernel) // stride + 1
+
+
+@BACKBONES.register_module()
+class ResNetAudio(nn.Module):
+    """The ``ConvAudio`` stem ``conv1`` (``base_channels``, a
+    ``conv1_kernel`` tap a branch), ``bn1`` + ReLU, then stages of the 2D
+    ResNet's blocks (``layer{i}.{j}``) at widths ``base_channels``·2^i, the
+    first block of every stage at stride 2; no pool. ``norm_eval`` runs
+    every BatchNorm on its running statistics in training. Input (B·S, C,
+    frames, mels) -> the pooled (B·S, C_out) fp32. ``in_channels`` is the
+    stem's input channels, which JAX infers from its init sample."""
+
+    def __init__(self, depth: int = 50, base_channels: int = 32, conv1_kernel: int = 9,
+                 in_channels: int = 1, norm_eval: bool = False, compute_dtype=torch.float32,
+                 pretrained: Optional[str] = None, device=None):
+        super().__init__()
+        from adapt_image_models_torch.models.backbones.resnet import (
+            ARCH_SETTINGS, BasicBlock, Bottleneck,
+        )
+        from adapt_image_models_torch.models.common import ConvAudio
+        kind, blocks = ARCH_SETTINGS[depth]
+        block_cls, expansion = (BasicBlock, 1) if kind == "basic" else (Bottleneck, 4)
+        self.compute_dtype = cdt = resolve_dtype(compute_dtype)
+        self.norm_eval = norm_eval
+        self.conv1 = ConvAudio(in_channels, base_channels, conv1_kernel, compute_dtype=cdt,
+                               device=device)
+        self.bn1 = BatchNormFlax(base_channels, device=device)
+        self.stage_names = []
+        inplanes = planes = base_channels
+        for i, n_blocks in enumerate(blocks):
+            stage = nn.ModuleList()
+            for j in range(n_blocks):
+                stage.append(block_cls(inplanes, planes, 2 if j == 0 else 1, compute_dtype=cdt,
+                                       device=device))
+                inplanes = planes * expansion
+            setattr(self, f"layer{i + 1}", stage)
+            self.stage_names.append(f"layer{i + 1}")
+            planes *= 2
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        init_cnn(self, generator)
+
+    def train(self, mode: bool = True):
+        """``norm_eval`` keeps every BatchNorm in eval mode."""
+        super().train(mode)
+        if mode and self.norm_eval:
+            for m in self.modules():
+                if isinstance(m, BatchNormFlax):
+                    m.eval()
+        return self
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None):
+        h = F.relu(self.bn1(self.conv1(x)))
+        for name in self.stage_names:
+            for block in getattr(self, name):
+                h = block(h, None)
+        return h.mean(dim=(2, 3)).float()
 
 
 @BACKBONES.register_module()

@@ -9,6 +9,7 @@ or load them with ``convert.load_checkpoint``.
 from adapt_image_models_torch.utils.registry import Registry
 
 BACKBONES = Registry("backbone")
+NECKS = Registry("neck")
 HEADS = Registry("head")
 RECOGNIZERS = Registry("recognizer")
 LOSSES = Registry("loss")
@@ -19,6 +20,10 @@ def build_backbone(cfg, device=None):
     # backbone (JAX builder.py:18-24)
     from adapt_image_models_torch.models.backbone_sources import resolve_backbone_source
     return BACKBONES.build(resolve_backbone_source(dict(cfg)), device=device)
+
+
+def build_neck(cfg, device=None):
+    return NECKS.build(dict(cfg), device=device)
 
 
 def build_head(cfg, device=None):

@@ -4,12 +4,15 @@ only, drawn from an explicit generator. TSM: dropout on each segment's
 features, ``fc_cls``, then the mean of the segments' logits (the consensus
 after the classifier). SlowFast: each pathway's map pooled over the axes
 between batch and channels, concatenated, dropout, ``fc_cls``. X3D: pooled,
-``fc1`` to ``mid_channels``, ReLU, dropout, ``fc_cls``. The file's other
-heads (TimeSformer, TPN) are not ported yet."""
+``fc1`` to ``mid_channels``, ReLU, dropout, ``fc_cls``. TimeSformer
+(``misc_heads.py:92-107``): token 0 of a (B, L, D) input, or (B, D),
+through ``fc_cls``. TPN (``misc_heads.py:109-137``): the neck's fused
+channels-last map pooled (``spatial_type`` ``'avg'`` or ``'max'``) over
+every axis between batch and channels, dropout, ``fc_cls``."""
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -96,6 +99,56 @@ class X3DHead(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = torch.relu(dense(_pool(x), self.fc1, torch.float32))
+        if self.training and self.dropout_ratio > 0:
+            x = dropout(x, self.dropout_ratio, generator)
+        return dense(x, self.fc_cls, torch.float32)
+
+
+class _FcHead(nn.Module):
+    """One fp32 ``fc_cls`` of weight ~ N(0, ``init_std``) and zero bias."""
+
+    def __init__(self, num_classes: int, in_channels: int, init_std: float, device=None):
+        super().__init__()
+        self.init_std = init_std
+        self.fc_cls = nn.Linear(in_channels, num_classes, device=device)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        normal_(self.fc_cls.weight, self.init_std, generator)
+        self.fc_cls.bias.zero_()
+
+
+@HEADS.register_module()
+class TimeSformerHead(_FcHead):
+    """(B, L, D) tokens (the class token first) or (B, D) -> (B,
+    num_classes) fp32."""
+
+    def __init__(self, num_classes: int, in_channels: int, init_std: float = 0.02,
+                 device=None):
+        super().__init__(num_classes, in_channels, init_std, device)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dense(x[:, 0] if x.dim() == 3 else x, self.fc_cls, torch.float32)
+
+
+@HEADS.register_module()
+class TPNHead(_FcHead):
+    """The TPN neck's (B, T', H', W', C) map -> (B, num_classes) fp32;
+    ``consensus`` is the recipe's (the pooling already averages the
+    clip)."""
+
+    def __init__(self, num_classes: int, in_channels: int, spatial_type: str = "avg",
+                 consensus: Optional[Dict[str, Any]] = None, dropout_ratio: float = 0.5,
+                 init_std: float = 0.01, device=None):
+        super().__init__(num_classes, in_channels, init_std, device)
+        self.spatial_type, self.consensus, self.dropout_ratio = spatial_type, consensus, \
+            dropout_ratio
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        axes = tuple(range(1, x.dim() - 1))
+        x = x.amax(dim=axes) if self.spatial_type == "max" else x.mean(dim=axes)
         if self.training and self.dropout_ratio > 0:
             x = dropout(x, self.dropout_ratio, generator)
         return dense(x, self.fc_cls, torch.float32)

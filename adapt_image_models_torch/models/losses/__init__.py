@@ -1,6 +1,6 @@
 """Classification losses of the port."""
 
 from adapt_image_models_torch.models.losses.cross_entropy import (  # noqa: F401
-    BCELossWithLogits, CrossEntropyLoss, binary_cross_entropy_with_logits, cross_entropy,
+    BCELossWithLogits, CrossEntropyLoss, NLLLoss, binary_cross_entropy_with_logits, cross_entropy,
     soft_cross_entropy,
 )

@@ -2,7 +2,8 @@
 cross_entropy.py:18-73``): hard int labels take the cross entropy, soft
 (one-hot or blended) labels ``-(soft * log_softmax(logits)).sum(1).mean()``;
 multi-hot labels of the ``multi_class`` recipes the binary cross entropy
-with logits (``BCELossWithLogits``); all in fp32."""
+with logits (``BCELossWithLogits``); ``NLLLoss`` (``:76-85``) takes
+log-probabilities; all in fp32."""
 
 from __future__ import annotations
 
@@ -70,3 +71,15 @@ class BCELossWithLogits:
 
     def __call__(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         return self.loss_weight * binary_cross_entropy_with_logits(logits, labels)
+
+
+@LOSSES.register_module()
+class NLLLoss:
+    """The mean negative log-likelihood of (B, C) log-probabilities at the
+    (B,) int labels."""
+
+    def __init__(self, loss_weight: float = 1.0):
+        self.loss_weight = loss_weight
+
+    def __call__(self, logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        return self.loss_weight * -logp.float().gather(-1, labels.long()[:, None])[:, 0].mean()

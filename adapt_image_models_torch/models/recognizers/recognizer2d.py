@@ -8,6 +8,13 @@ package folds it: under ``FormatShape('NCTHW')`` (the two
 each 4-D "frame" reaching the trunk carries T channels and the head's
 consensus runs over the colours. The reference reads NCHW segments there;
 the port follows JAX (ROADMAP queue 3).
+
+A ``neck`` (the TPN-TSM recipe, JAX ``recognizer2d.py:40-54``) takes the
+backbone's per-segment stage maps, (B·S, C, H, W) each, unfolded to
+channels-last (B, S, H, W, C) clips: the segments become the pyramid's T
+axis. The head gets the neck's fused map, and the aux logits (train mode)
+are kept as ``aux_logits``, as in ``Recognizer3D``. ``extract_feat``
+bypasses the neck, as JAX's does: it pools the last stage per segment.
 """
 
 from __future__ import annotations
@@ -17,8 +24,10 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from adapt_image_models_torch.models.builder import RECOGNIZERS, build_backbone, build_head
-from adapt_image_models_torch.models.recognizers.recognizer3d import average_clip
+from adapt_image_models_torch.models.builder import (
+    RECOGNIZERS, build_backbone, build_head, build_neck,
+)
+from adapt_image_models_torch.models.recognizers.recognizer3d import apply_neck, average_clip
 
 
 @RECOGNIZERS.register_module()
@@ -31,16 +40,18 @@ class Recognizer2D(nn.Module):
                  train_cfg: Optional[Dict[str, Any]] = None,
                  test_cfg: Optional[Dict[str, Any]] = None, device=None):
         super().__init__()
-        if neck:
-            raise NotImplementedError("the TPN neck is not ported yet (ROADMAP queue 1, item 4.3)")
         self.backbone = build_backbone(backbone, device=device)
+        self.neck = build_neck(neck, device=device) if neck else None
         self.cls_head = build_head(cls_head, device=device)
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
+        self.aux_logits = None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         self.backbone.init_weights(generator)
+        if self.neck is not None:
+            self.neck.init_weights(generator)
         self.cls_head.init_weights(generator)
 
     def _segments(self, imgs: torch.Tensor,
@@ -55,6 +66,11 @@ class Recognizer2D(nn.Module):
         count the head sees is the backbone's rows over B (``temporal_pool``
         halves it). In train mode ``generator`` feeds the head's dropout."""
         feat, b = self._segments(imgs, generator)
+        if self.neck is not None:
+            maps = feat if isinstance(feat, tuple) else (feat,)
+            clips = tuple(f.reshape((b, f.shape[0] // b) + tuple(f.shape[1:]))
+                          .permute(0, 1, 3, 4, 2) for f in maps)
+            return self.cls_head(apply_neck(self, clips, generator), generator)
         return self.cls_head(feat.reshape(b, feat.shape[0] // b, -1), generator)
 
     def extract_feat(self, imgs: torch.Tensor,

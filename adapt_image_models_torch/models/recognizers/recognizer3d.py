@@ -2,7 +2,11 @@
 ``adapt_image_models_tpu/models/recognizers/recognizer3d.py:29-102``). A
 backbone's features go to the head as they come: the (B, T, D) tokens of
 the ViTs, a channels-last (B, T', H', W', C) map of Video Swin or a 3D
-CNN, C3D's (B, D), or SlowFast's tuple of pathway maps."""
+CNN, C3D's (B, D), or SlowFast's tuple of pathway maps. A ``neck`` (the TPN,
+JAX ``recognizer3d.py:64-95``) takes the backbone's stage maps and hands
+the head its fused map; its aux logits (train mode) are kept as the
+model's ``aux_logits`` for the train step's aux term, where JAX sows them
+into ``intermediates``."""
 
 from __future__ import annotations
 
@@ -12,7 +16,7 @@ import torch
 from torch import nn
 
 from adapt_image_models_torch.models.builder import (
-    RECOGNIZERS, build_backbone, build_head,
+    RECOGNIZERS, build_backbone, build_head, build_neck,
 )
 
 
@@ -39,6 +43,16 @@ def _fold_views(imgs: torch.Tensor) -> torch.Tensor:
     return imgs
 
 
+def apply_neck(model: nn.Module, feat, generator: Optional[torch.Generator]):
+    """``model.neck`` over the backbone's maps, its aux logits kept as
+    ``model.aux_logits`` (None in eval mode or without an aux head); the
+    features as they are without a neck."""
+    if model.neck is None:
+        return feat
+    feat, model.aux_logits = model.neck(feat, generator)
+    return feat
+
+
 @RECOGNIZERS.register_module()
 class Recognizer3D(nn.Module):
     """``forward`` maps clips, with any view axis folded into the batch, to
@@ -50,21 +64,24 @@ class Recognizer3D(nn.Module):
                  train_cfg: Optional[Dict[str, Any]] = None,
                  test_cfg: Optional[Dict[str, Any]] = None, device=None):
         super().__init__()
-        if neck:
-            raise NotImplementedError("the TPN neck is not ported yet (ROADMAP queue 1, item 4.3)")
         self.backbone = build_backbone(backbone, device=device)
+        self.neck = build_neck(neck, device=device) if neck else None
         self.cls_head = build_head(cls_head, device=device)
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
+        self.aux_logits = None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         self.backbone.init_weights(generator)
+        if self.neck is not None:
+            self.neck.init_weights(generator)
         self.cls_head.init_weights(generator)
 
     def extract_feat(self, imgs: torch.Tensor,
                      generator: Optional[torch.Generator] = None):
-        return self.backbone(_fold_views(imgs), generator)
+        feat = self.backbone(_fold_views(imgs), generator)
+        return apply_neck(self, feat, generator)
 
     def forward(self, imgs: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

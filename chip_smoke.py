@@ -355,7 +355,28 @@ Phases, in order; any failure raises and exits non-zero:
      size 1 bit-equal to no launcher, two gloo ranks of 4 videos against
      one process of 8 (CNN_DP_*: every BatchNorm over the global batch).
      No fused op or core launches on any of these paths.
-Phases 18, 19, 20, 21, 22, 23 and 24 log their seconds.
+ 25. 3D CNN recognition, framework ops only: I3D-R50, SlowFast-R50 4x16
+     and X3D-M through the same drive as phase 24 (CNN3D_PATHS, the host
+     check on a test video's first 3 views), then one forward of SlowOnly,
+     its NL recipe, ircsn-R152 bnfrozen (and a train step), C3D,
+     R(2+1)D-34 and a posec3d backbone;
+ 26. the TPN neck and the rest of 2D recognition, framework ops only:
+     TPN-SlowOnly-R50 (tpn/tpn_slowonly_r50_8x8x1_150e_kinetics_rgb.py, 30
+     views of 8 x 256² a test video) and TPN-TSM-R50
+     (tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py, 48 segments) through the
+     same drive (TPN_PATHS), every train step's aux CE term present and
+     finite; one forward of 2 videos of TIN, TRN (its val pipeline),
+     MobileNetV2-TSM, TANet and DenseNet-161 as shipped (MORE_2D_BUILT) and
+     one train step of TIN;
+ 27. audio recognition, framework ops only, over .wav files and .npy
+     log-mel features the phase writes: audio/tsn_r50_64x1x1_100e_
+     kinetics400_audio.py (ResNet-50 over host log-mel spectrograms) and
+     audio/audioonly_r50_64x1x1_100e_kinetics400_audio_feature.py
+     (ResNetAudio-R50) through init_recognizer, inference_recognizer,
+     run_evaluation, the card's fp32 against the host's, train_model at the
+     recipes' batches of 320 and 160, eval and train samples/s with peak
+     memory and a profiled step.
+Phases 18 to 27 log their seconds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -1094,7 +1115,8 @@ def separate_classes(model, seed):
     scaling the head would not help, as it scales the gap between the top
     two logits and the kernel-vs-plain noise alike. Returns the class."""
     import torch
-    head = model.cls_head.fc_cls
+    # the head's last classifier: fc_cls, or TRN's smallest scale's rel2_fc2
+    head = [m for m in model.cls_head.modules() if isinstance(m, torch.nn.Linear)][-1]
     c = int(torch.randint(head.bias.numel(), (1,),
                           generator=torch.Generator().manual_seed(seed)))
     with torch.no_grad():
@@ -4297,8 +4319,12 @@ CNN_DP_LOSS_RTOL, CNN_DP_NORM_RTOL, CNN_DP_STATS_REL, CNN_DP_UPDATE_FACTOR = 1e-
 def test_sample_shape(cfg):
     """(S, C, H, W) of one prepared test video of a 2D recipe: every view
     (clips x crops) of the test pipeline becomes segments; (V, C, T, H, W)
-    of a Recognizer3D recipe."""
+    of a Recognizer3D recipe; (S, 1, T, F) of an audio recipe."""
+    from adapt_image_models_torch.apis.inference import sample_shape
     from adapt_image_models_torch.data.pipeline import build_sample_processor
+    from adapt_image_models_torch.data.transforms import layout_from_pipeline
+    if layout_from_pipeline(cfg["data"]["test"]["pipeline"]) == "NCTF":
+        return sample_shape(cfg["data"]["test"]["pipeline"])[1:]
     proc = build_sample_processor(cfg["data"]["test"]["pipeline"])
     h, w = proc.output_size()
     if cfg["model"]["type"] == "Recognizer3D":
@@ -4307,10 +4333,8 @@ def test_sample_shape(cfg):
 
 
 def train_sample_shape(cfg):
-    from adapt_image_models_torch.data.pipeline import build_sample_processor
-    from adapt_image_models_torch.data.transforms import init_sample_shape
-    pipe = cfg["data"]["train"]["pipeline"]
-    return init_sample_shape(pipe, build_sample_processor(pipe))[1:]
+    from adapt_image_models_torch.apis.inference import sample_shape
+    return sample_shape(cfg["data"]["train"]["pipeline"])[1:]
 
 
 def calibrate_batch_norms(model, x):
@@ -4358,6 +4382,7 @@ def as_videos(cfg):
     synthetic:// sources are; its pipelines as shipped."""
     for split in ("train", "val", "test"):
         if cfg["data"][split]["type"] == "RawframeDataset":
+            cfg["data"][split].pop("filename_tmpl", None)
             cfg["data"][split].update(type="VideoDataset", data_prefix="")
     return cfg
 
@@ -4376,7 +4401,7 @@ def cnn_model(cfg, seed, device="cuda"):
 
 
 def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_batches=None,
-                   host_views=None):
+                   host_views=None, aux=False):
     """One of CNN_PATHS (or CNN3D_PATHS) as shipped (400 classes) on seeded
     weights with calibrated running statistics and a class lead:
     init_recognizer, inference_recognizer and run_evaluation on synthetic
@@ -4388,7 +4413,8 @@ def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_b
     no launch); then eval videos/s (and clips/s: views) at ``batches``
     videos and train videos/s at ``train_batches`` (``batches`` where None)
     with peak memory, TF32 off and on, and a profile of one train step at
-    the largest."""
+    the largest. ``aux``: a TPN recipe, whose every logged step holds a
+    finite aux term in its loss (train_model and the timed steps)."""
     import copy
     import numpy as np
     import torch
@@ -4499,6 +4525,8 @@ def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_b
     if (state.step != steps or not all(np.isfinite(h["loss"]) for h in history)
             or stats_moved != len(stats) or tensors_moved != n_tensors or not same):
         raise AssertionError(f"{label}: train_model's running statistics or tensors wrong")
+    if aux:
+        check_aux(label, history)
     del state, trained, restored, initial
     torch.cuda.empty_cache()
 
@@ -4524,6 +4552,9 @@ def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_b
         batch = {"imgs": torch.randn(videos, *shape, device="cuda"),
                  "label": np.arange(videos) % classes}
         tstate, step_fn = train_setup(cfg, weights=weights)
+        if aux:
+            check_aux(f"{label} {videos}-video step", [
+                {k: float(v) for k, v in step_fn(tstate, batch, 0).items()}])
         for on in (False, True):
             torch.cuda.reset_peak_memory_stats()
             with tf32(on):
@@ -4748,20 +4779,21 @@ POSEC3D_CONFIG = os.path.join(ROOT, "configs", "skeleton", "posec3d",
 def view_gflop(cfg, split="test"):
     """GFLOP of one view of ``split``'s pipeline through the recognizer of
     ``cfg`` (convolutions and matmuls, ``torch.utils.flop_counter`` on the
-    meta device: no compute)."""
+    meta device: no compute): a 3D recipe's clip, a 2D recipe's crop of
+    its sampled segments, an audio recipe's spectrogram segment."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
     from adapt_image_models_torch.apis import model_config
-    from adapt_image_models_torch.data.pipeline import build_sample_processor
+    from adapt_image_models_torch.apis.inference import sample_shape
     from adapt_image_models_torch.models import build_model
     mcfg = {k: v for k, v in model_config(cfg, split).items()
             if k not in ("test_cfg", "train_cfg")}
     model = build_model(mcfg, device="meta").eval()
-    proc = build_sample_processor(cfg["data"][split]["pipeline"])
-    h, w = proc.output_size()
+    shape = sample_shape(cfg["data"][split]["pipeline"])
     with FlopCounterMode(display=False) as counter:
-        model(torch.empty(1, 3, proc.sampler.clip_len, h, w, device="meta"))
-    return counter.get_total_flops() / 1e9
+        model(torch.empty(*shape, device="meta"))
+    views = shape[1] if mcfg["type"] == "AudioRecognizer" else 1
+    return counter.get_total_flops() / 1e9 / views
 
 
 def bnfrozen_train_step(cfg, model, seed):
@@ -4865,6 +4897,316 @@ def phase_25(card):
                        train_batches=train_batches, host_views=CNN3D_HOST_VIEWS)
     cnn3d_forwards(seed=2510)
     log(f"phase 25: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 26: the TPN neck and the rest of 2D recognition, framework ops only
+# (cuDNN convolutions and the port's BatchNormFlax), as the JAX package runs
+# no Pallas kernel there
+
+# (label, config, the backbone keys it must ship, eval timing batches in
+# videos, train timing batches, host views of the card-vs-CPU check)
+TPN_PATHS = (
+    ("TPN-SlowOnly-R50", "tpn/tpn_slowonly_r50_8x8x1_150e_kinetics_rgb.py",
+     dict(type="ResNet3dSlowOnly", depth=50, out_indices=(2, 3)), (1, 8), (8,), 3),
+    ("TPN-TSM-R50", "tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py",
+     dict(type="ResNetTSM", depth=50, num_frames=8, out_indices=(2, 3)), (8,), (8,), None),
+)
+# one forward of 2 videos each, as shipped; TRN's through its val pipeline
+# (8 segments): its test pipeline's 48 (twice_sample x ThreeCrop) meet a
+# head built for 8, which refuses them in both packages (ROADMAP queue 3);
+# TIN also takes one train step
+MORE_2D_BUILT = ("tin/tin_r50_1x1x8_40e_sthv1_rgb.py", "trn/trn_r50_1x1x8_50e_sthv1_rgb.py",
+                 "tsm/tsm_mobilenetv2_dense_1x1x8_100e_kinetics400_rgb.py",
+                 "tanet/tanet_r50_dense_1x1x8_100e_kinetics400_rgb.py",
+                 "tsn/custom_backbones/tsn_dense161_320p_1x1x3_100e_kinetics400_rgb.py")
+TRAIN_STEP_2D = MORE_2D_BUILT[0]
+
+
+def check_aux(label, history):
+    """Every logged step of a TPN recipe carries a finite aux term."""
+    import numpy as np
+    aux = [h.get("aux_loss") for h in history]
+    log(f"  {label}: aux CE terms {[None if a is None else round(a, 4) for a in aux]} "
+        "(weight 0.5, in the loss)")
+    if not aux or any(a is None or not np.isfinite(a) for a in aux):
+        raise AssertionError(f"{label}: a step lacks a finite aux term")
+
+
+def one_train_step(cfg, model, seed):
+    """One train step of ``cfg``'s recipe optimizer from ``model``'s
+    weights on seeded train clips: a finite loss and every trainable tensor
+    moved, no launch."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.core.optim import build_optimizer
+    from adapt_image_models_torch.core.train_state import TrainState, make_train_step
+    from adapt_image_models_torch.parallel import freeze_params
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    freeze_params(model)
+    opt = build_optimizer(cfg["optimizer"], model, cfg["optimizer"]["lr"])
+    step = make_train_step(model, opt)
+    videos = cfg["data"]["videos_per_gpu"]
+    imgs = torch.randn(videos, *train_sample_shape(cfg), device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(seed))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    metrics = step(TrainState(model, opt), {"imgs": imgs, "label": np.arange(videos)}, 0)
+    torch.cuda.synchronize()
+    check_no_launches("train step", ops.launch_counts(), path_cores())
+    moved = sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters())
+    log(f"  one train step of the recipe's {videos} videos of {tuple(imgs.shape[1:])}: loss "
+        f"{float(metrics['loss']):.4f} in {time.perf_counter() - t0:.2f} s (first call); "
+        f"{moved} of {len(before)} tensors moved")
+    if moved != len(before) or not np.isfinite(float(metrics["loss"])):
+        raise AssertionError("the train step left a tensor or lost the loss")
+
+
+def more_2d_forwards(seed):
+    """One forward of 2 videos of each MORE_2D_BUILT recipe as shipped (a
+    view's GFLOP beside), and TIN's train step; no launch."""
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import load_config
+    for name in MORE_2D_BUILT:
+        cfg = load_config(os.path.join(RECOGNITION_DIR, name))
+        if cfg["model"]["cls_head"]["type"] == "TRNHead":
+            cfg["data"]["test"]["pipeline"] = cfg["data"]["val"]["pipeline"]
+        bb = cfg["model"]["backbone"]
+        classes = cfg["model"]["cls_head"]["num_classes"]
+        model = cnn_model(cfg, seed)
+        x = torch.randn(2, *test_sample_shape(cfg), device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(seed))
+        ops.reset_launch_counts()  # this forward starts here
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            p = class_probs(model, x, cfg)
+        torch.cuda.synchronize()
+        log(f"phase 26: {name} ({bb['type']}, {cfg['model']['cls_head']['type']}): one "
+            f"forward of 2 videos of {tuple(x.shape[1:])} ({view_gflop(cfg):.1f} GFLOP a "
+            f"view) in {time.perf_counter() - t0:.2f} s (first call), scores "
+            f"{tuple(p.shape)}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        check_no_launches(f"{name} forward", ops.launch_counts(), path_cores())
+        if not (p.shape == (2, classes) and torch.isfinite(p).all()
+                and (p.sum(1) - 1).abs().max() < 1e-3 and not torch.equal(p[0], p[1])):
+            raise AssertionError(f"{name}: the forward is not a finite score a video")
+        if name == TRAIN_STEP_2D:
+            del x, p
+            one_train_step(cfg, model, seed)
+        del model
+        torch.cuda.empty_cache()
+
+
+def phase_26(card):
+    """The TPN neck and the rest of 2D recognition: each of TPN_PATHS
+    through drive_cnn_path with the aux term checked, then
+    more_2d_forwards."""
+    from adapt_image_models_torch.apis import load_config
+    t0 = time.perf_counter()
+    for k, (label, name, expected, batches, train_batches, host) in enumerate(TPN_PATHS):
+        cfg = load_config(os.path.join(RECOGNITION_DIR, name))
+        log(f"phase 26: {label} reckons {view_gflop(cfg):.1f} GFLOP a test view and "
+            f"{view_gflop(cfg, 'train'):.1f} a train clip (forward)")
+        drive_cnn_path(card, label, name, expected, batches, seed=2600 + k, phase=26,
+                       train_batches=train_batches, host_views=host, aux=True)
+    more_2d_forwards(seed=2610)
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 27: audio recognition, framework ops only: the wav recipe (2D
+# ResNet-50 of one input channel over log-mel spectrograms made on the host
+# from .wav files) and the feature recipe (ResNetAudio-R50 over .npy
+# log-mel features), both written by the phase
+
+AUDIO_WAV = "audio/tsn_r50_64x1x1_100e_kinetics400_audio.py"
+AUDIO_FEATURE = "audio/audioonly_r50_64x1x1_100e_kinetics400_audio_feature.py"
+# distinct files the annotation lines cycle through, their seconds at
+# 16 kHz, and the videos' frame count the lines give
+AUDIO_FILES, AUDIO_SECONDS, AUDIO_TOTAL_FRAMES = 16, 4.0, 100
+
+
+def write_audio_files(root, kind, seed):
+    """AUDIO_FILES 16-bit mono wav files (tones plus noise) or .npy
+    log-mel features of 400 x 80 under ``root``."""
+    import wave
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    names = []
+    for i in range(AUDIO_FILES):
+        if kind == "wav":
+            t = np.arange(int(AUDIO_SECONDS * 16000)) / 16000
+            y = 0.3 * np.sin(2 * np.pi * (110 + 40 * i) * t) + 0.05 * rng.standard_normal(t.size)
+            with wave.open(os.path.join(root, f"a{i}.wav"), "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(16000)
+                w.writeframes((np.clip(y, -1, 1) * 32767).astype("<i2").tobytes())
+            names.append(f"a{i}.wav")
+        else:
+            np.save(os.path.join(root, f"a{i}.npy"),
+                    rng.standard_normal((400, 80)).astype(np.float32))
+            names.append(f"a{i}")
+    return names
+
+
+def drive_audio_path(card, label, name, expected, seed, kind, eval_batches, train_steps=2):
+    """An audio recipe as shipped (400 classes) on seeded weights with
+    calibrated running statistics and a class lead, over files the phase
+    writes: init_recognizer, inference_recognizer and run_evaluation, no
+    launch; the card's fp32 against the host CPU's on one test sample;
+    train_model for ``train_steps`` steps at the recipe's videos_per_gpu
+    with the in-loop evaluation (statistics moved, the checkpoint restoring
+    them bit for bit); eval and train samples/s with peak memory, TF32 off
+    and on, and a profile of one train step."""
+    import copy
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import (
+        inference_recognizer, init_recognizer, load_config, model_config, run_evaluation,
+        train_model,
+    )
+    from adapt_image_models_torch.core.checkpoint import CheckpointManager
+    from adapt_image_models_torch.models import build_model
+    t_path = time.perf_counter()
+    cfg = load_config(os.path.join(RECOGNITION_DIR, name))
+    bb = cfg["model"]["backbone"]
+    if {k: bb.get(k) for k in expected} != expected:
+        raise AssertionError(f"unexpected {label} backbone {bb}")
+    classes, videos = cfg["model"]["cls_head"]["num_classes"], cfg["data"]["videos_per_gpu"]
+    sample = test_sample_shape(cfg)
+    log(f"phase 27: {label} reckons {view_gflop(cfg):.2f} GFLOP a test segment and "
+        f"{view_gflop(cfg, 'train'):.2f} a train one (forward); a test sample {sample} "
+        "segments x 1 x frames x mels")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_audio_files(tmp, kind, seed)
+
+        def ann(split, n, offset):
+            path = os.path.join(tmp, f"{split}.txt")
+            with open(path, "w") as f:
+                f.write("\n".join(f"{files[(offset + i) % len(files)]} {AUDIO_TOTAL_FRAMES} "
+                                  f"{(offset + i) % classes}" for i in range(n)))
+            return path
+
+        for split in ("train", "val", "test"):
+            cfg["data"][split]["data_prefix"] = tmp
+        cfg["data"]["test"]["ann_file"] = ann("test", 4, 0)
+        model = init_recognizer(cfg, device="cuda", seed=0)
+        x = torch.randn(1, *sample, device="cuda", generator=torch.Generator(
+            "cuda").manual_seed(seed))
+        calibrate_batch_norms(model, x)
+        separate_classes(model, seed)
+        ops.reset_launch_counts()  # this eval path's run starts here
+        src = os.path.join(tmp, files[0] + ("" if kind == "wav" else ".npy"))
+        top5 = inference_recognizer(model, cfg, src, total_frames=AUDIO_TOTAL_FRAMES)
+        results, scores, _ = run_evaluation(cfg, model=model, batch_size=2, num_workers=2,
+                                            return_scores=True)
+        torch.cuda.synchronize()
+        check_no_launches(f"{label} eval", ops.launch_counts(), path_cores())
+        log(f"  inference_recognizer top-5 of {files[0]}: {top5}")
+        log(f"  run_evaluation over 4 samples: {results}")
+        if scores.shape != (4, classes) or not np.isfinite(scores).all() or \
+                abs(top5[0][1] - float(scores[0].max())) > 1e-4:
+            raise AssertionError(f"bad {label} eval scores {scores.shape}")
+
+        weights = model.state_dict()
+        mcfg = {k: v for k, v in model_config(cfg).items() if k not in ("test_cfg", "train_cfg")}
+        host = build_model(mcfg, test_cfg=cfg["model"]["test_cfg"], device="cpu").eval()
+        host.load_state_dict({k: v.cpu() for k, v in weights.items()})
+        with torch.no_grad():
+            p_host, p_card = class_probs(host, x.cpu(), cfg), class_probs(model, x, cfg).cpu()
+            logits_host, logits_card = host(x.cpu()), model(x).cpu()
+        err = (p_card - p_host).abs().max().item()
+        logit_rel = ((logits_card - logits_host).abs().max() / logits_host.abs().max()).item()
+        log(f"  fp32 on the card vs fp32 on the host CPU, one test sample {tuple(x.shape)}: "
+            f"probability max_abs_err {err:.3e} (tol {CNN_CPU_ATOL}), logits max|diff| / "
+            f"max|host| {logit_rel:.3e} (tol {CNN_LOGIT_REL})")
+        if not (err < CNN_CPU_ATOL and logit_rel < CNN_LOGIT_REL):
+            raise AssertionError(f"{label}: the card's fp32 forward disagrees with the host's")
+        del host, model
+        torch.cuda.empty_cache()
+
+        tcfg = copy.deepcopy(cfg)
+        tcfg["data"]["train"]["ann_file"] = ann("train", train_steps * videos, 3)
+        tcfg["data"]["val"]["ann_file"] = ann("val", 4, 7)
+        tcfg["data"].update(workers_per_gpu=8)
+        tcfg["data"]["val_dataloader"] = dict(videos_per_gpu=4, workers_per_gpu=2)
+        tcfg.update(total_epochs=1, log_config=dict(interval=1),
+                    evaluation=dict(interval=1), checkpoint_config=dict(interval=1))
+        initial = init_recognizer(tcfg, device="cuda", seed=0).state_dict()
+        work = os.path.join(tmp, "work")
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()  # this train path's run starts here
+        state, history = train_model(tcfg, work_dir=work, seed=0, max_steps=train_steps,
+                                     validate=True, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        check_no_launches(f"{label} train", ops.launch_counts(), path_cores())
+        trained = state.model.state_dict()
+        restored = init_recognizer(tcfg, checkpoint=CheckpointManager(work).path(1),
+                                   device="cuda").state_dict()
+    stats = [k for k in trained if "running" in k]
+    stats_moved = sum(not torch.equal(trained[k], initial[k]) for k in stats)
+    same = all(torch.equal(restored[k], v) for k, v in trained.items())
+    log(f"  train_model on {name}: {state.step} steps of {videos} samples (the recipe's "
+        f"batch) and the in-loop evaluation in {train_s:.1f} s (data and build included); "
+        f"losses {[round(h['loss'], 4) for h in history]}; running statistics moved in "
+        f"{stats_moved} of {len(stats)} buffers; the checkpoint restores them bit for bit: "
+        f"{same}")
+    if (state.step != train_steps or not all(np.isfinite(h["loss"]) for h in history)
+            or stats_moved != len(stats) or not same):
+        raise AssertionError(f"{label}: train_model's running statistics wrong")
+    del state, trained, restored, initial
+    torch.cuda.empty_cache()
+
+    model = build_model(mcfg, test_cfg=cfg["model"]["test_cfg"], device="cuda").eval()
+    model.load_state_dict(weights)
+    log(f"  {label} timings on {card}")
+    for n in eval_batches:
+        xb = torch.randn(n, *sample, device="cuda")
+        for on in (False, True):
+            torch.cuda.reset_peak_memory_stats()
+            with tf32(on), torch.no_grad():
+                ms = cuda_ms(lambda: model.forward_test(xb), iters=5, warmup=2)
+            log(f"  {label} forward_test {n} samples of {sample} (TF32 "
+                f"{'on' if on else 'off'}): {ms:.2f} ms, {n / ms * 1e3:.1f} samples/s, peak "
+                f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 "
+                "after 2 warm-ups, CUDA events)")
+        del xb
+    del model
+    torch.cuda.empty_cache()
+    shape = train_sample_shape(cfg)
+    batch = {"imgs": torch.randn(videos, *shape, device="cuda"),
+             "label": np.arange(videos) % classes}
+    tstate, step_fn = train_setup(cfg, weights=weights)
+    for on in (False, True):
+        torch.cuda.reset_peak_memory_stats()
+        with tf32(on):
+            ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=2)
+        log(f"  {label} train step {videos} samples of {shape} (TF32 "
+            f"{'on' if on else 'off'}): {ms:.2f} ms, {videos / ms * 1e3:.1f} samples/s, "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+            "(median of 5 after 2 warm-ups, CUDA events)")
+    with tf32(True):
+        profile_step(step_fn, tstate, batch, f"{label} {videos}-sample (TF32 on)")
+    del tstate, step_fn, batch
+    torch.cuda.empty_cache()
+    log(f"phase 27: {label} path in {time.perf_counter() - t_path:.1f} s")
+
+
+def phase_27(card):
+    """Audio recognition: the wav recipe and the feature recipe through
+    drive_audio_path, each at its shipped batch of 320."""
+    t0 = time.perf_counter()
+    drive_audio_path(card, "TSN-R50 audio (wav)", AUDIO_WAV,
+                     dict(type="ResNet", depth=50, in_channels=1), 2700, "wav", (1, 320))
+    drive_audio_path(card, "ResNetAudio-R50 (features)", AUDIO_FEATURE,
+                     dict(type="ResNetAudio", depth=50), 2710, "feature", (1, 32))
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -5735,6 +6077,12 @@ def main():
 
     # ---- phase 25: 3D CNN recognition (I3D, SlowFast, X3D, ...) ---------------
     phase_25(card)
+
+    # ---- phase 26: the TPN neck and the rest of 2D recognition ----------------
+    phase_26(card)
+
+    # ---- phase 27: audio recognition ----------------------------------------------
+    phase_27(card)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",

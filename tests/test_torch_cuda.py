@@ -1063,3 +1063,66 @@ def test_row_passes_match_plain(cuda, rows, d):
         assert (err <= ROW_ATOL + ROW_RTOL * want.abs()).all(), (name, err.max().item())
         assert err.mean() < ROW_MEAN_TOL, (name, err.mean().item())
     assert {("aim_row_pass_design", kind, d) for kind in (0, 1)} <= K._designs_held
+
+
+# the TPN and audio paths run framework ops only (the JAX package reaches no
+# Pallas kernel there): a forward on the card, TF32 off, against the port's
+# CPU result of the same weights, with no fused op or core launched
+FRAMEWORK_PATHS = {
+    "tpn": (dict(type="Recognizer3D",
+                 backbone=dict(type="ResNet3dSlowOnly", depth=18, base_channels=16,
+                               stage_blocks=(1, 1, 1, 1), out_indices=(2, 3)),
+                 neck=dict(type="TPN", in_channels=(64, 128), out_channels=32,
+                           downsample_scales=(2, 4), mid_channels=16, fusion_channels=64,
+                           aux_head_classes=5),
+                 cls_head=dict(type="TPNHead", num_classes=5, in_channels=64)),
+            (2, 3, 8, 64, 64)),
+    "audio": (dict(type="AudioRecognizer",
+                   backbone=dict(type="ResNetAudio", depth=18, base_channels=16),
+                   cls_head=dict(type="AudioTSNHead", num_classes=5, in_channels=128)),
+              (2, 3, 1, 96, 40)),
+}
+
+
+@pytest.mark.parametrize("name", list(FRAMEWORK_PATHS))
+def test_framework_path_matches_cpu(cuda, name, monkeypatch):
+    """The eval forward and a train-mode forward (the aux logits and the
+    running statistics too) of the toy TPN-SlowOnly and audio recognizer on
+    the card against the CPU, TF32 off. The port's float64 evaluation on
+    the CPU is the arbiter: the card's fp32 gap to it, over the largest
+    magnitude (per tensor sum |diff| / sum |ref| for the statistics), at
+    most 2x the CPU's fp32 gap plus 1e-5 (a BatchNorm over few positions
+    magnifies rounding in train mode on both devices)."""
+    from adapt_image_models_torch.models import build_model
+    cfg, shape = FRAMEWORK_PATHS[name]
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    host = build_model(cfg)
+    host.init_weights(torch.Generator().manual_seed(0))
+    ref = build_model(dict(cfg, backbone=dict(cfg["backbone"], compute_dtype="float64"),
+                           **({"neck": dict(cfg["neck"], compute_dtype="float64")}
+                              if "neck" in cfg else {})))
+    ref.load_state_dict(host.state_dict())
+    ref.double()
+    card = build_model(cfg, device=cuda)
+    card.load_state_dict(host.state_dict())
+    x = torch.randn(*shape, generator=torch.Generator().manual_seed(1))
+    runs = ((ref, x.double()), (host, x), (card, x.to(cuda)))
+    ops.reset_launch_counts()
+    for mode in ("eval", "train"):
+        outs = []
+        for m, inp in runs:
+            getattr(m, mode)()
+            with torch.no_grad():
+                outs.append([m(inp).cpu().double()] + (
+                    [m.aux_logits.cpu().double()] if mode == "train" and name == "tpn" else []))
+        for want, cpu, got in zip(*outs):
+            cpu_gap = ((cpu - want).abs().max() / want.abs().max()).item()
+            gap = ((got - want).abs().max() / want.abs().max()).item()
+            assert gap <= 2 * cpu_gap + 1e-5, (name, mode, gap, cpu_gap)
+    sd = [m.state_dict() for m, _ in runs]
+    for k in (k for k in sd[0] if "running" in k):
+        want = sd[0][k].double()
+        cpu_gap, gap = (((s[k].cpu().double() - want).abs().sum() / want.abs().sum()).item()
+                        for s in sd[1:])
+        assert gap <= 2 * cpu_gap + 1e-5, (k, gap, cpu_gap)
+    assert not any(ops.launch_counts().values())

@@ -119,6 +119,26 @@ for bb, head, width, t in (
     net(torch.randn(2, 3, t, 32, 32), torch.Generator().manual_seed(1)).sum().backward()
 compute_precise_bn_stats(cnn, [{"imgs": torch.randn(2, 4, 3, 33, 33)}],
                          prepare_fn=torch.as_tensor)
+import adapt_image_models_torch.data.audio  # noqa: F401
+for cfg_, x in (
+        (dict(type="Recognizer3D",
+              backbone=dict(type="ResNet3dSlowOnly", depth=18, base_channels=16,
+                            stage_blocks=(1, 1, 1, 1), out_indices=(2, 3)),
+              neck=dict(type="TPN", in_channels=(64, 128), out_channels=32, mid_channels=16,
+                        fusion_channels=64, downsample_scales=(2, 4), aux_head_classes=3),
+              cls_head=dict(type="TPNHead", num_classes=3, in_channels=64)),
+         torch.randn(2, 3, 8, 32, 32)),
+        (dict(type="Recognizer2D", backbone=dict(type="ResNetTIN", depth=18, num_segments=4),
+              cls_head=dict(type="TRNHead", num_classes=3, in_channels=512, num_segments=4)),
+         torch.randn(2, 4, 3, 32, 32)),
+        (dict(type="AudioRecognizer", backbone=dict(type="ResNetAudio", depth=18,
+                                                    base_channels=8),
+              cls_head=dict(type="AudioTSNHead", num_classes=3, in_channels=64)),
+         torch.randn(2, 2, 1, 32, 16))):
+    net = build_model(cfg_)
+    net.init_weights(torch.Generator().manual_seed(0))
+    net.train()
+    net(x, torch.Generator().manual_seed(1)).sum().backward()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN_MODULES", bad)
 """ % (FORBIDDEN,)
@@ -162,7 +182,13 @@ def test_port_sources_import_no_jax_package():
             "adapt_image_models_torch/models/backbones/slowfast.py",
             "adapt_image_models_torch/models/backbones/mobilenet.py",
             "adapt_image_models_torch/models/common.py",
-            "adapt_image_models_torch/utils/precise_bn.py"} <= names
+            "adapt_image_models_torch/utils/precise_bn.py",
+            "adapt_image_models_torch/models/necks/tpn.py",
+            "adapt_image_models_torch/models/heads/trn_head.py",
+            "adapt_image_models_torch/models/backbones/resnet_tin.py",
+            "adapt_image_models_torch/models/backbones/densenet.py",
+            "adapt_image_models_torch/models/recognizers/audio_recognizer.py",
+            "adapt_image_models_torch/data/audio.py"} <= names
     bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {f: b for f, b in bad.items() if b}

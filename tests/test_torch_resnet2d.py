@@ -570,21 +570,30 @@ def test_recipe_keys_and_shapes_match_jax(name):
 
 def test_backbone_sources():
     """torchvision / timm / mmcls types resolve to the port's backbones,
-    the config's keys over the table's; an unported target raises the
-    registry's KeyError, pretrained=True a ValueError."""
+    the config's keys over the table's (``torchvision.densenet161`` to the
+    2208-channel DenseNet trunk); an unknown name raises KeyError,
+    pretrained=True a ValueError; a recognizer with the TPN neck builds and
+    runs."""
     assert resolve_backbone_source(dict(type="torchvision.resnet50", depth=18)) == dict(
         type="ResNet", depth=18)
     assert resolve_backbone_source(dict(type="mmcls.ResNeXt", depth=101))["type"] == "ResNeXt"
     assert build_backbone(dict(type="torchvision.resnext50_32x4d"), device="meta").conv1.weight.shape == (64, 3, 7, 7)
     swin = resolve_backbone_source(dict(type="timm.swin_base_patch4_window7_224"))
     assert swin["type"] == "SwinTransformer2D" and swin["embed_dim"] == 128
-    with pytest.raises(KeyError):
-        build_backbone(dict(type="torchvision.densenet161"))
+    dense = build_backbone(dict(type="torchvision.densenet161"), device="meta")
+    assert dense.conv0.weight.shape == (96, 3, 7, 7) and dense.norm5.weight.shape == (2208,)
     with pytest.raises(KeyError):
         resolve_backbone_source(dict(type="timm.vit_base_patch16_224"))
     with pytest.raises(ValueError):
         resolve_backbone_source(dict(type="torchvision.resnet50", pretrained=True))
-    with pytest.raises(NotImplementedError):
-        build_model(dict(type="Recognizer2D", backbone=dict(type="ResNet", depth=18),
-                         cls_head=dict(type="TSNHead", num_classes=2, in_channels=512),
-                         neck=dict(type="TPN")))
+    tpn = build_model(dict(type="Recognizer2D",
+                           backbone=dict(type="ResNetTSM", depth=18, num_frames=4,
+                                         stage_blocks=(1, 1, 1, 1), base_channels=16,
+                                         out_indices=(2, 3)),
+                           cls_head=dict(type="TPNHead", num_classes=2, in_channels=64),
+                           neck=dict(type="TPN", in_channels=(64, 128), out_channels=32,
+                                     downsample_scales=(2, 2), mid_channels=16,
+                                     fusion_channels=64, aux_head_classes=2))).eval()
+    with torch.no_grad():
+        logits = tpn(torch.randn(2, 4, 3, 32, 32, generator=torch.Generator().manual_seed(0)))
+    assert logits.shape == (2, 2) and bool(torch.isfinite(logits).all())
