@@ -62,14 +62,19 @@ def model_config(cfg: Dict[str, Any], split: str = "test") -> Dict[str, Any]:
     * a ``Recognizer3D``'s 3D CNN (``CNN3D_BACKBONES``) gets axis 1, which
       is 3 for every NCTHW recipe, whatever ``in_channels`` the config
       sets (the flow recipes' 2, as JAX's init dummy); C3D also gets its
-      ``clip_size``, the sample's (T, H, W), which fixes ``fc6``'s width."""
+      ``clip_size``, the sample's (T, H, W), which fixes ``fc6``'s width.
+
+    An OmniSource recipe's list of train datasets is read at its first, the
+    main source (JAX ``apis/train.py:79-85``)."""
     model_cfg = dict(cfg["model"])
     rtype, btype = model_cfg.get("type"), model_cfg.get("backbone", {}).get("type")
     if rtype not in ("Recognizer2D", "AudioRecognizer") and not (
             rtype == "Recognizer3D" and btype in CNN3D_BACKBONES):
         return model_cfg
-    pipeline = cfg["data"][split]["pipeline"]
-    shape = sample_shape(pipeline)
+    data = cfg["data"][split]
+    if isinstance(data, (list, tuple)):  # OmniSource: the main source's
+        data = data[0]
+    shape = sample_shape(data["pipeline"])
     if rtype in ("Recognizer2D", "AudioRecognizer"):
         sizes = {"in_channels": shape[2]}
     else:

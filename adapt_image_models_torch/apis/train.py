@@ -46,7 +46,24 @@ float (B, S, 1, T, F) spectrogram segments of its pipeline's
 ``AudioSampleProcessor``, which only move to the device (layout
 ``NCTF``); the JAX package's ``train_model`` reads video recipes only.
 
-Not ported yet: OmniSource multi-dataset training (ROADMAP queue 1).
+An OmniSource recipe (``data.train`` a list of datasets, JAX
+``apis/train.py:79-146``) trains on a ``RoundRobinLoader`` over a loader a
+source: the first source batches ``videos_per_gpu``, source i
+``omni_videos_per_gpu[i]`` (each divided by ``update_interval``, with
+JAX's error where it does not divide), and ``train_ratio`` sets how many
+batches each source gives a cycle. Every source is sharded by rank, and
+its equal-shard check runs on its own. Every source's batches go through
+the main source's prepare, as in JAX (a source whose normalisation or
+layout differs is refused with a ``ValueError``), and the train step takes
+the sources' batches in turn as they come (TSN's 8 segments a video and
+64 web images a batch, SlowOnly's 8-frame clips and pseudo-clips), with
+no padding; the blending runs on each batch. The log line of a step names
+its source and batch shape.
+
+A PoseC3D recipe (``UniformSampleFrames``) is refused with JAX's
+``ValueError`` (``build_sample_processor``), as JAX's ``train_model``
+refuses it: the pose stage runs through ``PoseDataset`` and the loader
+(``data/pose_dataset.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -67,7 +84,7 @@ from adapt_image_models_torch.core.schedule import build_schedule
 from adapt_image_models_torch.core.train_state import TrainState, make_train_step
 from adapt_image_models_torch.data.blending import build_blending
 from adapt_image_models_torch.data.datasets import build_dataset
-from adapt_image_models_torch.data.loader import VideoLoader
+from adapt_image_models_torch.data.loader import RoundRobinLoader, VideoLoader
 from adapt_image_models_torch.data.pipeline import build_sample_processor
 from adapt_image_models_torch.data.transforms import (
     CLIP_MEAN, CLIP_STD, layout_from_pipeline, make_prepare_fn,
@@ -122,31 +139,54 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     freeze_prefixes(model, frozen_stage_prefixes(backbone_cfg))
 
     data_cfg = cfg["data"]
-    if isinstance(data_cfg["train"], (list, tuple)):
-        raise NotImplementedError("OmniSource multi-dataset training is not ported yet")
-    train_ds_cfg = dict(data_cfg["train"])
-    pipeline = train_ds_cfg.pop("pipeline")
-    dataset = build_dataset({**train_ds_cfg, "pipeline": pipeline})
     opt_config = cfg.get("optimizer_config") or {}
     update_interval = int(opt_config.get("update_interval", 1))
     videos = int(data_cfg.get("videos_per_gpu", 8))
     if videos % update_interval:
         raise ValueError("videos_per_gpu must be divisible by update_interval")
-    loader = VideoLoader(dataset, build_sample_processor(pipeline),
-                         batch_size=videos // update_interval, shuffle=True,
-                         seed=seed, num_workers=int(data_cfg.get("workers_per_gpu", 4)),
-                         drop_last=True, num_shards=world, shard_index=rank)
-    if world > 1:
-        # the step averages the ranks' means: right for equal shards alone
-        shards = all_gather_rows(torch.tensor([[len(loader), loader.batch_size]],
-                                              device=device))
-        if not bool((shards == shards[0]).all()):
-            raise ValueError(f"the global micro-batch does not split evenly over {world} "
-                             f"ranks: (steps, rows) a rank {shards.tolist()}")
-    mean, std = _norm_cfg(pipeline)
+    train_cfgs = data_cfg["train"]
+    omni = isinstance(train_cfgs, (list, tuple))
+    # OmniSource: the first source is the main one, the others alternate
+    # with it; source i batches omni_videos_per_gpu[i] a rank
+    omni_videos = data_cfg.get("omni_videos_per_gpu") if omni else None
+    loaders = []
+    for i, ds_cfg in enumerate(train_cfgs if omni else [train_cfgs]):
+        ds_cfg = dict(ds_cfg)
+        pipeline = ds_cfg.pop("pipeline")
+        # every source's batches go through the main source's prepare, as
+        # in JAX: a source laid out or normalised otherwise is refused
+        form = (_norm_cfg(pipeline), layout_from_pipeline(pipeline))
+        if not i:
+            main_pipeline, main_form = pipeline, form
+        elif form != main_form:
+            raise ValueError(f"OmniSource source {i} has (mean, std) {form[0]} and layout "
+                             f"{form[1]}; the main source {main_form[0]} and {main_form[1]}")
+        dataset = build_dataset({**ds_cfg, "pipeline": pipeline})
+        batch = videos
+        if i and omni_videos:
+            batch = int(omni_videos[i])
+            if batch % update_interval:
+                raise ValueError(f"omni_videos_per_gpu[{i}]={batch} must be divisible "
+                                 f"by update_interval={update_interval}")
+        loader = VideoLoader(dataset, build_sample_processor(pipeline),
+                             batch_size=batch // update_interval, shuffle=True, seed=seed,
+                             num_workers=int(data_cfg.get("workers_per_gpu", 4)),
+                             drop_last=True, num_shards=world, shard_index=rank)
+        if world > 1:
+            # the step averages the ranks' means: right for equal shards alone
+            shards = all_gather_rows(torch.tensor([[len(loader), loader.batch_size]],
+                                                  device=device))
+            if not bool((shards == shards[0]).all()):
+                raise ValueError(f"the global micro-batch{f' of source {i}' if omni else ''} "
+                                 f"does not split evenly over {world} ranks: (steps, rows) "
+                                 f"a rank {shards.tolist()}")
+        loaders.append(loader)
+    loader = (RoundRobinLoader(loaders, ratios=data_cfg.get("train_ratio")) if omni
+              else loaders[0])
+    mean, std = main_form[0]
     prepare = make_prepare_fn(mean or CLIP_MEAN, std or CLIP_STD,
                               dtype=resolve_dtype(backbone_cfg.get("compute_dtype")),
-                              layout=layout_from_pipeline(pipeline), device=device)
+                              layout=main_form[1], device=device)
 
     steps_per_epoch = max(1, len(loader) // update_interval)
     total_epochs = int(cfg.get("total_epochs", 1))
@@ -233,12 +273,16 @@ def _train_loop(cfg, state, train_step, loader, ckpt_mgr, start_epoch,
                 return history
             if (i + 1) % log_interval == 0 or i + 1 == len(loader):
                 m = {k: float(v) for k, v in metrics.items()}
+                # an OmniSource step names its source and batch shape
+                src = ({"source": batch["source"], "shape": tuple(batch["imgs"].shape)}
+                       if "source" in batch else {})
                 logger.info(
                     f"Epoch [{epoch + 1}][{i + 1}/{len(loader)}] "
-                    f"lr: {state.optimizer.lr():.3e} loss: {m['loss']:.4f} "
+                    + "".join(f"{k}: {v} " for k, v in src.items())
+                    + f"lr: {state.optimizer.lr():.3e} loss: {m['loss']:.4f} "
                     f"top1: {m['top1_acc']:.4f} top5: {m['top5_acc']:.4f} "
                     f"clips/s: {n_clips / max(time.time() - t0, 1e-9):.1f}")
-                history.append({"epoch": epoch, "iter": i + 1, **m})
+                history.append({"epoch": epoch, "iter": i + 1, **src, **m})
             if max_steps and global_step >= max_steps:
                 break
         if (epoch + 1) % ckpt_interval == 0 or epoch + 1 == total_epochs:

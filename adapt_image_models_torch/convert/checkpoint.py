@@ -34,6 +34,12 @@ the 2D backbones keep their JAX names (``aux_conv``, ``spatial0_0_bn``,
 ``g_fc1`` ...; DenseNet's ``denseblock{i}_layer{j}``); their 1-D conv
 kernels (K, I, O) go to (O, I, K), a depthwise 2D one's (kH, kW, 1, O) to
 (O, 1, kH, kW).
+The localizers: BMN's, TEM's and PEM's layers sit at the root of their
+trees and keep their names (``base_conv1``, ``p_conv3d``, ``fc1``, ...);
+their grouped 1-D conv kernels (K, I / groups, O) go to (O, I / groups, K),
+BMN's sample-axis Conv3D and 2D kernels as any; SSN's ``backbone_mod`` /
+``head_mod`` become ``backbone`` / ``cls_head`` (the head's
+``activity_fc``, ``completeness_fc``, ``regressor_fc``).
 Given the whole flax ``variables`` (``params`` and ``batch_stats``), the
 BatchNorm statistics ``mean`` / ``var`` become the buffers
 ``running_mean`` / ``running_var``. It is the inverse of
@@ -67,7 +73,15 @@ from typing import Any, Dict, Mapping, Tuple, Union
 import numpy as np
 import torch
 
-_ROOTS = {"backbone_module": "backbone", "neck_module": "neck", "head_module": "cls_head"}
+_ROOTS = {"backbone_module": "backbone", "neck_module": "neck", "head_module": "cls_head",
+          # SSN's submodules
+          "backbone_mod": "backbone", "head_mod": "cls_head"}
+# the localizers' own layers, at the root of their trees (BMN, TEM, PEM):
+# the port's modules carry the same names
+LOCALIZER_LAYERS = frozenset(
+    ["base_conv1", "base_conv2", "start_conv1", "start_conv2", "end_conv1", "end_conv2",
+     "p_conv1", "p_conv3d", "p_conv2d_1", "p_conv2d_2", "p_conv2d_3", "p_conv2d_4",
+     "conv1", "conv2", "conv3", "fc1", "fc2"])
 # the ``nn.scan`` stacks whose leading axis is the layer: CLIP's blocks, and
 # ViT_ImageNet's timm-named ``blocks``
 SCAN_STACKS = (("transformer", "resblocks"), ("blocks",))
@@ -148,6 +162,10 @@ def params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     sd = {}
     for path, arr in _flatten(params):
         root, *rest = path
+        if root in LOCALIZER_LAYERS:
+            names, leaf = _leaf(path, arr)
+            sd[".".join(names)] = torch.tensor(leaf)
+            continue
         if root not in _ROOTS:
             raise KeyError(f"unexpected param root {root!r}")
         rest = tuple(rest)

@@ -1,6 +1,7 @@
 """Evaluation metrics of ``dataset.evaluate`` (parity: the numpy half of
 ``adapt_image_models_tpu/core/metrics.py``; reference
-``mmaction/core/evaluation/accuracy.py``)."""
+``mmaction/core/evaluation/accuracy.py``): the classification metrics and
+the temporal proposals' tIoU matrix and AR@AN (``:107-183``)."""
 
 from __future__ import annotations
 
@@ -92,3 +93,84 @@ def mean_average_precision(scores: np.ndarray, labels_onehot: np.ndarray,
     if not aps:
         return float("nan")
     return float(np.mean(aps))
+
+
+# numpy 2 renamed trapz
+_trapezoid = getattr(np, "trapezoid", None) or getattr(np, "trapz")
+
+
+def pairwise_temporal_iou(candidates: np.ndarray, gts: np.ndarray,
+                          calculate_overlap_self: bool = False):
+    """(N, 2) x (M, 2) -> (M, N) tIoU matrix (reference ``accuracy.py:218+``).
+
+    With ``calculate_overlap_self`` also returns the (M, N)
+    intersection / candidate_length ratio (reference's flag; consumed by
+    the SSN proposal-format converter)."""
+    candidates = np.asarray(candidates, np.float64)
+    gts = np.asarray(gts, np.float64)
+    c0, c1 = candidates[:, 0], candidates[:, 1]
+    out = np.empty((len(gts), len(candidates)))
+    self_out = np.empty_like(out) if calculate_overlap_self else None
+    for i, (g0, g1) in enumerate(gts):
+        inter = np.maximum(0, np.minimum(c1, g1) - np.maximum(c0, g0))
+        union = (c1 - c0) + (g1 - g0) - inter
+        out[i] = np.where(union > 0, inter / np.maximum(union, 1e-10), 0)
+        if calculate_overlap_self:
+            self_out[i] = inter / np.maximum(c1 - c0, 1e-10)
+    if calculate_overlap_self:
+        return out, self_out
+    return out
+
+
+def average_recall_at_avg_proposals(ground_truth: dict, proposals: dict,
+                                    total_num_proposals: int,
+                                    max_avg_proposals: int = 100,
+                                    temporal_iou_thresholds=None):
+    """AR@AN proposal metric (reference ``accuracy.py:265-388``).
+
+    ground_truth / proposals: {video_id: (N, 2) [+score col for proposals]}.
+    Returns (recall_matrix, average_recall, proposals_per_video, auc).
+    """
+    if temporal_iou_thresholds is None:
+        temporal_iou_thresholds = np.linspace(0.5, 0.95, 10)
+    tio = np.asarray(temporal_iou_thresholds)
+    video_ids = list(ground_truth.keys())
+    num_videos = len(video_ids)
+    ratio = (max_avg_proposals * num_videos
+             / max(total_num_proposals, 1))
+
+    score_matrices = []
+    gt_counts = []
+    for vid in video_ids:
+        gts = np.asarray(ground_truth[vid]).reshape(-1, 2)
+        props = proposals.get(vid, np.zeros((0, 3)))
+        props = np.asarray(props)
+        if props.size == 0:
+            score_matrices.append(np.zeros((len(gts), 0)))
+            gt_counts.append(len(gts))
+            continue
+        if props.shape[1] >= 3:  # sort by score
+            props = props[np.argsort(-props[:, 2])]
+        n_keep = int(props.shape[0] * ratio) if ratio < 1 else props.shape[0]
+        n_keep = max(n_keep, 1)
+        score_matrices.append(pairwise_temporal_iou(props[:n_keep, :2], gts))
+        gt_counts.append(len(gts))
+
+    total_gts = max(sum(gt_counts), 1)
+    pcn_list = np.arange(1, 101) / 100.0 * (max_avg_proposals * ratio
+                                            if ratio < 1 else max_avg_proposals)
+    recall = np.zeros((len(tio), 100))
+    proposals_per_video = np.arange(1, 101) / 100.0 * max_avg_proposals
+    for ti, thr in enumerate(tio):
+        for pi in range(100):
+            matched = 0
+            for sm in score_matrices:
+                if sm.shape[1] == 0:
+                    continue
+                n = max(1, int(np.ceil(pcn_list[pi])))
+                n = min(n, sm.shape[1])
+                matched += int(((sm[:, :n] > thr).any(axis=1)).sum())
+            recall[ti, pi] = matched / total_gts
+    avg_recall = recall.mean(axis=0)
+    auc = 100.0 * _trapezoid(avg_recall, proposals_per_video) / max_avg_proposals
+    return recall, avg_recall, proposals_per_video, auc

@@ -20,6 +20,10 @@ chain becomes:
 torch's AdamW decays ``p *= 1 - lr * wd`` before the Adam step, optax adds
 ``wd * p`` to the Adam direction; both subtract ``lr * (adam + wd * p)``.
 
+The localization recipes' ``Adam`` (BMN, TEM, PEM) is torch's, whose
+``weight_decay`` joins the gradient (an L2 term, as the reference's
+``torch.optim.Adam``); the JAX package's ``build_optimizer`` has no Adam.
+
 The CNN recipes' ``SGD`` (and ``CopyOfSGD``, its alias) is the JAX chain
 ``add_decayed_weights`` then ``optax.sgd(momentum, nesterov)``: the decay
 joins the gradient before the momentum trace, which is torch's SGD with
@@ -74,7 +78,7 @@ def param_settings(name: str, paramwise_cfg: Optional[dict]) -> Tuple[bool, floa
 
 
 class Optimizer:
-    """AdamW or SGD over named parameters, with the schedule, global-norm
+    """AdamW, Adam or SGD over named parameters, with the schedule, global-norm
     clipping and micro-batch accumulation applied around ``torch.optim``.
     Call ``update(grads)`` once per micro-batch with the gradients of
     ``params`` (in order); it returns True when it stepped."""
@@ -84,9 +88,9 @@ class Optimizer:
                  grad_clip: Optional[float] = None, update_interval: int = 1):
         cfg = dict(optimizer_cfg)
         opt_type = cfg.pop("type", "AdamW")
-        if opt_type not in ("AdamW", "SGD", "CopyOfSGD"):
+        if opt_type not in ("AdamW", "Adam", "SGD", "CopyOfSGD"):
             raise KeyError(f"unsupported optimizer type {opt_type} (the port has "
-                           "AdamW and SGD)")
+                           "AdamW, Adam and SGD)")
         cfg.pop("constructor", None)
         paramwise = cfg.pop("paramwise_cfg", None)
         weight_decay = cfg.pop("weight_decay", 0.0)
@@ -106,10 +110,11 @@ class Optimizer:
                 "weight_decay": weight_decay if decays else 0.0})
             group["params"].append(p)
             group["names"].append(name)
-        if opt_type == "AdamW":
-            self.torch = torch.optim.AdamW(list(groups.values()), lr=0.0,
-                                           betas=tuple(cfg.pop("betas", (0.9, 0.999))),
-                                           eps=cfg.pop("eps", 1e-8))
+        if opt_type in ("AdamW", "Adam"):
+            adam = torch.optim.AdamW if opt_type == "AdamW" else torch.optim.Adam
+            self.torch = adam(list(groups.values()), lr=0.0,
+                              betas=tuple(cfg.pop("betas", (0.9, 0.999))),
+                              eps=cfg.pop("eps", 1e-8))
         else:
             self.torch = torch.optim.SGD(list(groups.values()), lr=0.0,
                                          momentum=cfg.pop("momentum", 0.9),

@@ -123,7 +123,8 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
 
     ``batch``: {'imgs': (B, V, T, H, W, C) uint8 (``prepare_fn`` lays it
     out on the device) or prepared (B[, V], C, T, H, W), 'label': (B,) int
-    or (B, C) soft}. Views fold into the batch. ``blending`` (imgs, labels,
+    or (B, C) soft}. Batches of any shape follow each other (OmniSource's
+    sources). Views fold into the batch. ``blending`` (imgs, labels,
     generator) -> (imgs, soft targets) (``data.blending.build_blending``)
     runs before the forward, over the global batch (``blend_global``); the
     accuracies use the hard labels. ``loss_fn`` (logits, targets) defaults

@@ -3,7 +3,12 @@
 (``sampling``), decoding (``video_reader``, ``cpp_decoder``), the
 geometric and RandAugment transforms (``transforms_host``,
 ``randaugment``), the pipeline compiler (``pipeline``), the loader
-(``loader``), the datasets (``datasets``) and the audio stage (``audio``). The device stage: the
+(``loader``), the datasets (``datasets``), the audio stage (``audio``),
+the PoseC3D stage (``pose``, ``pose_dataset``) and the localization
+datasets (``activitynet``, ``ssn_dataset``). The device stage: the
 normalise-and-layout prepare (``transforms``; an audio recipe's float
 segments only move to the device) and batch blending
 (``blending``)."""
+
+# the datasets of their own modules join DATASETS when the package loads
+from adapt_image_models_torch.data import activitynet, pose_dataset, ssn_dataset  # noqa: E402,F401

@@ -38,7 +38,10 @@ def _load_lib():
     path = os.environ.get("AIM_DECODE_LIB", _lib_path())
     if not os.path.exists(path):
         return None
-    lib = ctypes.CDLL(path)
+    try:
+        lib = ctypes.CDLL(path)
+    except OSError:  # built on a machine with other FFmpeg libraries
+        return None
     lib.aim_open.restype = ctypes.c_void_p
     lib.aim_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
     lib.aim_num_frames.restype = ctypes.c_long

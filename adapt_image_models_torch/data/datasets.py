@@ -1,6 +1,8 @@
 """Datasets: annotation parsing + evaluation (parity:
-``adapt_image_models_tpu/data/datasets.py``: the video and rawframe types
-and the audio ones, ``:136-310``; the others are in ROADMAP queue 1).
+``adapt_image_models_tpu/data/datasets.py``: the video, rawframe and audio
+types, ``:136-310``, and OmniSource's ``ImageDataset``, ``RawVideoDataset``
+and ``RepeatDataset``, ``:330-430``; ``PoseDataset``, ``ActivityNetDataset``
+and ``SSNDataset`` are in their own modules).
 
 Parity targets:
 * ``VideoDataset`` (``mmaction/datasets/video_dataset.py``): txt lines of
@@ -302,3 +304,117 @@ class AudioVisualDataset(RawframeDataset):
                                total_frames=info["total_frames"],
                                start_index=info.get("start_index", 0))
         return {"imgs": clips, "audios": audios, "label": label}
+
+
+@DATASETS.register_module()
+class ImageDataset(VideoDataset):
+    """``<image path> <label...>`` lines; an image is a 1-frame video
+    (reference ``image_dataset.py:6``, the OmniSource web-image sources),
+    which the recipes sample with ``clip_len=1`` (TSN: every segment the
+    same image) or repeat with ``BuildPseudoClip`` (SlowOnly)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, start_index=kw.pop("start_index", 0), **kw)
+
+    def load_annotations(self):
+        infos = super().load_annotations()
+        for info in infos:
+            info["total_frames"] = 1
+        return infos
+
+
+@DATASETS.register_module()
+class RawVideoDataset(BaseVideoDataset):
+    """``<video dir> <label> <num clips> <positive clip ids...>`` lines over
+    pre-trimmed clip files (reference ``rawvideo_dataset.py:12``, the
+    OmniSource raw-video source). A sample is one clip file of the entry:
+    ``'positive'`` draws among the labelled clips (all clips where none
+    is), ``'random'`` among all. ``prepare_sample`` draws the clip from the
+    loader's generator and then runs the pipeline on it with the same
+    generator, so a sample is reproducible from (seed, epoch, index); the
+    JAX package's loader resolves the clip with an unseeded generator
+    (its ``__getitem__``). Here ``__getitem__`` is the entry's info, as in
+    the other datasets."""
+
+    def __init__(self, ann_file, pipeline=None, clipname_tmpl: str = "part_{}.mp4",
+                 sampling_strategy: str = "positive", **kw):
+        if sampling_strategy not in ("positive", "random"):
+            raise ValueError(f"sampling_strategy {sampling_strategy!r}: expected "
+                             "'positive' or 'random'")
+        if kw.get("multi_class", False):
+            raise ValueError("RawVideoDataset supports single-label only")
+        self.clipname_tmpl = clipname_tmpl
+        self.sampling_strategy = sampling_strategy
+        super().__init__(ann_file, pipeline=pipeline, **kw)
+        self._processor = None
+
+    def load_annotations(self):
+        infos = []
+        with open(self.ann_file) as f:
+            for line in f:
+                parts = line.strip().split()
+                if not parts:
+                    continue
+                video_dir = parts[0]
+                if self.data_prefix:
+                    video_dir = osp.join(self.data_prefix, video_dir)
+                infos.append(dict(video_dir=video_dir, label=int(parts[1]),
+                                  num_clips=int(parts[2]),
+                                  positive_clip_inds=[int(x) for x in parts[3:]],
+                                  start_index=self.start_index))
+        return infos
+
+    def sample_clip(self, idx: int, rng: np.random.Generator) -> Dict[str, Any]:
+        """The entry's clip file drawn from ``rng``: {filename, label,
+        start_index}."""
+        info = self.video_infos[idx]
+        if self.sampling_strategy == "positive" and info["positive_clip_inds"]:
+            ind = int(rng.choice(info["positive_clip_inds"]))
+        else:
+            ind = int(rng.integers(info["num_clips"]))
+        return dict(filename=osp.join(info["video_dir"], self.clipname_tmpl.format(ind)),
+                    label=info["label"], start_index=info["start_index"])
+
+    def prepare_sample(self, idx: int, rng: np.random.Generator) -> Dict[str, Any]:
+        from adapt_image_models_torch.data.pipeline import build_sample_processor
+        if self._processor is None:
+            self._processor = build_sample_processor(self.pipeline)
+        clip = self.sample_clip(idx, rng)
+        clips, label = self._processor(clip["filename"], clip["label"], rng=rng,
+                                       start_index=clip["start_index"])
+        return {"imgs": clips, "label": label}
+
+
+@DATASETS.register_module()
+class RepeatDataset:
+    """A dataset repeated ``times`` over (reference ``dataset_wrappers.py:5``;
+    ``dict(type='RepeatDataset', dataset=<dataset cfg>, times=N)``): index
+    i is the inner dataset's ``i % len``, for ``__getitem__`` and for the
+    loader's ``prepare_sample`` alike. Everything else (``evaluate``,
+    ``labels``, ``pipeline``, ...) is the inner dataset's."""
+
+    def __init__(self, dataset, times: int):
+        if isinstance(dataset, dict):
+            dataset = build_dataset(dataset)
+        self.dataset = dataset
+        self.times = times
+        self._ori_len = len(dataset)
+
+    def __getattr__(self, name):
+        if name in ("dataset", "_ori_len"):  # not set yet (copy, unpickling)
+            raise AttributeError(name)
+        attr = getattr(self.dataset, name)
+        if name == "prepare_sample":
+            ori = self._ori_len
+
+            def prepare_sample(idx, rng=None):
+                return attr(idx % ori, rng)
+
+            return prepare_sample
+        return attr
+
+    def __getitem__(self, idx):
+        return self.dataset[idx % self._ori_len]
+
+    def __len__(self):
+        return self.times * self._ori_len

@@ -8,14 +8,18 @@ Replaces torch ``DataLoader`` + ``DistributedSampler`` + ``collate``
   determinism contract as the reference's epoch-seeded DistributedSampler
 * a thread pool decoding/transforming samples into fixed-shape uint8 arrays
   (an audio recipe's processor: float32 spectrogram segments; a dataset
-  with its own ``prepare_sample``, ``AudioVisualDataset``: whatever that
-  returns)
+  with its own ``prepare_sample``, ``AudioVisualDataset``, ``PoseDataset``,
+  ``RawVideoDataset``, ``ActivityNetDataset``: whatever that returns; a
+  string or list value is kept as a list of the samples' values)
 * prefetch: up to ``prefetch`` host batches are assembled while the
   previous step computes; the device stage (``transforms.make_prepare_fn``)
   moves each batch to the model's device
 
 Per-sample rng is derived from (seed, epoch, index) so any sample is
 reproducible in isolation regardless of worker scheduling.
+
+``RoundRobinLoader`` alternates OmniSource's sources, a ``VideoLoader``
+each (JAX ``loader.py:29-68``).
 """
 
 from __future__ import annotations
@@ -31,6 +35,88 @@ from adapt_image_models_torch.data.audio import AudioSampleProcessor
 from adapt_image_models_torch.data.pipeline import SampleProcessor, build_sample_processor
 
 
+class RoundRobinLoader:
+    """OmniSource's alternation over several loaders (reference
+    ``mmaction/core/runner/omnisource_runner.py``): each cycle takes
+    ``ratios[0]`` batches of the main loader, then ``ratios[i]`` of each
+    auxiliary loader i in turn (the recipes' ``data.train_ratio``, e.g.
+    ``[2, 1, 1, 1]``); the main loader's batches drive the epoch. Each
+    batch carries its loader's index as ``batch['source']``.
+
+    An auxiliary loader that runs out starts its next epoch
+    (``set_epoch(epoch + 1)``) and is iterated again, so its samples are
+    drawn and augmented afresh and no yielded batch is kept. ``set_epoch``
+    never moves an auxiliary loader back onto an epoch it has served: it
+    goes on from ``max(epoch, its last epoch + 1)``, so no (epoch, index)
+    sample of it repeats across outer epochs. Over its first pass the
+    sequence of sources and samples is the JAX loader's, whose
+    ``itertools.cycle`` (``loader.py:59``) keeps every batch of that pass
+    and replays them, augmentations included, from then on (ROADMAP queue
+    3)."""
+
+    def __init__(self, loaders, ratios=None):
+        if not loaders:
+            raise ValueError("need at least one loader")
+        self.loaders = list(loaders)
+        self.ratios = [int(r) for r in ratios] if ratios else [1] * len(loaders)
+        if len(self.ratios) != len(self.loaders) or min(self.ratios) < 1:
+            raise ValueError(f"train_ratio {ratios} does not match "
+                             f"{len(self.loaders)} sources")
+        # the last epoch each auxiliary loader was iterated at
+        self._served = [None] * len(self.loaders)
+
+    def set_epoch(self, epoch: int):
+        self.loaders[0].set_epoch(epoch)
+        for loader, served in zip(self.loaders[1:], self._served[1:]):
+            loader.set_epoch(epoch if served is None else max(epoch, served + 1))
+
+    def _iter_aux(self, i):
+        self._served[i] = self.loaders[i].epoch
+        return iter(self.loaders[i])
+
+    def __len__(self):
+        # the main loader's batches drive the epoch: each group of
+        # ratios[0] of them is followed by sum(ratios[1:]) auxiliary ones
+        n_main = len(self.loaders[0])
+        return n_main + n_main // self.ratios[0] * sum(self.ratios[1:])
+
+    def _next_aux(self, iters, i):
+        try:
+            return next(iters[i])
+        except StopIteration:
+            self.loaders[i].set_epoch(self.loaders[i].epoch + 1)
+            iters[i] = self._iter_aux(i)
+        try:
+            return next(iters[i])
+        except StopIteration:
+            raise ValueError(f"OmniSource source {i} yields no batch") from None
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        iters = [iter(self.loaders[0])] + [self._iter_aux(i)
+                                           for i in range(1, len(self.loaders))]
+        while True:
+            for _ in range(self.ratios[0]):
+                try:
+                    yield {**next(iters[0]), "source": 0}
+                except StopIteration:
+                    return
+            for i in range(1, len(self.loaders)):
+                for _ in range(self.ratios[i]):
+                    yield {**self._next_aux(iters, i), "source": i}
+
+
+def collate(samples) -> Dict[str, Any]:
+    """Samples -> one batch: each value stacked, a string or list value
+    (ActivityNet's gt_bbox) kept as the list of the samples' values."""
+    batch = {}
+    for k, v0 in samples[0].items():
+        if isinstance(v0, (str, list)):
+            batch[k] = [s[k] for s in samples]
+        else:
+            batch[k] = np.stack([np.asarray(s[k]) for s in samples])
+    return batch
+
+
 class VideoLoader:
     def __init__(self, dataset, pipeline, batch_size: int,
                  *, shuffle: bool = False, seed: int = 0,
@@ -40,7 +126,8 @@ class VideoLoader:
         self.dataset = dataset
         if hasattr(dataset, "prepare_sample"):
             # the dataset prepares its own samples (AudioVisualDataset's
-            # two modalities from one rng state)
+            # two modalities from one rng state, PoseDataset's heatmaps,
+            # RawVideoDataset's clip choice)
             self.processor = None
         elif isinstance(pipeline, (SampleProcessor, AudioSampleProcessor)):
             self.processor = pipeline
@@ -131,15 +218,9 @@ class VideoLoader:
                     for batch_idx in batches:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self._load_one, batch_idx))
-                        batch = {}
-                        for k, v0 in samples[0].items():
-                            if isinstance(v0, str):
-                                batch[k] = [s[k] for s in samples]
-                            else:
-                                batch[k] = np.stack(
-                                    [np.asarray(s[k]) for s in samples])
-                        out_q.put(batch)
+                        # no local of this thread keeps the batch once
+                        # it is queued (nor the consumer once yielded)
+                        out_q.put(collate(list(pool.map(self._load_one, batch_idx))))
                 out_q.put(None)
             except BaseException as e:  # forward errors to the consumer
                 out_q.put(e)
@@ -148,12 +229,14 @@ class VideoLoader:
         thread.start()
         try:
             while True:
-                item = out_q.get()
-                if item is None:
+                # a list that the yield empties: the suspended generator
+                # holds no yielded batch
+                item = [out_q.get()]
+                if item[0] is None:
                     return
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
+                if isinstance(item[0], BaseException):
+                    raise item[0]
+                yield item.pop()
         finally:
             stop.set()
             # drain so the producer can exit

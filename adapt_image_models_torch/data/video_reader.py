@@ -15,6 +15,13 @@ with duplicate-index decode deduplication (the reference decodes
   (``csrc/``), supporting fused short-side resize (the FusedDecordInit
   equivalent); optional, auto-detected
 * ``RawFrameReader`` — jpeg frame-directory reader
+* ``ImageReader`` — one image file as a 1-frame video (the OmniSource
+  web-image sources), read with ``cv2.imread`` as the reference's
+  ``ImageDecode`` reads with ``mmcv.imread``; ``open_video`` picks it by
+  the file's extension. The JAX package opens an image with its video
+  backends: the C++ FFmpeg reader aborts the process on a jpg, and
+  OpenCV's ``VideoCapture`` gives colours up to 70 levels off ``imread``
+  (ROADMAP queue 3)
 * ``SyntheticVideoReader`` — deterministic procedural frames for tests/bench
 """
 
@@ -166,6 +173,24 @@ class RawFrameReader(VideoReader):
         return stack[inverse]
 
 
+IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp")
+
+
+class ImageReader(VideoReader):
+    """One image as a 1-frame video: every index reads it."""
+
+    def __init__(self, path: str, short_side: Optional[int] = None):
+        import cv2
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+        if img is None:
+            raise IOError(f"cannot read image {path}")
+        self.frame = resize_short_side(img[:, :, ::-1], short_side)
+        self.num_frames = 1
+
+    def get_frames(self, indices: Sequence[int]) -> np.ndarray:
+        return np.repeat(self.frame[None], len(indices), axis=0)
+
+
 class SyntheticVideoReader(VideoReader):
     """Deterministic procedural frames — tests and input-pipeline benchmarks."""
 
@@ -217,6 +242,8 @@ def open_video(source, short_side: Optional[int] = None,
             if tail:
                 seed = int(tail)
         return SyntheticVideoReader(seed=seed)
+    if isinstance(source, str) and source.lower().endswith(IMAGE_EXTENSIONS):
+        return ImageReader(source, short_side=short_side)
     if backend in ("auto", "cpp"):
         try:
             from adapt_image_models_torch.data.cpp_decoder import (

@@ -1,5 +1,6 @@
 """Models of the port. Importing this package registers every ported
-backbone, neck, head and recognizer."""
+backbone, neck, head, loss, recognizer and localizer (the localizers sit in
+``RECOGNIZERS``, as in the JAX package)."""
 
 from adapt_image_models_torch.models.builder import (  # noqa: F401
     BACKBONES, HEADS, LOSSES, NECKS, RECOGNIZERS, build_backbone, build_head,
@@ -10,3 +11,4 @@ import adapt_image_models_torch.models.heads  # noqa: F401,E402  (register)
 import adapt_image_models_torch.models.necks  # noqa: F401,E402  (register)
 import adapt_image_models_torch.models.losses  # noqa: F401,E402  (register)
 import adapt_image_models_torch.models.recognizers  # noqa: F401,E402  (register)
+import adapt_image_models_torch.models.localizers  # noqa: F401,E402  (register)

@@ -298,17 +298,17 @@ Phases, in order; any failure raises and exits non-zero:
      unchanged), one backward with a finite, nonzero gradient on every
      trainable tensor, no launch of any fused op or core on any of these
      runs, eval clips/s and peak memory at 8 clips of 32 frames or 32 of 8,
-     train clips/s and peak memory at 2 and 8 clips of 32 frames or 8 and 32
-     of 8, and a profile of one step at the larger batch; then one forward
+     train clips/s and peak memory and a profile of one step at 8 clips of
+     32 frames or 32 of 8; then one forward
      of 2 clips of each other config of these backbones;
  22. TimeSformer, Swin2D-Adapter and Video Swin, framework ops only (the JAX
      package reaches no Pallas kernel in timesformer.py, swin2d_adapter.py
      or swin3d.py), through the same drive as phase 21 (VIDEO_PATHS):
-     vit/timesformer_k400.py (ViT-B/16, 8 frames; eval at 32 clips, train
-     at 8 and 32), swin/swin2d_adapter_base_k400.py (Swin2D-Adapter-B, 32
+     vit/timesformer_k400.py (ViT-B/16, 8 frames; eval and train at 32
+     clips), swin/swin2d_adapter_base_k400.py (Swin2D-Adapter-B, 32
      frames) and swin/swin_base_patch244_window877_kinetics400_1k.py (Video
-     Swin-B, 32 frames, windows (8, 7, 7)), each 32-frame Swin with eval at 8
-     clips and train at 2 and 8 (the recipes' batch a card); their
+     Swin-B, 32 frames, windows (8, 7, 7)), each 32-frame Swin with eval and
+     train at 8 clips (the recipes' batch a card); their
      train_model runs start from the seeded init, as load_from reads CLIP's
      layout only; then one forward of 2 clips of each of the seven other
      configs of these backbones (VIDEO_BUILT);
@@ -347,8 +347,8 @@ Phases, in order; any failure raises and exits non-zero:
      train_model for 2 steps of 4 videos with the in-loop evaluation (the
      running statistics moved, left alone by the evaluation and restored
      bit for bit by the checkpoint), eval and train clips/s and peak
-     memory at 8 and the recipes' 32 / 8 videos, TF32 off and on, and a
-     profile of one train step; one forward of tsm_nl_dot_product,
+     memory at 8 and the recipes' 32 / 8 videos, TF32 off, and a profile
+     of one train step (TF32 on); one forward of tsm_nl_dot_product,
      tsn_rn101_32x4d and tsn_swin as shipped and of tsn_fp16 in bf16
      against fp32 (CNN_BF16_ATOL); TSM through tools/train_torch.py
      (children with NVIDIA_TF32_OVERRIDE=0 and no dropout): NCCL at world
@@ -376,7 +376,19 @@ Phases, in order; any failure raises and exits non-zero:
      run_evaluation, the card's fp32 against the host's, train_model at the
      recipes' batches of 320 and 160, eval and train samples/s with peak
      memory and a profiled step.
-Phases 18 to 27 log their seconds.
+ 28. OmniSource, the PoseC3D data stage and temporal localization,
+     framework ops only: omnisource/tsn_r50_1x1x8_100e_minikinetics_
+     omnisource_rgb.py through train_model for one cycle of its four
+     sources at their batches [12, 64, 12, 12] (synthetic videos, jpg web
+     images and mp4 raw clips the phase writes), each step's source and
+     shape, the host's share of the loop; both NTU-60 posec3d recipes
+     refused by train_model and run_evaluation, then PoseDataset ->
+     VideoLoader -> the train step at 16 clips of 48 x 56² heatmaps and
+     forward_test over 10 clips x double flip; BMN (batch 8), TEM and PEM
+     (16) from their configs over csv features, soft-NMS and AR@AN; SSN-R50
+     over jpg frames and a THUMOS-style proposal file, one train step and
+     the test path to mAP; the card's fp32 against the host's for each.
+Phases 18 to 28 log their seconds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -3668,8 +3680,9 @@ def drive_framework_path(card, label, name, expected, batches, bf16_atol, seed, 
     launch, frozen tensors bitwise unchanged, trainable ones moved; one
     backward of ``batches[0]`` clips with a finite loss and a finite,
     nonzero gradient on every trainable tensor; eval clips/s and peak
-    memory at ``batches[1]`` clips, train clips/s and peak memory at both
-    batches and a profile of one step at the larger."""
+    memory at ``batches[1]`` clips, train clips/s, peak memory and a
+    profile of one step at ``batches[1]`` (the smaller batch's train
+    reading stands in PERF.md; the script keeps within its time limit)."""
     import copy
     import numpy as np
     import torch
@@ -3815,7 +3828,7 @@ def drive_framework_path(card, label, name, expected, batches, bf16_atol, seed, 
     eval_timing(label, model, batches[1], frames, path="framework-op path")
     del model
     torch.cuda.empty_cache()
-    train_timings(cfg, weights, classes, label, batches=batches,
+    train_timings(cfg, weights, classes, label, batches=batches[1:],
                   cores=((None, "framework-op"),))
     torch.cuda.empty_cache()
     log(f"{phase}: {label} path in {time.perf_counter() - t_path:.1f} s")
@@ -4412,8 +4425,9 @@ def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_b
     evaluation, restored bit for bit by the checkpoint, every tensor moved,
     no launch); then eval videos/s (and clips/s: views) at ``batches``
     videos and train videos/s at ``train_batches`` (``batches`` where None)
-    with peak memory, TF32 off and on, and a profile of one train step at
-    the largest. ``aux``: a TPN recipe, whose every logged step holds a
+    with peak memory, at TF32 off (the TF32-on readings and 1-video rates
+    of earlier runs stand in PERF.md), and a profile of one
+    train step at the largest, TF32 on. ``aux``: a TPN recipe, whose every logged step holds a
     finite aux term in its loss (train_model and the timed steps)."""
     import copy
     import numpy as np
@@ -4534,15 +4548,14 @@ def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_b
     views = sample[0] if len(sample) == 5 else None
     for videos in batches:
         x = torch.randn(videos, *sample, device="cuda")
-        for on in (False, True):
-            torch.cuda.reset_peak_memory_stats()
-            with tf32(on), torch.no_grad():
-                ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
-            clips = f" ({videos * views / ms * 1e3:.1f} clips/s)" if views else ""
-            log(f"  {label} forward_test {videos} videos of {sample} (TF32 "
-                f"{'on' if on else 'off'}): {ms:.2f} ms, {videos / ms * 1e3:.2f} videos/s"
-                f"{clips}, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-                "(median of 5 after 2 warm-ups, CUDA events)")
+        torch.cuda.reset_peak_memory_stats()
+        with tf32(False), torch.no_grad():
+            ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
+        clips = f" ({videos * views / ms * 1e3:.1f} clips/s)" if views else ""
+        log(f"  {label} forward_test {videos} videos of {sample} (TF32 off): {ms:.2f} ms, "
+            f"{videos / ms * 1e3:.2f} videos/s{clips}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+            "(median of 5 after 2 warm-ups, CUDA events)")
         del x
     del model
     torch.cuda.empty_cache()
@@ -4555,14 +4568,13 @@ def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_b
         if aux:
             check_aux(f"{label} {videos}-video step", [
                 {k: float(v) for k, v in step_fn(tstate, batch, 0).items()}])
-        for on in (False, True):
-            torch.cuda.reset_peak_memory_stats()
-            with tf32(on):
-                ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=2)
-            log(f"  {label} train step {videos} videos of {shape} (TF32 "
-                f"{'on' if on else 'off'}): {ms:.2f} ms, {videos / ms * 1e3:.1f} videos/s, "
-                f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-                "(median of 5 after 2 warm-ups, CUDA events)")
+        torch.cuda.reset_peak_memory_stats()
+        with tf32(False):
+            ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=2)
+        log(f"  {label} train step {videos} videos of {shape} (TF32 off): {ms:.2f} ms, "
+            f"{videos / ms * 1e3:.1f} videos/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+            "(median of 5 after 2 warm-ups, CUDA events)")
         if videos == train_batches[-1]:
             with tf32(True):
                 profile_step(step_fn, tstate, batch, f"{label} {videos}-video (TF32 on)")
@@ -4750,15 +4762,15 @@ def phase_24(card):
 # as the JAX package runs no Pallas kernel there
 
 # (label, config under configs/recognition, the backbone keys it must ship,
-# eval timing batches in videos: the recipe's test batch of 1 and 8, train
-# timing batches: 8 and the recipe's videos_per_gpu)
+# eval timing batches in videos: 8 (the recipe's test batch of 1 stands in
+# PERF.md), train timing batches: 8 and the recipe's videos_per_gpu)
 CNN3D_PATHS = (
     ("I3D-R50", "i3d/i3d_r50_video_32x2x1_100e_kinetics400_rgb.py",
-     dict(type="ResNet3d", depth=50, conv1_kernel=(5, 7, 7)), (1, 8), (8,)),
+     dict(type="ResNet3d", depth=50, conv1_kernel=(5, 7, 7)), (8,), (8,)),
     ("SlowFast-R50", "slowfast/slowfast_r50_video_4x16x1_256e_kinetics400_rgb.py",
-     dict(type="ResNet3dSlowFast", alpha=8, beta_inv=8), (1, 8), (8,)),
+     dict(type="ResNet3dSlowFast", alpha=8, beta_inv=8), (8,), (8,)),
     ("X3D-M", "x3d/x3d_m_16x5x1_facebook_kinetics400_rgb.py",
-     dict(type="X3D", gamma_w=1.0, gamma_b=2.25, gamma_d=2.2), (1, 8), (1, 8)),
+     dict(type="X3D", gamma_w=1.0, gamma_b=2.25, gamma_d=2.2), (8,), (8,)),
 )
 # the card's fp32 against the host CPU's on a test video's first views: a
 # whole I3D test video (30 views, 3.9 TFLOP) would take the host ~100 s at
@@ -4908,7 +4920,7 @@ def phase_25(card):
 # videos, train timing batches, host views of the card-vs-CPU check)
 TPN_PATHS = (
     ("TPN-SlowOnly-R50", "tpn/tpn_slowonly_r50_8x8x1_150e_kinetics_rgb.py",
-     dict(type="ResNet3dSlowOnly", depth=50, out_indices=(2, 3)), (1, 8), (8,), 3),
+     dict(type="ResNet3dSlowOnly", depth=50, out_indices=(2, 3)), (8,), (8,), 3),
     ("TPN-TSM-R50", "tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py",
      dict(type="ResNetTSM", depth=50, num_frames=8, out_indices=(2, 3)), (8,), (8,), None),
 )
@@ -5061,7 +5073,8 @@ def drive_audio_path(card, label, name, expected, seed, kind, eval_batches, trai
     train_model for ``train_steps`` steps at the recipe's videos_per_gpu
     with the in-loop evaluation (statistics moved, the checkpoint restoring
     them bit for bit); eval and train samples/s with peak memory, TF32 off
-    and on, and a profile of one train step."""
+    (its TF32-on readings stand in PERF.md), and a profile of one train
+    step (TF32 on)."""
     import copy
     import numpy as np
     import torch
@@ -5168,14 +5181,13 @@ def drive_audio_path(card, label, name, expected, seed, kind, eval_batches, trai
     log(f"  {label} timings on {card}")
     for n in eval_batches:
         xb = torch.randn(n, *sample, device="cuda")
-        for on in (False, True):
-            torch.cuda.reset_peak_memory_stats()
-            with tf32(on), torch.no_grad():
-                ms = cuda_ms(lambda: model.forward_test(xb), iters=5, warmup=2)
-            log(f"  {label} forward_test {n} samples of {sample} (TF32 "
-                f"{'on' if on else 'off'}): {ms:.2f} ms, {n / ms * 1e3:.1f} samples/s, peak "
-                f"memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 "
-                "after 2 warm-ups, CUDA events)")
+        torch.cuda.reset_peak_memory_stats()
+        with tf32(False), torch.no_grad():
+            ms = cuda_ms(lambda: model.forward_test(xb), iters=5, warmup=2)
+        log(f"  {label} forward_test {n} samples of {sample} (TF32 off): {ms:.2f} ms, "
+            f"{n / ms * 1e3:.1f} samples/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
+            "warm-ups, CUDA events)")
         del xb
     del model
     torch.cuda.empty_cache()
@@ -5183,14 +5195,13 @@ def drive_audio_path(card, label, name, expected, seed, kind, eval_batches, trai
     batch = {"imgs": torch.randn(videos, *shape, device="cuda"),
              "label": np.arange(videos) % classes}
     tstate, step_fn = train_setup(cfg, weights=weights)
-    for on in (False, True):
-        torch.cuda.reset_peak_memory_stats()
-        with tf32(on):
-            ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=2)
-        log(f"  {label} train step {videos} samples of {shape} (TF32 "
-            f"{'on' if on else 'off'}): {ms:.2f} ms, {videos / ms * 1e3:.1f} samples/s, "
-            f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-            "(median of 5 after 2 warm-ups, CUDA events)")
+    torch.cuda.reset_peak_memory_stats()
+    with tf32(False):
+        ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=2)
+    log(f"  {label} train step {videos} samples of {shape} (TF32 off): {ms:.2f} ms, "
+        f"{videos / ms * 1e3:.1f} samples/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+        "(median of 5 after 2 warm-ups, CUDA events)")
     with tf32(True):
         profile_step(step_fn, tstate, batch, f"{label} {videos}-sample (TF32 on)")
     del tstate, step_fn, batch
@@ -5203,10 +5214,816 @@ def phase_27(card):
     drive_audio_path, each at its shipped batch of 320."""
     t0 = time.perf_counter()
     drive_audio_path(card, "TSN-R50 audio (wav)", AUDIO_WAV,
-                     dict(type="ResNet", depth=50, in_channels=1), 2700, "wav", (1, 320))
+                     dict(type="ResNet", depth=50, in_channels=1), 2700, "wav", (320,))
     drive_audio_path(card, "ResNetAudio-R50 (features)", AUDIO_FEATURE,
-                     dict(type="ResNetAudio", depth=50), 2710, "feature", (1, 32))
+                     dict(type="ResNetAudio", depth=50), 2710, "feature", (32,))
     log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 28: OmniSource training, the PoseC3D data stage and temporal
+# localization (BMN, BSN's TEM and PEM, SSN), framework ops only (cuDNN
+# convolutions, BatchNormFlax, torch.matmul for BMN's sampling product and
+# host numpy), as the JAX package runs no Pallas kernel there
+
+OMNI_CONFIG = "omnisource/tsn_r50_1x1x8_100e_minikinetics_omnisource_rgb.py"
+POSE_CONFIGS = ("slowonly_r50_u48_240e_ntu60_xsub_keypoint.py",
+                "slowonly_r50_u48_240e_ntu60_xsub_limb.py")
+LOCALIZATION_DIR = os.path.join(ROOT, "configs", "localization")
+BMN_CONFIG = "bmn/bmn_400x100_2x8_9e_activitynet_feature.py"
+TEM_CONFIG = "bsn/bsn_tem_400x100_1x16_20e_activitynet_feature.py"
+PEM_CONFIG = "bsn/bsn_pem_400x100_1x16_20e_activitynet_feature.py"
+SSN_TRAIN_CONFIG = "ssn/ssn_r50_450e_thumos14_rgb_train.py"
+SSN_TEST_CONFIG = "ssn/ssn_r50_450e_thumos14_rgb_test.py"
+# the card's fp32 outputs (TF32 off) against the host CPU's, the largest
+# gap over the largest magnitude, as phases 21-27 hold them
+HOST_REL = 1e-4
+
+
+class TimedLoader:
+    """A loader's batches with the host's wait for each: the time from the
+    loop's request of a batch to its arrival (``waits``) and the arrival
+    times (``stamps``)."""
+
+    def __init__(self, loader):
+        self.loader, self.waits, self.stamps = loader, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = [next(it)]
+            except StopIteration:
+                return
+            self.stamps.append(time.perf_counter())
+            self.waits.append(self.stamps[-1] - t0)
+            yield batch.pop()
+
+
+def host_vs_card(label, model, inputs, outputs):
+    """The card's fp32 ``outputs`` of ``model`` (a tensor, a sequence or a
+    dict of them) against its copy on the host CPU on the same ``inputs``
+    (TF32 off): each output's largest gap over its largest magnitude,
+    within HOST_REL."""
+    import copy
+    import torch
+    host = copy.deepcopy(model).cpu().eval()
+    with torch.no_grad():
+        want = host(*[x.cpu() for x in inputs])
+
+    def as_list(out):
+        if isinstance(out, dict):
+            return [out[k] for k in sorted(out)]
+        return list(out) if isinstance(out, (tuple, list)) else [out]
+
+    got, want = as_list(outputs), as_list(want)
+    rels = []
+    for g, w in zip(got, want):
+        rels.append(float((g.detach().float().cpu() - w.float()).abs().max()
+                          / w.float().abs().max().clamp(min=1e-30)))
+    log(f"  {label}: the card's fp32 vs the host CPU's, max|diff| / max|host| "
+        f"{[f'{r:.3e}' for r in rels]} (tol {HOST_REL})")
+    if not all(r < HOST_REL for r in rels):
+        raise AssertionError(f"{label}: the card's fp32 result disagrees with the host's")
+
+
+def write_images(root, n, seed, size=(320, 240)):
+    """``n`` jpg images of about ``size`` (w, h), colour blobs on noise."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    names = []
+    for i in range(n):
+        w, h = size[0] + 16 * (i % 3), size[1] - 8 * (i % 2)
+        img = rng.integers(0, 64, (h, w, 3), dtype=np.uint8)
+        x, y = rng.integers(0, w - 64), rng.integers(0, h - 64)
+        img[y:y + 64, x:x + 64] = rng.integers(0, 256, 3, dtype=np.uint8)
+        cv2.imwrite(os.path.join(root, f"img_{i:05d}.jpg"), img)
+        names.append(f"img_{i:05d}.jpg")
+    return names
+
+
+def write_clip(path, frames, seed, size=(340, 256)):
+    """An mp4 clip of ``frames`` frames, a colour square moving on noise."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25, size)
+    if not writer.isOpened():
+        raise RuntimeError(f"cv2 cannot write {path}")
+    base = rng.integers(0, 64, (size[1], size[0], 3), dtype=np.uint8)
+    colour = rng.integers(64, 256, 3, dtype=np.uint8)
+    for f in range(frames):
+        img = base.copy()
+        x = (7 * f) % (size[0] - 48)
+        img[40:88, x:x + 48] = colour
+        writer.write(img)
+    writer.release()
+
+
+def drive_omnisource(card, seed):
+    """OMNI_CONFIG as shipped (TSN-R50, 200 classes) through train_model
+    over its four sources, which the phase writes: synthetic videos for the
+    two video sources, jpg web images and mp4 raw-video clips; one full
+    cycle of train_ratio [2, 1, 1, 1] at the recipe's omni_videos_per_gpu
+    [12, 64, 12, 12] (5 steps), TF32 off: every source drawn in order with
+    its own batch shape, finite losses, no launch; the loop's samples/s,
+    the host's share (its wait for each batch over the loop) and peak
+    memory; then steady train videos/s of the main batch, a profiled step,
+    and the card's fp32 logits against the host CPU's."""
+    import numpy as np
+    import torch
+    import adapt_image_models_torch.apis.train as train_api
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import load_config, train_model
+    from adapt_image_models_torch.core.train_state import make_train_step
+    t_path = time.perf_counter()
+    cfg = load_config(os.path.join(RECOGNITION_DIR, OMNI_CONFIG))
+    data = cfg["data"]
+    batches, ratios = data["omni_videos_per_gpu"], data["train_ratio"]
+    if (list(batches), list(ratios)) != ([12, 64, 12, 12], [2, 1, 1, 1]):
+        raise AssertionError(f"unexpected OmniSource batches {batches} / ratios {ratios}")
+    classes = cfg["model"]["cls_head"]["num_classes"]
+    steps = sum(ratios)
+    with tempfile.TemporaryDirectory() as tmp:
+        srcs = data["train"]
+        for k, src in enumerate(srcs):
+            n = batches[k] * ratios[k]  # one cycle's samples
+            ann = os.path.join(tmp, f"src{k}.txt")
+            if src["type"] == "ImageDataset":
+                names = write_images(os.path.join(tmp, "web"), n, seed + k)
+                lines = [f"{name} {i % classes}" for i, name in enumerate(names)]
+                src.update(data_prefix=os.path.join(tmp, "web"))
+            elif src["type"] == "RawVideoDataset":
+                dirs = 4
+                for d in range(dirs):
+                    os.makedirs(os.path.join(tmp, "raw", f"v{d}"))
+                    for c in range(3):
+                        write_clip(os.path.join(tmp, "raw", f"v{d}", f"part_{c}.mp4"), 40,
+                                   seed + 10 * d + c)
+                lines = [f"v{i % dirs} {i % classes} 3 {i % 3}" for i in range(n)]
+                src.update(data_prefix=os.path.join(tmp, "raw"))
+            else:
+                lines = [f"synthetic://{seed * 100 + 20 * k + i} {i % classes}"
+                         for i in range(n)]
+                src.update(data_prefix="")
+            with open(ann, "w") as f:
+                f.write("\n".join(lines))
+            src["ann_file"] = ann
+        data["workers_per_gpu"] = 8
+        cfg.update(total_epochs=1, log_config=dict(interval=1),
+                   checkpoint_config=dict(interval=1))
+        timed = []
+
+        def timed_round_robin(*args, **kwargs):
+            timed.append(TimedLoader(RoundRobin(*args, **kwargs)))
+            return timed[-1]
+
+        RoundRobin = train_api.RoundRobinLoader
+        train_api.RoundRobinLoader = timed_round_robin
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with tf32(False):
+                ops.reset_launch_counts()  # this train path's run starts here
+                t0 = time.perf_counter()
+                state, history = train_model(cfg, work_dir=os.path.join(tmp, "work"), seed=0,
+                                             max_steps=steps, validate=False, device="cuda")
+                torch.cuda.synchronize()
+                t_end = time.perf_counter()
+                check_no_launches("OmniSource train", ops.launch_counts(), path_cores())
+        finally:
+            train_api.RoundRobinLoader = RoundRobin
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    loader = timed[0]
+    sources = [h["source"] for h in history]
+    want = [s for s, r in enumerate(ratios) for _ in range(r)]
+    for h in history:
+        log(f"  step {h['iter']}: source {h['source']} ({srcs[h['source']]['type']}), "
+            f"batch {h['shape']}, loss {h['loss']:.4f}")
+    samples = sum(h["shape"][0] for h in history)
+    loop = t_end - (loader.stamps[0] - loader.waits[0])
+    wait = sum(loader.waits)
+    log(f"  train_model on {OMNI_CONFIG}: {state.step} steps (one cycle) in "
+        f"{t_end - t0:.1f} s with the build; the loop {loop:.2f} s for {samples} samples "
+        f"({samples / loop:.1f} samples/s, TF32 off), the host's wait for batches "
+        f"{wait:.2f} s ({100 * wait / loop:.1f}% of the loop; the first batch's "
+        f"{loader.waits[0]:.2f} s), peak memory {peak:.2f} GiB")
+    if sources != want or not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"OmniSource: sources {sources} (want {want}) or a loss lost")
+    shapes = {h["source"]: h["shape"] for h in history}
+    if shapes[1][:2] != (64, 8) or shapes[0][:2] != (12, 8):
+        raise AssertionError(f"OmniSource: unexpected batch shapes {shapes}")
+
+    model, opt = state.model, state.optimizer
+    step = make_train_step(model, opt)
+    log(f"  OmniSource timings on {card}")
+    batch = {"imgs": torch.randn(12, 8, 3, 224, 224, device="cuda"),
+             "label": np.arange(12) % classes}
+    torch.cuda.reset_peak_memory_stats()
+    with tf32(False):
+        ms = cuda_ms(lambda: step(state, batch, 0), iters=5, warmup=2)
+    log(f"  TSN-R50 train step, the main source's 12 x 8 segments of 224² (TF32 off): "
+        f"{ms:.2f} ms, {12 / ms * 1e3:.1f} videos/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
+        "warm-ups, CUDA events)")
+    with tf32(False):
+        profile_step(lambda s, b, _: step(s, b, 0), state, batch,
+                     "OmniSource TSN-R50 12-video (TF32 off)")
+    del batch
+    # the card's fp32 logits against the host's: 2 videos of the main
+    # source's 8 segments, and 4 web images, each its 8 segments, as the
+    # image source's pipeline samples it
+    model.eval()
+    gen = torch.Generator("cuda").manual_seed(seed)
+    videos = torch.randn(2, 8, 3, 224, 224, device="cuda", generator=gen)
+    images = torch.randn(4, 1, 3, 224, 224, device="cuda", generator=gen).expand(-1, 8, -1,
+                                                                                  -1, -1)
+    with torch.no_grad(), tf32(False):
+        for what, x in (("2 videos", videos), ("4 web images", images)):
+            host_vs_card(f"TSN-R50 logits of {what} {tuple(x.shape[1:])}", model, (x,),
+                         model(x))
+    del state, model, opt, step, videos, images
+    torch.cuda.empty_cache()
+    log(f"phase 28: OmniSource path in {time.perf_counter() - t_path:.1f} s")
+
+
+def write_pose_annotations(path, n, seed, classes=60):
+    """A PoseDataset pickle of ``n`` NTU-style clips: 2 persons of 17 COCO
+    keypoints wandering in 1920 x 1080 over 60-119 frames, scores in
+    [0.3, 1)."""
+    import pickle
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    items = []
+    for i in range(n):
+        t = int(rng.integers(60, 120))
+        centre = rng.uniform((500, 300), (1400, 800), (2, 1, 1, 2))
+        drift = np.cumsum(rng.normal(0, 4, (2, t, 1, 2)), axis=1)
+        kp = centre + drift + rng.normal(0, 70, (2, 1, 17, 2))
+        items.append(dict(frame_dir=f"S{i:03d}", total_frames=t, label=i % classes,
+                          img_shape=(1080, 1920), original_shape=(1080, 1920),
+                          keypoint=kp.astype(np.float32),
+                          keypoint_score=rng.uniform(0.3, 1.0, (2, t, 17)).astype(np.float32)))
+    with open(path, "wb") as f:
+        pickle.dump(items, f)
+
+
+def drive_pose(card, name, seed, timings=True):
+    """One POSE_CONFIGS recipe as shipped: train_model and run_evaluation
+    refuse it (UniformSampleFrames), as JAX's do; PoseDataset -> VideoLoader
+    -> the port's train step at the recipe's 16 clips of 48 x 56² heatmaps
+    (2 steps, no launch), the host stage's ms a sample; clips/s and peak
+    memory of the step and of forward_test over the test pipeline's 10
+    clips x double flip (64²); the card's fp32 logits against the host's;
+    a profiled step. ``timings`` False (the limb twin: the keypoint
+    recipe's model and shapes) skips the timed calls."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import load_config, run_evaluation, train_model
+    from adapt_image_models_torch.core.optim import build_optimizer
+    from adapt_image_models_torch.core.train_state import TrainState, make_train_step
+    from adapt_image_models_torch.data.loader import VideoLoader
+    from adapt_image_models_torch.data.pose_dataset import PoseDataset
+    from adapt_image_models_torch.data.transforms import make_prepare_fn
+    from adapt_image_models_torch.models import build_model
+    t_path = time.perf_counter()
+    cfg = load_config(os.path.join(ROOT, "configs", "skeleton", "posec3d", name))
+    videos = cfg["data"]["videos_per_gpu"]
+    classes = cfg["model"]["cls_head"]["num_classes"]
+    channels = cfg["model"]["backbone"]["in_channels"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "train.pkl")
+        write_pose_annotations(ann, 2 * videos, seed)
+        for split in ("train", "val", "test"):
+            cfg["data"][split]["ann_file"] = ann
+        refusals = []
+        for entry in (lambda: train_model(cfg, work_dir=os.path.join(tmp, "work"),
+                                          device="cuda"),
+                      lambda: run_evaluation(cfg, device="cuda")):
+            try:
+                entry()
+                refusals.append(None)
+            except ValueError as e:
+                refusals.append(str(e))
+        log(f"phase 28: {name}: train_model and run_evaluation refuse it, as JAX's: "
+            f"{refusals}")
+        if not all(r and "UniformSampleFrames" in r for r in refusals):
+            raise AssertionError(f"{name}: a PoseC3D recipe was not refused")
+
+        ds = PoseDataset(ann, pipeline=cfg["data"]["train"]["pipeline"])
+        t0 = time.perf_counter()
+        for i in range(8):
+            sample = ds.prepare_sample(i, np.random.default_rng(i))
+        host_ms = (time.perf_counter() - t0) / 8 * 1e3
+        log(f"  PoseDataset train sample {sample['imgs'].shape} float32: "
+            f"{host_ms:.1f} ms a sample on one host thread (numpy heatmaps)")
+        mcfg = {k: v for k, v in cfg["model"].items() if k not in ("test_cfg", "train_cfg")}
+        model = build_model(mcfg, test_cfg=cfg["model"]["test_cfg"], device="cuda")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        opt = build_optimizer(cfg["optimizer"], model, cfg["optimizer"]["lr"],
+                              grad_clip=cfg["optimizer_config"]["grad_clip"]["max_norm"])
+        prepare = make_prepare_fn((0.0,) * channels, (1.0,) * channels, layout="NCTHW",
+                                  device="cuda")
+        step = make_train_step(model, opt, prepare)
+        state = TrainState(model, opt)
+        loader = TimedLoader(VideoLoader(ds, None, videos, shuffle=True, seed=0,
+                                         num_workers=8, drop_last=True))
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ops.reset_launch_counts()  # this train path's run starts here
+        with tf32(False):
+            t0 = time.perf_counter()
+            losses, shapes = [], []
+            for batch in loader:
+                shapes.append(tuple(batch["imgs"].shape))
+                losses.append(float(step(state, batch, 0)["loss"]))
+            torch.cuda.synchronize()
+            loop = time.perf_counter() - t0
+        check_no_launches(f"{name} train", ops.launch_counts(), path_cores())
+        moved = sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters())
+        log(f"  PoseDataset -> VideoLoader -> train step: {len(losses)} steps of {shapes[0]} "
+            f"in {loop:.2f} s (the host's wait {sum(loader.waits):.2f} s, "
+            f"{100 * sum(loader.waits) / loop:.1f}%), losses {[round(v, 4) for v in losses]}, "
+            f"{moved} of {len(before)} tensors moved")
+        if shapes[0] != (videos, 1, 48, 56, 56, channels) or moved != len(before) \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"{name}: the pose train path failed")
+
+        test_ds = PoseDataset(ann, pipeline=cfg["data"]["test"]["pipeline"])
+        clips = np.stack([test_ds.prepare_sample(i)["imgs"] for i in range(2)])
+        x = prepare(clips)  # (2, 20, C, 48, 64, 64)
+        model.eval()
+        ops.reset_launch_counts()
+        with torch.no_grad(), tf32(False):
+            scores = model.forward_test(x)
+        torch.cuda.synchronize()
+        check_no_launches(f"{name} forward_test", ops.launch_counts(), path_cores())
+        log(f"  forward_test of 2 videos of {tuple(x.shape[1:])} (10 clips x double flip): "
+            f"scores {tuple(scores.shape)}")
+        if scores.shape != (2, classes) or not torch.isfinite(scores).all():
+            raise AssertionError(f"{name}: forward_test is not a score a video")
+        with torch.no_grad():
+            one = x[:1, 0]
+            host_vs_card(f"{name} logits of one clip {tuple(one.shape[1:])}", model, (one,),
+                         model(one))
+
+    if not timings:
+        del model, state, step
+        torch.cuda.empty_cache()
+        log(f"phase 28: {name} path in {time.perf_counter() - t_path:.1f} s")
+        return
+    log(f"  {name} timings on {card}")
+    batch = {"imgs": torch.rand(videos, 1, 48, 56, 56, channels, device="cuda"),
+             "label": np.arange(videos) % classes}
+    torch.cuda.reset_peak_memory_stats()
+    with tf32(False):
+        ms = cuda_ms(lambda: step(state, batch, 0), iters=5, warmup=2)
+    log(f"  train step {videos} clips of {tuple(batch['imgs'].shape[1:])} (TF32 off): "
+        f"{ms:.2f} ms, {videos / ms * 1e3:.1f} clips/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
+        "warm-ups, CUDA events)")
+    with tf32(False):
+        profile_step(lambda s, b, _: step(s, b, 0), state, batch,
+                     f"PoseC3D {videos}-clip (TF32 off)")
+    model.eval()
+    x = torch.rand(4, 20, channels, 48, 64, 64, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), tf32(False):
+        ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
+    log(f"  forward_test 4 videos of {tuple(x.shape[1:])} (TF32 off): {ms:.2f} ms, "
+        f"{80 / ms * 1e3:.1f} clips/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
+        "warm-ups, CUDA events)")
+    del model, state, step, batch, x
+    torch.cuda.empty_cache()
+    log(f"phase 28: {name} path in {time.perf_counter() - t_path:.1f} s")
+
+
+def write_activitynet(root, n, seed, feat_dim=400, temporal=100):
+    """An ActivityNet-style json of ``n`` videos (1-3 segments each) and a
+    csv of (temporal, feat_dim) snippet features a video (a header line,
+    as the reference's csv_mean_100). Returns the json path."""
+    import json
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    feats = os.path.join(root, "features")
+    os.makedirs(feats, exist_ok=True)
+    anno = {}
+    header = ",".join(f"f{c}" for c in range(feat_dim))
+    for i in range(n):
+        name = f"v_{seed}_{i:03d}"
+        duration = float(rng.uniform(30, 200))
+        segs = []
+        for _ in range(int(rng.integers(1, 4))):
+            s = float(rng.uniform(0, 0.8)) * duration
+            segs.append([s, min(duration, s + float(rng.uniform(0.05, 0.4)) * duration)])
+        anno[name] = dict(duration_second=duration,
+                          annotations=[dict(segment=s, label="action") for s in segs])
+        base = rng.normal(0, 1, (temporal, feat_dim)).astype(np.float32)
+        for s, e in segs:  # the action's snippets stand out
+            base[int(s / duration * temporal):int(e / duration * temporal) + 1] += 1.5
+        np.savetxt(os.path.join(feats, name + ".csv"), base, fmt="%.5f", delimiter=",",
+                   header=header, comments="")
+    path = os.path.join(root, f"anno_{seed}.json")
+    with open(path, "w") as f:
+        json.dump(anno, f)
+    return path
+
+
+def localization_step(model, opt, loss_fn):
+    """One train step of a localizer: forward, the loss dict's ``loss`` (or
+    the sum of its terms), gradients of the trainable tensors, the
+    optimizer's update; returns the losses."""
+    import torch
+    params = opt.params
+
+    def step(*inputs):
+        model.train()
+        losses = loss_fn(model(*inputs))
+        total = losses["loss"] if "loss" in losses else sum(losses.values())
+        grads = torch.autograd.grad(total, params, allow_unused=True, materialize_grads=True)
+        opt.update(grads)
+        return {k: v.detach() for k, v in losses.items()}
+
+    return step
+
+
+def time_step(label, step, inputs, videos, unit="videos"):
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    with tf32(False):
+        ms = cuda_ms(lambda: step(*inputs), iters=5, warmup=2)
+    log(f"  {label} train step, {videos} {unit} (TF32 off): {ms:.2f} ms, "
+        f"{videos / ms * 1e3:.1f} {unit}/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
+        "warm-ups, CUDA events)")
+    with tf32(False):
+        profile_step(lambda *_: step(*inputs), None, None, f"{label} {videos}-{unit[:-1]} "
+                     "(TF32 off)")
+
+
+def drive_bsn_bmn(card, seed):
+    """BMN at 400 x 100, batch 8, and TEM and PEM at their 16, each from
+    its shipped config over ActivityNet-style csv features the phase
+    writes, through ActivityNetDataset's pipeline: one train step of the
+    recipe's Adam (finite losses, every tensor moved, no launch), step ms,
+    peak memory and a profile; then BMN's soft-NMS proposals, TEM -> PGM
+    proposals and BSP features -> PEM -> soft-NMS, each scored by
+    ActivityNetDataset.evaluate (AR@AN, AUC); the card's fp32 confidence
+    map, TEM scores and PEM scores against the host's."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import load_config
+    from adapt_image_models_torch.core.optim import build_optimizer
+    from adapt_image_models_torch.core.proposals import (
+        generate_bsp_feature, generate_candidate_proposals,
+    )
+    from adapt_image_models_torch.data.activitynet import ActivityNetDataset
+    from adapt_image_models_torch.models import build_model
+    from adapt_image_models_torch.models.localizers import (
+        bm_valid_mask, generate_bmn_labels, generate_tem_labels,
+    )
+    from adapt_image_models_torch.models.losses import BMNLoss
+    t_path = time.perf_counter()
+
+    def recipe(name):
+        cfg = load_config(os.path.join(LOCALIZATION_DIR, name))
+        model = build_model(cfg["model"], device="cuda")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        opt = build_optimizer(cfg["optimizer"], model, cfg["optimizer"]["lr"])
+        return cfg, model, opt
+
+    def tensors(arrays):
+        return {k: torch.tensor(np.stack([a[k] for a in arrays]), device="cuda")
+                for k in arrays[0]}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        bmn_cfg, bmn, bmn_opt = recipe(BMN_CONFIG)
+        videos = bmn_cfg["data"]["videos_per_gpu"]
+        t = bmn.temporal_dim
+        ann = write_activitynet(tmp, 16, seed)
+        ds = ActivityNetDataset(ann, pipeline=bmn_cfg["data"]["train"]["pipeline"],
+                                data_prefix=os.path.join(tmp, "features"), temporal_dim=t)
+        t0 = time.perf_counter()
+        samples = [ds.prepare_sample(i) for i in range(len(ds))]
+        log(f"phase 28: ActivityNetDataset: {len(ds)} videos of csv features "
+            f"{samples[0]['raw_feature'].shape} in {time.perf_counter() - t0:.2f} s")
+        x = torch.tensor(np.stack([s["raw_feature"] for s in samples]), device="cuda")
+        bm_mask = torch.tensor(bm_valid_mask(t), device="cuda")
+        labels = tensors([generate_bmn_labels(s["gt_bbox"], t) for s in samples[:videos]])
+        loss_fn = BMNLoss()
+        step = localization_step(bmn, bmn_opt, lambda out: loss_fn(out, labels, bm_mask))
+        before = {n: p.detach().clone() for n, p in bmn.named_parameters()}
+        ops.reset_launch_counts()  # BMN's train path starts here
+        with tf32(False):
+            losses = step(x[:videos])
+        torch.cuda.synchronize()
+        check_no_launches("BMN train", ops.launch_counts(), path_cores())
+        moved = sum(not torch.equal(p.detach(), before[n]) for n, p in bmn.named_parameters())
+        log(f"  BMN ({BMN_CONFIG}) one Adam step of {videos} videos of "
+            f"{tuple(x.shape[1:])}: losses "
+            f"{ {k: round(float(v), 4) for k, v in losses.items()} }, {moved} of "
+            f"{len(before)} tensors moved")
+        if moved != len(before) or not all(torch.isfinite(v) for v in losses.values()):
+            raise AssertionError("BMN: the train step failed")
+        bmn.eval()
+        ops.reset_launch_counts()
+        with torch.no_grad(), tf32(False):
+            out = bmn(x[videos:])
+        check_no_launches("BMN eval", ops.launch_counts(), path_cores())
+        t0 = time.perf_counter()
+        results = {}
+        for i in range(len(ds) - videos):
+            one = {k: v[i].cpu().numpy() for k, v in out.items()}
+            results[ds.video_infos[videos + i]["video_name"]] = bmn.proposals_from_outputs(one)
+        post = time.perf_counter() - t0
+        val = ActivityNetDataset(ann, data_prefix=os.path.join(tmp, "features"))
+        val.video_infos = val.video_infos[videos:]
+        metrics = val.evaluate(results)
+        log(f"  BMN eval of {len(results)} videos: soft-NMS proposals "
+            f"{post / len(results) * 1e3:.1f} ms a video on the host, "
+            f"{len(next(iter(results.values())))} a video; ActivityNetDataset.evaluate: "
+            f"{metrics}")
+        if not (np.isfinite(metrics["auc"]) and 0 < metrics["auc"] <= 100):
+            raise AssertionError("BMN: AR@AN failed")
+        with torch.no_grad(), tf32(False):
+            card_out = bmn(x[:2])
+        host_vs_card("BMN confidence map, end, start of 2 videos", bmn, (x[:2],), card_out)
+        log(f"  BMN timings on {card}")
+        time_step("BMN", step, (x[:videos],), videos)
+        del bmn, bmn_opt, step, out, labels, card_out
+        torch.cuda.empty_cache()
+
+        tem_cfg, tem, tem_opt = recipe(TEM_CONFIG)
+        videos = tem_cfg["data"]["videos_per_gpu"]
+        tlabels = tensors([generate_tem_labels(s["gt_bbox"], t, tem.boundary_ratio)
+                           for s in samples[:videos]])
+        step = localization_step(tem, tem_opt, lambda out: tem.loss(out, tlabels))
+        before = {n: p.detach().clone() for n, p in tem.named_parameters()}
+        ops.reset_launch_counts()
+        with tf32(False):
+            losses = step(x[:videos])
+        torch.cuda.synchronize()
+        check_no_launches("TEM train", ops.launch_counts(), path_cores())
+        moved = sum(not torch.equal(p.detach(), before[n]) for n, p in tem.named_parameters())
+        log(f"  TEM ({TEM_CONFIG}) one Adam step of {videos} videos: losses "
+            f"{ {k: round(float(v), 4) for k, v in losses.items()} }, {moved} of "
+            f"{len(before)} tensors moved")
+        if moved != len(before) or not all(torch.isfinite(v) for v in losses.values()):
+            raise AssertionError("TEM: the train step failed")
+        tem.eval()
+        with torch.no_grad(), tf32(False):
+            scores = tem(x[:videos])
+        host_vs_card("TEM scores of 2 videos", tem, (x[:2],), scores[:2])
+        log(f"  TEM timings on {card}")
+        time_step("TEM", step, (x[:videos],), videos)
+        tem_scores = scores.cpu().numpy()
+        del tem, tem_opt, step
+
+        pem_cfg, pem, pem_opt = recipe(PEM_CONFIG)
+        top_train = pem_cfg["data"]["train"]["pipeline"][0]["top_k"]
+        t0 = time.perf_counter()
+        props, feats = [], []
+        for i in range(videos):
+            action, start, end = tem_scores[i]
+            p = generate_candidate_proposals(start, end, 0.5, samples[i]["gt_bbox"])[:top_train]
+            props.append(p)
+            feats.append(generate_bsp_feature(p, action, top_k=top_train))
+        pgm = time.perf_counter() - t0
+        feat = torch.tensor(np.concatenate(feats), device="cuda")
+        ref_iou = torch.tensor(np.concatenate([p[:, 5] for p in props]), device="cuda")
+        gen = torch.Generator("cuda").manual_seed(seed)
+        step = localization_step(pem, pem_opt, lambda out: pem.loss(out, ref_iou, gen))
+        before = {n: p.detach().clone() for n, p in pem.named_parameters()}
+        ops.reset_launch_counts()
+        with tf32(False):
+            losses = step(feat)
+        torch.cuda.synchronize()
+        check_no_launches("PEM train", ops.launch_counts(), path_cores())
+        moved = sum(not torch.equal(p.detach(), before[n]) for n, p in pem.named_parameters())
+        log(f"  PGM on the host: {len(feat)} candidate proposals and BSP features "
+            f"{tuple(feat.shape[1:])} of {videos} videos in {pgm:.2f} s; PEM ({PEM_CONFIG}) "
+            f"one Adam step: loss {float(losses['temporal_iou_loss']):.4f}, {moved} of "
+            f"{len(before)} tensors moved")
+        if moved != len(before) or not torch.isfinite(losses["temporal_iou_loss"]):
+            raise AssertionError("PEM: the train step failed")
+        pem.eval()
+        with torch.no_grad(), tf32(False):
+            pem_scores = pem(feat)
+        host_vs_card("PEM scores", pem, (feat,), pem_scores)
+        sizes = np.cumsum([0] + [len(p) for p in props])
+        results = {}
+        for i in range(videos):
+            info = ds.video_infos[i]
+            out_props = pem.proposals_from_outputs(
+                pem_scores[sizes[i]:sizes[i + 1]].cpu().numpy(), props[i], info)
+            dur = info["duration_second"]
+            results[info["video_name"]] = np.array(
+                [[d["segment"][0] / dur, d["segment"][1] / dur, d["score"]] for d in out_props])
+        train_view = ActivityNetDataset(ann, data_prefix=os.path.join(tmp, "features"))
+        train_view.video_infos = train_view.video_infos[:videos]
+        metrics = train_view.evaluate(results)
+        log(f"  BSN proposals (TEM -> PGM -> PEM -> soft-NMS) of {videos} videos: "
+            f"ActivityNetDataset.evaluate {metrics}")
+        if not (np.isfinite(metrics["auc"]) and 0 < metrics["auc"] <= 100):
+            raise AssertionError("BSN: AR@AN failed")
+        log(f"  PEM timings on {card}")
+        time_step("PEM", step, (feat,), len(feat), unit="proposals")
+        del pem, pem_opt, step, x, feat
+        torch.cuda.empty_cache()
+    log(f"phase 28: BMN, TEM and PEM in {time.perf_counter() - t_path:.1f} s")
+
+
+def write_thumos(root, videos, frames, seed, classes=20):
+    """jpg frames (``img_00001.jpg`` ...) of ``videos`` videos of
+    ``frames`` frames at 340 x 256 and a THUMOS-style proposal file (the
+    reference's format: ``# i``, the video id, its frames, 1, its gts as
+    ``label start end``, its proposals as ``label best_iou overlap_self
+    start end``): 1-2 gts and 24 proposals a video, scored against the
+    gts."""
+    import cv2
+    import numpy as np
+    from adapt_image_models_torch.core.proposals import temporal_iou
+    rng = np.random.default_rng(seed)
+    lines = []
+    for v in range(videos):
+        vid = f"video_{v}"
+        d = os.path.join(root, "frames", vid)
+        os.makedirs(d)
+        base = rng.integers(0, 64, (256, 340, 3), dtype=np.uint8)
+        colour = rng.integers(64, 256, 3, dtype=np.uint8)
+        for f in range(frames):
+            img = base.copy()
+            x = (5 * f) % 280
+            img[60:120, x:x + 60] = colour
+            cv2.imwrite(os.path.join(d, f"img_{f + 1:05d}.jpg"), img)
+        gts = []
+        for _ in range(int(rng.integers(1, 3))):
+            s = int(rng.integers(0, frames - 60))
+            gts.append((int(rng.integers(1, classes + 1)), s, s + int(rng.integers(30, 60))))
+        props = []
+        for k in range(24):
+            if k < 2 * len(gts):  # near a gt: positives and incompletes
+                label, s, e = gts[k % len(gts)]
+                if k < len(gts):
+                    s, e = s + int(rng.integers(-3, 4)), e + int(rng.integers(-3, 4))
+                else:
+                    s, e = s + (e - s) // 3, s + (e - s) // 2
+            else:
+                s = int(rng.integers(0, frames - 20))
+                e = min(frames, s + int(rng.integers(10, 50)))
+            s, e = max(0, s), min(frames, max(e, s + 2))
+            ious = [float(temporal_iou(s, e, g0, g1)) for _, g0, g1 in gts]
+            best = int(np.argmax(ious))
+            inter = max(0, min(e, gts[best][2]) - max(s, gts[best][1]))
+            label = gts[best][0] if ious[best] > 0 else 0
+            props.append(f"{label} {ious[best]:.4f} {inter / (e - s):.4f} {s} {e}")
+        lines += [f"# {v}", vid, str(frames), "1", str(len(gts))]
+        lines += [f"{label} {s} {e}" for label, s, e in gts]
+        lines += [str(len(props))] + props
+    path = os.path.join(root, "proposals.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def ssn_frames(item, total, mean, crop=224):
+    """A prepared SSN item's frames as the recipe's pipeline makes them:
+    read (RawFrameDecode), centre crop (the frames are written at the
+    Resize's 340 x 256), RGB -> BGR, minus ``mean`` (std 1): (N, 3, crop,
+    crop) fp32 on the card."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch.data.video_reader import RawFrameReader
+    reader = RawFrameReader(item["frame_dir"], total, filename_tmpl=item["filename_tmpl"])
+    frames = reader.get_frames(item["frame_inds"])
+    h, w = frames.shape[1:3]
+    y, x = (h - crop) // 2, (w - crop) // 2
+    frames = np.ascontiguousarray(frames[:, y:y + crop, x:x + crop, ::-1])
+    imgs = torch.from_numpy(frames).cuda().float() - torch.tensor(mean, device="cuda")
+    return imgs.permute(0, 3, 1, 2).contiguous()
+
+
+def drive_ssn(card, seed):
+    """SSN-R50 from its shipped train and test configs over THUMOS-style
+    frames and proposals the phase writes: SSNDataset.prepare_train's 8
+    proposals x (2 + 5 + 2) segments of 224² a video -> one train step of
+    the recipe's SGD (the three losses finite, every tensor moved, no
+    launch), its ms and peak memory and a profile; then the test path
+    (prepare_test -> snippet_scores -> ssn_test_post) over every video and
+    SSNDataset.evaluate (mAP at tIoU 0.1-0.9); the card's fp32 activity,
+    completeness and regression against the host's."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import load_config
+    from adapt_image_models_torch.core.optim import build_optimizer
+    from adapt_image_models_torch.data.datasets import build_dataset
+    from adapt_image_models_torch.models import build_model
+    from adapt_image_models_torch.models.localizers import ssn_test_post
+    t_path = time.perf_counter()
+    cfg = load_config(os.path.join(LOCALIZATION_DIR, SSN_TRAIN_CONFIG))
+    test_cfg = load_config(os.path.join(LOCALIZATION_DIR, SSN_TEST_CONFIG))
+    mean = next(s["mean"] for s in cfg["data"]["train"]["pipeline"] if s["type"] == "Normalize")
+    with tempfile.TemporaryDirectory() as tmp:
+        frames = 180
+        ann = write_thumos(tmp, 3, frames, seed)
+        prefix = os.path.join(tmp, "frames")
+        ds = build_dataset({**cfg["data"]["train"], "ann_file": ann, "data_prefix": prefix,
+                            "train_cfg": cfg["train_cfg"]})
+        item = ds.prepare_train(0, np.random.default_rng(seed))
+        imgs = ssn_frames(item, frames, mean)
+        sf = torch.tensor(item["proposal_scale_factor"], device="cuda")
+        targets = [torch.tensor(item[k], device="cuda")
+                   for k in ("proposal_type", "proposal_labels", "reg_targets")]
+        model_cfg = dict(cfg["model"])
+        train_cfg, mtest_cfg = model_cfg.pop("train_cfg"), model_cfg.pop("test_cfg")
+        model = build_model(model_cfg, train_cfg=train_cfg, test_cfg=mtest_cfg, device="cuda")
+        model.init_weights(torch.Generator().manual_seed(seed))
+        calibrate_batch_norms(model.backbone, imgs)
+        opt = build_optimizer(cfg["optimizer"], model, cfg["optimizer"]["lr"],
+                              grad_clip=cfg["optimizer_config"]["grad_clip"]["max_norm"])
+        gen = torch.Generator("cuda").manual_seed(seed)
+
+        def step(imgs, sf, ptype, labels, reg):
+            model.train()
+            losses = model.forward_train(imgs, sf, ptype, labels, reg, gen)
+            grads = torch.autograd.grad(sum(losses.values()), opt.params, allow_unused=True,
+                                        materialize_grads=True)
+            opt.update(grads)
+            return {k: v.detach() for k, v in losses.items()}
+
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        ops.reset_launch_counts()  # SSN's train path starts here
+        with tf32(False):
+            losses = step(imgs, sf, *targets)
+        torch.cuda.synchronize()
+        check_no_launches("SSN train", ops.launch_counts(), path_cores())
+        moved = sum(not torch.equal(p.detach(), before[n]) for n, p in model.named_parameters())
+        log(f"phase 28: SSN-R50 ({SSN_TRAIN_CONFIG}): pools of {len(ds.positive_pool)} "
+            f"positive, {len(ds.incomplete_pool)} incomplete, {len(ds.background_pool)} "
+            f"background proposals; one SGD step of {item['num_proposals']} proposals x "
+            f"{item['num_segments']} segments {tuple(imgs.shape)}: losses "
+            f"{ {k: round(float(v), 4) for k, v in losses.items()} }, {moved} of "
+            f"{len(before)} tensors moved")
+        if moved != len(before) or not all(torch.isfinite(v) for v in losses.values()):
+            raise AssertionError("SSN: the train step failed")
+
+        tds = build_dataset({**test_cfg["data"]["test"], "ann_file": ann,
+                             "data_prefix": prefix, "test_cfg": test_cfg["test_cfg"]})
+        stpp = cfg["model"]["cls_head"]["stpp_cfg"]
+        model.eval()
+        results, snippets = [], 0
+        ops.reset_launch_counts()  # SSN's test path starts here
+        t0 = time.perf_counter()
+        for idx in range(len(tds)):
+            titem = tds.prepare_test(idx)
+            timgs = ssn_frames(titem, frames, mean)
+            snippets += len(timgs)
+            with torch.no_grad(), tf32(False):
+                act, comp, reg = model.snippet_scores(timgs)
+            out = ssn_test_post(act.cpu().numpy(), comp.cpu().numpy(), reg.cpu().numpy(),
+                                titem["proposal_tick_list"], titem["scale_factor_list"],
+                                titem["reg_norm_consts"], stpp)
+            out["relative_proposal_list"] = titem["relative_proposal_list"]
+            results.append(out)
+        check_no_launches("SSN test", ops.launch_counts(), path_cores())
+        metrics = tds.evaluate(results)
+        log(f"  SSN test path over {len(tds)} videos ({snippets} snippets) in "
+            f"{time.perf_counter() - t0:.2f} s with the frames' reads: SSNDataset.evaluate "
+            f"{ {k: round(v, 4) for k, v in metrics.items()} }")
+        if not all(np.isfinite(v) and 0 <= v <= 1 for v in metrics.values()):
+            raise AssertionError("SSN: mAP failed")
+        with torch.no_grad(), tf32(False):
+            card_out = model(imgs[:18], sf[:2])
+        host_vs_card("SSN activity, completeness, regression of 2 proposals", model,
+                     (imgs[:18], sf[:2]), card_out)
+        log(f"  SSN-R50 timings on {card}")
+        time_step("SSN-R50", step, (imgs, sf, *targets), 1, unit="videos")
+        del model, opt, imgs
+        torch.cuda.empty_cache()
+    log(f"phase 28: SSN path in {time.perf_counter() - t_path:.1f} s")
+
+
+def phase_28(card):
+    """OmniSource, PoseC3D and temporal localization: drive_omnisource,
+    drive_pose on both POSE_CONFIGS, drive_bsn_bmn and drive_ssn."""
+    t0 = time.perf_counter()
+    drive_omnisource(card, seed=2800)
+    for k, name in enumerate(POSE_CONFIGS):
+        drive_pose(card, name, seed=2810 + k, timings=k == 0)
+    drive_bsn_bmn(card, seed=2820)
+    drive_ssn(card, seed=2830)
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -6083,6 +6900,9 @@ def main():
 
     # ---- phase 27: audio recognition ----------------------------------------------
     phase_27(card)
+
+    # ---- phase 28: OmniSource, PoseC3D and temporal localization --------------------
+    phase_28(card)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",

@@ -14,6 +14,12 @@ test's too, which runs the single-process references.
 
 runs only the SGD steps of the toy SlowFast of
 ``tests/test_torch_recognizer3d_cnn_train.py`` on this rank's rows.
+
+    python tests/torch_dist_worker.py <dir> omnisource
+
+runs ``train_model`` on the OmniSource recipe of ``<dir>/inputs.pkl``
+(``tests/test_torch_omnisource.py``: a config and a step count) and writes
+the rank's history and trained tensors.
 """
 
 import os
@@ -203,6 +209,21 @@ def slowfast_main(out_dir):
     torch.distributed.destroy_process_group()
 
 
+def omnisource_main(out_dir):
+    import pickle
+    from adapt_image_models_torch.apis import train_model
+    from adapt_image_models_torch.parallel import get_dist_info
+    with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    state, history = train_model(inp["cfg"], seed=0, device="cpu", launcher="pytorch",
+                                 max_steps=inp["steps"], validate=False)
+    rank = get_dist_info()[0]
+    torch.save({"history": history,
+                "trained": {n: p.detach().clone() for n, p in state.model.named_parameters()}},
+               os.path.join(out_dir, f"rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
 def main(out_dir):
     torch.set_num_threads(1)
     from adapt_image_models_torch.apis import init_recognizer, run_evaluation, train_model
@@ -281,5 +302,8 @@ if __name__ == "__main__":
     if sys.argv[2:] == ["slowfast"]:
         torch.set_num_threads(1)
         slowfast_main(sys.argv[1])
+    elif sys.argv[2:] == ["omnisource"]:
+        torch.set_num_threads(1)
+        omnisource_main(sys.argv[1])
     else:
         main(sys.argv[1])
