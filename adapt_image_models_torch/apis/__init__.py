@@ -1,6 +1,9 @@
 """User entry points of the port: single-video inference, evaluation and
-training."""
+training, and the detectors' training and evaluation."""
 
+from adapt_image_models_torch.apis.detection import (  # noqa: F401
+    run_detection_evaluation, train_detector,
+)
 from adapt_image_models_torch.apis.inference import (  # noqa: F401
     inference_recognizer, init_recognizer, load_config, model_config,
 )

@@ -112,7 +112,15 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     """Run the training recipe of ``cfg`` on ``device``; returns
     (TrainState, history of logged metrics). ``launcher="pytorch"`` joins
     torchrun's process group (``init_distributed``), and the run is
-    data-parallel on the rank's device of ``device``'s type."""
+    data-parallel on the rank's device of ``device``'s type. A detector
+    config (``cfg.model.type`` in ``DETECTORS``) goes to
+    ``apis.detection.train_detector`` (JAX ``apis/train.py:62-67``)."""
+    from adapt_image_models_torch.models.builder import DETECTORS
+    if cfg["model"].get("type") in DETECTORS:
+        from adapt_image_models_torch.apis.detection import train_detector
+        return train_detector(cfg, work_dir=work_dir, validate=validate, seed=seed,
+                              auto_resume=auto_resume, max_steps=max_steps, device=device,
+                              launcher=launcher)
     if launcher == "pytorch":
         device = init_distributed(device=device)
     elif launcher not in (None, "none"):

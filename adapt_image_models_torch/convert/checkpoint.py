@@ -40,6 +40,11 @@ their grouped 1-D conv kernels (K, I / groups, O) go to (O, I / groups, K),
 BMN's sample-axis Conv3D and 2D kernels as any; SSN's ``backbone_mod`` /
 ``head_mod`` become ``backbone`` / ``cls_head`` (the head's
 ``activity_fc``, ``completeness_fc``, ``regressor_fc``).
+The detector: FastRCNN's ``backbone_module``, ``shared_head_module`` and
+``bbox_head_module`` become ``backbone``, ``shared_head`` and
+``bbox_head``; ACRN's ``conv{k}_conv`` / ``conv{k}_bn``, FBO's Dense layers
+(``fbo.st_feat_conv``, ``fbo.non_local_layer_{i}.global_conv``, ...) and
+LayerNorm ``ln`` and the BBox head's ``fc_cls`` keep their names.
 Given the whole flax ``variables`` (``params`` and ``batch_stats``), the
 BatchNorm statistics ``mean`` / ``var`` become the buffers
 ``running_mean`` / ``running_var``. It is the inverse of
@@ -75,7 +80,9 @@ import torch
 
 _ROOTS = {"backbone_module": "backbone", "neck_module": "neck", "head_module": "cls_head",
           # SSN's submodules
-          "backbone_mod": "backbone", "head_mod": "cls_head"}
+          "backbone_mod": "backbone", "head_mod": "cls_head",
+          # FastRCNN's: its roi extractor has no parameters
+          "shared_head_module": "shared_head", "bbox_head_module": "bbox_head"}
 # the localizers' own layers, at the root of their trees (BMN, TEM, PEM):
 # the port's modules carry the same names
 LOCALIZER_LAYERS = frozenset(

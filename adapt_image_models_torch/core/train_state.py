@@ -40,6 +40,7 @@ loader). Without a group none of this runs and no collective is called.
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -115,6 +116,19 @@ def topk_accuracy(logits: torch.Tensor, labels: torch.Tensor, topk=(1, 5)):
     return tuple(hits[:, :min(k, maxk)].any(1).float().mean() for k in topk)
 
 
+def loss_mask_keys(loss_fn: Optional[Callable]) -> tuple:
+    """The batch keys among ``mask`` and ``category_mask`` that the custom
+    loss's signature names (HVULoss), which the step passes it (JAX
+    ``core/train_state.py:115-128``)."""
+    if loss_fn is None:
+        return ()
+    try:
+        names = inspect.signature(loss_fn).parameters
+    except (TypeError, ValueError):
+        return ()
+    return tuple(k for k in ("mask", "category_mask") if k in names)
+
+
 def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
                     prepare_fn: Optional[Callable] = None,
                     loss_fn: Optional[Callable] = None,
@@ -128,13 +142,17 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
     generator) -> (imgs, soft targets) (``data.blending.build_blending``)
     runs before the forward, over the global batch (``blend_global``); the
     accuracies use the hard labels. ``loss_fn`` (logits, targets) defaults
-    to hard or soft cross entropy by the target's shape. Under a process
+    to hard or soft cross entropy by the target's shape; a custom loss whose
+    signature names ``mask`` or ``category_mask`` also gets the batch's
+    (HVU), and a dict-valued loss is optimised and logged by its
+    ``loss_cls`` (JAX ``core/train_state.py:148, 183-190``). Under a process
     group, ``train_step(..., reduce_with=tensors)`` averages these
     one-element tensors across ranks, in place, in the step's one
     all_reduce (the train loop's preemption flag).
     """
     params = optimizer.params
     aux_weight = float(getattr(getattr(model, "neck", None), "aux_weight", 0.0))
+    mask_keys = loss_mask_keys(loss_fn)
 
     def ce(logits, targets):
         return (soft_cross_entropy(logits, targets) if targets.dim() == logits.dim()
@@ -154,7 +172,13 @@ def make_train_step(model: torch.nn.Module, optimizer: Optimizer,
             imgs, targets = blend_global(blending, imgs, labels,
                                          step_generator(seed, state.step, "cpu", 1))
         logits = model(imgs, generator=drop_generator(seed, state.step, device))
-        loss = loss_fn(logits, targets) if loss_fn is not None else ce(logits, targets)
+        if loss_fn is None:
+            loss = ce(logits, targets)
+        else:
+            loss = loss_fn(logits, targets, **{k: torch.as_tensor(np.asarray(batch[k])).to(device)
+                                               for k in mask_keys if k in batch})
+            if isinstance(loss, dict):  # HVULoss: the optimised scalar is loss_cls
+                loss = loss["loss_cls"]
         aux = {}
         if aux_weight:
             aux["aux_loss"] = ce(model.aux_logits, targets)

@@ -4,11 +4,14 @@
 geometric and RandAugment transforms (``transforms_host``,
 ``randaugment``), the pipeline compiler (``pipeline``), the loader
 (``loader``), the datasets (``datasets``), the audio stage (``audio``),
-the PoseC3D stage (``pose``, ``pose_dataset``) and the localization
-datasets (``activitynet``, ``ssn_dataset``). The device stage: the
+the PoseC3D stage (``pose``, ``pose_dataset``), the localization
+datasets (``activitynet``, ``ssn_dataset``), AVA detection's
+(``ava_dataset``) and HVU's (``hvu_dataset``). The device stage: the
 normalise-and-layout prepare (``transforms``; an audio recipe's float
 segments only move to the device) and batch blending
 (``blending``)."""
 
 # the datasets of their own modules join DATASETS when the package loads
-from adapt_image_models_torch.data import activitynet, pose_dataset, ssn_dataset  # noqa: E402,F401
+from adapt_image_models_torch.data import (  # noqa: E402,F401
+    activitynet, ava_dataset, hvu_dataset, pose_dataset, ssn_dataset,
+)

@@ -117,6 +117,24 @@ def collate(samples) -> Dict[str, Any]:
     return batch
 
 
+def process_info(processor, info: Dict[str, Any], label, rng: np.random.Generator):
+    """(clips, label) of the annotation ``info`` through ``processor``: a
+    video or audio file (``filename``), or a rawframe directory
+    (``frame_dir``, RGB or Flow frames)."""
+    if "filename" in info:  # a video or an audio file
+        return processor(info["filename"], label, rng=rng,
+                         total_frames=info.get("total_frames"),
+                         start_index=info.get("start_index", 0))
+    from adapt_image_models_torch.data.video_reader import FlowFrameReader, RawFrameReader
+    flow = info.get("modality") == "Flow"
+    reader = (FlowFrameReader if flow else RawFrameReader)(
+        info["frame_dir"], info["total_frames"],
+        filename_tmpl=info.get("filename_tmpl", "{}_{:05d}.jpg" if flow else "img_{:05}.jpg"),
+        start_index=info.get("start_index", 1), offset=info.get("offset", 0))
+    return processor(reader, label, rng=rng, total_frames=info["total_frames"],
+                     start_index=info.get("start_index", 1))
+
+
 class VideoLoader:
     def __init__(self, dataset, pipeline, batch_size: int,
                  *, shuffle: bool = False, seed: int = 0,
@@ -171,30 +189,7 @@ class VideoLoader:
         if self.processor is None:
             return self.dataset.prepare_sample(int(idx), rng)
         info = self.dataset[int(idx)]
-        if "filename" in info:  # a video or an audio file
-            clips, label = self.processor(
-                info["filename"], info["label"], rng=rng,
-                total_frames=info.get("total_frames"),
-                start_index=info.get("start_index", 0))
-        else:  # rawframes
-            from adapt_image_models_torch.data.video_reader import (
-                FlowFrameReader, RawFrameReader,
-            )
-            reader_cls = (FlowFrameReader
-                          if info.get("modality") == "Flow"
-                          else RawFrameReader)
-            reader = reader_cls(
-                info["frame_dir"], info["total_frames"],
-                filename_tmpl=info.get(
-                    "filename_tmpl",
-                    "{}_{:05d}.jpg" if info.get("modality") == "Flow"
-                    else "img_{:05}.jpg"),
-                start_index=info.get("start_index", 1),
-                offset=info.get("offset", 0))
-            clips, label = self.processor(
-                reader, info["label"], rng=rng,
-                total_frames=info["total_frames"],
-                start_index=info.get("start_index", 1))
+        clips, label = process_info(self.processor, info, info["label"], rng)
         return {"imgs": clips, "label": label}
 
     def __len__(self) -> int:

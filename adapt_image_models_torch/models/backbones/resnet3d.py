@@ -338,6 +338,7 @@ class ResNet3dCore(nn.Module):
                         NonLocal3d(inplanes, compute_dtype=cdt, device=device, **nl_kwargs))
             self.stage_names.append(f"layer{i + 1}")
             planes *= 2
+        self.feat_channels = inplanes  # the last stage's width
 
     def init_weights(self, generator: torch.Generator) -> None:
         init_cnn(self, generator)

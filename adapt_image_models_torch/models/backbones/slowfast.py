@@ -114,6 +114,8 @@ class ResNet3dSlowFast(nn.Module):
                                   slow_stage_blocks or stage_blocks, (0, 0, 1, 1),
                                   lateral_channels=[2 * ch for ch in fast],
                                   compute_dtype=cdt, device=device)
+        # the two pathways' widths, concatenated by a detector
+        self.feat_channels = self.slow_path.widths[-1] + self.fast_path.widths[-1]
 
     def init_weights(self, generator: torch.Generator) -> None:
         init_cnn(self, generator)

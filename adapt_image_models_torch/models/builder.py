@@ -12,6 +12,7 @@ BACKBONES = Registry("backbone")
 NECKS = Registry("neck")
 HEADS = Registry("head")
 RECOGNIZERS = Registry("recognizer")
+DETECTORS = Registry("detector")
 LOSSES = Registry("loss")
 
 
@@ -35,15 +36,24 @@ def build_recognizer(cfg, train_cfg=None, test_cfg=None, device=None):
                              device=device)
 
 
+def build_detector(cfg, train_cfg=None, test_cfg=None, device=None):
+    args = dict(cfg)
+    args.setdefault("train_cfg", train_cfg)
+    args.setdefault("test_cfg", test_cfg)
+    return DETECTORS.build(args, device=device)
+
+
 def build_loss(cfg):
     return LOSSES.build(dict(cfg))
 
 
 def build_model(cfg, train_cfg=None, test_cfg=None, device=None):
-    """Build a recognizer from its config dict."""
+    """Build a recognizer or a detector from its config dict."""
     obj_type = dict(cfg).get("type", "")
     if obj_type in RECOGNIZERS:
         return build_recognizer(cfg, train_cfg=train_cfg, test_cfg=test_cfg,
                                 device=device)
-    raise KeyError(f"{obj_type} is not a registered recognizer in the port. "
-                   f"Available: {sorted(RECOGNIZERS.module_dict)}")
+    if obj_type in DETECTORS:
+        return build_detector(cfg, train_cfg=train_cfg, test_cfg=test_cfg, device=device)
+    raise KeyError(f"{obj_type} is not a registered recognizer or detector in the port. "
+                   f"Available: {sorted(RECOGNIZERS.module_dict) + sorted(DETECTORS.module_dict)}")

@@ -292,8 +292,8 @@ Phases, in order; any failure raises and exits non-zero:
      init_recognizer, inference_recognizer and run_evaluation on synthetic
      videos, the bf16 probabilities against an fp32 model of the same
      weights on the card (same top-1, within the path's bound in
-     LAST_VIT_PATHS) and that model against the port's fp32 forward on the
-     host CPU on one clip
+     LAST_VIT_PATHS) and, on the 8-frame paths, that model against the
+     port's fp32 forward on the host CPU on one clip
      (LAST_VIT_CPU_ATOL), train_model for 2 steps (frozen tensors bitwise
      unchanged), one backward with a finite, nonzero gradient on every
      trainable tensor, no launch of any fused op or core on any of these
@@ -346,8 +346,9 @@ Phases, in order; any failure raises and exits non-zero:
      card's fp32 against the host CPU's on one test video (CNN_CPU_ATOL),
      train_model for 2 steps of 4 videos with the in-loop evaluation (the
      running statistics moved, left alone by the evaluation and restored
-     bit for bit by the checkpoint), eval and train clips/s and peak
-     memory at 8 and the recipes' 32 / 8 videos, TF32 off, and a profile
+     bit for bit by the checkpoint), eval clips/s and peak memory at the
+     recipes' 32 / 8 videos and train clips/s and peak memory at 8 and the
+     recipes' 32 / 8 videos, TF32 off, and a profile
      of one train step (TF32 on); one forward of tsm_nl_dot_product,
      tsn_rn101_32x4d and tsn_swin as shipped and of tsn_fp16 in bf16
      against fp32 (CNN_BF16_ATOL); TSM through tools/train_torch.py
@@ -388,7 +389,27 @@ Phases, in order; any failure raises and exits non-zero:
      (16) from their configs over csv features, soft-NMS and AR@AN; SSN-R50
      over jpg frames and a THUMOS-style proposal file, one train step and
      the test path to mAP; the card's fp32 against the host's for each.
-Phases 18 to 28 log their seconds.
+ 29. AVA spatio-temporal detection, framework ops only (cuDNN 3D
+     convolutions, BatchNormFlax, RoIAlign as two interpolation products,
+     the host's proposal assignment), over an AVA tree the phase writes (4
+     videos of 340 x 256 rawframes, 48 train and 8 val keyframes, csvs, an
+     exclude file, an 81-class label map, dense proposals):
+     ava/slowonly_kinetics_pretrained_r50_4x16x1_20e_ava_rgb.py
+     (SlowOnly-R50, 16 videos x 32 rois of 4 x 256²),
+     ava/slowfast_kinetics_pretrained_r50_8x8x1_20e_ava_rgb.py (SlowFast-R50,
+     5 x 32 frames) and acrn/slowfast_acrn_..._ava_rgb.py through
+     train_model (3 logged steps from a seeded init, finite losses, every
+     tensor and statistic moved: through train_model on the SlowOnly path,
+     over the timed steps of the same step function on the others) and
+     run_detection_evaluation at batch 1 on the (256, 456) canvas (mAP in
+     [0, 1]), the SlowOnly logits on the card against the host CPU's
+     (DET_HOST_REL); the LFB flow: lfb/lfb_slowonly_r50_ava_infer.py on the
+     trained SlowOnly weights writes the train and val banks,
+     lfb/lfb_nl_..._ava_rgb.py trains on them (window 60 x 5) and
+     evaluates; for each recipe the eval forward's ms at 8 videos and the
+     train step's at its batch with peak memory and a profile, TF32 off.
+     No fused op or core launches.
+Phases 18 to 29 log their seconds.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -962,13 +983,19 @@ def compare_train_step(cfg, weights, clips, classes):
                              f"plain path (tensors past tolerance: {bad[:8]})")
 
 
-def profile_step(step_fn, tstate, batch, label):
+def profile_step(step_fn, tstate, batch, label, cpu_ops=True):
     """torch.profiler over one train step: device time by kernel and the
-    device's idle share of the step's wall time (profiler on)."""
+    device's idle share of the step's wall time (profiler on).
+    ``cpu_ops=False`` records the device's activity alone: the CPU ops'
+    events, which cost seconds to gather on a step of thousands of small
+    ops, and the user annotations they carry (``Optimizer.step``, whose
+    range the device time then no longer counts beside its kernels) are
+    left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] if cpu_ops else []
+    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step_fn(tstate, batch, 0)
         torch.cuda.synchronize()
@@ -981,7 +1008,7 @@ def profile_step(step_fn, tstate, batch, label):
     busy = sum(t for t, _ in by_kernel.values())
     log(f"  profile of one {label} train step: device time {busy:.1f} ms over "
         f"{wall:.1f} ms wall, idle share {max(0.0, 1 - busy / wall) * 100:.1f}% "
-        "(profiler on)")
+        f"(profiler on{'' if cpu_ops else ', device activity only'})")
     for key, (dev_ms, count) in sorted(by_kernel.items(), key=lambda r: -r[1][0])[:16]:
         log(f"    {dev_ms:9.2f} ms {100 * dev_ms / busy:5.1f}% {count:5d}x {key[:80]}")
 
@@ -3625,8 +3652,12 @@ LAST_VIT_BUILT = ("vit/flash_attn/vitclip_flash_restuning_base_diving48.py",
                   "vit/zeroI2V/vitclip_zeroI2V_base_diving48.py",
                   "vit/zeroI2V/vitclip_zeroI2V_base_sthv2.py", "vit/vit_imagenet_ssv2.py")
 # the card's fp32 probabilities against the port's fp32 forward on the host
-# CPU, one clip (TF32 off): only the summation order differs
+# CPU, one clip (TF32 off): only the summation order differs. The 8-frame
+# paths hold it; the 32-frame paths' host forwards (3.2-8.9 s each) are left
+# out to keep the command within its time limit (PERF.md keeps their
+# readings, all within 1.2e-8)
 LAST_VIT_CPU_ATOL = 1e-4
+HOST_CHECK_MAX_FRAMES = 8
 # phase 22, as LAST_VIT_PATHS: TimeSformer ViT-B/16 8f trains at 8 and 32
 # clips, the two 32-frame Swin-B at 2 and at the recipes' 8 a card, which fit
 # an H100 (NVIDIA H100 80GB HBM3, 700.00 W) without use_checkpoint (neither
@@ -3745,17 +3776,19 @@ def drive_framework_path(card, label, name, expected, batches, bf16_atol, seed, 
         f"finite {bool(torch.isfinite(p16).all())}")
     if not (err < bf16_atol and same and torch.isfinite(p16).all()):
         raise AssertionError(f"{label}: the bf16 model disagrees with the fp32 model")
-    host = build_model(fp32_cfg, test_cfg=cfg["model"]["test_cfg"], device="cpu").eval()
-    host.load_state_dict({k: v.cpu() for k, v in weights.items()})
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        p_host = host.forward_test(imgs[:1].cpu())
-    err = (p32[:1].cpu() - p_host).abs().max().item()
-    log(f"  fp32 on the card vs fp32 on the host CPU, one clip: probability max_abs_err "
-        f"{err:.3e} (tol {LAST_VIT_CPU_ATOL}; host forward {time.perf_counter() - t0:.1f} s)")
-    if not err < LAST_VIT_CPU_ATOL:
-        raise AssertionError(f"{label}: the card's fp32 forward disagrees with the host's")
-    del model32, host, imgs, p16, p32
+    if frames <= HOST_CHECK_MAX_FRAMES:
+        host = build_model(fp32_cfg, test_cfg=cfg["model"]["test_cfg"], device="cpu").eval()
+        host.load_state_dict({k: v.cpu() for k, v in weights.items()})
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            p_host = host.forward_test(imgs[:1].cpu())
+        err = (p32[:1].cpu() - p_host).abs().max().item()
+        log(f"  fp32 on the card vs fp32 on the host CPU, one clip: probability max_abs_err "
+            f"{err:.3e} (tol {LAST_VIT_CPU_ATOL}; host forward {time.perf_counter() - t0:.1f} s)")
+        if not err < LAST_VIT_CPU_ATOL:
+            raise AssertionError(f"{label}: the card's fp32 forward disagrees with the host's")
+        del host
+    del model32, imgs, p16, p32
     torch.cuda.empty_cache()
 
     train_clips, steps = batches[0], 2
@@ -4294,12 +4327,14 @@ def phase_23(card):
 # port's BatchNormFlax), as the JAX package runs no Pallas kernel there
 
 # (label, config under configs/recognition, the backbone keys it must ship,
-# timing batches in videos: 8 and the recipe's videos_per_gpu)
+# eval and train timing batches in videos: 8 and the recipe's
+# videos_per_gpu; TSN's eval at 8 videos of 25 x 3 crops is left out to keep
+# the command within its time limit, PERF.md keeps its reading)
 CNN_PATHS = (
     ("TSN-R50", "tsn/tsn_r50_video_1x1x8_100e_kinetics400_rgb.py",
-     dict(type="ResNet", depth=50), (8, 32)),
+     dict(type="ResNet", depth=50), (32,), (8, 32)),
     ("TSM-R50", "tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py",
-     dict(type="ResNetTSM", depth=50, num_frames=8), (8,)),
+     dict(type="ResNetTSM", depth=50, num_frames=8), (8,), (8,)),
 )
 # one forward of 2 videos each, as shipped; the fp16 recipe's bf16 model is
 # also held to an fp32 model of the same weights on the card
@@ -4325,7 +4360,7 @@ CNN_BF16_ATOL, CNN_CPU_ATOL, CNN_LOGIT_REL = 1e-3, 1e-4, 1e-4
 # times the largest gap of the recipe's own fp32 gradient to its float64
 # one at that start (fp32_grad_noise: the backbone's gradients there are
 # BatchNorm backwards of a near-uniform cotangent, whose terms cancel)
-CNN_DP_STEPS = 3
+CNN_DP_STEPS = 2
 CNN_DP_LOSS_RTOL, CNN_DP_NORM_RTOL, CNN_DP_STATS_REL, CNN_DP_UPDATE_FACTOR = 1e-5, 1e-4, 1e-4, 3
 
 
@@ -4748,8 +4783,9 @@ def phase_24(card):
     forward of each CNN_BUILT recipe and of the fp16 recipe (bf16 against
     fp32), then TSM's data parallelism (cnn_data_parallel)."""
     t0 = time.perf_counter()
-    for k, path in enumerate(CNN_PATHS):
-        drive_cnn_path(card, *path, seed=2400 + k)
+    for k, (label, name, expected, eval_batches, train_batches) in enumerate(CNN_PATHS):
+        drive_cnn_path(card, label, name, expected, eval_batches, seed=2400 + k,
+                       train_batches=train_batches)
     cnn_forwards(seed=2410)
     cnn_data_parallel(card)
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
@@ -4762,13 +4798,14 @@ def phase_24(card):
 # as the JAX package runs no Pallas kernel there
 
 # (label, config under configs/recognition, the backbone keys it must ship,
-# eval timing batches in videos: 8 (the recipe's test batch of 1 stands in
-# PERF.md), train timing batches: 8 and the recipe's videos_per_gpu)
+# eval timing batches in videos: 8, and 2 for the 30-view 32-frame recipes
+# whose 8 videos take over a second a call (their 8-video and 1-video
+# readings stand in PERF.md), train timing batches: 8)
 CNN3D_PATHS = (
     ("I3D-R50", "i3d/i3d_r50_video_32x2x1_100e_kinetics400_rgb.py",
-     dict(type="ResNet3d", depth=50, conv1_kernel=(5, 7, 7)), (8,), (8,)),
+     dict(type="ResNet3d", depth=50, conv1_kernel=(5, 7, 7)), (2,), (8,)),
     ("SlowFast-R50", "slowfast/slowfast_r50_video_4x16x1_256e_kinetics400_rgb.py",
-     dict(type="ResNet3dSlowFast", alpha=8, beta_inv=8), (8,), (8,)),
+     dict(type="ResNet3dSlowFast", alpha=8, beta_inv=8), (2,), (8,)),
     ("X3D-M", "x3d/x3d_m_16x5x1_facebook_kinetics400_rgb.py",
      dict(type="X3D", gamma_w=1.0, gamma_b=2.25, gamma_d=2.2), (8,), (8,)),
 )
@@ -4917,10 +4954,11 @@ def phase_25(card):
 # no Pallas kernel there
 
 # (label, config, the backbone keys it must ship, eval timing batches in
-# videos, train timing batches, host views of the card-vs-CPU check)
+# videos (TPN-SlowOnly's 30 views at 2 videos, as CNN3D_PATHS' 30-view
+# recipes), train timing batches, host views of the card-vs-CPU check)
 TPN_PATHS = (
     ("TPN-SlowOnly-R50", "tpn/tpn_slowonly_r50_8x8x1_150e_kinetics_rgb.py",
-     dict(type="ResNet3dSlowOnly", depth=50, out_indices=(2, 3)), (8,), (8,), 3),
+     dict(type="ResNet3dSlowOnly", depth=50, out_indices=(2, 3)), (2,), (8,), 3),
     ("TPN-TSM-R50", "tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py",
      dict(type="ResNetTSM", depth=50, num_frames=8, out_indices=(2, 3)), (8,), (8,), None),
 )
@@ -5267,11 +5305,11 @@ class TimedLoader:
             yield batch.pop()
 
 
-def host_vs_card(label, model, inputs, outputs):
+def host_vs_card(label, model, inputs, outputs, tol=HOST_REL):
     """The card's fp32 ``outputs`` of ``model`` (a tensor, a sequence or a
     dict of them) against its copy on the host CPU on the same ``inputs``
     (TF32 off): each output's largest gap over its largest magnitude,
-    within HOST_REL."""
+    within ``tol``."""
     import copy
     import torch
     host = copy.deepcopy(model).cpu().eval()
@@ -5289,8 +5327,8 @@ def host_vs_card(label, model, inputs, outputs):
         rels.append(float((g.detach().float().cpu() - w.float()).abs().max()
                           / w.float().abs().max().clamp(min=1e-30)))
     log(f"  {label}: the card's fp32 vs the host CPU's, max|diff| / max|host| "
-        f"{[f'{r:.3e}' for r in rels]} (tol {HOST_REL})")
-    if not all(r < HOST_REL for r in rels):
+        f"{[f'{r:.3e}' for r in rels]} (tol {tol})")
+    if not all(r < tol for r in rels):
         raise AssertionError(f"{label}: the card's fp32 result disagrees with the host's")
 
 
@@ -6024,6 +6062,336 @@ def phase_28(card):
     drive_bsn_bmn(card, seed=2820)
     drive_ssn(card, seed=2830)
     log(f"phase 28: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# phase 29: AVA spatio-temporal detection, framework ops only: FastRCNN over
+# SlowOnly / SlowFast (cuDNN 3D convolutions, BatchNormFlax, RoIAlign as two
+# interpolation products), the ACRN and LFB shared heads and the host's
+# proposal assignment, as the JAX package reaches no Pallas kernel there
+
+DETECTION_DIR = os.path.join(ROOT, "configs", "detection")
+# (label, config under configs/detection): the full-width SlowOnly-R50 4x16
+# recipe first, whose weights the LFB bank's infer config then reads
+AVA_PATHS = (("SlowOnly-R50 4x16", "ava/slowonly_kinetics_pretrained_r50_4x16x1_20e_ava_rgb.py"),
+             ("SlowFast-R50 8x8", "ava/slowfast_kinetics_pretrained_r50_8x8x1_20e_ava_rgb.py"),
+             ("ACRN SlowFast-R50 8x8",
+              "acrn/slowfast_acrn_kinetics_pretrained_r50_8x8x1_cosine_10e_ava_rgb.py"))
+LFB_INFER_CONFIG = "lfb/lfb_slowonly_r50_ava_infer.py"
+LFB_NL_CONFIG = "lfb/lfb_nl_kinetics_pretrained_slowonly_r50_4x16x1_20e_ava_rgb.py"
+# the synthetic AVA tree: 4 videos of 340 x 256 rawframes, 16 s at 30 fps,
+# with 12 train keyframes each (48 samples: the 3 steps of each recipe in
+# one epoch, so one checkpoint) and the first 2 of them the val split's (8
+# samples: the batch of the eval timing), enough frames around each for the
+# 32-frame SlowFast clips
+AVA_VIDEOS, AVA_SECONDS = 4, (900, 916)
+AVA_KEYFRAMES, AVA_VAL_KEYFRAMES = tuple(range(902, 914)), 2
+# the card's fp32 logits (TF32 off) against the host CPU's on 2 clips, the
+# largest gap over the largest logit
+DET_HOST_REL = 1e-5
+
+
+def write_ava(root, seed, classes=81, size=(340, 256)):
+    """An AVA tree under ``root``: rawframes (one video's frames, the others
+    linked to them), the train and val csvs of 1-3 people a keyframe with
+    1-3 of the 80 actions each, an exclude file (zero-padded timestamp), an
+    81-class label map and dense proposals (each person's box jittered at a
+    score above 0.9, and 4 others at 0.5-1). Returns the AVADataset file
+    keys of each split."""
+    import pickle
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    w, h = size
+    frames_dir = os.path.join(root, "rawframes")
+    first = os.path.join(frames_dir, "vid0")
+    os.makedirs(first)
+    base = rng.integers(0, 64, (h, w, 3), dtype=np.uint8)
+    colour = rng.integers(64, 256, 3, dtype=np.uint8)
+    for f in range(1, (AVA_SECONDS[1] - AVA_SECONDS[0]) * 30 + 1):
+        img = base.copy()
+        x = (5 * f) % (w - 64)
+        img[60:180, x:x + 64] = colour  # a person-sized block walks across
+        cv2.imwrite(os.path.join(first, f"img_{f:05}.jpg"), img)
+    for v in range(1, AVA_VIDEOS):
+        os.symlink(first, os.path.join(frames_dir, f"vid{v}"))
+    rows, val_rows, proposals = [], [], {}
+    for v in range(AVA_VIDEOS):
+        for k, ts in enumerate(AVA_KEYFRAMES):
+            boxes = []
+            for entity in range(int(rng.integers(1, 4))):
+                x1, y1 = rng.uniform(0, 0.5, 2)
+                box = np.array([x1, y1, *np.minimum(1, [x1, y1] + rng.uniform(0.2, 0.5, 2))])
+                for action in rng.choice(np.arange(1, classes), int(rng.integers(1, 4)),
+                                         replace=False):
+                    rows.append(f"vid{v},{ts},{box[0]:.3f},{box[1]:.3f},{box[2]:.3f},"
+                                f"{box[3]:.3f},{action},{entity}")
+                    if k < AVA_VAL_KEYFRAMES:
+                        val_rows.append(rows[-1])
+                boxes.append(np.r_[np.clip(box + rng.normal(0, 0.01, 4), 0, 1),
+                                   rng.uniform(0.92, 1.0)])
+            for _ in range(4):
+                x1, y1 = rng.uniform(0, 0.6, 2)
+                boxes.append(np.r_[x1, y1, np.minimum(1, [x1, y1] + rng.uniform(0.1, 0.4, 2)),
+                                   rng.uniform(0.5, 1.0)])
+            proposals[f"vid{v},{ts:04d}"] = np.array(boxes, np.float32)
+    files = dict(exclude_file=os.path.join(root, "exclude.csv"),
+                 label_file=os.path.join(root, "labelmap.pbtxt"),
+                 proposal_file=os.path.join(root, "proposals.pkl"), data_prefix=frames_dir)
+    files = {split: dict(files, ann_file=os.path.join(root, f"{split}.csv"))
+             for split in ("train", "val")}
+    for split, lines in (("train", rows), ("val", val_rows)):
+        with open(files[split]["ann_file"], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    with open(files["train"]["exclude_file"], "w") as f:
+        f.write("vid0,0899\n")
+    with open(files["train"]["label_file"], "w") as f:
+        f.write("".join(f'item {{\n  name: "action{i}"\n  id: {i}\n}}\n'
+                        for i in range(1, classes)))
+    with open(files["train"]["proposal_file"], "wb") as f:
+        pickle.dump(proposals, f)
+    return files
+
+
+def ava_config(name, files):
+    """A detection recipe as shipped, its datasets read from ``files`` over
+    the tree's 16 s (the recipes' shot of 900-1800 s cut to the frames
+    written)."""
+    from adapt_image_models_torch.apis import load_config
+    cfg = load_config(os.path.join(DETECTION_DIR, name))
+    for split in ("train", "val"):
+        if cfg["data"].get(split):
+            cfg["data"][split].update(files[split], timestamp_start=AVA_SECONDS[0],
+                                      timestamp_end=AVA_SECONDS[1])
+    return cfg
+
+
+def drive_detector(card, label, cfg, seed, steps, batches, host=False):
+    """A detection recipe at its width and batch: train_model (the dispatch
+    to train_detector) for ``steps`` steps from a seeded init, each logged
+    (finite losses, no launch); run_detection_evaluation at batch 1 on the
+    val split (mAP in [0, 1], no launch); with ``host``, the card's fp32
+    logits on 2 clips against the host CPU's; then, TF32 off, the eval
+    forward's ms at 8 videos and the train step's ms at the recipe's batch
+    (median of 5 after 2 warm-ups, CUDA events) with peak memory, and a
+    profile of one step. Every tensor and BatchNorm statistic must have
+    moved: from the seeded init through train_model with ``host`` (the
+    main path), else over the timed steps, the same step function, which
+    spares rebuilding the init. ``batches`` keeps the timing batches a
+    split's pipeline gave, for the next recipe of the same pipeline (the
+    SlowFast and ACRN recipes share theirs). Returns the trained model."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import run_detection_evaluation, train_model
+    from adapt_image_models_torch.apis.detection import (
+        _maybe_build_lfb, _sample_lt_feat, make_det_prepare_fn, make_detection_train_step,
+    )
+    from adapt_image_models_torch.data.datasets import build_dataset
+    from adapt_image_models_torch.data.loader import collate
+    from adapt_image_models_torch.models import build_model
+    t_path = time.perf_counter()
+    laps, last = {}, [t_path]
+
+    def lap(name):  # the seconds each part of the path takes, logged at its end
+        now = time.perf_counter()
+        laps[name], last[0] = now - last[0], now
+
+    videos = cfg["data"]["videos_per_gpu"]
+    cfg["log_config"] = dict(interval=1)
+    initial = None
+    if host:
+        mcfg = {k: v for k, v in cfg["model"].items() if k not in ("train_cfg", "test_cfg")}
+        initial = build_model(mcfg, device="cuda")
+        initial.init_weights(torch.Generator().manual_seed(seed))
+        initial = {k: v.clone() for k, v in initial.state_dict().items()}
+    with tempfile.TemporaryDirectory() as work:
+        ops.reset_launch_counts()  # this train path's run starts here
+        with tf32(False):
+            state, history = train_model(cfg, work_dir=work, seed=seed, max_steps=steps,
+                                         validate=False, device="cuda")
+        torch.cuda.synchronize()
+        check_no_launches(f"{label} train", ops.launch_counts(), path_cores())  # ... ends here
+    model = state.model
+
+    def check_moved(start, over):
+        now = model.state_dict()
+        moved = [k for k in start if not torch.equal(start[k], now[k])]
+        log(f"  {len(moved)} of {len(start)} tensors and statistics moved over {over}")
+        if len(moved) != len(start):
+            raise AssertionError(f"{label}: tensors did not move: "
+                                 f"{sorted(set(start) - set(moved))[:8]}")
+
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 29: {label} ({n_params / 1e6:.2f}M params) train_model: {state.step} steps of "
+        f"{videos} videos x {cfg['data']['train']['num_rois']} rois in "
+        f"{time.perf_counter() - t_path:.1f} s (build and data included); losses "
+        f"{[round(h['loss'], 4) for h in history]}, recall@thr=0.5 "
+        f"{[round(h['recall@thr=0.5'], 3) for h in history]}")
+    if (state.step != steps or len(history) != steps
+            or not all(np.isfinite(h["loss"]) for h in history)):
+        raise AssertionError(f"{label}: train_model did not take {steps} finite steps")
+    if initial is not None:
+        check_moved(initial, "train_model")
+    del initial
+    lap("train_model")
+
+    ops.reset_launch_counts()  # this eval path's run starts here
+    t0 = time.perf_counter()
+    with tf32(False):
+        metrics = run_detection_evaluation(cfg, model, split="val", batch_size=1)
+    torch.cuda.synchronize()
+    check_no_launches(f"{label} eval", ops.launch_counts(), path_cores())  # ... ends here
+    mean_ap = metrics["mAP@0.5IOU"]
+    log(f"  run_detection_evaluation of {AVA_VIDEOS * AVA_VAL_KEYFRAMES} keyframes at "
+        f"batch 1 on the {tuple(cfg['data']['val']['test_pad_to'])} canvas in "
+        f"{time.perf_counter() - t0:.1f} s: mAP@0.5IOU {mean_ap:.4f} over "
+        f"{len(metrics) - 1} classes")
+    if not 0.0 <= mean_ap <= 1.0:
+        raise AssertionError(f"{label}: mAP {mean_ap} outside [0, 1]")
+    lap("evaluation")
+
+    def samples(split, n):
+        """The first n samples of ``split`` collated as the loader does (no
+        prefetch thread), those its pipeline already gave from ``batches``."""
+        ds = build_dataset(dict(cfg["data"][split]))
+        # the frames do not depend on the device stage's normalisation
+        steps = [st for st in cfg["data"][split]["pipeline"] if st["type"] != "Normalize"]
+        key = (split, json.dumps(steps, sort_keys=True), ds.to_bgr)
+        have = batches.get(key)
+        m = len(have["img_key"]) if have else 0
+        if m < n:
+            more = collate([ds.prepare_sample(i, np.random.default_rng((seed, i)))
+                            for i in range(m, n)])
+            batches[key] = more if have is None else {
+                k: v + more[k] if isinstance(v, list) else np.concatenate([v, more[k]])
+                for k, v in have.items()}
+        return ds, {k: v[:n] for k, v in batches[key].items()}
+
+    lfb_bank, _ = _maybe_build_lfb(cfg["model"])
+    val, val_batch = samples("val", 8)
+    if lfb_bank is not None:
+        val_batch["lt_feat"] = _sample_lt_feat(lfb_bank, val_batch["img_key"])
+    prepare = make_det_prepare_fn(val.mean, val.std, device="cuda")
+
+    def eval_forward(n):
+        imgs = prepare(val_batch["imgs"][:n])
+        rois = torch.as_tensor(val_batch["rois"][:n], device="cuda")
+        lt = (None if lfb_bank is None
+              else torch.as_tensor(val_batch["lt_feat"][:n], device="cuda"))
+        return lambda: torch.sigmoid(model.bbox_head(model.roi_features(imgs, rois, lt)))
+
+    model.eval()
+    if host:
+        imgs = prepare(val_batch["imgs"][:2])
+        rois = torch.as_tensor(val_batch["rois"][:2], device="cuda")
+        with torch.no_grad(), tf32(False):
+            out = model(imgs, rois)
+        host_vs_card(f"{label} logits of 2 clips {tuple(imgs.shape[1:])}", model,
+                     (imgs, rois), out, tol=DET_HOST_REL)
+        lap("host check")
+    log(f"  {label} timings on {card}")
+    n = len(val_batch["img_key"])
+    lap("val batch")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad(), tf32(False):
+        ms = cuda_ms(eval_forward(n), iters=5, warmup=2)
+    log(f"  {label} eval forward of {n} videos x {val.num_rois} rois on the canvas (TF32 "
+        f"off): {ms:.2f} ms, {n / ms * 1e3:.1f} videos/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
+        "warm-ups, CUDA events)")
+    lap("eval timing")
+    train, batch = samples("train", videos)
+    if lfb_bank is not None:
+        batch["lt_feat"] = _sample_lt_feat(lfb_bank, batch["img_key"])
+    lap("train batch")
+    step = make_detection_train_step(model, state.optimizer,
+                                     make_det_prepare_fn(train.mean, train.std, device="cuda"))
+    start = None if host else {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    with tf32(False):
+        ms = cuda_ms(lambda: step(state, batch, seed), iters=5, warmup=2)
+    log(f"  {label} train step {videos} videos x {train.num_rois} rois of "
+        f"{tuple(batch['imgs'].shape[1:])} (TF32 off): {ms:.2f} ms, {videos / ms * 1e3:.1f} "
+        f"videos/s, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+        "(median of 5 after 2 warm-ups, CUDA events)")
+    lap("train timing")
+    with tf32(False):
+        profile_step(step, state, batch, f"{label} {videos}-video (TF32 off)", cpu_ops=False)
+    if start is not None:
+        check_moved(start, "the timed steps")
+    lap("profile")
+    log(f"phase 29: {label} path in {time.perf_counter() - t_path:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")")
+    return model
+
+
+def drive_lfb(card, files, source, seed, batches):
+    """The LFB flow: lfb_slowonly_r50_ava_infer.py with ``source``'s weights
+    (the SlowOnly recipe just trained) writes the train and val banks
+    through run_detection_evaluation (its LFBInferHead, dataset_mode each
+    split), then lfb_nl_...py reads them (window 60 s x 5 features of
+    2048) through drive_detector."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import run_detection_evaluation
+    from adapt_image_models_torch.models import build_model
+    t0 = time.perf_counter()
+    bank_dir = os.path.join(os.path.dirname(files["train"]["ann_file"]), "lfb")
+    for mode in ("train", "val"):
+        cfg = ava_config(LFB_INFER_CONFIG, files)
+        # the infer recipe reads its val split: each bank's split there
+        cfg["data"]["val"].update(files[mode])
+        cfg["model"]["roi_head"]["shared_head"].update(lfb_prefix_path=bank_dir,
+                                                       dataset_mode=mode)
+        mcfg = {k: v for k, v in cfg["model"].items() if k not in ("train_cfg", "test_cfg")}
+        model = build_model(mcfg, device="cuda")
+        model.load_state_dict(source.state_dict())
+        ops.reset_launch_counts()
+        with tf32(False):
+            run_detection_evaluation(cfg, model, split="val")
+        check_no_launches(f"LFB infer ({mode})", ops.launch_counts(), path_cores())
+    banks = [np.load(os.path.join(bank_dir, f"lfb_{mode}.npz")) for mode in ("train", "val")]
+    keys = [len(b.files) for b in banks]
+    rows = [sum(len(b[k]) for k in b.files) for b in banks]
+    width = banks[0][banks[0].files[0]].shape[1]
+    log(f"phase 29: {LFB_INFER_CONFIG} wrote lfb_train.npz and lfb_val.npz: {keys} keyframes, "
+        f"{rows} rois of {width} fp16 features, in {time.perf_counter() - t0:.1f} s")
+    if keys != [AVA_VIDEOS * len(AVA_KEYFRAMES), AVA_VIDEOS * AVA_VAL_KEYFRAMES] or width != 2048:
+        raise AssertionError("LFB infer: the banks miss keyframes or features")
+    del model
+    cfg = ava_config(LFB_NL_CONFIG, files)
+    cfg["model"]["roi_head"]["shared_head"]["lfb_cfg"]["lfb_prefix_path"] = bank_dir
+    drive_detector(card, "LFB-NL SlowOnly-R50 4x16", cfg, seed, steps=3, batches=batches)
+    torch.cuda.empty_cache()
+
+
+def phase_29(card):
+    """AVA detection: the SlowOnly-R50 4x16, SlowFast-R50 8x8 and ACRN
+    recipes through drive_detector on an AVA tree the phase writes, then the
+    LFB flow (drive_lfb)."""
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_ava(tmp, seed=2900)
+        log(f"phase 29: wrote {AVA_VIDEOS} videos x {len(AVA_KEYFRAMES)} keyframes of "
+            f"340 x 256 rawframes (val: the first {AVA_VAL_KEYFRAMES}), csvs, label map and "
+            f"proposals in {time.perf_counter() - t0:.1f} s")
+        slowonly = None
+        batches = {}
+        for k, (label, name) in enumerate(AVA_PATHS):
+            model = drive_detector(card, label, ava_config(name, files), seed=2910 + k,
+                                   steps=3, batches=batches, host=k == 0)
+            if k == 0:
+                slowonly = model
+            else:
+                del model
+            torch.cuda.empty_cache()
+        drive_lfb(card, files, slowonly, seed=2920, batches=batches)
+        del slowonly
+        torch.cuda.empty_cache()
+    log(f"phase 29: {time.perf_counter() - t0:.1f} s")
 
 
 def main():
@@ -6903,6 +7271,9 @@ def main():
 
     # ---- phase 28: OmniSource, PoseC3D and temporal localization --------------------
     phase_28(card)
+
+    # ---- phase 29: AVA detection (FastRCNN, ACRN, LFB) --------------------------------
+    phase_29(card)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
