@@ -33,6 +33,15 @@ def confusion_matrix(y_pred: np.ndarray, y_real: np.ndarray,
     return mat
 
 
+def get_weighted_score(score_list, coeff_list):
+    """Late-fusion weighted sum of per-model score arrays (parity:
+    ``adapt_image_models_tpu/core/metrics.py:38``; reference
+    ``accuracy.py:389-409``): sum_i coeff_i * score_i."""
+    if len(score_list) != len(coeff_list):
+        raise ValueError(f"{len(score_list)} score arrays and {len(coeff_list)} weights")
+    return sum(np.asarray(s) * c for s, c in zip(score_list, coeff_list))
+
+
 def top_k_accuracy(scores: np.ndarray, labels: np.ndarray,
                    topk: Sequence[int] = (1,)) -> list:
     """(reference ``accuracy.py:90-110``)."""

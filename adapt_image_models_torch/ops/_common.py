@@ -302,6 +302,22 @@ def adapter_xla(y: torch.Tensor, w1, b1, w2, b2, skip: bool) -> torch.Tensor:
     return y + z if skip else z
 
 
+def residual_adapter_xla(x: torch.Tensor, y: torch.Tensor, w1, b1, w2, b2,
+                         skip: bool) -> torch.Tensor:
+    """The tail of the JAX package's step references
+    (``_ref_ln_adapter_res_impl``, ``fused_qkv_attention.py:688-702``,
+    ``fused_temporal_attention.py:739-753``): the tanh-GELU adapter in fp32
+    from the attention rows y, y added in fp32 with ``skip``, the residual x
+    added in fp32 and the sum rounded to x's dtype once; differentiated by
+    autograd."""
+    y32 = y.float()
+    a = gelu_tanh(y32 @ w1.float().t() + b1.float())
+    z = a @ w2.float().t() + b2.float()
+    if skip:
+        z = y32 + z
+    return (x.float() + z).to(x.dtype)
+
+
 def attention_step_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1,
                         w2, b2, skip: bool, core: Callable,
                         gate: Optional[torch.Tensor] = None,
@@ -631,6 +647,14 @@ class RecomputedVjp(torch.autograd.Function):
         return (None, None) + tuple(next(grads) if n else None for n in need)
 
 
+def needs_grad(tensors) -> bool:
+    """Whether autograd records a call on ``tensors``: grad mode is on and
+    one of them requires grad. The eval step ops take the reference's
+    gradient only then; otherwise they run their forward alone."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                           for t in tensors)
+
+
 def check_frozen(name: str, tensors) -> None:
     """The train ops' backward returns no cotangent for the LayerNorm and
     CLIP weights; refuse them when they require one (``apis/train.py``
@@ -685,7 +709,7 @@ def check_step_args(name: str, x: torch.Tensor, ln, matrices, vectors,
         raise ValueError(f"{name}: all tensors must be on {x.device}")
     if x.device.type == "cpu" or not kernel:
         return
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):  # meta: the registered ops' shapes
         raise ValueError(f"{name}: unsupported device {x.device}")
     if num_heads is not None and d // num_heads != 64:
         raise ValueError(f"{name}: the CUDA kernels take head dim 64, got {d // num_heads}")

@@ -10,6 +10,18 @@ machine they run on may have neither ``nvcc`` nor a card.
 The launchers below take CUDA tensors, allocate their outputs with
 ``torch.empty`` and launch on PyTorch's current stream. Every C entry
 returns ``cudaGetLastError()`` after its launch; a non-zero code raises.
+
+Each launcher is also a registered op of the ``aim_port`` namespace
+(``torch.ops.aim_port.<name>``; ``register_ops`` at the end): its CUDA
+implementation is the launcher's body, with the checks that read data
+pointers; its CPU implementation is the kernel's plain version; its fake
+implementation gives the output shapes, so that ``torch.export``, the meta
+device and ``FlopCounterMode`` (through the FLOP formulas of the GEMM and
+the attention cores) trace through the kernels. A traced graph, such as an
+exported program, holds the ``aim_port`` ops and launches the kernels when
+it runs on CUDA tensors; loading it needs this module imported, which
+registers them. No implementation gives way to another: a CUDA tensor the
+kernel does not take raises.
 """
 
 from __future__ import annotations
@@ -23,6 +35,7 @@ from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
@@ -90,6 +103,33 @@ ROW_PASS_BLOCKS = (8, 6, 4, 3)
 
 def _round_up(a: int, b: int) -> int:
     return -(-a // b) * b
+
+
+def runs_kernels(t: torch.Tensor) -> bool:
+    """Whether a call on ``t`` launches kernels: not on the meta device and
+    not on a fake tensor (``torch.export`` traces on fake tensors). The op
+    wrappers count a call only then."""
+    return not (t.is_meta or isinstance(t, FakeTensor))
+
+
+def traced(t: torch.Tensor) -> bool:
+    """Whether a launcher given ``t`` goes through its registered op
+    (``aim_port::<name>``, see the end of this module) rather than straight
+    to its CUDA body: under ``torch.compile`` or ``torch.export``, on the
+    meta device, or under a dispatch mode of torch's own that records the
+    ops it sees (``FlopCounterMode``'s, a tracer's; not ``FakeTensorMode``,
+    which gives shapes only). There the op's fake implementation gives the
+    shapes, the mode sees the call, and a traced graph records it; the op's
+    CUDA implementation is the same body. A plain eager call, or one under a
+    mode defined outside torch, takes the body directly, with no dispatch."""
+    if t.is_meta or torch.compiler.is_compiling():
+        return True
+    if not torch._C._len_torch_dispatch_stack():
+        return False
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+    return any(type(m).__module__.startswith("torch.") and not isinstance(m, FakeTensorMode)
+               for m in _get_current_dispatch_mode_stack())
 
 
 def segment_fwd_design(frames: int) -> Tuple[str, int]:
@@ -415,7 +455,13 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     """(rows, D) bf16 -> (rows, D) bf16, fp32 statistics and affine (fp32
     ``weight`` and ``bias``), in one launch of the design
     ``row_pass_design("forward", D)`` picks. Each launch adds one to
-    ``launches``."""
+    ``launches``. Registered as ``aim_port::layernorm``."""
+    if traced(x):
+        return torch.ops.aim_port.layernorm(x, weight, bias, eps)
+    return _layernorm(x, weight, bias, eps)
+
+
+def _layernorm(x, weight, bias, eps):
     rows, d = _row_pass_args("layernorm", x, f32=(weight, bias), vectors=(weight, bias))
     _hold_design("aim_row_pass_design", 0, d)  # kind 0: the forward
     y = torch.empty_like(x)
@@ -436,7 +482,13 @@ def layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
     dy (rows, D) fp32, fp32 ``weight`` -> dx (rows, D) bf16, in one launch
     of the design ``row_pass_design("backward", D)`` picks. With no ``g``
     the LN backward alone, as the dX-only backwards close. Each launch adds
-    one to ``launches``."""
+    one to ``launches``. Registered as ``aim_port::layernorm_bwd``."""
+    if traced(x):
+        return torch.ops.aim_port.layernorm_bwd(x, dy, weight, g, eps)
+    return _layernorm_bwd(x, dy, weight, g, eps)
+
+
+def _layernorm_bwd(x, dy, weight, g, eps):
     given = () if g is None else (g,)
     rows, d = _row_pass_args("layernorm_bwd", x, bf16=given, f32=(dy, weight),
                              vectors=(weight,), like_x=(dy, *given))
@@ -457,7 +509,13 @@ def row_scale(g: torch.Tensor, scale: torch.Tensor, rows_per_scale: int,
     """``g * alpha * scale[row // rows_per_scale]`` for (rows, D) bf16 g and
     fp32 scale of one value a group of ``rows_per_scale`` rows; returns the
     fp32 result and its bf16 rounding. Each launch adds one to
-    ``launches``."""
+    ``launches``. Registered as ``aim_port::row_scale``."""
+    if traced(g):
+        return torch.ops.aim_port.row_scale(g, scale, rows_per_scale, alpha)
+    return _row_scale(g, scale, rows_per_scale, alpha)
+
+
+def _row_scale(g, scale, rows_per_scale, alpha):
     rows, d = _row_pass_args("row_scale", g, unaligned=(scale,))
     if rows_per_scale <= 0:
         raise ValueError(f"row_scale: rows_per_scale={rows_per_scale} must be positive")
@@ -489,12 +547,31 @@ def gemm(a: torch.Tensor, w: torch.Tensor, *, kn: bool = False, bias=None,
     group of ``rows_per_scale`` rows, ``f32_pre_act`` stores the fp32
     result before ``act``. Returns ``(fp32 result or None, bf16 result or
     None)``. a and w must be contiguous and 16-byte aligned, k and n
-    multiples of 8 (``gemm_design``). Each launch adds one to ``launches``."""
+    multiples of 8 (``gemm_design``). Each launch adds one to ``launches``.
+    Registered as ``aim_port::gemm``, which returns the results asked for
+    as a list."""
+    args = (a, w, kn, bias, act, aux, dact, alpha, res_f32, row_scale, rows_per_scale,
+            res_bf16, bias2, out_f32, out_bf16, f32_pre_act)
+    if not traced(a):
+        return _gemm(*args)
+    outs = iter(torch.ops.aim_port.gemm(*args))
+    return (next(outs) if out_f32 else None), (next(outs) if out_bf16 else None)
+
+
+def _gemm_shape(a, w, kn):
+    """(m, n, k) of ``gemm``'s product; raise ``ValueError`` where the
+    operands disagree or ``gemm_design`` refuses them."""
     m, k = a.shape
     n = w.shape[1] if kn else w.shape[0]
     if (w.shape[0] if kn else w.shape[1]) != k:
         raise ValueError(f"gemm: a {tuple(a.shape)} and w {tuple(w.shape)} (kn={kn}) disagree")
     gemm_design(m, n, k, kn)  # raises on what the kernel does not take
+    return m, n, k
+
+
+def _gemm(a, w, kn, bias, act, aux, dact, alpha, res_f32, row_scale, rows_per_scale,
+          res_bf16, bias2, out_f32, out_bf16, f32_pre_act):
+    m, n, k = _gemm_shape(a, w, kn)
     for t in (a, w):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("gemm: a and w must be contiguous and 16-byte aligned")
@@ -565,7 +642,14 @@ def spatial_attention(qkv: torch.Tensor, frames: int, length: int,
     """(frames*length, 3D) packed bf16 QKV -> (frames*length, D) bf16: the
     flash core (``flash_attention``) on the views ``spatial_views`` makes.
     ``prenorm`` normalises P before rounding it, as the TPU backward
-    kernel's recompute does. Each launch adds one to ``launches``."""
+    kernel's recompute does. Each launch adds one to ``launches``.
+    Registered as ``aim_port::spatial_attention``."""
+    if traced(qkv):
+        return torch.ops.aim_port.spatial_attention(qkv, frames, length, prenorm)
+    return _spatial_attention(qkv, frames, length, prenorm)
+
+
+def _spatial_attention(qkv, frames, length, prenorm):
     out = torch.empty((qkv.shape[0], qkv.shape[1] // 3), dtype=qkv.dtype, device=qkv.device)
     flash_attention(*spatial_views(qkv, out, frames, length), prenorm=prenorm)
     spatial_attention.launches += 1
@@ -584,7 +668,15 @@ def spatial_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, frames: int,
     picks for ``length``. With ``with_out`` also the core's output
     recomputed from the fp32-normalised P, ``bf16(bf16(P) V)``
     (frames*length, D): returns (dqkv, out). Each call adds one to
-    ``launches``."""
+    ``launches``. Registered as ``aim_port::spatial_attention_bwd``, which
+    returns a list."""
+    if traced(qkv):
+        outs = torch.ops.aim_port.spatial_attention_bwd(qkv, dout, frames, length, with_out)
+        return tuple(outs) if with_out else outs[0]
+    return _spatial_attention_bwd(qkv, dout, frames, length, with_out)
+
+
+def _spatial_attention_bwd(qkv, dout, frames, length, with_out):
     d = qkv.shape[1] // 3
     dqkv = torch.empty_like(qkv)
     out = torch.empty_like(dout) if with_out else None
@@ -645,7 +737,14 @@ def temporal_attention(qkv: torch.Tensor, clips: int, frames: int,
     frames of its clip, with the TPU masked-full core's casts (unnormalised
     P rounded for P V, the fp32 sum divided by the fp32 row sum), in one
     launch in the design ``temporal_fwd_design`` picks for ``frames``. Only
-    the output is allocated. Each launch adds one to ``launches``."""
+    the output is allocated. Each launch adds one to ``launches``.
+    Registered as ``aim_port::temporal_attention``."""
+    if traced(qkv):
+        return torch.ops.aim_port.temporal_attention(qkv, clips, frames, length)
+    return _temporal_attention(qkv, clips, frames, length)
+
+
+def _temporal_attention(qkv, clips, frames, length):
     d = qkv.shape[1] // 3
     out = torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
     _hold_design("aim_temporal_attention_design", frames)
@@ -666,7 +765,16 @@ def temporal_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
     the design ``temporal_bwd_design`` picks for ``frames``. With
     ``with_out`` also the core's output recomputed from the fp32-normalised
     P, ``bf16(bf16(P) V)`` (rows, D), as the TPU backward kernels emit it:
-    returns (dqkv, out). Each launch adds one to ``launches``."""
+    returns (dqkv, out). Each launch adds one to ``launches``. Registered
+    as ``aim_port::temporal_attention_bwd``, which returns a list."""
+    if traced(qkv):
+        outs = torch.ops.aim_port.temporal_attention_bwd(qkv, dout, clips, frames, length,
+                                                         with_out)
+        return tuple(outs) if with_out else outs[0]
+    return _temporal_attention_bwd(qkv, dout, clips, frames, length, with_out)
+
+
+def _temporal_attention_bwd(qkv, dout, clips, frames, length, with_out):
     d = qkv.shape[1] // 3
     dqkv = torch.empty_like(qkv)
     out = torch.empty_like(dout) if with_out else None
@@ -688,7 +796,14 @@ def temporal_segment(qkv: torch.Tensor, clips: int, frames: int,
     (clips*frames*length, 3D) packed bf16 QKV -> (rows, D) bf16, with the
     TPU segment body's casts (bf16-rounded products, P normalised before it
     is rounded, no final division), in the design ``segment_fwd_design``
-    picks for ``frames``. Each launch adds one to ``launches``."""
+    picks for ``frames``. Each launch adds one to ``launches``. Registered
+    as ``aim_port::temporal_segment``."""
+    if traced(qkv):
+        return torch.ops.aim_port.temporal_segment(qkv, clips, frames, length)
+    return _temporal_segment(qkv, clips, frames, length)
+
+
+def _temporal_segment(qkv, clips, frames, length):
     d = qkv.shape[1] // 3
     out = torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
     _hold_design("aim_temporal_segment_design", frames)
@@ -708,7 +823,17 @@ def temporal_segment_bwd(qkv: torch.Tensor, dout: torch.Tensor, clips: int,
     D) of its output: packed bf16 dqkv (rows, 3D), in one launch of
     ``csrc/temporal_bwd.cuh`` in the design ``temporal_segment_bwd_design``
     picks for ``frames``; with ``with_out`` also the core's output
-    recomputed, (dqkv, out). Each launch adds one to ``launches``."""
+    recomputed, (dqkv, out). Each launch adds one to ``launches``.
+    Registered as ``aim_port::temporal_segment_bwd``, which returns a
+    list."""
+    if traced(qkv):
+        outs = torch.ops.aim_port.temporal_segment_bwd(qkv, dout, clips, frames, length,
+                                                       with_out)
+        return tuple(outs) if with_out else outs[0]
+    return _temporal_segment_bwd(qkv, dout, clips, frames, length, with_out)
+
+
+def _temporal_segment_bwd(qkv, dout, clips, frames, length, with_out):
     d = qkv.shape[1] // 3
     dqkv = torch.empty_like(qkv)
     out = (torch.empty((qkv.shape[0], d), dtype=qkv.dtype, device=qkv.device)
@@ -732,8 +857,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     elements). The output is (B, H, L, 64) laid out as (B, L, H, 64), so
     that ``o.transpose(1, 2).reshape(B, L, H * 64)`` is a view, or written
     through the strides of the given ``o``. ``prenorm`` normalises P by the
-    row sum before rounding it (the divisor then 1)."""
+    row sum before rounding it (the divisor then 1). Registered, without
+    ``o``, as ``aim_port::flash_attention``."""
+    if o is None and traced(q):
+        return torch.ops.aim_port.flash_attention(q, k, v, prenorm)
+    return _flash_attention(q, k, v, o, prenorm)
+
+
+def _flash_attention(q, k, v, o=None, prenorm=False):
     b, h, n, hd = q.shape
+    for t in (q, k, v):
+        if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError("flash_attention: q, k, v need a contiguous head dim, "
+                             "strides in multiples of 8 elements and 16-byte alignment")
     if o is None:
         o = torch.empty((b, n, h, hd), dtype=q.dtype, device=q.device).transpose(1, 2)
     args = _FlashArgs(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -759,3 +895,208 @@ def bf16_products(a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch
         a.data_ptr(), b.data_ptr(), packed.data_ptr(), rounded.data_ptr(),
         a.numel() // 2, _stream()), "aim_bf16_products")
     return packed, rounded
+
+
+# ---------------------------------------------------------------------------
+# The launchers as registered ops (``torch.ops.aim_port.<name>``)
+
+NAMESPACE = "aim_port"
+
+
+def _rows_out(qkv: torch.Tensor) -> torch.Tensor:
+    """A (rows, D) tensor of the packed (rows, 3D) QKV's dtype and device."""
+    return qkv.new_empty((qkv.shape[0], qkv.shape[1] // 3))
+
+
+def _heads(qkv: torch.Tensor) -> int:
+    return qkv.shape[1] // 3 // 64
+
+
+def _flash_out(q: torch.Tensor) -> torch.Tensor:
+    """(B, H, L, 64) laid out as (B, L, H, 64), as the flash core writes o."""
+    b, h, n, hd = q.shape
+    return q.new_empty((b, n, h, hd)).transpose(1, 2)
+
+
+def _plain(name: str):
+    """The kernel's plain version from ``_common`` (imported at the call:
+    ``_common`` imports this module)."""
+    from adapt_image_models_torch.ops import _common
+    return getattr(_common, name)
+
+
+def _layernorm_cpu(x, weight, bias, eps):
+    return _plain("layer_norm_fp32")(x, weight, bias, eps).to(x.dtype)
+
+
+def _layernorm_bwd_cpu(x, dy, weight, g, eps):
+    return _plain("layer_norm_bwd_plain")(x, dy, weight, g, eps).to(x.dtype)
+
+
+def _row_scale_cpu(g, scale, rows_per_scale, alpha):
+    rows = torch.arange(g.shape[0]) // rows_per_scale
+    o32 = g.float() * alpha * scale[rows][:, None]
+    return o32, o32.to(g.dtype)
+
+
+def _gemm_cpu(a, w, kn, bias, act, aux, dact, alpha, res_f32, row_scale, rows_per_scale,
+              res_bf16, bias2, out_f32, out_bf16, f32_pre_act):
+    _gemm_shape(a, w, kn)
+    o32, o16 = gemm_plain(a, w, kn=kn, bias=bias, act=act, aux=aux, dact=dact, alpha=alpha,
+                          res_f32=res_f32, row_scale=row_scale,
+                          rows_per_scale=rows_per_scale, res_bf16=res_bf16, bias2=bias2,
+                          out_f32=out_f32, out_bf16=out_bf16, f32_pre_act=f32_pre_act)
+    return [t for t in (o32, o16) if t is not None]
+
+
+def _gemm_fake(a, w, kn, bias, act, aux, dact, alpha, res_f32, row_scale, rows_per_scale,
+               res_bf16, bias2, out_f32, out_bf16, f32_pre_act):
+    m, n, _ = _gemm_shape(a, w, kn)
+    return ([a.new_empty((m, n), dtype=torch.float32)] * out_f32
+            + [a.new_empty((m, n), dtype=torch.bfloat16)] * out_bf16)
+
+
+def _flash_attention_cpu(q, k, v, prenorm):
+    from adapt_image_models_torch.ops.flash_attention import flash_attention_core_plain
+    o = _flash_out(q)
+    o.copy_(flash_attention_core_plain(q, k, v, prenorm))
+    return o
+
+
+def _spatial_attention_cpu(qkv, frames, length, prenorm):
+    return _plain("spatial_core_plain")(qkv, frames, length, _heads(qkv), prenorm)
+
+
+def _spatial_attention_bwd_cpu(qkv, dout, frames, length, with_out):
+    dqkv = _plain("spatial_core_bwd_plain")(qkv, dout, frames, length, _heads(qkv))
+    if not with_out:
+        return [dqkv]
+    return [dqkv, _plain("spatial_core_plain")(qkv, frames, length, _heads(qkv), True)]
+
+
+def _temporal_attention_cpu(qkv, clips, frames, length):
+    return _plain("temporal_core_plain")(qkv, clips, frames, length, _heads(qkv))
+
+
+def _temporal_attention_bwd_cpu(qkv, dout, clips, frames, length, with_out):
+    dqkv = _plain("temporal_core_bwd_plain")(qkv, dout, clips, frames, length, _heads(qkv))
+    if not with_out:
+        return [dqkv]
+    return [dqkv, _plain("temporal_core_plain")(qkv, clips, frames, length, _heads(qkv),
+                                                True)]
+
+
+def _temporal_segment_cpu(qkv, clips, frames, length):
+    return _plain("temporal_segment_core_plain")(qkv, clips, frames, length, _heads(qkv))
+
+
+def _temporal_segment_bwd_cpu(qkv, dout, clips, frames, length, with_out):
+    dqkv, o = _plain("temporal_segment_core_bwd_plain")(qkv, dout, clips, frames, length,
+                                                        _heads(qkv))
+    return [dqkv, o] if with_out else [dqkv]
+
+
+def _bwd_fake(qkv, dout, *size_and_with_out):
+    return [torch.empty_like(qkv)] + [_rows_out(qkv)] * size_and_with_out[-1]
+
+
+# FLOP formulas, in the shapes ``FlopCounterMode`` hands them: each counts
+# the products of the plain version's matmuls, two operations a
+# multiply-add, so that a count over the kernel route equals one over the
+# plain route; the segment core's scores, which its plain version forms
+# as elementwise products the counter does not see, are counted as the
+# products they are.
+def _gemm_flops(a, w, kn, *_, out_shape=None, **__):
+    return 2 * a[0] * a[1] * (w[1] if kn else w[0])
+
+
+def _spatial_flops(qkv, frames, length, *_, out_shape=None, **__):
+    return 4 * frames * length * length * (qkv[1] // 3)
+
+
+def _spatial_bwd_flops(qkv, dout, frames, length, with_out, out_shape=None, **__):
+    return (10 + 4 * with_out) * frames * length * length * (qkv[1] // 3)
+
+
+def _temporal_flops(qkv, clips, frames, length, out_shape=None, **__):
+    return 4 * clips * length * frames * frames * (qkv[1] // 3)
+
+
+def _temporal_bwd_flops(qkv, dout, clips, frames, length, with_out, out_shape=None, **__):
+    return (10 + 4 * with_out) * clips * length * frames * frames * (qkv[1] // 3)
+
+
+def _segment_bwd_flops(qkv, dout, clips, frames, length, with_out, out_shape=None, **__):
+    # scores and dP (both as elementwise products), dq, dk, dV and the output
+    return 12 * clips * length * frames * frames * (qkv[1] // 3)
+
+
+def _flash_flops(q, k, v, prenorm, out_shape=None, **__):
+    return 4 * q[0] * q[1] * q[2] * q[2] * q[3]
+
+
+_OPS = {  # name: (schema, CUDA body, plain version, fake, FLOP formula)
+    "layernorm": ("(Tensor x, Tensor weight, Tensor bias, float eps) -> Tensor",
+                  _layernorm, _layernorm_cpu,
+                  lambda x, *_: torch.empty_like(x), None),
+    "layernorm_bwd": (
+        "(Tensor x, Tensor dy, Tensor weight, Tensor? g, float eps) -> Tensor",
+        _layernorm_bwd, _layernorm_bwd_cpu,
+        lambda x, *_: torch.empty_like(x), None),
+    "row_scale": ("(Tensor g, Tensor scale, int rows_per_scale, float alpha) -> (Tensor, Tensor)",
+                  _row_scale, _row_scale_cpu,
+                  lambda g, *_: (torch.empty_like(g, dtype=torch.float32), torch.empty_like(g)),
+                  None),
+    "gemm": ("(Tensor a, Tensor w, bool kn, Tensor? bias, int act, Tensor? aux, int dact, "
+             "float alpha, Tensor? res_f32, Tensor? row_scale, int rows_per_scale, "
+             "Tensor? res_bf16, Tensor? bias2, bool out_f32, bool out_bf16, "
+             "bool f32_pre_act) -> Tensor[]",
+             lambda *a: [t for t in _gemm(*a) if t is not None], _gemm_cpu, _gemm_fake,
+             _gemm_flops),
+    "flash_attention": ("(Tensor q, Tensor k, Tensor v, bool prenorm) -> Tensor",
+                        lambda q, k, v, prenorm: _flash_attention(q, k, v, None, prenorm),
+                        _flash_attention_cpu, lambda q, *_: _flash_out(q), _flash_flops),
+    "spatial_attention": ("(Tensor qkv, int frames, int length, bool prenorm) -> Tensor",
+                          _spatial_attention, _spatial_attention_cpu,
+                          lambda qkv, *_: _rows_out(qkv), _spatial_flops),
+    "spatial_attention_bwd": (
+        "(Tensor qkv, Tensor dout, int frames, int length, bool with_out) -> Tensor[]",
+        lambda *a: list(_spatial_attention_bwd(*a)) if a[-1] else [_spatial_attention_bwd(*a)],
+        _spatial_attention_bwd_cpu, _bwd_fake, _spatial_bwd_flops),
+    "temporal_attention": ("(Tensor qkv, int clips, int frames, int length) -> Tensor",
+                           _temporal_attention, _temporal_attention_cpu,
+                           lambda qkv, *_: _rows_out(qkv), _temporal_flops),
+    "temporal_attention_bwd": (
+        "(Tensor qkv, Tensor dout, int clips, int frames, int length, bool with_out) "
+        "-> Tensor[]",
+        lambda *a: list(_temporal_attention_bwd(*a)) if a[-1] else [_temporal_attention_bwd(*a)],
+        _temporal_attention_bwd_cpu, _bwd_fake, _temporal_bwd_flops),
+    "temporal_segment": ("(Tensor qkv, int clips, int frames, int length) -> Tensor",
+                         _temporal_segment, _temporal_segment_cpu,
+                         lambda qkv, *_: _rows_out(qkv), _temporal_flops),
+    "temporal_segment_bwd": (
+        "(Tensor qkv, Tensor dout, int clips, int frames, int length, bool with_out) "
+        "-> Tensor[]",
+        lambda *a: list(_temporal_segment_bwd(*a)) if a[-1] else [_temporal_segment_bwd(*a)],
+        _temporal_segment_bwd_cpu, _bwd_fake, _segment_bwd_flops),
+}
+
+
+def register_ops() -> None:
+    """Register every launcher of ``_OPS`` as ``aim_port::<name>`` (once;
+    importing this module does it) with its CUDA body, its plain version
+    for CPU tensors, its fake implementation and, for the GEMM and the
+    attention cores, its FLOP formula."""
+    if hasattr(torch.ops.aim_port, "gemm"):
+        return
+    from torch.utils.flop_counter import register_flop_formula
+    for name, (schema, cuda, cpu, fake, flops) in _OPS.items():
+        op = torch.library.custom_op(f"{NAMESPACE}::{name}", cuda, mutates_args=(),
+                                     device_types="cuda", schema=schema)
+        op.register_kernel("cpu")(cpu)
+        op.register_fake(fake)
+        if flops is not None:
+            register_flop_formula(getattr(torch.ops.aim_port, name))(flops)
+
+
+register_ops()

@@ -39,9 +39,9 @@ import torch
 
 from adapt_image_models_torch.ops import _kernels
 from adapt_image_models_torch.ops._common import (
-    AdapterStep, _gated, check_frozen, check_gate, check_step_args, gelu_tanh,
-    gelu_tanh_grad, layer_norm_bwd_plain, layer_norm_fp32, mm32, mm32_kn,
-    quick_gelu, quick_gelu_grad,
+    AdapterStep, RecomputedVjp, _gated, check_frozen, check_gate, check_step_args,
+    exact_gelu, gelu_tanh, gelu_tanh_grad, layer_norm_bwd_plain, layer_norm_fp32, mm32,
+    mm32_kn, needs_grad, quick_gelu, quick_gelu_grad,
 )
 
 
@@ -87,19 +87,51 @@ def _check(name, x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, w1, b1, w2, b2,
         ((b_fc, d4), (b_proj, d), (b1, dh), (b2, d)), kernel=kernel)
 
 
+def _joint(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, w1, b1, w2, b2,
+           scale: float, gate=None) -> torch.Tensor:
+    args = (x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return fused_joint_plain(*args, scale, gate)
+    out = _joint_cuda(*args, scale, gate)
+    if _kernels.runs_kernels(x):
+        fused_joint.launches += 1
+    return out
+
+
+def joint_xla(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, w1, b1, w2, b2,
+              scale: float, gate=None) -> torch.Tensor:
+    """The JAX package's XLA reference of the joint step (``_ref_impl``
+    :275): the fp32 LayerNorm rounded to the working dtype, the MLP in the
+    working dtype (c_fc and its bias, QuickGELU in fp32 rounded back,
+    c_proj and its bias), the adapter in fp32 with the exact erf GELU, and
+    ``x + mlp + scale·z`` summed in fp32 and rounded once; ``gate`` (B·T·N,)
+    scales z's rows. Differentiated by autograd."""
+    dt = x.dtype
+    xn = layer_norm_fp32(x, ln_w, ln_b).to(dt)
+    h = quick_gelu((xn @ w_fc.to(dt).t() + b_fc.to(dt)).float()).to(dt)
+    mlp = h @ w_proj.to(dt).t() + b_proj.to(dt)
+    a = exact_gelu(xn.float() @ w1.float().t() + b1.float())
+    z = a @ w2.float().t() + b2.float()
+    if gate is not None:
+        z = z * gate.float().view(*z.shape[:-1], 1)
+    return (x.float() + mlp.float() + scale * z).to(dt)
+
+
 def fused_joint(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, w1, b1, w2, b2,
                 scale: float, gate=None) -> torch.Tensor:
     """``x + mlp(LN(x)) + gate·scale·adapter(LN(x))`` with an optional
     (B·T·N,) fp32 per-row gate (eval passes none). CPU tensors take the
-    plain version; CUDA tensors (bf16) launch the kernel chain."""
+    plain version; CUDA tensors (bf16) launch the kernel chain. Where
+    autograd records the call (``needs_grad``), the backward is the
+    vector-Jacobian product of ``joint_xla`` recomputed, as the JAX
+    package's ``fused_joint_block`` takes it (``_bwd`` :309)."""
     args = (x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, w1, b1, w2, b2)
     _check("fused_joint", *args)
     check_gate("fused_joint", gate, x.shape[0] * x.shape[1], x)
-    if x.device.type == "cpu":
-        return fused_joint_plain(*args, scale, gate)
-    out = _joint_cuda(*args, scale, gate)
-    fused_joint.launches += 1
-    return out
+    if needs_grad(args):
+        return RecomputedVjp.apply(lambda *a: _joint(*a, scale, gate),
+                                   lambda *a: joint_xla(*a, scale, gate), *args)
+    return _joint(*args, scale, gate)
 
 
 fused_joint.launches = 0
@@ -159,7 +191,8 @@ def fused_joint_mlp_rows_bwd(x, g, gate, ln_w, ln_b, w_fc, b_fc, w_proj, w1, b1,
     dxn, _ = _kernels.gemm(dh_, w_fc, kn=True, res_f32=acc, out_f32=True,
                            out_bf16=False)
     dx = _kernels.layernorm_bwd(x2, dxn, ln_w, g2)
-    fused_joint_mlp_rows_bwd.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_joint_mlp_rows_bwd.launches += 1
     return dx.view_as(x), xn, dpre, a, dz32
 
 
@@ -177,7 +210,8 @@ def _train_block(x, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, w1, b1, w2, b2,
         if plain or x.device.type == "cpu":
             return fused_joint_plain(x, *frozen, w1, b1, w2, b2, scale, gate)
         out = _joint_cuda(x, *frozen, w1, b1, w2, b2, scale, gate)
-        fused_joint_train_block.launches += 1
+        if _kernels.runs_kernels(x):
+            fused_joint_train_block.launches += 1
         return out
 
     def bwd(x, gate, w1, b1, w2, b2, ln_w, ln_b, w_fc, b_fc, w_proj, b_proj, g):

@@ -95,8 +95,8 @@ from adapt_image_models_torch.ops._common import (
     attention_bwd_dx_cuda, attention_bwd_dx_plain, attention_step_bwd_cuda,
     attention_step_bwd_plain, attention_step_cuda, attention_step_plain,
     check_cotangent, check_frozen, check_gate, check_step_args, layer_norm_fp32,
-    ln_attention_bwd_cuda, ln_attention_bwd_plain, mm32, mm32_kn,
-    spatial_core_bwd_plain, spatial_core_plain,
+    ln_attention_bwd_cuda, ln_attention_bwd_plain, mm32, mm32_kn, needs_grad,
+    residual_adapter_xla, spatial_core_bwd_plain, spatial_core_plain,
 )
 from adapt_image_models_torch.ops.flash_attention import xla_attention_core
 
@@ -124,20 +124,45 @@ def _check(name, x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
         ((b_qkv, 3 * d), (b_out, d), (b1, dh), (b2, d)), num_heads, kernel)
 
 
-def fused_spatial_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
-                       w1, b1, w2, b2, num_heads: int,
-                       skip: bool) -> torch.Tensor:
-    """``x + Adapter(W_o·attn(LN(x)))``. CPU tensors take the plain
-    version; CUDA tensors (bf16, head dim 64) launch the kernel chain."""
+def _spatial_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                  num_heads: int, skip: bool) -> torch.Tensor:
     args = (x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
-    _check("fused_spatial_step", *args, num_heads)
     if x.device.type == "cpu":
         return fused_spatial_step_plain(*args, num_heads, skip)
     bt, n, _ = x.shape
     out = attention_step_cuda(
         *args, skip, lambda qkv: _kernels.spatial_attention(qkv, bt, n))
-    fused_spatial_step.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_spatial_step.launches += 1
     return out
+
+
+def spatial_step_xla(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                     num_heads: int, skip: bool) -> torch.Tensor:
+    """The JAX package's XLA reference of the spatial step
+    (``_ref_ln_adapter_res_impl`` :688): the fp32 LayerNorm rounded to the
+    working dtype, ``attention_block_xla``, then ``residual_adapter_xla``;
+    differentiated by autograd."""
+    xn = layer_norm_fp32(x, ln_w, ln_b).to(x.dtype)
+    y = attention_block_xla(xn, w_qkv, b_qkv, w_out, b_out, num_heads)
+    return residual_adapter_xla(x, y, w1, b1, w2, b2, skip)
+
+
+def fused_spatial_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
+                       w1, b1, w2, b2, num_heads: int,
+                       skip: bool) -> torch.Tensor:
+    """``x + Adapter(W_o·attn(LN(x)))``. CPU tensors take the plain
+    version; CUDA tensors (bf16, head dim 64) launch the kernel chain.
+    Where autograd records the call (``needs_grad``), the forward is the
+    same and the backward is the vector-Jacobian product of
+    ``spatial_step_xla`` recomputed, as the JAX package's
+    ``fused_spatial_step_block`` takes it (``_bwd_step`` :724)."""
+    args = (x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
+    _check("fused_spatial_step", *args, num_heads)
+    if needs_grad(args):
+        return RecomputedVjp.apply(lambda *a: _spatial_step(*a, num_heads, skip),
+                                   lambda *a: spatial_step_xla(*a, num_heads, skip), *args)
+    return _spatial_step(*args, num_heads, skip)
 
 
 fused_spatial_step.launches = 0
@@ -163,7 +188,8 @@ def fused_spatial_step_gated(x, gate, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     out = attention_step_cuda(
         *args, skip, lambda qkv: _kernels.spatial_attention(qkv, bt, n), gate,
         emit_u)
-    fused_spatial_step_gated.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_spatial_step_gated.launches += 1
     return out
 
 
@@ -202,7 +228,8 @@ def fused_step_bwd_dx(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2,
         return fused_step_bwd_dx_plain(*args, g, num_heads, skip, gate)
     out = attention_step_bwd_cuda(x, gate, *args[1:], g, skip,
                                   *_bwd_cores(x, num_heads, cuda=True))
-    fused_step_bwd_dx.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_step_bwd_dx.launches += 1
     return out
 
 
@@ -236,7 +263,8 @@ def fused_ln_qkv_attention_bwd_dx(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
                                                    w_out, g, num_heads)
     dx = attention_bwd_dx_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
                                _bwd_cores(x, num_heads, cuda=True)[1])
-    fused_ln_qkv_attention_bwd_dx.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_ln_qkv_attention_bwd_dx.launches += 1
     return dx
 
 
@@ -282,7 +310,8 @@ def _train_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
         out = attention_step_cuda(
             x, *frozen, w1, b1, w2, b2, skip,
             lambda qkv: _kernels.spatial_attention(qkv, bt, n))
-        fused_spatial_train_step.launches += 1
+        if _kernels.runs_kernels(x):
+            fused_spatial_train_step.launches += 1
         return out
 
     if composition:
@@ -390,7 +419,8 @@ def fused_qkv_attention(x, w_qkv, b_qkv, w_out, b_out,
     b, n, d = x.shape
     y = _block_cuda(x.view(b * n, d), w_qkv, b_qkv, w_out, b_out,
                     lambda qkv: _kernels.spatial_attention(qkv, b, n))
-    fused_qkv_attention.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_qkv_attention.launches += 1
     return y.view(b, n, d)
 
 
@@ -429,7 +459,8 @@ def fused_qkv_attention_bwd(x, w_qkv, b_qkv, w_out, g, num_heads: int):
     _, do = _kernels.gemm(g.view(b * n, d), w_out, kn=True)
     dqkv, o = _kernels.spatial_attention_bwd(qkv, do, b, n, with_out=True)
     _, dx = _kernels.gemm(dqkv, w_qkv, kn=True)
-    fused_qkv_attention_bwd.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_qkv_attention_bwd.launches += 1
     return dx.view(b, n, d), dqkv, o
 
 
@@ -489,7 +520,8 @@ def fused_ln_qkv_attention(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     xn = _kernels.layernorm(x.view(b * n, d), ln_w, ln_b)
     y = _block_cuda(xn, w_qkv, b_qkv, w_out, b_out,
                     lambda qkv: _kernels.spatial_attention(qkv, b, n))
-    fused_ln_qkv_attention.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_ln_qkv_attention.launches += 1
     return y.view(b, n, d)
 
 
@@ -527,7 +559,8 @@ def fused_ln_qkv_attention_r(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     xn = _kernels.layernorm(x.view(b * n, d), ln_w, ln_b)
     y = _block_cuda(xn, w_qkv, b_qkv, w_out, b_out,
                     lambda qkv: _kernels.spatial_attention_r(qkv, b, n, r))
-    fused_ln_qkv_attention_r.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_ln_qkv_attention_r.launches += 1
     return y.view(b, n, d)
 
 
@@ -572,7 +605,8 @@ def fused_ln_qkv_attention_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g, num_heads:
     b, n, _ = x.shape
     out = ln_attention_bwd_cuda(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
                                 _ln_bwd_core(b, n, num_heads, cuda=True))
-    fused_ln_qkv_attention_bwd.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_ln_qkv_attention_bwd.launches += 1
     return out
 
 
@@ -607,7 +641,8 @@ def fused_qkv_attention_adapter(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
     y32, y16 = _block_cuda(x.view(b * n, d), w_qkv, b_qkv, w_out, b_out,
                            lambda qkv: _kernels.spatial_attention(qkv, b, n), f32=True)
     out = adapter_epilogue_cuda(y32, y16, w1, b1, w2, b2, skip)
-    fused_qkv_attention_adapter.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_qkv_attention_adapter.launches += 1
     return out.view(b, n, d)
 
 

@@ -110,7 +110,8 @@ from adapt_image_models_torch.ops._common import (
     attention_step_bwd_cuda, attention_step_bwd_plain, attention_step_cuda,
     attention_step_plain, check_cotangent, check_frozen, check_gate,
     check_step_args, layer_norm_fp32, ln_attention_bwd_cuda,
-    ln_attention_bwd_plain, mm32, mm32_kn, temporal_core_bwd_plain,
+    ln_attention_bwd_plain, mm32, mm32_kn, needs_grad, residual_adapter_xla,
+    temporal_core_bwd_plain,
     temporal_core_plain, temporal_segment_core_bwd_plain,
     temporal_segment_core_plain,
 )
@@ -206,21 +207,48 @@ def _check(name, x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
     return _clips(x.shape[0], num_frames)
 
 
+def _temporal_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                   num_frames: int, num_heads: int, adapter_skip: bool) -> torch.Tensor:
+    args = (x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
+    if x.device.type == "cpu":
+        return fused_temporal_step_plain(*args, num_frames, num_heads,
+                                         adapter_skip)
+    b = _clips(x.shape[0], num_frames)
+    out = attention_step_cuda(
+        *args, adapter_skip, _core(b, num_frames, x.shape[1], num_heads, cuda=True))
+    if _kernels.runs_kernels(x):
+        fused_temporal_step.launches += 1
+    return out
+
+
+def temporal_step_xla(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2,
+                      num_frames: int, num_heads: int,
+                      adapter_skip: bool) -> torch.Tensor:
+    """The JAX package's XLA reference of the temporal step
+    (``_ref_ln_adapter_res_impl`` :739): the fp32 LayerNorm rounded to the
+    working dtype, ``temporal_block_xla`` (the full softmax at any T), then
+    ``residual_adapter_xla``; differentiated by autograd."""
+    xn = layer_norm_fp32(x, ln_w, ln_b).to(x.dtype)
+    y = temporal_block_xla(xn, w_qkv, b_qkv, w_out, b_out, num_frames, num_heads)
+    return residual_adapter_xla(x, y, w1, b1, w2, b2, adapter_skip)
+
+
 def fused_temporal_step(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
                         w1, b1, w2, b2, num_frames: int, num_heads: int,
                         adapter_skip: bool) -> torch.Tensor:
     """``x + Adapter(W_o·attn_T(LN(x)))``. CPU tensors take the plain
     version; CUDA tensors (bf16, head dim 64) launch the kernels, on the
-    segment core past LONG_CLIP_T frames."""
+    segment core past LONG_CLIP_T frames. Where autograd records the call
+    (``needs_grad``), the backward is the vector-Jacobian product of
+    ``temporal_step_xla`` recomputed, as the JAX package's
+    ``fused_temporal_step_block`` takes it (``_bwd_step`` :774)."""
     args = (x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, b2)
-    b = _check("fused_temporal_step", *args, num_frames, num_heads)
-    if x.device.type == "cpu":
-        return fused_temporal_step_plain(*args, num_frames, num_heads,
-                                         adapter_skip)
-    out = attention_step_cuda(
-        *args, adapter_skip, _core(b, num_frames, x.shape[1], num_heads, cuda=True))
-    fused_temporal_step.launches += 1
-    return out
+    _check("fused_temporal_step", *args, num_frames, num_heads)
+    if needs_grad(args):
+        return RecomputedVjp.apply(
+            lambda *a: _temporal_step(*a, num_frames, num_heads, adapter_skip),
+            lambda *a: temporal_step_xla(*a, num_frames, num_heads, adapter_skip), *args)
+    return _temporal_step(*args, num_frames, num_heads, adapter_skip)
 
 
 fused_temporal_step.launches = 0
@@ -247,7 +275,8 @@ def fused_temporal_step_gated(x, gate, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     out = attention_step_cuda(
         *args, adapter_skip, _core(b, num_frames, x.shape[1], num_heads, cuda=True),
         gate, emit_u)
-    fused_temporal_train_step.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_temporal_train_step.launches += 1
     return out
 
 
@@ -288,7 +317,8 @@ def fused_temporal_step_bwd_dx(x, gate, ln_w, ln_b, w_qkv, b_qkv, w_out,
     out = attention_step_bwd_cuda(
         x, gate, *args[1:], g, skip,
         *_bwd_cores(x, num_frames, num_heads, cuda=True))
-    fused_temporal_step_bwd_dx.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_temporal_step_bwd_dx.launches += 1
     return out
 
 
@@ -371,7 +401,8 @@ def fused_ln_temporal_attention_bwd_dx(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
                  w_out, g, num_frames, num_heads, segment=False, dx_only=True,
                  plain=False)
     if x.device.type == "cuda":
-        fused_ln_temporal_attention_bwd_dx.launches += 1
+        if _kernels.runs_kernels(x):
+            fused_ln_temporal_attention_bwd_dx.launches += 1
     return dx
 
 
@@ -402,7 +433,8 @@ def fused_ln_temporal_attention_bwd_dx_segment(x, ln_w, ln_b, w_qkv, b_qkv, w_ou
                  b_qkv, w_out, g, num_frames, num_heads, segment=True, dx_only=True,
                  plain=False)
     if x.device.type == "cuda":
-        fused_ln_temporal_attention_bwd_dx_segment.launches += 1
+        if _kernels.runs_kernels(x):
+            fused_ln_temporal_attention_bwd_dx_segment.launches += 1
     return dx
 
 
@@ -431,7 +463,8 @@ def fused_ln_temporal_attention_bwd(x, ln_w, ln_b, w_qkv, b_qkv, w_out, g,
                   w_out, g, num_frames, num_heads, segment=False, dx_only=False,
                   plain=False)
     if x.device.type == "cuda":
-        fused_ln_temporal_attention_bwd.launches += 1
+        if _kernels.runs_kernels(x):
+            fused_ln_temporal_attention_bwd.launches += 1
     return out
 
 
@@ -457,7 +490,8 @@ def fused_ln_temporal_attention_bwd_segment(x, ln_w, ln_b, w_qkv, b_qkv, w_out, 
                   b_qkv, w_out, g, num_frames, num_heads, segment=True,
                   dx_only=False, plain=False)
     if x.device.type == "cuda":
-        fused_ln_temporal_attention_bwd_segment.launches += 1
+        if _kernels.runs_kernels(x):
+            fused_ln_temporal_attention_bwd_segment.launches += 1
     return out
 
 
@@ -617,7 +651,8 @@ def fused_temporal_attention(x, w_qkv, b_qkv, w_out, b_out, num_frames: int,
     bt, n, d = x.shape
     y = _block_cuda(x.view(bt * n, d), w_qkv, b_qkv, w_out, b_out, b, num_frames, n,
                     num_heads)
-    fused_temporal_attention.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_temporal_attention.launches += 1
     return y.view(bt, n, d)
 
 
@@ -663,7 +698,8 @@ def fused_temporal_attention_bwd(x, w_qkv, b_qkv, w_out, g, num_frames: int,
     dqkv, o = _kernels.temporal_attention_bwd(qkv, do, b, num_frames, n,
                                               with_out=True)
     _, dx = _kernels.gemm(dqkv, w_qkv, kn=True)
-    fused_temporal_attention_bwd.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_temporal_attention_bwd.launches += 1
     return dx.view(bt, n, d), dqkv, o
 
 
@@ -695,7 +731,8 @@ def fused_ln_temporal_attention(x, ln_w, ln_b, w_qkv, b_qkv, w_out, b_out,
     bt, n, d = x.shape
     xn = _kernels.layernorm(x.view(bt * n, d), ln_w, ln_b)
     y = _block_cuda(xn, w_qkv, b_qkv, w_out, b_out, b, num_frames, n, num_heads)
-    fused_ln_temporal_attention.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_ln_temporal_attention.launches += 1
     return y.view(bt, n, d)
 
 
@@ -868,7 +905,8 @@ def fused_temporal_attention_adapter(x, w_qkv, b_qkv, w_out, b_out, w1, b1, w2, 
     y32, y16 = _block_cuda(x.view(bt * n, d), w_qkv, b_qkv, w_out, b_out, b, num_frames,
                            n, num_heads, f32=True)
     out = adapter_epilogue_cuda(y32, y16, w1, b1, w2, b2, adapter_skip)
-    fused_temporal_attention_adapter.launches += 1
+    if _kernels.runs_kernels(x):
+        fused_temporal_attention_adapter.launches += 1
     return out.view(bt, n, d)
 
 

@@ -52,9 +52,7 @@ Phases, in order; any failure raises and exits non-zero:
      steps of 8 clips through the recipe's train pipeline (RandAugment,
      RandomErasing) with every train kernel's launch count checked, frozen
      weights bitwise unchanged, trainable ones moved and the checkpoint
-     reloaded, one train step of the kernel path against the plain path,
-     then eval clips/s at batch 32, train clips/s and peak memory at 8 and
-     32 clips and a profile of one train step at 32 clips;
+     reloaded, one train step of the kernel path against the plain path;
   9. the plain spatial attention block of the AIM_FLASH family
      (fused_qkv_attention and fused_qkv_attention_bwd) against its plain
      version at x (clips*32, 198, 768) bf16 (196 patches, the class and the
@@ -73,10 +71,8 @@ Phases, in order; any failure raises and exits non-zero:
      the recipe's train pipeline with every kernel's launch count checked,
      frozen weights bitwise unchanged, trainable ones moved and the
      checkpoint reloaded, one train step of the kernel path against the
-     plain path, then eval clips/s at 8 clips, train clips/s and peak
-     memory at 2 and 8 clips and a profile of one train step at 8 clips;
-     and one forward of AIM_flash_win_base_hmdb51.py (16 frames, unshifted
-     windows);
+     plain path; and one forward of AIM_flash_win_base_hmdb51.py (16
+     frames, unshifted windows);
  11. the composition train step's ops, which ViT-L widths and 32-frame
      clips take: the gated spatial forward with its u output
      (fused_spatial_step_gated), the u output of the gated temporal forward,
@@ -108,12 +104,9 @@ Phases, in order; any failure raises and exits non-zero:
      plain path on the probabilities, train_model for 3 steps of 2 clips
      through the recipe's train pipeline with every train kernel's launch
      count checked, frozen weights bitwise unchanged and trainable ones
-     moved, one train step of the kernel path against the plain path, eval
-     clips/s and peak memory at 32 and at 8 frames, train clips/s and peak
-     memory at 1, 2 and 4 clips and a profile of one step; then AIM
-     ViT-B/16 at 32 frames (configs/recognition/vit/aim_base_k400.py): the
-     same eval and train drive with 12 layers, eval and train timings at 8
-     clips;
+     moved, one train step of the kernel path against the plain path; then
+     AIM ViT-B/16 at 32 frames (configs/recognition/vit/aim_base_k400.py):
+     the same eval and train drive with 12 layers;
  13. ViT_CLIP: the flash attention core (csrc/flash_attention.cu) against
      its plain version at the (B, H, L, 64) shapes of the ViT_CLIP paths
      (tools/kernel_bounds_torch.py ATTENTION_SHAPES, up to L = 800) and its
@@ -124,14 +117,12 @@ Phases, in order; any failure raises and exits non-zero:
      and width through init_recognizer, inference_recognizer,
      run_evaluation (3 views) and train_model (2 steps of 2 clips) with
      the core's 24 launches a forward and a step checked, kernel path vs
-     plain path on the probabilities and on one train step, eval clips/s at
-     8 clips and train clips/s and peak memory at 2 and 4 clips under the
-     flash, fused (as shipped) and xla cores, a profile of one flash step;
+     plain path on the probabilities and on one train step;
      configs/recognition/vit/vitclip_large_k400.py as shipped (ViT_CLIP
      L/14, xla core, use_checkpoint) and with the flash core: one forward
      of 2 clips each with its launches, the flash path against its plain
-     path, eval clips/s at 2 clips, one train step of 1 clip with and
-     without checkpointing with its launches, time and peak memory; and
+     path, one train step of 1 clip with and without checkpointing with
+     its launches; and
      configs/recognition/vit/flash_attn/vitclip_flash_base_hmdb51.py as
      shipped (ViT_CLIP_FLASH, fused core, shift): one forward and one train
      step, kernel path vs plain path, launches checked;
@@ -153,9 +144,7 @@ Phases, in order; any failure raises and exits non-zero:
      temporal step, rows 23 with u and 20 in the train step) through
      init_recognizer, inference_recognizer, run_evaluation (3 views) and
      train_model (3 steps of 2 clips), launches checked, kernel vs plain
-     path on the probabilities and on one train step, eval clips/s and
-     peak memory at 4 clips, train clips/s and peak memory at 2 and 4 clips
-     and a profile of one step;
+     path on the probabilities and on one train step;
  15. CLIPAttention's LN-only and adapter-only calls: rows 5
      (fused_ln_qkv_attention), 6 (fused_qkv_attention_adapter, skip on and
      off), 7 (fused_ln_qkv_attention_bwd: dx, dqkv, dy, y, o), 10
@@ -181,9 +170,7 @@ Phases, in order; any failure raises and exits non-zero:
      clip_len=144, frame_interval=2) through init_recognizer,
      inference_recognizer, run_evaluation and train_model (two steps of one
      clip), launches checked, kernel vs plain path on the probabilities and
-     on one train step of one clip, eval clips/s and peak memory at 2
-     clips, train clips/s and peak memory at 1 clip and a profile of one
-     step;
+     on one train step of one clip;
  17. the segment forward core (csrc/temporal_segment.cu) and the flash core
      alone at the branch points of their designs: the segment core at T =
      33, 64, 65, 128, 129, 300 and 801 (ops.segment_fwd_design: scores in
@@ -260,9 +247,7 @@ Phases, in order; any failure raises and exits non-zero:
      run_evaluation on synthetic videos, the kernel path against the plain
      path on the probabilities, train_model for 2 steps of 2 clips started
      from the model's weights through load_from, one train step kernel vs
-     plain, eval clips/s and peak memory at 8 clips
-     (kernel and xla paths), train clips/s and peak memory at 2 and 8 clips
-     (xla at 2) and a profile of one step at 8, the launches of
+     plain, the launches of
      ops.WINDOW_EVAL_OPS and WINDOW_TRAIN_OPS and of the cores under them
      checked on each run; then one forward of aim_window_base_hmdb51.py (16
      frames, unshifted (16, 7, 7) windows of 784 tokens);
@@ -297,25 +282,23 @@ Phases, in order; any failure raises and exits non-zero:
      (LAST_VIT_CPU_ATOL), train_model for 2 steps (frozen tensors bitwise
      unchanged), one backward with a finite, nonzero gradient on every
      trainable tensor, no launch of any fused op or core on any of these
-     runs, eval clips/s and peak memory at 8 clips of 32 frames or 32 of 8,
-     train clips/s and peak memory and a profile of one step at 8 clips of
-     32 frames or 32 of 8; then one forward
-     of 2 clips of each other config of these backbones;
+     runs; then one forward of 2 clips of each other config of these
+     backbones;
  22. TimeSformer, Swin2D-Adapter and Video Swin, framework ops only (the JAX
      package reaches no Pallas kernel in timesformer.py, swin2d_adapter.py
      or swin3d.py), through the same drive as phase 21 (VIDEO_PATHS):
-     vit/timesformer_k400.py (ViT-B/16, 8 frames; eval and train at 32
-     clips), swin/swin2d_adapter_base_k400.py (Swin2D-Adapter-B, 32
-     frames) and swin/swin_base_patch244_window877_kinetics400_1k.py (Video
-     Swin-B, 32 frames, windows (8, 7, 7)), each 32-frame Swin with eval and
-     train at 8 clips (the recipes' batch a card); their
+     vit/timesformer_k400.py (ViT-B/16, 8 frames; train_model at 8 clips),
+     swin/swin2d_adapter_base_k400.py (Swin2D-Adapter-B, 32 frames) and
+     swin/swin_base_patch244_window877_kinetics400_1k.py (Video Swin-B, 32
+     frames, windows (8, 7, 7)), each 32-frame Swin at 2 clips; their
      train_model runs start from the seeded init, as load_from reads CLIP's
      layout only; then one forward of 2 clips of each of the seven other
      configs of these backbones (VIDEO_BUILT);
  23. data parallelism: tools/train_torch.py and tools/test_torch.py on the
      flagship config at full width, each run a child process under
-     torchrun --standalone (python -m torch.distributed.run) or alone, two
-     waves of runs at once, every train run from one checkpoint of seeded
+     torchrun --standalone (python -m torch.distributed.run) or alone, all
+     runs at once and beside phase 24's paths (joined before phase 24's own
+     children start), every train run from one checkpoint of seeded
      weights with nonzero adapters and a class lead (load_from), 3 steps,
      no validation: (a) NCCL at world size 1 (--launcher pytorch) against
      the same run without a launcher at the recipe's 8 clips, losses, grad
@@ -336,7 +319,7 @@ Phases, in order; any failure raises and exits non-zero:
      batch against one process at batch 2: probabilities within
      DP_PROB_ATOL, the same top-1 and the same metrics.
  24. 2D CNN recognition, framework ops only (cuDNN convolutions, the
-     port's BatchNormFlax; TF32 off unless a timing says on): TSN
+     port's BatchNormFlax; TF32 off): TSN
      (tsn/tsn_r50_video_1x1x8_100e_kinetics400_rgb.py, ResNet-50, a test
      video of 25 segments x ThreeCrop 256) and TSM
      (tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py, ResNetTSM-50, 8
@@ -346,16 +329,14 @@ Phases, in order; any failure raises and exits non-zero:
      card's fp32 against the host CPU's on one test video (CNN_CPU_ATOL),
      train_model for 2 steps of 4 videos with the in-loop evaluation (the
      running statistics moved, left alone by the evaluation and restored
-     bit for bit by the checkpoint), eval clips/s and peak memory at the
-     recipes' 32 / 8 videos and train clips/s and peak memory at 8 and the
-     recipes' 32 / 8 videos, TF32 off, and a profile
-     of one train step (TF32 on); one forward of tsm_nl_dot_product,
+     bit for bit by the checkpoint); one forward of tsm_nl_dot_product,
      tsn_rn101_32x4d and tsn_swin as shipped and of tsn_fp16 in bf16
      against fp32 (CNN_BF16_ATOL); TSM through tools/train_torch.py
      (children with NVIDIA_TF32_OVERRIDE=0 and no dropout): NCCL at world
      size 1 bit-equal to no launcher, two gloo ranks of 4 videos against
-     one process of 8 (CNN_DP_*: every BatchNorm over the global batch).
-     No fused op or core launches on any of these paths.
+     one process of 8 (CNN_DP_*: every BatchNorm over the global batch),
+     its children started first and joined after the paths. No fused op or
+     core launches on any of these paths.
  25. 3D CNN recognition, framework ops only: I3D-R50, SlowFast-R50 4x16
      and X3D-M through the same drive as phase 24 (CNN3D_PATHS, the host
      check on a test video's first 3 views), then one forward of SlowOnly,
@@ -375,8 +356,7 @@ Phases, in order; any failure raises and exits non-zero:
      audio/audioonly_r50_64x1x1_100e_kinetics400_audio_feature.py
      (ResNetAudio-R50) through init_recognizer, inference_recognizer,
      run_evaluation, the card's fp32 against the host's, train_model at the
-     recipes' batches of 320 and 160, eval and train samples/s with peak
-     memory and a profiled step.
+     recipes' batches of 320 and 160.
  28. OmniSource, the PoseC3D data stage and temporal localization,
      framework ops only: omnisource/tsn_r50_1x1x8_100e_minikinetics_
      omnisource_rgb.py through train_model for one cycle of its four
@@ -399,17 +379,31 @@ Phases, in order; any failure raises and exits non-zero:
      ava/slowfast_kinetics_pretrained_r50_8x8x1_20e_ava_rgb.py (SlowFast-R50,
      5 x 32 frames) and acrn/slowfast_acrn_..._ava_rgb.py through
      train_model (3 logged steps from a seeded init, finite losses, every
-     tensor and statistic moved: through train_model on the SlowOnly path,
-     over the timed steps of the same step function on the others) and
+     tensor and statistic moved from that init) and
      run_detection_evaluation at batch 1 on the (256, 456) canvas (mAP in
      [0, 1]), the SlowOnly logits on the card against the host CPU's
      (DET_HOST_REL); the LFB flow: lfb/lfb_slowonly_r50_ava_infer.py on the
      trained SlowOnly weights writes the train and val banks,
      lfb/lfb_nl_..._ava_rgb.py trains on them (window 60 x 5) and
-     evaluates; for each recipe the eval forward's ms at 8 videos and the
-     train step's at its batch with peak memory and a profile, TF32 off.
-     No fused op or core launches.
-Phases 18 to 29 log their seconds.
+     evaluates, TF32 off. No fused op or core launches.
+ 30. The flagship (AIM ViT-B/16 8f, bf16, seeded weights) through the
+     port's model-running tools, kernel route against plain route:
+     tools/deployment/export_torch.py's torch.export at batch 1 (the graph's
+     aim_port ops counted: 36 LayerNorms, 144 GEMMs, 12 spatial and 12
+     temporal cores), the .pt2 saved and run in a child process (its own
+     launch counts) beside the other tools, bit for bit the eager kernel
+     path; utils/gradcam.py at one clip (probabilities within PROB_ATOL,
+     the CAM within CAM_ATOL, the input gradient non-zero in every frame);
+     clip_feature_extraction_torch.py over 4 synthetic videos at batch 2
+     (FEATURE_MAX_REL / FEATURE_MEAN_REL of the largest feature);
+     demo_torch.py's top-5; get_flops_torch.py on the card equal to
+     view_gflop on the meta device; profile_torch.py's trace naming the
+     GEMM, flash, temporal and LayerNorm kernels; every eval op and core
+     counted a kernel-route forward. It runs before phase 29, beside which
+     the artifact's child loads and runs; the child is joined after it.
+Phases 18 to 30 log their seconds, every phase its start and the script
+its total. Past the flagship's (phases 3 and 6), no recipe's rates, peak
+memory or step profile are taken: each path is driven and checked.
 The flagship's eval and train paths count the spatial forward core's
 launches (12 a forward; 24 a train step, the forward and the backward's
 prenorm recompute), the spatial backward core's (none a forward, 12 a
@@ -475,6 +469,7 @@ the last line is {"ok": true, "device": {...}}.
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -689,11 +684,18 @@ def compare_grad(name, got, want):
     return max_abs, ok
 
 
+# a call slower than SLOW_CALL_MS (a plain version at a model's shapes, a
+# model's step) is timed over SLOW_ITERS calls at most: its median moves
+# little after five, and its twenty cost most of the command's time budget
+SLOW_CALL_MS, SLOW_ITERS = 10.0, 5
+
+
 def cuda_ms(fn, iters=20, warmup=3, launches=1):
     """Median milliseconds per call, CUDA events around each call, or around
     a run of ``launches`` calls (divided by it): the card then runs the calls
     back to back while the host enqueues the next, so a short kernel's time
-    leaves out the host time of its wrapper."""
+    leaves out the host time of its wrapper. Past SLOW_ITERS calls, a call
+    whose median so far exceeds SLOW_CALL_MS ends the timing."""
     import torch
     for _ in range(warmup):
         fn()
@@ -708,6 +710,8 @@ def cuda_ms(fn, iters=20, warmup=3, launches=1):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
+        if len(times) >= SLOW_ITERS and statistics.median(times) > SLOW_CALL_MS:
+            break
     return statistics.median(times)
 
 
@@ -983,19 +987,13 @@ def compare_train_step(cfg, weights, clips, classes):
                              f"plain path (tensors past tolerance: {bad[:8]})")
 
 
-def profile_step(step_fn, tstate, batch, label, cpu_ops=True):
+def profile_step(step_fn, tstate, batch, label):
     """torch.profiler over one train step: device time by kernel and the
-    device's idle share of the step's wall time (profiler on).
-    ``cpu_ops=False`` records the device's activity alone: the CPU ops'
-    events, which cost seconds to gather on a step of thousands of small
-    ops, and the user annotations they carry (``Optimizer.step``, whose
-    range the device time then no longer counts beside its kernels) are
-    left out."""
+    device's idle share of the step's wall time (profiler on)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    activities = [ProfilerActivity.CPU] if cpu_ops else []
-    with profile(activities=activities + [ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step_fn(tstate, batch, 0)
         torch.cuda.synchronize()
@@ -1008,21 +1006,15 @@ def profile_step(step_fn, tstate, batch, label, cpu_ops=True):
     busy = sum(t for t, _ in by_kernel.values())
     log(f"  profile of one {label} train step: device time {busy:.1f} ms over "
         f"{wall:.1f} ms wall, idle share {max(0.0, 1 - busy / wall) * 100:.1f}% "
-        f"(profiler on{'' if cpu_ops else ', device activity only'})")
+        "(profiler on)")
     for key, (dev_ms, count) in sorted(by_kernel.items(), key=lambda r: -r[1][0])[:16]:
         log(f"    {dev_ms:9.2f} ms {100 * dev_ms / busy:5.1f}% {count:5d}x {key[:80]}")
 
 
-KERNEL_AND_XLA = (("fused", "kernel"), ("xla", "framework-op (xla)"))
-
-
-def train_timings(cfg, weights, classes, label, batches=(8, 32), xla_batches=None,
-                  cores=KERNEL_AND_XLA, use_checkpoint=None):
-    """Train-step clips/s and peak memory at each of ``batches`` clips under
-    each of ``cores`` ((attention core, path label) pairs; the xla core only
-    at ``xla_batches``, every batch unless given: that path keeps every
-    activation), and a profile of one step of the first core at the last
-    batch."""
+def train_timings(cfg, weights, classes, label, batches=(8, 32)):
+    """Train-step clips/s and peak memory at each of ``batches`` clips on
+    the kernel path and the framework-op (xla core) path, and a profile of
+    one kernel-path step at the last batch."""
     import numpy as np
     import torch
     frames = clip_frames(cfg)
@@ -1030,17 +1022,15 @@ def train_timings(cfg, weights, classes, label, batches=(8, 32), xla_batches=Non
         timing_batch = {"imgs": torch.randn(clips, 1, 3, frames, 224, 224, device="cuda",
                                             dtype=torch.bfloat16),
                         "label": np.arange(clips) % classes}
-        for core, path in cores:
-            if core == "xla" and xla_batches is not None and clips not in xla_batches:
-                continue
-            tstate, step_fn = train_setup(cfg, core, weights, use_checkpoint)
+        for core, path in (("fused", "kernel"), ("xla", "framework-op (xla)")):
+            tstate, step_fn = train_setup(cfg, core, weights)
             torch.cuda.reset_peak_memory_stats()
             ms = cuda_ms(lambda: step_fn(tstate, timing_batch, 0), iters=5, warmup=2)
             mem = torch.cuda.max_memory_allocated() / 2 ** 30
             log(f"  {label} train step {clips} clips ({path} path): {ms:.2f} ms, "
                 f"{clips / ms * 1e3:.1f} clips/s, peak memory {mem:.2f} GiB "
                 f"(median of 5 after 2 warm-ups, CUDA events)")
-            if core == cores[0][0] and clips == batches[-1]:
+            if core == "fused" and clips == batches[-1]:
                 profile_step(step_fn, tstate, timing_batch,
                              f"{path} {label} {clips}-clip")
             del tstate, step_fn
@@ -1353,7 +1343,7 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
     moved, one train step kernel path vs plain path. ``options`` are added
     to AIM_OPTIONS; ``clip`` (clip_len, frame_interval) is set in each
     pipeline's SampleFrames, which the option parser cannot index. Returns
-    (cfg, model, eval launches, train launches, classes)."""
+    (cfg, eval launches, train launches)."""
     import copy
     import numpy as np
     import torch
@@ -1501,21 +1491,9 @@ def drive_path(label, config, layers, eval_videos, eval_batch, train_clips, step
         del state, initial, trained
     torch.cuda.empty_cache()
     compare_train_step(cfg, model.state_dict(), train_clips, classes)
+    del model
     torch.cuda.empty_cache()
-    return cfg, model, eval_launches, train_launches, classes
-
-
-def eval_timing(label, model, clips, frames, path="kernel path"):
-    """forward_test clips/s and peak memory at ``clips`` clips of one view."""
-    import torch
-    x = torch.randn(clips, 1, 3, frames, 224, 224, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():
-        ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
-    mem = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"  {label} forward_test batch {clips} of {frames} frames ({path}): "
-        f"{ms:.2f} ms, {clips / ms * 1e3:.2f} clips/s, peak memory {mem:.2f} GiB "
-        "(median of 5 after 2 warm-ups, CUDA events)")
+    return cfg, eval_launches, train_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1616,12 +1594,11 @@ def vitclip_models(cfg, weights, cores):
     return out
 
 
-def drive_vitclip(card):
+def drive_vitclip():
     """ViT_CLIP B/16 32f (configs/recognition/vit/vitclip_base_k400.py as
     shipped but for attention_core="flash") at full depth and width through
-    the entry points, kernel path vs plain path, then eval and train
-    timings under the three cores. Returns (eval launches, train
-    launches)."""
+    the entry points, kernel path vs plain path. Returns (eval launches,
+    train launches)."""
     import copy
     import numpy as np
     import torch
@@ -1732,24 +1709,15 @@ def drive_vitclip(card):
     del model
     torch.cuda.empty_cache()
 
-    log(f"  ViT_CLIP B/16 32f timings on {card}")
-    for core, m in vitclip_models(cfg, weights, ("xla", "fused", "flash")).items():
-        eval_timing("ViT_CLIP B/16 32f", m, 8, frames, f"{core} core")
-        del m
-        torch.cuda.empty_cache()
-    train_timings(cfg, weights, classes, "ViT_CLIP B/16 32f", batches=(2, 4),
-                  cores=(("flash", "flash core"), ("fused", "fused core (as shipped)"),
-                         ("xla", "xla core")))
-    torch.cuda.empty_cache()
     return eval_launches, train_launches
 
 
-def drive_vitclip_large(card):
+def drive_vitclip_large():
     """configs/recognition/vit/vitclip_large_k400.py as shipped (ViT_CLIP
     L/14 32f, the xla core, use_checkpoint) and with the flash core: one
     forward of 2 clips each with its launches, the flash path against its
-    plain path, eval at 2 clips and one train step of 1 clip with and
-    without checkpointing, time and peak memory."""
+    plain path, and one train step of 1 clip with and without
+    checkpointing with its launches."""
     import numpy as np
     import torch
     from adapt_image_models_torch import ops
@@ -1785,7 +1753,6 @@ def drive_vitclip_large(card):
                 p_plain = m.forward_test(imgs)
             hold_top1(f"ViT_CLIP L/14 32f (flash) model on {tuple(imgs.shape)}", probs[core],
                       p_plain, LARGE_PROB_ATOL)
-        eval_timing("ViT_CLIP L/14 32f", m, 2, frames, f"{core} core")
         del m
         torch.cuda.empty_cache()
     log(f"  flash vs xla core (another cast order in the core): probability max abs "
@@ -1805,12 +1772,6 @@ def drive_vitclip_large(card):
                            ops.launch_counts(),
                            {op: n * layers * (passes if op in ops.VITCLIP_EVAL_OPS[core] else 1)
                             for op, n in ops.VITCLIP_TRAIN_OPS[core].items()})
-            torch.cuda.reset_peak_memory_stats()
-            ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=1)
-            mem = torch.cuda.max_memory_allocated() / 2 ** 30
-            log(f"  ViT_CLIP L/14 32f train step 1 clip ({core} core, use_checkpoint="
-                f"{use_checkpoint}): {ms:.2f} ms, {1e3 / ms:.2f} clips/s, peak memory "
-                f"{mem:.2f} GiB (median of 5 after 1 warm-up, CUDA events)")
             del tstate, step_fn
             torch.cuda.empty_cache()
 
@@ -2460,7 +2421,6 @@ def phase_16(card, errors):
     """Phase 16 (see the module docstring): the checks past the former
     frame bounds into ``errors``, the re-timing at 8 frames and AIM
     ViT-B/16 at 144 frames. Returns that path's (eval, train) launches."""
-    import torch
     failures = []
     for frames in (144, 300):
         log(f"phase 16: the temporal ops at one clip of {frames} frames, "
@@ -2478,19 +2438,11 @@ def phase_16(card, errors):
     # two steps of train_model: the adapters' zero-initialised D_fc2 leaves
     # D_fc1's bias without a gradient in the first, and every trainable
     # tensor must move
-    cfg, model, eval_launches, train_launches, classes = drive_path(
+    _, eval_launches, train_launches = drive_path(
         label, LONG_CONFIG, layers=12, eval_videos=1, eval_batch=1, train_clips=1, steps=2,
         prob_atol=LARGE_PROB_ATOL, seed=16,
         options=[f"model.backbone.num_frames={PAST_BOUND_FRAMES}"],
         clip=(PAST_BOUND_FRAMES, 2), phase="phase 16")
-    log(f"  {label} timings on {card}")
-    eval_timing(label, model, 2, PAST_BOUND_FRAMES)
-    weights = model.state_dict()
-    del model
-    torch.cuda.empty_cache()
-    train_timings(cfg, weights, classes, label, batches=(1,), xla_batches=())
-    del weights
-    torch.cuda.empty_cache()
     return eval_launches, train_launches
 
 
@@ -3291,8 +3243,8 @@ def check_block_cores(path, cores, per_layer, n):
         raise AssertionError(f"{path}: the GEMM never launched")
 
 
-def drive_window_family(card, label, config, expected, eval_ops, train_ops, prob_atol, seed,
-                        phase, train_clips=2, steps=2):
+def drive_window_family(label, config, expected, eval_ops, train_ops, prob_atol, seed, phase,
+                        train_clips=2, steps=2):
     """A window-family recipe (the AIM window path, AIM_FLASH_DUAL) as
     shipped, at full depth and width on seeded weights, as phase 10 drives
     AIM_FLASH: init_recognizer, inference_recognizer and run_evaluation on
@@ -3302,11 +3254,8 @@ def drive_window_family(card, label, config, expected, eval_ops, train_ops, prob
     started from the model's weights (``load_from``), with the launches of
     ``train_ops`` (a layer a step) checked, frozen
     weights bitwise unchanged, trainable ones moved and the checkpoint
-    reloaded; one train step kernel vs plain (PERF.md §2's bounds); then
-    eval clips/s and peak memory at 8 clips (kernel and xla paths) and
-    train clips/s and peak memory at 2 and 8 clips with a profile of one
-    step at 8. Returns (cfg, weights, classes, eval launches, train
-    launches)."""
+    reloaded; one train step kernel vs plain (PERF.md §2's bounds). Returns
+    (cfg, weights, classes, eval launches, train launches)."""
     import copy
     import numpy as np
     import torch
@@ -3316,7 +3265,6 @@ def drive_window_family(card, label, config, expected, eval_ops, train_ops, prob
     )
     from adapt_image_models_torch.core.checkpoint import CheckpointManager
     from adapt_image_models_torch.data.transforms import make_prepare_fn
-    from adapt_image_models_torch.models import build_model
     cfg = load_config(config)
     bb = cfg["model"]["backbone"]
     got = {k: tuple(bb[k]) if isinstance(bb[k], (list, tuple)) else bb[k] for k in expected}
@@ -3431,23 +3379,7 @@ def drive_window_family(card, label, config, expected, eval_ops, train_ops, prob
     compare_train_step(cfg, weights, train_clips, classes)
     torch.cuda.empty_cache()
 
-    log(f"  {label} timings on {card}")
-    mcfg = {k: v for k, v in cfg["model"].items() if k not in ("test_cfg", "train_cfg")}
-    xla = build_model({**mcfg, "backbone": {**bb, "attention_core": "xla"}},
-                      test_cfg=cfg["model"]["test_cfg"], device="cuda").eval()
-    xla.load_state_dict(weights)
-    x = torch.randn(8, 1, 3, frames, 224, 224, device="cuda")
-    for path, m in (("kernel", model), ("framework-op (xla)", xla)):
-        torch.cuda.reset_peak_memory_stats()
-        with torch.no_grad():
-            ms = cuda_ms(lambda: m.forward_test(x), iters=5, warmup=2)
-        mem = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"  {label} forward_test batch 8 of {frames} frames ({path} path): {ms:.2f} ms, "
-            f"{8 / ms * 1e3:.2f} clips/s, peak memory {mem:.2f} GiB (median of 5 after 2 "
-            "warm-ups, CUDA events)")
-    del x, xla, model
-    torch.cuda.empty_cache()
-    train_timings(cfg, weights, classes, label, batches=(2, 8), xla_batches=(2,))
+    del model
     torch.cuda.empty_cache()
     return cfg, weights, classes, eval_launches, train_launches
 
@@ -3463,7 +3395,7 @@ def phase_18(card):
     from adapt_image_models_torch.apis import init_recognizer, load_config
     t0 = time.perf_counter()
     _, _, _, eval_launches, train_launches = drive_window_family(
-        card, "window AIM", WINDOW_CONFIG,
+        "window AIM", WINDOW_CONFIG,
         dict(type="AIM", wind_attn=True, window_size=(32, 2, 2), not_shift=False,
              prompt=True, attention_core="fused", compute_dtype="bfloat16", width=WIDTH,
              layers=12, num_frames=FLASH_FRAMES),
@@ -3491,7 +3423,7 @@ def phase_18(card):
         raise AssertionError("the 16-frame window AIM forward is not a probability")
     del model16, x, p16
     torch.cuda.empty_cache()
-    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s on {card}")
     return eval_launches, train_launches
 
 
@@ -3508,7 +3440,7 @@ def phase_19(card, errors):
     from adapt_image_models_torch import ops
     t0 = time.perf_counter()
     cfg, weights, _, eval_launches, train_launches = drive_window_family(
-        card, "DUAL", DUAL_CONFIG,
+        "DUAL", DUAL_CONFIG,
         dict(type="AIM_FLASH_DUAL", window_size=(16, 7, 7), attention_core="fused",
              compute_dtype="bfloat16", width=WIDTH, layers=12, num_frames=FLASH_FRAMES),
         ops.DUAL_EVAL_OPS, ops.DUAL_TRAIN_OPS, DUAL_PROB_ATOL, seed=19, phase="phase 19")
@@ -3625,9 +3557,9 @@ def phase_20(cfg, weights):
 
 RECOGNITION_DIR = os.path.join(ROOT, "configs", "recognition")
 # (label, config under configs/recognition, the backbone keys it must ship,
-# train batches in clips, bound on the card's bf16 probabilities against its
-# fp32 forward of the same weights): the 32-frame paths train at 2 and 8
-# clips, the 8-frame ones at 8 and 32, the same 64 and 256 frames a step.
+# train_model's clips a step, bound on the card's bf16 probabilities against
+# its fp32 forward of the same weights): the 32-frame paths train at 2
+# clips, the 8-frame ones at 8, the same 64 frames a step.
 # bf16 rounds the stream, q/k/v, the probabilities and every product; each
 # bound is about 10x the gap read on an H100 (NVIDIA H100 80GB HBM3, 700.00
 # W) on that path: 1.031e-4 and 8.397e-5 on the 51-class paths, 2.304e-5 and
@@ -3635,17 +3567,17 @@ RECOGNITION_DIR = os.path.join(ROOT, "configs", "recognition")
 LAST_VIT_PATHS = (
     ("res-tuning", "vit/flash_attn/vitclip_flash_restuning_base_hmdb51.py",
      dict(type="ViT_CLIP_FLASH_RES_TUNING", num_frames=32, width=WIDTH, layers=12,
-          compute_dtype="bfloat16"), (2, 8), 1e-3),
+          compute_dtype="bfloat16"), 2, 1e-3),
     ("ZeroI2V", "vit/zeroI2V/vitclip_zeroI2V_base_hmdb51.py",
      dict(type="ViT_CLIP_ZEROI2V", num_frames=32, width=WIDTH, layers=12,
           linear_adapter=False, with_t_cls_token=True, shift_type="ths",
-          compute_dtype="bfloat16"), (2, 8), 8e-4),
+          compute_dtype="bfloat16"), 2, 8e-4),
     ("ZeroI2V linear", "vit/zeroI2V/zeroi2v_base_k400.py",
      dict(type="ViT_CLIP_ZEROI2V", num_frames=8, width=WIDTH, layers=12,
-          linear_adapter=True, shift_type="ths", compute_dtype="bfloat16"), (8, 32), 2.5e-4),
+          linear_adapter=True, shift_type="ths", compute_dtype="bfloat16"), 8, 2.5e-4),
     ("ViT_ImageNet", "vit/vit_imagenet_k400.py",
      dict(type="ViT_ImageNet", num_frames=8, embed_dim=WIDTH, depth=12,
-          compute_dtype="bfloat16"), (8, 32), 2.5e-4),
+          compute_dtype="bfloat16"), 8, 2.5e-4),
 )
 # the other four configs of these backbones: one forward of 2 clips each
 LAST_VIT_BUILT = ("vit/flash_attn/vitclip_flash_restuning_base_diving48.py",
@@ -3658,21 +3590,21 @@ LAST_VIT_BUILT = ("vit/flash_attn/vitclip_flash_restuning_base_diving48.py",
 # readings, all within 1.2e-8)
 LAST_VIT_CPU_ATOL = 1e-4
 HOST_CHECK_MAX_FRAMES = 8
-# phase 22, as LAST_VIT_PATHS: TimeSformer ViT-B/16 8f trains at 8 and 32
-# clips, the two 32-frame Swin-B at 2 and at the recipes' 8 a card, which fit
-# an H100 (NVIDIA H100 80GB HBM3, 700.00 W) without use_checkpoint (neither
-# JAX Swin has it): 30.69 and 62.61 GiB. The bf16 bounds are about 10x the
-# gaps read on that card: 3.800e-5, 1.896e-5 and 2.262e-5
+# phase 22, as LAST_VIT_PATHS: TimeSformer ViT-B/16 8f trains at 8 clips,
+# the two 32-frame Swin-B at 2 (the recipes' 8 a card fit an H100 without
+# use_checkpoint, which neither JAX Swin has: 30.69 and 62.61 GiB on NVIDIA
+# H100 80GB HBM3, 700.00 W). The bf16 bounds are about 10x the gaps read on
+# that card: 3.800e-5, 1.896e-5 and 2.262e-5
 VIDEO_PATHS = (
     ("TimeSformer", "vit/timesformer_k400.py",
      dict(type="TimeSformer", num_frames=8, embed_dims=WIDTH, num_transformer_layers=12,
-          compute_dtype="bfloat16"), (8, 32), 4e-4),
+          compute_dtype="bfloat16"), 8, 4e-4),
     ("Swin2D-Adapter-B", "swin/swin2d_adapter_base_k400.py",
      dict(type="SwinTransformer2D_Adapter", num_frames=32, embed_dim=128,
-          depths=(2, 2, 18, 2), window_size=7, compute_dtype="bfloat16"), (2, 8), 2e-4),
+          depths=(2, 2, 18, 2), window_size=7, compute_dtype="bfloat16"), 2, 2e-4),
     ("Video Swin-B", "swin/swin_base_patch244_window877_kinetics400_1k.py",
      dict(type="SwinTransformer3D", embed_dim=128, depths=(2, 2, 18, 2),
-          window_size=(8, 7, 7), compute_dtype="bfloat16"), (2, 8), 2.5e-4),
+          window_size=(8, 7, 7), compute_dtype="bfloat16"), 2, 2.5e-4),
 )
 # the other seven configs of these backbones: one forward of 2 clips each
 VIDEO_BUILT = ("swin/swin2d_adapter_patch244_window7_kinetics400_1k.py",
@@ -3698,22 +3630,19 @@ def check_no_launches(path, launches, cores):
         raise AssertionError(f"{path}: kernels launched on a framework-op path: {fired}")
 
 
-def drive_framework_path(card, label, name, expected, batches, bf16_atol, seed, phase):
+def drive_framework_path(label, name, expected, train_clips, bf16_atol, seed, phase):
     """One of LAST_VIT_PATHS or VIDEO_PATHS as shipped, at full depth and
     width on seeded weights (nonzero adapters and temporal_fc, a class
     lead): init_recognizer, inference_recognizer and run_evaluation on
     synthetic videos with no launch; the bf16 probabilities against an fp32
     model of the same weights on the card, and that model against the
     port's fp32 forward on the host CPU on one clip; train_model for 2
-    steps of ``batches[0]`` clips through the recipe's train pipeline from
+    steps of ``train_clips`` clips through the recipe's train pipeline from
     this model's weights (load_from, which reads CLIP's layout only, as in
     the JAX package: the other backbones from their seeded init), no
     launch, frozen tensors bitwise unchanged, trainable ones moved; one
-    backward of ``batches[0]`` clips with a finite loss and a finite,
-    nonzero gradient on every trainable tensor; eval clips/s and peak
-    memory at ``batches[1]`` clips, train clips/s, peak memory and a
-    profile of one step at ``batches[1]`` (the smaller batch's train
-    reading stands in PERF.md; the script keeps within its time limit)."""
+    backward of ``train_clips`` clips with a finite loss and a finite,
+    nonzero gradient on every trainable tensor."""
     import copy
     import numpy as np
     import torch
@@ -3791,7 +3720,7 @@ def drive_framework_path(card, label, name, expected, batches, bf16_atol, seed, 
     del model32, imgs, p16, p32
     torch.cuda.empty_cache()
 
-    train_clips, steps = batches[0], 2
+    steps = 2
     with tempfile.TemporaryDirectory() as tmp:
         train_ann = os.path.join(tmp, "train.txt")
         with open(train_ann, "w") as f:
@@ -3857,12 +3786,7 @@ def drive_framework_path(card, label, name, expected, batches, bf16_atol, seed, 
     del tstate, m, batch, loss, grads
     torch.cuda.empty_cache()
 
-    log(f"  {label} timings on {card}")
-    eval_timing(label, model, batches[1], frames, path="framework-op path")
     del model
-    torch.cuda.empty_cache()
-    train_timings(cfg, weights, classes, label, batches=batches[1:],
-                  cores=((None, "framework-op"),))
     torch.cuda.empty_cache()
     log(f"{phase}: {label} path in {time.perf_counter() - t_path:.1f} s")
 
@@ -3901,9 +3825,9 @@ def phase_21(card):
     LAST_VIT_BUILT config as shipped, with no launch."""
     t0 = time.perf_counter()
     for k, path in enumerate(LAST_VIT_PATHS):
-        drive_framework_path(card, *path, seed=2100 + k, phase="phase 21")
+        drive_framework_path(*path, seed=2100 + k, phase="phase 21")
     forward_configs("phase 21", LAST_VIT_BUILT, seed=2110)
-    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s on {card}")
 
 
 def phase_22(card):
@@ -3912,9 +3836,9 @@ def phase_22(card):
     VIDEO_BUILT config as shipped, with no launch."""
     t0 = time.perf_counter()
     for k, path in enumerate(VIDEO_PATHS):
-        drive_framework_path(card, *path, seed=2200 + k, phase="phase 22")
+        drive_framework_path(*path, seed=2200 + k, phase="phase 22")
     forward_configs("phase 22", VIDEO_BUILT, seed=2210)
-    log(f"phase 22: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 22: {time.perf_counter() - t0:.1f} s on {card}")
 
 
 # phase 23: data parallelism through torchrun. (a) NCCL at world size 1
@@ -4044,33 +3968,47 @@ def tool_cmd(script, *args, nproc=None, child=None):
     return torchrun(nproc, *argv, "--launcher", "pytorch")
 
 
-def run_children(cmds, log_dir, timeout=600, env=None):
-    """Run the commands of ``cmds`` ({name: argv}) at once (in ``env``, the
-    environment when None), each one's output into ``<log_dir>/<name>.log``,
-    and wait for all; raise, with the tail of each failed one's output,
-    unless all exit 0. Returns {name: output}. A command still running at
-    the end is terminated (torchrun passes SIGTERM on to its ranks), then
-    killed."""
+def start_children(cmds, log_dir, env=None):
+    """Start the commands of ``cmds`` ({name: argv}) at once (in ``env``, the
+    environment when None), each one's output into ``<log_dir>/<name>.log``.
+    Returns {name: process}; a failure to start one stops those started."""
     procs = {}
     try:
         for name, cmd in cmds.items():
             with open(os.path.join(log_dir, f"{name}.log"), "w") as f:
                 procs[name] = subprocess.Popen(cmd, cwd=ROOT, stdout=f, env=env,
                                                stderr=subprocess.STDOUT)
+    except BaseException:
+        stop_children(procs)
+        raise
+    return procs
+
+
+def stop_children(procs):
+    """Terminate each process of ``procs`` still running (torchrun passes
+    SIGTERM on to its ranks), then kill it if it outlasts 30 s."""
+    for p in procs.values():
+        if p.poll() is None:
+            p.terminate()
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+
+def join_children(procs, log_dir, timeout=600):
+    """Wait for the processes of start_children, ``timeout`` s at most, and
+    stop any still running; raise, with the tail of each failed one's
+    output, unless all exit 0. Returns {name: output}."""
+    try:
         deadline = time.time() + timeout
         for p in procs.values():
             p.wait(timeout=max(1.0, deadline - time.time()))
     finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.terminate()
-                try:
-                    p.wait(timeout=30)
-                except subprocess.TimeoutExpired:
-                    p.kill()
-                    p.wait()
+        stop_children(procs)
     outs = {}
-    for name in cmds:
+    for name in procs:
         with open(os.path.join(log_dir, f"{name}.log")) as f:
             outs[name] = f.read()
     failed = [name for name, p in procs.items() if p.returncode != 0]
@@ -4129,8 +4067,9 @@ def phase_23(card):
     global batch, with step 1's gradients of both, a planted fault that
     the update's bound must catch, and the blends over two gloo ranks and
     one NCCL rank bit-equal to the one-process blend; (c) evaluation over
-    two gloo ranks against one process. Each run is a child process, the
-    runs of a wave at once."""
+    two gloo ranks against one process. Each run is a child process, all
+    started at once; returns ``finish``, which joins them (after phase 24,
+    which runs beside them) and holds their runs to one another."""
     import numpy as np
     import torch
     from adapt_image_models_torch import ops
@@ -4139,7 +4078,8 @@ def phase_23(card):
     t0 = time.perf_counter()
     cfg = load_config(CONFIG)
     clips = cfg["data"]["videos_per_gpu"]
-    with tempfile.TemporaryDirectory() as tmp:
+    tmp = tempfile.mkdtemp()
+    try:
         train_ann, eval_ann = os.path.join(tmp, "train.txt"), os.path.join(tmp, "eval.txt")
         with open(train_ann, "w") as f:
             f.write("\n".join(f"synthetic://{2300 + i} {i % 400}"
@@ -4186,138 +4126,160 @@ def phase_23(card):
         # no draw that the rank folds into: drop path and the head's dropout
         no_drop = ("model.backbone.drop_path_rate=0", "model.cls_head.dropout_ratio=0")
         half = f"data.videos_per_gpu={clips // 2}"
-        outs = run_children({
+        procs = start_children({
             "a_nccl_ws1": train("a_nccl_ws1", nproc=1, backend="nccl"),
             "a_none": train("a_none"),
             "b_none_8": train("b_none_8", *no_drop, child="probe"),
             "blend_gloo_2": blend(2, "gloo"),
             "blend_nccl_1": blend(1, "nccl"),
-        }, tmp)
-        outs.update(run_children({
             "b_gloo_2x4": train("b_gloo_2x4", *no_drop, half, nproc=2, backend="gloo",
                                 child="probe"),
             "b_fault_2x4": train("b_fault_2x4", *no_drop, half, nproc=2, backend="gloo",
                                  child="fault"),
             "c_gloo_2": evaluate("c_gloo_2", nproc=2, backend="gloo"),
             "c_none": evaluate("c_none"),
-        }, tmp))
-        log(f"phase 23: the runs took {time.perf_counter() - t0:.1f} s (two waves of "
-            "child processes)")
+        }, tmp)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    setup_s = time.perf_counter() - t0
+    joined = []
 
-        # (a) NCCL at world size 1 against no launcher: bit for bit
-        hist_d, sd_d = train_run(os.path.join(tmp, "a_nccl_ws1"))
-        hist_n, sd_n = train_run(os.path.join(tmp, "a_none"))
-        log(f"  (a) NCCL world size 1, {clips} clips: losses {[h['loss'] for h in hist_d]}, "
-            f"grad norms {[h['grad_norm'] for h in hist_d]}")
-        log(f"      no launcher:                losses {[h['loss'] for h in hist_n]}, "
-            f"grad norms {[h['grad_norm'] for h in hist_n]}")
-        if "rank / world: 0 / 1" not in outs["a_nccl_ws1"]:
-            raise AssertionError("phase 23 (a): the run did not join a group of one rank")
-        if hist_d != hist_n or len(hist_d) != DP_STEPS:
-            raise AssertionError("phase 23 (a): NCCL at world size 1 logged other metrics")
-        unequal = [k for k in sd_n if not torch.equal(sd_d[k], sd_n[k])]
-        if unequal or set(sd_d) != set(sd_n):
-            raise AssertionError(f"phase 23 (a): tensors differ: {unequal[:5]}")
-        log(f"      losses, grad norms and all {len(sd_n)} tensors bit-equal")
-        counts = rank_launches(outs["a_nccl_ws1"])
-        check_launches(f"NCCL rank's train path ({DP_STEPS} steps x 12 layers)",
-                       {op: counts.get(op, 0) for op in ops.KERNEL_OPS},
-                       {op: 12 * DP_STEPS for op in ops.TRAIN_OPS[1]})
-        for kernel, want in (("spatial_attention", 24), ("spatial_attention_bwd", 12),
-                             ("temporal_attention", 24), ("temporal_attention_bwd", 12),
-                             ("layernorm", 72), ("layernorm_bwd", 36), ("row_scale", 24)):
-            check_core(kernel, "NCCL rank's train", counts.get(kernel, 0), want * DP_STEPS)
-        check_core("gemm", "NCCL rank's train", counts.get("gemm", 0),
-                   GEMM_LAUNCHES["flagship train step"] * DP_STEPS)
+    def finish(abandon=False):
+        """Join the children and hold their runs to one another (once);
+        ``abandon`` stops them unchecked."""
+        if joined:
+            return
+        joined.append(True)
+        t_join = time.perf_counter()
+        try:
+            if abandon:
+                stop_children(procs)
+                return
+            outs = join_children(procs, tmp)
+            log(f"phase 23: its {len(procs)} runs, one wave of child processes beside "
+                f"phase 24, ended {time.perf_counter() - t0:.1f} s after the phase began")
 
-        # (b) two gloo ranks of 4 clips against one process of 8, and the
-        # planted fault against the same process
-        hist_1, sd_1 = train_run(os.path.join(tmp, "b_none_8"))
+            # (a) NCCL at world size 1 against no launcher: bit for bit
+            hist_d, sd_d = train_run(os.path.join(tmp, "a_nccl_ws1"))
+            hist_n, sd_n = train_run(os.path.join(tmp, "a_none"))
+            log(f"  (a) NCCL world size 1, {clips} clips: losses {[h['loss'] for h in hist_d]}, "
+                f"grad norms {[h['grad_norm'] for h in hist_d]}")
+            log(f"      no launcher:                losses {[h['loss'] for h in hist_n]}, "
+                f"grad norms {[h['grad_norm'] for h in hist_n]}")
+            if "rank / world: 0 / 1" not in outs["a_nccl_ws1"]:
+                raise AssertionError("phase 23 (a): the run did not join a group of one rank")
+            if hist_d != hist_n or len(hist_d) != DP_STEPS:
+                raise AssertionError("phase 23 (a): NCCL at world size 1 logged other metrics")
+            unequal = [k for k in sd_n if not torch.equal(sd_d[k], sd_n[k])]
+            if unequal or set(sd_d) != set(sd_n):
+                raise AssertionError(f"phase 23 (a): tensors differ: {unequal[:5]}")
+            log(f"      losses, grad norms and all {len(sd_n)} tensors bit-equal")
+            counts = rank_launches(outs["a_nccl_ws1"])
+            check_launches(f"NCCL rank's train path ({DP_STEPS} steps x 12 layers)",
+                           {op: counts.get(op, 0) for op in ops.KERNEL_OPS},
+                           {op: 12 * DP_STEPS for op in ops.TRAIN_OPS[1]})
+            for kernel, want in (("spatial_attention", 24), ("spatial_attention_bwd", 12),
+                                 ("temporal_attention", 24), ("temporal_attention_bwd", 12),
+                                 ("layernorm", 72), ("layernorm_bwd", 36), ("row_scale", 24)):
+                check_core(kernel, "NCCL rank's train", counts.get(kernel, 0), want * DP_STEPS)
+            check_core("gemm", "NCCL rank's train", counts.get("gemm", 0),
+                       GEMM_LAUNCHES["flagship train step"] * DP_STEPS)
 
-        def against_one_process(name):
-            hist, sd = train_run(os.path.join(tmp, name))
-            if len(hist) != DP_STEPS or len(hist_1) != DP_STEPS:
-                raise AssertionError(f"phase 23 (b): {name} did not take every step")
-            loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(hist, hist_1)]
-            norm_rel = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
-                        for a, b in zip(hist, hist_1)]
-            update_rel = {}
-            for k in sd_1:
-                if is_trainable_name(k):
-                    ref = sd_1[k].double() - initial[k].double()
-                    got = sd[k].double() - initial[k].double()
-                    update_rel[k] = float((got - ref).abs().sum() / ref.abs().sum())
-            frozen_moved = [k for k in sd_1 if not is_trainable_name(k)
-                            and not (torch.equal(sd[k], initial[k])
-                                     and torch.equal(sd_1[k], initial[k]))]
-            worst = max(update_rel, key=update_rel.get)
-            log(f"  (b) {name} vs 1 process x {clips}: losses {[h['loss'] for h in hist]} vs "
-                f"{[h['loss'] for h in hist_1]} (relative {[f'{r:.3e}' for r in loss_rel]}, "
-                f"bound {DP_LOSS_RTOL:g}); grad norms {[h['grad_norm'] for h in hist]} vs "
-                f"{[h['grad_norm'] for h in hist_1]} (relative "
-                f"{[f'{r:.3e}' for r in norm_rel]}, bound {DP_NORM_RTOL:g}); update "
-                f"sum|diff| / sum|ref| at most {update_rel[worst]:.3e} ({worst}), median "
-                f"{statistics.median(update_rel.values()):.3e}, least "
-                f"{min(update_rel.values()):.3e}, {sum(r > 2 ** -8 for r in update_rel.values())}"
-                f" of {len(update_rel)} trainable tensors over 2**-8, bound {DP_UPDATE_REL:g}")
-            ok = (max(loss_rel) <= DP_LOSS_RTOL and max(norm_rel) <= DP_NORM_RTOL
-                  and update_rel[worst] <= DP_UPDATE_REL and not frozen_moved)
-            return ok, update_rel[worst], frozen_moved
+            # (b) two gloo ranks of 4 clips against one process of 8, and the
+            # planted fault against the same process
+            hist_1, sd_1 = train_run(os.path.join(tmp, "b_none_8"))
 
-        failures = []
-        if "rank / world: 0 / 2" not in outs["b_gloo_2x4"]:
-            failures.append("(b): the run did not join a group of two ranks")
-        ok, _, frozen_moved = against_one_process("b_gloo_2x4")
-        if not ok:
-            failures.append(f"(b): two ranks disagree with one process (frozen tensors "
-                            f"moved: {frozen_moved[:5]})")
-        eps = cfg["optimizer"].get("eps", 1e-8)
-        g_1, g_2, g_f = (torch.load(os.path.join(tmp, name, "grads_step1.pt"))
-                         for name in ("b_none_8", "b_gloo_2x4", "b_fault_2x4"))
-        for name, got in (("two ranks", g_2), ("the fault's rank 0", g_f)):
-            gap, adam, flips, n, flip_scale = step1_readings(got, g_1, eps)
-            worst = max(gap, key=gap.get)
-            adam_worst = max(adam, key=adam.get)
-            log(f"      step 1's gradients, {name} vs 1 process: sum|diff| / sum|ref| at most "
-                f"{gap[worst]:.3e} ({worst}), median {statistics.median(gap.values()):.3e}; "
-                f"{flips} of {n} elements change sign, the largest |g| among them "
-                f"{flip_scale:.3e} x its tensor's mean |g|; AdamW's first step on them: "
-                f"at most {adam[adam_worst]:.3e} ({adam_worst}), median "
-                f"{statistics.median(adam.values()):.3e}")
-        fault_ok, fault_worst, _ = against_one_process("b_fault_2x4")
-        if fault_ok or fault_worst <= DP_UPDATE_REL:
-            failures.append(f"(b): the planted fault passed the update's bound "
-                            f"({fault_worst:.3e} <= {DP_UPDATE_REL:g})")
-        blends = {}
-        for world in (2, 1):
-            for r in range(world):
-                with open(os.path.join(tmp, f"blend_{world}_rank{r}.json")) as f:
-                    blends[f"{world} rank(s), rank {r}"] = json.load(f)
-        log(f"  (b) blends of {len(DP_BLENDINGS)} kinds over {clips} clips of "
-            f"(3, 8, 224, 224) bf16, each rank's rows vs the one-process blend: {blends}")
-        if sorted(b["backend"] for b in blends.values()) != ["gloo", "gloo", "nccl"] or not all(
-                all(b["equal"].values()) and len(b["equal"]) == len(DP_BLENDINGS)
-                for b in blends.values()):
-            failures.append("(b): a rank's blended rows differ from the one-process blend")
+            def against_one_process(name):
+                hist, sd = train_run(os.path.join(tmp, name))
+                if len(hist) != DP_STEPS or len(hist_1) != DP_STEPS:
+                    raise AssertionError(f"phase 23 (b): {name} did not take every step")
+                loss_rel = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                            for a, b in zip(hist, hist_1)]
+                norm_rel = [abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+                            for a, b in zip(hist, hist_1)]
+                update_rel = {}
+                for k in sd_1:
+                    if is_trainable_name(k):
+                        ref = sd_1[k].double() - initial[k].double()
+                        got = sd[k].double() - initial[k].double()
+                        update_rel[k] = float((got - ref).abs().sum() / ref.abs().sum())
+                frozen_moved = [k for k in sd_1 if not is_trainable_name(k)
+                                and not (torch.equal(sd[k], initial[k])
+                                         and torch.equal(sd_1[k], initial[k]))]
+                worst = max(update_rel, key=update_rel.get)
+                log(f"  (b) {name} vs 1 process x {clips}: losses {[h['loss'] for h in hist]} vs "
+                    f"{[h['loss'] for h in hist_1]} (relative {[f'{r:.3e}' for r in loss_rel]}, "
+                    f"bound {DP_LOSS_RTOL:g}); grad norms {[h['grad_norm'] for h in hist]} vs "
+                    f"{[h['grad_norm'] for h in hist_1]} (relative "
+                    f"{[f'{r:.3e}' for r in norm_rel]}, bound {DP_NORM_RTOL:g}); update "
+                    f"sum|diff| / sum|ref| at most {update_rel[worst]:.3e} ({worst}), median "
+                    f"{statistics.median(update_rel.values()):.3e}, least "
+                    f"{min(update_rel.values()):.3e}, "
+                    f"{sum(r > 2 ** -8 for r in update_rel.values())}"
+                    f" of {len(update_rel)} trainable tensors over 2**-8, bound {DP_UPDATE_REL:g}")
+                ok = (max(loss_rel) <= DP_LOSS_RTOL and max(norm_rel) <= DP_NORM_RTOL
+                      and update_rel[worst] <= DP_UPDATE_REL and not frozen_moved)
+                return ok, update_rel[worst], frozen_moved
 
-        # (c) evaluation over two gloo ranks against one process
-        got, want = (np.load(os.path.join(tmp, f"{n}.npz")) for n in ("c_gloo_2", "c_none"))
-        with open(os.path.join(tmp, "c_gloo_2.json")) as f:
-            res_2 = json.load(f)
-        with open(os.path.join(tmp, "c_none.json")) as f:
-            res_1 = json.load(f)
-        err = float(np.abs(got["scores"] - want["scores"]).max())
-        same_top1 = bool((got["scores"].argmax(1) == want["scores"].argmax(1)).all())
-        log(f"  (c) eval of {DP_EVAL_VIDEOS} videos, gloo 2 ranks x 2 vs 1 process x 2: "
-            f"probabilities max abs diff {err:.3e} (bound {DP_PROB_ATOL:g}), the same "
-            f"top-1: {same_top1}, metrics {res_2} vs {res_1}")
-        if (got["scores"].shape != (DP_EVAL_VIDEOS, 400) or err > DP_PROB_ATOL
-                or not same_top1 or res_2 != res_1
-                or not np.array_equal(got["labels"], want["labels"])):
-            failures.append("(c): distributed evaluation disagrees")
-        if failures:
-            raise AssertionError(f"phase 23 {failures}")
-    log(f"phase 23: {time.perf_counter() - t0:.1f} s on {card}")
+            failures = []
+            if "rank / world: 0 / 2" not in outs["b_gloo_2x4"]:
+                failures.append("(b): the run did not join a group of two ranks")
+            ok, _, frozen_moved = against_one_process("b_gloo_2x4")
+            if not ok:
+                failures.append(f"(b): two ranks disagree with one process (frozen tensors "
+                                f"moved: {frozen_moved[:5]})")
+            eps = cfg["optimizer"].get("eps", 1e-8)
+            g_1, g_2, g_f = (torch.load(os.path.join(tmp, name, "grads_step1.pt"))
+                             for name in ("b_none_8", "b_gloo_2x4", "b_fault_2x4"))
+            for name, got in (("two ranks", g_2), ("the fault's rank 0", g_f)):
+                gap, adam, flips, n, flip_scale = step1_readings(got, g_1, eps)
+                worst = max(gap, key=gap.get)
+                adam_worst = max(adam, key=adam.get)
+                log(f"      step 1's gradients, {name} vs 1 process: sum|diff| / sum|ref| at most "
+                    f"{gap[worst]:.3e} ({worst}), median {statistics.median(gap.values()):.3e}; "
+                    f"{flips} of {n} elements change sign, the largest |g| among them "
+                    f"{flip_scale:.3e} x its tensor's mean |g|; AdamW's first step on them: "
+                    f"at most {adam[adam_worst]:.3e} ({adam_worst}), median "
+                    f"{statistics.median(adam.values()):.3e}")
+            fault_ok, fault_worst, _ = against_one_process("b_fault_2x4")
+            if fault_ok or fault_worst <= DP_UPDATE_REL:
+                failures.append(f"(b): the planted fault passed the update's bound "
+                                f"({fault_worst:.3e} <= {DP_UPDATE_REL:g})")
+            blends = {}
+            for world in (2, 1):
+                for r in range(world):
+                    with open(os.path.join(tmp, f"blend_{world}_rank{r}.json")) as f:
+                        blends[f"{world} rank(s), rank {r}"] = json.load(f)
+            log(f"  (b) blends of {len(DP_BLENDINGS)} kinds over {clips} clips of "
+                f"(3, 8, 224, 224) bf16, each rank's rows vs the one-process blend: {blends}")
+            if sorted(b["backend"] for b in blends.values()) != ["gloo", "gloo", "nccl"] or not all(
+                    all(b["equal"].values()) and len(b["equal"]) == len(DP_BLENDINGS)
+                    for b in blends.values()):
+                failures.append("(b): a rank's blended rows differ from the one-process blend")
+
+            # (c) evaluation over two gloo ranks against one process
+            got, want = (np.load(os.path.join(tmp, f"{n}.npz")) for n in ("c_gloo_2", "c_none"))
+            with open(os.path.join(tmp, "c_gloo_2.json")) as f:
+                res_2 = json.load(f)
+            with open(os.path.join(tmp, "c_none.json")) as f:
+                res_1 = json.load(f)
+            err = float(np.abs(got["scores"] - want["scores"]).max())
+            same_top1 = bool((got["scores"].argmax(1) == want["scores"].argmax(1)).all())
+            log(f"  (c) eval of {DP_EVAL_VIDEOS} videos, gloo 2 ranks x 2 vs 1 process x 2: "
+                f"probabilities max abs diff {err:.3e} (bound {DP_PROB_ATOL:g}), the same "
+                f"top-1: {same_top1}, metrics {res_2} vs {res_1}")
+            if (got["scores"].shape != (DP_EVAL_VIDEOS, 400) or err > DP_PROB_ATOL
+                    or not same_top1 or res_2 != res_1
+                    or not np.array_equal(got["labels"], want["labels"])):
+                failures.append("(c): distributed evaluation disagrees")
+            if failures:
+                raise AssertionError(f"phase 23 {failures}")
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(f"phase 23: {setup_s + time.perf_counter() - t_join:.1f} s of its own on {card} "
+            "(its set-up, and the wait for its children after phase 24)")
+    return finish
 
 
 
@@ -4326,15 +4288,12 @@ def phase_23(card):
 # the TSN and TSM heads, framework ops only (cuDNN convolutions and the
 # port's BatchNormFlax), as the JAX package runs no Pallas kernel there
 
-# (label, config under configs/recognition, the backbone keys it must ship,
-# eval and train timing batches in videos: 8 and the recipe's
-# videos_per_gpu; TSN's eval at 8 videos of 25 x 3 crops is left out to keep
-# the command within its time limit, PERF.md keeps its reading)
+# (label, config under configs/recognition, the backbone keys it must ship)
 CNN_PATHS = (
     ("TSN-R50", "tsn/tsn_r50_video_1x1x8_100e_kinetics400_rgb.py",
-     dict(type="ResNet", depth=50), (32,), (8, 32)),
+     dict(type="ResNet", depth=50)),
     ("TSM-R50", "tsm/tsm_r50_video_1x1x8_50e_kinetics400_rgb.py",
-     dict(type="ResNetTSM", depth=50, num_frames=8), (8,), (8,)),
+     dict(type="ResNetTSM", depth=50, num_frames=8)),
 )
 # one forward of 2 videos each, as shipped; the fp16 recipe's bf16 model is
 # also held to an fp32 model of the same weights on the card
@@ -4448,8 +4407,7 @@ def cnn_model(cfg, seed, device="cuda"):
     return model
 
 
-def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_batches=None,
-                   host_views=None, aux=False):
+def drive_cnn_path(label, name, expected, seed, phase=24, host_views=None, aux=False):
     """One of CNN_PATHS (or CNN3D_PATHS) as shipped (400 classes) on seeded
     weights with calibrated running statistics and a class lead:
     init_recognizer, inference_recognizer and run_evaluation on synthetic
@@ -4458,12 +4416,8 @@ def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_b
     views where given); train_model for 2 steps of 4 videos with the
     in-loop evaluation (running statistics moved, left alone by the
     evaluation, restored bit for bit by the checkpoint, every tensor moved,
-    no launch); then eval videos/s (and clips/s: views) at ``batches``
-    videos and train videos/s at ``train_batches`` (``batches`` where None)
-    with peak memory, at TF32 off (the TF32-on readings and 1-video rates
-    of earlier runs stand in PERF.md), and a profile of one
-    train step at the largest, TF32 on. ``aux``: a TPN recipe, whose every logged step holds a
-    finite aux term in its loss (train_model and the timed steps)."""
+    no launch). ``aux``: a TPN recipe, whose every logged step of
+    train_model holds a finite aux term in its loss."""
     import copy
     import numpy as np
     import torch
@@ -4578,43 +4532,8 @@ def drive_cnn_path(card, label, name, expected, batches, seed, phase=24, train_b
         check_aux(label, history)
     del state, trained, restored, initial
     torch.cuda.empty_cache()
-
-    log(f"  {label} timings on {card}")
-    views = sample[0] if len(sample) == 5 else None
-    for videos in batches:
-        x = torch.randn(videos, *sample, device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        with tf32(False), torch.no_grad():
-            ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
-        clips = f" ({videos * views / ms * 1e3:.1f} clips/s)" if views else ""
-        log(f"  {label} forward_test {videos} videos of {sample} (TF32 off): {ms:.2f} ms, "
-            f"{videos / ms * 1e3:.2f} videos/s{clips}, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-            "(median of 5 after 2 warm-ups, CUDA events)")
-        del x
     del model
     torch.cuda.empty_cache()
-    shape = train_sample_shape(cfg)
-    train_batches = train_batches or batches
-    for videos in train_batches:
-        batch = {"imgs": torch.randn(videos, *shape, device="cuda"),
-                 "label": np.arange(videos) % classes}
-        tstate, step_fn = train_setup(cfg, weights=weights)
-        if aux:
-            check_aux(f"{label} {videos}-video step", [
-                {k: float(v) for k, v in step_fn(tstate, batch, 0).items()}])
-        torch.cuda.reset_peak_memory_stats()
-        with tf32(False):
-            ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=2)
-        log(f"  {label} train step {videos} videos of {shape} (TF32 off): {ms:.2f} ms, "
-            f"{videos / ms * 1e3:.1f} videos/s, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-            "(median of 5 after 2 warm-ups, CUDA events)")
-        if videos == train_batches[-1]:
-            with tf32(True):
-                profile_step(step_fn, tstate, batch, f"{label} {videos}-video (TF32 on)")
-        del tstate, step_fn, batch
-        torch.cuda.empty_cache()
     log(f"phase {phase}: {label} path in {time.perf_counter() - t_path:.1f} s")
 
 
@@ -4668,12 +4587,14 @@ def cnn_data_parallel(card):
     of each BatchNorm's sums and of their gradients is a copy), and two
     gloo ranks of 4 videos against one process of 8 over a step (every
     BatchNorm over the global batch); each child with TF32 off, cuDNN's
-    deterministic algorithms and no dropout, no kernel launched."""
+    deterministic algorithms and no dropout, no kernel launched. Starts the
+    children and returns ``finish``, which joins and checks them."""
     import torch
     label, name = CNN_PATHS[1][:2]
     config = os.path.join(RECOGNITION_DIR, name)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
+    tmp = tempfile.mkdtemp()
+    try:
         ann = os.path.join(tmp, "train.txt")
         with open(ann, "w") as f:
             f.write("\n".join(f"synthetic://{2450 + i} {i % 400}"
@@ -4690,13 +4611,38 @@ def cnn_data_parallel(card):
                             "model.cls_head.dropout_ratio=0", nproc=nproc,
                             child=("deterministic", work))
 
-        outs = run_children({
+        procs = start_children({
             "d_nccl_ws1": train("d_nccl_ws1", 8, CNN_DP_STEPS, nproc=1, backend="nccl"),
             "d_none": train("d_none", 8, CNN_DP_STEPS),
             "d_none_1": train("d_none_1", 8, 1),
             "d_gloo_2x4": train("d_gloo_2x4", 4, 1, nproc=2, backend="gloo"),
         }, tmp, env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
-        runs = {run: train_run(os.path.join(tmp, run)) for run in outs}
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    joined = []
+
+    def finish(abandon=False):
+        """Join the children and hold their runs to one another (once);
+        ``abandon`` stops them unchecked."""
+        if joined:
+            return
+        joined.append(True)
+        try:
+            if abandon:
+                stop_children(procs)
+                return
+            outs = join_children(procs, tmp)
+            runs = {run: train_run(os.path.join(tmp, run)) for run in outs}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        check_cnn_data_parallel(card, label, config, outs, runs, t0)
+    return finish
+
+
+def check_cnn_data_parallel(card, label, config, outs, runs, t0):
+    """cnn_data_parallel's runs held to one another."""
+    import torch
     for run, out in outs.items():
         fired = {k: n for k, n in rank_launches(out).items() if n}
         if fired:
@@ -4779,15 +4725,20 @@ def fp32_grad_noise(cfg, videos, seed):
 
 
 def phase_24(card):
-    """2D CNN recognition: each of CNN_PATHS through drive_cnn_path, one
+    """2D CNN recognition: TSM's data parallelism (cnn_data_parallel), its
+    child processes beside each of CNN_PATHS through drive_cnn_path and one
     forward of each CNN_BUILT recipe and of the fp16 recipe (bf16 against
-    fp32), then TSM's data parallelism (cnn_data_parallel)."""
+    fp32)."""
     t0 = time.perf_counter()
-    for k, (label, name, expected, eval_batches, train_batches) in enumerate(CNN_PATHS):
-        drive_cnn_path(card, label, name, expected, eval_batches, seed=2400 + k,
-                       train_batches=train_batches)
-    cnn_forwards(seed=2410)
-    cnn_data_parallel(card)
+    finish_dp = cnn_data_parallel(card)  # its children run beside the paths
+    try:
+        for k, (label, name, expected) in enumerate(CNN_PATHS):
+            drive_cnn_path(label, name, expected, seed=2400 + k)
+        cnn_forwards(seed=2410)
+    except BaseException:
+        finish_dp(abandon=True)
+        raise
+    finish_dp()
     log(f"phase 24: {time.perf_counter() - t0:.1f} s")
 
 
@@ -4797,17 +4748,14 @@ def phase_24(card):
 # framework ops only (cuDNN 3D convolutions and the port's BatchNormFlax),
 # as the JAX package runs no Pallas kernel there
 
-# (label, config under configs/recognition, the backbone keys it must ship,
-# eval timing batches in videos: 8, and 2 for the 30-view 32-frame recipes
-# whose 8 videos take over a second a call (their 8-video and 1-video
-# readings stand in PERF.md), train timing batches: 8)
+# (label, config under configs/recognition, the backbone keys it must ship)
 CNN3D_PATHS = (
     ("I3D-R50", "i3d/i3d_r50_video_32x2x1_100e_kinetics400_rgb.py",
-     dict(type="ResNet3d", depth=50, conv1_kernel=(5, 7, 7)), (2,), (8,)),
+     dict(type="ResNet3d", depth=50, conv1_kernel=(5, 7, 7))),
     ("SlowFast-R50", "slowfast/slowfast_r50_video_4x16x1_256e_kinetics400_rgb.py",
-     dict(type="ResNet3dSlowFast", alpha=8, beta_inv=8), (2,), (8,)),
+     dict(type="ResNet3dSlowFast", alpha=8, beta_inv=8)),
     ("X3D-M", "x3d/x3d_m_16x5x1_facebook_kinetics400_rgb.py",
-     dict(type="X3D", gamma_w=1.0, gamma_b=2.25, gamma_d=2.2), (8,), (8,)),
+     dict(type="X3D", gamma_w=1.0, gamma_b=2.25, gamma_d=2.2)),
 )
 # the card's fp32 against the host CPU's on a test video's first views: a
 # whole I3D test video (30 views, 3.9 TFLOP) would take the host ~100 s at
@@ -4826,23 +4774,10 @@ POSEC3D_CONFIG = os.path.join(ROOT, "configs", "skeleton", "posec3d",
 
 
 def view_gflop(cfg, split="test"):
-    """GFLOP of one view of ``split``'s pipeline through the recognizer of
-    ``cfg`` (convolutions and matmuls, ``torch.utils.flop_counter`` on the
-    meta device: no compute): a 3D recipe's clip, a 2D recipe's crop of
-    its sampled segments, an audio recipe's spectrogram segment."""
-    import torch
-    from torch.utils.flop_counter import FlopCounterMode
-    from adapt_image_models_torch.apis import model_config
-    from adapt_image_models_torch.apis.inference import sample_shape
-    from adapt_image_models_torch.models import build_model
-    mcfg = {k: v for k, v in model_config(cfg, split).items()
-            if k not in ("test_cfg", "train_cfg")}
-    model = build_model(mcfg, device="meta").eval()
-    shape = sample_shape(cfg["data"][split]["pipeline"])
-    with FlopCounterMode(display=False) as counter:
-        model(torch.empty(*shape, device="meta"))
-    views = shape[1] if mcfg["type"] == "AudioRecognizer" else 1
-    return counter.get_total_flops() / 1e9 / views
+    """``utils.flops.view_gflop``, imported at the call: the script imports
+    the port only once it has found the card."""
+    from adapt_image_models_torch.utils.flops import view_gflop as gflop
+    return gflop(cfg, split)
 
 
 def bnfrozen_train_step(cfg, model, seed):
@@ -4938,14 +4873,14 @@ def phase_25(card):
     view's GFLOP beside), then cnn3d_forwards."""
     from adapt_image_models_torch.apis import load_config
     t0 = time.perf_counter()
-    for k, (label, name, expected, batches, train_batches) in enumerate(CNN3D_PATHS):
+    for k, (label, name, expected) in enumerate(CNN3D_PATHS):
         cfg = load_config(os.path.join(RECOGNITION_DIR, name))
         log(f"phase 25: {label} reckons {view_gflop(cfg):.1f} GFLOP a test view and "
             f"{view_gflop(cfg, 'train'):.1f} a train clip (forward)")
-        drive_cnn_path(card, label, name, expected, batches, seed=2500 + k, phase=25,
-                       train_batches=train_batches, host_views=CNN3D_HOST_VIEWS)
+        drive_cnn_path(label, name, expected, seed=2500 + k, phase=25,
+                       host_views=CNN3D_HOST_VIEWS)
     cnn3d_forwards(seed=2510)
-    log(f"phase 25: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 25: {time.perf_counter() - t0:.1f} s on {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -4953,14 +4888,13 @@ def phase_25(card):
 # (cuDNN convolutions and the port's BatchNormFlax), as the JAX package runs
 # no Pallas kernel there
 
-# (label, config, the backbone keys it must ship, eval timing batches in
-# videos (TPN-SlowOnly's 30 views at 2 videos, as CNN3D_PATHS' 30-view
-# recipes), train timing batches, host views of the card-vs-CPU check)
+# (label, config, the backbone keys it must ship, host views of the
+# card-vs-CPU check)
 TPN_PATHS = (
     ("TPN-SlowOnly-R50", "tpn/tpn_slowonly_r50_8x8x1_150e_kinetics_rgb.py",
-     dict(type="ResNet3dSlowOnly", depth=50, out_indices=(2, 3)), (2,), (8,), 3),
+     dict(type="ResNet3dSlowOnly", depth=50, out_indices=(2, 3)), 3),
     ("TPN-TSM-R50", "tpn/tpn_tsm_r50_1x1x8_150e_sthv1_rgb.py",
-     dict(type="ResNetTSM", depth=50, num_frames=8, out_indices=(2, 3)), (8,), (8,), None),
+     dict(type="ResNetTSM", depth=50, num_frames=8, out_indices=(2, 3)), None),
 )
 # one forward of 2 videos each, as shipped; TRN's through its val pipeline
 # (8 segments): its test pipeline's 48 (twice_sample x ThreeCrop) meet a
@@ -5056,14 +4990,14 @@ def phase_26(card):
     more_2d_forwards."""
     from adapt_image_models_torch.apis import load_config
     t0 = time.perf_counter()
-    for k, (label, name, expected, batches, train_batches, host) in enumerate(TPN_PATHS):
+    for k, (label, name, expected, host) in enumerate(TPN_PATHS):
         cfg = load_config(os.path.join(RECOGNITION_DIR, name))
         log(f"phase 26: {label} reckons {view_gflop(cfg):.1f} GFLOP a test view and "
             f"{view_gflop(cfg, 'train'):.1f} a train clip (forward)")
-        drive_cnn_path(card, label, name, expected, batches, seed=2600 + k, phase=26,
-                       train_batches=train_batches, host_views=host, aux=True)
+        drive_cnn_path(label, name, expected, seed=2600 + k, phase=26, host_views=host,
+                       aux=True)
     more_2d_forwards(seed=2610)
-    log(f"phase 26: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 26: {time.perf_counter() - t0:.1f} s on {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -5103,16 +5037,14 @@ def write_audio_files(root, kind, seed):
     return names
 
 
-def drive_audio_path(card, label, name, expected, seed, kind, eval_batches, train_steps=2):
+def drive_audio_path(label, name, expected, seed, kind, train_steps=2):
     """An audio recipe as shipped (400 classes) on seeded weights with
     calibrated running statistics and a class lead, over files the phase
     writes: init_recognizer, inference_recognizer and run_evaluation, no
     launch; the card's fp32 against the host CPU's on one test sample;
     train_model for ``train_steps`` steps at the recipe's videos_per_gpu
     with the in-loop evaluation (statistics moved, the checkpoint restoring
-    them bit for bit); eval and train samples/s with peak memory, TF32 off
-    (its TF32-on readings stand in PERF.md), and a profile of one train
-    step (TF32 on)."""
+    them bit for bit)."""
     import copy
     import numpy as np
     import torch
@@ -5213,37 +5145,6 @@ def drive_audio_path(card, label, name, expected, seed, kind, eval_batches, trai
         raise AssertionError(f"{label}: train_model's running statistics wrong")
     del state, trained, restored, initial
     torch.cuda.empty_cache()
-
-    model = build_model(mcfg, test_cfg=cfg["model"]["test_cfg"], device="cuda").eval()
-    model.load_state_dict(weights)
-    log(f"  {label} timings on {card}")
-    for n in eval_batches:
-        xb = torch.randn(n, *sample, device="cuda")
-        torch.cuda.reset_peak_memory_stats()
-        with tf32(False), torch.no_grad():
-            ms = cuda_ms(lambda: model.forward_test(xb), iters=5, warmup=2)
-        log(f"  {label} forward_test {n} samples of {sample} (TF32 off): {ms:.2f} ms, "
-            f"{n / ms * 1e3:.1f} samples/s, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
-            "warm-ups, CUDA events)")
-        del xb
-    del model
-    torch.cuda.empty_cache()
-    shape = train_sample_shape(cfg)
-    batch = {"imgs": torch.randn(videos, *shape, device="cuda"),
-             "label": np.arange(videos) % classes}
-    tstate, step_fn = train_setup(cfg, weights=weights)
-    torch.cuda.reset_peak_memory_stats()
-    with tf32(False):
-        ms = cuda_ms(lambda: step_fn(tstate, batch, 0), iters=5, warmup=2)
-    log(f"  {label} train step {videos} samples of {shape} (TF32 off): {ms:.2f} ms, "
-        f"{videos / ms * 1e3:.1f} samples/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-        "(median of 5 after 2 warm-ups, CUDA events)")
-    with tf32(True):
-        profile_step(step_fn, tstate, batch, f"{label} {videos}-sample (TF32 on)")
-    del tstate, step_fn, batch
-    torch.cuda.empty_cache()
     log(f"phase 27: {label} path in {time.perf_counter() - t_path:.1f} s")
 
 
@@ -5251,11 +5152,11 @@ def phase_27(card):
     """Audio recognition: the wav recipe and the feature recipe through
     drive_audio_path, each at its shipped batch of 320."""
     t0 = time.perf_counter()
-    drive_audio_path(card, "TSN-R50 audio (wav)", AUDIO_WAV,
-                     dict(type="ResNet", depth=50, in_channels=1), 2700, "wav", (320,))
-    drive_audio_path(card, "ResNetAudio-R50 (features)", AUDIO_FEATURE,
-                     dict(type="ResNetAudio", depth=50), 2710, "feature", (32,))
-    log(f"phase 27: {time.perf_counter() - t0:.1f} s")
+    drive_audio_path("TSN-R50 audio (wav)", AUDIO_WAV,
+                     dict(type="ResNet", depth=50, in_channels=1), 2700, "wav")
+    drive_audio_path("ResNetAudio-R50 (features)", AUDIO_FEATURE,
+                     dict(type="ResNetAudio", depth=50), 2710, "feature")
+    log(f"phase 27: {time.perf_counter() - t0:.1f} s on {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -5367,7 +5268,7 @@ def write_clip(path, frames, seed, size=(340, 256)):
     writer.release()
 
 
-def drive_omnisource(card, seed):
+def drive_omnisource(seed):
     """OMNI_CONFIG as shipped (TSN-R50, 200 classes) through train_model
     over its four sources, which the phase writes: synthetic videos for the
     two video sources, jpg web images and mp4 raw-video clips; one full
@@ -5375,14 +5276,12 @@ def drive_omnisource(card, seed):
     [12, 64, 12, 12] (5 steps), TF32 off: every source drawn in order with
     its own batch shape, finite losses, no launch; the loop's samples/s,
     the host's share (its wait for each batch over the loop) and peak
-    memory; then steady train videos/s of the main batch, a profiled step,
-    and the card's fp32 logits against the host CPU's."""
+    memory; then the card's fp32 logits against the host CPU's."""
     import numpy as np
     import torch
     import adapt_image_models_torch.apis.train as train_api
     from adapt_image_models_torch import ops
     from adapt_image_models_torch.apis import load_config, train_model
-    from adapt_image_models_torch.core.train_state import make_train_step
     t_path = time.perf_counter()
     cfg = load_config(os.path.join(RECOGNITION_DIR, OMNI_CONFIG))
     data = cfg["data"]
@@ -5460,22 +5359,7 @@ def drive_omnisource(card, seed):
     if shapes[1][:2] != (64, 8) or shapes[0][:2] != (12, 8):
         raise AssertionError(f"OmniSource: unexpected batch shapes {shapes}")
 
-    model, opt = state.model, state.optimizer
-    step = make_train_step(model, opt)
-    log(f"  OmniSource timings on {card}")
-    batch = {"imgs": torch.randn(12, 8, 3, 224, 224, device="cuda"),
-             "label": np.arange(12) % classes}
-    torch.cuda.reset_peak_memory_stats()
-    with tf32(False):
-        ms = cuda_ms(lambda: step(state, batch, 0), iters=5, warmup=2)
-    log(f"  TSN-R50 train step, the main source's 12 x 8 segments of 224² (TF32 off): "
-        f"{ms:.2f} ms, {12 / ms * 1e3:.1f} videos/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
-        "warm-ups, CUDA events)")
-    with tf32(False):
-        profile_step(lambda s, b, _: step(s, b, 0), state, batch,
-                     "OmniSource TSN-R50 12-video (TF32 off)")
-    del batch
+    model = state.model
     # the card's fp32 logits against the host's: 2 videos of the main
     # source's 8 segments, and 4 web images, each its 8 segments, as the
     # image source's pipeline samples it
@@ -5488,7 +5372,7 @@ def drive_omnisource(card, seed):
         for what, x in (("2 videos", videos), ("4 web images", images)):
             host_vs_card(f"TSN-R50 logits of {what} {tuple(x.shape[1:])}", model, (x,),
                          model(x))
-    del state, model, opt, step, videos, images
+    del state, model, videos, images
     torch.cuda.empty_cache()
     log(f"phase 28: OmniSource path in {time.perf_counter() - t_path:.1f} s")
 
@@ -5514,15 +5398,13 @@ def write_pose_annotations(path, n, seed, classes=60):
         pickle.dump(items, f)
 
 
-def drive_pose(card, name, seed, timings=True):
+def drive_pose(name, seed):
     """One POSE_CONFIGS recipe as shipped: train_model and run_evaluation
     refuse it (UniformSampleFrames), as JAX's do; PoseDataset -> VideoLoader
     -> the port's train step at the recipe's 16 clips of 48 x 56² heatmaps
-    (2 steps, no launch), the host stage's ms a sample; clips/s and peak
-    memory of the step and of forward_test over the test pipeline's 10
-    clips x double flip (64²); the card's fp32 logits against the host's;
-    a profiled step. ``timings`` False (the limb twin: the keypoint
-    recipe's model and shapes) skips the timed calls."""
+    (2 steps, no launch), the host stage's ms a sample; forward_test over
+    the test pipeline's 10 clips x double flip (64²); the card's fp32
+    logits against the host's."""
     import numpy as np
     import torch
     from adapt_image_models_torch import ops
@@ -5613,34 +5495,7 @@ def drive_pose(card, name, seed, timings=True):
             host_vs_card(f"{name} logits of one clip {tuple(one.shape[1:])}", model, (one,),
                          model(one))
 
-    if not timings:
-        del model, state, step
-        torch.cuda.empty_cache()
-        log(f"phase 28: {name} path in {time.perf_counter() - t_path:.1f} s")
-        return
-    log(f"  {name} timings on {card}")
-    batch = {"imgs": torch.rand(videos, 1, 48, 56, 56, channels, device="cuda"),
-             "label": np.arange(videos) % classes}
-    torch.cuda.reset_peak_memory_stats()
-    with tf32(False):
-        ms = cuda_ms(lambda: step(state, batch, 0), iters=5, warmup=2)
-    log(f"  train step {videos} clips of {tuple(batch['imgs'].shape[1:])} (TF32 off): "
-        f"{ms:.2f} ms, {videos / ms * 1e3:.1f} clips/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
-        "warm-ups, CUDA events)")
-    with tf32(False):
-        profile_step(lambda s, b, _: step(s, b, 0), state, batch,
-                     f"PoseC3D {videos}-clip (TF32 off)")
-    model.eval()
-    x = torch.rand(4, 20, channels, 48, 64, 64, device="cuda")
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad(), tf32(False):
-        ms = cuda_ms(lambda: model.forward_test(x), iters=5, warmup=2)
-    log(f"  forward_test 4 videos of {tuple(x.shape[1:])} (TF32 off): {ms:.2f} ms, "
-        f"{80 / ms * 1e3:.1f} clips/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
-        "warm-ups, CUDA events)")
-    del model, state, step, batch, x
+    del model, state, step
     torch.cuda.empty_cache()
     log(f"phase 28: {name} path in {time.perf_counter() - t_path:.1f} s")
 
@@ -5694,26 +5549,12 @@ def localization_step(model, opt, loss_fn):
     return step
 
 
-def time_step(label, step, inputs, videos, unit="videos"):
-    import torch
-    torch.cuda.reset_peak_memory_stats()
-    with tf32(False):
-        ms = cuda_ms(lambda: step(*inputs), iters=5, warmup=2)
-    log(f"  {label} train step, {videos} {unit} (TF32 off): {ms:.2f} ms, "
-        f"{videos / ms * 1e3:.1f} {unit}/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
-        "warm-ups, CUDA events)")
-    with tf32(False):
-        profile_step(lambda *_: step(*inputs), None, None, f"{label} {videos}-{unit[:-1]} "
-                     "(TF32 off)")
-
-
-def drive_bsn_bmn(card, seed):
+def drive_bsn_bmn(seed):
     """BMN at 400 x 100, batch 8, and TEM and PEM at their 16, each from
     its shipped config over ActivityNet-style csv features the phase
     writes, through ActivityNetDataset's pipeline: one train step of the
-    recipe's Adam (finite losses, every tensor moved, no launch), step ms,
-    peak memory and a profile; then BMN's soft-NMS proposals, TEM -> PGM
+    recipe's Adam (finite losses, every tensor moved, no launch); then
+    BMN's soft-NMS proposals, TEM -> PGM
     proposals and BSP features -> PEM -> soft-NMS, each scored by
     ActivityNetDataset.evaluate (AR@AN, AUC); the card's fp32 confidence
     map, TEM scores and PEM scores against the host's."""
@@ -5796,8 +5637,6 @@ def drive_bsn_bmn(card, seed):
         with torch.no_grad(), tf32(False):
             card_out = bmn(x[:2])
         host_vs_card("BMN confidence map, end, start of 2 videos", bmn, (x[:2],), card_out)
-        log(f"  BMN timings on {card}")
-        time_step("BMN", step, (x[:videos],), videos)
         del bmn, bmn_opt, step, out, labels, card_out
         torch.cuda.empty_cache()
 
@@ -5822,8 +5661,6 @@ def drive_bsn_bmn(card, seed):
         with torch.no_grad(), tf32(False):
             scores = tem(x[:videos])
         host_vs_card("TEM scores of 2 videos", tem, (x[:2],), scores[:2])
-        log(f"  TEM timings on {card}")
-        time_step("TEM", step, (x[:videos],), videos)
         tem_scores = scores.cpu().numpy()
         del tem, tem_opt, step
 
@@ -5874,8 +5711,6 @@ def drive_bsn_bmn(card, seed):
             f"ActivityNetDataset.evaluate {metrics}")
         if not (np.isfinite(metrics["auc"]) and 0 < metrics["auc"] <= 100):
             raise AssertionError("BSN: AR@AN failed")
-        log(f"  PEM timings on {card}")
-        time_step("PEM", step, (feat,), len(feat), unit="proposals")
         del pem, pem_opt, step, x, feat
         torch.cuda.empty_cache()
     log(f"phase 28: BMN, TEM and PEM in {time.perf_counter() - t_path:.1f} s")
@@ -5951,12 +5786,12 @@ def ssn_frames(item, total, mean, crop=224):
     return imgs.permute(0, 3, 1, 2).contiguous()
 
 
-def drive_ssn(card, seed):
+def drive_ssn(seed):
     """SSN-R50 from its shipped train and test configs over THUMOS-style
     frames and proposals the phase writes: SSNDataset.prepare_train's 8
     proposals x (2 + 5 + 2) segments of 224² a video -> one train step of
     the recipe's SGD (the three losses finite, every tensor moved, no
-    launch), its ms and peak memory and a profile; then the test path
+    launch); then the test path
     (prepare_test -> snippet_scores -> ssn_test_post) over every video and
     SSNDataset.evaluate (mAP at tIoU 0.1-0.9); the card's fp32 activity,
     completeness and regression against the host's."""
@@ -6045,8 +5880,6 @@ def drive_ssn(card, seed):
             card_out = model(imgs[:18], sf[:2])
         host_vs_card("SSN activity, completeness, regression of 2 proposals", model,
                      (imgs[:18], sf[:2]), card_out)
-        log(f"  SSN-R50 timings on {card}")
-        time_step("SSN-R50", step, (imgs, sf, *targets), 1, unit="videos")
         del model, opt, imgs
         torch.cuda.empty_cache()
     log(f"phase 28: SSN path in {time.perf_counter() - t_path:.1f} s")
@@ -6056,12 +5889,12 @@ def phase_28(card):
     """OmniSource, PoseC3D and temporal localization: drive_omnisource,
     drive_pose on both POSE_CONFIGS, drive_bsn_bmn and drive_ssn."""
     t0 = time.perf_counter()
-    drive_omnisource(card, seed=2800)
+    drive_omnisource(seed=2800)
     for k, name in enumerate(POSE_CONFIGS):
-        drive_pose(card, name, seed=2810 + k, timings=k == 0)
-    drive_bsn_bmn(card, seed=2820)
-    drive_ssn(card, seed=2830)
-    log(f"phase 28: {time.perf_counter() - t0:.1f} s")
+        drive_pose(name, seed=2810 + k)
+    drive_bsn_bmn(seed=2820)
+    drive_ssn(seed=2830)
+    log(f"phase 28: {time.perf_counter() - t0:.1f} s on {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -6166,27 +5999,18 @@ def ava_config(name, files):
     return cfg
 
 
-def drive_detector(card, label, cfg, seed, steps, batches, host=False):
+def drive_detector(label, cfg, seed, steps, host=False):
     """A detection recipe at its width and batch: train_model (the dispatch
     to train_detector) for ``steps`` steps from a seeded init, each logged
-    (finite losses, no launch); run_detection_evaluation at batch 1 on the
-    val split (mAP in [0, 1], no launch); with ``host``, the card's fp32
-    logits on 2 clips against the host CPU's; then, TF32 off, the eval
-    forward's ms at 8 videos and the train step's ms at the recipe's batch
-    (median of 5 after 2 warm-ups, CUDA events) with peak memory, and a
-    profile of one step. Every tensor and BatchNorm statistic must have
-    moved: from the seeded init through train_model with ``host`` (the
-    main path), else over the timed steps, the same step function, which
-    spares rebuilding the init. ``batches`` keeps the timing batches a
-    split's pipeline gave, for the next recipe of the same pipeline (the
-    SlowFast and ACRN recipes share theirs). Returns the trained model."""
+    (finite losses, no launch), every tensor and BatchNorm statistic moved
+    from that init; run_detection_evaluation at batch 1 on the val split
+    (mAP in [0, 1], no launch); with ``host``, the card's fp32 logits on 2
+    val clips against the host CPU's. Returns the trained model."""
     import numpy as np
     import torch
     from adapt_image_models_torch import ops
     from adapt_image_models_torch.apis import run_detection_evaluation, train_model
-    from adapt_image_models_torch.apis.detection import (
-        _maybe_build_lfb, _sample_lt_feat, make_det_prepare_fn, make_detection_train_step,
-    )
+    from adapt_image_models_torch.apis.detection import make_det_prepare_fn
     from adapt_image_models_torch.data.datasets import build_dataset
     from adapt_image_models_torch.data.loader import collate
     from adapt_image_models_torch.models import build_model
@@ -6199,12 +6023,10 @@ def drive_detector(card, label, cfg, seed, steps, batches, host=False):
 
     videos = cfg["data"]["videos_per_gpu"]
     cfg["log_config"] = dict(interval=1)
-    initial = None
-    if host:
-        mcfg = {k: v for k, v in cfg["model"].items() if k not in ("train_cfg", "test_cfg")}
-        initial = build_model(mcfg, device="cuda")
-        initial.init_weights(torch.Generator().manual_seed(seed))
-        initial = {k: v.clone() for k, v in initial.state_dict().items()}
+    mcfg = {k: v for k, v in cfg["model"].items() if k not in ("train_cfg", "test_cfg")}
+    initial = build_model(mcfg, device="cuda")
+    initial.init_weights(torch.Generator().manual_seed(seed))
+    initial = {k: v.clone() for k, v in initial.state_dict().items()}
     with tempfile.TemporaryDirectory() as work:
         ops.reset_launch_counts()  # this train path's run starts here
         with tf32(False):
@@ -6213,14 +6035,6 @@ def drive_detector(card, label, cfg, seed, steps, batches, host=False):
         torch.cuda.synchronize()
         check_no_launches(f"{label} train", ops.launch_counts(), path_cores())  # ... ends here
     model = state.model
-
-    def check_moved(start, over):
-        now = model.state_dict()
-        moved = [k for k in start if not torch.equal(start[k], now[k])]
-        log(f"  {len(moved)} of {len(start)} tensors and statistics moved over {over}")
-        if len(moved) != len(start):
-            raise AssertionError(f"{label}: tensors did not move: "
-                                 f"{sorted(set(start) - set(moved))[:8]}")
 
     n_params = sum(p.numel() for p in model.parameters())
     log(f"phase 29: {label} ({n_params / 1e6:.2f}M params) train_model: {state.step} steps of "
@@ -6231,9 +6045,13 @@ def drive_detector(card, label, cfg, seed, steps, batches, host=False):
     if (state.step != steps or len(history) != steps
             or not all(np.isfinite(h["loss"]) for h in history)):
         raise AssertionError(f"{label}: train_model did not take {steps} finite steps")
-    if initial is not None:
-        check_moved(initial, "train_model")
-    del initial
+    now = model.state_dict()
+    moved = [k for k in initial if not torch.equal(initial[k], now[k])]
+    log(f"  {len(moved)} of {len(initial)} tensors and statistics moved over train_model")
+    if len(moved) != len(initial):
+        raise AssertionError(f"{label}: tensors did not move: "
+                             f"{sorted(set(initial) - set(moved))[:8]}")
+    del initial, now
     lap("train_model")
 
     ops.reset_launch_counts()  # this eval path's run starts here
@@ -6251,82 +6069,24 @@ def drive_detector(card, label, cfg, seed, steps, batches, host=False):
         raise AssertionError(f"{label}: mAP {mean_ap} outside [0, 1]")
     lap("evaluation")
 
-    def samples(split, n):
-        """The first n samples of ``split`` collated as the loader does (no
-        prefetch thread), those its pipeline already gave from ``batches``."""
-        ds = build_dataset(dict(cfg["data"][split]))
-        # the frames do not depend on the device stage's normalisation
-        steps = [st for st in cfg["data"][split]["pipeline"] if st["type"] != "Normalize"]
-        key = (split, json.dumps(steps, sort_keys=True), ds.to_bgr)
-        have = batches.get(key)
-        m = len(have["img_key"]) if have else 0
-        if m < n:
-            more = collate([ds.prepare_sample(i, np.random.default_rng((seed, i)))
-                            for i in range(m, n)])
-            batches[key] = more if have is None else {
-                k: v + more[k] if isinstance(v, list) else np.concatenate([v, more[k]])
-                for k, v in have.items()}
-        return ds, {k: v[:n] for k, v in batches[key].items()}
-
-    lfb_bank, _ = _maybe_build_lfb(cfg["model"])
-    val, val_batch = samples("val", 8)
-    if lfb_bank is not None:
-        val_batch["lt_feat"] = _sample_lt_feat(lfb_bank, val_batch["img_key"])
-    prepare = make_det_prepare_fn(val.mean, val.std, device="cuda")
-
-    def eval_forward(n):
-        imgs = prepare(val_batch["imgs"][:n])
-        rois = torch.as_tensor(val_batch["rois"][:n], device="cuda")
-        lt = (None if lfb_bank is None
-              else torch.as_tensor(val_batch["lt_feat"][:n], device="cuda"))
-        return lambda: torch.sigmoid(model.bbox_head(model.roi_features(imgs, rois, lt)))
-
-    model.eval()
     if host:
-        imgs = prepare(val_batch["imgs"][:2])
-        rois = torch.as_tensor(val_batch["rois"][:2], device="cuda")
+        val = build_dataset(dict(cfg["data"]["val"]))
+        batch = collate([val.prepare_sample(i, np.random.default_rng((seed, i)))
+                         for i in range(2)])
+        imgs = make_det_prepare_fn(val.mean, val.std, device="cuda")(batch["imgs"])
+        rois = torch.as_tensor(batch["rois"], device="cuda")
+        model.eval()
         with torch.no_grad(), tf32(False):
             out = model(imgs, rois)
         host_vs_card(f"{label} logits of 2 clips {tuple(imgs.shape[1:])}", model,
                      (imgs, rois), out, tol=DET_HOST_REL)
         lap("host check")
-    log(f"  {label} timings on {card}")
-    n = len(val_batch["img_key"])
-    lap("val batch")
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad(), tf32(False):
-        ms = cuda_ms(eval_forward(n), iters=5, warmup=2)
-    log(f"  {label} eval forward of {n} videos x {val.num_rois} rois on the canvas (TF32 "
-        f"off): {ms:.2f} ms, {n / ms * 1e3:.1f} videos/s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (median of 5 after 2 "
-        "warm-ups, CUDA events)")
-    lap("eval timing")
-    train, batch = samples("train", videos)
-    if lfb_bank is not None:
-        batch["lt_feat"] = _sample_lt_feat(lfb_bank, batch["img_key"])
-    lap("train batch")
-    step = make_detection_train_step(model, state.optimizer,
-                                     make_det_prepare_fn(train.mean, train.std, device="cuda"))
-    start = None if host else {k: v.clone() for k, v in model.state_dict().items()}
-    torch.cuda.reset_peak_memory_stats()
-    with tf32(False):
-        ms = cuda_ms(lambda: step(state, batch, seed), iters=5, warmup=2)
-    log(f"  {label} train step {videos} videos x {train.num_rois} rois of "
-        f"{tuple(batch['imgs'].shape[1:])} (TF32 off): {ms:.2f} ms, {videos / ms * 1e3:.1f} "
-        f"videos/s, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-        "(median of 5 after 2 warm-ups, CUDA events)")
-    lap("train timing")
-    with tf32(False):
-        profile_step(step, state, batch, f"{label} {videos}-video (TF32 off)", cpu_ops=False)
-    if start is not None:
-        check_moved(start, "the timed steps")
-    lap("profile")
     log(f"phase 29: {label} path in {time.perf_counter() - t_path:.1f} s ("
         + ", ".join(f"{k} {v:.1f}" for k, v in laps.items()) + ")")
     return model
 
 
-def drive_lfb(card, files, source, seed, batches):
+def drive_lfb(files, source, seed):
     """The LFB flow: lfb_slowonly_r50_ava_infer.py with ``source``'s weights
     (the SlowOnly recipe just trained) writes the train and val banks
     through run_detection_evaluation (its LFBInferHead, dataset_mode each
@@ -6363,7 +6123,7 @@ def drive_lfb(card, files, source, seed, batches):
     del model
     cfg = ava_config(LFB_NL_CONFIG, files)
     cfg["model"]["roi_head"]["shared_head"]["lfb_cfg"]["lfb_prefix_path"] = bank_dir
-    drive_detector(card, "LFB-NL SlowOnly-R50 4x16", cfg, seed, steps=3, batches=batches)
+    drive_detector("LFB-NL SlowOnly-R50 4x16", cfg, seed, steps=3)
     torch.cuda.empty_cache()
 
 
@@ -6379,22 +6139,248 @@ def phase_29(card):
             f"340 x 256 rawframes (val: the first {AVA_VAL_KEYFRAMES}), csvs, label map and "
             f"proposals in {time.perf_counter() - t0:.1f} s")
         slowonly = None
-        batches = {}
         for k, (label, name) in enumerate(AVA_PATHS):
-            model = drive_detector(card, label, ava_config(name, files), seed=2910 + k,
-                                   steps=3, batches=batches, host=k == 0)
+            model = drive_detector(label, ava_config(name, files), seed=2910 + k, steps=3,
+                                   host=k == 0)
             if k == 0:
                 slowonly = model
             else:
                 del model
             torch.cuda.empty_cache()
-        drive_lfb(card, files, slowonly, seed=2920, batches=batches)
+        drive_lfb(files, slowonly, seed=2920)
         del slowonly
         torch.cuda.empty_cache()
-    log(f"phase 29: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 29: {time.perf_counter() - t0:.1f} s on {card}")
+
+
+# the flagship through the model-running tools (phase 30): the aim_port ops
+# an exported eval forward holds (3 LayerNorms, 12 GEMMs, one spatial and
+# one temporal core a layer), the CAM's bound kernel vs plain route (about
+# 10x the first reading, 1.618e-2), the features' bounds kernel vs plain
+# route relative to the largest feature (the features are bf16, whose ulp
+# there is 2**-8 to 2**-7 of it: the largest error may be a rounding flip
+# or two, the mean must stay far below one) and the phase's budget
+EXPORT_OPS = {"layernorm": 36, "gemm": 144, "spatial_attention": 12, "temporal_attention": 12}
+CAM_ATOL = 0.16
+FEATURE_MAX_REL, FEATURE_MEAN_REL = 2 ** -6, 1e-3
+TOOLS_BUDGET_S = 60.0
+
+
+def load_tool(rel):
+    """The module of the tool script at ``rel`` (a path in the repo)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "tool_" + os.path.basename(rel)[:-3], os.path.join(ROOT, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def tool_clip(seed, views=None):
+    """A seeded normalised clip of the flagship's shape on the card: (1, 3,
+    T, 224, 224), or (1, views, 3, T, 224, 224)."""
+    import numpy as np
+    from adapt_image_models_torch.data.transforms import make_prepare_fn
+    shape = (1, views or 1, FRAMES, 224, 224, 3)
+    clips = np.random.default_rng(seed).integers(0, 256, shape, dtype=np.uint8)
+    x = make_prepare_fn(device="cuda")(clips)
+    return x if views else x[:, 0]
+
+
+def phase_30(card):
+    """The flagship (AIM ViT-B/16 8f, bf16, seeded weights) through the
+    port's model-running tools, kernel route against plain route: export
+    (``aim_port`` ops counted, the artifact run in a child process, bit for
+    bit against the eager kernel path), GradCAM, feature extraction, the
+    demo's top-5, get_flops against ``view_gflop`` and profile's trace.
+    Returns ``finish``, which joins the artifact's child and checks it."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import init_recognizer, load_config
+    from adapt_image_models_torch.data.pipeline import build_sample_processor
+    from adapt_image_models_torch.utils.flops import view_gflop as gflop
+    from adapt_image_models_torch.utils.gradcam import gradcam
+    t_phase = time.perf_counter()
+    export_tool = load_tool("tools/deployment/export_torch.py")
+    features_tool = load_tool("tools/misc/clip_feature_extraction_torch.py")
+    demo_tool = load_tool("demo/demo_torch.py")
+    flops_tool = load_tool("tools/analysis/get_flops_torch.py")
+    profile_tool = load_tool("tools/analysis/profile_torch.py")
+    cfg = load_config(CONFIG)
+    model = init_recognizer(cfg, device="cuda", seed=0)
+    randomize_adapters(model, seed=3001)
+    separate_classes(model, seed=3001)
+    log(f"phase 30: the flagship through the tools on {card}")
+    forwards = 0  # kernel-route forwards of this process on the tools' path
+    tmp = tempfile.mkdtemp()
+    ops.reset_launch_counts()  # the tools' path starts here
+    # -- export at batch 1: the graph's kernels, the artifact in a child
+    x = tool_clip(3002)
+    t0 = time.perf_counter()
+    program = export_tool.export(model, x)
+    export_s = time.perf_counter() - t0
+    found = export_tool.kernel_ops(program)
+    log(f"  export_torch: torch.export of the eval forward at {tuple(x.shape)} in "
+        f"{export_s:.2f} s; aim_port ops in the graph: {dict(sorted(found.items()))}")
+    if any(found.get(op, 0) != n for op, n in EXPORT_OPS.items()):
+        raise AssertionError(f"the exported graph holds {dict(found)}, not {EXPORT_OPS}")
+    artifact, x_path, out_path = (os.path.join(tmp, n) for n in ("flagship.pt2", "x.pt",
+                                                                  "out.pt"))
+    t0 = time.perf_counter()
+    torch.export.save(program, artifact)
+    save_s = time.perf_counter() - t0
+    del program
+    torch.save(x.cpu(), x_path)
+    size_mb = os.path.getsize(artifact) / 1e6
+    # the child loads and runs the artifact while this process goes on with
+    # the other tools and phase 29; ``finish`` joins it
+    t_child = time.perf_counter()
+    child = subprocess.Popen([sys.executable, os.path.join(ROOT, "tools", "deployment",
+                                                           "export_torch.py"),
+                              "--load", artifact, "--input", x_path,
+                              "--save-output", out_path],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        with torch.no_grad():
+            eager = model(x).float().cpu()
+        forwards += 1
+
+        # -- GradCAM at one clip, kernel route vs plain route
+        imgs = tool_clip(3003)
+        cam_k, p_k = gradcam(model, imgs, device="cuda")
+        torch.cuda.synchronize()
+        gradcam_ms = cuda_ms(lambda: gradcam(model, imgs, device="cuda"), iters=3, warmup=0)
+        forwards += 4
+        with plain_ops():
+            cam_p, p_p = gradcam(model, imgs, device="cuda")
+        prob_err = (p_k - p_p).abs().max().item()
+        cam_err = (cam_k - cam_p).abs().max().item()
+        leaf = imgs.detach().requires_grad_(True)
+        logits = model(leaf)
+        forwards += 1
+        (g_x,) = torch.autograd.grad(logits[0, logits[0].argmax()], leaf)
+        per_frame = g_x.float().abs().sum(dim=(0, 1, 3, 4))
+        log(f"  gradcam: {gradcam_ms:.2f} ms a call (median of 3, CUDA events), CAM "
+            f"{tuple(cam_k.shape)}; kernel vs plain route: probabilities max_abs_err "
+            f"{prob_err:.3e} (tol {PROB_ATOL}), CAM max_abs_err {cam_err:.3e} (tol "
+            f"{CAM_ATOL}), top-1 {int(p_k.argmax())} / {int(p_p.argmax())}; input gradient "
+            f"|sum| a frame {[f'{v:.3e}' for v in per_frame.tolist()]}")
+        if not (prob_err < PROB_ATOL and int(p_k.argmax()) == int(p_p.argmax())
+                and bool(torch.isfinite(cam_k).all()) and bool((per_frame > 0).all())
+                and cam_err <= CAM_ATOL):
+            raise AssertionError("GradCAM's kernel route disagrees with its plain route")
+
+        # -- feature extraction over 4 synthetic videos at batch 2
+        ann = os.path.join(tmp, "features.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"synthetic://{3010 + i} {i}" for i in range(4)))
+        argv = [CONFIG, os.path.join(tmp, "features.npz"), "--batch", "2", "--workers", "2",
+                "--cfg-options", f"data.test.ann_file={ann}"]
+        t0 = time.perf_counter()
+        feats_k, labels = features_tool.main(argv, model=model)
+        features_s = time.perf_counter() - t0
+        forwards += 2
+        with plain_ops():
+            feats_p, _ = features_tool.main(argv, model=model)
+        views = build_sample_processor(cfg["data"]["test"]["pipeline"]).num_views
+        err, top = np.abs(feats_k - feats_p), float(np.abs(feats_p).max())
+        log(f"  clip_feature_extraction_torch: {feats_k.shape} features of 4 videos in "
+            f"{features_s:.2f} s ({4 * views / features_s:.1f} clips/s with decoding); "
+            f"kernel vs plain max_abs_err {err.max():.3e} (tol {FEATURE_MAX_REL * top:.3e}), "
+            f"mean {err.mean():.3e} (tol {FEATURE_MEAN_REL * top:.3e}), largest feature "
+            f"{top:.3f}")
+        if feats_k.shape != (4, WIDTH) or not (err.max() <= FEATURE_MAX_REL * top
+                                               and err.mean() <= FEATURE_MEAN_REL * top):
+            raise AssertionError("feature extraction's kernel route disagrees")
+
+        # -- the demo's top-5
+        demo_argv = [CONFIG, "synthetic://3020", "--device", "cuda"]
+        top5_k = demo_tool.main(demo_argv, model=model)
+        forwards += 1
+        with plain_ops():
+            top5_p = demo_tool.main(demo_argv, model=model)
+        demo_err = max(abs(a[1] - b[1]) for a, b in zip(top5_k, top5_p))
+        log(f"  demo_torch top-5 {top5_k}; plain route's classes equal "
+            f"{[c for c, _ in top5_k] == [c for c, _ in top5_p]}, score max_abs_err "
+            f"{demo_err:.3e}")
+        if top5_k[0][0] != top5_p[0][0] or demo_err >= PROB_ATOL:
+            raise AssertionError("demo_torch's kernel route disagrees with the plain route")
+
+        # -- get_flops against view_gflop
+        report = flops_tool.main([CONFIG, "--device", "cuda"], model=model)
+        forwards += 1
+        meta_gflop = gflop(cfg)
+        log(f"  get_flops_torch on the card: {report['flops'] / 1e9:.6f} GFLOP a view, "
+            f"{report['params'] / 1e6:.2f} M params ({report['tunable'] / 1e6:.2f} M "
+            f"tunable); view_gflop on the meta device {meta_gflop:.6f}")
+        if report["flops"] / 1e9 != meta_gflop:
+            raise AssertionError("get_flops_torch disagrees with view_gflop")
+
+        # -- profile: the trace names the GEMM and the attention cores
+        path, events = profile_tool.main([CONFIG, "--out", os.path.join(tmp, "profile"),
+                                          "--batch", "2", "--iters", "1"], model=model)
+        forwards += 2
+        with open(path) as f:
+            trace = f.read()
+        names = {k: k in trace for k in ("gemm_bf16_kernel", "flash_attention_kernel",
+                                         "temporal_fwd_registers",
+                                         "layernorm_registers_kernel")}
+        log(f"  profile_torch: {os.path.getsize(path) / 1e6:.1f} MB trace; kernels named "
+            f"{names}")
+        if not all(names.values()):
+            raise AssertionError("profile_torch's trace misses the port's kernels")
+        launches = ops.launch_counts()  # ... and ends here
+        cores = ops.core_launch_counts()
+
+        check_launches(f"tools path ({forwards} kernel-route forwards x 12 layers)", launches,
+                       {op: 12 * forwards for op in ops.EVAL_OPS[1]})
+        for op, n in EXPORT_OPS.items():
+            check_core(op, "tools path", cores[op], n * forwards)
+    except BaseException:
+        child.kill()
+        child.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    own_s = time.perf_counter() - t_phase
+    del model
+    torch.cuda.empty_cache()
+
+    def finish():
+        """Join the exported artifact's child and hold its output; log the
+        phase's seconds (its own, and the wait for the child)."""
+        t_join = time.perf_counter()
+        try:
+            stdout, stderr = child.communicate(timeout=300)
+        finally:
+            child.kill()
+        child_s = time.perf_counter() - t_child
+        if child.returncode != 0:
+            raise AssertionError(f"the artifact's child failed:\n{stderr[-3000:]}")
+        line = stdout.strip().splitlines()[-1]
+        child_launches = json.loads(line.split("kernel launches ", 1)[1])
+        loaded = torch.load(out_path).float()
+        bit_equal = torch.equal(loaded, eager)
+        same_top1 = int(loaded.argmax()) == int(eager.argmax())
+        log(f"  export_torch: artifact {size_mb:.1f} MB saved in {save_s:.2f} s; its child "
+            f"({child_s:.1f} s from its start, beside the other tools and phase 29; its launches "
+            f"{child_launches}): {line.split(';')[0]}; bit-equal to the eager kernel path "
+            f"{bit_equal}, same top-1 {same_top1} (max abs diff "
+            f"{(loaded - eager).abs().max().item():.3e})")
+        if not (bit_equal and same_top1) or any(
+                child_launches.get(op, 0) != n for op, n in EXPORT_OPS.items()):
+            raise AssertionError("the exported artifact disagrees with the eager kernel path")
+        shutil.rmtree(tmp, ignore_errors=True)
+        elapsed = own_s + time.perf_counter() - t_join
+        log(f"phase 30: {elapsed:.1f} s (budget {TOOLS_BUDGET_S:.0f} s; its child ran beside "
+            f"phase 29); export {export_s:.2f} s, artifact {size_mb:.1f} MB, gradcam "
+            f"{gradcam_ms:.2f} ms, features {4 * views / features_s:.1f} clips/s")
+        return elapsed
+    return finish
 
 
 def main():
+    t_start = time.perf_counter()
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -6403,6 +6389,7 @@ def main():
     from adapt_image_models_torch import ops
     from adapt_image_models_torch.ops import _kernels
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 0 starts")
     # ---- phase 0: device and build ------------------------------------
     card = device_line()
     log(card)
@@ -6416,6 +6403,7 @@ def main():
     log(f"phase 0: kernels built and loaded in {time.perf_counter() - t0:.1f} s "
         f"(into {os.path.relpath(_kernels.BUILD_ROOT, ROOT)})")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 1 starts")
     # ---- phase 1: each op vs its plain version -------------------------
     errors = {}
     for clips in (3, 6, 32):
@@ -6423,6 +6411,7 @@ def main():
             f"{HEADS} heads, T={FRAMES}")
         eval_op_checks(clips, clips, errors)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 2 starts")
     # ---- phase 2: the flagship model through the entry points ----------
     from adapt_image_models_torch.apis import (
         inference_recognizer, init_recognizer, load_config, run_evaluation,
@@ -6486,6 +6475,7 @@ def main():
             p_plain = model.forward_test(imgs)
     hold_top1(f"flagship model on {tuple(imgs.shape)}", p_kernel, p_plain, PROB_ATOL)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 3 starts")
     # ---- phase 3: timings ------------------------------------------------
     log(f"phase 3: timings on {card}")
     op_ms = {}
@@ -6526,6 +6516,7 @@ def main():
     del xla_model
     torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 4 starts")
     # ---- phase 4: each train op, forward and backward, vs its plain version
     tensors = ("out", "dx", "dW1", "db1", "dW2", "db2")
     failures = []
@@ -6554,6 +6545,7 @@ def main():
     if failures:
         raise AssertionError(f"train kernels disagree with their plain versions: {failures}")
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 5 starts")
     # ---- phase 5: the train path ---------------------------------------
     import copy
     from adapt_image_models_torch.apis import train_model
@@ -6649,6 +6641,7 @@ def main():
     compare_train_step(cfg, weights, videos_per_step, 400)
     torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 6 starts")
     # ---- phase 6: train timings -----------------------------------------
     log(f"phase 6: train timings on {card}")
     train_timings(cfg, weights, 400, "flagship")
@@ -6671,6 +6664,7 @@ def main():
             f"kernel {pair(fwdbwd)[0]:.3f} / plain {pair(fwdbwd)[1]:.3f} ms")
         torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 7 starts")
     # ---- phase 7: the plain temporal attention block ----------------------
     blk, blk_bwd = "fused_temporal_attention", "fused_temporal_attention_bwd"
     failures = []
@@ -6726,6 +6720,7 @@ def main():
     del x, wts, g
     torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 8 starts")
     # ---- phase 8: the SSv2 recipe -------------------------------------------
     del model
     torch.cuda.empty_cache()
@@ -6833,25 +6828,10 @@ def main():
     compare_train_step(cfg8, weights8, vps8, classes)
     torch.cuda.empty_cache()
 
-    log(f"  SSv2 timings on {card}")
-    mcfg8 = {k: v for k, v in cfg8["model"].items() if k not in ("test_cfg", "train_cfg")}
-    xla8 = build_model({**mcfg8, "backbone": {**bb8, "attention_core": "xla"}},
-                       test_cfg=cfg8["model"]["test_cfg"], device="cuda").eval()
-    xla8.load_state_dict(weights8)
-    x = torch.randn(32, 1, 3, FRAMES, 224, 224, device="cuda")
-    for label, m in (("kernel", model8), ("framework-op (xla)", xla8)):
-        torch.cuda.reset_peak_memory_stats()
-        with torch.no_grad():
-            ms = cuda_ms(lambda: m.forward_test(x), iters=5, warmup=2)
-        mem = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"  SSv2 forward_test batch 32 ({label} path): {ms:.2f} ms, "
-            f"{32 / ms * 1e3:.1f} clips/s, peak memory {mem:.2f} GiB")
-    del x, xla8
-    torch.cuda.empty_cache()
-    train_timings(cfg8, weights8, classes, "SSv2")
     del model8, weights8
     torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 9 starts")
     # ---- phase 9: the plain spatial attention block ----------------------
     sblk, sblk_bwd = "fused_qkv_attention", "fused_qkv_attention_bwd"
     failures = []
@@ -6916,6 +6896,7 @@ def main():
     del x, wts, g
     torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 10 starts")
     # ---- phase 10: the AIM_FLASH path ------------------------------------
     cfg10 = load_config(FLASH_CONFIG)
     bb10 = cfg10["model"]["backbone"]
@@ -7028,23 +7009,7 @@ def main():
     compare_train_step(cfg10, weights10, vps10, classes10)
     torch.cuda.empty_cache()
 
-    log(f"  AIM_FLASH timings on {card}")
-    mcfg10 = {k: v for k, v in cfg10["model"].items() if k not in ("test_cfg", "train_cfg")}
-    xla10 = build_model({**mcfg10, "backbone": {**bb10, "attention_core": "xla"}},
-                        test_cfg=cfg10["model"]["test_cfg"], device="cuda").eval()
-    xla10.load_state_dict(weights10)
-    x = torch.randn(8, 1, 3, FLASH_FRAMES, 224, 224, device="cuda")
-    for label, m in (("kernel", model10), ("framework-op (xla)", xla10)):
-        torch.cuda.reset_peak_memory_stats()
-        with torch.no_grad():
-            ms = cuda_ms(lambda: m.forward_test(x), iters=5, warmup=2)
-        mem = torch.cuda.max_memory_allocated() / 2 ** 30
-        log(f"  AIM_FLASH forward_test batch 8 of {FLASH_FRAMES} frames ({label} path): "
-            f"{ms:.2f} ms, {8 / ms * 1e3:.2f} clips/s, peak memory {mem:.2f} GiB")
-    del x, xla10, model10
-    torch.cuda.empty_cache()
-    train_timings(cfg10, weights10, classes10, "AIM_FLASH", batches=(2, 8))
-    del weights10
+    del model10, weights10
     torch.cuda.empty_cache()
 
     cfg_win = load_config(FLASH_WIN_CONFIG)
@@ -7070,6 +7035,7 @@ def main():
     del model_win, x
     torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 11 starts")
     # ---- phase 11: the composition's ops ----------------------------------
     base_geom = dict(frames=FRAMES, tokens=TOKENS, width=WIDTH, heads=HEADS)
     long_geom = dict(base_geom, frames=FLASH_FRAMES)  # ViT-B/16 at 32 frames
@@ -7090,9 +7056,10 @@ def main():
     # every op of the two paths that phase 12 drives, at the shapes those
     # paths give it: eval at one video's 3 views (inference_recognizer and
     # run_evaluation's batches of ViT-L/14), at 6 clips (the kernel-vs-plain
-    # forward, run_evaluation's batches of ViT-B/16) and at the timing batch;
-    # train at the 2 clips of train_model and at the timing batches, in the
-    # design that ops.train_ops names for the geometry
+    # forward, run_evaluation's batches of ViT-B/16) and at the batch its
+    # rates were read at (PERF.md); train at the 2 clips of train_model and
+    # at those batches, in the design that ops.train_ops names for the
+    # geometry
     for label, geom, eval_clips, train_clips in (
             ("ViT-L/14 32f", LARGE, (3, 6, 4), (1, 2, 4)),
             ("ViT-B/16 32f", long_geom, (3, 6, 8), (2, 8))):
@@ -7150,50 +7117,29 @@ def main():
         op_ms[op] = times[op]
     library_ms.update(lib)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 12 starts")
     # ---- phase 12: the wide and the long path ----------------------------
-    cfg_l, model_l, large_launches, large_train_launches, classes_l = drive_path(
+    cfg_l, large_launches, large_train_launches = drive_path(
         "ViT-L/14 32f", LARGE_CONFIG, layers=24, eval_videos=2, eval_batch=1,
         train_clips=2, steps=3, prob_atol=LARGE_PROB_ATOL, seed=12)
     if cfg_l["optimizer"]["paramwise_cfg"]["custom_keys"]["backbone_module"] != dict(
             lr_mult=0.1):
         raise AssertionError("the ViT-L recipe lost its backbone lr multiplier")
-    log(f"  ViT-L/14 timings on {card}")
-    eval_timing("ViT-L/14 32f", model_l, 4, LARGE["frames"])
-    weights_l = model_l.state_dict()
-    del model_l
-    torch.cuda.empty_cache()
-    cfg_l8 = load_config(LARGE_CONFIG, AIM_OPTIONS + ["model.backbone.num_frames=8"])
-    model_l8 = init_recognizer(cfg_l8, device="cuda", seed=0)
-    randomize_adapters(model_l8, seed=13)
-    eval_timing("ViT-L/14 8f", model_l8, 16, 8)
-    del model_l8
-    torch.cuda.empty_cache()
-    train_timings(cfg_l, weights_l, classes_l, "ViT-L/14 32f", batches=(1, 2, 4),
-                  xla_batches=(1,))
-    del weights_l
-    torch.cuda.empty_cache()
-
-    cfg_b, model_b, long_launches, long_train_launches, classes_b = drive_path(
+    _, long_launches, long_train_launches = drive_path(
         "ViT-B/16 32f", LONG_CONFIG, layers=12, eval_videos=2, eval_batch=2,
         train_clips=2, steps=3, prob_atol=LARGE_PROB_ATOL, seed=14)
-    log(f"  ViT-B/16 32f timings on {card}")
-    eval_timing("ViT-B/16 32f", model_b, 8, FLASH_FRAMES)
-    weights_b = model_b.state_dict()
-    del model_b
-    torch.cuda.empty_cache()
-    train_timings(cfg_b, weights_b, classes_b, "ViT-B/16 32f", batches=(8,), xla_batches=())
-    del weights_b
-    torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 13 starts")
     # ---- phase 13: ViT_CLIP ----------------------------------------------
     log("phase 13: the flash attention core (row 13) at the ViT_CLIP paths' shapes")
     flash_core_checks(errors)
     class_token_block_checks(errors)
     flash_core_timing(card, op_ms, library_ms)
-    vc_launches, vc_train_launches = drive_vitclip(card)
-    drive_vitclip_large(card)
+    vc_launches, vc_train_launches = drive_vitclip()
+    drive_vitclip_large()
     drive_vitclip_flash_config()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 14 starts")
     # ---- phase 14: long clips and the LN temporal block ------------------
     failures = []
     for clips, frames, geom in ((2, 33, base_geom), (2, 48, base_geom),
@@ -7211,69 +7157,89 @@ def main():
     row10_library_ms()
     log("phase 14: the LN temporal block through CLIPAttention(temporal_frames=t, ln=ln)")
     ln_launches = drive_ln_block()
-    cfg_64, model_64, long64_launches, long64_train_launches, classes_64 = drive_path(
+    _, long64_launches, long64_train_launches = drive_path(
         "ViT-B/16 64f", LONG_CONFIG, layers=12, eval_videos=2, eval_batch=2,
         train_clips=2, steps=3, prob_atol=LARGE_PROB_ATOL, seed=15,
         options=[f"model.backbone.num_frames={LONG_FRAMES}"], clip=(LONG_FRAMES, 2),
         phase="phase 14")
-    log(f"  ViT-B/16 64f timings on {card}")
-    eval_timing("ViT-B/16 64f", model_64, 4, LONG_FRAMES)
-    weights_64 = model_64.state_dict()
-    del model_64
-    torch.cuda.empty_cache()
-    train_timings(cfg_64, weights_64, classes_64, "ViT-B/16 64f", batches=(2, 4),
-                  xla_batches=())
-    del weights_64
-    torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 15 starts")
     # ---- phase 15: CLIPAttention's LN-only and adapter-only calls ---------
     layer_launches, layer_long = phase_15(card, errors, op_ms, library_ms)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 16 starts")
     # ---- phase 16: the temporal cores past their former frame bounds ------
     long144_launches, long144_train_launches = phase_16(card, errors)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 17 starts")
     # ---- phase 17: the segment forward core and the flash core alone -------
     seg_bound, gemm_rows, spatial_rows, temporal_rows, row_pass_rows = phase_17(
         card, errors, op_ms, library_ms)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 18 starts")
     # ---- phase 18: the AIM window path -------------------------------------
     window_launches, window_train_launches = phase_18(card)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 19 starts")
     # ---- phase 19: AIM_FLASH_DUAL and rows 4, 8 at 800 keys -----------------
     cfg19, weights19, dual_launches, dual_train_launches, dual_rows = phase_19(card, errors)
     spatial_rows.update(dual_rows)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 20 starts")
     # ---- phase 20: a train run from clip_pretrained and load_from ----------
     phase_20(cfg19, weights19)
     del weights19
     torch.cuda.empty_cache()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 21 starts")
     # ---- phase 21: res-tuning, ZeroI2V and ViT_ImageNet ----------------------
     phase_21(card)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 22 starts")
     # ---- phase 22: TimeSformer, Swin2D-Adapter and Video Swin -----------------
     phase_22(card)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 23 starts")
     # ---- phase 23: data parallelism through torchrun ---------------------------
-    phase_23(card)
+    # (its children run beside phase 24, which starts its own beside them)
+    finish_23 = phase_23(card)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 24 starts")
     # ---- phase 24: 2D CNN recognition (TSN, TSM) ------------------------------
-    phase_24(card)
+    try:
+        phase_24(card)
+    except BaseException:
+        finish_23(abandon=True)
+        raise
+    finish_23()
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 25 starts")
     # ---- phase 25: 3D CNN recognition (I3D, SlowFast, X3D, ...) ---------------
     phase_25(card)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 26 starts")
     # ---- phase 26: the TPN neck and the rest of 2D recognition ----------------
     phase_26(card)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 27 starts")
     # ---- phase 27: audio recognition ----------------------------------------------
     phase_27(card)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 28 starts")
     # ---- phase 28: OmniSource, PoseC3D and temporal localization --------------------
     phase_28(card)
 
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 30 starts")
+    # ---- phase 30: the flagship through the model-running tools ---------------------
+    # (before phase 29, which its exported artifact's child runs beside)
+    finish_30 = phase_30(card)
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 29 starts")
     # ---- phase 29: AVA detection (FastRCNN, ACRN, LFB) --------------------------------
-    phase_29(card)
+    try:
+        phase_29(card)
+    finally:
+        finish_30()  # joins the child in any case
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",
@@ -7431,6 +7397,7 @@ def main():
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"], bound_by=row["bound_by"],
             library_ms=row["library_ms"], ms_run10=row["ms_run10"],
             library_ms_run10=row["library_ms_run10"]))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     log(f"GEMM rows: {json.dumps(gemm_rows)}")
     log(f"spatial core rows: {json.dumps(spatial_rows)}")
     log(f"temporal core rows: {json.dumps(temporal_rows)}")

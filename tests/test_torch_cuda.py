@@ -1126,3 +1126,64 @@ def test_framework_path_matches_cpu(cuda, name, monkeypatch):
                         for s in sd[1:])
         assert gap <= 2 * cpu_gap + 1e-5, (k, gap, cpu_gap)
     assert not any(ops.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# the eval step ops' gradient and the registered ops (aim_port::*)
+
+
+@pytest.mark.parametrize("op", ["spatial", "temporal", "joint"])
+def test_eval_step_gradient_on_the_card(cuda, op):
+    """Where autograd records an eval step op on the card, its forward is
+    the kernel chain (one launch) and its backward the vector-Jacobian
+    product of the JAX package's XLA reference recomputed: bit for bit that
+    reference's own gradient, and close to the gradient through the plain
+    route (the TPU casts), for x and the adapter weights."""
+    from adapt_image_models_torch.ops.fused_joint_mlp import joint_xla
+    n, heads, t = 197, 12, 8
+    x, ln_w, ln_b, ws = _args(cuda, 2 * t, n, 64 * heads, 16 * heads, 70,
+                              joint=op == "joint")
+    fns = {"spatial": (fused_spatial_step, fused_spatial_step_plain, tfqa.spatial_step_xla,
+                       (heads, True)),
+           "temporal": (fused_temporal_step, fused_temporal_step_plain, tfta.temporal_step_xla,
+                        (t, heads, False)),
+           "joint": (fused_joint, fused_joint_plain, joint_xla, (0.5,))}
+    kernel, plain, ref, rest = fns[op]
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(71)).to(x)
+    grads = []
+    for fn in (kernel, ref, plain):
+        leaves = [x.clone().requires_grad_(), *(w.clone().requires_grad_() for w in ws[4:])]
+        before = kernel.launches
+        out = fn(leaves[0], ln_w, ln_b, *ws[:4], *leaves[1:], *rest)
+        if fn is kernel:
+            assert type(out.grad_fn).__name__ == "RecomputedVjpBackward"
+            assert kernel.launches == before + 1
+        grads.append(torch.autograd.grad(out, leaves, g))
+    for got, want, through_plain in zip(*grads):
+        assert torch.equal(got, want)
+        assert got.float().abs().sum() > 0
+        diff = (got.float() - through_plain.float()).abs().mean()
+        assert diff <= 0.05 * through_plain.float().abs().mean() + 1e-4, (op, diff)
+    with torch.no_grad():
+        assert kernel(x, ln_w, ln_b, *ws, *rest).grad_fn is None
+
+
+def test_registered_ops_refuse_misaligned_tensors(cuda):
+    """An ``aim_port`` op given a CUDA tensor its kernel does not take
+    raises, as the launcher does, rather than running the plain version."""
+    from adapt_image_models_torch.ops import _kernels
+    rows, d = 4, 64
+    shifted = torch.empty(rows * d + 8, dtype=torch.bfloat16, device=cuda)[4:4 + rows * d].view(rows, d)
+    w = torch.ones(d, device=cuda)
+    b = torch.zeros(d, device=cuda)
+    weight = torch.ones(32, d, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        torch.ops.aim_port.layernorm(shifted, w, b, 1e-5)
+    with pytest.raises(ValueError):
+        torch.ops.aim_port.gemm(shifted, weight, False, None, 0, None, 0, 1.0, None, None, 1,
+                                None, None, False, True, False)
+    with pytest.raises(ValueError):
+        _kernels.gemm(shifted, weight)
+    aligned = torch.randn(rows, d, device=cuda).to(torch.bfloat16)
+    got = torch.ops.aim_port.layernorm(aligned, w, b, 1e-5)
+    assert torch.equal(got, _kernels.layernorm(aligned, w, b))

@@ -26,7 +26,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "adapt_image_models_tpu")
 # of a toy Recognizer2D (ResNetTSM with a non-local block and the temporal
 # pool), which moves its BatchNorms' running statistics; the same of toy 3D
 # CNNs (SlowFast, X3D, CSN with a non-local stage, R(2+1)D, C3D), and precise
-# BN over one of them;
+# BN over one of them; GradCAM and every tool of the port (tools/**/*_torch.py,
+# demo/*_torch.py) on the tiny recipe or files of their own, on the CPU;
 # tests/conftest.py imports jax, so this must run in a fresh interpreter
 NO_JAX_SCRIPT = r"""
 import os, sys, tempfile
@@ -139,6 +140,53 @@ for cfg_, x in (
     net.init_weights(torch.Generator().manual_seed(0))
     net.train()
     net(x, torch.Generator().manual_seed(1)).sum().backward()
+import importlib.util, json
+def tool(rel):
+    spec = importlib.util.spec_from_file_location("tool_" + os.path.basename(rel)[:-3], rel)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+tiny = "configs/recognition/vit/vitclip_debug_tiny.py"
+cpu = ["--device", "cpu"]
+from adapt_image_models_torch.utils.gradcam import gradcam
+cam, _ = gradcam(model, torch.zeros(1, 3, 4, 32, 32), device="cpu")
+assert cam.shape == (1, 4, 32, 32)
+assert tool("tools/analysis/get_flops_torch.py").main([tiny, "--device", "meta"])["flops"] > 0
+tool("tools/analysis/profile_torch.py").main([tiny, "--out", tmp, "--batch", "1",
+                                              "--iters", "1"] + cpu)
+pt2 = os.path.join(tmp, "tiny.pt2")
+export = tool("tools/deployment/export_torch.py")
+export.main([tiny, "--out", pt2] + cpu)
+export.main(["--load", pt2] + cpu)
+tool("tools/misc/clip_feature_extraction_torch.py").main(
+    [tiny, os.path.join(tmp, "f.npz"), "--batch", "2", "--workers", "1",
+     "--cfg-options", f"data.test.ann_file={ann}"] + cpu)
+tool("demo/demo_torch.py").main([tiny, "synthetic://1"] + cpu)
+tool("demo/demo_gradcam_torch.py").main([tiny, "synthetic://1", "--out",
+                                         os.path.join(tmp, "cam.npz")] + cpu)
+tool("demo/long_video_demo_torch.py").main([tiny, "synthetic://1", "--stride-sec", "4"] + cpu)
+tool("tools/verify_zoo_torch.py").main(["--param-check-only", "--model", "aim_vitb16_k400_8x3x1"])
+tool("tools/analysis/print_config_torch.py").main([tiny])
+import numpy as np
+np.savez(os.path.join(tmp, "s.npz"), scores=np.eye(2, 10, dtype=np.float32), labels=np.arange(2))
+tool("tools/analysis/eval_metric_torch.py").main(
+    [tiny, os.path.join(tmp, "s.npz"), "--cfg-options", f"data.test.ann_file={ann}"])
+tool("tools/analysis/report_accuracy_torch.py").main(["--scores", os.path.join(tmp, "s.npz")])
+gt, det = os.path.join(tmp, "gt.json"), os.path.join(tmp, "det.json")
+json.dump({"v_a": {"annotations": [{"segment": [1.0, 3.0], "label": "x"}]}}, open(gt, "w"))
+json.dump({"results": {"a": [{"segment": [1.0, 3.0], "label": "x", "score": 1.0}]}},
+          open(det, "w"))
+tool("tools/analysis/report_map_torch.py").main(["--proposal", det, "--gt", gt,
+                                                 "--cls", "label_in_file"])
+tem = os.path.join(tmp, "tem")
+os.makedirs(tem)
+np.savetxt(os.path.join(tem, "v.csv"), np.linspace(0, 1, 60).reshape(12, 5), delimiter=",",
+           header="action,start,end,tmin,tmax", comments="")
+json.dump({"v": dict(duration_second=4.0, duration_frame=120,
+                     annotations=[dict(segment=[1.0, 2.0])])}, open(gt, "w"))
+tool("tools/misc/bsn_proposal_generation_torch.py").main(
+    [gt, "--tem-results-dir", tem, "--pgm-proposals-dir", os.path.join(tmp, "p"),
+     "--pgm-features-dir", os.path.join(tmp, "q")])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN_MODULES", bad)
 """ % (FORBIDDEN,)
@@ -169,7 +217,8 @@ def test_port_sources_import_no_jax_package():
     files = (glob.glob(os.path.join(ROOT, "adapt_image_models_torch", "**", "*.py"),
                        recursive=True)
              + [os.path.join(ROOT, "chip_smoke.py")]
-             + glob.glob(os.path.join(ROOT, "tools", "*_torch.py"))
+             + glob.glob(os.path.join(ROOT, "tools", "**", "*_torch.py"), recursive=True)
+             + glob.glob(os.path.join(ROOT, "demo", "*_torch.py"))
              + [os.path.join(ROOT, "tests", name)
                 for name in ("test_torch_cuda.py", "test_torch_gemm_design.py",
                              "test_torch_temporal_bwd.py", "test_torch_temporal_fwd.py",
@@ -200,7 +249,17 @@ def test_port_sources_import_no_jax_package():
             "adapt_image_models_torch/models/localizers/ssn.py",
             "adapt_image_models_torch/models/heads/ssn_head.py",
             "adapt_image_models_torch/models/losses/bmn_loss.py",
-            "adapt_image_models_torch/models/losses/ssn_loss.py"} <= names
+            "adapt_image_models_torch/models/losses/ssn_loss.py",
+            "adapt_image_models_torch/utils/gradcam.py",
+            "adapt_image_models_torch/utils/flops.py",
+            "tools/analysis/get_flops_torch.py", "tools/analysis/profile_torch.py",
+            "tools/analysis/print_config_torch.py", "tools/analysis/eval_metric_torch.py",
+            "tools/analysis/report_accuracy_torch.py", "tools/analysis/report_map_torch.py",
+            "tools/analysis/analyze_logs_torch.py", "tools/deployment/export_torch.py",
+            "tools/misc/clip_feature_extraction_torch.py",
+            "tools/misc/bsn_proposal_generation_torch.py", "tools/verify_zoo_torch.py",
+            "demo/demo_torch.py", "demo/demo_gradcam_torch.py",
+            "demo/long_video_demo_torch.py"} <= names
     bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {f: b for f, b in bad.items() if b}
@@ -216,6 +275,21 @@ def test_entry_points_default_to_the_card():
     for tool in ("test_torch.py", "train_torch.py"):
         src = open(os.path.join(ROOT, "tools", tool)).read()
         assert 'add_argument("--device", default="cuda"' in src, tool
+
+
+def test_model_tools_default_to_the_card():
+    """Every tool of the port that runs a model takes ``--device`` and runs
+    on the GPU unless the caller asks for the CPU."""
+    tools = ("tools/analysis/get_flops_torch.py", "tools/analysis/profile_torch.py",
+             "tools/deployment/export_torch.py", "tools/misc/clip_feature_extraction_torch.py",
+             "tools/verify_zoo_torch.py", "demo/demo_torch.py", "demo/demo_gradcam_torch.py",
+             "demo/long_video_demo_torch.py")
+    for tool in tools:
+        src = open(os.path.join(ROOT, tool)).read()
+        assert 'add_argument("--device", default="cuda"' in src, tool
+    import inspect
+    from adapt_image_models_torch.utils.gradcam import gradcam
+    assert inspect.signature(gradcam).parameters["device"].default == "cuda"
 
 
 def test_dist_launchers_run_the_port():
