@@ -401,7 +401,18 @@ Phases, in order; any failure raises and exits non-zero:
      GEMM, flash, temporal and LayerNorm kernels; every eval op and core
      counted a kernel-route forward. It runs before phase 29, beside which
      the artifact's child loads and runs; the child is joined after it.
-Phases 18 to 30 log their seconds, every phase its start and the script
+ 31. The last tools of the port: demo/webcam_demo_torch.py on the flagship
+     through a capture of a written 12-frame video (5 forwards; rows 1-3
+     counted 12 launches a forward, the eval cores as in phase 30; the
+     probabilities within PROB_ATOL of the plain route, the same top-1),
+     tools/deployment/publish_model_torch.py (a checkpoint with AdamW state
+     published, loaded by init_recognizer, scores bit for bit),
+     demo/demo_spatiotemporal_det_torch.py on SlowOnly-R50 4x16 with given
+     proposals and tools/data/activitynet/tsn_feature_extraction_torch.py
+     (RGB, two rawframe videos, 5 snippets) against their host CPU copies
+     (HOST_REL, TF32 off), and tools/analysis/bench_processing_torch.py's
+     host stage, --synthetic and --encode, with the host's CPU count.
+Phases 18 to 31 log their seconds, every phase its start and the script
 its total. Past the flagship's (phases 3 and 6), no recipe's rates, peak
 memory or step profile are taken: each path is driven and checked.
 The flagship's eval and train paths count the spatial forward core's
@@ -469,6 +480,7 @@ the last line is {"ok": true, "device": {...}}.
 import contextlib
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -6379,6 +6391,282 @@ def phase_30(card):
     return finish
 
 
+# the last tools (phase 31): the webcam demo's checked capture (WEBCAM_FRAMES
+# frames of 320 x 240: 5 full buffers of the flagship's 8 frames) and its
+# timed one (WEBCAM_RATE_FRAMES, one forward a frame once the buffer is
+# full), the AVA demo's recipe, its checked keyframes and its timed ones
+# (AVA_RATE_KEYFRAMES, 8 frames apart), the TSN feature tool's two rawframe
+# videos (24 and 16 snippets 16 frames apart), the host stage's timed
+# batches, the card's fp32 against the host CPU's (HOST_REL of the largest
+# TSN score; the AVA scores are sigmoids, held absolutely). The rates are
+# steady ones: the webcam demo's and the AVA demo's are the difference of a
+# long and a short run over the difference of their work, so start-up,
+# decoding the whole video and rendering cancel out
+WEBCAM_FRAMES = 12
+WEBCAM_RATE_FRAMES = 240
+AVA_DEMO_CONFIG = os.path.join(ROOT, "configs", "detection", "ava",
+                               "slowonly_kinetics_pretrained_r50_4x16x1_20e_ava_rgb.py")
+AVA_DEMO_KEYFRAMES = (8, 24, 40)
+AVA_RATE_KEYFRAMES = 24
+TSN_VIDEOS = (("v_a", 384), ("v_b", 256))
+HOST_STAGE_BATCHES = 100
+
+
+@contextlib.contextmanager
+def capture_of(video):
+    """cv2.VideoCapture opening ``video`` whatever device index it is given."""
+    import cv2
+    real = cv2.VideoCapture
+    cv2.VideoCapture = lambda index: real(video)
+    try:
+        yield
+    finally:
+        cv2.VideoCapture = real
+
+
+def write_capture(path, frames, size=(320, 240), seed=0, fourcc="MJPG", fps=25):
+    """``frames`` shifting seeded frames of ``size`` (w, h) as a video."""
+    import cv2
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    base = cv2.GaussianBlur(rng.integers(0, 255, (size[1], size[0], 3), dtype=np.uint8),
+                            (9, 9), 3)
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, size)
+    if not writer.isOpened():
+        raise RuntimeError(f"cv2 cannot write {path}")
+    for t in range(frames):
+        writer.write(np.roll(base, 5 * t, axis=1))
+    writer.release()
+    return path
+
+
+def phase_31(card):
+    """The last tools of the port on the card: webcam_demo_torch.py on the
+    flagship through a capture of a written video (kernel route against
+    plain route, rows 1-3 counted 12 launches a forward), publish_model_torch.py
+    round-tripped through init_recognizer bit for bit, the AVA demo
+    (SlowOnly-R50 4x16, given proposals) and tsn_feature_extraction_torch.py
+    (RGB, two rawframe videos) against their host CPU copies, and
+    bench_processing_torch.py's host stage, --synthetic and --encode. The
+    rates it logs are steady ones (the constants above say how)."""
+    import copy
+
+    import cv2
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import init_recognizer, load_config
+    from adapt_image_models_torch.parallel import freeze_params
+    t_phase = time.perf_counter()
+    webcam = load_tool("demo/webcam_demo_torch.py")
+    publish = load_tool("tools/deployment/publish_model_torch.py")
+    ava_demo = load_tool("demo/demo_spatiotemporal_det_torch.py")
+    tsn = load_tool("tools/data/activitynet/tsn_feature_extraction_torch.py")
+    bench = load_tool("tools/analysis/bench_processing_torch.py")
+    cfg = load_config(CONFIG)
+    model = init_recognizer(cfg, device="cuda", seed=0)
+    randomize_adapters(model, seed=3101)
+    separate_classes(model, seed=3101)
+    log(f"phase 31: the last tools on {card}")
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- the webcam demo: one counted kernel-route run, the plain route;
+        # then the steady rate, a capture of FRAMES - 1 frames (start-up and
+        # the buffer's fill, no forward) against one of WEBCAM_RATE_FRAMES
+        video = write_capture(os.path.join(tmp, "cam.avi"), WEBCAM_FRAMES, seed=3102)
+        argv = [CONFIG, "--device", "0", "--max-seconds", "600"]
+        forwards = WEBCAM_FRAMES - FRAMES + 1
+        with capture_of(video):
+            ops.reset_launch_counts()  # the webcam demo's path starts here
+            probs_k = webcam.main(argv, model=model)
+            launches, cores = ops.launch_counts(), ops.core_launch_counts()  # ... and ends here
+            with plain_ops():
+                probs_p = webcam.main(argv, model=model)
+        webcam_s = {}
+        for frames in (FRAMES - 1, WEBCAM_RATE_FRAMES):
+            capture = write_capture(os.path.join(tmp, f"cam_{frames}.avi"), frames, seed=3104)
+            with capture_of(capture):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                scored = len(webcam.main(argv, model=model))
+                webcam_s[frames] = time.perf_counter() - t0
+            if scored != frames - FRAMES + 1:
+                raise AssertionError(f"the webcam demo scored {scored} buffers of {frames} "
+                                     "frames")
+        check_launches(f"webcam demo path ({forwards} forwards x 12 layers)", launches,
+                       {op: 12 * forwards for op in ops.EVAL_OPS[1]})
+        for op, n in EXPORT_OPS.items():
+            check_core(op, "webcam demo", cores[op], n * forwards)
+        if not len(probs_k) == len(probs_p) == forwards:
+            raise AssertionError(f"the webcam demo scored {len(probs_k)} / {len(probs_p)} "
+                                 f"buffers, not {forwards}")
+        hold_top1("webcam demo", torch.from_numpy(np.stack(probs_k)),
+                  torch.from_numpy(np.stack(probs_p)), PROB_ATOL)
+        steady = WEBCAM_RATE_FRAMES - FRAMES + 1
+        webcam_rate = steady / (webcam_s[WEBCAM_RATE_FRAMES] - webcam_s[FRAMES - 1])
+        readings["webcam frames/s"] = webcam_rate
+        # the demo's forward alone, at its input's shape
+        x = torch.randn(1, 3, FRAMES, 224, 224, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(3105))
+        forward_s = []
+        with torch.inference_mode():
+            for _ in range(23):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                torch.softmax(model(x).float(), dim=-1).cpu()
+                forward_s.append(time.perf_counter() - t0)
+        forward_ms = 1e3 * float(np.median(forward_s[3:]))
+        readings["webcam forward ms"] = forward_ms
+        log(f"  webcam_demo_torch: {WEBCAM_RATE_FRAMES} frames of 320 x 240 ({steady} forwards) "
+            f"in {webcam_s[WEBCAM_RATE_FRAMES]:.3f} s, {FRAMES - 1} frames (start-up and the "
+            f"buffer's fill, no forward) in {webcam_s[FRAMES - 1]:.3f} s: steady {webcam_rate:.1f} "
+            f"frames/s, a forward a frame, with capture decode and host transforms; the forward "
+            f"alone (softmax and copy out) {forward_ms:.2f} ms, median of 20, "
+            f"{forward_ms * webcam_rate / 10:.1f}% of a frame's time")
+
+        # -- publish: a checkpoint with the adapters' AdamW state (the AIM
+        # freeze, as a train run's) -> init_recognizer, bit for bit
+        freeze_params(model)
+        tunable = [p for p in model.parameters() if p.requires_grad]
+        opt = torch.optim.AdamW(tunable, lr=0.0)
+        for p in tunable:
+            p.grad = torch.zeros_like(p)
+        opt.step()
+        for p in tunable:
+            p.grad = None
+        source = os.path.join(tmp, "ckpt_1.pth")
+        torch.save({"state_dict": model.state_dict(), "optimizer": opt.state_dict(),
+                    "step": 1, "epoch": 1}, source)
+        n_tunable = sum(p.numel() for p in tunable)
+        del opt, tunable
+        t0 = time.perf_counter()
+        path = publish.main([source, os.path.join(tmp, "published")])
+        publish_s = time.perf_counter() - t0
+        published = init_recognizer(cfg, checkpoint=path, device="cuda", seed=1)
+        x = tool_clip(3103)
+        with torch.inference_mode():
+            want, got = model(x), published(x)
+        kept = sorted(torch.load(path, weights_only=True))
+        log(f"  publish_model_torch ({n_tunable / 1e6:.2f} M tunable): "
+            f"{os.path.getsize(source) / 1e6:.1f} MB -> "
+            f"{os.path.getsize(path) / 1e6:.1f} MB ({os.path.basename(path)}, keys {kept}) in "
+            f"{publish_s:.2f} s; init_recognizer's scores bit-equal {torch.equal(got, want)}")
+        if not torch.equal(got, want) or kept != ["epoch", "state_dict"]:
+            raise AssertionError("the published checkpoint does not round-trip")
+        del published, model
+        torch.cuda.empty_cache()
+
+        # -- the AVA demo on given proposals, the card's fp32 vs the host's
+        ava_cfg = load_config(AVA_DEMO_CONFIG)
+        video = write_capture(os.path.join(tmp, "ava.mp4"), AVA_DEMO_KEYFRAMES[-1] + 8,
+                              size=(340, 256), seed=3110, fourcc="mp4v", fps=30)
+        rng = np.random.default_rng(3111)
+        proposals = {}
+        for k, key in enumerate(AVA_DEMO_KEYFRAMES):
+            xy = rng.uniform(0, 200, (3 - k % 2, 2))
+            proposals[key] = np.concatenate([xy, xy + rng.uniform(40, 120, xy.shape)],
+                                            1).astype(np.float32)
+        with open(os.path.join(tmp, "proposals.pkl"), "wb") as f:
+            pickle.dump(proposals, f)
+        detector = ava_demo.build_detector(ava_cfg, device="cuda", seed=3112)
+        host_detector = copy.deepcopy(detector).cpu().eval()
+        demo_argv = [AVA_DEMO_CONFIG, video, os.path.join(tmp, "ava_out.mp4"), "--proposals",
+                     os.path.join(tmp, "proposals.pkl")]
+        t0 = time.perf_counter()
+        annos = ava_demo.main(demo_argv + ["--device", "cuda"], model=detector)
+        ava_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host_annos = ava_demo.main(demo_argv + ["--device", "cpu"], model=host_detector)
+        ava_host_s = time.perf_counter() - t0
+        err = max(float(np.abs(annos[k][1] - host_annos[k][1]).max()) for k in annos)
+        written = cv2.VideoCapture(os.path.join(tmp, "ava_out.mp4"))
+        written_frames = int(written.get(cv2.CAP_PROP_FRAME_COUNT))
+        written.release()
+        log(f"  demo_spatiotemporal_det_torch ({os.path.basename(AVA_DEMO_CONFIG)}): "
+            f"{len(annos)} keyframes of {[len(annos[k][0]) for k in sorted(annos)]} boxes, "
+            f"{written_frames} frames written, in {ava_s:.2f} s on the card (the host CPU "
+            f"{ava_host_s:.2f} s); scores card vs host max_abs_err {err:.3e} (tol {HOST_REL})")
+        if sorted(annos) != list(AVA_DEMO_KEYFRAMES) or sorted(host_annos) != sorted(annos) \
+                or not err < HOST_REL or written_frames != AVA_DEMO_KEYFRAMES[-1] + 8:
+            raise AssertionError("the AVA demo's card run disagrees with the host's")
+        # its steady rate: one video, proposals on 3 and on AVA_RATE_KEYFRAMES keyframes
+        n_rate = 8 * AVA_RATE_KEYFRAMES + 8
+        video = write_capture(os.path.join(tmp, "ava_rate.mp4"), n_rate, size=(340, 256),
+                              seed=3113, fourcc="mp4v", fps=30)
+        ava_rate_s = {}
+        for keys in (3, AVA_RATE_KEYFRAMES):
+            with open(os.path.join(tmp, f"proposals_{keys}.pkl"), "wb") as f:
+                pickle.dump({8 * (k + 1): proposals[AVA_DEMO_KEYFRAMES[k % 3]]
+                             for k in range(keys)}, f)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rate_annos = ava_demo.main(
+                [AVA_DEMO_CONFIG, video, os.path.join(tmp, "ava_rate_out.mp4"),
+                 "--proposals", os.path.join(tmp, f"proposals_{keys}.pkl"), "--device", "cuda"],
+                model=detector)
+            ava_rate_s[keys] = time.perf_counter() - t0
+            if len(rate_annos) != keys:
+                raise AssertionError(f"the AVA demo scored {len(rate_annos)} of {keys} keyframes")
+        per_key = (ava_rate_s[AVA_RATE_KEYFRAMES] - ava_rate_s[3]) / (AVA_RATE_KEYFRAMES - 3)
+        readings["AVA demo s/keyframe"] = per_key
+        log(f"  demo_spatiotemporal_det_torch over {n_rate} frames: {AVA_RATE_KEYFRAMES} "
+            f"keyframes in {ava_rate_s[AVA_RATE_KEYFRAMES]:.2f} s, 3 in {ava_rate_s[3]:.2f} s: "
+            f"steady {per_key:.4f} s a keyframe (clip gather and resize, forward, drawing)")
+        del detector, host_detector
+        torch.cuda.empty_cache()
+
+        # -- TSN snippet features (RGB), the card's fp32 vs the host's
+        lines = []
+        for name, frames in TSN_VIDEOS:
+            d = os.path.join(tmp, "frames", name)
+            os.makedirs(d)
+            for i in range(frames):
+                cv2.imwrite(os.path.join(d, f"img_{i:05d}.jpg"),
+                            rng.integers(0, 255, (256, 340, 3), dtype=np.uint8))
+            lines.append(f"{name} {frames} out_{name}")
+        with open(os.path.join(tmp, "tsn.txt"), "w") as f:
+            f.write("\n".join(lines))
+        extractor = tsn.build_extractor("RGB", device="cuda", seed=3120)
+        host_extractor = copy.deepcopy(extractor).cpu().eval()
+        tsn_argv = ["--data-prefix", os.path.join(tmp, "frames"), "--data-list",
+                    os.path.join(tmp, "tsn.txt")]
+        feats = tsn.main(tsn_argv + ["--output-prefix", os.path.join(tmp, "card")],
+                         model=extractor)
+        host_feats = tsn.main(tsn_argv + ["--output-prefix", os.path.join(tmp, "host"),
+                                          "--device", "cpu"], model=host_extractor)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # a second, warm card run
+        tsn.main(tsn_argv + ["--output-prefix", os.path.join(tmp, "card")], model=extractor)
+        tsn_s = time.perf_counter() - t0
+        snippets = sum(f.shape[0] for f in feats.values())
+        rel = max(float(np.abs(f - host_feats[k.replace("card", "host")]).max()
+                        / np.abs(host_feats[k.replace("card", "host")]).max())
+                  for k, f in feats.items())
+        readings["TSN snippets/s"] = snippets / tsn_s
+        log(f"  tsn_feature_extraction_torch (RGB, ResNet-50 at 256 x 256): {snippets} snippets "
+            f"of {len(feats)} videos in {tsn_s:.2f} s, warm ({snippets / tsn_s:.1f} snippets/s "
+            f"with jpg decoding); card vs host max|diff| / max|host| {rel:.3e} (tol {HOST_REL})")
+        if snippets != sum(n // 16 for _, n in TSN_VIDEOS) or not rel < HOST_REL:
+            raise AssertionError("the TSN features of the card disagree with the host's")
+        del extractor, host_extractor
+        torch.cuda.empty_cache()
+
+    # -- the host data stage's rate (no card work)
+    cpus = os.cpu_count()
+    for mode in ("--synthetic", "--encode"):
+        t0 = time.perf_counter()
+        rate = bench.main([CONFIG, mode, "--batches", str(HOST_STAGE_BATCHES)])
+        readings[f"host stage clips/s {mode[2:]}"] = rate["clips_per_s"]
+        log(f"  bench_processing_torch {mode}: {rate['clips_per_s']:.1f} clips/s of the "
+            f"flagship's train pipeline ({rate['workers']} workers, batch {rate['batch_size']}, "
+            f"{rate['clips']} clips timed) on a host of {cpus} CPUs "
+            f"({len(os.sched_getaffinity(0))} usable); {time.perf_counter() - t0:.1f} s")
+    elapsed = time.perf_counter() - t_phase
+    log(f"phase 31: {elapsed:.1f} s; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in readings.items()))
+    return elapsed
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -7240,6 +7528,10 @@ def main():
         phase_29(card)
     finally:
         finish_30()  # joins the child in any case
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 31 starts")
+    # ---- phase 31: the last tools (webcam and AVA demos, TSN features, publish) -------
+    phase_31(card)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",

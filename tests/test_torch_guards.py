@@ -187,6 +187,52 @@ json.dump({"v": dict(duration_second=4.0, duration_frame=120,
 tool("tools/misc/bsn_proposal_generation_torch.py").main(
     [gt, "--tem-results-dir", tem, "--pgm-proposals-dir", os.path.join(tmp, "p"),
      "--pgm-features-dir", os.path.join(tmp, "q")])
+import cv2
+video = os.path.join(tmp, "cam.avi")
+writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"MJPG"), 10, (48, 40))
+for i in range(6):
+    writer.write(np.full((40, 48, 3), 40 * i, np.uint8))
+writer.release()
+capture = cv2.VideoCapture
+cv2.VideoCapture = lambda index: capture(video)
+assert len(tool("demo/webcam_demo_torch.py").main([tiny, "--torch-device", "cpu"])) == 3
+cv2.VideoCapture = capture
+det = os.path.join(tmp, "det.py")
+with open(det, "w") as f:
+    f.write("model = dict(type='FastRCNN', backbone=dict(type='ResNet3dSlowOnly', depth=50, "
+            "base_channels=8, stage_blocks=(1, 1, 1, 1), spatial_strides=(1, 2, 2, 1)), "
+            "roi_head=dict(bbox_roi_extractor=dict(type='SingleRoIExtractor3D', "
+            "featmap_stride=16, output_size=4), bbox_head=dict(type='BBoxHeadAVA', "
+            "in_channels=256, num_classes=5)))\n"
+            "data = dict(val=dict(pipeline=[dict(type='SampleAVAFrames', clip_len=4, "
+            "frame_interval=2)]))\n")
+import pickle
+with open(os.path.join(tmp, "boxes.pkl"), "wb") as f:
+    pickle.dump({2: np.array([[4.0, 4.0, 30.0, 36.0]], np.float32)}, f)
+tool("demo/demo_spatiotemporal_det_torch.py").main(
+    [det, video, os.path.join(tmp, "det.mp4"), "--proposals", os.path.join(tmp, "boxes.pkl")]
+    + cpu)
+tool("demo/webcam_demo_spatiotemporal_det_torch.py").main(
+    [det, "--input", video, "--predict-stepsize", "2"] + cpu)
+os.makedirs(os.path.join(tmp, "frames", "v"))
+for i in range(3):
+    cv2.imwrite(os.path.join(tmp, "frames", "v", f"img_{i:05d}.jpg"), np.zeros((8, 8, 3)))
+with open(os.path.join(tmp, "list.txt"), "w") as f:
+    f.write("v 3 out")
+tool("tools/data/activitynet/tsn_feature_extraction_torch.py").main(
+    ["--data-prefix", os.path.join(tmp, "frames"), "--data-list", os.path.join(tmp, "list.txt"),
+     "--output-prefix", os.path.join(tmp, "tsn"), "--frame-interval", "2"] + cpu)
+tool("tools/deployment/publish_model_torch.py").main(
+    [os.path.join(tmp, "work", "ckpt_1.pth"), os.path.join(tmp, "published")])
+tool("tools/analysis/bench_processing_torch.py").main(
+    [tiny, "--synthetic", "--batches", "1", "--batch-size", "1", "--workers", "1"])
+with open(os.path.join(tmp, "videos.txt"), "w") as f:
+    f.write("cam.avi 0")
+tool("tools/misc/check_videos_torch.py").main([os.path.join(tmp, "videos.txt"), "--prefix", tmp])
+tool("tools/data/build_rawframes_torch.py").main(
+    [tmp, os.path.join(tmp, "raw"), "--level", "1", "--ext", "avi", "--num-worker", "1"])
+tool("tools/data/ava/cut_videos_torch.py").main(
+    [os.path.join(tmp, "frames", "v"), os.path.join(tmp, "cut"), "--start", "0"])
 bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
 print("FORBIDDEN_MODULES", bad)
 """ % (FORBIDDEN,)
@@ -259,7 +305,19 @@ def test_port_sources_import_no_jax_package():
             "tools/misc/clip_feature_extraction_torch.py",
             "tools/misc/bsn_proposal_generation_torch.py", "tools/verify_zoo_torch.py",
             "demo/demo_torch.py", "demo/demo_gradcam_torch.py",
-            "demo/long_video_demo_torch.py"} <= names
+            "demo/long_video_demo_torch.py", "demo/webcam_demo_torch.py",
+            "demo/demo_spatiotemporal_det_torch.py",
+            "demo/webcam_demo_spatiotemporal_det_torch.py",
+            "tools/data/activitynet/tsn_feature_extraction_torch.py",
+            "tools/deployment/publish_model_torch.py", "tools/analysis/check_videos_torch.py",
+            "tools/misc/check_videos_torch.py", "tools/analysis/bench_processing_torch.py",
+            "tools/data/_trim_torch.py", "tools/data/ava/cut_videos_torch.py",
+            "tools/data/omnisource/trim_raw_video_torch.py",
+            "tools/data/gym/trim_subaction_torch.py", "tools/data/gym/trim_event_torch.py",
+            "tools/data/build_rawframes_torch.py", "tools/data/extract_audio_torch.py",
+            "tools/data/build_audio_features_torch.py",
+            "tools/data/denormalize_proposal_file_torch.py",
+            "tools/data/activitynet/convert_proposal_format_torch.py"} <= names
     bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {f: b for f, b in bad.items() if b}
@@ -283,10 +341,15 @@ def test_model_tools_default_to_the_card():
     tools = ("tools/analysis/get_flops_torch.py", "tools/analysis/profile_torch.py",
              "tools/deployment/export_torch.py", "tools/misc/clip_feature_extraction_torch.py",
              "tools/verify_zoo_torch.py", "demo/demo_torch.py", "demo/demo_gradcam_torch.py",
-             "demo/long_video_demo_torch.py")
+             "demo/long_video_demo_torch.py", "demo/demo_spatiotemporal_det_torch.py",
+             "demo/webcam_demo_spatiotemporal_det_torch.py",
+             "tools/data/activitynet/tsn_feature_extraction_torch.py")
     for tool in tools:
         src = open(os.path.join(ROOT, tool)).read()
         assert 'add_argument("--device", default="cuda"' in src, tool
+    # the webcam demo keeps JAX's --device, the capture device's index
+    src = open(os.path.join(ROOT, "demo", "webcam_demo_torch.py")).read()
+    assert 'add_argument("--torch-device", default="cuda"' in src
     import inspect
     from adapt_image_models_torch.utils.gradcam import gradcam
     assert inspect.signature(gradcam).parameters["device"].default == "cuda"
@@ -305,6 +368,51 @@ def test_dist_launchers_run_the_port():
         assert "torch.distributed.run" in src and "--launcher pytorch" in src, path
         assert f'"$(dirname "$0")/{tool}"' in src, path
         assert "/train.py" not in src and "/test.py" not in src, path
+
+
+def test_shell_launchers_run_the_port(tmp_path):
+    """No ``*_torch.sh`` names a script of the JAX package: every Python
+    file its code (not its comments) names ends in ``_torch.py``. The SLURM launchers hand each task
+    torchrun's environment from SLURM's (a stand-in ``srun`` runs one task,
+    rank 1 of 2 on node3, and ``PYTHON`` prints what it is given), and
+    dist_clip_feature_extraction_torch.sh runs the port's extractor."""
+    import re
+    scripts = sorted(glob.glob(os.path.join(ROOT, "tools", "**", "*_torch.sh"), recursive=True))
+    names = [os.path.relpath(p, ROOT) for p in scripts]
+    assert {"tools/slurm_train_torch.sh", "tools/slurm_test_torch.sh",
+            "tools/misc/dist_clip_feature_extraction_torch.sh"} <= set(names)
+    for path in scripts:
+        code = "".join(ln for ln in open(path) if not ln.lstrip().startswith("#"))
+        named = re.findall(r"[\w./-]+\.py\b", code)
+        assert named and all(n.endswith("_torch.py") for n in named), (path, named)
+        assert os.access(path, os.X_OK), path
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    stubs = {
+        "srun": 'while [ "$1" != bash ]; do shift; done\n'
+                "SLURM_PROCID=1 SLURM_NTASKS=2 SLURM_LOCALID=1 SLURM_NTASKS_PER_NODE=2 "
+                'SLURM_JOB_NODELIST="node[3-4]" exec "$@"',
+        "scontrol": "echo node3; echo node4",
+        "fake_python": 'echo "$RANK $WORLD_SIZE $LOCAL_RANK $LOCAL_WORLD_SIZE $MASTER_ADDR '
+                       '$MASTER_PORT"; echo "$@"'}
+    for name, body in stubs.items():
+        (bin_dir / name).write_text("#!/usr/bin/env bash\n" + body + "\n")
+        (bin_dir / name).chmod(0o755)
+    env = dict(os.environ, PATH=f"{bin_dir}:{os.environ['PATH']}",
+               PYTHON=str(bin_dir / "fake_python"), PORT="29611")
+    for script, tool in (("slurm_train_torch.sh", "train_torch.py"),
+                         ("slurm_test_torch.sh", "test_torch.py")):
+        out = subprocess.run([os.path.join(ROOT, "tools", script), "part", "job", "cfg.py",
+                              "--seed", "3"], env=env, capture_output=True, text=True,
+                             timeout=60, check=True).stdout.splitlines()
+        assert out == ["1 2 1 2 node3 29611",
+                       f"{os.path.join(ROOT, 'tools', tool)} cfg.py --seed 3 --launcher pytorch"]
+    out = subprocess.run([os.path.join(ROOT, "tools", "misc",
+                                       "dist_clip_feature_extraction_torch.sh"),
+                          "cfg.py", "out.npz", "--device", "cpu"], env=env, capture_output=True,
+                         text=True, timeout=60, check=True).stdout.splitlines()
+    assert out[1] == (f"{os.path.join(ROOT, 'tools', 'misc')}/clip_feature_extraction_torch.py "
+                      "cfg.py out.npz --device cpu")
 
 
 def _run_smoke(cwd):
