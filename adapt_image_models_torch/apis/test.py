@@ -19,6 +19,11 @@ each rank scores its shard of the split, the loader's ``padded[rank::W]``
 (padded by wrap to a multiple of W), ``all_gather_rows`` brings every
 shard's scores to every rank, and they are put back in dataset order and
 cut to the split's length, so every rank gets the one-process result.
+
+``run_exported_evaluation`` scores the split through a ``.pt2`` artifact of
+``tools/deployment/export_torch.py`` instead of a model (JAX
+``test.py:183-250``, the reference's ONNX-Runtime / TensorRT test paths):
+no model is built and no checkpoint read.
 """
 
 from __future__ import annotations
@@ -127,6 +132,81 @@ def run_evaluation(cfg: Dict[str, Any], model: Optional[torch.nn.Module] = None,
         # (W * per_shard, C) in rank order; shard r holds padded[r::W]
         blocks = all_gather_rows(local).cpu().numpy().reshape((world,) + local.shape)
         scores = blocks.transpose(1, 0, 2).reshape(-1, local.shape[-1])[:len(dataset)]
+    results = dataset.evaluate(scores, metrics=metrics)
+    if return_scores:
+        return results, scores, dataset.labels()
+    return results
+
+
+def artifact_input_shape(program) -> tuple:
+    """The shape of an exported program's one user input."""
+    name = program.graph_signature.user_inputs[0]
+    node = next(n for n in program.graph.nodes if n.op == "placeholder" and n.name == name)
+    return tuple(node.meta["val"].shape)
+
+
+def run_exported_evaluation(cfg: Dict[str, Any], artifact_path: str, split: str = "test",
+                            metrics=("top_k_accuracy", "mean_class_accuracy"),
+                            num_workers: int = 4, return_scores: bool = False,
+                            device="cuda"):
+    """Evaluate ``cfg.data[split]`` through the ``torch.export`` artifact at
+    ``artifact_path``, which maps normalised (b, 3, T, H, W) float clips to
+    logits at the fixed batch b of its input. A batch-1 loader feeds it:
+    each sample's views are normalised on the host in fp32 with the test
+    pipeline's mean and std, laid out (V, C, T, H, W) and run on ``device``
+    in chunks of b, the last chunk padded by repeating its last view and
+    the padding's logits dropped; ``average_clip`` by
+    ``test_cfg.average_clips`` then averages the views (``"prob"``
+    softmaxes, ``"score"`` logits, any other mode takes the first view's)
+    before ``dataset.evaluate``. Only NCTHW recipes: the artifact takes no
+    other layout. An artifact exported on the card holds the
+    port's kernels as ``aim_port`` ops, which importing
+    ``adapt_image_models_torch.ops`` registers; its weights stay on the
+    device it was exported on, which must be ``device``'s type."""
+    import adapt_image_models_torch.ops  # noqa: F401  registers the aim_port ops
+    data_cfg = cfg["data"]
+    ds_cfg = dict(data_cfg[split])
+    pipeline = ds_cfg.pop("pipeline")
+    layout = layout_from_pipeline(pipeline)
+    if layout != "NCTHW":
+        raise ValueError(f"run_exported_evaluation takes NCTHW recipes; this one is {layout}, "
+                         "which the artifact's (b, 3, T, H, W) input cannot take")
+    device = torch.device(device)
+    program = torch.export.load(artifact_path)
+    weights = next(iter(program.state_dict.values()), None)
+    if weights is not None and weights.device.type != device.type:
+        raise ValueError(f"the artifact's weights are on {weights.device}, not {device}: "
+                         "export it on the device it is to run on")
+    art_bs = artifact_input_shape(program)[0]
+    forward = program.module()
+    dataset = build_dataset({**ds_cfg, "pipeline": pipeline})
+    proc = build_sample_processor(pipeline)
+    mean = np.asarray(proc.mean, np.float32)
+    std = np.asarray(proc.std, np.float32)
+    avg_mode = (cfg["model"].get("test_cfg") or {}).get("average_clips", "prob")
+    loader = VideoLoader(dataset, proc, batch_size=1, shuffle=False,
+                         num_workers=num_workers, drop_last=False)
+
+    scores = []
+    for batch in loader:
+        imgs = batch["imgs"][0]  # (V, T, H, W, C) uint8
+        v = imgs.shape[0]
+        x = ((imgs.astype(np.float32) - mean) / std).transpose(0, 4, 1, 2, 3)
+        logits = []
+        for i in range(0, v, art_bs):
+            chunk = x[i:i + art_bs]
+            pad = art_bs - chunk.shape[0]
+            if pad:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
+            with torch.no_grad():
+                out = forward(torch.from_numpy(np.ascontiguousarray(chunk)).to(device))
+            logits.append(out[:art_bs - pad])
+        logits = torch.cat(logits)  # (V, num_classes)
+        mode = avg_mode
+        if mode not in ("prob", "score"):  # any other mode: the first view's, as in JAX
+            logits, mode = logits[:1], None
+        scores.append(average_clip(logits, logits.shape[0], mode).cpu().numpy())
+    scores = np.concatenate(scores)
     results = dataset.evaluate(scores, metrics=metrics)
     if return_scores:
         return results, scores, dataset.labels()

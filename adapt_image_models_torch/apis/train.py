@@ -105,6 +105,36 @@ def _norm_cfg(pipeline):
     return None, None
 
 
+def build_train_model(cfg: Dict[str, Any], device="cuda", seed: int = 0) -> torch.nn.Module:
+    """The recognizer of ``cfg`` for its train pipeline's samples on
+    ``device``, weights drawn from ``seed``."""
+    model_cfg = model_config(cfg, "train")
+    test_cfg = model_cfg.pop("test_cfg", None)
+    train_cfg = model_cfg.pop("train_cfg", None)
+    model = build_model(model_cfg, train_cfg=train_cfg, test_cfg=test_cfg, device=device)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    return model
+
+
+def freeze_for_training(model: torch.nn.Module, backbone_cfg: Dict[str, Any]) -> None:
+    """``train_model``'s freeze: the AIM freeze where the model has adapters
+    (``parallel.freeze_params``; the fused train ops refuse a trainable
+    CLIP weight), then the tensors of the backbone's ``frozen_stages``
+    (``frozen_stage_prefixes``)."""
+    freeze_params(model)
+    freeze_prefixes(model, frozen_stage_prefixes(backbone_cfg))
+
+
+def constant_lr_train_step(cfg: Dict[str, Any], model: torch.nn.Module):
+    """(state, step): the port's train step over ``model`` with
+    ``train_model``'s freeze and the config's optimizer at its constant
+    ``lr``, no blending (JAX ``tools/analysis/benchmark.py:63-72``), as the
+    speed tools time it."""
+    freeze_for_training(model, cfg["model"].get("backbone", {}))
+    optimizer = build_optimizer(cfg["optimizer"], model, float(cfg["optimizer"]["lr"]))
+    return TrainState(model, optimizer), make_train_step(model, optimizer)
+
+
 def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
                 validate: bool = True, seed: int = 0, auto_resume: bool = False,
                 max_steps: Optional[int] = None, device="cuda",
@@ -129,13 +159,10 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
     logger = get_root_logger()
     work_dir = work_dir or cfg.get("work_dir", "./work_dir")
 
-    model_cfg = model_config(cfg, "train")
-    test_cfg = model_cfg.pop("test_cfg", None)
-    train_cfg = model_cfg.pop("train_cfg", None)
+    model = build_train_model(cfg, device, seed)
+    model_cfg = cfg["model"]
+    train_cfg = model_cfg.get("train_cfg")
     backbone_cfg = model_cfg.get("backbone", {})
-    model = build_model(model_cfg, train_cfg=train_cfg, test_cfg=test_cfg,
-                        device=device)
-    model.init_weights(torch.Generator().manual_seed(seed))
     if cfg.get("load_from"):
         logger.info(f"loading checkpoint {cfg['load_from']}")
         load_aim_pretrained(model, cfg["load_from"])
@@ -143,8 +170,7 @@ def train_model(cfg: Dict[str, Any], work_dir: Optional[str] = None,
         logger.info(f"loading CLIP weights {cfg['clip_pretrained']}")
         load_clip_pretrained(model, cfg["clip_pretrained"])
     broadcast_module_(model)  # every rank starts from rank 0's weights
-    freeze_params(model)  # the fused train ops refuse a trainable CLIP weight
-    freeze_prefixes(model, frozen_stage_prefixes(backbone_cfg))
+    freeze_for_training(model, backbone_cfg)
 
     data_cfg = cfg["data"]
     opt_config = cfg.get("optimizer_config") or {}

@@ -23,6 +23,9 @@ with duplicate-index decode deduplication (the reference decodes
   OpenCV's ``VideoCapture`` gives colours up to 70 levels off ``imread``
   (ROADMAP queue 3)
 * ``SyntheticVideoReader`` — deterministic procedural frames for tests/bench
+
+``write_mp4v_videos`` encodes the benchmarks' real sources: blurred noise
+that shifts a little each frame, mp4v at 320 x 240.
 """
 
 from __future__ import annotations
@@ -218,6 +221,26 @@ class SyntheticVideoReader(VideoReader):
         offs = ((idx * 11 + self.seed) % 256).astype(np.uint8)
         # single contiguous uint8 add; wraparound == % 256
         return base[None] + offs[:, None, None, None]
+
+
+def write_mp4v_videos(directory: str, num_videos: int = 8, frames: int = 300,
+                      fps: int = 30) -> list:
+    """``num_videos`` mp4v files of ``frames`` blurred 320 x 240 frames, each
+    shifted two pixels from the last, in ``directory``; returns their
+    paths (the sources of JAX ``tools/analysis/benchmark.py``'s and
+    ``bench_processing.py``'s decode rates)."""
+    import cv2
+    rng = np.random.default_rng(0)
+    base = cv2.GaussianBlur(rng.integers(0, 255, (240, 320, 3)).astype(np.uint8), (11, 11), 5)
+    paths = []
+    for v in range(num_videos):
+        path = os.path.join(directory, f"v{v}.mp4")
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (320, 240))
+        for i in range(frames):
+            writer.write(np.roll(base, i * 2 + v, axis=1))
+        writer.release()
+        paths.append(path)
+    return paths
 
 
 def open_video(source, short_side: Optional[int] = None,

@@ -412,7 +412,16 @@ Phases, in order; any failure raises and exits non-zero:
      (RGB, two rawframe videos, 5 snippets) against their host CPU copies
      (HOST_REL, TF32 off), and tools/analysis/bench_processing_torch.py's
      host stage, --synthetic and --encode, with the host's CPU count.
-Phases 18 to 31 log their seconds, every phase its start and the script
+ 32. The flagship evaluated through a batch-1 exported artifact
+     (apis.run_exported_evaluation over 4 synthetic videos of 3 views:
+     rows 1-3 counted through their kernels, EXPORT_OPS a view; the
+     probabilities within PROB_ATOL of run_evaluation on the kernel route,
+     the same top-1), tools/test_torch.py --exported as a child process
+     (its scores within CLI_ATOL of the in-process run's), and the speed
+     tools: tools/analysis/benchmark_torch.py (forward at 32, --e2e at 8
+     with 4 decode workers, --train at 8) and train_benchmark_torch.py at
+     8 and 32, each train run counted 12 launches of each train op a step.
+Phases 18 to 32 log their seconds, every phase its start and the script
 its total. Past the flagship's (phases 3 and 6), no recipe's rates, peak
 memory or step profile are taken: each path is driven and checked.
 The flagship's eval and train paths count the spatial forward core's
@@ -486,6 +495,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1002,12 +1012,19 @@ def compare_train_step(cfg, weights, clips, classes):
 def profile_step(step_fn, tstate, batch, label):
     """torch.profiler over one train step: device time by kernel and the
     device's idle share of the step's wall time (profiler on)."""
+    profile_call(lambda: step_fn(tstate, batch, 0), f"{label} train step")
+
+
+def profile_call(fn, label, cpu_ops=0):
+    """torch.profiler over one call of ``fn``: device time by kernel, the
+    device's idle share of the call's wall time (profiler on) and, with
+    ``cpu_ops``, that many host ops by their own CPU time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step_fn(tstate, batch, 0)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
@@ -1016,11 +1033,17 @@ def profile_step(step_fn, tstate, batch, label):
             t, n = by_kernel.get(evt.name, (0.0, 0))
             by_kernel[evt.name] = (t + evt.time_range.elapsed_us() / 1e3, n + 1)
     busy = sum(t for t, _ in by_kernel.values())
-    log(f"  profile of one {label} train step: device time {busy:.1f} ms over "
-        f"{wall:.1f} ms wall, idle share {max(0.0, 1 - busy / wall) * 100:.1f}% "
+    log(f"  profile of one {label}: device time {busy:.1f} ms over "
+        f"{wall:.1f} ms wall, idle share {max(0.0, 1 - busy / max(wall, 1e-9)) * 100:.1f}% "
         "(profiler on)")
     for key, (dev_ms, count) in sorted(by_kernel.items(), key=lambda r: -r[1][0])[:16]:
-        log(f"    {dev_ms:9.2f} ms {100 * dev_ms / busy:5.1f}% {count:5d}x {key[:80]}")
+        log(f"    {dev_ms:9.2f} ms {100 * dev_ms / max(busy, 1e-9):5.1f}% {count:5d}x {key[:80]}")
+    if cpu_ops:
+        rows = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:cpu_ops]
+        log(f"    host ops by their own CPU time (of {wall:.1f} ms):")
+        for e in rows:
+            log(f"    {e.self_cpu_time_total / 1e3:9.2f} ms CPU {e.count:5d}x {e.key[:80]}")
+    return busy, wall
 
 
 def train_timings(cfg, weights, classes, label, batches=(8, 32)):
@@ -6667,6 +6690,208 @@ def phase_31(card):
     return elapsed
 
 
+
+# evaluation through an exported artifact and the speed tools (phase 32):
+# the flagship's test split of EXPORTED_VIDEOS synthetic videos (3 views
+# each, one artifact call a view at batch 1), the steady artifact calls
+# timed alone, the CLI's scores against the in-process run's, and the
+# tools' arguments (--e2e over 32 batches: 31 timed, a window of seconds)
+EXPORTED_VIDEOS = 4
+ARTIFACT_CALLS = 30
+CLI_ATOL = 1e-6
+SPEED_TOOL_RUNS = (
+    ("benchmark_torch.py", ["--batch", "32", "--iters", "5"]),
+    ("benchmark_torch.py", ["--e2e", "--batch", "8", "--iters", "32", "--workers", "4"]),
+    ("benchmark_torch.py", ["--train", "--batch", "8", "--iters", "5"]),
+    ("train_benchmark_torch.py", ["--batches", "8", "32", "--iters", "4"]))
+
+
+@contextlib.contextmanager
+def host_split(into):
+    """Fill ``into`` with the block's wall seconds (``wall_s``), the calling
+    thread's CPU seconds (``cpu_s``) and the seconds the garbage collector
+    ran, in any thread (``gc_s``): a host-bound reading (CPU near wall) told
+    apart from waiting on the card, a loader or another thread's hold of
+    the interpreter."""
+    import gc
+    mark = [0.0]
+    into["gc_s"] = 0.0
+
+    def on_gc(phase, info):
+        if phase == "start":
+            mark[0] = time.perf_counter()
+        else:
+            into["gc_s"] += time.perf_counter() - mark[0]
+    gc.callbacks.append(on_gc)
+    wall, cpu = time.perf_counter(), time.thread_time()
+    try:
+        yield into
+    finally:
+        into["wall_s"] = time.perf_counter() - wall
+        into["cpu_s"] = time.thread_time() - cpu
+        gc.callbacks.remove(on_gc)
+
+
+def phase_32(card):
+    """The flagship (AIM ViT-B/16 8f, bf16, seeded weights) evaluated
+    through an exported artifact and timed by the speed tools: the
+    artifact at batch 1 through ``run_exported_evaluation`` over a
+    synthetic split (rows 1-3 counted through their kernels, 12 a layer
+    each a view; the fused op wrappers never run) against
+    ``run_evaluation`` of the same eager model on the kernel route; before
+    that the artifact's load, ``program.module()``, first call and steady
+    calls timed apart, beside the eager model's batch-1 forward; after it
+    ``tools/test_torch.py --exported`` as a child process, run alone,
+    against the in-process scores; then ``benchmark_torch.py`` (forward at 32,
+    ``--e2e`` at 8 with 4 decode workers, ``--train`` at 8) and
+    ``train_benchmark_torch.py`` at 8 and 32, the train runs counted (rows
+    1, 11, 22-25: each train op 12 a step, warm-ups included)."""
+    import numpy as np
+    import torch
+    from adapt_image_models_torch import ops
+    from adapt_image_models_torch.apis import (
+        init_recognizer, load_config, run_evaluation, run_exported_evaluation,
+    )
+    from adapt_image_models_torch.data.pipeline import build_sample_processor
+    t_phase = time.perf_counter()
+    export_tool = load_tool("tools/deployment/export_torch.py")
+    tools = {name: load_tool(f"tools/analysis/{name}") for name, _ in SPEED_TOOL_RUNS}
+    cfg = load_config(CONFIG)
+    model = init_recognizer(cfg, device="cuda", seed=0)
+    randomize_adapters(model, seed=3201)
+    separate_classes(model, seed=3201)
+    views = build_sample_processor(cfg["data"]["test"]["pipeline"]).num_views
+    log(f"phase 32: evaluation through an exported artifact and the speed tools on {card}")
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ann = os.path.join(tmp, "test.txt")
+        with open(ann, "w") as f:
+            f.write("\n".join(f"synthetic://{3210 + i} {i}" for i in range(EXPORTED_VIDEOS)))
+        cfg["data"]["test"]["ann_file"] = ann
+        artifact, dumped = os.path.join(tmp, "flagship.pt2"), os.path.join(tmp, "cli.npz")
+        t0 = time.perf_counter()
+        torch.export.save(export_tool.export(model, tool_clip(3202)), artifact)
+        log(f"  export_torch at batch 1: {time.perf_counter() - t0:.2f} s, "
+            f"{os.path.getsize(artifact) / 1e6:.1f} MB")
+        # the artifact alone, each stage timed apart: its load, program.module(),
+        # the first call, then ARTIFACT_CALLS steady calls, each beside a
+        # batch-1 forward of the eager model on the same clip
+        t0 = time.perf_counter()
+        program = torch.export.load(artifact)
+        load_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        forward = program.module()
+        module_s = time.perf_counter() - t0
+        x = tool_clip(3203)
+        wall = {"artifact": [], "eager": []}
+        cpu = {"artifact": [], "eager": []}
+        calls = {}
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            forward(x).float().cpu()
+            first_s = time.perf_counter() - t0
+            with host_split(calls):
+                for _ in range(ARTIFACT_CALLS):
+                    for name, fn in (("artifact", forward), ("eager", model)):
+                        torch.cuda.synchronize()
+                        t0, c0 = time.perf_counter(), time.thread_time()
+                        fn(x).float().cpu()
+                        wall[name].append(time.perf_counter() - t0)
+                        cpu[name].append(time.thread_time() - c0)
+            for name, fn in (("artifact", forward), ("eager", model)):
+                profile_call(lambda: fn(x).float().cpu(), f"{name} batch-1 call", cpu_ops=8)
+        del forward, program
+        ms = {k: 1e3 * float(np.median(v)) for k, v in wall.items()}
+        cpu_ms = {k: 1e3 * float(np.median(v)) for k, v in cpu.items()}
+        readings["artifact load s"] = load_s
+        readings["artifact call ms"] = ms["artifact"]
+        readings["eager batch-1 forward ms"] = ms["eager"]
+        threads = sorted(t.name for t in threading.enumerate())
+        log(f"  the artifact alone: torch.export.load {load_s:.3f} s, program.module() "
+            f"{module_s:.3f} s, first call {1e3 * first_s:.2f} ms, steady call "
+            f"{ms['artifact']:.2f} ms (the main thread's CPU {cpu_ms['artifact']:.2f} ms; median "
+            f"of {ARTIFACT_CALLS}, logits copied out) against the eager model's batch-1 forward "
+            f"{ms['eager']:.2f} ms (CPU {cpu_ms['eager']:.2f} ms; median of {ARTIFACT_CALLS}, "
+            f"interleaved); the collector ran {calls['gc_s']:.3f} s of the calls' "
+            f"{calls['wall_s']:.2f} s; {len(threads)} live threads {threads}")
+
+        ops.reset_launch_counts()  # the exported eval's path starts here
+        split = {}
+        with host_split(split):
+            results, scores, _ = run_exported_evaluation(cfg, artifact, return_scores=True,
+                                                         num_workers=2)
+        launches, cores = ops.launch_counts(), ops.core_launch_counts()  # ... and ends here
+        exported_s = split["wall_s"]
+        forwards = EXPORTED_VIDEOS * views
+        readings["exported eval s a video"] = exported_s / EXPORTED_VIDEOS
+        log(f"  run_exported_evaluation over {EXPORTED_VIDEOS} videos x {views} views: "
+            f"{exported_s:.2f} s, {exported_s / EXPORTED_VIDEOS:.3f} s a video, with its own "
+            f"load of the artifact, program.module() and the loader's start-up (the main "
+            f"thread's CPU {split['cpu_s']:.2f} s, the collector {split['gc_s']:.3f} s); "
+            f"{results}")
+        check_launches("exported eval (the graph's aim_port ops, no fused op wrapper)",
+                       launches, {})
+        for op, n in EXPORT_OPS.items():
+            check_core(op, f"exported eval ({forwards} artifact calls)", cores[op], n * forwards)
+        t0 = time.perf_counter()
+        _, eager, _ = run_evaluation(cfg, model=model, batch_size=2, num_workers=2,
+                                     return_scores=True)
+        eager_s = time.perf_counter() - t0
+        err = float(np.abs(scores - eager).max())
+        same_top1 = bool((scores.argmax(1) == eager.argmax(1)).all())
+        log(f"  exported eval (fp32 clips normalised on the host) vs run_evaluation of the "
+            f"eager model (bf16 on the card; {eager_s:.2f} s, {eager_s / EXPORTED_VIDEOS:.3f}"
+            f" s a video), both on the kernel route: probability max_abs_err {err:.3e} "
+            f"(tol {PROB_ATOL}), top-1 equal {same_top1}")
+        if not (err < PROB_ATOL and same_top1 and np.isfinite(scores).all()):
+            raise AssertionError("the exported eval disagrees with the eager eval")
+
+        # the CLI as a child process, started after the timings above and
+        # joined before the speed tools, so it runs beside neither
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "tools", "test_torch.py"), CONFIG, "--exported",
+             artifact, "--dump-scores", dumped, "--cfg-options", f"data.test.ann_file={ann}"],
+            capture_output=True, text=True, timeout=300)
+        cli_s = time.perf_counter() - t0
+        if child.returncode != 0:
+            raise AssertionError(f"test_torch.py --exported failed:\n{child.stderr[-3000:]}")
+        cli_results = json.loads(child.stdout.strip().splitlines()[-1])
+        cli_err = float(np.abs(np.load(dumped)["scores"] - scores).max())
+        log(f"  test_torch.py --exported (a child process, {cli_s:.2f} s with its start-up): "
+            f"{cli_results}; its scores vs the in-process run's max_abs_err {cli_err:.3e} "
+            f"(tol {CLI_ATOL})")
+        if cli_err > CLI_ATOL or cli_results != results:
+            raise AssertionError("test_torch.py --exported disagrees with the in-process run")
+
+    # -- the speed tools: the forward, --e2e and --train on this model (the
+    # train run freezes it), train_benchmark on a model of its own
+    for name, argv in SPEED_TOOL_RUNS:
+        log(f"  {name} {' '.join(argv)}:")
+        train = "--train" in argv or name.startswith("train_")
+        ops.reset_launch_counts()  # a tool's path starts here
+        out = (tools[name].main([CONFIG] + argv) if name.startswith("train_")
+               else tools[name].main([CONFIG] + argv, model=model))
+        launches = ops.launch_counts()  # ... and ends here
+        if name.startswith("train_"):
+            steps = len(out) * (1 + int(argv[-1]))
+            for row in out:
+                readings[f"train clips/s at {row['batch']}"] = row["train_clips_per_s"]
+        else:
+            steps = 1 + int(argv[argv.index("--iters") + 1])
+            readings[f"{out['mode']} clips/s at {argv[argv.index('--batch') + 1]}"] = \
+                out["clips_per_s"]
+        if train:
+            check_launches(f"{name} train path ({steps} steps x 12 layers)", launches,
+                           {op: 12 * steps for op in ops.TRAIN_OPS[1]})
+    del model
+    torch.cuda.empty_cache()
+    elapsed = time.perf_counter() - t_phase
+    log(f"phase 32: {elapsed:.1f} s; " + ", ".join(f"{k} {v:.3f}" for k, v in readings.items()))
+    return elapsed
+
+
 def main():
     t_start = time.perf_counter()
     import numpy as np
@@ -7532,6 +7757,10 @@ def main():
     log(f"[{time.perf_counter() - t_start:.1f} s] phase 31 starts")
     # ---- phase 31: the last tools (webcam and AVA demos, TSN features, publish) -------
     phase_31(card)
+
+    log(f"[{time.perf_counter() - t_start:.1f} s] phase 32 starts")
+    # ---- phase 32: evaluation through an exported artifact, the speed tools ----------
+    phase_32(card)
 
     sources = {op: "adapt_image_models_torch/csrc/attention.cu"
                for op in ("fused_temporal_step", "fused_spatial_step",

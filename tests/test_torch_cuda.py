@@ -46,6 +46,10 @@ both train ops with the two predicates that pick the design
 composition; the whole-step tests patch them the other way so that they go
 on holding the whole-step kernels at every geometry.
 
+A batch-2 artifact exported on the card runs through
+``run_exported_evaluation`` with its kernels launched, held against the
+plain route of the same model.
+
 Tolerance. Kernel and plain version round the same intermediates to bf16
 but sum fp32 products in different orders, so single values can land a few
 bf16 ulps apart where a rounding flip is amplified. Each is therefore held
@@ -57,6 +61,7 @@ also agree to 2e-3 in mean absolute difference.
 
 import importlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -1187,3 +1192,55 @@ def test_registered_ops_refuse_misaligned_tensors(cuda):
     aligned = torch.randn(rows, d, device=cuda).to(torch.bfloat16)
     got = torch.ops.aim_port.layernorm(aligned, w, b, 1e-5)
     assert torch.equal(got, _kernels.layernorm(aligned, w, b))
+
+
+def test_exported_eval_matches_the_plain_route(cuda, tmp_path, monkeypatch):
+    """A batch-2 artifact of a fused bf16 AIM (head dim 64, seeded
+    adapters, one class led in the head's bias) exported on the card holds
+    the kernels as ``aim_port`` ops: ``run_exported_evaluation`` over 3
+    synthetic videos of 3 views (each video's last chunk padded) launches
+    them, and its scores hold the flagship's 1e-3 and top-1 against
+    ``run_evaluation`` of the same model on the plain route."""
+    from adapt_image_models_torch.apis import run_evaluation, run_exported_evaluation
+    from adapt_image_models_torch.models import build_model, layers
+    from adapt_image_models_torch.models.backbones import aim
+    layers_n, classes = 2, 10
+    ann = tmp_path / "ann.txt"
+    ann.write_text("\n".join(f"synthetic://{i} {i}" for i in range(3)))
+    pipe = [dict(type="SampleFrames", clip_len=8, frame_interval=2, num_clips=3, test_mode=True),
+            dict(type="Resize", scale=(-1, 64)), dict(type="CenterCrop", crop_size=64),
+            dict(type="Normalize"), dict(type="FormatShape", input_format="NCTHW")]
+    model_cfg = dict(type="Recognizer3D",
+                     backbone=dict(type="AIM", input_resolution=64, patch_size=16, width=128,
+                                   layers=layers_n, heads=2, num_frames=8,
+                                   compute_dtype="bfloat16", attention_core="fused"),
+                     cls_head=dict(type="I3DHead", num_classes=classes, in_channels=128))
+    cfg = dict(model=dict(model_cfg, test_cfg=dict(average_clips="prob")),
+               data=dict(test=dict(type="VideoDataset", ann_file=str(ann), pipeline=pipe)))
+    model = build_model(model_cfg, test_cfg=dict(average_clips="prob"), device=cuda)
+    g = torch.Generator().manual_seed(80)
+    model.init_weights(g)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".D_fc2." in name or name.endswith("temporal_embedding"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g))
+        model.cls_head.fc_cls.bias[3] += 2.0
+    model.eval()
+    path = str(tmp_path / "aim.pt2")
+    with torch.no_grad():
+        torch.export.save(torch.export.export(model, (torch.zeros(2, 3, 8, 64, 64, device=cuda),)),
+                          path)
+    ops.reset_launch_counts()
+    _, got, _ = run_exported_evaluation(cfg, path, return_scores=True, num_workers=1)
+    calls = 3 * 2  # a video's 3 views in two calls of 2, the last padded
+    cores = ops.core_launch_counts()
+    assert cores["spatial_attention"] == cores["temporal_attention"] == calls * layers_n
+    assert cores["gemm"] == 12 * calls * layers_n
+    assert not any(ops.launch_counts().values())
+    for mod, name in ((layers, "fused_spatial_step"), (layers, "fused_temporal_step"),
+                      (aim, "fused_joint")):
+        monkeypatch.setattr(mod, name, getattr(ops, name + "_plain"))
+    _, want, _ = run_evaluation(cfg, model=model, return_scores=True, num_workers=1)
+    assert got.shape == (3, classes) and np.isfinite(got).all()
+    assert np.abs(got - want).max() < 1e-3
+    assert (got.argmax(1) == want.argmax(1)).all()

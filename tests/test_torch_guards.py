@@ -158,6 +158,13 @@ pt2 = os.path.join(tmp, "tiny.pt2")
 export = tool("tools/deployment/export_torch.py")
 export.main([tiny, "--out", pt2] + cpu)
 export.main(["--load", pt2] + cpu)
+tool("tools/test_torch.py").main([tiny, "--exported", pt2, "--cfg-options",
+                                  f"data.test.ann_file={ann}"] + cpu)
+bench = tool("tools/analysis/benchmark_torch.py")
+for flags in ([], ["--train"], ["--e2e", "--workers", "1"]):
+    bench.main([tiny, "--batch", "1", "--iters", "1"] + flags + cpu)
+tool("tools/analysis/train_benchmark_torch.py").main([tiny, "--batches", "1", "--iters", "1"]
+                                                     + cpu)
 tool("tools/misc/clip_feature_extraction_torch.py").main(
     [tiny, os.path.join(tmp, "f.npz"), "--batch", "2", "--workers", "1",
      "--cfg-options", f"data.test.ann_file={ann}"] + cpu)
@@ -317,7 +324,9 @@ def test_port_sources_import_no_jax_package():
             "tools/data/build_rawframes_torch.py", "tools/data/extract_audio_torch.py",
             "tools/data/build_audio_features_torch.py",
             "tools/data/denormalize_proposal_file_torch.py",
-            "tools/data/activitynet/convert_proposal_format_torch.py"} <= names
+            "tools/data/activitynet/convert_proposal_format_torch.py",
+            "tools/analysis/benchmark_torch.py",
+            "tools/analysis/train_benchmark_torch.py"} <= names
     bad = {os.path.relpath(f, ROOT): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
            for f in files}
     assert not {f: b for f, b in bad.items() if b}
@@ -343,7 +352,8 @@ def test_model_tools_default_to_the_card():
              "tools/verify_zoo_torch.py", "demo/demo_torch.py", "demo/demo_gradcam_torch.py",
              "demo/long_video_demo_torch.py", "demo/demo_spatiotemporal_det_torch.py",
              "demo/webcam_demo_spatiotemporal_det_torch.py",
-             "tools/data/activitynet/tsn_feature_extraction_torch.py")
+             "tools/data/activitynet/tsn_feature_extraction_torch.py",
+             "tools/analysis/benchmark_torch.py", "tools/analysis/train_benchmark_torch.py")
     for tool in tools:
         src = open(os.path.join(ROOT, tool)).read()
         assert 'add_argument("--device", default="cuda"' in src, tool

@@ -41,6 +41,7 @@ from adapt_image_models_tpu.ops.fused_joint_mlp import fused_joint_block
 from adapt_image_models_tpu.ops.fused_qkv_attention import fused_spatial_step_block
 from adapt_image_models_tpu.ops.fused_temporal_attention import fused_temporal_step_block
 from adapt_image_models_tpu.utils.gradcam import gradcam as jax_gradcam
+from adapt_image_models_torch.apis.test import artifact_input_shape
 from adapt_image_models_torch.convert import params_from_jax
 from adapt_image_models_torch.models import build_model
 from adapt_image_models_torch.ops import _kernels, fused_joint, fused_spatial_step, fused_temporal_step
@@ -185,7 +186,7 @@ def test_export_round_trip_matches_eager_and_jax_export(jax_export_case, core, t
     torch.export.save(program, path)
     assert not export_tool.kernel_ops(program)  # the CPU route: no kernel op
     _, got = export_tool.run_artifact(path, "cpu", xt)
-    assert export_tool.input_shape(torch.export.load(path)) == tuple(x.shape)
+    assert artifact_input_shape(torch.export.load(path)) == tuple(x.shape)
     with torch.no_grad():
         eager = model(xt)
     assert torch.equal(got, eager)

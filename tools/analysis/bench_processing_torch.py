@@ -24,23 +24,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 
 
-def _encode_videos(d):
-    """8 mp4v videos of 300 blurred, shifting 320 x 240 frames in ``d``."""
-    import cv2
-    import numpy as np
-    rng = np.random.default_rng(0)
-    base = cv2.GaussianBlur(rng.integers(0, 255, (240, 320, 3)).astype(np.uint8), (11, 11), 5)
-    paths = []
-    for v in range(8):
-        path = os.path.join(d, f"v{v}.mp4")
-        w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 30, (320, 240))
-        for i in range(300):
-            w.write(np.roll(base, i * 2 + v, axis=1))
-        w.release()
-        paths.append(path)
-    return paths
-
-
 def main(argv=None):
     """Print the host stage's clips/s; returns {'clips_per_s', 'clips',
     'seconds', 'workers', 'batch_size'} (the first batch, which warms the
@@ -61,6 +44,7 @@ def main(argv=None):
     from adapt_image_models_torch.apis import load_config
     from adapt_image_models_torch.data.datasets import VideoDataset, build_dataset
     from adapt_image_models_torch.data.loader import VideoLoader
+    from adapt_image_models_torch.data.video_reader import write_mp4v_videos
 
     cfg = load_config(args.config)
     ds_cfg = dict(cfg["data"]["train"])
@@ -69,7 +53,7 @@ def main(argv=None):
         ann = os.path.join(d, "ann.txt")
         entries = max(256, (args.batches + 1) * args.batch_size)
         if args.encode:
-            paths = _encode_videos(d)
+            paths = write_mp4v_videos(d)
             with open(ann, "w") as f:
                 f.write("\n".join(f"{paths[i % len(paths)]} 0" for i in range(entries)))
             dataset = VideoDataset(ann, pipeline)

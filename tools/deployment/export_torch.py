@@ -14,6 +14,9 @@ which the port builds from its sources at first use.
     python tools/deployment/export_torch.py <config> --out model.pt2 \
         [--checkpoint aim.pth] [--batch 1] [--device cuda|cpu]
     python tools/deployment/export_torch.py --load model.pt2   # smoke-run on zeros
+
+``tools/test_torch.py <config> --exported model.pt2`` evaluates a split
+through the artifact.
 """
 
 import argparse
@@ -59,21 +62,15 @@ def export(model, x):
         return torch.export.export(model, (x,))
 
 
-def input_shape(program):
-    """The shape of the exported program's one user input."""
-    name = program.graph_signature.user_inputs[0]
-    node = next(n for n in program.graph.nodes if n.op == "placeholder" and n.name == name)
-    return tuple(node.meta["val"].shape)
-
-
 def run_artifact(path, device, x=None):
     """Load the ``.pt2`` at ``path`` and run it on ``x`` (zeros of its input
     shape by default) on ``device``; returns (input, output)."""
     import torch
     import adapt_image_models_torch.ops  # noqa: F401  registers the aim_port ops
+    from adapt_image_models_torch.apis.test import artifact_input_shape
     program = torch.export.load(path)
     if x is None:
-        x = torch.zeros(input_shape(program))
+        x = torch.zeros(artifact_input_shape(program))
     x = x.to(device)
     with torch.no_grad():
         out = program.module()(x)
